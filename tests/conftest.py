@@ -34,6 +34,9 @@ def pytest_configure(config):
         'markers',
         'slow: long-running test, skipped by default; run with --runslow '
         'or an explicit -m expression')
+    config.addinivalue_line(
+        'markers',
+        'cuda: needs a CUDA card (PyTorch port kernels); skips without one')
 
 
 def pytest_collection_modifyitems(config, items):
