@@ -45,6 +45,11 @@ for _ in range(5):
     FLAGSHIP += [{'Linear': {'args': [WIDTH, WIDTH]}},
                  {'BatchNorm1d': {'args': [WIDTH]}}, {'ReLU': {'inplace': True}}]
 FLAGSHIP += [{'Linear': {'args': [WIDTH, 1]}}]
+# an input wider than the 128-wide tiles, which the kernel stages in chunks
+WIDE_IN = 200
+WIDE_INPUT = [{'Linear': {'args': [WIDE_IN, WIDTH]}},
+              {'BatchNorm1d': {'args': [WIDTH]}}, {'ReLU': {}},
+              {'Linear': {'args': [WIDTH, 1]}}]
 
 DEVICE = 'cuda'
 ROWS = 262_144                       # the bench's evaluation batch
@@ -112,8 +117,8 @@ def randomize_bn(model, generator):
                     t.copy_(v)
 
 
-def build_model(seed):
-    model = EnsembleModelBuilder(FLAGSHIP, {'num_models': MEMBERS}, seed=seed,
+def build_model(seed, layers=FLAGSHIP):
+    model = EnsembleModelBuilder(layers, {'num_models': MEMBERS}, seed=seed,
                                  device=DEVICE).build()
     randomize_bn(model, torch.Generator().manual_seed(seed + 1))
     return model
@@ -207,9 +212,7 @@ def main():
     # 2. build
     info = _build.build_info()
     emit('build', seconds=info.seconds, library=str(info.path.name),
-         ptxas=ptxas_report(info.log),
-         dynamic_smem_bytes_out_dim_1=_build.library()
-         .nnueehcs_fused_ensemble_smem_bytes(1))
+         ptxas=ptxas_report(info.log))
 
     # 3. kernel vs plain on the card
     model = build_model(args.seed)
@@ -219,11 +222,14 @@ def main():
     with torch.no_grad():
         shifted.net.layers[-1].bias += 1e3          # |mean| >> std
     fw_shifted = prepare_fused_weights(shifted.net)
+    fw_wide = prepare_fused_weights(build_model(args.seed, WIDE_INPUT).net)
+    check(fw_wide is not None, f'{WIDE_IN}-input ensemble did not fold')
     flagship_err = None
     for case, weights, rows in (('flagship', fw, ROWS), ('ragged', fw, 1000),
-                                ('mean_1e3', fw_shifted, 4096)):
-        x = torch.as_tensor(rng.normal(size=(rows, IN_DIM)), dtype=torch.float32,
-                            device=DEVICE)
+                                ('mean_1e3', fw_shifted, 4096),
+                                (f'input_{WIDE_IN}', fw_wide, 1000)):
+        x = torch.as_tensor(rng.normal(size=(rows, weights.in_dim)),
+                            dtype=torch.float32, device=DEVICE)
         mean, std = fused_forward_prefolded(weights, x)
         ref_mean, ref_std = fused_forward_plain(weights, x)
         torch.cuda.synchronize()

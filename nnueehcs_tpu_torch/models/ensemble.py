@@ -4,9 +4,10 @@ Counterpart of ``nnueehcs_tpu/models/ensemble.py``, evaluation side. The
 members live as a leading axis on every parameter of one network. A UE pass
 folds BatchNorm into the Linear weights once per parameter version and runs
 :func:`~nnueehcs_tpu_torch.ops.fused_ensemble.fused_forward_prefolded`: the
-CUDA kernel on the card, its plain version on the CPU. A network the kernel
-cannot take (a Dropout layer, a width over 128) runs member by member
-through the modules, as the JAX package's vmap path does.
+CUDA kernel on the card, its plain version on the CPU. A network that the
+TPU kernel does not take either (a Dropout layer, a layer output over 128
+wide) runs member by member through the modules, as the JAX package's vmap
+path does.
 """
 from __future__ import annotations
 

@@ -34,8 +34,7 @@ SIGNATURES = {
     'nnueehcs_fused_ensemble_f32': (
         ctypes.c_int,
         [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, ctypes.c_int,
-         ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int, _P, _P, _P]),
-    'nnueehcs_fused_ensemble_smem_bytes': (ctypes.c_size_t, [ctypes.c_int]),
+         ctypes.c_int, _P, ctypes.c_int, _P, _P, _P]),
 }
 
 

@@ -19,6 +19,9 @@
 //   memory: one block of 256 threads owns a 64-row tile and loops over the
 //   members itself; activations stay in shared memory, kept feature-major
 //   and ping-ponged between two buffers from layer to layer;
+// - x is staged into shared memory 32 feature columns at a time, beside the
+//   matching chunk of layer 0's weights, so the input may be any width (the
+//   TPU kernel pads it; only the layer widths must fit 128);
 // - each thread owns a 4-row x 8-column register tile, so one k step costs
 //   three 16-byte shared loads for 32 FMAs, and a warp's loads fall on
 //   distinct banks;
@@ -69,11 +72,12 @@ __device__ __forceinline__ void load_chunk(float* dst, const float* w, int k0,
   }
 }
 
-// Stream a (K, 128) weight matrix through the two chunk buffers in sw,
-// calling compute(chunk, k0, rows) on each chunk once it has landed.
-template <class F>
+// Stream a (K, 128) weight matrix through the two chunk buffers in sw. For
+// chunk c (rows [k0, k0 + rows) of w), stage(c, k0, rows) runs while the
+// copy lands, then compute(weights, c, k0, rows) once every thread sees it.
+template <class S, class F>
 __device__ __forceinline__ void stream_weights(float* sw, const float* w,
-                                               int K, F&& compute) {
+                                               int K, S&& stage, F&& compute) {
   const int nchunks = (K + kChunk - 1) / kChunk;
   load_chunk(sw, w, 0, min(kChunk, K));
   cp_async_commit();
@@ -84,20 +88,26 @@ __device__ __forceinline__ void stream_weights(float* sw, const float* w,
                  min(kChunk, K - k1));
     }
     cp_async_commit();  // may be empty: "all but one" then still means chunk c
+    const int k0 = c * kChunk, rows = min(kChunk, K - k0);
+    stage(c, k0, rows);
     cp_async_wait_all_but_one();
     __syncthreads();
-    const int k0 = c * kChunk;
-    compute(sw + (c & 1) * kChunk * kWidth, k0, min(kChunk, K - k0));
-    __syncthreads();  // chunk buffer c & 1 is refilled two chunks later
+    compute(sw + (c & 1) * kChunk * kWidth, c, k0, rows);
+    __syncthreads();  // buffers of slot c & 1 are refilled two chunks later
   }
 }
 
 // out[n][r] = act(sum_k in[k][r] * w[k][n] + b[n]) for the tile's 64 rows
 // and all 128 (padded) columns n. in/out are feature-major (row stride
 // kStride); w is the member/layer's (K, 128) folded weight in device memory.
-__device__ __forceinline__ void dense_layer(const float* in, float* out,
-                                            float* sw, const float* w,
-                                            const float* b, int K, bool relu) {
+// With kFromX (layer 0), the input is the tile's rows of x, (valid, K)
+// row-major in device memory: each chunk of K is staged into one of two
+// kChunk-row slots of `in` (rows past `valid` as zeros) beside its weights.
+template <bool kFromX>
+__device__ __forceinline__ void dense_layer(float* in, float* out, float* sw,
+                                            const float* w, const float* b,
+                                            int K, bool relu, const float* x,
+                                            int valid) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ty = (warp >> 1) * 4 + (lane >> 3);  // rows ty*4 .. ty*4+3
   const int tx = (warp & 1) * 8 + (lane & 7);    // columns tx*4.. and 64+tx*4..
@@ -107,11 +117,23 @@ __device__ __forceinline__ void dense_layer(const float* in, float* out,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  stream_weights(sw, w, K, [&](const float* wc, int k0, int rows) {
+  const auto stage = [&](int c, int k0, int rows) {
+    if (!kFromX) return;
+    float* dst = in + (c & 1) * kChunk * kStride;
+    for (int i = threadIdx.x; i < kTileRows * rows; i += kThreads) {
+      const int r = i / rows, k = i - r * rows;
+      dst[k * kStride + r] =
+          r < valid ? __ldg(x + static_cast<size_t>(r) * K + k0 + k) : 0.f;
+    }
+  };
+  stream_weights(sw, w, K, stage, [&](const float* wc, int c, int k0,
+                                      int rows) {
+    const float* a = kFromX ? in + (c & 1) * kChunk * kStride
+                            : in + k0 * kStride;
 #pragma unroll 8
     for (int kk = 0; kk < rows; ++kk) {
       const float4 h =
-          *reinterpret_cast<const float4*>(in + (k0 + kk) * kStride + ty * 4);
+          *reinterpret_cast<const float4*>(a + kk * kStride + ty * 4);
       const float4 w0 =
           *reinterpret_cast<const float4*>(wc + kk * kWidth + tx * 4);
       const float4 w1 =
@@ -143,8 +165,11 @@ __device__ __forceinline__ void dense_layer(const float* in, float* out,
 
 // Last layer of member `member`, real columns only, folded straight into the
 // shifted sums. Slot e = col * kTileRows + row belongs to the same thread for
-// every member.
-__device__ __forceinline__ void last_layer_stats(const float* in,
+// every member. Input element (k, r) is in[k * k_step + r * r_step]: the
+// feature-major activations, or x itself when the network is one Linear.
+// Rows past `valid` are never written out, so they are skipped.
+__device__ __forceinline__ void last_layer_stats(const float* in, int k_step,
+                                                 int r_step, int valid,
                                                  const float* w,
                                                  const float* b, int K,
                                                  bool relu, int out_dim,
@@ -153,9 +178,12 @@ __device__ __forceinline__ void last_layer_stats(const float* in,
   const int n = kTileRows * out_dim;
   for (int e = threadIdx.x; e < n; e += kThreads) {
     const int col = e / kTileRows, r = e % kTileRows;
+    if (r >= valid) continue;
+    const float* a = in + static_cast<size_t>(r) * r_step;
     float acc = 0.f;
     for (int k = 0; k < K; ++k)
-      acc = fmaf(in[k * kStride + r], __ldg(w + k * kWidth + col), acc);
+      acc = fmaf(a[static_cast<size_t>(k) * k_step],
+                 __ldg(w + k * kWidth + col), acc);
     float v = acc + __ldg(b + col);
     if (relu) v = fmaxf(v, 0.f);
     if (member == 0) {
@@ -176,12 +204,12 @@ size_t smem_bytes(int out_dim) {
 }
 
 // w_all: layer 0 as (M, d, 128), then layers 1..L-1 as (M, 128, 128);
-// b_all: (L, M, 128). Bit l of relu_mask: ReLU after layer l.
+// b_all: (L, M, 128). relu[l] != 0: ReLU after layer l.
 __global__ void __launch_bounds__(kThreads, 2)
     fused_ensemble_kernel(const float* __restrict__ x, long long B, int d,
                           const float* __restrict__ w_all,
                           const float* __restrict__ b_all, int M, int L,
-                          unsigned long long relu_mask, int out_dim,
+                          const int* __restrict__ relu, int out_dim,
                           float* __restrict__ mean, float* __restrict__ std) {
   extern __shared__ __align__(16) float smem[];
   float* act0 = smem;
@@ -193,35 +221,43 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   const long long row0 = static_cast<long long>(blockIdx.x) * kTileRows;
   const int valid = static_cast<int>(min(static_cast<long long>(kTileRows), B - row0));
+  const float* x_tile = x + row0 * d;
   const float* w_hidden = w_all + static_cast<size_t>(M) * d * kWidth;
 
   for (int m = 0; m < M; ++m) {
     __syncthreads();  // the previous member's last layer may still read act0
-    for (int i = threadIdx.x; i < kTileRows * d; i += kThreads) {
-      const int r = i / d, k = i % d;
-      act0[k * kStride + r] = r < valid ? x[(row0 + r) * d + k] : 0.f;
-    }
-    __syncthreads();
     float* in = act0;
     float* out = act1;
     for (int l = 0; l + 1 < L; ++l) {
-      const float* w = l == 0 ? w_all + static_cast<size_t>(m) * d * kWidth
-                              : w_hidden + (static_cast<size_t>(l - 1) * M + m) *
-                                               kWidth * kWidth;
-      dense_layer(in, out, sw, w, b_all + (static_cast<size_t>(l) * M + m) * kWidth,
-                  l == 0 ? d : kWidth, (relu_mask >> l) & 1ull);
+      const float* b = b_all + (static_cast<size_t>(l) * M + m) * kWidth;
+      const bool act = __ldg(relu + l) != 0;
+      if (l == 0) {
+        dense_layer<true>(in, out, sw, w_all + static_cast<size_t>(m) * d * kWidth,
+                          b, d, act, x_tile, valid);
+      } else {
+        dense_layer<false>(in, out, sw,
+                           w_hidden + (static_cast<size_t>(l - 1) * M + m) *
+                                          kWidth * kWidth,
+                           b, kWidth, act, nullptr, valid);
+      }
       float* t = in;
       in = out;
       out = t;
     }
     __syncthreads();  // the last epilogue's stores must land before the reads
     const int l = L - 1;
-    const float* w = l == 0 ? w_all + static_cast<size_t>(m) * d * kWidth
-                            : w_hidden + (static_cast<size_t>(l - 1) * M + m) *
-                                             kWidth * kWidth;
-    last_layer_stats(in, w, b_all + (static_cast<size_t>(l) * M + m) * kWidth,
-                     l == 0 ? d : kWidth, (relu_mask >> l) & 1ull, out_dim, m,
-                     sc, s1, s2);
+    const float* b = b_all + (static_cast<size_t>(l) * M + m) * kWidth;
+    const bool act = __ldg(relu + l) != 0;
+    if (l == 0) {  // one Linear: read x straight from device memory
+      last_layer_stats(x_tile, 1, d, valid,
+                       w_all + static_cast<size_t>(m) * d * kWidth, b, d, act,
+                       out_dim, m, sc, s1, s2);
+    } else {
+      last_layer_stats(in, kStride, 1, valid,
+                       w_hidden + (static_cast<size_t>(l - 1) * M + m) *
+                                      kWidth * kWidth,
+                       b, kWidth, act, out_dim, m, sc, s1, s2);
+    }
   }
 
   const float n = static_cast<float>(M);
@@ -242,19 +278,15 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 extern "C" {
 
-// Dynamic shared memory one block takes for a given out_dim.
-size_t nnueehcs_fused_ensemble_smem_bytes(int out_dim) {
-  return smem_bytes(out_dim);
-}
-
 // Launch on `stream`; returns cudaGetLastError() (0 on success). The caller
-// checks 1 <= d <= 128, 1 <= out_dim <= 128, 1 <= L <= 64, M >= 1, B >= 1,
-// fp32 contiguous device buffers, and allocates mean/std as (B, out_dim).
+// checks d >= 1, 1 <= out_dim <= 128, every hidden width <= 128 (zero-padded
+// to 128 in w_all/b_all), L >= 1, M >= 1, B >= 1, fp32 contiguous device
+// buffers, relu as L int32 flags on the device, and allocates mean/std as
+// (B, out_dim).
 int nnueehcs_fused_ensemble_f32(const float* x, long long B, int d,
                                 const float* w_all, const float* b_all, int M,
-                                int L, unsigned long long relu_mask,
-                                int out_dim, float* mean, float* std,
-                                void* stream) {
+                                int L, const int* relu, int out_dim,
+                                float* mean, float* std, void* stream) {
   const size_t smem = smem_bytes(out_dim);
   cudaError_t err = cudaFuncSetAttribute(
       fused_ensemble_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -263,7 +295,7 @@ int nnueehcs_fused_ensemble_f32(const float* x, long long B, int d,
   const long long blocks = (B + kTileRows - 1) / kTileRows;
   fused_ensemble_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
-      x, B, d, w_all, b_all, M, L, relu_mask, out_dim, mean, std);
+      x, B, d, w_all, b_all, M, L, relu, out_dim, mean, std);
   return static_cast<int>(cudaGetLastError());
 }
 

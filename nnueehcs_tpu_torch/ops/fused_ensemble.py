@@ -20,7 +20,6 @@ import torch
 from ..nn.layers import BatchNorm1d, Linear, ReLU
 
 WIDTH = 128        # every layer is padded to 128 output columns
-MAX_LAYERS = 64    # the kernel takes the ReLU flags as a 64-bit mask
 
 
 def _fold_linear_chain(net):
@@ -55,19 +54,19 @@ def _fold_linear_chain(net):
 
 
 def _check_widths(folded) -> bool:
-    """Activations live as 128-wide tiles: every width must fit 128. Unlike
-    the TPU kernel, the first layer's input must fit too, because x is
-    staged through the same activation buffer."""
-    return (len(folded) <= MAX_LAYERS
-            and all(w.shape[-1] <= WIDTH and w.shape[-2] <= WIDTH
-                    for w, _, _ in folded))
+    """The TPU kernel's rule: activations live as 128-wide tiles, so every
+    layer's output and every input but the first must fit 128. The input
+    may be any width: the kernel stages x in 32-column chunks."""
+    return all(w.shape[-1] <= WIDTH and (idx == 0 or w.shape[-2] <= WIDTH)
+               for idx, (w, _, _) in enumerate(folded))
 
 
 class FusedWeights:
     """Folded weights of a stacked ensemble, zero-padded to 128 columns and
     packed as the kernel reads them: ``w_all`` holds layer 0 as
     ``(M, in_dim, 128)`` followed by layers 1.. as ``(M, 128, 128)``;
-    ``b_all`` is ``(L, M, 128)``. ``ws[l]`` is a view of layer l."""
+    ``b_all`` is ``(L, M, 128)``; ``relu_flags`` is ``(L,)`` int32, 1 where
+    a ReLU follows the layer. ``ws[l]`` is a view of layer l."""
 
     def __init__(self, folded):
         w0 = folded[0][0]
@@ -88,16 +87,14 @@ class FusedWeights:
             bs.append(b_p)
         self.w_all = torch.cat([w.reshape(-1) for w in ws]).contiguous()
         self.b_all = torch.stack(bs).contiguous()
+        self.relu_flags = torch.tensor(self.relus, dtype=torch.int32,
+                                       device=w0.device)
         self.ws = [v.view_as(w) for v, w in zip(
             self.w_all.split([w.numel() for w in ws]), ws)]
 
     @property
     def num_layers(self):
         return len(self.relus)
-
-    @property
-    def relu_mask(self) -> int:
-        return sum(1 << l for l, relu in enumerate(self.relus) if relu)
 
 
 def prepare_fused_weights(net):
@@ -156,6 +153,8 @@ def _check_inputs(fw: FusedWeights, x):
                 or not t.is_contiguous():
             raise ValueError('folded weights must be contiguous float32 on '
                              f'{x.device}')
+    if fw.relu_flags.device != x.device:
+        raise ValueError(f'ReLU flags must be on {x.device}')
 
 
 def fused_forward_prefolded(fw: FusedWeights, x):
@@ -178,9 +177,9 @@ def fused_forward_prefolded(fw: FusedWeights, x):
     with torch.cuda.device(x.device):
         err = lib.nnueehcs_fused_ensemble_f32(
             x.data_ptr(), rows, fw.in_dim, fw.w_all.data_ptr(),
-            fw.b_all.data_ptr(), fw.num_members, fw.num_layers, fw.relu_mask,
-            fw.out_dim, mean.data_ptr(), std.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            fw.b_all.data_ptr(), fw.num_members, fw.num_layers,
+            fw.relu_flags.data_ptr(), fw.out_dim, mean.data_ptr(),
+            std.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'fused ensemble kernel launch failed: CUDA error '
                            f'{err}')

@@ -13,23 +13,12 @@ import numpy as np
 import torch
 
 
-def _tensors(out):
-    if isinstance(out, torch.Tensor):
-        yield out
-    elif isinstance(out, (tuple, list)):
-        for o in out:
-            yield from _tensors(o)
-    elif isinstance(out, dict):
-        for o in out.values():
-            yield from _tensors(o)
-
-
 def device_sync(out):
-    """Block until every CUDA tensor in ``out`` (a tensor or a nest of
-    tuples, lists and dicts) has been computed; return ``out``."""
-    devices = {t.device for t in _tensors(out) if t.is_cuda}
-    for dev in devices:
-        torch.cuda.synchronize(dev)
+    """Block until ``out`` (a tensor, or a tuple of tensors on one device)
+    has been computed; return ``out``. Host values pass through."""
+    first = out[0] if isinstance(out, tuple) else out
+    if isinstance(first, torch.Tensor) and first.is_cuda:
+        torch.cuda.synchronize(first.device)
     return out
 
 

@@ -29,6 +29,9 @@ CASES = {
     'wide_in_out': (2, 128, 128, 1, 128, 300),
     'single_member': (1, 7, 64, 1, 2, 129),
     'single_linear': (2, 9, 9, 0, 4, 65),
+    'wide_input': (3, 200, 128, 2, 1, 1000),        # x staged in 32-col chunks
+    'wide_input_single_linear': (2, 300, 8, 0, 4, 65),
+    'deep': (2, 5, 16, 70, 1, 300),                 # 71 layers
 }
 
 
@@ -94,6 +97,21 @@ def test_predictor_on_card_runs_the_kernel(card):
                                **TOL_MEAN)
     torch.testing.assert_close(torch.from_numpy(std),
                                out.std(0, correction=1).cpu(), **TOL_STD)
+
+
+@pytest.mark.cuda
+def test_wide_input_ensemble_runs_the_kernel_on_card(card):
+    """A 200-input network, which the TPU kernel also runs fused, goes
+    through the kernel on the card, not member by member."""
+    m = _model(card, 4, 200, 128, 2, 1)
+    x = np.random.default_rng(8).normal(size=(700, 200)).astype(np.float32)
+    before = fused_forward_prefolded.launches
+    mean, std = m(x, return_ue=True)
+    assert fused_forward_prefolded.launches == before + 1
+    with torch.no_grad():
+        out = m.net(torch.from_numpy(x).to(card))           # unfused modules
+    torch.testing.assert_close(mean, out.mean(0), **TOL_MEAN)
+    torch.testing.assert_close(std, out.std(0, correction=1), **TOL_STD)
 
 
 @pytest.mark.cuda

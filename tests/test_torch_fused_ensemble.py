@@ -9,7 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from nnueehcs_tpu.ops.fused_ensemble import fused_ensemble_eval
+from nnueehcs_tpu.ops.fused_ensemble import (fused_ensemble_eval,
+                                             prepare_fused_weights as
+                                             jax_prepare_fused_weights)
 from nnueehcs_tpu_torch.model_builder import EnsembleModelBuilder
 from nnueehcs_tpu_torch.ops.fused_ensemble import (fused_forward_plain,
                                                    fused_forward_prefolded,
@@ -20,7 +22,7 @@ from torch_parity import (TOL_MEAN, TOL_STD, assert_ue_close, descr,
                           jax_ensemble, member_outputs, port_of)
 
 
-@pytest.mark.parametrize('in_dim,rows', [(5, 300), (40, 1100)])
+@pytest.mark.parametrize('in_dim,rows', [(5, 300), (40, 1100), (200, 300)])
 def test_fold_and_plain_match_jax_fused_kernel(in_dim, rows):
     jm = jax_ensemble(descr(in_dim=in_dim, width=32, hidden=2), members=3)
     x = np.random.default_rng(7).normal(size=(rows, in_dim)).astype(np.float32)
@@ -98,7 +100,8 @@ def test_packing_matches_the_kernel_layout():
         [(3, 7, 128)] + [(3, 128, 128)] * 3
     assert fw.w_all.numel() == 3 * 7 * 128 + 3 * 3 * 128 * 128
     assert tuple(fw.b_all.shape) == (4, 3, 128)
-    assert fw.relu_mask == 0b0111
+    assert fw.relu_flags.tolist() == [1, 1, 1, 0]
+    assert fw.relu_flags.dtype == torch.int32
     assert fw.macs_per_row == 7 * 32 + 2 * 32 * 32 + 32 * 2
     # zero padding beyond the real widths, and views into the packed buffer
     assert float(fw.ws[1][:, 32:].abs().sum()) == 0.0
@@ -108,7 +111,7 @@ def test_packing_matches_the_kernel_layout():
 
 @pytest.mark.parametrize('layers', [
     descr(in_dim=5, width=256, hidden=1),                    # width > 128
-    descr(in_dim=200, width=32, hidden=1),                   # input > 128
+    descr(in_dim=5, width=32, hidden=1, out_dim=200),        # output > 128
     [{'Linear': {'args': [5, 16]}}, {'ReLU': {}}, {'Dropout': {'args': [0.2]}},
      {'Linear': {'args': [16, 1]}}],                         # dropout
 ])
@@ -120,6 +123,32 @@ def test_unfusable_networks_run_member_by_member(layers):
     x = np.random.default_rng(1).normal(size=(40, in_dim)).astype(np.float32)
     got = pm(x, return_ue=True)
     assert_ue_close(got, jm(x, return_ue=True))
+
+
+@pytest.mark.parametrize('layers', [
+    descr(in_dim=5, width=32, hidden=2),                     # flagship-like
+    descr(in_dim=200, width=128, hidden=2),                  # input > 128
+    descr(in_dim=300, width=8, hidden=0, out_dim=4),         # one wide Linear
+    descr(in_dim=5, width=8, hidden=70, bn=False),           # 71 layers
+    descr(in_dim=5, width=256, hidden=1),                    # width > 128
+    descr(in_dim=5, width=32, hidden=1, out_dim=200),        # output > 128
+    [{'Linear': {'args': [5, 16]}}, {'ReLU': {}}, {'Dropout': {'args': [0.2]}},
+     {'Linear': {'args': [16, 1]}}],                         # dropout
+])
+def test_kernel_takes_the_networks_the_tpu_kernel_takes(layers):
+    """The port folds a network for its kernel exactly when the JAX package
+    folds it for ``_fused_kernel``, so no network the reference runs fused
+    runs member by member on the card."""
+    jm = jax_ensemble(layers, members=2)
+    jax_fused = bool(jax_prepare_fused_weights(jm.net, jm.params,
+                                               jm.state).folded)
+    fw = prepare_fused_weights(port_of(jm).net)
+    assert (fw is not None) == jax_fused
+    if fw is not None:
+        in_dim = layers[0]['Linear']['args'][0]
+        x = np.random.default_rng(4).normal(size=(70, in_dim)).astype(np.float32)
+        assert_ue_close(fused_forward_prefolded(fw, torch.from_numpy(x)),
+                        jm(x, return_ue=True))
 
 
 def test_fold_cache_follows_in_place_weight_updates():
