@@ -5,14 +5,17 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py [--seed N]
 
-It builds the port's CUDA kernels from the sources in the checkout, holds
-each kernel against its plain PyTorch version, serves requests through the
-port's ``Predictor`` on the flagship ensemble (8 members, 5 inputs, 7
-Linear layers 128 wide, weights drawn from ``--seed``), checks every answer
-against the unfused network on the card, and times the kernel beside its
-plain version, a batched-GEMM PyTorch yardstick and its roofline bound.
-It prints one JSON line per phase, then the card's ``nvidia-smi`` name and
-power limit, then a ``{"kernels": [...]}`` line, and last
+It builds the port's CUDA kernels from the sources in the checkout (one
+nvcc per source, all at once), holds each kernel against its plain PyTorch
+version, serves requests through the port's ``Predictor`` for four models
+at the flagship width (5 inputs, 7 Linear layers 128 wide, weights drawn
+from ``--seed``): the 8-member ensemble, MC dropout (128 samples, p = 0.1),
+Δ-UQ and PAGER (229 anchors). It checks every answer against the unfused
+computation on the card, checks that each model's requests launched its
+kernel exactly as often as they should, and times each kernel beside its
+plain version, a PyTorch GEMM yardstick and its roofline bound. It prints
+one JSON line per phase, then the card's ``nvidia-smi`` name and power
+limit, then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a card it exits non-zero before doing anything.
 """
@@ -28,11 +31,19 @@ import time
 import numpy as np
 import torch
 
-from nnueehcs_tpu_torch.model_builder import EnsembleModelBuilder
+from nnueehcs_tpu_torch.model_builder import (DeltaUQMLPModelBuilder,
+                                              EnsembleModelBuilder,
+                                              MCDropoutModelBuilder,
+                                              PAGERModelBuilder)
 from nnueehcs_tpu_torch.ops import _build
+from nnueehcs_tpu_torch.ops.fused_anchored import (anchor_rows,
+                                                   fused_anchored_plain,
+                                                   fused_anchored_stats)
 from nnueehcs_tpu_torch.ops.fused_ensemble import (fused_forward_plain,
                                                    fused_forward_prefolded,
                                                    prepare_fused_weights)
+from nnueehcs_tpu_torch.ops.fused_mc_dropout import (fused_mc_forward,
+                                                     fused_mc_forward_plain)
 from nnueehcs_tpu_torch.serving import DEFAULT_BUCKETS, Predictor
 from nnueehcs_tpu_torch.utils.timing import timed_passes
 
@@ -50,10 +61,22 @@ WIDE_IN = 200
 WIDE_INPUT = [{'Linear': {'args': [WIDE_IN, WIDTH]}},
               {'BatchNorm1d': {'args': [WIDTH]}}, {'ReLU': {}},
               {'Linear': {'args': [WIDTH, 1]}}]
+# with one hidden Linear, so the MC-dropout builder puts a Dropout before it
+WIDE_INPUT_MC = WIDE_INPUT[:3] + FLAGSHIP[3:6] + WIDE_INPUT[3:]
+# the grid's UQ passes (bench.py): MC dropout with 128 samples at p = 0.1;
+# Δ-UQ (and PAGER) with 229 anchors and anchored_batch_size 229
+MC_SAMPLES, MC_P = 128, 0.1
+ANCHORS = 229
 
 DEVICE = 'cuda'
 ROWS = 262_144                       # the bench's evaluation batch
 REQUESTS = (1, 300, 4096, 65_536, 262_144)
+ANCHORED_ROWS = 65_536               # the bench's Δ-UQ shape, 65536 x 229
+MODEL_REQUESTS = (1, 300, 4096, 65_536)
+# the plain MC version hashes every mask element in int64 tensor ops, too
+# slow for 15 timed passes at ROWS; its timing runs at this many rows
+MC_PLAIN_TIMING_ROWS = 16_384
+PASS_GROUP = 16                      # passes or anchors per yardstick GEMM
 WARMUP, TRIALS = 5, 10               # the bench's timing protocol
 # kernel vs plain: the tolerances of tests/test_fused_ensemble.py
 TOL_MEAN = {'rtol': 1e-5, 'atol': 1e-5}
@@ -63,8 +86,20 @@ KERNELS = [{
     'route': 'cuda',
     'source': 'nnueehcs_tpu_torch/ops/csrc/fused_ensemble.cu',
     'replaces': 'nnueehcs_tpu/ops/fused_ensemble.py:195',
+}, {
+    'name': 'fused_mc_dropout',
+    'route': 'cuda',
+    'source': 'nnueehcs_tpu_torch/ops/csrc/fused_mc_dropout.cu',
+    'replaces': 'nnueehcs_tpu/ops/fused_ensemble.py:460',
+}, {
+    'name': 'fused_anchored',
+    'route': 'cuda',
+    'source': 'nnueehcs_tpu_torch/ops/csrc/fused_anchored.cu',
+    'replaces': 'nnueehcs_tpu/ops/fused_anchored.py:141',
 }]
-WRAPPERS = {'fused_ensemble': fused_forward_prefolded}
+WRAPPERS = {'fused_ensemble': fused_forward_prefolded,
+            'fused_mc_dropout': fused_mc_forward,
+            'fused_anchored': fused_anchored_stats}
 # (name substring, fp32 non-tensor FLOP/s, memory bytes/s), NVIDIA data
 # sheets at full power; the first match wins
 PEAKS = [('H100 PCIe', 51.2e12, 2.0e12), ('H100 NVL', 60e12, 3.9e12),
@@ -124,11 +159,50 @@ def build_model(seed, layers=FLAGSHIP):
     return model
 
 
+def build_mc(seed, layers=FLAGSHIP, p=MC_P):
+    model = MCDropoutModelBuilder(layers, {'num_samples': MC_SAMPLES,
+                                           'dropout_percent': p},
+                                  seed=seed, device=DEVICE).build()
+    randomize_bn(model, torch.Generator().manual_seed(seed + 1))
+    model.reseed(seed)
+    return model
+
+
+def build_anchored(builder, seed, estimator='std'):
+    model = builder(FLAGSHIP, {'estimator': estimator, 'num_anchors': ANCHORS,
+                               'anchored_batch_size': ANCHORS},
+                    seed=seed, device=DEVICE).build()
+    randomize_bn(model, torch.Generator().manual_seed(seed + 1))
+    rng = np.random.default_rng(seed + 2)
+    model.anchors = rng.normal(size=(ANCHORS, IN_DIM)).astype(np.float32)
+    if builder is PAGERModelBuilder:
+        # targets of a trained model sit near its own predictions: take the
+        # prediction for each anchor anchored at itself
+        with torch.no_grad():
+            a = model.anchors
+            model.anchors_Y = model.net(
+                torch.cat([a, a - a], dim=1))[:, :1].cpu().numpy()
+    return model
+
+
 def reference_ue(model, x):
     """The unfused network, member by member through the modules."""
     with torch.no_grad():
         out = model.net(x)
     return out.mean(0), out.std(0, correction=1)
+
+
+def reference_anchored(model, x):
+    """Anchored passes through the modules (and PAGER's score)."""
+    with torch.no_grad():
+        mean, spread = model.anchored_stats_modules(x, model.anchors,
+                                                    model.num_anchors)
+        if hasattr(model, 'anchors_Y'):
+            p = model.prediction_matrix(x, model.anchors[:model.num_anchors])
+            y = model.anchors_Y[:model.num_anchors].reshape(1, -1)
+            spread = torch.maximum(spread,
+                                   (p - y).abs().amax(dim=1, keepdim=True))
+    return mean, spread
 
 
 def library_chain(fw, x):
@@ -144,6 +218,117 @@ def library_chain(fw, x):
             h = torch.relu(h)
     std, mean = torch.std_mean(h, dim=0, correction=1)
     return mean, std
+
+
+def chain(fw, h, first=0):
+    """The folded chain from layer ``first`` on, one GEMM per layer."""
+    last = fw.num_layers - 1
+    for l in range(first, fw.num_layers):
+        w, b = fw.ws[l][0], fw.b_all[l, 0]
+        if l == last:
+            w, b = w[:, :fw.out_dim], b[:fw.out_dim]
+        h = torch.addmm(b, h, w)
+        if fw.relus[l]:
+            h = torch.relu(h)
+    return h
+
+
+def mc_gemm_only(mw, x, samples):
+    """A GEMM-only reference for the MC kernel, not the same function: the
+    1 + S passes without masks, PASS_GROUP passes per GEMM, summed."""
+    total = None
+    for start in range(0, samples + 1, PASS_GROUP):
+        g = min(PASS_GROUP, samples + 1 - start)
+        h = chain(mw, x.repeat(g, 1)).view(g, *x.shape[:1], mw.out_dim).sum(0)
+        total = h if total is None else total + h
+    return total
+
+
+def anchored_library(aw, x, anchors):
+    """Yardstick only: the anchored UE pass as one GEMM chain over all
+    anchored rows concat([a, x - a]) (PASS_GROUP anchors at a time), with
+    shifted sums against anchor 0."""
+    w_bot = aw.ws[0][0]
+    w_top = w_bot.clone()
+    w_top[:, :aw.width0] += aw.w0d
+    w_full = torch.cat([w_top, w_bot])                       # (2d, 128)
+    c = s1 = s2 = None
+    for start in range(0, anchors.shape[0], PASS_GROUP):
+        a = anchors[start:start + PASS_GROUP]
+        inp = torch.cat([a[:, None].expand(-1, *x.shape),
+                         x[None] - a[:, None]], dim=-1).reshape(-1, 2 * x.shape[1])
+        h = torch.addmm(aw.b_all[0, 0], inp, w_full)
+        if aw.relus[0]:
+            h = torch.relu(h)
+        h = chain(aw, h, first=1).view(a.shape[0], x.shape[0], aw.out_dim)
+        if c is None:
+            c, s1, s2 = h[0], torch.zeros_like(h[0]), torch.zeros_like(h[0])
+        d = h - c
+        s1 = s1 + d.sum(0)
+        s2 = s2 + (d * d).sum(0)
+    n = anchors.shape[0]
+    m1 = s1 / n
+    return c + m1, torch.sqrt(torch.clamp(s2 - n * m1 * m1, min=0) / (n - 1))
+
+
+def bound(flops, moved, peak_flops, peak_bytes):
+    """(bound_ms, bound_by): the larger of operations over the fp32 peak and
+    bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak_flops, moved / peak_bytes
+    return 1e3 * max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes \
+        else 'bytes'
+
+
+def reset_launches():
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+
+
+def read_launches():
+    return {name: w.launches for name, w in WRAPPERS.items()}
+
+
+def serve(name, model, requests, rng, reference, kernel):
+    """Drive ``Predictor`` on ``model``: warm-up, then one request of each
+    size. Launch counts are set to 0 just before and read just after;
+    ``kernel`` must have launched once per bucket in the warm-up and once
+    per chunk of each request, and no other kernel at all. ``reference(x,
+    call_index)`` gives the unfused answer on the card for a request that
+    was the model's ``call_index``-th call."""
+    x_requests = [rng.normal(size=(n, IN_DIM)).astype(np.float32)
+                  for n in requests]
+    reset_launches()
+    start = time.perf_counter()
+    predictor = Predictor(model, buckets=DEFAULT_BUCKETS, device=DEVICE)
+    warmup_s = time.perf_counter() - start
+    answers, latencies, calls = [], [], []
+    for x in x_requests:
+        calls.append(getattr(model, '_eval_calls', None))
+        start = time.perf_counter()
+        answers.append(predictor.predict(x))
+        latencies.append(time.perf_counter() - start)
+    launches = read_launches()
+    expected = {k: 0 for k in WRAPPERS}
+    # warm-up drives each bucket once; a request runs once per chunk of up
+    # to the largest bucket
+    expected[kernel] = len(DEFAULT_BUCKETS) + sum(
+        -(-n // DEFAULT_BUCKETS[-1]) for n in requests)
+    check(launches == expected, f'{name}: launches {launches} on the serving '
+                                f'path, expected {expected}')
+    errs = []
+    for x, call, (mean, ue) in zip(x_requests, calls, answers):
+        ref_mean, ref_ue = reference(torch.from_numpy(x).to(DEVICE), call)
+        errs.append({'rows': len(x),
+                     'mean': compare(f'{name} {len(x)}-row mean',
+                                     torch.from_numpy(mean), ref_mean.cpu(),
+                                     TOL_MEAN),
+                     'ue': compare(f'{name} {len(x)}-row ue',
+                                   torch.from_numpy(ue), ref_ue.cpu(), TOL_STD)})
+    torch.cuda.synchronize()
+    emit('serving', model=name, warmup_s=warmup_s, request_rows=list(requests),
+         request_s=latencies, launches=launches,
+         expected_launches=expected[kernel], max_abs_err_vs_unfused=errs)
+    return predictor, launches[kernel]
 
 
 def event_ms(fn):
@@ -214,7 +399,7 @@ def main():
     emit('build', seconds=info.seconds, library=str(info.path.name),
          ptxas=ptxas_report(info.log))
 
-    # 3. kernel vs plain on the card
+    # 3. kernel vs plain on the card, each kernel at the main path's shapes
     model = build_model(args.seed)
     fw = prepare_fused_weights(model.net)
     check(fw is not None, 'flagship ensemble did not fold')
@@ -224,57 +409,119 @@ def main():
     fw_shifted = prepare_fused_weights(shifted.net)
     fw_wide = prepare_fused_weights(build_model(args.seed, WIDE_INPUT).net)
     check(fw_wide is not None, f'{WIDE_IN}-input ensemble did not fold')
-    flagship_err = None
+    errors = {}
+
+    def kernel_vs_plain(kernel, case, rows, in_dim, run, plain, square=False):
+        """Hold one kernel call against its plain version on the same x;
+        ``square`` compares std^2 (the 'var' estimator)."""
+        x = torch.as_tensor(rng.normal(size=(rows, in_dim)),
+                            dtype=torch.float32, device=DEVICE)
+        mean, std = run(x)
+        ref_mean, ref_std = plain(x)
+        torch.cuda.synchronize()
+        if square:
+            std, ref_std = std * std, ref_std * ref_std
+        errs = {'mean': compare(f'{kernel} {case} mean', mean, ref_mean,
+                                TOL_MEAN),
+                'std': compare(f'{kernel} {case} std', std, ref_std, TOL_STD)}
+        if case == 'flagship':
+            errors[kernel] = max(errs.values())
+        emit('kernel_vs_plain', kernel=kernel, case=case, rows=rows,
+             max_abs_err=errs, tol_mean=TOL_MEAN, tol_std=TOL_STD)
+
     for case, weights, rows in (('flagship', fw, ROWS), ('ragged', fw, 1000),
                                 ('mean_1e3', fw_shifted, 4096),
                                 (f'input_{WIDE_IN}', fw_wide, 1000)):
-        x = torch.as_tensor(rng.normal(size=(rows, weights.in_dim)),
-                            dtype=torch.float32, device=DEVICE)
-        mean, std = fused_forward_prefolded(weights, x)
-        ref_mean, ref_std = fused_forward_plain(weights, x)
-        torch.cuda.synchronize()
-        errs = {'mean': compare(f'{case} mean', mean, ref_mean, TOL_MEAN),
-                'std': compare(f'{case} std', std, ref_std, TOL_STD)}
-        if case == 'flagship':
-            flagship_err = max(errs.values())
-        emit('kernel_vs_plain', case=case, rows=rows,
-             max_abs_err=errs, tol_mean=TOL_MEAN, tol_std=TOL_STD)
+        kernel_vs_plain('fused_ensemble', case, rows, weights.in_dim,
+                        lambda x, w=weights: fused_forward_prefolded(w, x),
+                        lambda x, w=weights: fused_forward_plain(w, x))
 
-    # 4. the serving path: builder -> Predictor -> EnsembleModel -> kernel
-    x_requests = [rng.normal(size=(n, IN_DIM)).astype(np.float32)
-                  for n in REQUESTS]
-    for wrapper in WRAPPERS.values():
-        wrapper.launches = 0
-    start = time.perf_counter()
-    predictor = Predictor(model, buckets=DEFAULT_BUCKETS, device=DEVICE)
-    warmup_s = time.perf_counter() - start
-    answers, latencies = [], []
-    for x in x_requests:
-        start = time.perf_counter()
-        answers.append(predictor.predict(x))
-        latencies.append(time.perf_counter() - start)
-    launches = {name: w.launches for name, w in WRAPPERS.items()}
-    # warm-up drives each bucket once; a request runs once per chunk of up
-    # to the largest bucket
-    expected = len(DEFAULT_BUCKETS) + sum(-(-n // DEFAULT_BUCKETS[-1])
-                                          for n in REQUESTS)
-    check(launches['fused_ensemble'] == expected,
-          f'fused_ensemble launched {launches["fused_ensemble"]} times on the '
-          f'serving path, expected {expected}')
-    errs = []
-    for x, (mean, std) in zip(x_requests, answers):
-        ref_mean, ref_std = reference_ue(model, torch.from_numpy(x).to(DEVICE))
-        errs.append({'rows': len(x),
-                     'mean': compare(f'{len(x)}-row mean', torch.from_numpy(mean),
-                                     ref_mean.cpu(), TOL_MEAN),
-                     'std': compare(f'{len(x)}-row std', torch.from_numpy(std),
-                                    ref_std.cpu(), TOL_STD)})
-    torch.cuda.synchronize()
-    emit('serving', warmup_s=warmup_s, request_rows=list(REQUESTS),
-         request_s=latencies, launches=launches, expected_launches=expected,
-         max_abs_err_vs_unfused=errs)
+    mc_model = build_mc(args.seed)
+    mw = mc_model.mc_weights()
+    check(mw is not None, 'flagship MC-dropout network did not fold')
+    mc_shifted = build_mc(args.seed)
+    with torch.no_grad():
+        mc_shifted.net.layers[-1].bias += 1e3
+    mc_cases = (('flagship', mw, ROWS), ('ragged', mw, 1000),
+                ('mean_1e3', mc_shifted.mc_weights(), 4096),
+                ('p0', build_mc(args.seed, p=0.0).mc_weights(), 4096),
+                (f'input_{WIDE_IN}',
+                 build_mc(args.seed, WIDE_INPUT_MC).mc_weights(), 1000))
+    for i, (case, weights, rows) in enumerate(mc_cases):
+        check(weights is not None, f'MC case {case} did not fold')
+        seed = 1000 + i
+        kernel_vs_plain(
+            'fused_mc_dropout', case, rows, weights.in_dim,
+            lambda x, w=weights, s=seed: fused_mc_forward(w, x, MC_SAMPLES, s),
+            lambda x, w=weights, s=seed: fused_mc_forward_plain(w, x,
+                                                                MC_SAMPLES, s))
 
-    # 5. timing at the bench's batch
+    dq_model = build_anchored(DeltaUQMLPModelBuilder, args.seed)
+    aw = dq_model.anchored_weights()
+    check(aw is not None, 'flagship Δ-UQ network did not fold')
+    dq_shifted = build_anchored(DeltaUQMLPModelBuilder, args.seed)
+    with torch.no_grad():
+        dq_shifted.net.layers[-1].bias += 1e3
+    aw_shifted = dq_shifted.anchored_weights()
+    anchors = dq_model.anchors
+    for case, weights, rows in (('flagship', aw, ANCHORED_ROWS),
+                                ('ragged', aw, 1000),
+                                ('mean_1e3', aw_shifted, 4096),
+                                ('estimator_var', aw, 4096)):
+        kernel_vs_plain(
+            'fused_anchored', case, rows, IN_DIM,
+            lambda x, w=weights: fused_anchored_stats(w, x, anchors),
+            lambda x, w=weights: fused_anchored_plain(w, x,
+                                                      anchor_rows(w, anchors)),
+            square=case == 'estimator_var')
+
+    # 4. the serving paths: builder -> Predictor -> model -> kernel, each
+    # driven with every launch count at 0 just before and read just after
+    predictor, ens_launches = serve(
+        'ensemble', model, REQUESTS, rng,
+        lambda x, _: reference_ue(model, x), 'fused_ensemble')
+    mc_predictor, mc_launches = serve(
+        'mc_dropout', mc_model, MODEL_REQUESTS, rng,
+        lambda x, call: fused_mc_forward_plain(
+            mw, x, MC_SAMPLES, mc_model.call_seed(call)), 'fused_mc_dropout')
+    dq_predictor, dq_launches = serve(
+        'delta_uq', dq_model, MODEL_REQUESTS, rng,
+        lambda x, _: reference_anchored(dq_model, x), 'fused_anchored')
+    pager = build_anchored(PAGERModelBuilder, args.seed + 7)
+    _, pager_launches = serve(
+        'pager', pager, MODEL_REQUESTS, rng,
+        lambda x, _: reference_anchored(pager, x), 'fused_anchored')
+    var_model = build_anchored(DeltaUQMLPModelBuilder, args.seed,
+                               estimator='var')
+    x = torch.as_tensor(rng.normal(size=(300, IN_DIM)), dtype=torch.float32,
+                        device=DEVICE)
+    got, want = var_model(x, return_ue=True), reference_anchored(var_model, x)
+    emit('serving', model='delta_uq_var', rows=300, max_abs_err_vs_unfused={
+        'mean': compare('var mean', got[0], want[0], TOL_MEAN),
+        'ue': compare('var ue', got[1], want[1], TOL_STD)})
+
+    # 5. timing at the bench's shapes
+    kernels = []
+
+    def record(index, launches, kernel_t, plain_t, flops, moved, library_ms,
+               **extra):
+        bound_ms, bound_by = bound(flops, moved, peak_flops, peak_bytes)
+        ms = kernel_t['median_ms']
+        emit('timing', kernel=KERNELS[index]['name'], kernel_ms=kernel_t,
+             plain=plain_t, flops=flops, bytes=moved, bound_ms=bound_ms,
+             bound_by=bound_by, kernel_share_of_bound=bound_ms / ms, **extra,
+             clocks_power=nvidia_smi('clocks.sm,power.draw,temperature.gpu'))
+        kernels.append(dict(
+            KERNELS[index], launches=launches,
+            max_abs_err=errors[KERNELS[index]['name']], ms=ms,
+            plain_ms=plain_t['median_ms'], bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=library_ms))
+
+    def e2e_median_s(pred, rows):
+        x_host = rng.normal(size=(rows, IN_DIM)).astype(np.float32)
+        return float(np.median(timed_passes(lambda: pred.predict(x_host),
+                                            WARMUP, TRIALS)))
+
     x = torch.as_tensor(rng.normal(size=(ROWS, IN_DIM)), dtype=torch.float32,
                         device=DEVICE)
     lib_mean, lib_std = library_chain(fw, x)
@@ -285,30 +532,51 @@ def main():
     plain_t = event_ms(lambda: fused_forward_plain(fw, x))
     library_t = event_ms(lambda: library_chain(fw, x))
     kernel_t2 = event_ms(lambda: fused_forward_prefolded(fw, x))
-    x_host = x.cpu().numpy()
-    e2e_s = timed_passes(lambda: predictor.predict(x_host), WARMUP, TRIALS)
-    flops = 2.0 * ROWS * fw.num_members * fw.macs_per_row
-    moved = 4.0 * (x.numel() + fw.w_all.numel() + fw.b_all.numel()
-                   + 2 * ROWS * fw.out_dim)
-    bound_s = max(flops / peak_flops, moved / peak_bytes)
-    bound_by = 'operations' if flops / peak_flops >= moved / peak_bytes \
-        else 'bytes'
-    kernel_ms = kernel_t['median_ms']
-    emit('timing', rows=ROWS, kernel=kernel_t, kernel_again=kernel_t2,
-         plain=plain_t, library_baddbmm=library_t, flops=flops, bytes=moved,
-         bound_ms=1e3 * bound_s, bound_by=bound_by,
-         kernel_samples_per_s=ROWS / (kernel_ms / 1e3),
-         kernel_share_of_bound=1e3 * bound_s / kernel_ms,
-         predictor_e2e_median_s=float(np.median(e2e_s)),
-         predictor_e2e_samples_per_s=ROWS / float(np.median(e2e_s)),
-         clocks_power=nvidia_smi('clocks.sm,power.draw,temperature.gpu'))
+    e2e_s = e2e_median_s(predictor, ROWS)
+    record(0, ens_launches, kernel_t, plain_t,
+           2.0 * ROWS * fw.num_members * fw.macs_per_row,
+           4.0 * (x.numel() + fw.w_all.numel() + fw.b_all.numel()
+                  + 2 * ROWS * fw.out_dim),
+           library_t['median_ms'], rows=ROWS, kernel_again=kernel_t2,
+           library_baddbmm=library_t, predictor_e2e_median_s=e2e_s,
+           predictor_e2e_samples_per_s=ROWS / e2e_s)
+
+    x_plain = x[:MC_PLAIN_TIMING_ROWS].contiguous()
+    kernel_t = event_ms(lambda: fused_mc_forward(mw, x, MC_SAMPLES, 7))
+    plain_t = event_ms(lambda: fused_mc_forward_plain(mw, x_plain, MC_SAMPLES, 7))
+    gemm_t = event_ms(lambda: mc_gemm_only(mw, x, MC_SAMPLES))
+    e2e_s = e2e_median_s(mc_predictor, ROWS)
+    record(1, mc_launches, kernel_t, plain_t,
+           2.0 * ROWS * (MC_SAMPLES + 1) * mw.macs_per_row,
+           4.0 * (x.numel() + mw.w_all.numel() + mw.b_all.numel()
+                  + 2 * ROWS * mw.out_dim),
+           None, rows=ROWS, samples=MC_SAMPLES, p=MC_P,
+           plain_rows=MC_PLAIN_TIMING_ROWS, gemm_only_reference=gemm_t,
+           predictor_e2e_median_s=e2e_s,
+           predictor_e2e_samples_per_s=ROWS / e2e_s)
+    kernels[-1]['plain_rows'] = MC_PLAIN_TIMING_ROWS
+    kernels[-1]['gemm_only_reference_ms'] = gemm_t['median_ms']
+
+    xa = x[:ANCHORED_ROWS].contiguous()
+    lib_mean, lib_std = anchored_library(aw, xa, anchors)
+    ref_mean, ref_std = fused_anchored_plain(aw, xa, anchor_rows(aw, anchors))
+    compare('anchored library mean', lib_mean, ref_mean, TOL_MEAN)
+    compare('anchored library std', lib_std, ref_std, TOL_STD)
+    kernel_t = event_ms(lambda: fused_anchored_stats(aw, xa, anchors))
+    plain_t = event_ms(lambda: fused_anchored_plain(aw, xa,
+                                                    anchor_rows(aw, anchors)))
+    library_t = event_ms(lambda: anchored_library(aw, xa, anchors))
+    e2e_s = e2e_median_s(dq_predictor, ANCHORED_ROWS)
+    record(2, dq_launches + pager_launches, kernel_t, plain_t,
+           2.0 * ANCHORED_ROWS * (aw.macs_once + ANCHORS * aw.macs_per_anchor),
+           4.0 * (xa.numel() + aw.w_all.numel() + aw.b_all.numel()
+                  + ANCHORS * WIDTH + 2 * ANCHORED_ROWS * aw.out_dim),
+           library_t['median_ms'], rows=ANCHORED_ROWS, anchors=ANCHORS,
+           library_gemm_chain=library_t, predictor_e2e_median_s=e2e_s,
+           predictor_e2e_samples_per_s=ANCHORED_ROWS / e2e_s)
 
     print(smi, flush=True)
-    print(json.dumps({'kernels': [dict(
-        KERNELS[0], launches=launches['fused_ensemble'],
-        max_abs_err=flagship_err, ms=kernel_ms, plain_ms=plain_t['median_ms'],
-        bound_ms=1e3 * bound_s, bound_by=bound_by,
-        library_ms=library_t['median_ms'])]}), flush=True)
+    print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}),
         flush=True)

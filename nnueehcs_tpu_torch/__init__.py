@@ -1,13 +1,14 @@
 """nnueehcs_tpu_torch: the PyTorch/CUDA port of nnueehcs_tpu.
 
 A second package beside the JAX one, ported slice by slice. It imports
-torch, numpy and the standard library only, never jax or nnueehcs_tpu. This
-slice serves a deep ensemble: the architecture-list network builder, the
-MLP and ensemble wrappers and builders, ``model.pth`` bundles, the bucketed
-``Predictor``, and the fused ensemble UE pass as a hand-written CUDA kernel
-for Hopper (``ops/csrc/fused_ensemble.cu``) beside its plain PyTorch
-version. Entry points take ``device`` (default ``'cuda'``) and never fall
-back to the CPU on their own.
+torch, numpy and the standard library only, never jax or nnueehcs_tpu. It
+serves trained bundles of four UQ methods: the architecture-list network
+builder, the MLP, ensemble, MC-dropout, Δ-UQ and PAGER wrappers and
+builders, ``model.pth`` bundles and the bucketed ``Predictor``. The fused
+UE passes are hand-written CUDA kernels for Hopper (``ops/csrc/*.cu``:
+ensemble, MC dropout, anchored), each beside its plain PyTorch version.
+Entry points take ``device`` (default ``'cuda'``) and never fall back to
+the CPU on their own.
 """
 
 __version__ = '0.1.0'

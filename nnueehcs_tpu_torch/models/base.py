@@ -68,6 +68,8 @@ class WrappedModelBase:
         self.validation_config.update(validation_config or self.train_config)
         self.set_precision(self.train_config.get('precision'))
         self.dtype = torch.float32
+        self._folded = None
+        self._folded_key = None
 
     def set_precision(self, precision):
         """Only fp32 is ported; bf16 compute is a later item."""
@@ -92,6 +94,21 @@ class WrappedModelBase:
         """Draw fresh parameters from ``generator``."""
         self.net.reset_parameters(generator)
         return self
+
+    def _params_key(self):
+        # data_ptr changes when tensors move or are replaced, _version on
+        # every in-place write (load_arrays, optimiser steps)
+        return tuple((t.data_ptr(), t._version)
+                     for t in (*self.net.parameters(), *self.net.buffers()))
+
+    def _folded_weights(self, prepare):
+        """``prepare(self.net)`` (folded, packed weights for a kernel, or
+        None), rebuilt only when the parameters or BN state change."""
+        key = self._params_key()
+        if key != self._folded_key:
+            self._folded = prepare(self.net)
+            self._folded_key = key
+        return self._folded
 
     # ------------------------------------------------------------- pure eval
     def eval_output(self, x, return_ue: bool = False):
@@ -140,10 +157,18 @@ class WrappedModelBase:
         }
 
     def arrays_dict(self) -> dict:
-        """Weights as numpy arrays in the JAX package's layout."""
+        """Weights as numpy arrays in the JAX package's layout, plus the
+        model's own arrays (anchors, for instance)."""
         params, state = convert.to_pytrees(self.net)
-        return {'params': params, 'state': state}
+        return {'params': params, 'state': state, **self._extra_arrays()}
+
+    def _extra_arrays(self) -> dict:
+        return {}
 
     def load_arrays(self, arrays: dict):
         convert.load_pytrees(self.net, _tuplify(arrays['params']),
                              _tuplify(arrays['state']))
+        self._load_extra_arrays(arrays)
+
+    def _load_extra_arrays(self, arrays: dict):
+        pass

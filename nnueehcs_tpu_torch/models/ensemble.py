@@ -24,24 +24,12 @@ class EnsembleModel(WrappedModelBase):
                              f'expected num_models={num_models}')
         super().__init__(net, **kwargs)
         self.num_models = num_models
-        self._fused = None
-        self._fused_key = None
-
-    def _params_key(self):
-        # data_ptr changes when tensors move or are replaced, _version on
-        # every in-place write (load_arrays, optimiser steps)
-        return tuple((t.data_ptr(), t._version)
-                     for t in (*self.net.parameters(), *self.net.buffers()))
 
     def fused_weights(self):
         """The folded, packed weights for the current parameters and BN
         state (None when the network does not fit the kernel), rebuilt when
         either changes."""
-        key = self._params_key()
-        if key != self._fused_key:
-            self._fused = prepare_fused_weights(self.net)
-            self._fused_key = key
-        return self._fused
+        return self._folded_weights(prepare_fused_weights)
 
     def eval_output(self, x, return_ue: bool = False):
         fw = self.fused_weights()

@@ -1,4 +1,6 @@
 """Kernels and their plain PyTorch versions."""
+from . import fused_anchored
 from . import fused_ensemble
+from . import fused_mc_dropout
 
-__all__ = ['fused_ensemble']
+__all__ = ['fused_anchored', 'fused_ensemble', 'fused_mc_dropout']

@@ -1,13 +1,15 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file has a plain ``extern "C"`` interface, so one
-``nvcc`` call compiles them all into one shared library (a few seconds,
-where a source that includes PyTorch's headers takes minutes), and
-``ctypes`` loads it. The build happens at first use, inside the call that
-launches a kernel, never at import.
+Every ``csrc/*.cu`` file has a plain ``extern "C"`` interface (the device
+code they share is in ``csrc/*.cuh``), so nvcc compiles each in a few
+seconds (a source that includes PyTorch's headers takes minutes). One nvcc
+process per source runs at the same time, a last nvcc call links the
+objects into one shared library, and ``ctypes`` loads it. The build happens
+at first use, inside the call that launches a kernel, never at import.
 
 The library lands in ``build/nnueehcs_tpu_torch/`` at the repository root,
-named by a hash of the sources and flags, so a stale build is never loaded.
+named by a hash of the sources, headers and flags, so a stale build is
+never loaded.
 nvcc writes to a temporary name that ``os.replace`` then moves into place:
 concurrent processes may both build, but none loads a half-written file.
 """
@@ -26,7 +28,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'nnueehcs_tpu_torch'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+LINK_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-shared')
 
 _P = ctypes.c_void_p
 # C signatures of the exported launchers: (restype, argtypes)
@@ -35,6 +38,14 @@ SIGNATURES = {
         ctypes.c_int,
         [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, ctypes.c_int,
          ctypes.c_int, _P, ctypes.c_int, _P, _P, _P]),
+    'nnueehcs_fused_mc_dropout_f32': (
+        ctypes.c_int,
+        [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P,
+         _P, _P, ctypes.c_int, ctypes.c_uint32, ctypes.c_int, _P, _P, _P]),
+    'nnueehcs_fused_anchored_f32': (
+        ctypes.c_int,
+        [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P,
+         ctypes.c_int, ctypes.c_int, _P, _P, _P]),
 }
 
 
@@ -59,8 +70,8 @@ def sources() -> list[Path]:
 
 
 def _library_path() -> Path:
-    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in sources():
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for src in sorted([*sources(), *CSRC.glob('*.cuh')]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f'libnnueehcs_kernels-{digest.hexdigest()[:16]}.so'
@@ -76,9 +87,24 @@ class BuildInfo:
         self.log = log
 
 
+def _run_all(cmds):
+    """Run the commands at the same time; raise with the output of the
+    first that fails. Returns their combined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outputs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed ({proc.returncode}): '
+                               f'{" ".join(cmd)}\n{out}')
+    return ''.join(outputs)
+
+
 def build() -> BuildInfo:
-    """Compile every ``csrc/*.cu`` file in one nvcc call, unless the
-    library for these sources already exists."""
+    """Compile every ``csrc/*.cu`` file, one nvcc process each, all at
+    once, and link them into one library, unless the library for these
+    sources already exists."""
     path = _library_path()
     log_path = path.with_suffix('.log')
     if path.is_file():
@@ -86,23 +112,16 @@ def build() -> BuildInfo:
         return BuildInfo(path, 0.0, log)
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix='.tmp-', suffix='.so')
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, '-o', tmp, *map(str, sources())]
     start = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f'nvcc failed ({proc.returncode}): {" ".join(cmd)}\n'
-                f'{proc.stdout}{proc.stderr}')
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR, prefix='.tmp-') as tmp:
+        objects = [os.path.join(tmp, src.stem + '.o') for src in sources()]
+        log = _run_all([[nvcc, *NVCC_FLAGS, '-c', '-o', obj, str(src)]
+                        for src, obj in zip(sources(), objects)])
+        lib = os.path.join(tmp, path.name)
+        log += _run_all([[nvcc, *LINK_FLAGS, '-o', lib, *objects]])
         seconds = time.perf_counter() - start
-        log = proc.stdout + proc.stderr
         log_path.write_text(log)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(lib, path)
     return BuildInfo(path, seconds, log)
 
 

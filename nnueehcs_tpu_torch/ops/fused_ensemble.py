@@ -2,7 +2,8 @@
 wrapper and its plain PyTorch version.
 
 Counterpart of ``nnueehcs_tpu/ops/fused_ensemble.py`` (``_fused_kernel`` and
-the functions that fold and drive it). Eval-mode BatchNorm is folded into
+the functions that fold and drive it; the MC-dropout kernel that shares
+the fold is in :mod:`.fused_mc_dropout`). Eval-mode BatchNorm is folded into
 the preceding Linear (``W' = W * gamma/sigma``, ``b' = (b - mu) * gamma/sigma
 + beta``), leaving a Linear(+ReLU) chain. Each member runs the chain; the
 mean and unbiased std over members come from sums shifted by member 0's
@@ -17,23 +18,31 @@ from __future__ import annotations
 
 import torch
 
-from ..nn.layers import BatchNorm1d, Linear, ReLU
+from ..nn.layers import BatchNorm1d, Dropout, Linear, ReLU
 
 WIDTH = 128        # every layer is padded to 128 output columns
 
 
-def _fold_linear_chain(net):
-    """Fold a ``[Linear, BatchNorm1d?, ReLU?]*`` chain into a list of
-    ``(w (..., in, out), b (..., out), relu_after)``, keeping leading member
-    axes. Returns None when the layers do not match that pattern (a Dropout
-    anywhere, for instance)."""
+def _fold_linear_chain(net, allow_dropout: bool = False):
+    """Fold a ``[Dropout?, Linear, BatchNorm1d?, ReLU?]*`` chain into
+    ``(folded, drops)``: ``folded`` is a list of ``(w (..., in, out),
+    b (..., out), relu_after)``, keeping leading member axes, and
+    ``drops[i]`` is the dropout probability applied before Linear ``i``
+    (0.0 where there is none). Returns None when the layers do not match
+    that pattern, or hold a Dropout and ``allow_dropout`` is False."""
     layers = list(net.layers)
-    folded = []
+    folded, drops = [], []
     i = 0
     while i < len(layers):
-        layer = layers[i]
-        if not isinstance(layer, Linear):
+        p_drop = 0.0
+        if isinstance(layers[i], Dropout):
+            if not allow_dropout:
+                return None
+            p_drop = float(layers[i].p)
+            i += 1
+        if i >= len(layers) or not isinstance(layers[i], Linear):
             return None
+        layer = layers[i]
         w = layer.weight.detach().transpose(-1, -2)
         b = layer.bias.detach() if layer.bias is not None else \
             w.new_zeros(w.shape[:-2] + (w.shape[-1],))
@@ -49,8 +58,19 @@ def _fold_linear_chain(net):
             j += 1
         relu = j < len(layers) and isinstance(layers[j], ReLU)
         folded.append((w, b, relu))
+        drops.append(p_drop)
         i = j + 1 if relu else j
-    return folded
+    return folded, drops
+
+
+def fold_mc_dropout_params(net):
+    """Fold a single-member MC-dropout network, adding a member axis of 1:
+    ``(folded, drops)``, or None when the network is not such a chain."""
+    result = _fold_linear_chain(net, allow_dropout=True)
+    if result is None:
+        return None
+    folded, drops = result
+    return [(w[None], b[None], relu) for w, b, relu in folded], drops
 
 
 def _check_widths(folded) -> bool:
@@ -100,7 +120,10 @@ class FusedWeights:
 def prepare_fused_weights(net):
     """Fold and pack a stacked-ensemble network once per parameter version.
     Returns None when the network does not fit the fused kernel."""
-    folded = _fold_linear_chain(net)
+    result = _fold_linear_chain(net)
+    if result is None:
+        return None
+    folded, _ = result
     if not folded or folded[0][0].dim() != 3 or not _check_widths(folded):
         return None
     return FusedWeights(folded)

@@ -39,7 +39,11 @@ class Predictor:
     def _infer_features(self) -> Optional[int]:
         first = next((l for l in self.model.net.layers
                       if isinstance(l, Linear)), None)
-        return None if first is None else first.in_features
+        if first is None:
+            return None
+        if self.model.uq_method in ('delta_uq', 'pager'):
+            return first.in_features // 2   # the anchored input doubles it
+        return first.in_features
 
     @property
     def num_features(self):

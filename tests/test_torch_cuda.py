@@ -1,5 +1,6 @@
-"""The port's CUDA kernel on a card, held against its plain PyTorch version
-on the same inputs, and the serving path on the card. Every test here is
+"""The port's CUDA kernels on a card (the fused ensemble, MC-dropout and
+anchored kernels), each held against its plain PyTorch version on the same
+inputs, and the serving path of each model on the card. Every test here is
 marked ``cuda`` and skips without a card. The file imports neither JAX nor
 the JAX package, so it runs on a CUDA-only machine (with ``--noconftest``,
 since tests/conftest.py imports JAX):
@@ -7,15 +8,25 @@ since tests/conftest.py imports JAX):
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerances: mean 1e-5 absolute and relative; std 1e-3 relative, 1e-5
-absolute (fp32 sums taken in another order than cuBLAS takes them)."""
+absolute (fp32 sums taken in another order than cuBLAS takes them). The
+MC-dropout kernel and its plain version draw the same hash masks for the
+same seed, so they are compared with the same tolerances."""
 import numpy as np
 import pytest
 import torch
 
-from nnueehcs_tpu_torch.model_builder import EnsembleModelBuilder
+from nnueehcs_tpu_torch.model_builder import (DeltaUQMLPModelBuilder,
+                                              EnsembleModelBuilder,
+                                              MCDropoutModelBuilder,
+                                              PAGERModelBuilder)
+from nnueehcs_tpu_torch.ops.fused_anchored import (anchor_rows,
+                                                   fused_anchored_plain,
+                                                   fused_anchored_stats)
 from nnueehcs_tpu_torch.ops.fused_ensemble import (fused_forward_plain,
                                                    fused_forward_prefolded,
                                                    prepare_fused_weights)
+from nnueehcs_tpu_torch.ops.fused_mc_dropout import (fused_mc_forward,
+                                                     fused_mc_forward_plain)
 from nnueehcs_tpu_torch.serving import Predictor
 
 TOL_MEAN = {'rtol': 1e-5, 'atol': 1e-5}
@@ -120,3 +131,124 @@ def test_kernel_refuses_bf16_on_card(card):
     with pytest.raises(NotImplementedError):
         fused_forward_prefolded(fw, torch.zeros(4, 5, dtype=torch.bfloat16,
                                                 device=card))
+
+
+MC_CASES = {
+    # name: (in_dim, width, hidden, out_dim, p, samples, rows)
+    'flagship': (5, 128, 6, 1, 0.1, 128, 65_536),
+    'ragged': (5, 128, 6, 1, 0.1, 128, 1000),
+    'p0': (5, 128, 6, 1, 0.0, 16, 1000),
+    'p_half_wide_out': (40, 32, 3, 3, 0.5, 7, 777),
+    'wide_input': (200, 128, 2, 1, 0.2, 9, 300),
+    'one_sample': (5, 64, 2, 2, 0.3, 1, 129),
+}
+
+ANCHORED_CASES = {
+    # name: (in_dim, width, hidden, out_dim, anchors, rows)
+    'flagship': (5, 128, 6, 1, 229, 65_536),
+    'ragged': (5, 128, 6, 1, 229, 1000),
+    'two_linears': (7, 64, 1, 2, 5, 300),
+    'wide_input': (100, 128, 2, 1, 17, 129),
+    'two_anchors': (5, 32, 2, 1, 2, 70),
+}
+
+
+def _randomize_bn(m):
+    gen = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for layer in m.net.layers:
+            if hasattr(layer, 'running_var'):
+                shape = layer.running_var.shape
+                layer.running_mean.copy_(torch.randn(shape, generator=gen) * 0.3)
+                layer.running_var.copy_(torch.rand(shape, generator=gen) + 0.5)
+    return m
+
+
+def _mc_model(card, in_dim, width, hidden, out_dim, p, samples):
+    return _randomize_bn(MCDropoutModelBuilder(
+        _arch(in_dim, width, hidden, out_dim),
+        {'num_samples': samples, 'dropout_percent': p}, seed=5,
+        device=card).build())
+
+
+def _anchored_model(card, builder, in_dim, width, hidden, out_dim, anchors):
+    m = _randomize_bn(builder(_arch(in_dim, width, hidden, out_dim),
+                              {'num_anchors': anchors}, seed=5,
+                              device=card).build())
+    rng = np.random.default_rng(9)
+    m.anchors = rng.normal(size=(anchors, in_dim))
+    if hasattr(m, 'anchors_Y'):
+        m.anchors_Y = rng.normal(size=(anchors, 1))
+    return m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(MC_CASES))
+def test_mc_kernel_matches_plain_on_card(card, case):
+    in_dim, width, hidden, out_dim, p, samples, rows = MC_CASES[case]
+    mw = _mc_model(card, in_dim, width, hidden, out_dim, p, samples).mc_weights()
+    assert mw is not None
+    x = torch.as_tensor(np.random.default_rng(6).normal(size=(rows, in_dim)),
+                        dtype=torch.float32, device=card)
+    before = fused_mc_forward.launches
+    mean, std = fused_mc_forward(mw, x, samples, 1234567)
+    torch.cuda.synchronize()
+    assert fused_mc_forward.launches == before + 1
+    ref_mean, ref_std = fused_mc_forward_plain(mw, x, samples, 1234567)
+    torch.testing.assert_close(mean, ref_mean, **TOL_MEAN)
+    torch.testing.assert_close(std, ref_std, **TOL_STD)
+    if p == 0.0:
+        assert float(std.abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(ANCHORED_CASES))
+def test_anchored_kernel_matches_plain_on_card(card, case):
+    in_dim, width, hidden, out_dim, anchors, rows = ANCHORED_CASES[case]
+    m = _anchored_model(card, DeltaUQMLPModelBuilder, in_dim, width, hidden,
+                        out_dim, anchors)
+    aw = m.anchored_weights()
+    assert aw is not None
+    x = torch.as_tensor(np.random.default_rng(6).normal(size=(rows, in_dim)),
+                        dtype=torch.float32, device=card)
+    before = fused_anchored_stats.launches
+    mean, std = fused_anchored_stats(aw, x, m.anchors)
+    torch.cuda.synchronize()
+    assert fused_anchored_stats.launches == before + 1
+    ref_mean, ref_std = fused_anchored_plain(aw, x, anchor_rows(aw, m.anchors))
+    torch.testing.assert_close(mean, ref_mean, **TOL_MEAN)
+    torch.testing.assert_close(std, ref_std, **TOL_STD)
+
+
+@pytest.mark.cuda
+def test_predictor_on_card_runs_the_mc_kernel(card):
+    m = _mc_model(card, 5, 128, 6, 1, 0.1, 32)
+    x = np.random.default_rng(7).normal(size=(5000, 5)).astype(np.float32)
+    pred = Predictor(m, device=card, warmup=False)
+    before = fused_mc_forward.launches
+    mean, std = pred.predict(x)
+    assert fused_mc_forward.launches == before + 1          # one 16384 bucket
+    want = fused_mc_forward_plain(m.mc_weights(), torch.from_numpy(x).to(card),
+                                  32, m.call_seed(0))
+    torch.testing.assert_close(torch.from_numpy(mean), want[0].cpu(), **TOL_MEAN)
+    torch.testing.assert_close(torch.from_numpy(std), want[1].cpu(), **TOL_STD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('builder', [DeltaUQMLPModelBuilder, PAGERModelBuilder])
+def test_predictor_on_card_runs_the_anchored_kernel(card, builder):
+    m = _anchored_model(card, builder, 5, 128, 6, 1, 23)
+    x = np.random.default_rng(8).normal(size=(3000, 5)).astype(np.float32)
+    pred = Predictor(m, device=card, warmup=False)
+    before = fused_anchored_stats.launches
+    mean, ue = pred.predict(x)
+    assert fused_anchored_stats.launches == before + 1      # one 4096 bucket
+    xt = torch.from_numpy(x).to(card)
+    with torch.no_grad():
+        ref_mean, ref_ue = m.anchored_stats_modules(xt, m.anchors, 23)
+        if builder is PAGERModelBuilder:
+            p = m.prediction_matrix(xt, m.anchors)
+            score = (p - m.anchors_Y.reshape(1, -1)).abs().amax(1, keepdim=True)
+            ref_ue = torch.maximum(ref_ue, score)
+    torch.testing.assert_close(torch.from_numpy(mean), ref_mean.cpu(), **TOL_MEAN)
+    torch.testing.assert_close(torch.from_numpy(ue), ref_ue.cpu(), **TOL_STD)

@@ -87,14 +87,19 @@ def test_builder_and_loader_default_device_raise_without_card(
 
 
 def test_kernels_build_with_plain_nvcc():
+    headers = sorted(_build.CSRC.glob('*.cuh'))
     texts = [open(_build.__file__).read()] + \
-        [src.read_text() for src in _build.sources()]
-    assert [s.name for s in _build.sources()] == ['fused_ensemble.cu']
+        [src.read_text() for src in [*_build.sources(), *headers]]
+    assert [s.name for s in _build.sources()] == [
+        'fused_anchored.cu', 'fused_ensemble.cu', 'fused_mc_dropout.cu']
+    assert [h.name for h in headers] == ['fused_chain.cuh']
     for text in texts:
         for banned in ('cpp_extension', 'torch/extension.h', 'ninja'):
             assert banned not in text
     flags = ' '.join(_build.NVCC_FLAGS)
-    assert 'arch=compute_90a,code=sm_90a' in flags and '-shared' in flags
+    assert 'arch=compute_90a,code=sm_90a' in flags
+    link = ' '.join(_build.LINK_FLAGS)
+    assert 'arch=compute_90a,code=sm_90a' in link and '-shared' in link
     assert _build.BUILD_DIR == \
         __import__('pathlib').Path(REPO) / 'build' / 'nnueehcs_tpu_torch'
     assert os.path.dirname(nnueehcs_tpu_torch.__file__).startswith(REPO)

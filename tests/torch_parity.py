@@ -91,3 +91,38 @@ def assert_ue_close(got, want):
     ref_mean, ref_std = (np.asarray(w) for w in want)
     np.testing.assert_allclose(mean, ref_mean, **TOL_MEAN)
     np.testing.assert_allclose(std, ref_std, **TOL_STD)
+
+
+def jax_mc_dropout(layers, num_samples=8, p=0.2, seed=0):
+    """A seeded JAX MC-dropout model (Dropout before every hidden Linear)
+    with non-trivial BatchNorm state."""
+    from nnueehcs_tpu.model_builder import MCDropoutModelBuilder
+    m = MCDropoutModelBuilder(layers, {'num_samples': num_samples,
+                                       'dropout_percent': p}, seed=seed,
+                              train_config={'loss': 'l1_loss'}).build()
+    m.params = randomize_params(m.params, seed + 1)
+    m.state = randomize_state(m.state, seed + 2)
+    m.invalidate_cache()
+    return m
+
+
+def jax_anchored(layers, kind='delta_uq', num_anchors=7, stored=None,
+                 estimator='std', seed=0, **descr_extra):
+    """A seeded JAX Δ-UQ or PAGER model with ``stored`` anchors (default
+    ``num_anchors``) drawn from numpy, and anchor targets for PAGER."""
+    from nnueehcs_tpu.model_builder import (DeltaUQMLPModelBuilder,
+                                            PAGERModelBuilder)
+    builder = DeltaUQMLPModelBuilder if kind == 'delta_uq' else \
+        PAGERModelBuilder
+    m = builder(layers, {'estimator': estimator, 'num_anchors': num_anchors,
+                         **descr_extra}, seed=seed,
+                train_config={'loss': 'l1_loss'}).build()
+    m.params = randomize_params(m.params, seed + 1)
+    m.state = randomize_state(m.state, seed + 2)
+    rng = np.random.default_rng(seed + 3)
+    in_dim = layers[0]['Linear']['args'][0]
+    m.anchors = rng.normal(size=(stored or num_anchors, in_dim)).astype(np.float32)
+    if kind == 'pager':
+        m.anchors_Y = rng.normal(size=(stored or num_anchors, 1)).astype(np.float32)
+    m.invalidate_cache()
+    return m
