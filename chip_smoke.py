@@ -7,13 +7,16 @@ Run from the repository root on a machine with a CUDA card:
 
 It builds the port's CUDA kernels from the sources in the checkout (one
 nvcc per source, all at once), holds each kernel against its plain PyTorch
-version, serves requests through the port's ``Predictor`` for four models
-at the flagship width (5 inputs, 7 Linear layers 128 wide, weights drawn
-from ``--seed``): the 8-member ensemble, MC dropout (128 samples, p = 0.1),
-Δ-UQ and PAGER (229 anchors). It checks every answer against the unfused
-computation on the card, checks that each model's requests launched its
-kernel exactly as often as they should, and times each kernel beside its
-plain version, a PyTorch GEMM yardstick and its roofline bound. It prints
+version, serves requests through the port's ``Predictor`` for seven models
+at the flagship width (5 inputs, 7 Linear layers 128 wide, weights and
+corpora drawn from ``--seed``): the 8-member ensemble, MC dropout (128
+samples, p = 0.1), Δ-UQ and PAGER (229 anchors), KDE and kNN-KDE (k = 220)
+on a 16,384 x 5 corpus, and MVE. It checks every answer against the
+unfused computation on the card, checks that each model's requests
+launched its kernel exactly as often as they should (and no kernel for
+kNN-KDE and MVE, which have none), and times each kernel beside its plain
+version, a PyTorch yardstick and its roofline bound, and the kernel-free
+kNN-KDE and MVE paths end to end. It prints
 one JSON line per phase, then the card's ``nvidia-smi`` name and power
 limit, then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -30,10 +33,14 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from nnueehcs_tpu_torch.model_builder import (DeltaUQMLPModelBuilder,
                                               EnsembleModelBuilder,
+                                              KDEModelBuilder,
+                                              KNNKDEModelBuilder,
                                               MCDropoutModelBuilder,
+                                              MVEModelBuilder,
                                               PAGERModelBuilder)
 from nnueehcs_tpu_torch.ops import _build
 from nnueehcs_tpu_torch.ops.fused_anchored import (anchor_rows,
@@ -44,6 +51,9 @@ from nnueehcs_tpu_torch.ops.fused_ensemble import (fused_forward_plain,
                                                    prepare_fused_weights)
 from nnueehcs_tpu_torch.ops.fused_mc_dropout import (fused_mc_forward,
                                                      fused_mc_forward_plain)
+from nnueehcs_tpu_torch.ops.kde import (_log_norm_const, bandwidth_value,
+                                        centre, kde_logpdf, kde_logpdf_plain,
+                                        knn_kde_density)
 from nnueehcs_tpu_torch.serving import DEFAULT_BUCKETS, Predictor
 from nnueehcs_tpu_torch.utils.timing import timed_passes
 
@@ -67,6 +77,17 @@ WIDE_INPUT_MC = WIDE_INPUT[:3] + FLAGSHIP[3:6] + WIDE_INPUT[3:]
 # Δ-UQ (and PAGER) with 229 anchors and anchored_batch_size 229
 MC_SAMPLES, MC_P = 128, 0.1
 ANCHORS = 229
+# the bench's KDE workload (bench.py:189-193): a 16,384 x 5 fit corpus and
+# rtol 1000; kNN-KDE with k = 220, the median k of the 83 committed kNN
+# bundles; MVE with min_variance 1e-7 (bench.py:187)
+KDE_FIT_ROWS, KDE_RTOL, KNN_K, MVE_MIN_VARIANCE = 16_384, 1000, 220, 1e-7
+# (queries, references, features) of the other KDE kernel cases: the
+# committed minibude corpus shape with a ragged query count, and a wide d
+# whose sizes are multiples of no tile
+MINIBUDE_KDE = (100_003, 45_824, 6)
+WIDE_KDE = (10_000, 3_001, 37)
+OFFSET_KDE = (20_000, KDE_FIT_ROWS, IN_DIM)
+KDE_LIBRARY_CHUNK = 4096             # references per yardstick chunk
 
 DEVICE = 'cuda'
 ROWS = 262_144                       # the bench's evaluation batch
@@ -81,6 +102,12 @@ WARMUP, TRIALS = 5, 10               # the bench's timing protocol
 # kernel vs plain: the tolerances of tests/test_fused_ensemble.py
 TOL_MEAN = {'rtol': 1e-5, 'atol': 1e-5}
 TOL_STD = {'rtol': 1e-3, 'atol': 1e-5}
+# KDE log density: float32 round-off in the decomposition |x|^2 + |y|^2 -
+# 2 x.y, scaled by gamma (tests/test_torch_kde.py); a density score
+# -exp(log p) carries it through exp: 1e-4 + 1e-5 |log p| relative, under
+# 2e-4 for |log p| <= 10
+TOL_LOGPDF = {'rtol': 1e-5, 'atol': 1e-4}
+TOL_SCORE = {'rtol': 2e-4, 'atol': 1e-30}
 KERNELS = [{
     'name': 'fused_ensemble',
     'route': 'cuda',
@@ -96,10 +123,19 @@ KERNELS = [{
     'route': 'cuda',
     'source': 'nnueehcs_tpu_torch/ops/csrc/fused_anchored.cu',
     'replaces': 'nnueehcs_tpu/ops/fused_anchored.py:141',
+}, {
+    'name': 'kde',
+    'route': 'cuda',
+    'source': 'nnueehcs_tpu_torch/ops/csrc/kde.cu',
+    'replaces': 'nnueehcs_tpu/ops/kde.py:117',
 }]
 WRAPPERS = {'fused_ensemble': fused_forward_prefolded,
             'fused_mc_dropout': fused_mc_forward,
-            'fused_anchored': fused_anchored_stats}
+            'fused_anchored': fused_anchored_stats,
+            'kde': kde_logpdf}
+# MUFU ex2 results per SM per clock (CUDA programming guide, arithmetic
+# instruction throughput, compute capability 9.0)
+EX2_PER_SM_PER_CLOCK = 16
 # (name substring, fp32 non-tensor FLOP/s, memory bytes/s), NVIDIA data
 # sheets at full power; the first match wins
 PEAKS = [('H100 PCIe', 51.2e12, 2.0e12), ('H100 NVL', 60e12, 3.9e12),
@@ -183,6 +219,54 @@ def build_anchored(builder, seed, estimator='std'):
             model.anchors_Y = model.net(
                 torch.cat([a, a - a], dim=1))[:, :1].cpu().numpy()
     return model
+
+
+def build_density(builder, descr, seed, corpus=None):
+    """A KDE, kNN-KDE or MVE model at the flagship width, fitted on
+    ``corpus`` (numpy) where it has one."""
+    model = builder(FLAGSHIP, descr, seed=seed, device=DEVICE).build()
+    randomize_bn(model, torch.Generator().manual_seed(seed + 1))
+    if corpus is not None:
+        model.fit_kde(corpus)
+    return model
+
+
+def reference_density(model, x):
+    """The prediction through the modules and the density score from the
+    plain KDE (or the kNN top-k, which has no kernel), or MVE's sigma."""
+    with torch.no_grad():
+        out = model.net(x)
+    if model.uq_method == 'kde':
+        return out, -torch.exp(kde_logpdf_plain(*centre(x, model.kde.data),
+                                                model.kde.bandwidth_))
+    if model.uq_method == 'knn_kde':
+        return out, -knn_kde_density(x, model._fit_data,
+                                     model._bandwidth_value, model.k)
+    return out[:, :1], torch.sqrt(F.softplus(out[:, 1:2])
+                                  + model.min_variance)
+
+
+def kde_library(x, data, h):
+    """Yardstick only: the KDE log density as a chain of PyTorch calls per
+    4,096-reference chunk (``addmm`` for the cross term, TF32 off; clamp
+    and scale; ``logsumexp``; a running ``logaddexp``), queries in tiles
+    that keep each (rows, chunk) buffer near 1 GiB."""
+    xc, dc = centre(x, data)
+    n, d = dc.shape
+    gamma = 1.0 / (2.0 * h * h)
+    x2, y2 = (xc * xc).sum(1, keepdim=True), (dc * dc).sum(1)
+    rows = (1 << 28) // KDE_LIBRARY_CHUNK
+    out = []
+    for i in range(0, xc.shape[0], rows):
+        lse = None
+        for j in range(0, n, KDE_LIBRARY_CHUNK):
+            y = dc[j:j + KDE_LIBRARY_CHUNK]
+            sq = torch.addmm(x2[i:i + rows] + y2[j:j + KDE_LIBRARY_CHUNK],
+                             xc[i:i + rows], y.T, alpha=-2.0)
+            part = torch.logsumexp(sq.clamp_(min=0.0).mul_(-gamma), dim=1)
+            lse = part if lse is None else torch.logaddexp(lse, part)
+        out.append(lse)
+    return torch.cat(out) + _log_norm_const(n, d, h)
 
 
 def reference_ue(model, x):
@@ -271,10 +355,12 @@ def anchored_library(aw, x, anchors):
     return c + m1, torch.sqrt(torch.clamp(s2 - n * m1 * m1, min=0) / (n - 1))
 
 
-def bound(flops, moved, peak_flops, peak_bytes):
-    """(bound_ms, bound_by): the larger of operations over the fp32 peak and
-    bytes over the memory rate."""
-    t_ops, t_bytes = flops / peak_flops, moved / peak_bytes
+def bound(flops, moved, peak_flops, peak_bytes, exps=0, ex2_rate=1.0):
+    """(bound_ms, bound_by): the largest of fp32 operations over the fp32
+    peak, ``exps`` MUFU ex2 results over the ex2 rate, and bytes over the
+    memory rate."""
+    t_ops = max(flops / peak_flops, exps / ex2_rate)
+    t_bytes = moved / peak_bytes
     return 1e3 * max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes \
         else 'bytes'
 
@@ -288,13 +374,14 @@ def read_launches():
     return {name: w.launches for name, w in WRAPPERS.items()}
 
 
-def serve(name, model, requests, rng, reference, kernel):
+def serve(name, model, requests, rng, reference, kernel, tol_ue=TOL_STD):
     """Drive ``Predictor`` on ``model``: warm-up, then one request of each
     size. Launch counts are set to 0 just before and read just after;
     ``kernel`` must have launched once per bucket in the warm-up and once
-    per chunk of each request, and no other kernel at all. ``reference(x,
-    call_index)`` gives the unfused answer on the card for a request that
-    was the model's ``call_index``-th call."""
+    per chunk of each request, and no other kernel at all (with ``kernel``
+    None, no kernel at all). ``reference(x, call_index)`` gives the unfused
+    answer on the card for a request that was the model's
+    ``call_index``-th call."""
     x_requests = [rng.normal(size=(n, IN_DIM)).astype(np.float32)
                   for n in requests]
     reset_launches()
@@ -309,10 +396,11 @@ def serve(name, model, requests, rng, reference, kernel):
         latencies.append(time.perf_counter() - start)
     launches = read_launches()
     expected = {k: 0 for k in WRAPPERS}
-    # warm-up drives each bucket once; a request runs once per chunk of up
-    # to the largest bucket
-    expected[kernel] = len(DEFAULT_BUCKETS) + sum(
-        -(-n // DEFAULT_BUCKETS[-1]) for n in requests)
+    if kernel is not None:
+        # warm-up drives each bucket once; a request runs once per chunk of
+        # up to the largest bucket
+        expected[kernel] = len(DEFAULT_BUCKETS) + sum(
+            -(-n // DEFAULT_BUCKETS[-1]) for n in requests)
     check(launches == expected, f'{name}: launches {launches} on the serving '
                                 f'path, expected {expected}')
     errs = []
@@ -323,12 +411,12 @@ def serve(name, model, requests, rng, reference, kernel):
                                      torch.from_numpy(mean), ref_mean.cpu(),
                                      TOL_MEAN),
                      'ue': compare(f'{name} {len(x)}-row ue',
-                                   torch.from_numpy(ue), ref_ue.cpu(), TOL_STD)})
+                                   torch.from_numpy(ue), ref_ue.cpu(), tol_ue)})
     torch.cuda.synchronize()
     emit('serving', model=name, warmup_s=warmup_s, request_rows=list(requests),
-         request_s=latencies, launches=launches,
-         expected_launches=expected[kernel], max_abs_err_vs_unfused=errs)
-    return predictor, launches[kernel]
+         request_s=latencies, launches=launches, expected_launches=expected,
+         max_abs_err_vs_unfused=errs)
+    return predictor, launches[kernel] if kernel is not None else 0
 
 
 def event_ms(fn):
@@ -388,11 +476,17 @@ def main():
     smi = nvidia_smi('name,power.limit')
     peak_flops, peak_bytes = next(((f, b) for key, f, b in PEAKS if key in kind),
                                   (67e12, 3.35e12))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    max_sm_clock = nvidia_smi('clocks.max.sm')
+    clock_mhz = re.match(r'\s*(\d+)', max_sm_clock)
+    check(clock_mhz is not None, f'nvidia-smi gave no SM clock: {max_sm_clock}')
+    ex2_rate = EX2_PER_SM_PER_CLOCK * sms * int(clock_mhz.group(1)) * 1e6
     emit('device', kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
          fp32_peak_flops=peak_flops, peak_bytes_per_s=peak_bytes,
          peak_source=next((key for key, _, _ in PEAKS if key in kind),
-                          'not in table: H100 SXM assumed'))
+                          'not in table: H100 SXM assumed'),
+         sms=sms, max_sm_clock=max_sm_clock, ex2_per_s=ex2_rate)
 
     # 2. build
     info = _build.build_info()
@@ -475,6 +569,39 @@ def main():
                                                       anchor_rows(w, anchors)),
             square=case == 'estimator_var')
 
+    def kde_case(case, rows, refs, d, offset=0.0, far=False):
+        """Hold the KDE kernel against its plain version on one corpus and
+        query set from ``rng``; ``far`` moves the queries 50 bandwidths
+        past the corpus, where the log density must stay finite and the
+        score -exp(log p) be exactly 0."""
+        data = rng.normal(size=(refs, d)) + offset
+        h = bandwidth_value('silverman', refs, d)
+        x = rng.normal(size=(rows, d)) + offset
+        if far:
+            x[:, 0] += 2 * np.abs(data).max() + 50 * h
+        x, data = (torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+                   for a in (x, data))
+        got = kde_logpdf(x, data, h)
+        want = kde_logpdf_plain(*centre(x, data), h)
+        torch.cuda.synchronize()
+        err = compare(f'kde {case} log density', got, want, TOL_LOGPDF)
+        fields = {}
+        if far:
+            score = float(torch.exp(got).max())
+            check(score == 0.0, f'kde far_ood: score {score}, expected 0')
+            fields = {'max_score': score, 'max_log_density': float(got.max())}
+        if case == 'bench':
+            errors['kde'] = err
+        emit('kernel_vs_plain', kernel='kde', case=case, rows=rows,
+             references=refs, features=d, max_abs_err=err, tol=TOL_LOGPDF,
+             **fields)
+
+    kde_case('bench', ROWS, KDE_FIT_ROWS, IN_DIM)
+    kde_case('minibude', *MINIBUDE_KDE)
+    kde_case('offset_1e3', *OFFSET_KDE, offset=1e3)
+    kde_case('far_ood', *OFFSET_KDE, far=True)
+    kde_case(f'd{WIDE_KDE[2]}', *WIDE_KDE)
+
     # 4. the serving paths: builder -> Predictor -> model -> kernel, each
     # driven with every launch count at 0 just before and read just after
     predictor, ens_launches = serve(
@@ -499,13 +626,32 @@ def main():
     emit('serving', model='delta_uq_var', rows=300, max_abs_err_vs_unfused={
         'mean': compare('var mean', got[0], want[0], TOL_MEAN),
         'ue': compare('var ue', got[1], want[1], TOL_STD)})
+    corpus = rng.normal(size=(KDE_FIT_ROWS, IN_DIM)).astype(np.float32)
+    kde_model = build_density(KDEModelBuilder, {'rtol': KDE_RTOL}, args.seed,
+                              corpus)
+    check(kde_model.kde.data.device == kde_model.device,
+          'the KDE corpus is not on the model\'s device')
+    kde_predictor, kde_launches = serve(
+        'kde', kde_model, MODEL_REQUESTS, rng,
+        lambda x, _: reference_density(kde_model, x), 'kde', TOL_SCORE)
+    knn_model = build_density(KNNKDEModelBuilder, {'k': KNN_K}, args.seed,
+                              corpus)
+    knn_predictor, _ = serve(
+        'knn_kde', knn_model, MODEL_REQUESTS, rng,
+        lambda x, _: reference_density(knn_model, x), None, TOL_SCORE)
+    mve_model = build_density(MVEModelBuilder,
+                              {'min_variance': MVE_MIN_VARIANCE}, args.seed)
+    mve_predictor, _ = serve(
+        'mve', mve_model, MODEL_REQUESTS, rng,
+        lambda x, _: reference_density(mve_model, x), None, TOL_MEAN)
 
     # 5. timing at the bench's shapes
     kernels = []
 
     def record(index, launches, kernel_t, plain_t, flops, moved, library_ms,
-               **extra):
-        bound_ms, bound_by = bound(flops, moved, peak_flops, peak_bytes)
+               exps=0, **extra):
+        bound_ms, bound_by = bound(flops, moved, peak_flops, peak_bytes, exps,
+                                   ex2_rate)
         ms = kernel_t['median_ms']
         emit('timing', kernel=KERNELS[index]['name'], kernel_ms=kernel_t,
              plain=plain_t, flops=flops, bytes=moved, bound_ms=bound_ms,
@@ -574,6 +720,38 @@ def main():
            library_t['median_ms'], rows=ANCHORED_ROWS, anchors=ANCHORS,
            library_gemm_chain=library_t, predictor_e2e_median_s=e2e_s,
            predictor_e2e_samples_per_s=ANCHORED_ROWS / e2e_s)
+
+    data = kde_model.kde.data
+    h = kde_model.kde.bandwidth_
+    lib = kde_library(x, data, h)
+    compare('kde library log density', lib,
+            kde_logpdf_plain(*centre(x, data), h), TOL_LOGPDF)
+    kernel_t = event_ms(lambda: kde_logpdf(x, data, h))
+    plain_t = event_ms(lambda: kde_logpdf_plain(*centre(x, data), h))
+    library_t = event_ms(lambda: kde_library(x, data, h))
+    kernel_t2 = event_ms(lambda: kde_logpdf(x, data, h))
+    e2e_s = e2e_median_s(kde_predictor, ROWS)
+    pairs = ROWS * KDE_FIT_ROWS
+    record(3, kde_launches, kernel_t, plain_t, pairs * (2.0 * IN_DIM + 6),
+           4.0 * (x.numel() + data.numel() + ROWS), library_t['median_ms'],
+           exps=pairs, rows=ROWS, references=KDE_FIT_ROWS, kernel_again=kernel_t2,
+           fp32_ms=1e3 * pairs * (2.0 * IN_DIM + 6) / peak_flops,
+           ex2_ms=1e3 * pairs / ex2_rate, library_chain=library_t,
+           predictor_e2e_median_s=e2e_s,
+           predictor_e2e_samples_per_s=ROWS / e2e_s)
+
+    # the kernel-free paths: kNN-KDE's exact top-k and MVE's one pass
+    knn_t = event_ms(lambda: knn_kde_density(x, knn_model._fit_data,
+                                             knn_model._bandwidth_value,
+                                             KNN_K))
+    knn_e2e_s = e2e_median_s(knn_predictor, ROWS)
+    mve_e2e_s = e2e_median_s(mve_predictor, ROWS)
+    emit('timing_kernel_free', rows=ROWS, references=KDE_FIT_ROWS, k=KNN_K,
+         knn_kde_density=knn_t, knn_predictor_e2e_median_s=knn_e2e_s,
+         knn_predictor_e2e_samples_per_s=ROWS / knn_e2e_s,
+         mve_predictor_e2e_median_s=mve_e2e_s,
+         mve_predictor_e2e_samples_per_s=ROWS / mve_e2e_s,
+         clocks_power=nvidia_smi('clocks.sm,power.draw,temperature.gpu'))
 
     print(smi, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)

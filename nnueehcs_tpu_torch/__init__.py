@@ -2,11 +2,12 @@
 
 A second package beside the JAX one, ported slice by slice. It imports
 torch, numpy and the standard library only, never jax or nnueehcs_tpu. It
-serves trained bundles of four UQ methods: the architecture-list network
-builder, the MLP, ensemble, MC-dropout, Δ-UQ and PAGER wrappers and
-builders, ``model.pth`` bundles and the bucketed ``Predictor``. The fused
-UE passes are hand-written CUDA kernels for Hopper (``ops/csrc/*.cu``:
-ensemble, MC dropout, anchored), each beside its plain PyTorch version.
+serves trained bundles of every UQ method: the architecture-list network
+builder, the MLP, ensemble, MC-dropout, Δ-UQ, PAGER, KDE, kNN-KDE and MVE
+wrappers and builders, ``model.pth`` bundles and the bucketed
+``Predictor``. The fused UE passes and the KDE density are hand-written
+CUDA kernels for Hopper (``ops/csrc/*.cu``: ensemble, MC dropout,
+anchored, KDE), each beside its plain PyTorch version.
 Entry points take ``device`` (default ``'cuda'``) and never fall back to
 the CPU on their own.
 """

@@ -2,20 +2,25 @@
 
 The JAX package keeps a network's weights as two tuples with one entry per
 layer: ``params`` (``Linear``: ``{'w': (in, out), 'b': (out,)}``,
-``BatchNorm1d``: ``{'scale', 'bias'}``) and ``state`` (``BatchNorm1d``:
-``{'mean', 'var'}``), with a leading member axis on every array for an
-ensemble. ``model.pth`` bundles store exactly these, as numpy arrays.
+``BatchNorm1d`` and ``LayerNorm``: ``{'scale', 'bias'}``) and ``state``
+(``BatchNorm1d``: ``{'mean', 'var'}``), with a leading member axis on every
+array for an ensemble. ``model.pth`` bundles store exactly these, as numpy
+arrays.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .nn.layers import BatchNorm1d, Linear
+from .nn.layers import BatchNorm1d, LayerNorm, Linear
 
 # port attribute -> (pytree, key) in the JAX layout
-_BN_FIELDS = {'weight': ('params', 'scale'), 'bias': ('params', 'bias'),
-              'running_mean': ('state', 'mean'), 'running_var': ('state', 'var')}
+_LN_FIELDS = {'weight': ('params', 'scale'), 'bias': ('params', 'bias')}
+_NORM_FIELDS = {
+    BatchNorm1d: {**_LN_FIELDS, 'running_mean': ('state', 'mean'),
+                  'running_var': ('state', 'var')},
+    LayerNorm: _LN_FIELDS,
+}
 
 
 def _copy(dst: torch.Tensor, src, what: str):
@@ -39,8 +44,8 @@ def load_pytrees(net, params, state):
                                                 -1, -2), f'layer {i} w')
                 if layer.bias is not None:
                     _copy(layer.bias, params[i]['b'], f'layer {i} b')
-            elif isinstance(layer, BatchNorm1d):
-                for attr, (tree, key) in _BN_FIELDS.items():
+            elif type(layer) in _NORM_FIELDS:
+                for attr, (tree, key) in _NORM_FIELDS[type(layer)].items():
                     if getattr(layer, attr) is not None:
                         _copy(getattr(layer, attr), trees[tree][key],
                               f'layer {i} {key}')
@@ -56,9 +61,9 @@ def to_pytrees(net):
                 layer.weight.detach().cpu().numpy(), -1, -2))
             if layer.bias is not None:
                 p['b'] = layer.bias.detach().cpu().numpy()
-        elif isinstance(layer, BatchNorm1d):
+        elif type(layer) in _NORM_FIELDS:
             trees = {'params': p, 'state': s}
-            for attr, (tree, key) in _BN_FIELDS.items():
+            for attr, (tree, key) in _NORM_FIELDS[type(layer)].items():
                 t = getattr(layer, attr)
                 if t is not None:
                     trees[tree][key] = t.detach().cpu().numpy()

@@ -1,10 +1,12 @@
-"""UQ model wrappers ported so far (counterpart of
-``nnueehcs_tpu/models``)."""
+"""UQ model wrappers (counterpart of ``nnueehcs_tpu/models``): every class
+the JAX package's ``MODEL_CLASSES`` names."""
 from .base import WrappedModelBase, training_defaults
 from .delta_uq import DeltaUQMLP
 from .ensemble import EnsembleModel
+from .kde import KDEMLPModel, KNNKDEMLPModel
 from .mc_dropout import MCDropoutModel
 from .mlp import MLPModel
+from .mve import MVEMLPModel
 from .pager import PAGERMLP
 
 MODEL_CLASSES = {
@@ -13,12 +15,15 @@ MODEL_CLASSES = {
     'MCDropoutModel': MCDropoutModel,
     'DeltaUQMLP': DeltaUQMLP,
     'PAGERMLP': PAGERMLP,
+    'KDEMLPModel': KDEMLPModel,
+    'KNNKDEMLPModel': KNNKDEMLPModel,
+    'MVEMLPModel': MVEMLPModel,
 }
 
 
 def model_class(name: str):
-    """The wrapper class a bundle names; the JAX package's other classes
-    are not ported yet."""
+    """The wrapper class a bundle names; a name outside
+    ``MODEL_CLASSES`` raises ``NotImplementedError``."""
     try:
         return MODEL_CLASSES[name]
     except KeyError:
@@ -27,5 +32,5 @@ def model_class(name: str):
 
 
 __all__ = ['WrappedModelBase', 'MLPModel', 'EnsembleModel', 'MCDropoutModel',
-           'DeltaUQMLP', 'PAGERMLP', 'MODEL_CLASSES', 'model_class',
-           'training_defaults']
+           'DeltaUQMLP', 'PAGERMLP', 'KDEMLPModel', 'KNNKDEMLPModel',
+           'MVEMLPModel', 'MODEL_CLASSES', 'model_class', 'training_defaults']

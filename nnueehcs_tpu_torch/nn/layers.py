@@ -14,13 +14,17 @@ JAX package stores ``w`` as ``(in, out)``; ``BatchNorm1d`` keeps
 :mod:`nnueehcs_tpu_torch.convert` maps between the two.
 
 Only evaluation is ported: BatchNorm uses its running statistics and
-Dropout is the identity, and a module in training mode raises.
+Dropout is the identity, and a module in training mode raises. The
+elementwise activations and ``LayerNorm`` follow the JAX package's
+definitions (``LayerNorm`` normalises the last axis with the biased
+variance and keeps ``weight``/``bias`` for the JAX ``scale``/``bias``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -118,10 +122,129 @@ class Dropout(nn.Module):
         return x
 
 
+class Tanh(nn.Module):
+    def __init__(self, members=None):
+        super().__init__()
+
+    def forward(self, x):
+        return torch.tanh(x)
+
+
+class Sigmoid(nn.Module):
+    def __init__(self, members=None):
+        super().__init__()
+
+    def forward(self, x):
+        return torch.sigmoid(x)
+
+
+class GELU(nn.Module):
+    """Exact (erf) GELU for ``approximate='none'``, the tanh form for any
+    other value, as the JAX package reads the flag."""
+
+    def __init__(self, approximate='none', members=None):
+        super().__init__()
+        self.approximate = approximate
+
+    def forward(self, x):
+        return F.gelu(x, approximate='none' if self.approximate == 'none'
+                      else 'tanh')
+
+
+class SiLU(nn.Module):
+    def __init__(self, inplace=False, members=None):
+        super().__init__()
+        self.inplace = bool(inplace)   # accepted for schema parity, ignored
+
+    def forward(self, x):
+        return F.silu(x)
+
+
+class ELU(nn.Module):
+    def __init__(self, alpha=1.0, inplace=False, members=None):
+        super().__init__()
+        self.alpha = float(alpha)
+        self.inplace = bool(inplace)
+
+    def forward(self, x):
+        return F.elu(x, alpha=self.alpha)
+
+
+class LeakyReLU(nn.Module):
+    def __init__(self, negative_slope=0.01, inplace=False, members=None):
+        super().__init__()
+        self.negative_slope = float(negative_slope)
+        self.inplace = bool(inplace)
+
+    def forward(self, x):
+        return F.leaky_relu(x, negative_slope=self.negative_slope)
+
+
+class Softplus(nn.Module):
+    """``softplus(beta x) / beta``, and ``x`` itself where ``beta x`` exceeds
+    ``threshold``."""
+
+    def __init__(self, beta=1.0, threshold=20.0, members=None):
+        super().__init__()
+        self.beta = float(beta)
+        self.threshold = float(threshold)
+
+    def forward(self, x):
+        return F.softplus(x, beta=self.beta, threshold=self.threshold)
+
+
+class Identity(nn.Module):
+    def __init__(self, members=None):
+        super().__init__()
+
+    def forward(self, x):
+        return x
+
+
+class LayerNorm(nn.Module):
+    """``(x - mean) / sqrt(var + eps) * weight + bias`` over the last axis
+    (biased variance), with ``weight``/``bias`` of ``normalized_shape`` (and
+    a leading member axis with ``members``), as the JAX ``LayerNorm``."""
+
+    def __init__(self, normalized_shape, eps=1e-5, members=None):
+        super().__init__()
+        shape = (int(normalized_shape),) if isinstance(normalized_shape, int) \
+            else tuple(int(v) for v in normalized_shape)
+        self.normalized_shape = shape
+        self.eps = float(eps)
+        self.members = members
+        self.weight = nn.Parameter(torch.ones(_lead(members) + shape))
+        self.bias = nn.Parameter(torch.zeros(_lead(members) + shape))
+
+    def reset_parameters(self, generator: torch.Generator):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x):
+        mean = x.mean(-1, keepdim=True)
+        var = x.var(-1, keepdim=True, correction=0)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        w, b = self.weight, self.bias
+        if self.members is not None:   # (M, *shape) -> (M, 1, ..., *shape)
+            lead = (w.shape[0],) + (1,) * (y.dim() - w.dim())
+            w, b = w.reshape(lead + w.shape[1:]), b.reshape(lead + b.shape[1:])
+        return y * w + b
+
+
 # Names intentionally match torch.nn class names, as in the JAX registry.
 LAYER_REGISTRY = {
     'Linear': Linear,
     'BatchNorm1d': BatchNorm1d,
     'ReLU': ReLU,
     'Dropout': Dropout,
+    'Tanh': Tanh,
+    'Sigmoid': Sigmoid,
+    'GELU': GELU,
+    'SiLU': SiLU,
+    'ELU': ELU,
+    'LeakyReLU': LeakyReLU,
+    'Softplus': Softplus,
+    'Identity': Identity,
+    'LayerNorm': LayerNorm,
 }

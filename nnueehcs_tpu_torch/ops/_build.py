@@ -46,6 +46,10 @@ SIGNATURES = {
         ctypes.c_int,
         [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P,
          ctypes.c_int, ctypes.c_int, _P, _P, _P]),
+    'nnueehcs_kde_logpdf_f32': (
+        ctypes.c_int,
+        [_P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int,
+         ctypes.c_double, _P, _P]),
 }
 
 

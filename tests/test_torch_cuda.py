@@ -1,6 +1,6 @@
-"""The port's CUDA kernels on a card (the fused ensemble, MC-dropout and
-anchored kernels), each held against its plain PyTorch version on the same
-inputs, and the serving path of each model on the card. Every test here is
+"""The port's CUDA kernels on a card (the fused ensemble, MC-dropout,
+anchored and KDE kernels), each held against its plain PyTorch version on
+the same inputs, and the serving path of each model on the card. Every test here is
 marked ``cuda`` and skips without a card. The file imports neither JAX nor
 the JAX package, so it runs on a CUDA-only machine (with ``--noconftest``,
 since tests/conftest.py imports JAX):
@@ -10,13 +10,16 @@ since tests/conftest.py imports JAX):
 Tolerances: mean 1e-5 absolute and relative; std 1e-3 relative, 1e-5
 absolute (fp32 sums taken in another order than cuBLAS takes them). The
 MC-dropout kernel and its plain version draw the same hash masks for the
-same seed, so they are compared with the same tolerances."""
+same seed, so they are compared with the same tolerances. KDE log density:
+1e-4 absolute plus 1e-5 relative (float32 round-off in the distance
+decomposition, scaled by gamma; tests/test_torch_kde.py)."""
 import numpy as np
 import pytest
 import torch
 
 from nnueehcs_tpu_torch.model_builder import (DeltaUQMLPModelBuilder,
                                               EnsembleModelBuilder,
+                                              KDEModelBuilder,
                                               MCDropoutModelBuilder,
                                               PAGERModelBuilder)
 from nnueehcs_tpu_torch.ops.fused_anchored import (anchor_rows,
@@ -27,6 +30,8 @@ from nnueehcs_tpu_torch.ops.fused_ensemble import (fused_forward_plain,
                                                    prepare_fused_weights)
 from nnueehcs_tpu_torch.ops.fused_mc_dropout import (fused_mc_forward,
                                                      fused_mc_forward_plain)
+from nnueehcs_tpu_torch.ops.kde import (bandwidth_value, centre, kde_logpdf,
+                                        kde_logpdf_plain)
 from nnueehcs_tpu_torch.serving import Predictor
 
 TOL_MEAN = {'rtol': 1e-5, 'atol': 1e-5}
@@ -252,3 +257,73 @@ def test_predictor_on_card_runs_the_anchored_kernel(card, builder):
             ref_ue = torch.maximum(ref_ue, score)
     torch.testing.assert_close(torch.from_numpy(mean), ref_mean.cpu(), **TOL_MEAN)
     torch.testing.assert_close(torch.from_numpy(ue), ref_ue.cpu(), **TOL_STD)
+
+
+KDE_CASES = {
+    # name: (queries, references, d, offset, far): far puts the queries 50
+    # bandwidths away from the corpus
+    'bench_d5': (65_536, 16_384, 5, 0.0, False),
+    'minibude_d6_ragged': (10_007, 45_824, 6, 0.0, False),
+    'offset_1e3': (4096, 4096, 5, 1e3, False),
+    'far_ood': (1000, 4096, 5, 0.0, True),
+    'd37': (1000, 3001, 37, 0.0, False),
+    'd1_one_reference': (333, 1, 1, 0.0, False),
+    'd8': (777, 1025, 8, 0.0, False),
+    'd9_one_query': (1, 300, 9, 0.0, False),
+}
+TOL_LOGPDF = {'rtol': 1e-5, 'atol': 1e-4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(KDE_CASES))
+def test_kde_kernel_matches_plain_on_card(card, case):
+    b, n, d, offset, far = KDE_CASES[case]
+    rng = np.random.default_rng(11)
+    data = rng.normal(size=(n, d)) + offset
+    h = bandwidth_value('silverman', n, d)
+    x = rng.normal(size=(b, d)) + offset
+    if far:
+        x[:, 0] += 2 * np.abs(data).max() + 50 * h
+    x, data = (torch.as_tensor(a, dtype=torch.float32, device=card)
+               for a in (x, data))
+    before = kde_logpdf.launches
+    got = kde_logpdf(x, data, h)
+    torch.cuda.synchronize()
+    assert kde_logpdf.launches == before + 1
+    want = kde_logpdf_plain(*centre(x, data), h)
+    assert got.shape == (b,) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, **TOL_LOGPDF)
+    if far:
+        assert float(torch.exp(got).max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_predictor_on_card_runs_the_kde_kernel(card):
+    m = _randomize_bn(KDEModelBuilder(_arch(5, 128, 6, 1), {'rtol': 1000},
+                                      seed=5, device=card).build())
+    rng = np.random.default_rng(12)
+    m.fit_kde(rng.normal(size=(16_384, 5)).astype(np.float32))
+    assert m.kde.data.device.type == 'cuda'
+    x = rng.normal(size=(5000, 5)).astype(np.float32)
+    pred = Predictor(m, device=card, warmup=False)
+    before = kde_logpdf.launches
+    mean, ue = pred.predict(x)
+    assert kde_logpdf.launches == before + 1                # one 16384 bucket
+    xt = torch.from_numpy(x).to(card)
+    with torch.no_grad():
+        ref_mean = m.net(xt)
+    ref_ue = -torch.exp(kde_logpdf_plain(*centre(xt, m.kde.data),
+                                         m.kde.bandwidth_))
+    assert ue.shape == (5000,)
+    torch.testing.assert_close(torch.from_numpy(mean), ref_mean.cpu(),
+                               **TOL_MEAN)
+    torch.testing.assert_close(torch.from_numpy(ue), ref_ue.cpu(),
+                               rtol=1e-4, atol=1e-30)
+
+
+@pytest.mark.cuda
+def test_kde_kernel_refuses_non_f32_on_card(card):
+    data = torch.zeros(10, 5, device=card)
+    for dtype in (torch.float64, torch.bfloat16, torch.float16):
+        with pytest.raises(TypeError):
+            kde_logpdf(torch.zeros(4, 5, dtype=dtype, device=card), data, 0.5)

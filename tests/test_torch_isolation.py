@@ -91,7 +91,8 @@ def test_kernels_build_with_plain_nvcc():
     texts = [open(_build.__file__).read()] + \
         [src.read_text() for src in [*_build.sources(), *headers]]
     assert [s.name for s in _build.sources()] == [
-        'fused_anchored.cu', 'fused_ensemble.cu', 'fused_mc_dropout.cu']
+        'fused_anchored.cu', 'fused_ensemble.cu', 'fused_mc_dropout.cu',
+        'kde.cu']
     assert [h.name for h in headers] == ['fused_chain.cuh']
     for text in texts:
         for banned in ('cpp_extension', 'torch/extension.h', 'ninja'):

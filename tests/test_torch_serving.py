@@ -110,12 +110,14 @@ def test_mlp_bundle_matches_jax(tmp_path):
 
 
 def test_unported_model_class_is_named(jax_model, tmp_path):
-    config = dict(jax_model.config_dict(), **{'class': 'KDEMLPModel'})
+    # every class of the JAX package is ported; a bundle naming any other
+    # class still raises with its name
+    config = dict(jax_model.config_dict(), **{'class': 'EvidentialMLPModel'})
     path = str(tmp_path / 'model.pth')
     with open(path, 'wb') as f:
         pickle.dump({'format': 'nnueehcs_tpu-ckpt-v1', 'config': config,
                      'arrays': jax_model.arrays_dict()}, f)
-    with pytest.raises(NotImplementedError, match='KDEMLPModel'):
+    with pytest.raises(NotImplementedError, match='EvidentialMLPModel'):
         load_model(path, device='cpu')
 
 
