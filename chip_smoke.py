@@ -16,7 +16,14 @@ unfused computation on the card, checks that each model's requests
 launched its kernel exactly as often as they should (and no kernel for
 kNN-KDE and MVE, which have none), and times each kernel beside its plain
 version, a PyTorch yardstick and its roofline bound, and the kernel-free
-kNN-KDE and MVE paths end to end. It prints
+kNN-KDE and MVE paths end to end. It then trains: the training kernel
+against its plain version at the flagship shape (four loss and model
+cases), ``Trainer.fit`` of the flagship ensemble for 3 epochs of 1,000
+steps (``examples/bo_driven/config.yaml``: batch 128, lr 5e-5, clip 5,
+l1, joint mean) on 160,000 rows drawn from ``--seed``, whose saved bundle
+must reload, serve and reproduce its logged validation loss, one epoch each
+of MVE and MC dropout, and the kernel's epoch time beside its plain
+version, a PyTorch yardstick and its bound. It prints
 one JSON line per phase, then the card's ``nvidia-smi`` name and power
 limit, then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -27,9 +34,13 @@ from __future__ import annotations
 import argparse
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
+
+import csv
+import os
 
 import numpy as np
 import torch
@@ -42,7 +53,9 @@ from nnueehcs_tpu_torch.model_builder import (DeltaUQMLPModelBuilder,
                                               MCDropoutModelBuilder,
                                               MVEModelBuilder,
                                               PAGERModelBuilder)
+from nnueehcs_tpu_torch.convert import tensor_trees
 from nnueehcs_tpu_torch.ops import _build
+from nnueehcs_tpu_torch.ops import fused_train as ft
 from nnueehcs_tpu_torch.ops.fused_anchored import (anchor_rows,
                                                    fused_anchored_plain,
                                                    fused_anchored_stats)
@@ -55,6 +68,9 @@ from nnueehcs_tpu_torch.ops.kde import (_log_norm_const, bandwidth_value,
                                         centre, kde_logpdf, kde_logpdf_plain,
                                         knn_kde_density)
 from nnueehcs_tpu_torch.serving import DEFAULT_BUCKETS, Predictor
+from nnueehcs_tpu_torch.training import (ArrayDataset, DataLoader,
+                                         EarlyStopping, ModelSavingCallback,
+                                         Trainer, load_model)
 from nnueehcs_tpu_torch.utils.timing import timed_passes
 
 # flagship surrogate (bench.py): 8 members, 5 inputs, 6 x [Linear 128 ->
@@ -108,6 +124,29 @@ TOL_STD = {'rtol': 1e-3, 'atol': 1e-5}
 # 2e-4 for |log p| <= 10
 TOL_LOGPDF = {'rtol': 1e-5, 'atol': 1e-4}
 TOL_SCORE = {'rtol': 2e-4, 'atol': 1e-30}
+# training: the flagship trial (examples/bo_driven/config.yaml) on
+# 160,000 rows split 128,000 / 32,000, 3 epochs of 1,000 steps of 128 rows
+TRAIN_ROWS, TRAIN_SPLIT, TRAIN_BATCH = 160_000, 128_000, 128
+TRAIN_CONFIG = {'max_epochs': 3, 'limit_train_batches': 1000,
+                'limit_val_batches': 100, 'log_every_n_steps': 5,
+                'gradient_clip_val': 5}
+TRAIN_MODEL_CONFIG = {'loss': 'l1_loss', 'learning_rate': 5e-5,
+                      'weight_decay': 0, 'batch_size': TRAIN_BATCH}
+TRAIN_DIR = os.path.join('build', 'chip_smoke_train')
+TRAIN_CHECK_STEPS, TRAIN_STEP0 = 8, 5    # kernel vs plain: steps, Adam count
+STEPWISE_STEPS = 64                      # the as-built case, one step a call
+# kernel fit vs per-step fit: 100 steps, the first 20 held to TOL_CROSS.
+# Two float32 trajectories part exponentially (Adam from zero moments and
+# ReLU flips amplify round-off): ~1e-6 apart at step 10, ~1e-3 by step
+# 100, on the card and between the CPU's own two paths alike.
+CROSS_STEPS, CROSS_CHECKED = 100, 20
+TOL_CROSS = {'rtol': 0.0, 'atol': 1e-4}
+EPOCH_STEPS = 1000                       # a flagship epoch
+PLAIN_TRAIN_STEPS = 100                  # the plain epoch is timed on 100
+# kernel vs plain (tests/test_torch_fused_train.py's tolerances, tighter
+# than tests/test_fused_train.py:97-115): absolute
+TOL_TRAIN = {'theta': 1e-5, 'm': 1e-6, 'v': 1e-6, 'sigma': 1e-5,
+             'losses': 5e-6}
 KERNELS = [{
     'name': 'fused_ensemble',
     'route': 'cuda',
@@ -128,11 +167,17 @@ KERNELS = [{
     'route': 'cuda',
     'source': 'nnueehcs_tpu_torch/ops/csrc/kde.cu',
     'replaces': 'nnueehcs_tpu/ops/kde.py:117',
+}, {
+    'name': 'fused_train',
+    'route': 'cuda',
+    'source': 'nnueehcs_tpu_torch/ops/csrc/fused_train.cu',
+    'replaces': 'nnueehcs_tpu/ops/fused_train.py:386',
 }]
 WRAPPERS = {'fused_ensemble': fused_forward_prefolded,
             'fused_mc_dropout': fused_mc_forward,
             'fused_anchored': fused_anchored_stats,
-            'kde': kde_logpdf}
+            'kde': kde_logpdf,
+            'fused_train': ft.fused_epoch}
 # MUFU ex2 results per SM per clock (CUDA programming guide, arithmetic
 # instruction throughput, compute capability 9.0)
 EX2_PER_SM_PER_CLOCK = 16
@@ -419,13 +464,13 @@ def serve(name, model, requests, rng, reference, kernel, tol_ue=TOL_STD):
     return predictor, launches[kernel] if kernel is not None else 0
 
 
-def event_ms(fn):
-    """Median and spread of ``TRIALS`` passes after ``WARMUP``, each pass
+def event_ms(fn, warmup=WARMUP, trials=TRIALS):
+    """Median and spread of ``trials`` passes after ``warmup``, each pass
     bracketed by CUDA events."""
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         fn()
     pairs = [(torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True)) for _ in range(TRIALS)]
+              torch.cuda.Event(enable_timing=True)) for _ in range(trials)]
     for start, end in pairs:
         start.record()
         fn()
@@ -456,6 +501,218 @@ def ptxas_report(log):
                          spill_store_bytes=int(m.group(2)),
                          spill_load_bytes=int(m.group(3)))
     return {k: v for k, v in report.items() if 'registers' in v}
+
+
+def smooth_target(x):
+    """The training target: a smooth function of the 5 inputs."""
+    return (np.sin(x[:, :1]) + 0.5 * x[:, 1:2] * x[:, 2:3]
+            + 0.1 * x[:, 3:4] ** 2 - 0.3 * x[:, 4:5]).astype(np.float32)
+
+
+def separate_relu(model, generator):
+    """BatchNorm shifts of +3 or -3 per column (scales in [0.5, 1.5]): every
+    pre-ReLU value then sits several units from 0, so the kernel and its
+    plain version take the same ReLU branch everywhere and a whole epoch
+    can be held to float32 round-off. A value within rounding of 0 may go
+    either way in two implementations that sum in different orders; such a
+    flip changes that member's gradient by far more than round-off
+    (``stepwise_vs_plain`` shows it on networks as built). Half the columns
+    are masked off, so the backward's ReLU masks stay exercised."""
+    with torch.no_grad():
+        for layer in model.net.layers:
+            if hasattr(layer, 'running_var'):
+                shape = layer.bias.shape
+                sign = torch.randint(0, 2, shape, generator=generator) * 2 - 1
+                layer.bias.copy_(3.0 * sign)
+                layer.weight.copy_(torch.rand(shape, generator=generator) + 0.5)
+    return model
+
+
+def train_plan(model, loss='l1_loss', per_member=False, wd=0.0):
+    """The training kernel's plan for ``model`` at batch 128, clip 5."""
+    single = model.uq_method != 'ensemble'
+    plan = ft.plan_fused_train(
+        model.net, 1 if single else model.num_models, TRAIN_BATCH, loss=loss,
+        per_member=per_member, clip=5.0, weight_decay=wd,
+        member_stacked=not single)
+    check(plan is not None, f'{model.uq_method}: the training plan rejected '
+                            'the flagship network')
+    return plan
+
+
+def train_inputs(model, plan, rng, steps):
+    """``model``'s parameters and BatchNorm state packed for ``plan``, Adam
+    moments drawn from ``rng`` (non-zero), and ``steps`` batches of the
+    smooth target."""
+    params, state = tensor_trees(model.net)
+
+    def moments(draw):
+        return ft.pack_tree(plan, [
+            {k: torch.as_tensor(draw(tuple(v.shape)), dtype=torch.float32)
+             for k, v in p.items()} for p in params], DEVICE)
+    bufs = [ft.pack_tree(plan, params, DEVICE),
+            moments(lambda shape: rng.normal(size=shape) * 1e-3),
+            moments(lambda shape: rng.uniform(1e-8, 1e-6, size=shape)),
+            ft.pack_state(plan, state, DEVICE)]
+    x = rng.normal(size=(steps * plan.batch, IN_DIM)).astype(np.float32)
+    xt, yt = (torch.as_tensor(a, device=DEVICE) for a in (x, smooth_target(x)))
+    xs, ys = ft.gather_epoch_batches(plan, xt, yt,
+                                     torch.arange(len(x), device=DEVICE))
+    return bufs, xs, ys
+
+
+def train_flops(plan, steps):
+    """GEMM FLOP that ``steps`` training steps need at the true widths:
+    one forward, the weight gradients, and the input gradients of every
+    block but the first."""
+    macs = plan.macs_per_row()
+    dh = macs - plan.lins[0].in_w * plan.lins[0].out_w
+    return 2.0 * steps * plan.batch * plan.num_members * (2 * macs + dh)
+
+
+def flip_reach(plan, flips):
+    """The elements of the flat ``(total_rows, 128)`` buffers that a ReLU
+    decision taken one way by the kernel and the other by the plain version
+    can move in that step, from ``flips`` ``(M, n_bn, B, 128)``: the
+    flipped block's column (its W column, bias, BatchNorm scale and shift),
+    and every row of the member's earlier blocks, which the backward
+    reaches through ``d W^T``. The forward moves only by the flipped value,
+    which is within rounding of 0."""
+    reach = torch.zeros((plan.num_members, plan.slab_rows, ft.LANES),
+                        dtype=torch.bool, device=flips.device)
+    for L in plan.lins:
+        if not L.relu:
+            continue
+        cols = flips[:, L.zh_idx].any(dim=1)                 # (M, 128)
+        rows = list(range(L.w_off, L.w_off + L.in_rows)) + [
+            L.b_off, L.g_off, L.be_off]
+        reach[:, rows] |= cols[:, None, :]
+        reach[:, :L.w_off] |= cols.any(dim=1)[:, None, None]
+    return reach.reshape(plan.total_rows, ft.LANES)
+
+
+def stepwise_vs_plain(plan, bufs, xs, ys, lr, step0, seed, drops):
+    """The training kernel against its plain version one step at a time,
+    each step from the plain version's state, with both versions' ReLU
+    decisions recorded. Raises unless every element of theta, m and v that
+    differs by more than TOL_TRAIN lies in the reach of a decision the two
+    took differently (``flip_reach``), and sigma and the losses agree
+    everywhere. Returns the counts and the largest errors, in and outside
+    that reach."""
+    state = [b.clone() for b in bufs]
+    shape = (1, plan.num_members, plan.n_bn, plan.batch, ft.LANES)
+    out = {'steps': xs.shape[0], 'decisions_per_step': int(np.prod(shape)),
+           'flips': 0, 'steps_with_flips': 0, 'over_tol': 0,
+           'over_tol_outside_reach': 0, 'reach_share_max': 0.0,
+           'max_abs_err_outside_reach': dict.fromkeys(TOL_TRAIN, 0.0),
+           'max_abs_err_in_reach': dict.fromkeys(('theta', 'm', 'v'), 0.0)}
+    for i in range(xs.shape[0]):
+        signs = [torch.zeros(shape, dtype=torch.uint8, device=xs.device)
+                 for _ in range(2)]
+        # one step alone: its dropout salt (seed + i * SALT_STEP) and its
+        # Adam count as inside the epoch
+        args = (xs[i:i + 1], ys[i:i + 1], lr, step0 + i,
+                (seed + i * ft.SALT_STEP) & 0xFFFFFFFF, drops)
+        got = ft.fused_epoch(plan, *[b.clone() for b in state], *args,
+                             signs=signs[0])
+        want = ft.fused_epoch_reference(plan, *[b.clone() for b in state],
+                                        *args, signs=signs[1])
+        flips = (signs[0] != signs[1])[0]
+        n_flips = int(flips.sum())
+        out['flips'] += n_flips
+        out['steps_with_flips'] += int(n_flips > 0)
+        reach = flip_reach(plan, flips)
+        out['reach_share_max'] = max(out['reach_share_max'],
+                                     float(reach.float().mean()))
+        for name, g, w in zip(TOL_TRAIN, got, want):
+            check(bool(torch.isfinite(g).all()),
+                  f'fused_train step {i} {name}: non-finite values')
+            err = (g - w).abs()
+            inside = reach if name in ('theta', 'm', 'v') else \
+                torch.zeros_like(err, dtype=torch.bool)
+            over = err > TOL_TRAIN[name]
+            out['over_tol'] += int(over.sum())
+            out['over_tol_outside_reach'] += int((over & ~inside).sum())
+            outside_err = float(torch.where(inside, 0.0, err).max())
+            out['max_abs_err_outside_reach'][name] = max(
+                out['max_abs_err_outside_reach'][name], outside_err)
+            if name in out['max_abs_err_in_reach']:
+                out['max_abs_err_in_reach'][name] = max(
+                    out['max_abs_err_in_reach'][name],
+                    float(torch.where(inside, err, 0.0).max()))
+        state = list(want[:4])
+    check(out['over_tol_outside_reach'] == 0,
+          f'fused_train: {out["over_tol_outside_reach"]} values off by more '
+          f'than {TOL_TRAIN} outside the reach of a ReLU flip: {out}')
+    return out
+
+
+def library_epoch(model, xs, ys, lr):
+    """Yardstick only: the flagship ensemble's epoch through PyTorch's own
+    ops: a ``baddbmm`` member chain with ``F.batch_norm`` (per member and
+    column, running statistics included) and autograd, ``clip_grad_norm_``
+    and ``torch.optim.Adam(fused=True)`` at weight decay 0. Returns a
+    closure that runs it."""
+    M = model.num_models
+    lin = [l for l in model.net.layers if hasattr(l, 'in_features')]
+    bns = [l for l in model.net.layers if hasattr(l, 'running_var')]
+    ws = [l.weight.detach().transpose(1, 2).contiguous().requires_grad_()
+          for l in lin]
+    bs = [l.bias.detach()[:, None].clone().requires_grad_() for l in lin]
+    gs = [b.weight.detach().reshape(-1).clone().requires_grad_() for b in bns]
+    betas = [b.bias.detach().reshape(-1).clone().requires_grad_() for b in bns]
+    rms = [b.running_mean.reshape(-1).clone() for b in bns]
+    rvs = [b.running_var.reshape(-1).clone() for b in bns]
+    params = ws + bs + gs + betas
+    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                           weight_decay=0, fused=True)
+
+    def run():
+        for i in range(xs.shape[0]):
+            B = xs.shape[1]
+            h = xs[i, :, :IN_DIM].expand(M, B, IN_DIM)
+            for l in range(len(lin)):
+                h = torch.baddbmm(bs[l], h, ws[l])
+                if l < len(bns):
+                    C = h.shape[-1]
+                    h = F.batch_norm(h.transpose(0, 1).reshape(B, M * C),
+                                     rms[l], rvs[l], gs[l], betas[l],
+                                     training=True, momentum=0.1, eps=1e-5)
+                    h = torch.relu(h.reshape(B, M, C).transpose(0, 1))
+            loss = F.l1_loss(h.mean(0), ys[i, :, :1])
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            torch.nn.utils.clip_grad_norm_(params, 5.0)
+            opt.step()
+    return run
+
+
+def fit(name, model, x, y, epochs, seed, **config):
+    """``Trainer.fit`` of ``model`` on the first TRAIN_SPLIT rows,
+    validated on the rest (TRAIN_CONFIG updated by ``config``), with every
+    launch count set to 0 just before and read just after. Returns
+    (trainer, checkpoint callback, launches, seconds)."""
+    train_dl = DataLoader(ArrayDataset(x[:TRAIN_SPLIT], y[:TRAIN_SPLIT]),
+                          TRAIN_BATCH, shuffle=True, drop_last=True)
+    val_dl = DataLoader(ArrayDataset(x[TRAIN_SPLIT:], y[TRAIN_SPLIT:]),
+                        TRAIN_BATCH)
+    saver = ModelSavingCallback(defer_serialization=True)
+    trainer = Trainer(name, dict(TRAIN_CONFIG, max_epochs=epochs, seed=seed,
+                                 **config),
+                      callbacks=[EarlyStopping(), saver]
+                      + model.get_callbacks(),
+                      log_dir=TRAIN_DIR, version=f'seed_{seed}', device=DEVICE)
+    reset_launches()
+    start = time.perf_counter()
+    trainer.fit(model, train_dl, val_dl)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    return trainer, saver, read_launches(), seconds
+
+
+def check_launches(name, launches, **expected):
+    want = {k: expected.get(k, 0) for k in WRAPPERS}
+    check(launches == want, f'{name}: launches {launches}, expected {want}')
 
 
 def main():
@@ -602,6 +859,59 @@ def main():
     kde_case('far_ood', *OFFSET_KDE, far=True)
     kde_case(f'd{WIDE_KDE[2]}', *WIDE_KDE)
 
+    def train_case(case, model, loss, per_member=False, wd=0.0):
+        """Hold the training kernel against its plain version for
+        TRAIN_CHECK_STEPS steps from TRAIN_STEP0, on the same buffers, with
+        the pre-ReLU values kept away from 0 (``separate_relu``)."""
+        model = separate_relu(model, torch.Generator().manual_seed(
+            int(rng.integers(1 << 31))))
+        plan = train_plan(model, loss, per_member, wd)
+        bufs, xs, ys = train_inputs(model, plan, rng, TRAIN_CHECK_STEPS)
+        drops = ft.drop_rates(model.net).to(DEVICE)
+        seed = int(rng.integers(1 << 31))
+        got = ft.fused_epoch(plan, *[b.clone() for b in bufs], xs, ys, 1e-3,
+                             TRAIN_STEP0, seed, drops)
+        want = ft.fused_epoch_reference(plan, *[b.clone() for b in bufs], xs,
+                                        ys, 1e-3, TRAIN_STEP0, seed, drops)
+        torch.cuda.synchronize()
+        errs = {name: compare(f'fused_train {case} {name}', g, w,
+                              {'rtol': 0.0, 'atol': TOL_TRAIN[name]})
+                for name, g, w in zip(TOL_TRAIN, got, want)}
+        errors['fused_train'] = max(errors.get('fused_train', 0.0),
+                                    *errs.values())
+        emit('kernel_vs_plain', kernel='fused_train', case=case,
+             members=plan.num_members, batch=plan.batch, loss=plan.loss,
+             per_member=plan.per_member, weight_decay=plan.weight_decay,
+             dropout_slots=plan.n_drop, steps=TRAIN_CHECK_STEPS,
+             step0=TRAIN_STEP0, losses=want[4].tolist(), max_abs_err=errs,
+             tol=TOL_TRAIN)
+
+    train_case('joint_l1_clip5', build_model(args.seed), 'l1_loss')
+    # the flagship as the main path builds it (BatchNorm scale 1, shift 0),
+    # held step by step, each step from the plain version's state
+    as_built = EnsembleModelBuilder(FLAGSHIP, {'num_models': MEMBERS},
+                                    seed=args.seed, device=DEVICE).build()
+    plan = train_plan(as_built)
+    bufs, xs, ys = train_inputs(as_built, plan, rng, STEPWISE_STEPS)
+    stepwise = stepwise_vs_plain(plan, bufs, xs, ys, 1e-3, TRAIN_STEP0,
+                                 int(rng.integers(1 << 31)),
+                                 ft.drop_rates(as_built.net).to(DEVICE))
+    errors['fused_train'] = max(errors['fused_train'], *stepwise[
+        'max_abs_err_outside_reach'].values())
+    emit('kernel_vs_plain', kernel='fused_train',
+         case='joint_l1_clip5_as_built_stepwise', members=plan.num_members,
+         batch=plan.batch, loss=plan.loss, step0=TRAIN_STEP0, tol=TOL_TRAIN,
+         **stepwise)
+    train_case('per_member_mse_wd0.01', build_model(args.seed), 'mse_loss',
+               per_member=True, wd=0.01)
+    train_case('mve_gaussian_nll',
+               build_density(MVEModelBuilder,
+                             {'min_variance': MVE_MIN_VARIANCE}, args.seed),
+               'gaussian_nll')
+    mc_train = build_mc(args.seed)
+    check(train_plan(mc_train).n_drop == 5, 'MC dropout: expected 5 slots')
+    train_case(f'mc_dropout_p{MC_P}', mc_train, 'l1_loss')
+
     # 4. the serving paths: builder -> Predictor -> model -> kernel, each
     # driven with every launch count at 0 just before and read just after
     predictor, ens_launches = serve(
@@ -645,7 +955,119 @@ def main():
         'mve', mve_model, MODEL_REQUESTS, rng,
         lambda x, _: reference_density(mve_model, x), None, TOL_MEAN)
 
-    # 5. timing at the bench's shapes
+    # 5. training: Trainer.fit -> the training kernel every epoch, the
+    # serving kernels for validation; then the bundle reloads and serves
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    x_all = np.random.default_rng(args.seed + 11).normal(
+        size=(TRAIN_ROWS, IN_DIM)).astype(np.float32)
+    y_all = smooth_target(x_all)
+    val_rows = TRAIN_CONFIG['limit_val_batches'] * TRAIN_BATCH
+    flagship = EnsembleModelBuilder(FLAGSHIP, {'num_models': MEMBERS},
+                                    train_config=TRAIN_MODEL_CONFIG,
+                                    seed=args.seed, device=DEVICE).build()
+    trainer, saver, train_launches, fit_s = fit(
+        'flagship_ensemble', flagship, x_all, y_all,
+        TRAIN_CONFIG['max_epochs'], args.seed)
+    epochs = TRAIN_CONFIG['max_epochs']
+    check(trainer.fused_epochs_used == epochs,
+          f'fused_epochs_used {trainer.fused_epochs_used}, expected {epochs}')
+    check_launches('flagship fit', train_launches, fused_train=epochs,
+                   fused_ensemble=epochs * TRAIN_CONFIG['limit_val_batches'])
+    with open(os.path.join(trainer.logger.log_dir, 'metrics.csv')) as f:
+        rows = list(csv.DictReader(f))
+    per_epoch = [[float(r['train_loss']) for r in rows
+                  if r['train_loss'] and int(r['epoch']) == e]
+                 for e in range(epochs)]
+    check(all(np.isfinite(v).all() and v for v in per_epoch),
+          'non-finite or missing training losses in metrics.csv')
+    epoch_means = [float(np.mean(v)) for v in per_epoch]
+    check(epoch_means[-1] < epoch_means[0],
+          f'training loss did not fall: epoch means {epoch_means}')
+    val_losses = [float(r['val_loss']) for r in rows if r['val_loss']]
+    best = load_model(os.path.join(trainer.logger.log_dir, 'model.pth'),
+                      device='cuda')
+    x_req = rng.normal(size=(4096, IN_DIM)).astype(np.float32)
+    reset_launches()
+    mean, std = Predictor(best, device=DEVICE).predict(x_req)
+    check_launches('reloaded bundle serving', read_launches(),
+                   fused_ensemble=len(DEFAULT_BUCKETS) + 1)
+    ref_mean, ref_std = reference_ue(best, torch.from_numpy(x_req).to(DEVICE))
+    serve_err = {'mean': compare('reloaded mean', torch.from_numpy(mean),
+                                 ref_mean.cpu(), TOL_MEAN),
+                 'ue': compare('reloaded ue', torch.from_numpy(std),
+                               ref_std.cpu(), TOL_STD)}
+    val_again = trainer.validate(best, DataLoader(ArrayDataset(
+        x_all[TRAIN_SPLIT:TRAIN_SPLIT + val_rows],
+        y_all[TRAIN_SPLIT:TRAIN_SPLIT + val_rows]), TRAIN_BATCH))
+    check(abs(val_again - saver.best) <= 1e-5,
+          f'reloaded val_loss {val_again} != logged best {saver.best}')
+    train_rows = epochs * TRAIN_CONFIG['limit_train_batches'] * TRAIN_BATCH
+    emit('training', model='ensemble', members=MEMBERS, epochs=epochs,
+         steps_per_epoch=TRAIN_CONFIG['limit_train_batches'],
+         batch=TRAIN_BATCH, rows=TRAIN_ROWS, split=TRAIN_SPLIT,
+         fused_epochs_used=trainer.fused_epochs_used, launches=train_launches,
+         train_loss_epoch_means=epoch_means, val_losses=val_losses,
+         best_val_loss=saver.best, reloaded_val_loss=val_again,
+         reloaded_serving_max_abs_err=serve_err, fit_s=fit_s,
+         trainer_fit_time_s=trainer.fit_time, seconds_per_epoch=fit_s / epochs,
+         trainer_e2e_rows_per_s=train_rows / fit_s)
+
+    # the kernel's fit against the per-step path's (autograd through the
+    # modules, no kernel 3) from the same init on the same batches
+    cross = {}
+    for path, fused in (('kernel', True), ('per_step', False)):
+        one = EnsembleModelBuilder(FLAGSHIP, {'num_models': MEMBERS},
+                                   train_config=TRAIN_MODEL_CONFIG,
+                                   seed=args.seed, device=DEVICE).build()
+        tr, _, launches, _ = fit(f'flagship_{path}', one, x_all, y_all, 1,
+                                 args.seed, fused_epochs=fused,
+                                 limit_train_batches=CROSS_STEPS,
+                                 log_every_n_steps=1)
+        check(tr.fused_epochs_used == int(fused),
+              f'{path}: fused_epochs_used {tr.fused_epochs_used}')
+        check_launches(f'{path} fit', launches, fused_train=int(fused),
+                       fused_ensemble=TRAIN_CONFIG['limit_val_batches'])
+        with open(os.path.join(tr.logger.log_dir, 'metrics.csv')) as f:
+            logged = list(csv.DictReader(f))
+        cross[path] = (torch.tensor([float(r['train_loss']) for r in logged
+                                     if r['train_loss']], dtype=torch.float64),
+                       tr.callback_metrics['val_loss'])
+    check(len(cross['kernel'][0]) == len(cross['per_step'][0]) == CROSS_STEPS,
+          f'expected {CROSS_STEPS} logged losses a fit')
+    kernel_losses, step_losses = cross['kernel'][0], cross['per_step'][0]
+    apart = (kernel_losses - step_losses).abs()
+    emit('training', model='ensemble', check='kernel_vs_per_step_path',
+         steps=CROSS_STEPS, checked_steps=CROSS_CHECKED, tol=TOL_CROSS,
+         max_abs_err_checked=compare(
+             'per-step vs kernel train_loss', kernel_losses[:CROSS_CHECKED],
+             step_losses[:CROSS_CHECKED], TOL_CROSS),
+         abs_diff_at_step={n: float(apart[n - 1]) for n in (
+             1, 10, CROSS_CHECKED, CROSS_STEPS // 2, CROSS_STEPS)},
+         max_abs_diff_after_checked=float(apart[CROSS_CHECKED:].max()),
+         val_loss={k: v[1] for k, v in cross.items()})
+
+    # one epoch each of MVE and MC dropout through the same kernel
+    for name, builder, descr, kernel in (
+            ('mve', MVEModelBuilder, {'min_variance': MVE_MIN_VARIANCE}, None),
+            ('mc_dropout', MCDropoutModelBuilder,
+             {'num_samples': MC_SAMPLES, 'dropout_percent': MC_P},
+             'fused_mc_dropout')):
+        one = builder(FLAGSHIP, descr, train_config=TRAIN_MODEL_CONFIG,
+                      seed=args.seed, device=DEVICE).build()
+        tr, _, launches, seconds = fit(name, one, x_all, y_all, 1, args.seed)
+        check(tr.fused_epochs_used == 1, f'{name}: fused_epochs_used '
+                                         f'{tr.fused_epochs_used}, expected 1')
+        check_launches(f'{name} fit', launches, fused_train=1, **(
+            {kernel: TRAIN_CONFIG['limit_val_batches']} if kernel else {}))
+        losses = [float(r['train_loss']) for r in csv.DictReader(open(
+            os.path.join(tr.logger.log_dir, 'metrics.csv'))) if r['train_loss']]
+        check(np.isfinite(losses).all(), f'{name}: non-finite training losses')
+        emit('training', model=name, epochs=1,
+             fused_epochs_used=tr.fused_epochs_used, launches=launches,
+             first_losses=losses[:3], last_losses=losses[-3:],
+             val_loss=tr.callback_metrics['val_loss'], fit_s=seconds)
+
+    # 6. timing at the bench's shapes
     kernels = []
 
     def record(index, launches, kernel_t, plain_t, flops, moved, library_ms,
@@ -752,6 +1174,45 @@ def main():
          mve_predictor_e2e_median_s=mve_e2e_s,
          mve_predictor_e2e_samples_per_s=ROWS / mve_e2e_s,
          clocks_power=nvidia_smi('clocks.sm,power.draw,temperature.gpu'))
+
+    # the training kernel: one flagship epoch of 1,000 steps
+    plan = train_plan(flagship)
+    bufs, xs, ys = train_inputs(flagship, plan, rng, EPOCH_STEPS)
+    lr = TRAIN_MODEL_CONFIG['learning_rate']
+    drops = ft.drop_rates(flagship.net).to(DEVICE)
+    kernel_t = event_ms(lambda: ft.fused_epoch(plan, *bufs, xs, ys, lr,
+                                               TRAIN_STEP0, 1, drops))
+    # the plain version is ~50 times slower: timed on 100 steps, scaled
+    plain_bufs = [b.clone() for b in bufs]
+    plain_t = event_ms(lambda: ft.fused_epoch_reference(
+        plan, *plain_bufs, xs[:PLAIN_TRAIN_STEPS], ys[:PLAIN_TRAIN_STEPS], lr,
+        TRAIN_STEP0, 1, drops), warmup=1, trials=3)
+    scale = EPOCH_STEPS / PLAIN_TRAIN_STEPS
+    plain_scaled = {k: v * scale for k, v in plain_t.items()}
+    library_t = event_ms(library_epoch(flagship, xs, ys, lr), warmup=1,
+                         trials=3)
+    kernel_t2 = event_ms(lambda: ft.fused_epoch(plan, *bufs, xs, ys, lr,
+                                                TRAIN_STEP0, 1, drops))
+    # a single net's epoch (MC dropout, one block a step) beside the
+    # 8-member one: per-block work against member count
+    mc_one = build_mc(args.seed)
+    mc_plan = train_plan(mc_one)
+    mc_bufs, mc_xs, mc_ys = train_inputs(mc_one, mc_plan, rng, EPOCH_STEPS)
+    mc_drops = ft.drop_rates(mc_one.net).to(DEVICE)
+    single_t = event_ms(lambda: ft.fused_epoch(
+        mc_plan, *mc_bufs, mc_xs, mc_ys, lr, TRAIN_STEP0, 1, mc_drops),
+        warmup=1, trials=3)
+    moved = 4.0 * (2 * (3 * plan.total_rows + plan.total_sig_rows) * 128
+                   + xs.numel() + ys.numel() + EPOCH_STEPS)
+    record(4, train_launches['fused_train'], kernel_t, plain_scaled,
+           train_flops(plan, EPOCH_STEPS), moved, library_t['median_ms'],
+           members=MEMBERS, batch=TRAIN_BATCH, steps=EPOCH_STEPS,
+           kernel_again=kernel_t2, plain_steps=PLAIN_TRAIN_STEPS,
+           single_net_mc_dropout_epoch=single_t,
+           plain_measured=plain_t, library_torch_ops=library_t,
+           trainer_seconds_per_epoch=fit_s / epochs,
+           trainer_e2e_rows_per_s=train_rows / fit_s)
+    kernels[-1]['plain_steps'] = PLAIN_TRAIN_STEPS
 
     print(smi, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -5,9 +5,11 @@ torch, numpy and the standard library only, never jax or nnueehcs_tpu. It
 serves trained bundles of every UQ method: the architecture-list network
 builder, the MLP, ensemble, MC-dropout, Δ-UQ, PAGER, KDE, kNN-KDE and MVE
 wrappers and builders, ``model.pth`` bundles and the bucketed
-``Predictor``. The fused UE passes and the KDE density are hand-written
-CUDA kernels for Hopper (``ops/csrc/*.cu``: ensemble, MC dropout,
-anchored, KDE), each beside its plain PyTorch version.
+``Predictor``. It trains the ensemble, MLP, MVE, KDE, kNN-KDE and MC-dropout
+models (``training.Trainer``). The fused UE passes, the KDE density and the
+whole training epoch are hand-written CUDA kernels for Hopper
+(``ops/csrc/*.cu``: ensemble, MC dropout, anchored, KDE, training), each
+beside its plain PyTorch version.
 Entry points take ``device`` (default ``'cuda'``) and never fall back to
 the CPU on their own.
 """

@@ -1,6 +1,11 @@
 """Model wrapper base: the uniform ``model(x, return_ue=False)`` contract.
 
-Counterpart of ``nnueehcs_tpu/models/base.py``, evaluation side. A call
+Counterpart of ``nnueehcs_tpu/models/base.py``. Training side: the
+trainer differentiates :meth:`WrappedModelBase.training_loss` (the network
+in training mode, the loss named by ``train_config['loss']``) and scores
+:meth:`WrappedModelBase.validation_loss` through the evaluation path, the
+serving kernels on the card. A network is built in evaluation mode; the
+trainer switches modes explicitly. Evaluation side: a call
 casts float64 input to float32, pads the batch up to a power-of-two bucket
 (256 .. 2^19 rows) by repeating its first row, chunks anything larger than
 2^19 rows, runs :meth:`WrappedModelBase.eval_output` and trims the padding.
@@ -14,6 +19,7 @@ import copy
 import torch
 
 from .. import convert
+from ..ops.losses import get_loss_fn
 
 training_defaults = {
     'learning_rate': 1e-3,
@@ -67,6 +73,7 @@ class WrappedModelBase:
         self.train_config.update(train_config or {})
         self.validation_config.update(validation_config or self.train_config)
         self.set_precision(self.train_config.get('precision'))
+        self.loss = get_loss_fn(self.train_config['loss'])
         self.dtype = torch.float32
         self._folded = None
         self._folded_key = None
@@ -109,6 +116,32 @@ class WrappedModelBase:
             self._folded = prepare(self.net)
             self._folded_key = key
         return self._folded
+
+    def get_callbacks(self):
+        return []
+
+    # ----------------------------------------------------------------- training
+    def train_output(self, x, generator=None):
+        """The network's output in its current mode (the trainer puts it in
+        training mode); ``generator`` feeds the Dropout layers."""
+        return self.net(x, generator)
+
+    def train_targets(self, y):
+        return y
+
+    def training_loss(self, batch, generator=None):
+        """The loss the trainer differentiates. In training mode the
+        network's BatchNorm layers move their running statistics."""
+        x, y = batch
+        return self.loss(self.train_output(x, generator), self.train_targets(y))
+
+    def validation_loss(self, batch, seed: int = 0):
+        """The training loss of the evaluation-mode prediction, as the
+        reference's validation step computes it; ``seed`` is the sampling
+        seed of a stochastic evaluation (MC dropout), unused here."""
+        x, y = batch
+        with torch.no_grad():
+            return self.loss(self.eval_output(x), y)
 
     # ------------------------------------------------------------- pure eval
     def eval_output(self, x, return_ue: bool = False):

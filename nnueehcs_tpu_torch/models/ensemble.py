@@ -1,6 +1,8 @@
 """Deep ensemble with a stacked member axis.
 
-Counterpart of ``nnueehcs_tpu/models/ensemble.py``, evaluation side. The
+Counterpart of ``nnueehcs_tpu/models/ensemble.py``. Training: every member
+trains through the loss of the mean prediction (``ensemble_loss:
+joint_mean``, the default) or through its own (``per_member``). The
 members live as a leading axis on every parameter of one network. A UE pass
 folds BatchNorm into the Linear weights once per parameter version and runs
 :func:`~nnueehcs_tpu_torch.ops.fused_ensemble.fused_forward_prefolded`: the
@@ -24,6 +26,19 @@ class EnsembleModel(WrappedModelBase):
                              f'expected num_models={num_models}')
         super().__init__(net, **kwargs)
         self.num_models = num_models
+
+    def _per_member(self) -> bool:
+        return self.train_config.get('ensemble_loss',
+                                     'joint_mean') == 'per_member'
+
+    def train_output(self, x, generator=None):
+        outputs = self.net(x, generator)              # (M, B, out)
+        return outputs if self._per_member() else outputs.mean(0)
+
+    def train_targets(self, y):
+        if self._per_member():
+            return y.expand((self.num_models,) + tuple(y.shape))
+        return y
 
     def fused_weights(self):
         """The folded, packed weights for the current parameters and BN

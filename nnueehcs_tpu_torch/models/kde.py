@@ -10,7 +10,8 @@ card) or ``-density`` of the kNN-truncated KDE
 tensor ops). Both scores have shape ``(N,)``. Far from the corpus the
 density underflows and the score is 0 in float32, in both packages.
 
-The corpus is fitted state: ``fit_kde`` subsamples it with the JAX
+The corpus is fitted state: the trainer's hooks (``get_callbacks``) fit it
+on the epoch-0 training inputs; ``fit_kde`` subsamples it with the JAX
 package's ``default_rng(0)`` permutation, bundles carry it (``kde_data``,
 ``knn_fit_data``) and ``to(device)`` moves it with the network. A UE pass
 before fitting raises ``ValueError('KDE not fitted yet')``; the prediction
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.kde import bandwidth_value, kde_logpdf, knn_kde_density
+from ..training.hooks import KDEFitHook, KNNKDEFitHook
 from .mlp import MLPModel
 
 
@@ -44,7 +46,7 @@ class _FittedKDE:
     ``bandwidth``, ``rtol``, the resolved ``bandwidth_`` and
     ``score_samples`` (log density)."""
 
-    def __init__(self, data, bandwidth, rtol, device='cpu'):
+    def __init__(self, data, bandwidth, rtol, device):
         self.data = _corpus(data, device)
         self.bandwidth = bandwidth
         self.rtol = rtol
@@ -90,6 +92,9 @@ class KDEMLPModel(MLPModel):
             raise ValueError('KDE not fitted yet')
         # negated so that a higher density gives a lower uncertainty
         return pred, -torch.exp(self.kde.score_samples(x))
+
+    def get_callbacks(self):
+        return [KDEFitHook()]
 
     def config_dict(self):
         d = super().config_dict()
@@ -146,6 +151,9 @@ class KNNKDEMLPModel(MLPModel):
             raise ValueError('KDE not fitted yet')
         return pred, -knn_kde_density(x, self._fit_data,
                                       self._bandwidth_value, self.k)
+
+    def get_callbacks(self):
+        return [KNNKDEFitHook()]
 
     def config_dict(self):
         d = super().config_dict()

@@ -1,6 +1,8 @@
-"""Monte-Carlo dropout, evaluation side.
+"""Monte-Carlo dropout.
 
-Counterpart of ``nnueehcs_tpu/models/mc_dropout.py``. A UE pass keeps
+Counterpart of ``nnueehcs_tpu/models/mc_dropout.py``. Training runs one
+stochastic pass (the Dropout layers in training mode); validation scores
+the MC mean drawn with the trainer's per-batch seed. A UE pass keeps
 BatchNorm in eval mode, runs one dropout-free forward as the shift and
 ``num_samples`` forwards with dropout masks, and reports the mean and the
 unbiased std over the samples. On the card the whole pass is the fused
@@ -16,6 +18,8 @@ masks (a per-call counter feeds the seed) and ``reseed(s)`` repeats the
 stream from its start.
 """
 from __future__ import annotations
+
+import torch
 
 from ..nn.layers import Dropout
 from ..ops.fused_mc_dropout import (fused_mc_forward, mc_call_seed,
@@ -57,15 +61,25 @@ class MCDropoutModel(WrappedModelBase):
         the kernel does not take the network), rebuilt when they change."""
         return self._folded_weights(prepare_mc_weights)
 
+    def mc_stats(self, x, seed: int):
+        """Mean and std of ``num_samples`` masked passes drawn with ``seed``."""
+        mw = self.mc_weights()
+        if mw is not None:
+            return fused_mc_forward(mw, x, self.num_samples, seed)
+        return mc_forward_modules(self.net, x, self.num_samples, seed)
+
     def eval_output(self, x, return_ue: bool = False):
         seed = self.call_seed(self._eval_calls)
         self._eval_calls += 1
-        mw = self.mc_weights()
-        if mw is not None:
-            mean, std = fused_mc_forward(mw, x, self.num_samples, seed)
-        else:
-            mean, std = mc_forward_modules(self.net, x, self.num_samples, seed)
+        mean, std = self.mc_stats(x, seed)
         return (mean, std) if return_ue else mean
+
+    def validation_loss(self, batch, seed: int = 0):
+        """The loss of the MC mean drawn with ``seed`` (the trainer's
+        per-batch validation seed); the serving stream does not advance."""
+        x, y = batch
+        with torch.no_grad():
+            return self.loss(self.mc_stats(x, seed)[0], y)
 
     def config_dict(self):
         d = super().config_dict()

@@ -3,9 +3,10 @@
 Counterpart of ``nnueehcs_tpu/models/mve.py``. The network's last layer
 emits ``(mu, raw)``; the prediction is ``mu`` and the uncertainty estimate
 is ``sigma = sqrt(softplus(raw) + min_variance)``, both ``(N, 1)``, from
-one pass through the modules (no kernel in either package). Training
-minimises :func:`gaussian_nll`, whose variance floor ``_VAR_EPS`` is kept
-apart from the bundle's ``min_variance``, as in the JAX package.
+one pass through the modules (no kernel in either package). Training and
+validation minimise :func:`gaussian_nll`, whatever loss the configuration
+names, with its variance floor ``_VAR_EPS`` kept apart from the bundle's
+``min_variance``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -32,6 +33,15 @@ class MVEMLPModel(WrappedModelBase):
     def __init__(self, net, min_variance: float = _VAR_EPS, **kwargs):
         super().__init__(net, **kwargs)
         self.min_variance = min_variance
+
+    def training_loss(self, batch, generator=None):
+        x, y = batch
+        return gaussian_nll(self.net(x, generator), y)
+
+    def validation_loss(self, batch, seed: int = 0):
+        x, y = batch
+        with torch.no_grad():
+            return gaussian_nll(self.net(x), y)
 
     def eval_output(self, x, return_ue: bool = False):
         out = self.net(x)

@@ -13,9 +13,15 @@ JAX package stores ``w`` as ``(in, out)``; ``BatchNorm1d`` keeps
 ``running_mean``/``running_var`` (JAX ``mean``/``var`` state).
 :mod:`nnueehcs_tpu_torch.convert` maps between the two.
 
-Only evaluation is ported: BatchNorm uses its running statistics and
-Dropout is the identity, and a module in training mode raises. The
-elementwise activations and ``LayerNorm`` follow the JAX package's
+In evaluation mode BatchNorm uses its running statistics and Dropout is
+the identity. In training mode (``module.train()``) they follow the JAX
+package: BatchNorm normalises with the batch mean and the biased batch
+variance (centred first, then the mean of squares) over the batch axis
+(-2) and moves its running statistics by an EMA that takes the unbiased
+variance ``var * n / (n - 1)``; Dropout keeps a value with probability
+``1 - p``, scales it by ``1 / (1 - p)`` and zeroes the rest with ``where``
+(``p = 1`` gives exact zeros), drawing from the ``torch.Generator`` it is
+given. The elementwise activations and ``LayerNorm`` follow the JAX package's
 definitions (``LayerNorm`` normalises the last axis with the biased
 variance and keeps ``weight``/``bias`` for the JAX ``scale``/``bias``).
 """
@@ -30,12 +36,6 @@ from torch import nn
 
 def _lead(members):
     return () if members is None else (int(members),)
-
-
-def _eval_only(module):
-    if module.training:
-        raise NotImplementedError(
-            f'{type(module).__name__}: only evaluation is ported; call .eval()')
 
 
 class Linear(nn.Module):
@@ -95,9 +95,21 @@ class BatchNorm1d(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
-        _eval_only(self)
-        inv = torch.rsqrt(self.running_var + self.eps)
-        y = (x - self.running_mean.unsqueeze(-2)) * inv.unsqueeze(-2)
+        if self.training:
+            mean = x.mean(-2)
+            c = x - mean.unsqueeze(-2)
+            var = (c * c).mean(-2)
+            n = x.shape[-2]
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_((1 - m) * self.running_mean
+                                        + m * mean.detach())
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * (var.detach() * (n / max(n - 1, 1))))
+            y = c * torch.rsqrt(var + self.eps).unsqueeze(-2)
+        else:
+            inv = torch.rsqrt(self.running_var + self.eps)
+            y = (x - self.running_mean.unsqueeze(-2)) * inv.unsqueeze(-2)
         if self.affine:
             y = y * self.weight.unsqueeze(-2) + self.bias.unsqueeze(-2)
         return y
@@ -117,9 +129,15 @@ class Dropout(nn.Module):
         super().__init__()
         self.p = float(p)
 
-    def forward(self, x):
-        _eval_only(self)
-        return x
+    def forward(self, x, generator: torch.Generator = None):
+        if not self.training or self.p <= 0.0:
+            return x
+        if generator is None:
+            raise ValueError('Dropout in training mode draws from an explicit '
+                             'torch.Generator; pass generator=')
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), device=x.device))
 
 
 class Tanh(nn.Module):

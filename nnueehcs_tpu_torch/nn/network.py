@@ -14,7 +14,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from .layers import LAYER_REGISTRY
+from .layers import LAYER_REGISTRY, Dropout
 
 
 class LayerBuilder:
@@ -36,9 +36,10 @@ class LayerBuilder:
 
 
 class Network(nn.Module):
-    """A sequential stack of layers, in evaluation mode. With ``members=M``
-    every layer's parameters carry a leading member axis and ``forward``
-    returns ``(M, B, out)``."""
+    """A sequential stack of layers, built in evaluation mode. With
+    ``members=M`` every layer's parameters carry a leading member axis and
+    ``forward`` returns ``(M, B, out)``. In training mode ``generator``
+    feeds the Dropout layers."""
 
     def __init__(self, layers: Sequence[nn.Module],
                  architecture: Optional[list] = None, members=None):
@@ -53,9 +54,9 @@ class Network(nn.Module):
             if hasattr(layer, 'reset_parameters'):
                 layer.reset_parameters(generator)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, generator) if isinstance(layer, Dropout) else layer(x)
         return x
 
 

@@ -50,6 +50,12 @@ SIGNATURES = {
         ctypes.c_int,
         [_P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int,
          ctypes.c_double, _P, _P]),
+    'nnueehcs_fused_train_f32': (
+        ctypes.c_int,
+        [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_float)]
+        + [_P] * 15),
+    'nnueehcs_fused_train_scratch_floats': (
+        ctypes.c_longlong, [ctypes.c_int, ctypes.c_int, ctypes.c_int]),
 }
 
 

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on a card (the fused ensemble, MC-dropout,
-anchored and KDE kernels), each held against its plain PyTorch version on
+anchored, KDE and training kernels), each held against its plain PyTorch
+version on
 the same inputs, and the serving path of each model on the card. Every test here is
 marked ``cuda`` and skips without a card. The file imports neither JAX nor
 the JAX package, so it runs on a CUDA-only machine (with ``--noconftest``,
@@ -12,15 +13,27 @@ absolute (fp32 sums taken in another order than cuBLAS takes them). The
 MC-dropout kernel and its plain version draw the same hash masks for the
 same seed, so they are compared with the same tolerances. KDE log density:
 1e-4 absolute plus 1e-5 relative (float32 round-off in the distance
-decomposition, scaled by gamma; tests/test_torch_kde.py)."""
+decomposition, scaled by gamma; tests/test_torch_kde.py). Training kernel
+against its plain epoch, absolute (``chip_smoke.TOL_TRAIN``): losses
+5e-6, Adam moments 1e-6, parameters and BatchNorm running statistics 1e-5
+(as tests/test_torch_fused_train.py holds the plain epoch to the JAX
+kernel; the dropout masks are the same hash in both), over whole epochs on
+networks whose pre-ReLU values are kept away from 0
+(``chip_smoke.separate_relu``), and step by step on the flagship as built,
+where a value beyond tolerance must lie in the reach of a ReLU decision
+the two took differently (``chip_smoke.stepwise_vs_plain``)."""
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import (FLAGSHIP, TOL_TRAIN, separate_relu,
+                        stepwise_vs_plain, train_inputs, train_plan)
+from nnueehcs_tpu_torch.convert import tensor_trees
 from nnueehcs_tpu_torch.model_builder import (DeltaUQMLPModelBuilder,
                                               EnsembleModelBuilder,
                                               KDEModelBuilder,
                                               MCDropoutModelBuilder,
+                                              MVEModelBuilder,
                                               PAGERModelBuilder)
 from nnueehcs_tpu_torch.ops.fused_anchored import (anchor_rows,
                                                    fused_anchored_plain,
@@ -32,7 +45,10 @@ from nnueehcs_tpu_torch.ops.fused_mc_dropout import (fused_mc_forward,
                                                      fused_mc_forward_plain)
 from nnueehcs_tpu_torch.ops.kde import (bandwidth_value, centre, kde_logpdf,
                                         kde_logpdf_plain)
+from nnueehcs_tpu_torch.ops import fused_train as ft
 from nnueehcs_tpu_torch.serving import Predictor
+from nnueehcs_tpu_torch.training import (ArrayDataset, DataLoader, Trainer,
+                                         load_model, save_model)
 
 TOL_MEAN = {'rtol': 1e-5, 'atol': 1e-5}
 TOL_STD = {'rtol': 1e-3, 'atol': 1e-5}
@@ -327,3 +343,132 @@ def test_kde_kernel_refuses_non_f32_on_card(card):
     for dtype in (torch.float64, torch.bfloat16, torch.float16):
         with pytest.raises(TypeError):
             kde_logpdf(torch.zeros(4, 5, dtype=dtype, device=card), data, 0.5)
+
+
+TRAIN_CASES = {
+    # name: (family, width, hidden, members, batch, loss, per_member,
+    #        weight decay, dropout rate)
+    'small_joint_l1': ('ensemble', 32, 2, 3, 16, 'l1_loss', False, 0.0, 0.0),
+    'small_per_member_mse_wd': ('ensemble', 32, 2, 3, 16, 'mse_loss', True,
+                                0.01, 0.0),
+    'small_mve': ('mve', 32, 2, 1, 16, 'gaussian_nll', False, 0.0, 0.0),
+    'small_mc_p02': ('mc', 32, 3, 1, 16, 'l1_loss', False, 0.0, 0.2),
+    'small_mc_p1': ('mc', 32, 3, 1, 16, 'l1_loss', False, 0.0, 1.0),
+    'batch_256': ('ensemble', 64, 2, 2, 256, 'l1_loss', False, 0.0, 0.0),
+    'batch_40': ('ensemble', 24, 3, 2, 40, 'mse_loss', False, 0.0, 0.0),
+    'flagship_joint_l1': ('ensemble', 128, 6, 8, 128, 'l1_loss', False, 0.0,
+                          0.0),
+    'flagship_per_member_mse_wd': ('ensemble', 128, 6, 8, 128, 'mse_loss',
+                                   True, 0.01, 0.0),
+    'flagship_mve': ('mve', 128, 6, 1, 128, 'gaussian_nll', False, 0.0, 0.0),
+    'flagship_mc_p01': ('mc', 128, 6, 1, 128, 'l1_loss', False, 0.0, 0.1),
+}
+
+
+def _train_model(card, family, width, hidden, members, p):
+    arch = _arch(5, width, hidden, 1)
+    if family == 'ensemble':
+        m = EnsembleModelBuilder(arch, {'num_models': members}, seed=5,
+                                 device=card).build()
+    elif family == 'mve':
+        m = MVEModelBuilder(arch, {}, seed=5, device=card).build()
+    else:
+        m = MCDropoutModelBuilder(arch, {'num_samples': 4,
+                                         'dropout_percent': p},
+                                  seed=5, device=card).build()
+    return _randomize_bn(m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(TRAIN_CASES))
+def test_training_kernel_matches_plain_on_card(card, case):
+    family, width, hidden, members, batch, loss, per_member, wd, p = \
+        TRAIN_CASES[case]
+    m = separate_relu(_train_model(card, family, width, hidden, members, p),
+                      torch.Generator().manual_seed(11))
+    plan = ft.plan_fused_train(m.net, members, batch, loss=loss,
+                               per_member=per_member, clip=5.0,
+                               weight_decay=wd,
+                               member_stacked=family == 'ensemble')
+    assert plan is not None
+    params, state = tensor_trees(m.net)
+    gen = torch.Generator().manual_seed(8)
+
+    def moments(scale, positive=False):
+        tree = [{k: torch.randn(v.shape, generator=gen) * scale
+                 for k, v in layer.items()} for layer in params]
+        if positive:
+            tree = [{k: v.abs() for k, v in layer.items()} for layer in tree]
+        return ft.pack_tree(plan, tree, card)
+    bufs = [ft.pack_tree(plan, params, card), moments(1e-3),
+            moments(1e-6, positive=True), ft.pack_state(plan, state, card)]
+    rng = np.random.default_rng(9)
+    steps = 6
+    x = torch.as_tensor(rng.normal(size=(steps * batch, 5)),
+                        dtype=torch.float32, device=card)
+    y = torch.sin(x).sum(1, keepdim=True)
+    xs, ys = ft.gather_epoch_batches(plan, x, y,
+                                     torch.arange(steps * batch, device=card))
+    drops = ft.drop_rates(m.net).to(card)
+    before = ft.fused_epoch.launches
+    got = ft.fused_epoch(plan, *[b.clone() for b in bufs], xs, ys, 1e-3, 7,
+                         seed=424242, drops=drops)
+    torch.cuda.synchronize()
+    assert ft.fused_epoch.launches == before + 1
+    want = ft.fused_epoch_reference(plan, *[b.clone() for b in bufs], xs, ys,
+                                    1e-3, 7, seed=424242, drops=drops)
+    for (name, tol), a, b in zip(TOL_TRAIN.items(), got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=tol, msg=name)
+    assert bool(torch.isfinite(got[4]).all())
+
+
+@pytest.mark.cuda
+def test_training_kernel_misses_follow_relu_flips_on_card(card):
+    """The flagship ensemble as built (BatchNorm scale 1, shift 0), 16
+    steps, each from the plain version's state: every value beyond
+    tolerance lies in the reach of a ReLU decision recorded differently by
+    the kernel and the plain version."""
+    m = EnsembleModelBuilder(FLAGSHIP, {'num_models': 8}, seed=3,
+                             device=card).build()
+    plan = train_plan(m)
+    bufs, xs, ys = train_inputs(m, plan, np.random.default_rng(12), 16)
+    before = ft.fused_epoch.launches
+    out = stepwise_vs_plain(plan, bufs, xs, ys, 1e-3, 5, 99,
+                            ft.drop_rates(m.net).to(card))
+    assert ft.fused_epoch.launches == before + 16
+    assert out['over_tol_outside_reach'] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('family', ['ensemble', 'mc', 'mve', 'kde'])
+def test_trainer_on_card_runs_the_training_kernel(card, family, tmp_path):
+    """Every epoch the JAX trainer would run through its kernel runs
+    through this one; KDE's epoch 0 runs step by step on the card (its
+    fit hook reads the batches), then hands over to the kernel."""
+    if family == 'kde':
+        m = _randomize_bn(KDEModelBuilder(_arch(5, 32, 2, 1), {'rtol': 1000},
+                                          seed=5, device=card).build())
+    else:
+        m = _train_model(card, family, 32, 2, 3, 0.2)
+    rng = np.random.default_rng(10)
+    x = rng.normal(size=(512, 5)).astype(np.float32)
+    y = np.sin(x).sum(1, keepdims=True).astype(np.float32)
+    tr = Trainer('t', {'max_epochs': 3, 'gradient_clip_val': 5.0},
+                 callbacks=m.get_callbacks(), log_dir=str(tmp_path),
+                 device=card)
+    before = ft.fused_epoch.launches
+    tr.fit(m, DataLoader(ArrayDataset(x, y), 64, shuffle=True,
+                         drop_last=True))
+    kernel_epochs = 2 if family == 'kde' else 3
+    assert tr.fused_epochs_used == kernel_epochs
+    assert ft.fused_epoch.launches == before + kernel_epochs
+    if family == 'kde':
+        assert m.kde.data.device.type == 'cuda' and len(m.kde.data) == 512
+    assert np.isfinite(tr.callback_metrics['val_loss'])
+    if family == 'ensemble':
+        # the trainer's write-back reaches the folded serving weights
+        path = str(tmp_path / 'after.pth')
+        save_model(m, path)
+        fresh = load_model(path, device=card)
+        for a, b in zip(m(x, return_ue=True), fresh(x, return_ue=True)):
+            torch.testing.assert_close(a, b, **TOL_MEAN)

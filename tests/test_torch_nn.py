@@ -109,10 +109,29 @@ def test_layer_builder_errors_name_the_layer():
 
 
 def test_training_mode_is_not_ported():
+    """Training mode is ported now: BatchNorm normalises with the batch
+    statistics and moves its running statistics as the JAX TRAIN_MODE
+    apply does; what stays unported is implicit randomness, so a Dropout
+    in training mode without an explicit generator raises."""
+    from nnueehcs_tpu.nn.layers import TRAIN_MODE
+    net, params, state = _jax_net(ARCHS['bn_relu'])
     port = build_network(ARCHS['bn_relu'])
+    convert.load_pytrees(port, params, state)
     port.train()
-    with pytest.raises(NotImplementedError, match='evaluation'):
-        port(torch.zeros(4, 5))
+    x = np.random.default_rng(3).normal(size=(16, 5)).astype(np.float32)
+    want, new_state = net.apply(params, state, jnp.asarray(x), TRAIN_MODE)
+    np.testing.assert_allclose(port(torch.from_numpy(x)).detach().numpy(),
+                               np.asarray(want), **TOL)
+    _, got_state = convert.to_pytrees(port)
+    for a, b in zip(jax.tree_util.tree_leaves(new_state),
+                    jax.tree_util.tree_leaves(got_state)):
+        np.testing.assert_allclose(b, np.asarray(a), **TOL)
+    drop = build_network(ARCHS['dropout'])
+    drop.train()
+    with pytest.raises(ValueError, match='generator'):
+        drop(torch.zeros(4, 4))
+    out = drop(torch.ones(4, 4), generator=torch.Generator().manual_seed(0))
+    assert out.shape == (4, 2)
 
 
 def test_builders_draw_from_a_seeded_generator():
