@@ -23,9 +23,14 @@ steps (``examples/bo_driven/config.yaml``: batch 128, lr 5e-5, clip 5,
 l1, joint mean) on 160,000 rows drawn from ``--seed``, whose saved bundle
 must reload, serve and reproduce its logged validation loss, one epoch each
 of MVE and MC dropout, and the kernel's epoch time beside its plain
-version, a PyTorch yardstick and its bound. It prints
+version, a PyTorch yardstick and its bound. Last it runs the attribution
+entry point (``nnueehcs_tpu_torch.attrib``): both batteries of the CUDA
+probes of kernels 1 and 3 at the flagship shape (262,144 rows; 500 steps of
+batch 128), every probe held to its plain version and every form of the
+production math to its kernel bit for bit before it is timed, with the
+serving and training phases checked to have launched no probe. It prints
 one JSON line per phase, then the card's ``nvidia-smi`` name and power
-limit, then a ``{"kernels": [...]}`` line, and last
+limit, then a ``{"kernels": [...]}`` line (ten kernels), and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a card it exits non-zero before doing anything.
 """
@@ -35,7 +40,6 @@ import argparse
 import json
 import re
 import shutil
-import subprocess
 import sys
 import time
 
@@ -53,8 +57,15 @@ from nnueehcs_tpu_torch.model_builder import (DeltaUQMLPModelBuilder,
                                               MCDropoutModelBuilder,
                                               MVEModelBuilder,
                                               PAGERModelBuilder)
+from nnueehcs_tpu_torch import attrib
+from nnueehcs_tpu_torch.attrib import (TOL_MEAN, TOL_STD, TOL_TRAIN, bound,
+                                       check, event_ms, flip_reach,
+                                       nvidia_smi, peaks, separate_relu,
+                                       stepwise_vs_plain, train_flops)
 from nnueehcs_tpu_torch.convert import tensor_trees
 from nnueehcs_tpu_torch.ops import _build
+from nnueehcs_tpu_torch.ops import ablate_epoch as ae
+from nnueehcs_tpu_torch.ops import ablate_forward as af
 from nnueehcs_tpu_torch.ops import fused_train as ft
 from nnueehcs_tpu_torch.ops.fused_anchored import (anchor_rows,
                                                    fused_anchored_plain,
@@ -115,9 +126,9 @@ MODEL_REQUESTS = (1, 300, 4096, 65_536)
 MC_PLAIN_TIMING_ROWS = 16_384
 PASS_GROUP = 16                      # passes or anchors per yardstick GEMM
 WARMUP, TRIALS = 5, 10               # the bench's timing protocol
-# kernel vs plain: the tolerances of tests/test_fused_ensemble.py
-TOL_MEAN = {'rtol': 1e-5, 'atol': 1e-5}
-TOL_STD = {'rtol': 1e-3, 'atol': 1e-5}
+# kernel vs plain: TOL_MEAN and TOL_STD (tests/test_fused_ensemble.py's)
+# and TOL_TRAIN (tests/test_torch_fused_train.py's, tighter than
+# tests/test_fused_train.py:97-115; absolute) come from attrib
 # KDE log density: float32 round-off in the decomposition |x|^2 + |y|^2 -
 # 2 x.y, scaled by gamma (tests/test_torch_kde.py); a density score
 # -exp(log p) carries it through exp: 1e-4 + 1e-5 |log p| relative, under
@@ -143,10 +154,6 @@ CROSS_STEPS, CROSS_CHECKED = 100, 20
 TOL_CROSS = {'rtol': 0.0, 'atol': 1e-4}
 EPOCH_STEPS = 1000                       # a flagship epoch
 PLAIN_TRAIN_STEPS = 100                  # the plain epoch is timed on 100
-# kernel vs plain (tests/test_torch_fused_train.py's tolerances, tighter
-# than tests/test_fused_train.py:97-115): absolute
-TOL_TRAIN = {'theta': 1e-5, 'm': 1e-6, 'v': 1e-6, 'sigma': 1e-5,
-             'losses': 5e-6}
 KERNELS = [{
     'name': 'fused_ensemble',
     'route': 'cuda',
@@ -172,28 +179,63 @@ KERNELS = [{
     'route': 'cuda',
     'source': 'nnueehcs_tpu_torch/ops/csrc/fused_train.cu',
     'replaces': 'nnueehcs_tpu/ops/fused_train.py:386',
+}, {
+    'name': 'ablate_forward',
+    'route': 'cuda',
+    'source': 'nnueehcs_tpu_torch/ops/csrc/ablate_chain.cu',
+    'replaces': 'experiments/grid_r5/attrib_eval.py:52',
+}, {
+    'name': 'xt_forward',
+    'route': 'cuda',
+    'source': 'nnueehcs_tpu_torch/ops/csrc/ablate_chain.cu',
+    'replaces': 'experiments/grid_r5/attrib_eval.py:135',
+}, {
+    'name': 'narrow_forward',
+    'route': 'cuda',
+    'source': 'nnueehcs_tpu_torch/ops/csrc/ablate_chain.cu',
+    'replaces': 'experiments/grid_r5/attrib_eval2.py:52',
+}, {
+    'name': 'ablate_epoch',
+    'route': 'cuda',
+    'source': 'nnueehcs_tpu_torch/ops/csrc/ablate_train.cu',
+    'replaces': 'experiments/grid_r5/attrib_train.py:52',
+}, {
+    'name': 'packed_forward',
+    'route': 'cuda',
+    'source': 'nnueehcs_tpu_torch/ops/csrc/ablate_chain.cu',
+    'replaces': 'experiments/grid_r4/kernel_variants.py:37',
 }]
 WRAPPERS = {'fused_ensemble': fused_forward_prefolded,
             'fused_mc_dropout': fused_mc_forward,
             'fused_anchored': fused_anchored_stats,
             'kde': kde_logpdf,
-            'fused_train': ft.fused_epoch}
+            'fused_train': ft.fused_epoch,
+            'ablate_forward': af.ablate_forward,
+            'xt_forward': af.xt_forward,
+            'narrow_forward': af.narrow_forward,
+            'ablate_epoch': ae.ablate_epoch,
+            'packed_forward': af.packed_forward}
+# the attribution phase: the probes' battery variant that stands for each
+# probe in the kernels line, and the gates whose errors it reports
+PROBE_VARIANTS = {'ablate_forward': 'prod', 'xt_forward': 'xT input',
+                  'narrow_forward': 'narrow-both', 'packed_forward': 'packed'}
+PROBE_GATES = {
+    'ablate_forward': ('prod', 'io_floor', 'one_out', 'gemm_only', 'no_epi',
+                       'members=1', 'members=2', 'members=4', 'layers=1',
+                       'layers=3', 'layers=5'),
+    'xt_forward': ('xT input', 'xT+outT'),
+    'narrow_forward': ('narrow-in', 'narrow-out', 'narrow-both'),
+    'packed_forward': ('packed',)}
+ATTRIB_STEPS = attrib.STEPS                  # attrib_train.py's 500 steps
+ATTRIB_TRAIN_REPS = 3                        # epochs per training variant
+PLAIN_ABLATE_STEPS = 20                      # the plain epoch, scaled
 # MUFU ex2 results per SM per clock (CUDA programming guide, arithmetic
 # instruction throughput, compute capability 9.0)
 EX2_PER_SM_PER_CLOCK = 16
-# (name substring, fp32 non-tensor FLOP/s, memory bytes/s), NVIDIA data
-# sheets at full power; the first match wins
-PEAKS = [('H100 PCIe', 51.2e12, 2.0e12), ('H100 NVL', 60e12, 3.9e12),
-         ('H200', 67e12, 4.8e12), ('H100', 67e12, 3.35e12)]
 
 
 def emit(phase, **fields):
     print(json.dumps({'phase': phase, **fields}), flush=True)
-
-
-def check(cond, msg):
-    if not cond:
-        raise RuntimeError(msg)
 
 
 def compare(name, got, want, tol):
@@ -207,16 +249,6 @@ def compare(name, got, want, tol):
     check(not bool(bad.any()), f'{name}: {int(bad.sum())} values off by up to '
                                f'{float(err.max()):.3e} (tolerance {tol})')
     return float(err.max())
-
-
-def nvidia_smi(query):
-    try:
-        out = subprocess.run(['nvidia-smi', f'--query-gpu={query}',
-                              '--format=csv,noheader'], capture_output=True,
-                             text=True, timeout=60)
-    except FileNotFoundError:
-        return 'not available'
-    return out.stdout.strip() if out.returncode == 0 else 'not available'
 
 
 def randomize_bn(model, generator):
@@ -400,16 +432,6 @@ def anchored_library(aw, x, anchors):
     return c + m1, torch.sqrt(torch.clamp(s2 - n * m1 * m1, min=0) / (n - 1))
 
 
-def bound(flops, moved, peak_flops, peak_bytes, exps=0, ex2_rate=1.0):
-    """(bound_ms, bound_by): the largest of fp32 operations over the fp32
-    peak, ``exps`` MUFU ex2 results over the ex2 rate, and bytes over the
-    memory rate."""
-    t_ops = max(flops / peak_flops, exps / ex2_rate)
-    t_bytes = moved / peak_bytes
-    return 1e3 * max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes \
-        else 'bytes'
-
-
 def reset_launches():
     for wrapper in WRAPPERS.values():
         wrapper.launches = 0
@@ -464,22 +486,6 @@ def serve(name, model, requests, rng, reference, kernel, tol_ue=TOL_STD):
     return predictor, launches[kernel] if kernel is not None else 0
 
 
-def event_ms(fn, warmup=WARMUP, trials=TRIALS):
-    """Median and spread of ``trials`` passes after ``warmup``, each pass
-    bracketed by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    pairs = [(torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True)) for _ in range(trials)]
-    for start, end in pairs:
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    ms = sorted(s.elapsed_time(e) for s, e in pairs)
-    return {'median_ms': ms[len(ms) // 2], 'min_ms': ms[0], 'max_ms': ms[-1]}
-
-
 def ptxas_report(log):
     """Registers, spills and stack per compiled kernel from -Xptxas -v."""
     report, current = {}, None
@@ -507,25 +513,6 @@ def smooth_target(x):
     """The training target: a smooth function of the 5 inputs."""
     return (np.sin(x[:, :1]) + 0.5 * x[:, 1:2] * x[:, 2:3]
             + 0.1 * x[:, 3:4] ** 2 - 0.3 * x[:, 4:5]).astype(np.float32)
-
-
-def separate_relu(model, generator):
-    """BatchNorm shifts of +3 or -3 per column (scales in [0.5, 1.5]): every
-    pre-ReLU value then sits several units from 0, so the kernel and its
-    plain version take the same ReLU branch everywhere and a whole epoch
-    can be held to float32 round-off. A value within rounding of 0 may go
-    either way in two implementations that sum in different orders; such a
-    flip changes that member's gradient by far more than round-off
-    (``stepwise_vs_plain`` shows it on networks as built). Half the columns
-    are masked off, so the backward's ReLU masks stay exercised."""
-    with torch.no_grad():
-        for layer in model.net.layers:
-            if hasattr(layer, 'running_var'):
-                shape = layer.bias.shape
-                sign = torch.randint(0, 2, shape, generator=generator) * 2 - 1
-                layer.bias.copy_(3.0 * sign)
-                layer.weight.copy_(torch.rand(shape, generator=generator) + 0.5)
-    return model
 
 
 def train_plan(model, loss='l1_loss', per_member=False, wd=0.0):
@@ -559,92 +546,6 @@ def train_inputs(model, plan, rng, steps):
     xs, ys = ft.gather_epoch_batches(plan, xt, yt,
                                      torch.arange(len(x), device=DEVICE))
     return bufs, xs, ys
-
-
-def train_flops(plan, steps):
-    """GEMM FLOP that ``steps`` training steps need at the true widths:
-    one forward, the weight gradients, and the input gradients of every
-    block but the first."""
-    macs = plan.macs_per_row()
-    dh = macs - plan.lins[0].in_w * plan.lins[0].out_w
-    return 2.0 * steps * plan.batch * plan.num_members * (2 * macs + dh)
-
-
-def flip_reach(plan, flips):
-    """The elements of the flat ``(total_rows, 128)`` buffers that a ReLU
-    decision taken one way by the kernel and the other by the plain version
-    can move in that step, from ``flips`` ``(M, n_bn, B, 128)``: the
-    flipped block's column (its W column, bias, BatchNorm scale and shift),
-    and every row of the member's earlier blocks, which the backward
-    reaches through ``d W^T``. The forward moves only by the flipped value,
-    which is within rounding of 0."""
-    reach = torch.zeros((plan.num_members, plan.slab_rows, ft.LANES),
-                        dtype=torch.bool, device=flips.device)
-    for L in plan.lins:
-        if not L.relu:
-            continue
-        cols = flips[:, L.zh_idx].any(dim=1)                 # (M, 128)
-        rows = list(range(L.w_off, L.w_off + L.in_rows)) + [
-            L.b_off, L.g_off, L.be_off]
-        reach[:, rows] |= cols[:, None, :]
-        reach[:, :L.w_off] |= cols.any(dim=1)[:, None, None]
-    return reach.reshape(plan.total_rows, ft.LANES)
-
-
-def stepwise_vs_plain(plan, bufs, xs, ys, lr, step0, seed, drops):
-    """The training kernel against its plain version one step at a time,
-    each step from the plain version's state, with both versions' ReLU
-    decisions recorded. Raises unless every element of theta, m and v that
-    differs by more than TOL_TRAIN lies in the reach of a decision the two
-    took differently (``flip_reach``), and sigma and the losses agree
-    everywhere. Returns the counts and the largest errors, in and outside
-    that reach."""
-    state = [b.clone() for b in bufs]
-    shape = (1, plan.num_members, plan.n_bn, plan.batch, ft.LANES)
-    out = {'steps': xs.shape[0], 'decisions_per_step': int(np.prod(shape)),
-           'flips': 0, 'steps_with_flips': 0, 'over_tol': 0,
-           'over_tol_outside_reach': 0, 'reach_share_max': 0.0,
-           'max_abs_err_outside_reach': dict.fromkeys(TOL_TRAIN, 0.0),
-           'max_abs_err_in_reach': dict.fromkeys(('theta', 'm', 'v'), 0.0)}
-    for i in range(xs.shape[0]):
-        signs = [torch.zeros(shape, dtype=torch.uint8, device=xs.device)
-                 for _ in range(2)]
-        # one step alone: its dropout salt (seed + i * SALT_STEP) and its
-        # Adam count as inside the epoch
-        args = (xs[i:i + 1], ys[i:i + 1], lr, step0 + i,
-                (seed + i * ft.SALT_STEP) & 0xFFFFFFFF, drops)
-        got = ft.fused_epoch(plan, *[b.clone() for b in state], *args,
-                             signs=signs[0])
-        want = ft.fused_epoch_reference(plan, *[b.clone() for b in state],
-                                        *args, signs=signs[1])
-        flips = (signs[0] != signs[1])[0]
-        n_flips = int(flips.sum())
-        out['flips'] += n_flips
-        out['steps_with_flips'] += int(n_flips > 0)
-        reach = flip_reach(plan, flips)
-        out['reach_share_max'] = max(out['reach_share_max'],
-                                     float(reach.float().mean()))
-        for name, g, w in zip(TOL_TRAIN, got, want):
-            check(bool(torch.isfinite(g).all()),
-                  f'fused_train step {i} {name}: non-finite values')
-            err = (g - w).abs()
-            inside = reach if name in ('theta', 'm', 'v') else \
-                torch.zeros_like(err, dtype=torch.bool)
-            over = err > TOL_TRAIN[name]
-            out['over_tol'] += int(over.sum())
-            out['over_tol_outside_reach'] += int((over & ~inside).sum())
-            outside_err = float(torch.where(inside, 0.0, err).max())
-            out['max_abs_err_outside_reach'][name] = max(
-                out['max_abs_err_outside_reach'][name], outside_err)
-            if name in out['max_abs_err_in_reach']:
-                out['max_abs_err_in_reach'][name] = max(
-                    out['max_abs_err_in_reach'][name],
-                    float(torch.where(inside, err, 0.0).max()))
-        state = list(want[:4])
-    check(out['over_tol_outside_reach'] == 0,
-          f'fused_train: {out["over_tol_outside_reach"]} values off by more '
-          f'than {TOL_TRAIN} outside the reach of a ReLU flip: {out}')
-    return out
 
 
 def library_epoch(model, xs, ys, lr):
@@ -731,8 +632,7 @@ def main():
     # 1. device
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi('name,power.limit')
-    peak_flops, peak_bytes = next(((f, b) for key, f, b in PEAKS if key in kind),
-                                  (67e12, 3.35e12))
+    peak_flops, peak_bytes, peak_source = peaks(kind)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     max_sm_clock = nvidia_smi('clocks.max.sm')
     clock_mhz = re.match(r'\s*(\d+)', max_sm_clock)
@@ -741,8 +641,7 @@ def main():
     emit('device', kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
          fp32_peak_flops=peak_flops, peak_bytes_per_s=peak_bytes,
-         peak_source=next((key for key, _, _ in PEAKS if key in kind),
-                          'not in table: H100 SXM assumed'),
+         peak_source=peak_source,
          sms=sms, max_sm_clock=max_sm_clock, ex2_per_s=ex2_rate)
 
     # 2. build
@@ -1213,6 +1112,72 @@ def main():
            trainer_seconds_per_epoch=fit_s / epochs,
            trainer_e2e_rows_per_s=train_rows / fit_s)
     kernels[-1]['plain_steps'] = PLAIN_TRAIN_STEPS
+
+    # 7. attribution: the probes' entry point (nnueehcs_tpu_torch.attrib),
+    # both batteries at the flagship shape, every launch count at 0 just
+    # before and read just after; each battery holds every variant to its
+    # plain version and each form of the production math to kernel 1 or 3
+    # bit for bit before it times it
+    reset_launches()
+    fwd = attrib.forward_battery(DEVICE, args.seed, ROWS, reps=TRIALS)
+    trn = attrib.train_battery(DEVICE, args.seed, ATTRIB_STEPS,
+                               reps=ATTRIB_TRAIN_REPS)
+    attrib_launches = read_launches()
+    probes = [k['name'] for k in KERNELS[5:]]
+    check(all(attrib_launches[name] > 0 for name in probes),
+          f'attribution: a probe never launched: {attrib_launches}')
+    _, fw_a, x_a, x_pad, x_n8, x_t = attrib.forward_inputs(args.seed, DEVICE,
+                                                           ROWS)
+    plains = {'ablate_forward': lambda: af.ablate_forward_plain(fw_a, x_pad),
+              'xt_forward': lambda: af.xt_forward_plain(fw_a, x_t),
+              'narrow_forward': lambda: af.narrow_forward_plain(fw_a, x_n8),
+              'packed_forward': lambda: af.packed_forward_plain(fw_a, x_pad)}
+    library_fwd = event_ms(lambda: library_chain(fw_a, x_a))
+    for kernel in KERNELS[5:]:
+        name = kernel['name']
+        if name == 'ablate_epoch':
+            continue
+        v = fwd['variants'][PROBE_VARIANTS[name]]
+        plain_t = event_ms(plains[name])
+        kernels.append(dict(
+            kernel, launches=attrib_launches[name],
+            max_abs_err=max(max(fwd['gates'][g]['max_abs_err'])
+                            for g in PROBE_GATES[name]),
+            ms=v['median_ms'], plain_ms=plain_t['median_ms'],
+            bound_ms=v['bound_ms'], bound_by=v['bound_by'],
+            library_ms=library_fwd['median_ms'],
+            variant=PROBE_VARIANTS[name], rows=ROWS))
+    # the plain epoch and the yardstick run host-bound loops of small ops:
+    # timed on fewer steps, scaled to the battery's epoch
+    _, plan_a, bufs_a, xs_a, ys_a = attrib.train_problem(
+        args.seed, DEVICE, steps=PLAIN_ABLATE_STEPS)
+    model_a, _, _, xs_l, ys_l = attrib.train_problem(
+        args.seed, DEVICE, steps=PLAIN_TRAIN_STEPS)
+    scale_plain = ATTRIB_STEPS / PLAIN_ABLATE_STEPS
+    plain_t = event_ms(lambda: ae.ablate_epoch_reference(
+        plan_a, *bufs_a, xs_a, ys_a, attrib.LR, 0), warmup=1, trials=3)
+    library_t = event_ms(library_epoch(model_a, xs_l, ys_l, attrib.LR),
+                         warmup=1, trials=3)
+    v = trn['variants']['prod']
+    kernels.insert(8, dict(
+        KERNELS[8], launches=attrib_launches['ablate_epoch'],
+        max_abs_err=max(max(g['max_abs_err'].values())
+                        for g in trn['gates'].values() if 'max_abs_err' in g),
+        ms=v['median_ms'], plain_ms=plain_t['median_ms'] * scale_plain,
+        bound_ms=v['bound_ms'], bound_by=v['bound_by'],
+        library_ms=library_t['median_ms'] * ATTRIB_STEPS / PLAIN_TRAIN_STEPS,
+        variant='prod', steps=ATTRIB_STEPS, batch=TRAIN_BATCH,
+        plain_steps=PLAIN_ABLATE_STEPS, library_steps=PLAIN_TRAIN_STEPS))
+    emit('attribution', launches=attrib_launches,
+         forward_decomposition=fwd['decomposition'],
+         train_budget=trn['budget'],
+         train_batch_scaling_us_per_step={
+             b: r['us_per_step'] for b, r in trn['batch_scaling'].items()},
+         plain_epoch=plain_t, library_epoch=library_t,
+         library_chain=library_fwd,
+         clocks_power=nvidia_smi('clocks.sm,power.draw,temperature.gpu'))
+    check([k['name'] for k in kernels] == [k['name'] for k in KERNELS],
+          'the kernels line is out of order')
 
     print(smi, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -56,6 +56,18 @@ SIGNATURES = {
         + [_P] * 15),
     'nnueehcs_fused_train_scratch_floats': (
         ctypes.c_longlong, [ctypes.c_int, ctypes.c_int, ctypes.c_int]),
+    'nnueehcs_ablate_chain_f32': (
+        ctypes.c_int,
+        [ctypes.c_int] * 4
+        + [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, _P, _P,
+           ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
+           ctypes.c_int, ctypes.c_int, _P, _P, _P]),
+    'nnueehcs_ablate_train_f32': (
+        ctypes.c_int,
+        [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_float)]
+        + [_P] * 13
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P,
+           _P, _P]),
 }
 
 

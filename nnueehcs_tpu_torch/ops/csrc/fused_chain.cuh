@@ -1,5 +1,7 @@
 // Device pieces shared by the fused eval kernels (fused_ensemble.cu,
-// fused_mc_dropout.cu, fused_anchored.cu): a block of 256 threads owns a
+// fused_mc_dropout.cu, fused_anchored.cu) and the attribution probes of
+// kernel 1 (ablate_chain.cu, instances of ensemble_pass below, kernel 1's
+// own body): a block of 256 threads owns a
 // 64-row tile and runs a BatchNorm-folded Linear(+ReLU) chain over it, many
 // times (members, dropout samples, anchors), with the activations in shared
 // memory and the weights streamed through it.
@@ -22,6 +24,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace fused_chain {
 
@@ -92,19 +96,44 @@ struct Identity {
   }
 };
 
+// Where element (row r of the tile, feature k0 + k: a chunk's first feature,
+// then the feature within it) of x lies, from the tile's first element.
+// XRowMajor: x is (rows, K) row-major, as kernels 1, 2 and 5 read it;
+// XStrided: at x[r * rs + (k0 + k) * ks] (a wider row-major x, or a
+// feature-major one).
+struct XRowMajor {
+  __device__ __forceinline__ const float* operator()(const float* x, int r,
+                                                     int k0, int k,
+                                                     int K) const {
+    return x + static_cast<size_t>(r) * K + k0 + k;
+  }
+};
+
+struct XStrided {
+  long long rs, ks;
+  __device__ __forceinline__ const float* operator()(const float* x, int r,
+                                                     int k0, int k,
+                                                     int) const {
+    return x + r * rs + (k0 + k) * ks;
+  }
+};
+
 // out[n][r] = epi(r, n, act(sum_k in[k][r] * w[k][n] + b[n])) for the tile's
 // 64 rows and all 128 (padded) columns n. in/out are feature-major (row
 // stride kStride) and may be the same buffer; w is a (K, 128) folded weight
 // in device memory. With kFromX (layer 0), the input is the tile's rows of
-// x, (valid, K) row-major in device memory: each chunk of K is staged,
-// through xform, into one of two kChunk-row slots of `in` (rows past
-// `valid` as zeros) beside its weights.
-template <bool kFromX, class XForm, class Epi>
+// x, element (r, k0 + k) at at(x, r, k0, k, K) in device memory ((valid, K)
+// row-major by default): each chunk of K is staged, through xform, into one
+// of two kChunk-row slots of `in` (rows past `valid` as zeros) beside its
+// weights. Without kAffine the bias and the ReLU are left out.
+template <bool kFromX, class XForm, class Epi, class XAt = XRowMajor,
+          bool kAffine = true>
 __device__ __forceinline__ void dense_layer(float* in, float* out, float* sw,
                                             const float* w, const float* b,
                                             int K, bool relu, const float* x,
                                             int valid, const XForm& xform,
-                                            const Epi& epi) {
+                                            const Epi& epi,
+                                            const XAt& at = XAt()) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ty = (warp >> 1) * 4 + (lane >> 3);  // rows ty*4 .. ty*4+3
   const int tx = (warp & 1) * 8 + (lane & 7);    // columns tx*4.. and 64+tx*4..
@@ -120,9 +149,7 @@ __device__ __forceinline__ void dense_layer(float* in, float* out, float* sw,
     for (int i = threadIdx.x; i < kTileRows * rows; i += kThreads) {
       const int r = i / rows, k = i - r * rows;
       dst[k * kStride + r] =
-          r < valid
-              ? xform(r, k0 + k, __ldg(x + static_cast<size_t>(r) * K + k0 + k))
-              : 0.f;
+          r < valid ? xform(r, k0 + k, __ldg(at(x, r, k0, k, K))) : 0.f;
     }
   };
   stream_weights(sw, w, K, stage, [&](const float* wc, int c, int k0,
@@ -149,12 +176,15 @@ __device__ __forceinline__ void dense_layer(float* in, float* out, float* sw,
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int col = j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4);
-    const float bj = __ldg(b + col);
+    const float bj = kAffine ? __ldg(b + col) : 0.f;
     float v[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      v[i] = acc[i][j] + bj;
-      if (relu) v[i] = fmaxf(v[i], 0.f);
+      v[i] = acc[i][j];
+      if (kAffine) {
+        v[i] += bj;
+        if (relu) v[i] = fmaxf(v[i], 0.f);
+      }
       v[i] = epi(ty * 4 + i, col, v[i]);
     }
     *reinterpret_cast<float4*>(out + col * kStride + ty * 4) =
@@ -168,8 +198,10 @@ __device__ __forceinline__ void dense_layer(float* in, float* out, float* sw,
 // to the same thread for every pass. Input element (k, r) is
 // xform(r, k, in[k * k_step + r * r_step]): the feature-major activations,
 // or x itself when the network is one Linear. Rows past `valid` are never
-// written out, so they are skipped.
-template <class XForm>
+// written out, so they are skipped. With kRaw the pass's output h is kept
+// instead (c = the first pass's, s1 = the latest pass's); without kAffine
+// the bias and the ReLU are left out.
+template <class XForm, bool kRaw = false, bool kAffine = true>
 __device__ __forceinline__ void last_layer_stats(
     const float* in, int k_step, int r_step, int valid, const float* w,
     const float* b, int K, bool relu, int out_dim, bool first, float* sc,
@@ -183,12 +215,17 @@ __device__ __forceinline__ void last_layer_stats(
     for (int k = 0; k < K; ++k)
       acc = fmaf(xform(r, k, a[static_cast<size_t>(k) * k_step]),
                  __ldg(w + k * kWidth + col), acc);
-    float v = acc + __ldg(b + col);
-    if (relu) v = fmaxf(v, 0.f);
+    float v = acc;
+    if (kAffine) {
+      v += __ldg(b + col);
+      if (relu) v = fmaxf(v, 0.f);
+    }
     if (first) {
       sc[e] = v;
-      s1[e] = 0.f;
+      s1[e] = kRaw ? v : 0.f;
       s2[e] = 0.f;
+    } else if (kRaw) {
+      s1[e] = v;
     } else {
       const float dlt = v - sc[e];
       s1[e] += dlt;
@@ -222,11 +259,205 @@ __device__ __forceinline__ void write_stats(const float* sc, const float* s1,
   }
 }
 
+// write_stats' mean and std of slot e, for the probes' other layouts. A
+// copy on purpose: write_stats routed through it compiles to other SASS in
+// kernels 1, 2 and 5 (the epilogue's registers and schedule, in every form
+// tried), and the production kernels keep theirs. The two must stay
+// bit-equal: the forward battery holds every layout that goes through
+// shifted_stat to kernel 1 bit for bit (nnueehcs_tpu_torch/attrib.py).
+__device__ __forceinline__ void shifted_stat(const float* sc, const float* s1,
+                                             const float* s2, int e, float n,
+                                             float dof, float& mean,
+                                             float& std) {
+  const float m1 = s1[e] / n;
+  const float var =
+      fmaxf(__fsub_rn(s2[e], __fmul_rn(__fmul_rn(n, m1), m1)), 0.f) / dof;
+  mean = sc[e] + m1;
+  std = sqrtf(var);
+}
+
 // Shared memory of a kernel with two (128, kStride) activation buffers, the
 // two weight chunk buffers and the shifted sums.
 inline size_t smem_bytes(int out_dim) {
   return sizeof(float) * (2 * kWidth * kStride + 2 * kChunk * kWidth +
                           3 * kTileRows * out_dim);
+}
+
+// ---------------------------------------------------------------------------
+// The ensemble pass: kernel 1 (fused_ensemble.cu) is ensemble_pass<> with
+// every flag off; the attribution probe (ablate_chain.cu) instantiates it
+// with flags that carve parts of the pass off or change its layouts.
+
+enum PassMode { kProd, kIoFloor, kGemmOnly, kNoEpi };
+// kOutDense: (B, out_dim) mean and std, kernel 1's; kOutRows: (B, ow),
+// zeros past out_dim; kOutCols: feature-major (ow, B); kOutPacked: one
+// (B, 128) buffer, mean in columns [0, out_dim), std in [out_dim, 2 out_dim).
+enum OutLayout { kOutDense, kOutRows, kOutCols, kOutPacked };
+
+// Load a value so that the load stays in the program though nothing reads it.
+__device__ __forceinline__ void touch(const float* p) {
+  asm volatile("{\n\t.reg .f32 t;\n\tld.global.nc.f32 t, [%0];\n\t}" ::"l"(p));
+}
+
+__device__ __forceinline__ XRowMajor x_at(XRowMajor, bool, long long) {
+  return {};
+}
+
+__device__ __forceinline__ XStrided x_at(XStrided, bool cols, long long ld) {
+  return cols ? XStrided{1, ld} : XStrided{ld, 1};
+}
+
+// Store the tile's outputs in one of the probe's layouts: val(col, r, a, b)
+// gives out0's and out1's element at (row r of the tile, column col). The
+// (B, ow) layouts go through t0/t1 (two free (64, 129) buffers) so that the
+// device stores are row-contiguous.
+template <int kOut, int kNOut, class V>
+__device__ __forceinline__ void store_tile(const V& val, int valid,
+                                           long long row0, long long B, int ow,
+                                           int out_dim, float* out0,
+                                           float* out1, float* t0, float* t1) {
+  if constexpr (kOut == kOutCols) {
+    for (int e = threadIdx.x; e < kTileRows * ow; e += kThreads) {
+      const int col = e / kTileRows, r = e % kTileRows;
+      if (r >= valid) continue;
+      float a, b;
+      val(col, r, a, b);
+      out0[col * B + row0 + r] = a;
+      if (kNOut > 1) out1[col * B + row0 + r] = b;
+    }
+  } else {
+    constexpr int kT = kWidth + 1;
+    __syncthreads();   // every thread's last-layer reads and sums are done
+    for (int e = threadIdx.x; e < kTileRows * ow; e += kThreads) {
+      const int col = e / kTileRows, r = e % kTileRows;
+      if (r >= valid) continue;
+      float a = 0.f, b = 0.f, unused;
+      if (kOut == kOutPacked) {
+        if (col < out_dim)
+          val(col, r, a, unused);
+        else if (col < 2 * out_dim)
+          val(col - out_dim, r, unused, a);
+      } else {
+        val(col, r, a, b);
+      }
+      t0[r * kT + col] = a;
+      if (kNOut > 1) t1[r * kT + col] = b;
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < valid * ow; e += kThreads) {
+      const int r = e / ow, col = e % ow;
+      const size_t o = static_cast<size_t>(row0 + r) * ow + col;
+      out0[o] = t0[r * kT + col];
+      if (kNOut > 1) out1[o] = t1[r * kT + col];
+    }
+  }
+}
+
+// One block's pass over a 64-row tile: members [0, M) of the (M_all-member)
+// folded chain, layers [0, L). x holds d real features, element (row,
+// feature) at x[row * ldx + feature] (row-major) or, with kXCols,
+// x[feature * ldx + row]; out_dim is layer L-1's width (128 when the chain
+// is cut short). kMode: kProd, the shifted mean and std; kGemmOnly, the same
+// without bias and ReLU; kNoEpi, out0 = the last member's h and out1 =
+// member 0's; kIoFloor, no chain: x's real elements are loaded and every
+// output is 1 + x[(row / tile) * tile, 0]. ow: the output width (rows for
+// kOutCols); kernel 1 passes ldx = d and ow = out_dim.
+template <int kMode = kProd, int kNOut = 2, bool kXCols = false,
+          int kOut = kOutDense>
+__device__ __forceinline__ void ensemble_pass(
+    float* smem, const float* __restrict__ x, long long B, int d,
+    long long ldx, const float* __restrict__ w_all,
+    const float* __restrict__ b_all, int M_all, int M, int L,
+    const int* __restrict__ relu, int out_dim, int ow, int tile,
+    float* __restrict__ out0, float* __restrict__ out1) {
+  float* act0 = smem;
+  float* act1 = act0 + kWidth * kStride;
+  float* sw = act1 + kWidth * kStride;
+  float* sc = sw + 2 * kChunk * kWidth;
+  float* s1 = sc + kTileRows * out_dim;
+  float* s2 = s1 + kTileRows * out_dim;
+
+  const long long row0 = static_cast<long long>(blockIdx.x) * kTileRows;
+  const int valid = static_cast<int>(min(static_cast<long long>(kTileRows), B - row0));
+  using XAt = std::conditional_t<kOut == kOutDense && !kXCols, XRowMajor,
+                                 XStrided>;
+  const XAt at = x_at(XAt(), kXCols, ldx);
+  const float* x_tile = kXCols ? x + row0 : x + row0 * ldx;
+
+  if constexpr (kMode == kIoFloor) {
+    for (int e = threadIdx.x; e < valid * d; e += kThreads) {
+      const int r = kXCols ? e % valid : e / d, k = kXCols ? e / valid : e % d;
+      touch(at(x_tile, r, 0, k, d));
+    }
+    store_tile<kOut, kNOut>(
+        [&](int, int r, float& a, float& b) {
+          const long long first = (row0 + r) / tile * tile;
+          a = b = 1.f + __ldg(at(x, static_cast<int>(first), 0, 0, d));
+        },
+        valid, row0, B, ow, out_dim, out0, out1, act0, act1);
+    return;
+  }
+  constexpr bool kAffine = kMode != kGemmOnly;
+  constexpr bool kRaw = kMode == kNoEpi;
+  const float* w_hidden = w_all + static_cast<size_t>(M_all) * d * kWidth;
+  const Identity none;
+
+  for (int m = 0; m < M; ++m) {
+    __syncthreads();  // the previous member's last layer may still read act0
+    float* in = act0;
+    float* out = act1;
+    for (int l = 0; l + 1 < L; ++l) {
+      const float* b = b_all + (static_cast<size_t>(l) * M_all + m) * kWidth;
+      const bool act = __ldg(relu + l) != 0;
+      if (l == 0) {
+        dense_layer<true, Identity, Identity, XAt, kAffine>(
+            in, out, sw, w_all + static_cast<size_t>(m) * d * kWidth, b, d,
+            act, x_tile, valid, none, none, at);
+      } else {
+        dense_layer<false, Identity, Identity, XAt, kAffine>(
+            in, out, sw,
+            w_hidden + (static_cast<size_t>(l - 1) * M_all + m) * kWidth * kWidth,
+            b, kWidth, act, nullptr, valid, none, none);
+      }
+      float* t = in;
+      in = out;
+      out = t;
+    }
+    __syncthreads();  // the last epilogue's stores must land before the reads
+    const int l = L - 1;
+    const float* b = b_all + (static_cast<size_t>(l) * M_all + m) * kWidth;
+    const bool act = __ldg(relu + l) != 0;
+    if (l == 0) {  // one Linear: read x straight from device memory
+      last_layer_stats<Identity, kRaw, kAffine>(
+          x_tile, kXCols ? ldx : 1, kXCols ? 1 : ldx, valid,
+          w_all + static_cast<size_t>(m) * d * kWidth, b, d, act, out_dim,
+          m == 0, sc, s1, s2, none);
+    } else {
+      last_layer_stats<Identity, kRaw, kAffine>(
+          in, kStride, 1, valid,
+          w_hidden + (static_cast<size_t>(l - 1) * M_all + m) * kWidth * kWidth,
+          b, kWidth, act, out_dim, m == 0, sc, s1, s2, none);
+    }
+  }
+  if constexpr (kOut == kOutDense) {
+    write_stats(sc, s1, s2, M, valid, row0, out_dim, out0, out1);
+  } else {
+    const float n = static_cast<float>(M);
+    const float dof = static_cast<float>(M > 1 ? M - 1 : 1);
+    store_tile<kOut, kNOut>(
+        [&](int col, int r, float& a, float& b) {
+          const int e = col * kTileRows + r;
+          if (col >= out_dim) {
+            a = b = 0.f;
+          } else if (kRaw) {
+            a = s1[e];
+            b = sc[e];
+          } else {
+            shifted_stat(sc, s1, s2, e, n, dof, a, b);
+          }
+        },
+        valid, row0, B, ow, out_dim, out0, out1, act0, act1);
+  }
 }
 
 }  // namespace fused_chain

@@ -38,7 +38,8 @@ using namespace fused_chain;
 namespace {
 
 // w_all: layer 0 as (M, d, 128), then layers 1..L-1 as (M, 128, 128);
-// b_all: (L, M, 128). relu[l] != 0: ReLU after layer l.
+// b_all: (L, M, 128). relu[l] != 0: ReLU after layer l. The body is
+// fused_chain.cuh's ensemble_pass with every attribution flag off.
 __global__ void __launch_bounds__(kThreads, 2)
     fused_ensemble_kernel(const float* __restrict__ x, long long B, int d,
                           const float* __restrict__ w_all,
@@ -46,55 +47,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                           const int* __restrict__ relu, int out_dim,
                           float* __restrict__ mean, float* __restrict__ std) {
   extern __shared__ __align__(16) float smem[];
-  float* act0 = smem;
-  float* act1 = act0 + kWidth * kStride;
-  float* sw = act1 + kWidth * kStride;
-  float* sc = sw + 2 * kChunk * kWidth;
-  float* s1 = sc + kTileRows * out_dim;
-  float* s2 = s1 + kTileRows * out_dim;
-
-  const long long row0 = static_cast<long long>(blockIdx.x) * kTileRows;
-  const int valid = static_cast<int>(min(static_cast<long long>(kTileRows), B - row0));
-  const float* x_tile = x + row0 * d;
-  const float* w_hidden = w_all + static_cast<size_t>(M) * d * kWidth;
-  const Identity none;
-
-  for (int m = 0; m < M; ++m) {
-    __syncthreads();  // the previous member's last layer may still read act0
-    float* in = act0;
-    float* out = act1;
-    for (int l = 0; l + 1 < L; ++l) {
-      const float* b = b_all + (static_cast<size_t>(l) * M + m) * kWidth;
-      const bool act = __ldg(relu + l) != 0;
-      if (l == 0) {
-        dense_layer<true>(in, out, sw, w_all + static_cast<size_t>(m) * d * kWidth,
-                          b, d, act, x_tile, valid, none, none);
-      } else {
-        dense_layer<false>(in, out, sw,
-                           w_hidden + (static_cast<size_t>(l - 1) * M + m) *
-                                          kWidth * kWidth,
-                           b, kWidth, act, nullptr, valid, none, none);
-      }
-      float* t = in;
-      in = out;
-      out = t;
-    }
-    __syncthreads();  // the last epilogue's stores must land before the reads
-    const int l = L - 1;
-    const float* b = b_all + (static_cast<size_t>(l) * M + m) * kWidth;
-    const bool act = __ldg(relu + l) != 0;
-    if (l == 0) {  // one Linear: read x straight from device memory
-      last_layer_stats(x_tile, 1, d, valid,
-                       w_all + static_cast<size_t>(m) * d * kWidth, b, d, act,
-                       out_dim, m == 0, sc, s1, s2, none);
-    } else {
-      last_layer_stats(in, kStride, 1, valid,
-                       w_hidden + (static_cast<size_t>(l - 1) * M + m) *
-                                      kWidth * kWidth,
-                       b, kWidth, act, out_dim, m == 0, sc, s1, s2, none);
-    }
-  }
-  write_stats(sc, s1, s2, M, valid, row0, out_dim, mean, std);
+  ensemble_pass(smem, x, B, d, d, w_all, b_all, M, M, L, relu, out_dim,
+                out_dim, 0, mean, std);
 }
 
 }  // namespace

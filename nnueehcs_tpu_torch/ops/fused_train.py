@@ -556,6 +556,41 @@ def lin_table(plan: FusedTrainPlan, device) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
+def kernel_config(plan: FusedTrainPlan, S: int, lr, step0, seed,
+                  single_sweep: bool):
+    """The int and float configuration arrays of the training kernels' C
+    entries (``INT_FIELDS`` and ``FLOAT_FIELDS`` order)."""
+    k = _constants(plan)
+    ints = {'S': S, 'B': plan.batch, 'in_pad': plan.in_pad,
+            'out_pad': plan.out_pad, 'M': plan.num_members,
+            'slab_rows': plan.slab_rows, 'sig_rows': plan.sig_rows,
+            'n_lins': len(plan.lins), 'n_bn': plan.n_bn,
+            'n_drop': plan.n_drop, 'loss': LOSSES.index(plan.loss),
+            'single_sweep': int(single_sweep),
+            'clip_on': int(plan.clip is not None), 'step0': int(step0),
+            'seed': int(seed) & _M32, 'has_wd': int(bool(plan.weight_decay))}
+    floats = dict(k, lr=_f32(lr))
+    iconf = (ctypes.c_longlong * len(INT_FIELDS))(*[ints[f] for f in INT_FIELDS])
+    fconf = (ctypes.c_float * len(FLOAT_FIELDS))(*[floats[f]
+                                                   for f in FLOAT_FIELDS])
+    return iconf, fconf
+
+
+def kernel_buffers(lib, plan: FusedTrainPlan, theta) -> dict:
+    """The device buffers the training kernels take besides the caller's:
+    the block table, the per-member scratch, the zeroed gradient, the loss
+    sweep's predictions and the terms/partials pair."""
+    M, B, device = plan.num_members, plan.batch, theta.device
+    return {
+        'lins': lin_table(plan, device),
+        'scratch': torch.empty(M * lib.nnueehcs_fused_train_scratch_floats(
+            B, plan.n_bn, plan.n_drop), dtype=torch.float32, device=device),
+        'g': torch.zeros_like(theta),
+        'preds': torch.empty((M, B, LANES), dtype=torch.float32,
+                             device=device),
+        'small': torch.zeros(2 * M, dtype=torch.float32, device=device)}
+
+
 def _check_buffers(plan: FusedTrainPlan, theta, m, v, sigma, xs, ys):
     R, G, S = plan.total_rows, plan.total_sig_rows, xs.shape[0]
     want = {'theta': (R, LANES), 'm': (R, LANES), 'v': (R, LANES),
@@ -614,32 +649,16 @@ def fused_epoch(plan: FusedTrainPlan, theta, m, v, sigma, xs, ys, lr, step0,
         return theta, m, v, sigma, losses
     from ._build import library
     lib = library()
-    M, B = plan.num_members, plan.batch
-    k = _constants(plan)
-    ints = {'S': S, 'B': B, 'in_pad': plan.in_pad, 'out_pad': plan.out_pad,
-            'M': M, 'slab_rows': plan.slab_rows, 'sig_rows': plan.sig_rows,
-            'n_lins': len(plan.lins), 'n_bn': plan.n_bn,
-            'n_drop': plan.n_drop, 'loss': LOSSES.index(plan.loss),
-            'single_sweep': int(plan.single_sweep),
-            'clip_on': int(plan.clip is not None), 'step0': int(step0),
-            'seed': int(seed) & _M32, 'has_wd': int(bool(plan.weight_decay))}
-    floats = dict(k, lr=_f32(lr))
-    iconf = (ctypes.c_longlong * len(INT_FIELDS))(*[ints[f] for f in INT_FIELDS])
-    fconf = (ctypes.c_float * len(FLOAT_FIELDS))(*[floats[f]
-                                                   for f in FLOAT_FIELDS])
-    lins = lin_table(plan, device)
+    iconf, fconf = kernel_config(plan, S, lr, step0, seed, plan.single_sweep)
+    bufs = kernel_buffers(lib, plan, theta)
     drops = _drop_tensor(plan, drops, device)
-    scratch = torch.empty(M * lib.nnueehcs_fused_train_scratch_floats(
-        B, plan.n_bn, plan.n_drop), dtype=torch.float32, device=device)
-    g = torch.zeros_like(theta)
-    preds = torch.empty((M, B, LANES), dtype=torch.float32, device=device)
-    small = torch.zeros(2 * M, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         err = lib.nnueehcs_fused_train_f32(
             iconf, fconf, theta.data_ptr(), m.data_ptr(), v.data_ptr(),
-            sigma.data_ptr(), g.data_ptr(), xs.data_ptr(), ys.data_ptr(),
-            losses.data_ptr(), lins.data_ptr(), drops.data_ptr(),
-            scratch.data_ptr(), preds.data_ptr(), small.data_ptr(),
+            sigma.data_ptr(), bufs['g'].data_ptr(), xs.data_ptr(),
+            ys.data_ptr(), losses.data_ptr(), bufs['lins'].data_ptr(),
+            drops.data_ptr(), bufs['scratch'].data_ptr(),
+            bufs['preds'].data_ptr(), bufs['small'].data_ptr(),
             None if signs is None else signs.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     if err != 0:

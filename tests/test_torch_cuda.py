@@ -1,7 +1,7 @@
 """The port's CUDA kernels on a card (the fused ensemble, MC-dropout,
-anchored, KDE and training kernels), each held against its plain PyTorch
-version on
-the same inputs, and the serving path of each model on the card. Every test here is
+anchored, KDE and training kernels, and the attribution probes of the
+ensemble and training kernels), each held against its plain PyTorch
+version on the same inputs, and the serving path of each model on the card. Every test here is
 marked ``cuda`` and skips without a card. The file imports neither JAX nor
 the JAX package, so it runs on a CUDA-only machine (with ``--noconftest``,
 since tests/conftest.py imports JAX):
@@ -22,12 +22,15 @@ networks whose pre-ReLU values are kept away from 0
 (``chip_smoke.separate_relu``), and step by step on the flagship as built,
 where a value beyond tolerance must lie in the reach of a ReLU decision
 the two took differently (``chip_smoke.stepwise_vs_plain``)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from chip_smoke import (FLAGSHIP, TOL_TRAIN, separate_relu,
                         stepwise_vs_plain, train_inputs, train_plan)
+from nnueehcs_tpu_torch.attrib import BINDING_CLIP, TOL_NORM
 from nnueehcs_tpu_torch.convert import tensor_trees
 from nnueehcs_tpu_torch.model_builder import (DeltaUQMLPModelBuilder,
                                               EnsembleModelBuilder,
@@ -35,6 +38,8 @@ from nnueehcs_tpu_torch.model_builder import (DeltaUQMLPModelBuilder,
                                               MCDropoutModelBuilder,
                                               MVEModelBuilder,
                                               PAGERModelBuilder)
+from nnueehcs_tpu_torch.ops import ablate_epoch as ae
+from nnueehcs_tpu_torch.ops import ablate_forward as af
 from nnueehcs_tpu_torch.ops.fused_anchored import (anchor_rows,
                                                    fused_anchored_plain,
                                                    fused_anchored_stats)
@@ -472,3 +477,162 @@ def test_trainer_on_card_runs_the_training_kernel(card, family, tmp_path):
         fresh = load_model(path, device=card)
         for a, b in zip(m(x, return_ue=True), fresh(x, return_ue=True)):
             torch.testing.assert_close(a, b, **TOL_MEAN)
+
+
+# the attribution probes of kernels 1 and 3 (ops/ablate_forward.py,
+# ops/ablate_epoch.py): every mode against its plain version, and each
+# prod form against the production kernel, bit for bit
+ABLATE_CASES = {
+    # name: (members, in_dim, width, hidden, out_dim, rows)
+    'flagship': (8, 5, 128, 6, 1, 65_536),
+    'ragged': (8, 5, 128, 6, 1, 1000),
+    'narrow_out3': (3, 7, 32, 2, 3, 777),
+    'single_linear': (2, 9, 9, 0, 4, 129),
+}
+
+
+def _padded(x, width):
+    return torch.nn.functional.pad(x, (0, width - x.shape[1])).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(ABLATE_CASES))
+@pytest.mark.parametrize('mode', af.MODES)
+@pytest.mark.parametrize('n_out', [1, 2])
+def test_ablate_forward_matches_plain_on_card(card, case, mode, n_out):
+    members, in_dim, width, hidden, out_dim, rows = ABLATE_CASES[case]
+    fw = prepare_fused_weights(_model(card, members, in_dim, width, hidden,
+                                      out_dim).net)
+    x = torch.as_tensor(np.random.default_rng(6).normal(size=(rows, in_dim)),
+                        dtype=torch.float32, device=card)
+    x_pad = _padded(x, 128)
+    cuts = [(None, None), (1, None), (None, 1), (2, 2)]
+    for members_cut, layers_cut in cuts:
+        if layers_cut is not None and layers_cut > fw.num_layers:
+            continue
+        before = af.ablate_forward.launches
+        got = af.ablate_forward(fw, x_pad, members_cut, layers_cut, 64, mode,
+                                n_out)
+        torch.cuda.synchronize()
+        assert af.ablate_forward.launches == before + 1
+        want = af.ablate_forward_plain(fw, x_pad, members_cut, layers_cut, 64,
+                                       mode, n_out)
+        if mode == 'io_floor':
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+            continue
+        torch.testing.assert_close(got[0], want[0], **TOL_MEAN)
+        if n_out == 2:
+            tol = TOL_MEAN if mode == 'no_epi' else TOL_STD
+            torch.testing.assert_close(got[1], want[1], **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(ABLATE_CASES))
+def test_layout_probes_match_plain_and_production_on_card(card, case):
+    members, in_dim, width, hidden, out_dim, rows = ABLATE_CASES[case]
+    fw = prepare_fused_weights(_model(card, members, in_dim, width, hidden,
+                                      out_dim).net)
+    x = torch.as_tensor(np.random.default_rng(7).normal(size=(rows, in_dim)),
+                        dtype=torch.float32, device=card)
+    mean, std = fused_forward_prefolded(fw, x)
+    feat = max(8, in_dim)
+    calls = [(af.ablate_forward, af.ablate_forward_plain, (_padded(x, 128),)),
+             (af.xt_forward, af.xt_forward_plain,
+              (_padded(x, feat).T.contiguous(),)),
+             (af.xt_forward, af.xt_forward_plain,
+              (_padded(x, feat).T.contiguous(), True, 8))]
+    if in_dim <= 8:
+        calls += [(af.narrow_forward, af.narrow_forward_plain,
+                   (_padded(x, 8), True, out_dim <= 8)),
+                  (af.narrow_forward, af.narrow_forward_plain,
+                   (_padded(x, 128), False, True))]
+    calls += [(af.narrow_forward, af.narrow_forward_plain,
+               (_padded(x, 128), False, False)),
+              (af.packed_forward, af.packed_forward_plain,
+               (_padded(x, 128),))]
+    for fn, plain, args in calls:
+        before = fn.launches
+        got = fn(fw, *args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        want = plain(fw, *args)
+        torch.testing.assert_close(got[0], want[0], **TOL_MEAN)
+        torch.testing.assert_close(got[1], want[1], **TOL_STD)
+        if got[0].shape[0] == rows:          # kernel 1's math, bit for bit
+            n = min(out_dim, got[0].shape[1])
+            assert torch.equal(got[0][:, :n], mean[:, :n])
+            assert torch.equal(got[1][:, :n], std[:, :n])
+        else:                                # feature-major
+            assert torch.equal(got[0][:out_dim].T, mean)
+            assert torch.equal(got[1][:out_dim].T, std)
+
+
+ABLATE_TRAIN_VARIANTS = [
+    dict(mode=mode) for mode in ae.MODES] + [
+    dict(unroll=2), dict(unroll=4, mode='no_opt'), dict(gn_fused=True),
+    dict(opt_chunk=8), dict(opt_chunk=1), dict(unroll=4, gn_fused=True,
+                                               opt_chunk=32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('family,members', [('ensemble', 3), ('ensemble', 8),
+                                            ('mc', 1)])
+@pytest.mark.parametrize('variant', ABLATE_TRAIN_VARIANTS, ids=str)
+def test_ablate_epoch_matches_plain_on_card(card, family, members, variant):
+    width = 128 if members == 8 else 32
+    m = separate_relu(_train_model(card, family, width, 6 if members == 8
+                                   else 2, members, 0.2),
+                      torch.Generator().manual_seed(13))
+    plan = train_plan(m)
+    bufs, xs, ys = train_inputs(m, plan, np.random.default_rng(14), 8)
+    before = ae.ablate_epoch.launches
+    got = ae.ablate_epoch(plan, *[b.clone() for b in bufs], xs, ys, 1e-3, 5,
+                          **variant)
+    torch.cuda.synchronize()
+    assert ae.ablate_epoch.launches == before + 1
+    want = ae.ablate_epoch_reference(plan, *[b.clone() for b in bufs], xs, ys,
+                                     1e-3, 5, **variant)
+    for (name, tol), a, b in zip(TOL_TRAIN.items(), got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=tol, msg=name)
+    prod = ae.ablate_epoch(plan, *[b.clone() for b in bufs], xs, ys, 1e-3, 5,
+                           mode=variant.get('mode', 'prod'))
+    if not variant.get('gn_fused'):  # unroll and opt_chunk: the same sums
+        for a, b in zip(got, prod):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('variant', [
+    dict(), dict(gn_fused=True), dict(unroll=4, gn_fused=True, opt_chunk=32),
+    dict(mode='no_opt', gn_fused=True)], ids=str)
+def test_ablate_epoch_grad_norms_with_a_binding_clip_on_card(card, variant):
+    """With a clip below every step's gradient norm, the clip scale
+    carries the members' sums of g^2 (gn_fused: taken as the backward
+    writes g): each step's global norm agrees with the plain version's,
+    the clip bound on every step, and the epochs agree."""
+    m = separate_relu(_train_model(card, 'ensemble', 128, 6, 8, 0.2),
+                      torch.Generator().manual_seed(13))
+    plan = dataclasses.replace(train_plan(m), clip=BINDING_CLIP)
+    bufs, xs, ys = train_inputs(m, plan, np.random.default_rng(14), 8)
+    norms = [torch.empty(8, device=card) for _ in range(2)]
+    got = ae.ablate_epoch(plan, *[b.clone() for b in bufs], xs, ys, 1e-3, 5,
+                          norms=norms[0], **variant)
+    want = ae.ablate_epoch_reference(plan, *[b.clone() for b in bufs], xs, ys,
+                                     1e-3, 5, norms=norms[1], **variant)
+    torch.testing.assert_close(norms[0], norms[1], **TOL_NORM)
+    assert bool((torch.minimum(*norms) >= BINDING_CLIP).all())
+    for (name, tol), a, b in zip(TOL_TRAIN.items(), got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=tol, msg=name)
+
+
+@pytest.mark.cuda
+def test_ablate_epoch_prod_is_kernel_3_bit_for_bit_on_card(card):
+    m = EnsembleModelBuilder(FLAGSHIP, {'num_models': 8}, seed=3,
+                             device=card).build()
+    plan = train_plan(m)
+    bufs, xs, ys = train_inputs(m, plan, np.random.default_rng(15), 40)
+    got = ae.ablate_epoch(plan, *[b.clone() for b in bufs], xs, ys, 1e-3, 5)
+    want = ft.fused_epoch(plan, *[b.clone() for b in bufs], xs, ys, 1e-3, 5)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -86,14 +86,25 @@ def test_builder_and_loader_default_device_raise_without_card(
         cpu_model.to('cuda')
 
 
+def test_attrib_default_device_raises_without_card(no_card):
+    from nnueehcs_tpu_torch import attrib
+    for battery in ('forward', 'train'):
+        with pytest.raises(RuntimeError, match='cuda'):
+            attrib.main([battery])
+    with pytest.raises(RuntimeError, match='cuda'):
+        attrib.train_battery()
+    with pytest.raises(RuntimeError, match='cuda'):
+        attrib.forward_battery()
+
+
 def test_kernels_build_with_plain_nvcc():
     headers = sorted(_build.CSRC.glob('*.cuh'))
     texts = [open(_build.__file__).read()] + \
         [src.read_text() for src in [*_build.sources(), *headers]]
     assert [s.name for s in _build.sources()] == [
-        'fused_anchored.cu', 'fused_ensemble.cu', 'fused_mc_dropout.cu',
-        'fused_train.cu', 'kde.cu']
-    assert [h.name for h in headers] == ['fused_chain.cuh']
+        'ablate_chain.cu', 'ablate_train.cu', 'fused_anchored.cu',
+        'fused_ensemble.cu', 'fused_mc_dropout.cu', 'fused_train.cu', 'kde.cu']
+    assert [h.name for h in headers] == ['fused_chain.cuh', 'fused_train.cuh']
     for text in texts:
         for banned in ('cpp_extension', 'torch/extension.h', 'ninja'):
             assert banned not in text
