@@ -28,9 +28,16 @@ entry point (``nnueehcs_tpu_torch.attrib``): both batteries of the CUDA
 probes of kernels 1 and 3 at the flagship shape (262,144 rows; 500 steps of
 batch 128), every probe held to its plain version and every form of the
 production math to its kernel bit for bit before it is timed, with the
-serving and training phases checked to have launched no probe. It prints
-one JSON line per phase, then the card's ``nvidia-smi`` name and power
-limit, then a ``{"kernels": [...]}`` line (ten kernels), and last
+serving and training phases checked to have launched no probe. The bf16
+forms of kernels 1, 2 and 5 and of the packed probe are held to their plain
+versions at the same shapes, the seven models are served again after
+``set_precision('bf16-mixed')`` (the JAX package's ``eval_precision``, a
+bf16 evaluation of an fp32-trained model), each answer held to the plain
+bf16 function on the card against its bf16-vs-fp32 gap, with each
+kernel's bf16 form launched exactly as often as its fp32 form was and no
+fp32 form at all, and each bf16 form is timed. It prints one JSON line per phase, then the card's
+``nvidia-smi`` name and power limit, then a ``{"kernels": [...]}`` line
+(fourteen kernels: the ten fp32 ones, then the four bf16 forms), and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a card it exits non-zero before doing anything.
 """
@@ -58,9 +65,10 @@ from nnueehcs_tpu_torch.model_builder import (DeltaUQMLPModelBuilder,
                                               MVEModelBuilder,
                                               PAGERModelBuilder)
 from nnueehcs_tpu_torch import attrib
-from nnueehcs_tpu_torch.attrib import (TOL_MEAN, TOL_STD, TOL_TRAIN, bound,
-                                       check, event_ms, flip_reach,
-                                       nvidia_smi, peaks, separate_relu,
+from nnueehcs_tpu_torch.attrib import (TOL_MEAN, TOL_STD, TOL_TRAIN,
+                                       bf16_close, bf16_peak, bound, check,
+                                       event_ms, flip_reach, nvidia_smi,
+                                       peaks, separate_relu,
                                        stepwise_vs_plain, train_flops)
 from nnueehcs_tpu_torch.convert import tensor_trees
 from nnueehcs_tpu_torch.ops import _build
@@ -69,12 +77,14 @@ from nnueehcs_tpu_torch.ops import ablate_forward as af
 from nnueehcs_tpu_torch.ops import fused_train as ft
 from nnueehcs_tpu_torch.ops.fused_anchored import (anchor_rows,
                                                    fused_anchored_plain,
-                                                   fused_anchored_stats)
+                                                   fused_anchored_stats,
+                                                   prepare_fused_anchored)
 from nnueehcs_tpu_torch.ops.fused_ensemble import (fused_forward_plain,
                                                    fused_forward_prefolded,
                                                    prepare_fused_weights)
 from nnueehcs_tpu_torch.ops.fused_mc_dropout import (fused_mc_forward,
-                                                     fused_mc_forward_plain)
+                                                     fused_mc_forward_plain,
+                                                     prepare_mc_weights)
 from nnueehcs_tpu_torch.ops.kde import (_log_norm_const, bandwidth_value,
                                         centre, kde_logpdf, kde_logpdf_plain,
                                         knn_kde_density)
@@ -204,17 +214,46 @@ KERNELS = [{
     'route': 'cuda',
     'source': 'nnueehcs_tpu_torch/ops/csrc/ablate_chain.cu',
     'replaces': 'experiments/grid_r4/kernel_variants.py:37',
+}, {
+    'name': 'fused_ensemble_bf16',
+    'route': 'cuda',
+    'source': 'nnueehcs_tpu_torch/ops/csrc/fused_ensemble.cu',
+    'replaces': 'nnueehcs_tpu/ops/fused_ensemble.py:195',
+}, {
+    'name': 'fused_mc_dropout_bf16',
+    'route': 'cuda',
+    'source': 'nnueehcs_tpu_torch/ops/csrc/fused_mc_dropout.cu',
+    'replaces': 'nnueehcs_tpu/ops/fused_ensemble.py:460',
+}, {
+    'name': 'fused_anchored_bf16',
+    'route': 'cuda',
+    'source': 'nnueehcs_tpu_torch/ops/csrc/fused_anchored.cu',
+    'replaces': 'nnueehcs_tpu/ops/fused_anchored.py:141',
+}, {
+    'name': 'packed_forward_bf16',
+    'route': 'cuda',
+    'source': 'nnueehcs_tpu_torch/ops/csrc/ablate_chain.cu',
+    'replaces': 'experiments/grid_r4/kernel_variants.py:37',
 }]
-WRAPPERS = {'fused_ensemble': fused_forward_prefolded,
-            'fused_mc_dropout': fused_mc_forward,
-            'fused_anchored': fused_anchored_stats,
-            'kde': kde_logpdf,
-            'fused_train': ft.fused_epoch,
-            'ablate_forward': af.ablate_forward,
-            'xt_forward': af.xt_forward,
-            'narrow_forward': af.narrow_forward,
-            'ablate_epoch': ae.ablate_epoch,
-            'packed_forward': af.packed_forward}
+# each kernel's launch count: (wrapper, attribute); a wrapper counts its
+# fp32 and bf16 forms apart
+WRAPPERS = {'fused_ensemble': (fused_forward_prefolded, 'launches'),
+            'fused_mc_dropout': (fused_mc_forward, 'launches'),
+            'fused_anchored': (fused_anchored_stats, 'launches'),
+            'kde': (kde_logpdf, 'launches'),
+            'fused_train': (ft.fused_epoch, 'launches'),
+            'ablate_forward': (af.ablate_forward, 'launches'),
+            'xt_forward': (af.xt_forward, 'launches'),
+            'narrow_forward': (af.narrow_forward, 'launches'),
+            'ablate_epoch': (ae.ablate_epoch, 'launches'),
+            'packed_forward': (af.packed_forward, 'launches'),
+            'fused_ensemble_bf16': (fused_forward_prefolded, 'launches_bf16'),
+            'fused_mc_dropout_bf16': (fused_mc_forward, 'launches_bf16'),
+            'fused_anchored_bf16': (fused_anchored_stats, 'launches_bf16'),
+            'packed_forward_bf16': (af.packed_forward, 'launches_bf16')}
+BF16_OF = {'fused_ensemble': 'fused_ensemble_bf16',
+           'fused_mc_dropout': 'fused_mc_dropout_bf16',
+           'fused_anchored': 'fused_anchored_bf16', 'kde': 'kde'}
 # the attribution phase: the probes' battery variant that stands for each
 # probe in the kernels line, and the gates whose errors it reports
 PROBE_VARIANTS = {'ablate_forward': 'prod', 'xt_forward': 'xT input',
@@ -367,14 +406,19 @@ def reference_anchored(model, x):
 
 
 def library_chain(fw, x):
-    """Yardstick only: the same function as one batched GEMM per layer."""
+    """Yardstick only: the same function as one batched GEMM per layer; in
+    bf16 (bf16 weights) each hidden layer is a bf16 ``baddbmm`` (bias
+    added in bf16), the last layer an fp32 one on the bf16 activations."""
     last = fw.num_layers - 1
-    h = x.expand(fw.num_members, *x.shape)
+    bf16 = fw.compute_dtype == torch.bfloat16
+    h = (x.bfloat16() if bf16 else x).expand(fw.num_members, *x.shape)
     for l, relu in enumerate(fw.relus):
         w, b = fw.ws[l], fw.b_all[l]
         if l == last:
             w, b = w[:, :, :fw.out_dim], b[:, :fw.out_dim]
-        h = torch.baddbmm(b.unsqueeze(1), h, w)
+            h = torch.baddbmm(b.unsqueeze(1), h.float(), w.float())
+        else:
+            h = torch.baddbmm(b.to(w.dtype).unsqueeze(1), h, w)
         if relu:
             h = torch.relu(h)
     std, mean = torch.std_mean(h, dim=0, correction=1)
@@ -382,13 +426,17 @@ def library_chain(fw, x):
 
 
 def chain(fw, h, first=0):
-    """The folded chain from layer ``first`` on, one GEMM per layer."""
+    """The folded chain from layer ``first`` on, one GEMM per layer, the
+    hidden ones in the weights' dtype (bf16: bias added in bf16), the last
+    one in fp32."""
     last = fw.num_layers - 1
     for l in range(first, fw.num_layers):
         w, b = fw.ws[l][0], fw.b_all[l, 0]
         if l == last:
             w, b = w[:, :fw.out_dim], b[:fw.out_dim]
-        h = torch.addmm(b, h, w)
+            h = torch.addmm(b, h.float(), w.float())
+        else:
+            h = torch.addmm(b.to(w.dtype), h.to(w.dtype), w)
         if fw.relus[l]:
             h = torch.relu(h)
     return h
@@ -408,17 +456,19 @@ def mc_gemm_only(mw, x, samples):
 def anchored_library(aw, x, anchors):
     """Yardstick only: the anchored UE pass as one GEMM chain over all
     anchored rows concat([a, x - a]) (PASS_GROUP anchors at a time), with
-    shifted sums against anchor 0."""
-    w_bot = aw.ws[0][0]
+    shifted sums against anchor 0; in bf16 the first GEMM takes the
+    anchored rows and the whole first weight in bf16."""
+    dtype = aw.compute_dtype
+    w_bot = aw.ws[0][0].float()
     w_top = w_bot.clone()
     w_top[:, :aw.width0] += aw.w0d
-    w_full = torch.cat([w_top, w_bot])                       # (2d, 128)
+    w_full = torch.cat([w_top, w_bot]).to(dtype)             # (2d, 128)
     c = s1 = s2 = None
     for start in range(0, anchors.shape[0], PASS_GROUP):
         a = anchors[start:start + PASS_GROUP]
         inp = torch.cat([a[:, None].expand(-1, *x.shape),
                          x[None] - a[:, None]], dim=-1).reshape(-1, 2 * x.shape[1])
-        h = torch.addmm(aw.b_all[0, 0], inp, w_full)
+        h = torch.addmm(aw.b_all[0, 0].to(dtype), inp.to(dtype), w_full)
         if aw.relus[0]:
             h = torch.relu(h)
         h = chain(aw, h, first=1).view(a.shape[0], x.shape[0], aw.out_dim)
@@ -433,22 +483,24 @@ def anchored_library(aw, x, anchors):
 
 
 def reset_launches():
-    for wrapper in WRAPPERS.values():
-        wrapper.launches = 0
+    for wrapper, attr in WRAPPERS.values():
+        setattr(wrapper, attr, 0)
 
 
 def read_launches():
-    return {name: w.launches for name, w in WRAPPERS.items()}
+    return {name: getattr(w, attr) for name, (w, attr) in WRAPPERS.items()}
 
 
-def serve(name, model, requests, rng, reference, kernel, tol_ue=TOL_STD):
+def serve(name, model, requests, rng, reference, kernel, tol_ue=TOL_STD,
+          judge=None, phase='serving'):
     """Drive ``Predictor`` on ``model``: warm-up, then one request of each
     size. Launch counts are set to 0 just before and read just after;
     ``kernel`` must have launched once per bucket in the warm-up and once
     per chunk of each request, and no other kernel at all (with ``kernel``
     None, no kernel at all). ``reference(x, call_index)`` gives the unfused
     answer on the card for a request that was the model's
-    ``call_index``-th call."""
+    ``call_index``-th call; ``judge(x, call_index, mean, ue)``, when given,
+    checks an answer instead and returns its errors."""
     x_requests = [rng.normal(size=(n, IN_DIM)).astype(np.float32)
                   for n in requests]
     reset_launches()
@@ -472,7 +524,11 @@ def serve(name, model, requests, rng, reference, kernel, tol_ue=TOL_STD):
                                 f'path, expected {expected}')
     errs = []
     for x, call, (mean, ue) in zip(x_requests, calls, answers):
-        ref_mean, ref_ue = reference(torch.from_numpy(x).to(DEVICE), call)
+        xd = torch.from_numpy(x).to(DEVICE)
+        if judge is not None:
+            errs.append({'rows': len(x), **judge(xd, call, mean, ue)})
+            continue
+        ref_mean, ref_ue = reference(xd, call)
         errs.append({'rows': len(x),
                      'mean': compare(f'{name} {len(x)}-row mean',
                                      torch.from_numpy(mean), ref_mean.cpu(),
@@ -480,7 +536,7 @@ def serve(name, model, requests, rng, reference, kernel, tol_ue=TOL_STD):
                      'ue': compare(f'{name} {len(x)}-row ue',
                                    torch.from_numpy(ue), ref_ue.cpu(), tol_ue)})
     torch.cuda.synchronize()
-    emit('serving', model=name, warmup_s=warmup_s, request_rows=list(requests),
+    emit(phase, model=name, warmup_s=warmup_s, request_rows=list(requests),
          request_s=latencies, launches=launches, expected_launches=expected,
          max_abs_err_vs_unfused=errs)
     return predictor, launches[kernel] if kernel is not None else 0
@@ -611,6 +667,37 @@ def fit(name, model, x, y, epochs, seed, **config):
     return trainer, saver, read_launches(), seconds
 
 
+def in_bf16(model, prepare):
+    """``prepare(model.net)`` under bf16-mixed; the model is left in fp32."""
+    model.set_precision('bf16-mixed')
+    weights = prepare(model.net)
+    model.set_precision('32-true')
+    return weights
+
+
+def bf16_judge(name, reference16, reference32):
+    """A ``serve`` judge for a model in bf16: each answer against
+    ``reference16(x, call)`` (the plain bf16 function on the card), within
+    the bf16 bars of its gap to ``reference32(x, call)`` (the same model's
+    fp32 function); an output whose fp32 reference is None does not depend
+    on the precision (KDE's and kNN-KDE's density scores) and is held to
+    TOL_SCORE."""
+    def judge(x, call, mean, ue):
+        out = {}
+        for part, got, want, ref32 in zip(('mean', 'ue'), (mean, ue),
+                                          reference16(x, call),
+                                          reference32(x, call)):
+            got = torch.from_numpy(got)
+            label = f'{name} {x.shape[0]}-row {part}'
+            if ref32 is None:
+                out[part] = {'max_abs_err': compare(label, got, want.cpu(),
+                                                    TOL_SCORE)}
+            else:
+                out[part] = bf16_close(label, got, want.cpu(), ref32.cpu())
+        return out
+    return judge
+
+
 def check_launches(name, launches, **expected):
     want = {k: expected.get(k, 0) for k in WRAPPERS}
     check(launches == want, f'{name}: launches {launches}, expected {want}')
@@ -627,12 +714,15 @@ def main():
     wall = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False   # true fp32 references
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 yardsticks accumulate in fp32, as the kernels do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     rng = np.random.default_rng(args.seed)
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi('name,power.limit')
     peak_flops, peak_bytes, peak_source = peaks(kind)
+    peak_bf16 = bf16_peak(kind)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     max_sm_clock = nvidia_smi('clocks.max.sm')
     clock_mhz = re.match(r'\s*(\d+)', max_sm_clock)
@@ -640,7 +730,8 @@ def main():
     ex2_rate = EX2_PER_SM_PER_CLOCK * sms * int(clock_mhz.group(1)) * 1e6
     emit('device', kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
-         fp32_peak_flops=peak_flops, peak_bytes_per_s=peak_bytes,
+         fp32_peak_flops=peak_flops, bf16_peak_flops=peak_bf16,
+         peak_bytes_per_s=peak_bytes,
          peak_source=peak_source,
          sms=sms, max_sm_clock=max_sm_clock, ex2_per_s=ex2_rate)
 
@@ -758,6 +849,55 @@ def main():
     kde_case('far_ood', *OFFSET_KDE, far=True)
     kde_case(f'd{WIDE_KDE[2]}', *WIDE_KDE)
 
+    # 3b. the bf16 forms against their plain versions at the same shapes,
+    # each within the bf16 bars of the bf16-vs-fp32 gap on the same rows
+    def bf16_vs_plain(kernel, case, rows, in_dim, run, plain, plain32):
+        x = torch.as_tensor(rng.normal(size=(rows, in_dim)),
+                            dtype=torch.float32, device=DEVICE)
+        got, want, ref32 = run(x), plain(x), plain32(x)
+        torch.cuda.synchronize()
+        errs = {part: bf16_close(f'{kernel} {case} {part}', g, w, r)
+                for part, g, w, r in zip(('mean', 'std'), got, want, ref32)}
+        if case == 'flagship':
+            errors[kernel] = max(e['max_abs_err'] for e in errs.values())
+        emit('kernel_vs_plain', kernel=kernel, case=case, rows=rows,
+             bf16_vs_plain=errs)
+
+    fw16 = in_bf16(model, prepare_fused_weights)
+    check(fw16.w_all.dtype == torch.bfloat16, 'bf16 fold is not bf16')
+    fw16_wide = in_bf16(build_model(args.seed, WIDE_INPUT),
+                        prepare_fused_weights)
+    for case, w16, w32, rows in (('flagship', fw16, fw, ROWS),
+                                 ('ragged', fw16, fw, 1000),
+                                 (f'input_{WIDE_IN}', fw16_wide, fw_wide,
+                                  1000)):
+        bf16_vs_plain('fused_ensemble_bf16', case, rows, w16.in_dim,
+                      lambda x, w=w16: fused_forward_prefolded(w, x),
+                      lambda x, w=w16: fused_forward_plain(w, x),
+                      lambda x, w=w32: fused_forward_plain(w, x))
+    mw16 = in_bf16(mc_model, prepare_mc_weights)
+    mc_p0 = build_mc(args.seed, p=0.0)
+    for i, (case, w16, w32, rows) in enumerate((
+            ('flagship', mw16, mw, ROWS), ('ragged', mw16, mw, 1000),
+            ('p0', in_bf16(mc_p0, prepare_mc_weights), mc_p0.mc_weights(),
+             4096))):
+        seed = 2000 + i
+        bf16_vs_plain(
+            'fused_mc_dropout_bf16', case, rows, IN_DIM,
+            lambda x, w=w16, s=seed: fused_mc_forward(w, x, MC_SAMPLES, s),
+            lambda x, w=w16, s=seed: fused_mc_forward_plain(w, x, MC_SAMPLES,
+                                                            s),
+            lambda x, w=w32, s=seed: fused_mc_forward_plain(w, x, MC_SAMPLES,
+                                                            s))
+    aw16 = in_bf16(dq_model, prepare_fused_anchored)
+    for case, rows in (('flagship', ANCHORED_ROWS), ('ragged', 1000)):
+        bf16_vs_plain(
+            'fused_anchored_bf16', case, rows, IN_DIM,
+            lambda x: fused_anchored_stats(aw16, x, anchors),
+            lambda x: fused_anchored_plain(aw16, x,
+                                           anchor_rows(aw16, anchors)),
+            lambda x: fused_anchored_plain(aw, x, anchor_rows(aw, anchors)))
+
     def train_case(case, model, loss, per_member=False, wd=0.0):
         """Hold the training kernel against its plain version for
         TRAIN_CHECK_STEPS steps from TRAIN_STEP0, on the same buffers, with
@@ -853,6 +993,85 @@ def main():
     mve_predictor, _ = serve(
         'mve', mve_model, MODEL_REQUESTS, rng,
         lambda x, _: reference_density(mve_model, x), None, TOL_MEAN)
+
+    # 4b. serving in bf16-mixed: the seven models built as above (same
+    # seeds, same BatchNorm statistics, anchors and corpus), switched with
+    # set_precision('bf16-mixed') as the JAX package's eval_precision
+    # switches an fp32-trained model for its evaluation, served with every launch count at 0 just
+    # before and read just after; each answer against the plain bf16
+    # function on the card, within the bf16 bars of its gap to the same
+    # model's fp32 function; each kernel's bf16 form must launch as often
+    # as its fp32 form did above, and no fp32 form at all
+    def to_bf16(m):
+        return m.set_precision('bf16-mixed')
+
+    ens16 = to_bf16(build_model(args.seed))
+    mc16 = to_bf16(build_mc(args.seed))
+    dq16 = to_bf16(build_anchored(DeltaUQMLPModelBuilder, args.seed))
+    pager16 = to_bf16(build_anchored(PAGERModelBuilder, args.seed + 7))
+    kde16 = to_bf16(build_density(KDEModelBuilder, {'rtol': KDE_RTOL},
+                                  args.seed, corpus))
+    knn16 = to_bf16(build_density(KNNKDEModelBuilder, {'k': KNN_K},
+                                  args.seed, corpus))
+    mve16 = to_bf16(build_density(MVEModelBuilder,
+                                  {'min_variance': MVE_MIN_VARIANCE},
+                                  args.seed))
+
+    def anchored16(m, m32):
+        """Δ-UQ/PAGER in bf16: the kernel's plain bf16 function, and
+        PAGER's score through the bf16 modules; the fp32 twin's unfused
+        answer for the gap."""
+        def ref16(x, _):
+            w = m.anchored_weights()
+            mean, spread = fused_anchored_plain(w, x,
+                                                anchor_rows(w, m.anchors))
+            if hasattr(m, 'anchors_Y'):
+                with torch.no_grad():
+                    p = m.prediction_matrix(x, m.anchors[:m.num_anchors])
+                y = m.anchors_Y[:m.num_anchors].reshape(1, -1)
+                spread = torch.maximum(spread,
+                                       (p - y).abs().amax(dim=1, keepdim=True))
+            return mean, spread
+        return ref16, lambda x, _: reference_anchored(m32, x)
+
+    def density16(m, m32):
+        """KDE/kNN-KDE/MVE in bf16: the MLP through the bf16 modules; the
+        density scores, which no precision touches, against the fp32
+        twin's (TOL_SCORE)."""
+        def ref32(x, _):
+            pred, ue = reference_density(m32, x)
+            return pred, None if m.uq_method in ('kde', 'knn_kde') else ue
+        return (lambda x, _: reference_density(m, x)), ref32
+
+    fp32_launches = {'ensemble': ens_launches, 'mc_dropout': mc_launches,
+                     'delta_uq': dq_launches, 'pager': pager_launches,
+                     'kde': kde_launches}
+    bf16_launches, bf16_predictors = {}, {}
+    for name, m, requests, kernel, (ref16, ref32) in (
+            ('ensemble', ens16, REQUESTS, 'fused_ensemble_bf16', (
+                lambda x, _: fused_forward_plain(ens16.fused_weights(), x),
+                lambda x, _: fused_forward_plain(fw, x))),
+            ('mc_dropout', mc16, MODEL_REQUESTS, 'fused_mc_dropout_bf16', (
+                lambda x, call: fused_mc_forward_plain(
+                    mc16.mc_weights(), x, MC_SAMPLES, mc16.call_seed(call)),
+                lambda x, call: fused_mc_forward_plain(
+                    mw, x, MC_SAMPLES, mc16.call_seed(call)))),
+            ('delta_uq', dq16, MODEL_REQUESTS, 'fused_anchored_bf16',
+             anchored16(dq16, dq_model)),
+            ('pager', pager16, MODEL_REQUESTS, 'fused_anchored_bf16',
+             anchored16(pager16, pager)),
+            ('kde', kde16, MODEL_REQUESTS, 'kde', density16(kde16, kde_model)),
+            ('knn_kde', knn16, MODEL_REQUESTS, None,
+             density16(knn16, knn_model)),
+            ('mve', mve16, MODEL_REQUESTS, None,
+             density16(mve16, mve_model))):
+        bf16_predictors[name], bf16_launches[name] = serve(
+            name, m, requests, rng, None, kernel,
+            judge=bf16_judge(name, ref16, ref32), phase='serving_bf16')
+        if name in fp32_launches:
+            check(bf16_launches[name] == fp32_launches[name],
+                  f'{name}: {bf16_launches[name]} bf16 launches, '
+                  f'{fp32_launches[name]} fp32 ones in the fp32 phase')
 
     # 5. training: Trainer.fit -> the training kernel every epoch, the
     # serving kernels for validation; then the bundle reloads and serves
@@ -967,18 +1186,18 @@ def main():
              val_loss=tr.callback_metrics['val_loss'], fit_s=seconds)
 
     # 6. timing at the bench's shapes
-    kernels = []
+    kernels, kernels_bf16 = [], []
 
     def record(index, launches, kernel_t, plain_t, flops, moved, library_ms,
-               exps=0, **extra):
-        bound_ms, bound_by = bound(flops, moved, peak_flops, peak_bytes, exps,
+               exps=0, into=kernels, peak=peak_flops, **extra):
+        bound_ms, bound_by = bound(flops, moved, peak, peak_bytes, exps,
                                    ex2_rate)
         ms = kernel_t['median_ms']
         emit('timing', kernel=KERNELS[index]['name'], kernel_ms=kernel_t,
              plain=plain_t, flops=flops, bytes=moved, bound_ms=bound_ms,
              bound_by=bound_by, kernel_share_of_bound=bound_ms / ms, **extra,
              clocks_power=nvidia_smi('clocks.sm,power.draw,temperature.gpu'))
-        kernels.append(dict(
+        into.append(dict(
             KERNELS[index], launches=launches,
             max_abs_err=errors[KERNELS[index]['name']], ms=ms,
             plain_ms=plain_t['median_ms'], bound_ms=bound_ms,
@@ -1074,6 +1293,67 @@ def main():
          mve_predictor_e2e_samples_per_s=ROWS / mve_e2e_s,
          clocks_power=nvidia_smi('clocks.sm,power.draw,temperature.gpu'))
 
+    # the bf16 forms at the same shapes: bound by the dense bf16
+    # tensor-core peak; weights move as bf16
+    def moved16(w, x_numel, out_rows, extra=0):
+        return (4.0 * (x_numel + w.b_all.numel() + 2 * out_rows * w.out_dim
+                       + extra) + 2.0 * w.w_all.numel())
+
+    lib16 = library_chain(fw16, x)
+    ref16 = fused_forward_plain(fw16, x)
+    lib16_err = [float((a - b).abs().max()) for a, b in zip(lib16, ref16)]
+    kernel_t = event_ms(lambda: fused_forward_prefolded(fw16, x))
+    plain_t = event_ms(lambda: fused_forward_plain(fw16, x))
+    library_t = event_ms(lambda: library_chain(fw16, x))
+    e2e_s = e2e_median_s(bf16_predictors['ensemble'], ROWS)
+    record(10, bf16_launches['ensemble'], kernel_t, plain_t,
+           2.0 * ROWS * fw16.num_members * fw16.macs_per_row,
+           moved16(fw16, x.numel(), ROWS), library_t['median_ms'],
+           into=kernels_bf16, peak=peak_bf16, rows=ROWS,
+           library_bf16_baddbmm=library_t, library_max_abs_diff=lib16_err,
+           predictor_e2e_median_s=e2e_s,
+           predictor_e2e_samples_per_s=ROWS / e2e_s)
+
+    kernel_t = event_ms(lambda: fused_mc_forward(mw16, x, MC_SAMPLES, 7))
+    plain_t = event_ms(lambda: fused_mc_forward_plain(mw16, x_plain,
+                                                      MC_SAMPLES, 7))
+    gemm_t = event_ms(lambda: mc_gemm_only(mw16, x, MC_SAMPLES))
+    e2e_s = e2e_median_s(bf16_predictors['mc_dropout'], ROWS)
+    record(11, bf16_launches['mc_dropout'], kernel_t, plain_t,
+           2.0 * ROWS * (MC_SAMPLES + 1) * mw16.macs_per_row,
+           moved16(mw16, x.numel(), ROWS), None, into=kernels_bf16,
+           peak=peak_bf16, rows=ROWS, samples=MC_SAMPLES, p=MC_P,
+           plain_rows=MC_PLAIN_TIMING_ROWS, gemm_only_reference=gemm_t,
+           predictor_e2e_median_s=e2e_s,
+           predictor_e2e_samples_per_s=ROWS / e2e_s)
+    kernels_bf16[-1]['plain_rows'] = MC_PLAIN_TIMING_ROWS
+    kernels_bf16[-1]['gemm_only_reference_ms'] = gemm_t['median_ms']
+
+    lib16 = anchored_library(aw16, xa, anchors)
+    ref16 = fused_anchored_plain(aw16, xa, anchor_rows(aw16, anchors))
+    lib16_err = [float((a - b).abs().max()) for a, b in zip(lib16, ref16)]
+    kernel_t = event_ms(lambda: fused_anchored_stats(aw16, xa, anchors))
+    plain_t = event_ms(lambda: fused_anchored_plain(
+        aw16, xa, anchor_rows(aw16, anchors)))
+    library_t = event_ms(lambda: anchored_library(aw16, xa, anchors))
+    e2e_s = e2e_median_s(bf16_predictors['delta_uq'], ANCHORED_ROWS)
+    record(12, bf16_launches['delta_uq'] + bf16_launches['pager'], kernel_t,
+           plain_t,
+           2.0 * ANCHORED_ROWS * (aw16.macs_once
+                                  + ANCHORS * aw16.macs_per_anchor),
+           moved16(aw16, xa.numel(), ANCHORED_ROWS, ANCHORS * WIDTH),
+           library_t['median_ms'], into=kernels_bf16, peak=peak_bf16,
+           rows=ANCHORED_ROWS, anchors=ANCHORS,
+           library_bf16_gemm_chain=library_t, library_max_abs_diff=lib16_err,
+           predictor_e2e_median_s=e2e_s,
+           predictor_e2e_samples_per_s=ANCHORED_ROWS / e2e_s)
+    e2e16 = {name: e2e_median_s(bf16_predictors[name], ROWS)
+             for name in ('kde', 'knn_kde', 'mve')}
+    emit('timing_bf16_kernel_free', rows=ROWS,
+         predictor_e2e_median_s=e2e16,
+         predictor_e2e_samples_per_s={k: ROWS / v for k, v in e2e16.items()},
+         clocks_power=nvidia_smi('clocks.sm,power.draw,temperature.gpu'))
+
     # the training kernel: one flagship epoch of 1,000 steps
     plan = train_plan(flagship)
     bufs, xs, ys = train_inputs(flagship, plan, rng, EPOCH_STEPS)
@@ -1123,17 +1403,17 @@ def main():
     trn = attrib.train_battery(DEVICE, args.seed, ATTRIB_STEPS,
                                reps=ATTRIB_TRAIN_REPS)
     attrib_launches = read_launches()
-    probes = [k['name'] for k in KERNELS[5:]]
+    probes = [k['name'] for k in KERNELS[5:10]] + ['packed_forward_bf16']
     check(all(attrib_launches[name] > 0 for name in probes),
           f'attribution: a probe never launched: {attrib_launches}')
-    _, fw_a, x_a, x_pad, x_n8, x_t = attrib.forward_inputs(args.seed, DEVICE,
-                                                           ROWS)
+    model_a, fw_a, x_a, x_pad, x_n8, x_t = attrib.forward_inputs(
+        args.seed, DEVICE, ROWS)
     plains = {'ablate_forward': lambda: af.ablate_forward_plain(fw_a, x_pad),
               'xt_forward': lambda: af.xt_forward_plain(fw_a, x_t),
               'narrow_forward': lambda: af.narrow_forward_plain(fw_a, x_n8),
               'packed_forward': lambda: af.packed_forward_plain(fw_a, x_pad)}
     library_fwd = event_ms(lambda: library_chain(fw_a, x_a))
-    for kernel in KERNELS[5:]:
+    for kernel in KERNELS[5:10]:
         name = kernel['name']
         if name == 'ablate_epoch':
             continue
@@ -1176,6 +1456,18 @@ def main():
          plain_epoch=plain_t, library_epoch=library_t,
          library_chain=library_fwd,
          clocks_power=nvidia_smi('clocks.sm,power.draw,temperature.gpu'))
+    # the packed probe's bf16 form, timed in the battery ('packed bf16')
+    fw16_a = in_bf16(model_a, prepare_fused_weights)
+    v = fwd['variants']['packed bf16']
+    plain_t = event_ms(lambda: af.packed_forward_plain(fw16_a, x_pad))
+    library_t = event_ms(lambda: library_chain(fw16_a, x_a))
+    kernels_bf16.append(dict(
+        KERNELS[13], launches=attrib_launches['packed_forward_bf16'],
+        max_abs_err=max(fwd['gates']['packed bf16']['max_abs_err']),
+        ms=v['median_ms'], plain_ms=plain_t['median_ms'],
+        bound_ms=v['bound_ms'], bound_by=v['bound_by'],
+        library_ms=library_t['median_ms'], variant='packed bf16', rows=ROWS))
+    kernels += kernels_bf16
     check([k['name'] for k in kernels] == [k['name'] for k in KERNELS],
           'the kernels line is out of order')
 

@@ -2,7 +2,8 @@
 
 The batteries of the JAX package's TPU probes, ported to the card:
 ``experiments/grid_r5/attrib_eval.py`` and ``attrib_eval2.py`` and the fp32
-variants of ``experiments/grid_r4/kernel_variants.py`` (``forward``: kernel
+and bf16 packed variants of ``experiments/grid_r4/kernel_variants.py``
+(``forward``: kernel
 1, the fused ensemble pass) and ``experiments/grid_r5/attrib_train.py``
 (``train``: kernel 3, the fused training epoch), on the flagship ensemble
 built by this package's own builder (8 members, 5 inputs, 6 x [Linear 128 ->
@@ -70,12 +71,26 @@ TOL_PROBE = dict(TOL_TRAIN, losses=1e-6)
 # each step's global gradient norm, relative: the kernel sums ~10^5 squares
 # a member in another order, from parameters that differ within TOL_TRAIN
 TOL_NORM = {'rtol': 1e-5, 'atol': 0.0}
+# a bf16 form against its plain version, on the same outputs: the root
+# mean square of the error at most BF16_RMS_SHARE of the bf16-vs-fp32
+# gap's, and its largest value at most BF16_MAX_SHARE of the gap's
+# largest. The two sum in another order, so a few bf16 roundings of hidden
+# activations go the other way, one bf16 unit each: on the card, at the
+# flagship widths, the largest such error reached 0.21-0.39 of the largest
+# gap (a max is the worst flip's reach), so the quarter bar is on the root
+# mean square, and the max bar catches a wrong row, which is off by the
+# output's own size, far past the gap
+BF16_RMS_SHARE = 0.2
+BF16_MAX_SHARE = 1.0
 CLIP = 5.0                     # the flagship's gradient_clip_val
 BINDING_CLIP = 1e-2            # below every step's gradient norm
 # (name substring, fp32 non-tensor FLOP/s, memory bytes/s), NVIDIA data
 # sheets at full power; the first match wins
 PEAKS = [('H100 PCIe', 51.2e12, 2.0e12), ('H100 NVL', 60e12, 3.9e12),
          ('H200', 67e12, 4.8e12), ('H100', 67e12, 3.35e12)]
+# (name substring, dense bf16 tensor-core FLOP/s), the same data sheets
+BF16_PEAKS = [('H100 PCIe', 756e12), ('H100 NVL', 835e12), ('H200', 989e12),
+              ('H100', 989e12)]
 
 
 def flagship_arch(width=WIDTH, hidden=6, in_dim=IN_DIM):
@@ -128,6 +143,11 @@ def peaks(kind: str):
         if key in kind:
             return flops, moved, key
     return 67e12, 3.35e12, 'not in table: H100 SXM assumed'
+
+
+def bf16_peak(kind: str):
+    """Dense bf16 tensor-core FLOP/s of the card named ``kind``."""
+    return next((flops for key, flops in BF16_PEAKS if key in kind), 989e12)
 
 
 def bound(flops, moved, peak_flops, peak_bytes, exps=0, ex2_rate=1.0):
@@ -189,6 +209,7 @@ class _Card:
         self.kind = torch.cuda.get_device_name(device) if self.on_card \
             else 'cpu'
         self.flops, self.bytes, self.peak_source = peaks(self.kind)
+        self.bf16_flops = bf16_peak(self.kind)
         self.smi = nvidia_smi('name,power.limit') if self.on_card else 'cpu'
 
 
@@ -206,6 +227,37 @@ def _close(name, got, want, tol):
         raise RuntimeError(f'{name}: {int(bad.sum())} values off by up to '
                            f'{float(err.max()):.3e} (tolerance {tol})')
     return float(err.max())
+
+
+def bf16_close(name, got, want, fp32):
+    """Hold a bf16 form's output ``got`` to its plain version's ``want``
+    against the bf16-vs-fp32 gap ``want - fp32`` on the same outputs: the
+    error's root mean square within BF16_RMS_SHARE of the gap's, its max
+    within BF16_MAX_SHARE of the gap's max; raises past either. Returns
+    the errors, the gaps, the bars and the share of outputs beyond the
+    fp32 bars (TOL_MEAN)."""
+    if got.shape != want.shape or want.shape != fp32.shape:
+        raise RuntimeError(f'{name}: shapes {tuple(got.shape)}, '
+                           f'{tuple(want.shape)}, {tuple(fp32.shape)}')
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f'{name}: non-finite values')
+    err = (got - want).double()
+    gap = (want - fp32).double()
+    out = {'max_abs_err': float(err.abs().max()),
+           'rms_err': float(err.square().mean().sqrt()),
+           'gap_max': float(gap.abs().max()),
+           'gap_rms': float(gap.square().mean().sqrt())}
+    out['bar_rms'] = BF16_RMS_SHARE * out['gap_rms']
+    out['bar_max'] = BF16_MAX_SHARE * out['gap_max']
+    if out['rms_err'] > out['bar_rms'] or out['max_abs_err'] > out['bar_max']:
+        raise RuntimeError(f'{name}: error rms {out["rms_err"]:.3e} (bar '
+                           f'{out["bar_rms"]:.3e}), max '
+                           f'{out["max_abs_err"]:.3e} (bar '
+                           f'{out["bar_max"]:.3e}); bf16-vs-fp32 gap rms '
+                           f'{out["gap_rms"]:.3e}, max {out["gap_max"]:.3e}')
+    beyond = err.abs() > TOL_MEAN['atol'] + TOL_MEAN['rtol'] * want.abs()
+    out['share_beyond_fp32_bars'] = float(beyond.double().mean())
+    return out
 
 
 def _equal(name, got, want):
@@ -310,6 +362,22 @@ def forward_battery(device='cuda', seed=0, rows=None, reps=10, warmup=3):
         emit(battery='forward', gate=name, device=card.kind,
              max_abs_err_vs_plain=errs,
              bit_for_bit_with_kernel_1=prod_width is not None)
+    # the packed probe's bf16 form: against its plain version within the
+    # bf16 bars, and bit for bit against kernel 1's bf16 form
+    model.set_precision('bf16-mixed')
+    fw16 = prepare_fused_weights(model.net)
+    model.set_precision('32-true')
+    got = af.packed_forward(fw16, x_pad)
+    want = af.packed_forward_plain(fw16, x_pad)
+    ref32 = af.packed_forward_plain(fw, x_pad)
+    errs16 = [bf16_close(f'packed bf16 out{i}', g, w, r)
+              for i, (g, w, r) in enumerate(zip(got, want, ref32))]
+    for i, (g, b) in enumerate(zip(got, fused_forward_prefolded(fw16, x))):
+        _equal(f'packed bf16 out{i}', g, b)
+    gates['packed bf16'] = {'max_abs_err': [e['max_abs_err'] for e in errs16],
+                            'bf16': errs16, 'equals_kernel_1_bf16': True}
+    emit(battery='forward', gate='packed bf16', device=card.kind,
+         vs_plain=errs16, bit_for_bit_with_kernel_1_bf16=True)
     out = {'gates': gates, 'variants': {}, 'decomposition': {}}
     if not card.on_card:
         emit(battery='forward', device='cpu', rows=rows,
@@ -334,9 +402,14 @@ def forward_battery(device='cuda', seed=0, rows=None, reps=10, warmup=3):
         'model path': (lambda: model(x, return_ue=True),
                        work(ow=fw.out_dim)),
     })
+    flops16, moved16 = work(n_out=1)
+    timed['packed bf16'] = (lambda: af.packed_forward(fw16, x_pad),
+                            (flops16, moved16 - 2.0 * fw.w_all.numel()))
     for name, (run, (flops, moved)) in timed.items():
         t = event_ms(run, warmup, reps)
-        bound_ms, bound_by = bound(flops, moved, card.flops, card.bytes)
+        bound_ms, bound_by = bound(
+            flops, moved, card.bf16_flops if name == 'packed bf16'
+            else card.flops, card.bytes)
         out['variants'][name] = dict(t, flops=flops, bytes=moved,
                                      bound_ms=bound_ms, bound_by=bound_by)
         emit(battery='forward', variant=name, rows=rows,
@@ -349,7 +422,8 @@ def forward_battery(device='cuda', seed=0, rows=None, reps=10, warmup=3):
     deltas = {k: {'ms': v[k], 'delta_pct': 100.0 * (v[k] - p) / p}
               for k in ('io_floor', 'one_out', 'gemm_only', 'no_epi',
                         'xT input', 'xT+outT', 'narrow-both', 'packed',
-                        'split (kernel 1)', 'e2e prod', 'model path')}
+                        'packed bf16', 'split (kernel 1)', 'e2e prod',
+                        'model path')}
     members = {1: v['members=1'], 2: v['members=2'], 4: v['members=4'],
                M: p}
     member_fit = np.polyfit(list(members), list(members.values()), 1)

@@ -11,6 +11,12 @@ casts float64 input to float32, pads the batch up to a power-of-two bucket
 2^19 rows, runs :meth:`WrappedModelBase.eval_output` and trims the padding.
 Forward passes are row-independent, so the padding changes no answer; the
 buckets keep the set of shapes the device sees small.
+
+Precision: ``set_precision`` takes the JAX package's names. ``'bf16'``,
+``'bf16-mixed'`` and ``'bf16-true'`` all mean bf16 GEMM operands with fp32
+accumulation, everything else fp32 (``Network.compute_dtype``, the kernels'
+bf16 forms); fp32 is the default, and a ``'16'`` (fp16) precision raises
+``ValueError``, as in JAX. A call returns fp32 in either precision.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ _MIN_BUCKET = 256
 _MAX_BUCKET = 1 << 19
 
 _FP32_PRECISIONS = (None, '32', '32-true', 32)
-_BF16_PRECISIONS = ('bf16', 'bf16-mixed', 'bf16-true')
+BF16_PRECISIONS = ('bf16', 'bf16-mixed', 'bf16-true')
 
 
 def _bucket_size(n: int) -> int:
@@ -79,13 +85,20 @@ class WrappedModelBase:
         self._folded_key = None
 
     def set_precision(self, precision):
-        """Only fp32 is ported; bf16 compute is a later item."""
-        if precision in _BF16_PRECISIONS:
-            raise NotImplementedError(f'precision {precision!r}: only fp32 '
-                                      'evaluation is ported')
-        if precision not in _FP32_PRECISIONS:
-            raise ValueError(f'Unsupported precision {precision!r}')
+        """Set the compute precision: under a bf16 name the activations and
+        GEMM operands run in bf16 (every dot accumulating in fp32) while
+        the parameters stay fp32 master weights; outputs stay fp32. The
+        folded kernel weights are rebuilt on the next call."""
+        if precision in BF16_PRECISIONS:
+            compute_dtype = torch.bfloat16
+        elif precision in _FP32_PRECISIONS:
+            compute_dtype = None
+        else:
+            raise ValueError(f'Unsupported precision {precision!r}; the '
+                             "options are '32-true' (default) and "
+                             "'bf16-mixed'")
         self.precision = precision
+        self.net.compute_dtype = compute_dtype
         return self
 
     @property
@@ -104,13 +117,16 @@ class WrappedModelBase:
 
     def _params_key(self):
         # data_ptr changes when tensors move or are replaced, _version on
-        # every in-place write (load_arrays, optimiser steps)
-        return tuple((t.data_ptr(), t._version)
-                     for t in (*self.net.parameters(), *self.net.buffers()))
+        # every in-place write (load_arrays, optimiser steps); the compute
+        # dtype picks the weights' form
+        return (self.net.compute_dtype,) + tuple(
+            (t.data_ptr(), t._version)
+            for t in (*self.net.parameters(), *self.net.buffers()))
 
     def _folded_weights(self, prepare):
         """``prepare(self.net)`` (folded, packed weights for a kernel, or
-        None), rebuilt only when the parameters or BN state change."""
+        None), rebuilt only when the parameters, the BN state or the
+        precision change."""
         key = self._params_key()
         if key != self._folded_key:
             self._folded = prepare(self.net)
@@ -173,7 +189,7 @@ class WrappedModelBase:
             out = self.eval_output(x.contiguous(), return_ue=return_ue)
 
         def trim(o):
-            o = o[:n]
+            o = o[:n].float()
             return o[0] if squeeze_batch else o
         if isinstance(out, tuple):
             return tuple(trim(o) for o in out)

@@ -24,6 +24,15 @@ variance ``var * n / (n - 1)``; Dropout keeps a value with probability
 given. The elementwise activations and ``LayerNorm`` follow the JAX package's
 definitions (``LayerNorm`` normalises the last axis with the biased
 variance and keeps ``weight``/``bias`` for the JAX ``scale``/``bias``).
+
+Under a bf16 compute dtype (``Network.compute_dtype``) the activations
+arrive in bf16 and the parameters stay fp32 master weights, as in the JAX
+package: ``Linear`` casts its weight to the activation dtype, accumulates
+the dot in fp32 (bf16 products are exact in fp32), adds the fp32 bias in
+fp32 and returns the activation dtype; ``BatchNorm1d`` keeps its statistics
+in fp32 but normalises in the activation dtype (each op rounds); the
+activations and Dropout keep their input's dtype; ``LayerNorm`` multiplies
+by its fp32 parameters, which promotes its output to fp32 as in JAX.
 """
 from __future__ import annotations
 
@@ -62,6 +71,14 @@ class Linear(nn.Module):
                             * (2 * bound) - bound)
 
     def forward(self, x):
+        if x.dtype != self.weight.dtype:
+            # bf16 operands, fp32 accumulation, fp32 bias, activation dtype
+            # out (the JAX Linear's preferred_element_type=float32)
+            w = self.weight.to(x.dtype).float()
+            y = torch.matmul(x.float(), w.transpose(-1, -2))
+            if self.bias is not None:
+                y = y + self.bias.unsqueeze(-2)
+            return y.to(x.dtype)
         y = torch.matmul(x, self.weight.transpose(-1, -2))
         if self.bias is not None:
             y = y + self.bias.unsqueeze(-2)
@@ -108,10 +125,13 @@ class BatchNorm1d(nn.Module):
                                        + m * (var.detach() * (n / max(n - 1, 1))))
             y = c * torch.rsqrt(var + self.eps).unsqueeze(-2)
         else:
-            inv = torch.rsqrt(self.running_var + self.eps)
-            y = (x - self.running_mean.unsqueeze(-2)) * inv.unsqueeze(-2)
+            # statistics in fp32, the normalise in the activation dtype
+            inv = torch.rsqrt(self.running_var + self.eps).to(x.dtype)
+            y = (x - self.running_mean.to(x.dtype).unsqueeze(-2)) \
+                * inv.unsqueeze(-2)
         if self.affine:
-            y = y * self.weight.unsqueeze(-2) + self.bias.unsqueeze(-2)
+            y = y * self.weight.to(x.dtype).unsqueeze(-2) \
+                + self.bias.to(x.dtype).unsqueeze(-2)
         return y
 
 
@@ -137,7 +157,8 @@ class Dropout(nn.Module):
                              'torch.Generator; pass generator=')
         keep = 1.0 - self.p
         mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros((), device=x.device))
+        return torch.where(mask, x / keep,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Tanh(nn.Module):

@@ -39,7 +39,11 @@ class Network(nn.Module):
     """A sequential stack of layers, built in evaluation mode. With
     ``members=M`` every layer's parameters carry a leading member axis and
     ``forward`` returns ``(M, B, out)``. In training mode ``generator``
-    feeds the Dropout layers."""
+    feeds the Dropout layers. ``compute_dtype`` (None, or
+    ``torch.bfloat16``; set by the model's ``set_precision``) is the dtype
+    of the activations: a floating input of another dtype is cast to it on
+    entry and the output back to the input's dtype on exit, while the
+    parameters stay fp32."""
 
     def __init__(self, layers: Sequence[nn.Module],
                  architecture: Optional[list] = None, members=None):
@@ -47,6 +51,7 @@ class Network(nn.Module):
         self.layers = nn.ModuleList(layers)
         self.architecture = copy.deepcopy(architecture)
         self.members = members
+        self.compute_dtype = None
         self.eval()
 
     def reset_parameters(self, generator: torch.Generator):
@@ -55,9 +60,14 @@ class Network(nn.Module):
                 layer.reset_parameters(generator)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
+        cd = self.compute_dtype
+        out_dtype = None
+        if cd is not None and x.is_floating_point() and x.dtype != cd:
+            out_dtype = x.dtype
+            x = x.to(cd)
         for layer in self.layers:
             x = layer(x, generator) if isinstance(layer, Dropout) else layer(x)
-        return x
+        return x if out_dtype is None else x.to(out_dtype)
 
 
 def build_network(architecture: list, builder: Optional[LayerBuilder] = None,

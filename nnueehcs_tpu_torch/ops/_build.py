@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` file has a plain ``extern "C"`` interface (the device
-code they share is in ``csrc/*.cuh``), so nvcc compiles each in a few
+code they share is in ``csrc/*.cuh``; the bf16 forms include ``cuda_bf16.h``
+for its conversion intrinsics only), so nvcc compiles each in a few
 seconds (a source that includes PyTorch's headers takes minutes). One nvcc
 process per source runs at the same time, a last nvcc call links the
 objects into one shared library, and ``ctypes`` loads it. The build happens
@@ -46,6 +47,22 @@ SIGNATURES = {
         ctypes.c_int,
         [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P,
          ctypes.c_int, ctypes.c_int, _P, _P, _P]),
+    'nnueehcs_fused_ensemble_bf16': (
+        ctypes.c_int,
+        [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, ctypes.c_int,
+         ctypes.c_int, _P, ctypes.c_int, _P, _P, _P]),
+    'nnueehcs_fused_mc_dropout_bf16': (
+        ctypes.c_int,
+        [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P,
+         _P, _P, ctypes.c_int, ctypes.c_uint32, ctypes.c_int, _P, _P, _P]),
+    'nnueehcs_fused_anchored_bf16': (
+        ctypes.c_int,
+        [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P,
+         ctypes.c_int, ctypes.c_int, _P, _P, _P]),
+    'nnueehcs_packed_forward_bf16': (
+        ctypes.c_int,
+        [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, _P, _P,
+         ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P, _P]),
     'nnueehcs_kde_logpdf_f32': (
         ctypes.c_int,
         [_P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int,

@@ -5,23 +5,29 @@ Counterparts of four TPU probes, each a variant of the JAX package's
 ``_fused_kernel`` written to split its time: ``ablate_forward`` and
 ``xt_forward`` (``experiments/grid_r5/attrib_eval.py``), ``narrow_forward``
 (``experiments/grid_r5/attrib_eval2.py``) and ``packed_forward``
-(``experiments/grid_r4/kernel_variants.py``, fp32). Each takes the port's
-:class:`~.fused_ensemble.FusedWeights` in place of the JAX probes' padded
-``ws``/``bs``/``relus``, and returns what the JAX probe returns: outputs
-padded to the probe's widths (128, or 8 for the narrow ones), zeros past
-the chain's real width.
+(``experiments/grid_r4/kernel_variants.py``, fp32 and bf16). Each takes
+the port's :class:`~.fused_ensemble.FusedWeights` in place of the JAX
+probes' padded ``ws``/``bs``/``relus``, and returns what the JAX probe
+returns: outputs padded to the probe's widths (128, or 8 for the narrow
+ones), zeros past the chain's real width.
 
 On a CUDA tensor each launches one instance of kernel 1's own body
 (``csrc/ablate_chain.cu`` on ``fused_chain.cuh``'s ``ensemble_pass``), on a
 CPU tensor it runs its plain version (``*_plain``). It never falls back from
 one to the other. ``<function>.launches`` counts kernel launches.
+
+``packed_forward`` also takes bf16 folded weights (``compute_dtype``, the
+JAX probe's ``compute_dtype='bfloat16'``): it then launches an instance of
+kernel 1's bf16 body and counts it in ``packed_forward.launches_bf16``. The
+other probes have no bf16 form and refuse such weights.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .fused_ensemble import WIDTH, FusedWeights, shifted_stats
+from .fused_ensemble import (WIDTH, FusedWeights, check_weights_dtype,
+                             shifted_stats)
 
 TILE_ROWS = 64     # rows of one CUDA block (fused_chain.cuh's kTileRows)
 MODES = ('prod', 'io_floor', 'gemm_only', 'no_epi')
@@ -44,9 +50,9 @@ def _members_out(fw: FusedWeights, x, members: int, layers: int,
     out_dim = _out_dim(fw, layers)
     outs = []
     for m in range(members):
-        h = x
+        h = fw.round(x)
         for l in range(layers):
-            w, b = fw.ws[l][m], fw.b_all[l, m]
+            w, b = fw.ws[l][m].float(), fw.b_all[l, m]
             if l == layers - 1:
                 w, b = w[:, :out_dim], b[:out_dim]
             if affine:
@@ -55,6 +61,8 @@ def _members_out(fw: FusedWeights, x, members: int, layers: int,
                     h = torch.relu(h)
             else:
                 h = h @ w
+            if l != layers - 1:
+                h = fw.round(h)
         outs.append(h)
     return outs
 
@@ -98,6 +106,10 @@ def _check(fw: FusedWeights, x, rows_first: bool, name: str):
     if width < fw.in_dim:
         raise ValueError(f'{name}: x holds {width} features, the network '
                          f'takes {fw.in_dim}')
+    check_weights_dtype(fw)
+    if fw.compute_dtype != torch.float32 and name != 'packed_forward':
+        raise ValueError(f'{name}: no {fw.compute_dtype} form; the probe '
+                         'takes float32 folded weights')
     for t in (fw.w_all, fw.b_all, fw.relu_flags):
         if t.device != x.device:
             raise ValueError(f'{name}: folded weights must be on {x.device}')
@@ -265,17 +277,31 @@ def packed_forward_plain(fw: FusedWeights, x_pad):
 
 def packed_forward(fw: FusedWeights, x_pad):
     """Kernel 1 with mean and std packed into one ``(B, 128)`` buffer (JAX
-    ``packed_forward``, fp32): mean in columns ``[0, out_dim)``, std in
-    ``[out_dim, 2 out_dim)``, zeros past them. ``x_pad`` is ``(B, dx)``,
-    the network's ``d`` features then zeros. Returns the two views
-    ``(mean, std)`` of the buffer, as the JAX probe does."""
+    ``packed_forward``, in the weights' compute dtype, fp32 or bf16): mean
+    in columns ``[0, out_dim)``, std in ``[out_dim, 2 out_dim)``, zeros past
+    them. ``x_pad`` is ``(B, dx)``, the network's ``d`` features then zeros.
+    Returns the two views ``(mean, std)`` of the buffer, as the JAX probe
+    does."""
     _check(fw, x_pad, True, 'packed_forward')
     _check_packed(fw)
     if x_pad.device.type == 'cpu':
         return packed_forward_plain(fw, x_pad)
     out = torch.empty((x_pad.shape[0], WIDTH), dtype=torch.float32,
                       device=x_pad.device)
-    if x_pad.shape[0]:
+    if x_pad.shape[0] and fw.compute_dtype == torch.bfloat16:
+        from ._build import library
+        with torch.cuda.device(x_pad.device):
+            err = library().nnueehcs_packed_forward_bf16(
+                x_pad.data_ptr(), x_pad.shape[0], fw.in_dim, x_pad.shape[1],
+                fw.w_all.data_ptr(), fw.b_all.data_ptr(), fw.num_members,
+                fw.num_layers, fw.relu_flags.data_ptr(), fw.out_dim,
+                out.data_ptr(),
+                torch.cuda.current_stream(x_pad.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f'packed bf16 kernel launch failed: CUDA '
+                               f'error {err}')
+        packed_forward.launches_bf16 += 1
+    elif x_pad.shape[0]:
         _launch(fw, x_pad, mode='prod', n_out=1, x_cols=False,
                 layout=_OUT_PACKED, members=fw.num_members,
                 layers=fw.num_layers, out_dim=fw.out_dim, ow=WIDTH,
@@ -287,3 +313,4 @@ def packed_forward(fw: FusedWeights, x_pad):
 
 for _fn in (ablate_forward, xt_forward, narrow_forward, packed_forward):
     _fn.launches = 0
+packed_forward.launches_bf16 = 0

@@ -12,7 +12,9 @@
 // - experiments/grid_r5/attrib_eval2.py::narrow_forward (body narrow_kernel):
 //   an 8- or 128-column x, 8- or 128-column mean and std;
 // - experiments/grid_r4/kernel_variants.py::packed_forward (body
-//   packed_kernel), fp32: mean and std packed into one (B, 128) buffer.
+//   packed_kernel): mean and std packed into one (B, 128) buffer, fp32, and
+//   in bf16 (compute_dtype=bfloat16) as an instance of kernel 1's bf16 body,
+//   fused_chain_bf16.cuh's ensemble_pass.
 // The outputs keep the TPU probes' padded widths, zeros past the chain's
 // real width.
 //
@@ -26,6 +28,7 @@
 // tile is fixed at 64 rows by the register tiling; `tile` only sets which
 // row io_floor reads, as the TPU grid's block did.
 #include "fused_chain.cuh"
+#include "fused_chain_bf16.cuh"
 
 using namespace fused_chain;
 
@@ -74,6 +77,19 @@ Kernel pick(int mode, int n_out, int x_cols, int out) {
   return nullptr;
 }
 
+// The packed probe in bf16: kernel 1's bf16 body with the packed output.
+__global__ void __launch_bounds__(kThreads, 2)
+    packed_bf16_kernel(const float* __restrict__ x, long long B, int d,
+                       long long ldx, const __nv_bfloat16* __restrict__ w_all,
+                       const float* __restrict__ b_all, int M, int L,
+                       const int* __restrict__ relu, int out_dim,
+                       float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  fused_chain_bf16::ensemble_pass<kOutPacked>(smem_bf16, x, B, d, ldx, w_all,
+                                              b_all, M, L, relu, out_dim, out,
+                                              nullptr);
+}
+
 }  // namespace
 
 extern "C" {
@@ -106,6 +122,27 @@ int nnueehcs_ablate_chain_f32(int mode, int n_out, int x_cols, int out_layout,
            static_cast<cudaStream_t>(stream)>>>(
       x, B, d, ldx, w_all, b_all, M_all, M, L, relu, out_dim, ow, tile, out0,
       out1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The packed probe in bf16, on `stream`; returns a cudaError_t. The caller
+// checks: x (B, ldx) row-major with d real features, ldx >= d; w_all as
+// nnueehcs_fused_ensemble_bf16's (bf16), b_all and relu too; out_dim <= 64;
+// out a (B, 128) fp32 contiguous device buffer.
+int nnueehcs_packed_forward_bf16(const float* x, long long B, int d,
+                                 long long ldx, const __nv_bfloat16* w_all,
+                                 const float* b_all, int M, int L,
+                                 const int* relu, int out_dim, float* out,
+                                 void* stream) {
+  const size_t smem = fused_chain_bf16::smem_bytes(out_dim);
+  cudaError_t err = cudaFuncSetAttribute(
+      packed_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (B + kTileRows - 1) / kTileRows;
+  packed_bf16_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      x, B, d, ldx, w_all, b_all, M, L, relu, out_dim, out);
   return static_cast<int>(cudaGetLastError());
 }
 

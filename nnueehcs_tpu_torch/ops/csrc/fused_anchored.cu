@@ -23,7 +23,16 @@
 // single activation buffer (a layer reads all of its input before its
 // epilogue writes), so u costs no more shared memory than the ensemble
 // kernel's second buffer and two blocks still fit on an SM.
+//
+// The bf16 form (fused_anchored_bf16_kernel) replaces the same TPU kernel
+// run with compute_dtype=bfloat16: u = bf16(x) @ bf16(W_bot) + b0 is kept
+// in fp32; v_j = a_j @ (W_top - W_bot) stays fp32 (unrounded anchors, the
+// fp32 W_top - W_bot); h = u + v_j is fp32 and is rounded to bf16 only at
+// the next dot, as every later activation is. What bounds it: operations,
+// at the dense bf16 tensor-core peak (989 TFLOP/s on an H100 SXM); its
+// tile is fused_chain_bf16.cuh's, with u in a (64, 136) fp32 buffer.
 #include "fused_chain.cuh"
+#include "fused_chain_bf16.cuh"
 
 using namespace fused_chain;
 
@@ -81,6 +90,61 @@ __global__ void __launch_bounds__(kThreads, 2)
   write_stats(sc, s1, s2, k, valid, row0, out_dim, mean, std);
 }
 
+// The bf16 form: w_all as above in bf16, b_all and v fp32.
+__global__ void __launch_bounds__(kThreads, 2)
+    fused_anchored_bf16_kernel(const float* __restrict__ x, long long B, int d,
+                               const __nv_bfloat16* __restrict__ w_all,
+                               const float* __restrict__ b_all, int L,
+                               const int* __restrict__ relu,
+                               const float* __restrict__ v, int k,
+                               int out_dim, float* __restrict__ mean,
+                               float* __restrict__ std) {
+  namespace fb = fused_chain_bf16;
+  using bf16 = fb::bf16;
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  bf16* act = reinterpret_cast<bf16*>(smem_bf16);
+  bf16* sw = act + kTileRows * fb::kAStride;
+  float* ubuf = reinterpret_cast<float*>(sw + 2 * kChunk * fb::kWStride);
+  float* sc = ubuf + kTileRows * fb::kUStride;
+  float* s1 = sc + kTileRows * out_dim;
+  float* s2 = s1 + kTileRows * out_dim;
+
+  const long long row0 = static_cast<long long>(blockIdx.x) * kTileRows;
+  const int valid = static_cast<int>(min(static_cast<long long>(kTileRows), B - row0));
+  const float* x_tile = x + row0 * d;
+  const bf16* w_hidden = w_all + static_cast<size_t>(d) * kWidth;
+  const bool relu0 = __ldg(relu) != 0;
+  const Identity none;
+
+  // u = bf16(x) @ W_bot + b0 in fp32, without the ReLU; x is staged in act
+  fb::dense_layer<true, true>(act, ubuf, sw, w_all, b_all, d, false, x_tile,
+                              d, valid, none, none);
+  for (int j = 0; j < k; ++j) {
+    __syncthreads();  // u's stores, or the last anchor's reads of act
+    const float* vj = v + static_cast<size_t>(j) * kWidth;
+    for (int e = threadIdx.x; e < kWidth * kTileRows; e += kThreads) {
+      const int r = e / kWidth, n = e % kWidth;
+      const float h = ubuf[r * fb::kUStride + n] + __ldg(vj + n);
+      act[r * fb::kAStride + n] = __float2bfloat16_rn(relu0 ? fmaxf(h, 0.f) : h);
+    }
+    for (int l = 1; l + 1 < L; ++l) {
+      fb::dense_layer<false>(
+          act, act, sw, w_hidden + static_cast<size_t>(l - 1) * kWidth * kWidth,
+          b_all + static_cast<size_t>(l) * kWidth, kWidth,
+          __ldg(relu + l) != 0, nullptr, 0, valid, none, none);
+    }
+    __syncthreads();  // the last epilogue's stores must land before the reads
+    const int l = L - 1;
+    fb::last_layer_stats(
+        fb::ActLoad{act}, valid,
+        w_hidden + static_cast<size_t>(l - 1) * kWidth * kWidth,
+        b_all + static_cast<size_t>(l) * kWidth, kWidth, __ldg(relu + l) != 0,
+        out_dim, j == 0, sc, s1, s2);
+  }
+  __syncthreads();  // the slots' owners are not write_stats' threads
+  write_stats(sc, s1, s2, k, valid, row0, out_dim, mean, std);
+}
+
 }  // namespace
 
 extern "C" {
@@ -103,6 +167,24 @@ int nnueehcs_fused_anchored_f32(const float* x, long long B, int d,
   const long long blocks = (B + kTileRows - 1) / kTileRows;
   fused_anchored_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
+      x, B, d, w_all, b_all, L, relu, v, k, out_dim, mean, std);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 form; as nnueehcs_fused_anchored_f32 with w_all in bf16.
+int nnueehcs_fused_anchored_bf16(const float* x, long long B, int d,
+                                 const __nv_bfloat16* w_all,
+                                 const float* b_all, int L, const int* relu,
+                                 const float* v, int k, int out_dim,
+                                 float* mean, float* std, void* stream) {
+  const size_t smem = fused_chain_bf16::smem_bytes(out_dim, true);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_anchored_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (B + kTileRows - 1) / kTileRows;
+  fused_anchored_bf16_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
       x, B, d, w_all, b_all, L, relu, v, k, out_dim, mean, std);
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,7 +31,17 @@
 //   s2 directly, each slot owned by one thread for every member.
 // Tensor cores (wgmma with a 3xTF32 split to keep fp32 accuracy) are left to
 // a later version.
+//
+// The bf16 form (fused_ensemble_bf16_kernel) replaces the same TPU kernel
+// run with compute_dtype=bfloat16: weights folded in fp32 and rounded to
+// bf16, x and every hidden activation rounded to bf16 at the next dot,
+// products accumulated in fp32, bias, ReLU, the last layer and the shifted
+// sums in fp32. What bounds it: operations, at the dense bf16 tensor-core
+// peak (989 TFLOP/s on an H100 SXM). Its tile (fused_chain_bf16.cuh) runs
+// the hidden layers as mma.sync.m16n8k16 on bf16 operands in shared memory,
+// with the weights streamed as bf16.
 #include "fused_chain.cuh"
+#include "fused_chain_bf16.cuh"
 
 using namespace fused_chain;
 
@@ -49,6 +59,19 @@ __global__ void __launch_bounds__(kThreads, 2)
   extern __shared__ __align__(16) float smem[];
   ensemble_pass(smem, x, B, d, d, w_all, b_all, M, M, L, relu, out_dim,
                 out_dim, 0, mean, std);
+}
+
+// The bf16 form: w_all as above in bf16, b_all fp32.
+__global__ void __launch_bounds__(kThreads, 2)
+    fused_ensemble_bf16_kernel(const float* __restrict__ x, long long B, int d,
+                               const __nv_bfloat16* __restrict__ w_all,
+                               const float* __restrict__ b_all, int M, int L,
+                               const int* __restrict__ relu, int out_dim,
+                               float* __restrict__ mean,
+                               float* __restrict__ std) {
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  fused_chain_bf16::ensemble_pass(smem_bf16, x, B, d, d, w_all, b_all, M, L,
+                                  relu, out_dim, mean, std);
 }
 
 }  // namespace
@@ -72,6 +95,24 @@ int nnueehcs_fused_ensemble_f32(const float* x, long long B, int d,
   const long long blocks = (B + kTileRows - 1) / kTileRows;
   fused_ensemble_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
+      x, B, d, w_all, b_all, M, L, relu, out_dim, mean, std);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 form; as nnueehcs_fused_ensemble_f32 with w_all in bf16.
+int nnueehcs_fused_ensemble_bf16(const float* x, long long B, int d,
+                                 const __nv_bfloat16* w_all,
+                                 const float* b_all, int M, int L,
+                                 const int* relu, int out_dim, float* mean,
+                                 float* std, void* stream) {
+  const size_t smem = fused_chain_bf16::smem_bytes(out_dim);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_ensemble_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (B + kTileRows - 1) / kTileRows;
+  fused_ensemble_bf16_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
       x, B, d, w_all, b_all, M, L, relu, out_dim, mean, std);
   return static_cast<int>(cudaGetLastError());
 }

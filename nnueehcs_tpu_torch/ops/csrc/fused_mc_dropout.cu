@@ -28,7 +28,16 @@
 // (or as x is staged, for a Dropout before layer 0), so no mask bytes touch
 // memory; the hash costs about a dozen integer operations per element
 // against the 128 FMAs that produced it.
+//
+// The bf16 form (fused_mc_dropout_bf16_kernel) replaces the same TPU kernel
+// run with compute_dtype=bfloat16: the masks and their 1/keep scale are
+// applied in fp32 and the activation is rounded to bf16 only at the next
+// dot, so the epilogue masks the fp32 value before it rounds; the
+// dropout-free shift pass runs in bf16 too, and the masks are the same hash.
+// What bounds it: operations, at the dense bf16 tensor-core peak (989
+// TFLOP/s on an H100 SXM); its tile is fused_chain_bf16.cuh's.
 #include "fused_chain.cuh"
+#include "fused_chain_bf16.cuh"
 
 using namespace fused_chain;
 
@@ -138,6 +147,85 @@ __global__ void __launch_bounds__(kThreads, 2)
   write_stats(sc, s1, s2, S, valid, row0, out_dim, mean, std);
 }
 
+// The bf16 form: w_all as above in bf16, b_all fp32.
+__global__ void __launch_bounds__(kThreads, 2)
+    fused_mc_dropout_bf16_kernel(const float* __restrict__ x, long long B,
+                                 int d,
+                                 const __nv_bfloat16* __restrict__ w_all,
+                                 const float* __restrict__ b_all, int L,
+                                 const int* __restrict__ relu,
+                                 const int* __restrict__ thresh,
+                                 const float* __restrict__ scale,
+                                 const int* __restrict__ key, int S,
+                                 uint32_t seed, int out_dim,
+                                 float* __restrict__ mean,
+                                 float* __restrict__ std) {
+  namespace fb = fused_chain_bf16;
+  using bf16 = fb::bf16;
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  bf16* act0 = reinterpret_cast<bf16*>(smem_bf16);
+  bf16* act1 = act0 + kTileRows * fb::kAStride;
+  bf16* sw = act1 + kTileRows * fb::kAStride;
+  float* sc = reinterpret_cast<float*>(sw + 2 * kChunk * fb::kWStride);
+  float* s1 = sc + kTileRows * out_dim;
+  float* s2 = s1 + kTileRows * out_dim;
+
+  const long long row0 = static_cast<long long>(blockIdx.x) * kTileRows;
+  const int valid = static_cast<int>(min(static_cast<long long>(kTileRows), B - row0));
+  const float* x_tile = x + row0 * d;
+  const bf16* w_hidden = w_all + static_cast<size_t>(d) * kWidth;
+  const Identity none;
+
+  for (int p = 0; p <= S; ++p) {
+    const auto mask_for = [&](int l) {
+      DropMask m;
+      const int t = __ldg(thresh + l);
+      m.active = p > 0 && t >= 0;
+      m.threshold = static_cast<uint32_t>(t);
+      m.scale = __ldg(scale + l);
+      m.row0 = static_cast<uint32_t>(row0);
+      m.stream = lowbias32(
+          lowbias32(seed + static_cast<uint32_t>(p - 1) * 0x9E3779B9u) +
+          static_cast<uint32_t>(__ldg(key + l)) * 0x85EBCA6Bu);
+      return m;
+    };
+    __syncthreads();  // the previous pass's last layer may still read act0
+    bf16* in = act0;
+    bf16* out = act1;
+    for (int l = 0; l + 1 < L; ++l) {
+      const float* b = b_all + static_cast<size_t>(l) * kWidth;
+      const bool act = __ldg(relu + l) != 0;
+      const DropMask next = mask_for(l + 1);
+      if (l == 0) {
+        fb::dense_layer<true>(in, out, sw, w_all, b, d, act, x_tile, d, valid,
+                              mask_for(0), next);
+      } else {
+        fb::dense_layer<false>(
+            in, out, sw, w_hidden + static_cast<size_t>(l - 1) * kWidth * kWidth,
+            b, kWidth, act, nullptr, 0, valid, none, next);
+      }
+      bf16* t = in;
+      in = out;
+      out = t;
+    }
+    __syncthreads();  // the last epilogue's stores must land before the reads
+    const int l = L - 1;
+    const float* b = b_all + static_cast<size_t>(l) * kWidth;
+    const bool act = __ldg(relu + l) != 0;
+    if (l == 0) {  // one Linear: x masked and rounded as it is read
+      fb::last_layer_stats(fb::XLoad<DropMask>{x_tile, d, mask_for(0)}, valid,
+                           w_all, b, d, act, out_dim, p == 0, sc, s1, s2);
+    } else {
+      fb::last_layer_stats(
+          fb::ActLoad{in}, valid,
+          w_hidden + static_cast<size_t>(l - 1) * kWidth * kWidth, b, kWidth,
+          act, out_dim, p == 0, sc, s1, s2);
+    }
+  }
+  __syncthreads();  // the slots' owners are not write_stats' threads
+  write_stats(sc, s1, s2, S, valid, row0, out_dim, mean, std);
+}
+
 }  // namespace
 
 extern "C" {
@@ -161,6 +249,27 @@ int nnueehcs_fused_mc_dropout_f32(const float* x, long long B, int d,
   const long long blocks = (B + kTileRows - 1) / kTileRows;
   fused_mc_dropout_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
+      x, B, d, w_all, b_all, L, relu, thresh, scale, key, S, seed, out_dim,
+      mean, std);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 form; as nnueehcs_fused_mc_dropout_f32 with w_all in bf16.
+int nnueehcs_fused_mc_dropout_bf16(const float* x, long long B, int d,
+                                   const __nv_bfloat16* w_all,
+                                   const float* b_all, int L, const int* relu,
+                                   const int* thresh, const float* scale,
+                                   const int* key, int S, uint32_t seed,
+                                   int out_dim, float* mean, float* std,
+                                   void* stream) {
+  const size_t smem = fused_chain_bf16::smem_bytes(out_dim);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_mc_dropout_bf16_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (B + kTileRows - 1) / kTileRows;
+  fused_mc_dropout_bf16_kernel<<<static_cast<unsigned>(blocks), kThreads,
+                                 smem, static_cast<cudaStream_t>(stream)>>>(
       x, B, d, w_all, b_all, L, relu, thresh, scale, key, S, seed, out_dim,
       mean, std);
   return static_cast<int>(cudaGetLastError());

@@ -14,12 +14,21 @@ anchor 0's output.
 launches the hand-written kernel (``csrc/fused_anchored.cu``), on a CPU
 tensor it runs :func:`fused_anchored_plain`. It never falls back from one
 to the other.
+
+In bf16 (the weights' ``compute_dtype``, the JAX kernel's
+``compute_dtype=bfloat16`` form) ``W_bot`` and the later layers are bf16,
+``u = bf16(x) @ W_bot + b0`` is fp32, ``v_j`` stays fp32 (unrounded
+anchors, the fp32 ``W_top - W_bot``), and ``h = u + v_j`` is rounded only
+at the next dot, as every later activation is.
+``fused_anchored_stats.launches`` counts the fp32 kernel's launches,
+``.launches_bf16`` the bf16 form's.
 """
 from __future__ import annotations
 
 import torch
 
 from .fused_ensemble import (WIDTH, FusedWeights, _fold_linear_chain,
+                             check_weights_dtype, check_x, compute_dtype_of,
                              shifted_stats)
 
 
@@ -27,14 +36,15 @@ class AnchoredWeights(FusedWeights):
     """Folded weights of an anchored network, packed as for the ensemble
     kernel with one member, layer 0 being ``W_bot`` (``(d, 128)``, the
     x-part of the first Linear) with its bias; ``w0d`` is
-    ``W_top - W_bot`` (``(d, width0)``, unpadded) and ``relus[0]`` the
-    ReLU that follows layer 0 once ``v_j`` is added."""
+    ``W_top - W_bot`` (``(d, width0)``, unpadded, fp32 in every compute
+    dtype) and ``relus[0]`` the ReLU that follows layer 0 once ``v_j`` is
+    added."""
 
-    def __init__(self, folded):
+    def __init__(self, folded, compute_dtype=torch.float32):
         w0, b0, relu0 = folded[0]
         d = w0.shape[-2] // 2
         w_top, w_bot = w0[..., :d, :], w0[..., d:, :]
-        super().__init__([(w_bot, b0, relu0), *folded[1:]])
+        super().__init__([(w_bot, b0, relu0), *folded[1:]], compute_dtype)
         self.w0d = (w_top - w_bot)[0].contiguous()
         self.width0 = w0.shape[-1]
         # multiply-adds per row: layer 0 once (x @ W_bot; v is per anchor),
@@ -44,8 +54,9 @@ class AnchoredWeights(FusedWeights):
 
 
 def prepare_fused_anchored(net):
-    """Fold and split an anchored network once per parameter version.
-    Returns None when the TPU kernel would not take it: not a Dropout-free
+    """Fold and split an anchored network once per parameter version, in
+    the network's compute dtype. Returns None when the TPU kernel would not
+    take it: not a Dropout-free
     ``[Linear, BatchNorm1d?, ReLU?]*`` chain of at least two Linears, an odd
     first-layer input, or a layer wider than 128."""
     result = _fold_linear_chain(net)
@@ -59,7 +70,8 @@ def prepare_fused_anchored(net):
         return None
     if any(w.shape[0] > WIDTH or w.shape[1] > WIDTH for w, _, _ in folded[1:]):
         return None
-    return AnchoredWeights([(w[None], b[None], relu) for w, b, relu in folded])
+    return AnchoredWeights([(w[None], b[None], relu) for w, b, relu in folded],
+                           compute_dtype_of(net))
 
 
 def anchor_rows(aw: AnchoredWeights, anchors):
@@ -77,7 +89,7 @@ def fused_anchored_plain(aw: AnchoredWeights, x, v):
     forward per anchor row of ``v`` (``(k, 128)``), then the shifted
     statistics with anchor 0 as the shift. ``x`` is ``(B, d)``."""
     last = aw.num_layers - 1
-    u = torch.addmm(aw.b_all[0, 0], x, aw.ws[0][0])
+    u = torch.addmm(aw.b_all[0, 0], aw.round(x), aw.ws[0][0].float())
     c = s1 = s2 = None
     for j in range(v.shape[0]):
         h = u + v[j]
@@ -87,7 +99,7 @@ def fused_anchored_plain(aw: AnchoredWeights, x, v):
             w, b = aw.ws[l][0], aw.b_all[l, 0]
             if l == last:
                 w, b = w[:, :aw.out_dim], b[:aw.out_dim]
-            h = torch.addmm(b, h, w)
+            h = torch.addmm(b, aw.round(h), w.float())
             if aw.relus[l]:
                 h = torch.relu(h)
         if j == 0:
@@ -100,15 +112,8 @@ def fused_anchored_plain(aw: AnchoredWeights, x, v):
 
 
 def _check_inputs(aw: AnchoredWeights, x, anchors):
-    if x.dtype == torch.bfloat16:
-        raise NotImplementedError('the fused anchored kernel is fp32 only')
-    if x.dtype != torch.float32:
-        raise TypeError(f'expected float32 input, got {x.dtype}')
-    if x.dim() != 2 or x.shape[1] != aw.in_dim:
-        raise ValueError(f'expected x of shape (B, {aw.in_dim}), '
-                         f'got {tuple(x.shape)}')
-    if not x.is_contiguous():
-        raise ValueError('x must be contiguous')
+    check_x(x, aw.in_dim)
+    check_weights_dtype(aw)
     if anchors.dim() != 2 or anchors.shape[1] != aw.in_dim \
             or anchors.shape[0] < 1:
         raise ValueError(f'expected anchors of shape (k >= 1, {aw.in_dim}), '
@@ -121,8 +126,10 @@ def _check_inputs(aw: AnchoredWeights, x, anchors):
 def fused_anchored_stats(aw: AnchoredWeights, x, anchors, n_anchors=None):
     """``(mean, std)``, each ``(B, out_dim)``, over the anchored passes of
     the first ``n_anchors`` anchors (all of them when None): the CUDA kernel
-    for a CUDA tensor, :func:`fused_anchored_plain` for a CPU tensor.
-    ``fused_anchored_stats.launches`` counts kernel launches."""
+    of the weights' compute dtype for a CUDA tensor,
+    :func:`fused_anchored_plain` for a CPU tensor.
+    ``fused_anchored_stats.launches`` counts the fp32 kernel's launches,
+    ``.launches_bf16`` the bf16 form's."""
     a = anchors if n_anchors is None else anchors[:n_anchors]
     _check_inputs(aw, x, a)
     v = anchor_rows(aw, a)
@@ -138,8 +145,11 @@ def fused_anchored_stats(aw: AnchoredWeights, x, anchors, n_anchors=None):
         return mean, std
     from ._build import library
     lib = library()
+    bf16 = aw.compute_dtype == torch.bfloat16
+    launch = lib.nnueehcs_fused_anchored_bf16 if bf16 else \
+        lib.nnueehcs_fused_anchored_f32
     with torch.cuda.device(x.device):
-        err = lib.nnueehcs_fused_anchored_f32(
+        err = launch(
             x.data_ptr(), rows, aw.in_dim, aw.w_all.data_ptr(),
             aw.b_all.data_ptr(), aw.num_layers, aw.relu_flags.data_ptr(),
             v.data_ptr(), v.shape[0], aw.out_dim, mean.data_ptr(),
@@ -147,8 +157,12 @@ def fused_anchored_stats(aw: AnchoredWeights, x, anchors, n_anchors=None):
     if err != 0:
         raise RuntimeError(f'fused anchored kernel launch failed: CUDA error '
                            f'{err}')
-    fused_anchored_stats.launches += 1
+    if bf16:
+        fused_anchored_stats.launches_bf16 += 1
+    else:
+        fused_anchored_stats.launches += 1
     return mean, std
 
 
 fused_anchored_stats.launches = 0
+fused_anchored_stats.launches_bf16 = 0

@@ -13,6 +13,15 @@ output, so the one-pass variance does not cancel when ``|mean| >> std``.
 launches the hand-written kernel (``csrc/fused_ensemble.cu``), on a CPU
 tensor it runs :func:`fused_forward_plain`, which computes the same
 function with plain tensor ops. It never falls back from one to the other.
+
+The precision lives in the folded weights (:class:`FusedWeights`
+``compute_dtype``), as in the JAX package's cache: fp32, or bf16, the JAX
+kernel's ``compute_dtype=bfloat16`` form (the fold in fp32, then the weights
+rounded to bf16; x and each hidden activation rounded to bf16 at the next
+dot, products accumulated in fp32; biases, the last layer's output and the
+statistics in fp32). x stays fp32 in both: the kernel rounds it itself.
+``launches`` counts the fp32 kernel's launches, ``launches_bf16`` the bf16
+form's.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ import torch
 from ..nn.layers import BatchNorm1d, Dropout, Linear, ReLU
 
 WIDTH = 128        # every layer is padded to 128 output columns
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)   # the kernels' forms
 
 
 def _fold_linear_chain(net, allow_dropout: bool = False):
@@ -84,11 +94,13 @@ def _check_widths(folded) -> bool:
 class FusedWeights:
     """Folded weights of a stacked ensemble, zero-padded to 128 columns and
     packed as the kernel reads them: ``w_all`` holds layer 0 as
-    ``(M, in_dim, 128)`` followed by layers 1.. as ``(M, 128, 128)``;
-    ``b_all`` is ``(L, M, 128)``; ``relu_flags`` is ``(L,)`` int32, 1 where
-    a ReLU follows the layer. ``ws[l]`` is a view of layer l."""
+    ``(M, in_dim, 128)`` followed by layers 1.. as ``(M, 128, 128)``, in
+    ``compute_dtype`` (the fold is fp32; bf16 rounds its result); ``b_all``
+    is ``(L, M, 128)`` fp32; ``relu_flags`` is ``(L,)`` int32, 1 where a
+    ReLU follows the layer. ``ws[l]`` is a view of layer l."""
 
-    def __init__(self, folded):
+    def __init__(self, folded, compute_dtype=torch.float32):
+        self.compute_dtype = compute_dtype
         w0 = folded[0][0]
         self.num_members = w0.shape[0]
         self.in_dim = w0.shape[1]
@@ -105,7 +117,8 @@ class FusedWeights:
             b_p[:, :b.shape[-1]] = b
             ws.append(w_p)
             bs.append(b_p)
-        self.w_all = torch.cat([w.reshape(-1) for w in ws]).contiguous()
+        self.w_all = torch.cat([w.reshape(-1) for w in ws]).contiguous().to(
+            compute_dtype)
         self.b_all = torch.stack(bs).contiguous()
         self.relu_flags = torch.tensor(self.relus, dtype=torch.int32,
                                        device=w0.device)
@@ -116,17 +129,31 @@ class FusedWeights:
     def num_layers(self):
         return len(self.relus)
 
+    def round(self, h):
+        """``h`` (fp32) rounded to the compute dtype, as a dot's input; the
+        identity in fp32."""
+        if self.compute_dtype == torch.float32:
+            return h
+        return h.to(self.compute_dtype).float()
+
+
+def compute_dtype_of(net):
+    """The network's compute dtype (``Network.compute_dtype``), fp32 when
+    it has none."""
+    return getattr(net, 'compute_dtype', None) or torch.float32
+
 
 def prepare_fused_weights(net):
-    """Fold and pack a stacked-ensemble network once per parameter version.
-    Returns None when the network does not fit the fused kernel."""
+    """Fold and pack a stacked-ensemble network once per parameter version,
+    in the network's compute dtype. Returns None when the network does not
+    fit the fused kernel."""
     result = _fold_linear_chain(net)
     if result is None:
         return None
     folded, _ = result
     if not folded or folded[0][0].dim() != 3 or not _check_widths(folded):
         return None
-    return FusedWeights(folded)
+    return FusedWeights(folded, compute_dtype_of(net))
 
 
 def shifted_stats(s1, s2, c, n):
@@ -140,18 +167,22 @@ def shifted_stats(s1, s2, c, n):
 
 def fused_forward_plain(fw: FusedWeights, x):
     """The kernel's function in plain tensor ops: a per-member loop over the
-    folded chain, then the shifted statistics. ``x`` is ``(B, in_dim)``."""
+    folded chain, then the shifted statistics. ``x`` is ``(B, in_dim)``.
+    In bf16 each dot takes bf16-rounded operands up-cast to fp32, so its
+    products are exact and its sums fp32, as the kernel's."""
     c = s1 = s2 = None
     last = fw.num_layers - 1
     for m in range(fw.num_members):
-        h = x
+        h = fw.round(x)
         for l, relu in enumerate(fw.relus):
             w, b = fw.ws[l][m], fw.b_all[l, m]
             if l == last:
                 w, b = w[:, :fw.out_dim], b[:fw.out_dim]
-            h = torch.addmm(b, h, w)
+            h = torch.addmm(b, h, w.float())
             if relu:
                 h = torch.relu(h)
+            if l != last:
+                h = fw.round(h)
         if m == 0:
             c, s1, s2 = h, torch.zeros_like(h), torch.zeros_like(h)
         else:
@@ -161,20 +192,37 @@ def fused_forward_plain(fw: FusedWeights, x):
     return shifted_stats(s1, s2, c, fw.num_members)
 
 
-def _check_inputs(fw: FusedWeights, x):
-    if x.dtype == torch.bfloat16:
-        raise NotImplementedError('the fused ensemble kernel is fp32 only')
+def check_weights_dtype(fw: FusedWeights):
+    """Refuse folded weights whose compute dtype no kernel form takes, or
+    whose packed arrays do not hold it (``w_all`` in the compute dtype,
+    ``b_all`` fp32)."""
+    if fw.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f'no kernel form for compute dtype '
+                         f'{fw.compute_dtype}; the forms are {COMPUTE_DTYPES}')
+    if fw.w_all.dtype != fw.compute_dtype or fw.b_all.dtype != torch.float32:
+        raise ValueError(f'folded weights must be {fw.compute_dtype} (w_all) '
+                         f'and float32 (b_all), got {fw.w_all.dtype} and '
+                         f'{fw.b_all.dtype}')
+
+
+def check_x(x, in_dim):
+    """x must be a contiguous fp32 ``(B, in_dim)`` tensor, whatever the
+    weights' compute dtype: a bf16 kernel rounds x itself."""
     if x.dtype != torch.float32:
         raise TypeError(f'expected float32 input, got {x.dtype}')
-    if x.dim() != 2 or x.shape[1] != fw.in_dim:
-        raise ValueError(f'expected x of shape (B, {fw.in_dim}), '
+    if x.dim() != 2 or x.shape[1] != in_dim:
+        raise ValueError(f'expected x of shape (B, {in_dim}), '
                          f'got {tuple(x.shape)}')
     if not x.is_contiguous():
         raise ValueError('x must be contiguous')
+
+
+def _check_inputs(fw: FusedWeights, x):
+    check_x(x, fw.in_dim)
+    check_weights_dtype(fw)
     for t in (fw.w_all, fw.b_all):
-        if t.device != x.device or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError('folded weights must be contiguous float32 on '
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError('folded weights must be contiguous on '
                              f'{x.device}')
     if fw.relu_flags.device != x.device:
         raise ValueError(f'ReLU flags must be on {x.device}')
@@ -182,8 +230,10 @@ def _check_inputs(fw: FusedWeights, x):
 
 def fused_forward_prefolded(fw: FusedWeights, x):
     """``(mean, std)``, each ``(B, out_dim)``, of the ensemble on ``x``: the
-    CUDA kernel for a CUDA tensor, :func:`fused_forward_plain` for a CPU
-    tensor. ``fused_forward_prefolded.launches`` counts kernel launches."""
+    CUDA kernel of the weights' compute dtype for a CUDA tensor,
+    :func:`fused_forward_plain` for a CPU tensor.
+    ``fused_forward_prefolded.launches`` counts the fp32 kernel's launches,
+    ``.launches_bf16`` the bf16 form's."""
     _check_inputs(fw, x)
     if x.device.type == 'cpu':
         return fused_forward_plain(fw, x)
@@ -197,8 +247,11 @@ def fused_forward_prefolded(fw: FusedWeights, x):
         return mean, std
     from ._build import library
     lib = library()
+    bf16 = fw.compute_dtype == torch.bfloat16
+    launch = lib.nnueehcs_fused_ensemble_bf16 if bf16 else \
+        lib.nnueehcs_fused_ensemble_f32
     with torch.cuda.device(x.device):
-        err = lib.nnueehcs_fused_ensemble_f32(
+        err = launch(
             x.data_ptr(), rows, fw.in_dim, fw.w_all.data_ptr(),
             fw.b_all.data_ptr(), fw.num_members, fw.num_layers,
             fw.relu_flags.data_ptr(), fw.out_dim, mean.data_ptr(),
@@ -206,8 +259,12 @@ def fused_forward_prefolded(fw: FusedWeights, x):
     if err != 0:
         raise RuntimeError(f'fused ensemble kernel launch failed: CUDA error '
                            f'{err}')
-    fused_forward_prefolded.launches += 1
+    if bf16:
+        fused_forward_prefolded.launches_bf16 += 1
+    else:
+        fused_forward_prefolded.launches += 1
     return mean, std
 
 
 fused_forward_prefolded.launches = 0
+fused_forward_prefolded.launches_bf16 = 0

@@ -17,6 +17,12 @@ numbers, so the kernel, :func:`fused_mc_forward_plain` and
 a row's answer does not depend on the rows padded around it. A value is
 kept when the top 24 bits of its draw fall below ``keep * 2^24``, and kept
 values are scaled by ``1/keep``; rate 1 drops everything (zeros, not NaN).
+
+In bf16 (the weights' ``compute_dtype``, the JAX kernel's
+``compute_dtype=bfloat16`` form) the masks and their scale are applied in
+fp32 and the activation is rounded to bf16 only at the next dot; the
+dropout-free shift pass runs in bf16 too. ``fused_mc_forward.launches``
+counts the fp32 kernel's launches, ``.launches_bf16`` the bf16 form's.
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ import numpy as np
 import torch
 
 from ..nn.layers import Dropout, Linear
-from .fused_ensemble import (FusedWeights, _check_widths, fold_mc_dropout_params,
+from .fused_ensemble import (FusedWeights, _check_widths, check_weights_dtype,
+                             check_x, compute_dtype_of, fold_mc_dropout_params,
                              shifted_stats)
 
 _M32 = 0xFFFFFFFF
@@ -92,8 +99,8 @@ class McWeights(FusedWeights):
     ``drop_scale`` (float32 ``1/keep``) and ``drop_key`` (int32 module index
     of the Dropout, the hash's layer word)."""
 
-    def __init__(self, folded, drops, keys):
-        super().__init__(folded)
+    def __init__(self, folded, drops, keys, compute_dtype=torch.float32):
+        super().__init__(folded, compute_dtype)
         device = self.w_all.device
         pairs = [keep_threshold(p) for p in drops]
         self.thresholds = tuple(t for t, _ in pairs)
@@ -107,7 +114,8 @@ class McWeights(FusedWeights):
 
 
 def prepare_mc_weights(net):
-    """Fold and pack an MC-dropout network once per parameter version.
+    """Fold and pack an MC-dropout network once per parameter version, in
+    the network's compute dtype.
     Returns None when the TPU kernel would not take it either (not a
     ``[Dropout?, Linear, BatchNorm1d?, ReLU?]*`` chain, or a width over
     128)."""
@@ -118,7 +126,7 @@ def prepare_mc_weights(net):
     linear_at = [i for i, layer in enumerate(net.layers)
                  if isinstance(layer, Linear)]
     keys = [i - 1 if p > 0.0 else -1 for i, p in zip(linear_at, drops)]
-    return McWeights(folded, drops, keys)
+    return McWeights(folded, drops, keys, compute_dtype_of(net))
 
 
 def _sample_stats(forward, num_samples):
@@ -152,7 +160,7 @@ def fused_mc_forward_plain(mw: McWeights, x, num_samples: int, seed: int):
             w, b = mw.ws[l][0], mw.b_all[l, 0]
             if l == last:
                 w, b = w[:, :mw.out_dim], b[:mw.out_dim]
-            h = torch.addmm(b, h, w)
+            h = torch.addmm(b, mw.round(h), w.float())
             if relu:
                 h = torch.relu(h)
         return h
@@ -163,32 +171,30 @@ def fused_mc_forward_plain(mw: McWeights, x, num_samples: int, seed: int):
 def mc_forward_modules(net, x, num_samples: int, seed: int):
     """The same statistics through the network's modules, for a network
     the fold does not take: each Dropout multiplies by the hash mask keyed
-    by its module index, every other layer runs as it is."""
+    by its module index, every other layer runs as it is. Under a compute
+    dtype the walk runs in it, as ``Network`` does (x cast on entry, a
+    masked activation returned in its dtype, the output back in fp32)."""
+    cd = getattr(net, 'compute_dtype', None)
+
     def forward(sample):
-        h = x
+        h = x if cd is None else x.to(cd)
         for i, layer in enumerate(net.layers):
             if isinstance(layer, Dropout):
                 threshold, scale = keep_threshold(layer.p)
                 if sample is not None and threshold >= 0:
-                    h = h * dropout_scale(seed, sample, i, threshold, scale,
-                                          h.shape[0], h.shape[1], x.device)
+                    h = (h * dropout_scale(seed, sample, i, threshold, scale,
+                                           h.shape[0], h.shape[1],
+                                           x.device)).to(h.dtype)
             else:
                 h = layer(h)
-        return h
+        return h.to(x.dtype)
 
     return _sample_stats(forward, num_samples)
 
 
 def _check_inputs(mw: McWeights, x, num_samples):
-    if x.dtype == torch.bfloat16:
-        raise NotImplementedError('the fused MC-dropout kernel is fp32 only')
-    if x.dtype != torch.float32:
-        raise TypeError(f'expected float32 input, got {x.dtype}')
-    if x.dim() != 2 or x.shape[1] != mw.in_dim:
-        raise ValueError(f'expected x of shape (B, {mw.in_dim}), '
-                         f'got {tuple(x.shape)}')
-    if not x.is_contiguous():
-        raise ValueError('x must be contiguous')
+    check_x(x, mw.in_dim)
+    check_weights_dtype(mw)
     if num_samples < 1:
         raise ValueError(f'num_samples must be at least 1, got {num_samples}')
     for t in (mw.w_all, mw.b_all, mw.relu_flags, mw.drop_thresh,
@@ -199,9 +205,10 @@ def _check_inputs(mw: McWeights, x, num_samples):
 
 def fused_mc_forward(mw: McWeights, x, num_samples: int, seed: int):
     """``(mean, std)``, each ``(B, out_dim)``, over ``num_samples`` dropout
-    samples drawn with call seed ``seed``: the CUDA kernel for a CUDA
-    tensor, :func:`fused_mc_forward_plain` for a CPU tensor.
-    ``fused_mc_forward.launches`` counts kernel launches."""
+    samples drawn with call seed ``seed``: the CUDA kernel of the weights'
+    compute dtype for a CUDA tensor, :func:`fused_mc_forward_plain` for a
+    CPU tensor. ``fused_mc_forward.launches`` counts the fp32 kernel's
+    launches, ``.launches_bf16`` the bf16 form's."""
     _check_inputs(mw, x, num_samples)
     seed &= _M32
     if x.device.type == 'cpu':
@@ -216,8 +223,11 @@ def fused_mc_forward(mw: McWeights, x, num_samples: int, seed: int):
         return mean, std
     from ._build import library
     lib = library()
+    bf16 = mw.compute_dtype == torch.bfloat16
+    launch = lib.nnueehcs_fused_mc_dropout_bf16 if bf16 else \
+        lib.nnueehcs_fused_mc_dropout_f32
     with torch.cuda.device(x.device):
-        err = lib.nnueehcs_fused_mc_dropout_f32(
+        err = launch(
             x.data_ptr(), rows, mw.in_dim, mw.w_all.data_ptr(),
             mw.b_all.data_ptr(), mw.num_layers, mw.relu_flags.data_ptr(),
             mw.drop_thresh.data_ptr(), mw.drop_scale.data_ptr(),
@@ -227,8 +237,12 @@ def fused_mc_forward(mw: McWeights, x, num_samples: int, seed: int):
     if err != 0:
         raise RuntimeError(f'fused MC-dropout kernel launch failed: CUDA '
                            f'error {err}')
-    fused_mc_forward.launches += 1
+    if bf16:
+        fused_mc_forward.launches_bf16 += 1
+    else:
+        fused_mc_forward.launches += 1
     return mean, std
 
 
 fused_mc_forward.launches = 0
+fused_mc_forward.launches_bf16 = 0

@@ -4,7 +4,10 @@ Counterpart of ``nnueehcs_tpu/serving.py``. The predictor loads a bundle
 (or takes a model), places it on ``device``, warms every batch bucket once,
 pads each request to the nearest bucket by repeating its first row, chunks
 requests larger than the largest bucket, and trims the answers. Forward
-passes are row-independent, so padding changes no answer.
+passes are row-independent, so padding changes no answer. A model in
+bf16-mixed (``set_precision``, or a bundle's ``train_config``) serves as
+it is, its warm-up building and folding for that precision; the answers
+are fp32 in either precision.
 """
 from __future__ import annotations
 

@@ -11,7 +11,13 @@ since tests/conftest.py imports JAX):
 Tolerances: mean 1e-5 absolute and relative; std 1e-3 relative, 1e-5
 absolute (fp32 sums taken in another order than cuBLAS takes them). The
 MC-dropout kernel and its plain version draw the same hash masks for the
-same seed, so they are compared with the same tolerances. KDE log density:
+same seed, so they are compared with the same tolerances. The bf16 forms
+(kernels 1, 2 and 5 and the packed probe) are held to their plain versions
+against the bf16-vs-fp32 gap on the same rows (``attrib.bf16_close``: the
+error's root mean square within 0.2 of the gap's, its max within the gap's
+max; the two sum in another order, so a few bf16 roundings go the other
+way).
+KDE log density:
 1e-4 absolute plus 1e-5 relative (float32 round-off in the distance
 decomposition, scaled by gamma; tests/test_torch_kde.py). Training kernel
 against its plain epoch, absolute (``chip_smoke.TOL_TRAIN``): losses
@@ -30,7 +36,7 @@ import torch
 
 from chip_smoke import (FLAGSHIP, TOL_TRAIN, separate_relu,
                         stepwise_vs_plain, train_inputs, train_plan)
-from nnueehcs_tpu_torch.attrib import BINDING_CLIP, TOL_NORM
+from nnueehcs_tpu_torch.attrib import BINDING_CLIP, TOL_NORM, bf16_close
 from nnueehcs_tpu_torch.convert import tensor_trees
 from nnueehcs_tpu_torch.model_builder import (DeltaUQMLPModelBuilder,
                                               EnsembleModelBuilder,
@@ -40,6 +46,8 @@ from nnueehcs_tpu_torch.model_builder import (DeltaUQMLPModelBuilder,
                                               PAGERModelBuilder)
 from nnueehcs_tpu_torch.ops import ablate_epoch as ae
 from nnueehcs_tpu_torch.ops import ablate_forward as af
+from nnueehcs_tpu_torch.ops import fused_anchored as fa
+from nnueehcs_tpu_torch.ops import fused_mc_dropout as mc
 from nnueehcs_tpu_torch.ops.fused_anchored import (anchor_rows,
                                                    fused_anchored_plain,
                                                    fused_anchored_stats)
@@ -151,12 +159,44 @@ def test_wide_input_ensemble_runs_the_kernel_on_card(card):
     torch.testing.assert_close(std, out.std(0, correction=1), **TOL_STD)
 
 
+def _both(model, prepare):
+    """``prepare(model.net)`` in bf16 and in fp32; the model is left in
+    bf16."""
+    model.set_precision('32-true')
+    w32 = prepare(model.net)
+    model.set_precision('bf16-mixed')
+    return prepare(model.net), w32
+
+
+def _bf16_pair(name, got, want, fp32):
+    """Each of the (mean, std) pair within the bf16 bar of its plain
+    version (attrib.bf16_close)."""
+    for i, (g, w, f) in enumerate(zip(got, want, fp32)):
+        bf16_close(f'{name} out{i}', g, w, f)
+
+
 @pytest.mark.cuda
-def test_kernel_refuses_bf16_on_card(card):
-    fw = prepare_fused_weights(_model(card, 2, 5, 16, 1, 1).net)
-    with pytest.raises(NotImplementedError):
-        fused_forward_prefolded(fw, torch.zeros(4, 5, dtype=torch.bfloat16,
-                                                device=card))
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_bf16_kernel_matches_plain_on_card(card, case):
+    """Kernel 1's bf16 form against its plain version, and an x that is not
+    fp32 refused on the card as on the CPU."""
+    members, in_dim, width, hidden, out_dim, rows = CASES[case]
+    fw, fw32 = _both(_model(card, members, in_dim, width, hidden, out_dim),
+                     prepare_fused_weights)
+    assert fw.w_all.dtype == torch.bfloat16
+    x = torch.as_tensor(np.random.default_rng(6).normal(size=(rows, in_dim)),
+                        dtype=torch.float32, device=card)
+    before = (fused_forward_prefolded.launches,
+              fused_forward_prefolded.launches_bf16)
+    got = fused_forward_prefolded(fw, x)
+    torch.cuda.synchronize()
+    assert (fused_forward_prefolded.launches,
+            fused_forward_prefolded.launches_bf16) == (before[0],
+                                                       before[1] + 1)
+    _bf16_pair(case, got, fused_forward_plain(fw, x),
+               fused_forward_plain(fw32, x))
+    with pytest.raises(TypeError):
+        fused_forward_prefolded(fw, x.bfloat16())
 
 
 MC_CASES = {
@@ -244,6 +284,80 @@ def test_anchored_kernel_matches_plain_on_card(card, case):
     ref_mean, ref_std = fused_anchored_plain(aw, x, anchor_rows(aw, m.anchors))
     torch.testing.assert_close(mean, ref_mean, **TOL_MEAN)
     torch.testing.assert_close(std, ref_std, **TOL_STD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(MC_CASES))
+def test_bf16_mc_kernel_matches_plain_on_card(card, case):
+    in_dim, width, hidden, out_dim, p, samples, rows = MC_CASES[case]
+    mw, mw32 = _both(_mc_model(card, in_dim, width, hidden, out_dim, p,
+                               samples), lambda net: mc.prepare_mc_weights(net))
+    x = torch.as_tensor(np.random.default_rng(6).normal(size=(rows, in_dim)),
+                        dtype=torch.float32, device=card)
+    before = (fused_mc_forward.launches, fused_mc_forward.launches_bf16)
+    got = fused_mc_forward(mw, x, samples, 1234567)
+    torch.cuda.synchronize()
+    assert (fused_mc_forward.launches,
+            fused_mc_forward.launches_bf16) == (before[0], before[1] + 1)
+    _bf16_pair(case, got, fused_mc_forward_plain(mw, x, samples, 1234567),
+               fused_mc_forward_plain(mw32, x, samples, 1234567))
+    if p == 0.0:
+        assert float(got[1].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(ANCHORED_CASES))
+def test_bf16_anchored_kernel_matches_plain_on_card(card, case):
+    in_dim, width, hidden, out_dim, anchors, rows = ANCHORED_CASES[case]
+    m = _anchored_model(card, DeltaUQMLPModelBuilder, in_dim, width, hidden,
+                        out_dim, anchors)
+    aw, aw32 = _both(m, lambda net: fa.prepare_fused_anchored(net))
+    x = torch.as_tensor(np.random.default_rng(6).normal(size=(rows, in_dim)),
+                        dtype=torch.float32, device=card)
+    before = (fused_anchored_stats.launches,
+              fused_anchored_stats.launches_bf16)
+    got = fused_anchored_stats(aw, x, m.anchors)
+    torch.cuda.synchronize()
+    assert (fused_anchored_stats.launches,
+            fused_anchored_stats.launches_bf16) == (before[0], before[1] + 1)
+    _bf16_pair(case, got, fused_anchored_plain(aw, x, anchor_rows(aw, m.anchors)),
+               fused_anchored_plain(aw32, x, anchor_rows(aw32, m.anchors)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('builder', [EnsembleModelBuilder,
+                                     MCDropoutModelBuilder,
+                                     DeltaUQMLPModelBuilder])
+def test_predictor_on_card_runs_the_bf16_kernels(card, builder):
+    """A model switched to bf16-mixed serves through its kernel's bf16 form
+    (fp32 answers), and back in fp32 through the fp32 form, bit for bit as
+    before the switch."""
+    if builder is EnsembleModelBuilder:
+        m, fn = _model(card, 8, 5, 128, 6, 1), fused_forward_prefolded
+    elif builder is MCDropoutModelBuilder:
+        m, fn = _mc_model(card, 5, 128, 6, 1, 0.1, 32), fused_mc_forward
+    else:
+        m, fn = _anchored_model(card, builder, 5, 128, 6, 1, 23), \
+            fused_anchored_stats
+    x = np.random.default_rng(7).normal(size=(3000, 5)).astype(np.float32)
+    pred = Predictor(m, device=card, warmup=False)
+    if builder is MCDropoutModelBuilder:
+        m.reseed(0)
+    first = pred.predict(x)
+    m.set_precision('bf16-mixed')
+    if builder is MCDropoutModelBuilder:
+        m.reseed(0)
+    before = (fn.launches, fn.launches_bf16)
+    got = pred.predict(x)
+    assert (fn.launches, fn.launches_bf16) == (before[0], before[1] + 1)
+    assert all(g.dtype == np.float32 for g in got)
+    assert any(float(np.abs(g - f).max()) > 0 for g, f in zip(got, first))
+    m.set_precision('32-true')
+    if builder is MCDropoutModelBuilder:
+        m.reseed(0)
+    again = pred.predict(x)
+    for a, f in zip(again, first):
+        assert np.array_equal(a, f)
 
 
 @pytest.mark.cuda
@@ -525,6 +639,31 @@ def test_ablate_forward_matches_plain_on_card(card, case, mode, n_out):
         if n_out == 2:
             tol = TOL_MEAN if mode == 'no_epi' else TOL_STD
             torch.testing.assert_close(got[1], want[1], **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(ABLATE_CASES))
+def test_packed_bf16_matches_plain_and_kernel_1_on_card(card, case):
+    """The packed probe's bf16 form against its plain version and, bit for
+    bit, against kernel 1's bf16 form; the other probes refuse bf16
+    weights."""
+    members, in_dim, width, hidden, out_dim, rows = ABLATE_CASES[case]
+    fw, fw32 = _both(_model(card, members, in_dim, width, hidden, out_dim),
+                     prepare_fused_weights)
+    x = torch.as_tensor(np.random.default_rng(7).normal(size=(rows, in_dim)),
+                        dtype=torch.float32, device=card)
+    x_pad = _padded(x, 128)
+    before = (af.packed_forward.launches, af.packed_forward.launches_bf16)
+    got = af.packed_forward(fw, x_pad)
+    torch.cuda.synchronize()
+    assert (af.packed_forward.launches,
+            af.packed_forward.launches_bf16) == (before[0], before[1] + 1)
+    _bf16_pair(case, got, af.packed_forward_plain(fw, x_pad),
+               af.packed_forward_plain(fw32, x_pad))
+    mean, std = fused_forward_prefolded(fw, x)
+    assert torch.equal(got[0], mean) and torch.equal(got[1], std)
+    with pytest.raises(ValueError, match='float32'):
+        af.ablate_forward(fw, x_pad)
 
 
 @pytest.mark.cuda

@@ -81,7 +81,7 @@ def test_cpu_tensor_runs_the_plain_version_without_a_launch():
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     m = EnsembleModelBuilder(descr(), {'num_models': 2}, device='cpu').build()
     fw = prepare_fused_weights(m.net)
-    with pytest.raises(NotImplementedError, match='fp32'):
+    with pytest.raises(TypeError, match='float32'):
         fused_forward_prefolded(fw, torch.zeros(4, 5, dtype=torch.bfloat16))
     with pytest.raises(TypeError):
         fused_forward_prefolded(fw, torch.zeros(4, 5, dtype=torch.float64))

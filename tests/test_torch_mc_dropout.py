@@ -284,7 +284,7 @@ def test_cpu_tensor_runs_the_plain_version_without_a_launch():
     want = mc.fused_mc_forward_plain(mw, x, 5, 17)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    with pytest.raises(NotImplementedError, match='fp32'):
+    with pytest.raises(TypeError, match='float32'):
         mc.fused_mc_forward(mw, x.bfloat16(), 5, 17)
     with pytest.raises(ValueError, match='shape'):
         mc.fused_mc_forward(mw, torch.zeros(4, 6), 5, 17)

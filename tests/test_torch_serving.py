@@ -8,6 +8,7 @@ import pickle
 
 import numpy as np
 import pytest
+import torch
 
 from nnueehcs_tpu.model_builder import MLPModelBuilder as JaxMLPModelBuilder
 from nnueehcs_tpu.training import load_model as jax_load_model
@@ -130,12 +131,22 @@ def test_bundle_loader_refuses_foreign_globals(tmp_path):
 
 
 def test_bf16_precision_is_not_ported(jax_model):
+    """Once a refusal, now the other way round: a bundle whose
+    train_config names bf16-mixed loads into a bf16 model and serves in
+    bf16 (fp32 answers, away from the fp32 ones)."""
     config = dict(jax_model.config_dict())
     config['train_config'] = dict(config['train_config'], precision='bf16-mixed')
     from nnueehcs_tpu_torch.training import build_from_bundle
-    with pytest.raises(NotImplementedError, match='fp32'):
-        build_from_bundle({'format': 'nnueehcs_tpu-ckpt-v1', 'config': config,
+    m = build_from_bundle({'format': 'nnueehcs_tpu-ckpt-v1', 'config': config,
                            'arrays': jax_model.arrays_dict()}, device='cpu')
+    assert m.precision == 'bf16-mixed'
+    assert m.net.compute_dtype == torch.bfloat16
+    assert m.fused_weights().w_all.dtype == torch.bfloat16
+    x = np.random.default_rng(3).normal(size=(300, 5)).astype(np.float32)
+    mean, std = Predictor(m, device='cpu').predict(x)
+    assert mean.dtype == std.dtype == np.float32
+    ref = port_of(jax_model)(x, return_ue=True)
+    assert float(np.abs(mean - ref[0].numpy()).max()) > 1e-5
 
 
 def test_ensemble_rejects_a_network_of_other_width():

@@ -181,7 +181,7 @@ def test_unported_cases_raise(tmp_path, monkeypatch):
     tr = ptr.Trainer('t', {'max_epochs': 1, 'precision': 'bf16-mixed'},
                      callbacks=[], log_dir=str(tmp_path), device='cpu')
     model = pmb.MLPModelBuilder(descr(), device='cpu').build()
-    with pytest.raises(NotImplementedError, match='fp32'):
+    with pytest.raises(NotImplementedError, match="precision 'bf16-mixed'"):
         tr.fit(model, dl)
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='cuda'):
