@@ -35,11 +35,25 @@ versions at the same shapes, the seven models are served again after
 bf16 evaluation of an fp32-trained model), each answer held to the plain
 bf16 function on the card against its bf16-vs-fp32 gap, with each
 kernel's bf16 form launched exactly as often as its fp32 form was and no
-fp32 form at all, and each bf16 form is timed. It prints one JSON line per phase, then the card's
-``nvidia-smi`` name and power limit, then a ``{"kernels": [...]}`` line
-(fourteen kernels: the ten fp32 ones, then the four bf16 forms), and last
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
-without a card it exits non-zero before doing anything.
+fp32 form at all, and each bf16 form is timed. Training in bf16-mixed:
+the training kernel's bf16 form is held to its plain version step by step
+on the four cases at the flagship shape (the bf16 bars against each step's
+bf16-vs-fp32 gap) and over one epoch's loss curve, and both forms step by
+step at the plan the Δ-UQ and PAGER fits give it (one net, 256 anchored
+rows of 10 features); ``Trainer.fit`` of the
+flagship trial with ``precision: 'bf16-mixed'`` for 3 epochs must launch
+the bf16 form once an epoch and no fp32 form, and its bundle must reload
+in bf16, serve through kernel 1's bf16 form and reproduce its logged
+validation loss; Δ-UQ and PAGER (229 anchors) train for 2 epochs in fp32
+and in bf16, epoch 0 step by step while their hooks capture the anchors,
+epoch 1 through the training kernel at the doubled batch, with every
+launch count checked; the bf16 form's epoch is timed beside its plain
+version, an autocast yardstick and its bound. It prints one JSON line per
+phase, then the card's ``nvidia-smi`` name and power limit, then a
+``{"kernels": [...]}`` line (fifteen kernels: the ten fp32 ones, then the
+five bf16 forms), and last ``{"ok": true, "device": {...}}``. Any failure
+raises and exits non-zero; without a card it exits non-zero before doing
+anything.
 """
 from __future__ import annotations
 
@@ -69,7 +83,8 @@ from nnueehcs_tpu_torch.attrib import (TOL_MEAN, TOL_STD, TOL_TRAIN,
                                        bf16_close, bf16_peak, bound, check,
                                        event_ms, flip_reach, nvidia_smi,
                                        peaks, separate_relu,
-                                       stepwise_vs_plain, train_flops)
+                                       stepwise_vs_plain, train_flops,
+                                       train_rest_flops)
 from nnueehcs_tpu_torch.convert import tensor_trees
 from nnueehcs_tpu_torch.ops import _build
 from nnueehcs_tpu_torch.ops import ablate_epoch as ae
@@ -164,6 +179,19 @@ CROSS_STEPS, CROSS_CHECKED = 100, 20
 TOL_CROSS = {'rtol': 0.0, 'atol': 1e-4}
 EPOCH_STEPS = 1000                       # a flagship epoch
 PLAIN_TRAIN_STEPS = 100                  # the plain epoch is timed on 100
+# kernel 3's bf16 form against its plain version: each case step by step
+# (attrib.stepwise_vs_plain_bf16's bars), and the joint case's loss curve
+# over a whole epoch, every step within the curve's largest bf16-vs-fp32 gap
+# (after a flipped rounding the two bf16 trajectories part: on the card,
+# the first 16 steps of the curve reached 0.56 of the gap's rms)
+STEPWISE_BF16_STEPS = 16
+BF16_CURVE_STEPS = 64
+# Δ-UQ and PAGER fits: 229 anchors, epoch 0 step by step (the anchor hook
+# reads its batches), epoch 1 through the kernel at the doubled batch; 250
+# steps an epoch (1,000 per-step steps took 17-22 s a fit on the card)
+ANCHORED_FIT_EPOCHS, ANCHORED_FIT_STEPS = 2, 250
+# the plain bf16 epoch (about 53 ms a step, host-bound) is timed on 20 steps
+PLAIN_BF16_STEPS = 20
 KERNELS = [{
     'name': 'fused_ensemble',
     'route': 'cuda',
@@ -234,6 +262,11 @@ KERNELS = [{
     'route': 'cuda',
     'source': 'nnueehcs_tpu_torch/ops/csrc/ablate_chain.cu',
     'replaces': 'experiments/grid_r4/kernel_variants.py:37',
+}, {
+    'name': 'fused_train_bf16',
+    'route': 'cuda',
+    'source': 'nnueehcs_tpu_torch/ops/csrc/fused_train_bf16.cu',
+    'replaces': 'nnueehcs_tpu/ops/fused_train.py:386',
 }]
 # each kernel's launch count: (wrapper, attribute); a wrapper counts its
 # fp32 and bf16 forms apart
@@ -250,7 +283,8 @@ WRAPPERS = {'fused_ensemble': (fused_forward_prefolded, 'launches'),
             'fused_ensemble_bf16': (fused_forward_prefolded, 'launches_bf16'),
             'fused_mc_dropout_bf16': (fused_mc_forward, 'launches_bf16'),
             'fused_anchored_bf16': (fused_anchored_stats, 'launches_bf16'),
-            'packed_forward_bf16': (af.packed_forward, 'launches_bf16')}
+            'packed_forward_bf16': (af.packed_forward, 'launches_bf16'),
+            'fused_train_bf16': (ft.fused_epoch, 'launches_bf16')}
 BF16_OF = {'fused_ensemble': 'fused_ensemble_bf16',
            'fused_mc_dropout': 'fused_mc_dropout_bf16',
            'fused_anchored': 'fused_anchored_bf16', 'kde': 'kde'}
@@ -571,22 +605,26 @@ def smooth_target(x):
             + 0.1 * x[:, 3:4] ** 2 - 0.3 * x[:, 4:5]).astype(np.float32)
 
 
-def train_plan(model, loss='l1_loss', per_member=False, wd=0.0):
-    """The training kernel's plan for ``model`` at batch 128, clip 5."""
+def train_plan(model, loss='l1_loss', per_member=False, wd=0.0, bf16=False,
+               batch=TRAIN_BATCH):
+    """The training kernel's plan for ``model`` at ``batch`` rows, clip 5
+    (its bf16-mixed form with ``bf16``)."""
     single = model.uq_method != 'ensemble'
     plan = ft.plan_fused_train(
-        model.net, 1 if single else model.num_models, TRAIN_BATCH, loss=loss,
-        per_member=per_member, clip=5.0, weight_decay=wd,
+        model.net, 1 if single else model.num_models, batch, loss=loss,
+        per_member=per_member, clip=5.0, weight_decay=wd, bf16=bf16,
         member_stacked=not single)
     check(plan is not None, f'{model.uq_method}: the training plan rejected '
                             'the flagship network')
     return plan
 
 
-def train_inputs(model, plan, rng, steps):
+def train_inputs(model, plan, rng, steps, anchored=False):
     """``model``'s parameters and BatchNorm state packed for ``plan``, Adam
     moments drawn from ``rng`` (non-zero), and ``steps`` batches of the
-    smooth target."""
+    smooth target; with ``anchored``, Δ-UQ's doubled batches of
+    ``plan.batch / 2`` rows as the trainer gathers them, anchored by
+    permutations drawn from a seed that ``rng`` gives."""
     params, state = tensor_trees(model.net)
 
     def moments(draw):
@@ -597,19 +635,27 @@ def train_inputs(model, plan, rng, steps):
             moments(lambda shape: rng.normal(size=shape) * 1e-3),
             moments(lambda shape: rng.uniform(1e-8, 1e-6, size=shape)),
             ft.pack_state(plan, state, DEVICE)]
-    x = rng.normal(size=(steps * plan.batch, IN_DIM)).astype(np.float32)
+    rows = plan.batch // 2 if anchored else plan.batch
+    x = rng.normal(size=(steps * rows, IN_DIM)).astype(np.float32)
     xt, yt = (torch.as_tensor(a, device=DEVICE) for a in (x, smooth_target(x)))
-    xs, ys = ft.gather_epoch_batches(plan, xt, yt,
-                                     torch.arange(len(x), device=DEVICE))
+    idx = torch.arange(len(x), device=DEVICE)
+    if anchored:
+        perms = ft.anchor_permutations(torch.Generator(device=DEVICE)
+                                       .manual_seed(int(rng.integers(1 << 31))),
+                                       steps, rows)
+        xs, ys = ft.gather_anchored_epoch_batches(plan, xt, yt, idx, perms)
+    else:
+        xs, ys = ft.gather_epoch_batches(plan, xt, yt, idx)
     return bufs, xs, ys
 
 
-def library_epoch(model, xs, ys, lr):
+def library_epoch(model, xs, ys, lr, bf16=False):
     """Yardstick only: the flagship ensemble's epoch through PyTorch's own
     ops: a ``baddbmm`` member chain with ``F.batch_norm`` (per member and
     column, running statistics included) and autograd, ``clip_grad_norm_``
-    and ``torch.optim.Adam(fused=True)`` at weight decay 0. Returns a
-    closure that runs it."""
+    and ``torch.optim.Adam(fused=True)`` at weight decay 0; with ``bf16``
+    the forward under ``torch.autocast`` in bf16 (bf16 ``baddbmm``, fp32
+    master weights). Returns a closure that runs it."""
     M = model.num_models
     lin = [l for l in model.net.layers if hasattr(l, 'in_features')]
     bns = [l for l in model.net.layers if hasattr(l, 'running_var')]
@@ -627,16 +673,18 @@ def library_epoch(model, xs, ys, lr):
     def run():
         for i in range(xs.shape[0]):
             B = xs.shape[1]
-            h = xs[i, :, :IN_DIM].expand(M, B, IN_DIM)
-            for l in range(len(lin)):
-                h = torch.baddbmm(bs[l], h, ws[l])
-                if l < len(bns):
-                    C = h.shape[-1]
-                    h = F.batch_norm(h.transpose(0, 1).reshape(B, M * C),
-                                     rms[l], rvs[l], gs[l], betas[l],
-                                     training=True, momentum=0.1, eps=1e-5)
-                    h = torch.relu(h.reshape(B, M, C).transpose(0, 1))
-            loss = F.l1_loss(h.mean(0), ys[i, :, :1])
+            with torch.autocast('cuda', dtype=torch.bfloat16, enabled=bf16):
+                h = xs[i, :, :IN_DIM].expand(M, B, IN_DIM)
+                for l in range(len(lin)):
+                    h = torch.baddbmm(bs[l], h, ws[l])
+                    if l < len(bns):
+                        C = h.shape[-1]
+                        h = F.batch_norm(
+                            h.transpose(0, 1).reshape(B, M * C), rms[l],
+                            rvs[l], gs[l], betas[l], training=True,
+                            momentum=0.1, eps=1e-5)
+                        h = torch.relu(h.reshape(B, M, C).transpose(0, 1))
+                loss = F.l1_loss(h.float().mean(0), ys[i, :, :1])
             opt.zero_grad(set_to_none=True)
             loss.backward()
             torch.nn.utils.clip_grad_norm_(params, 5.0)
@@ -672,6 +720,15 @@ def in_bf16(model, prepare):
     model.set_precision('bf16-mixed')
     weights = prepare(model.net)
     model.set_precision('32-true')
+    return weights
+
+
+def in_fp32(model, prepare):
+    """``prepare(model.net)`` in fp32; the model is left in its precision."""
+    precision = model.precision
+    model.set_precision('32-true')
+    weights = prepare(model.net)
+    model.set_precision(precision)
     return weights
 
 
@@ -951,6 +1008,79 @@ def main():
     check(train_plan(mc_train).n_drop == 5, 'MC dropout: expected 5 slots')
     train_case(f'mc_dropout_p{MC_P}', mc_train, 'l1_loss')
 
+    # 3c. kernel 3's bf16 form against its plain version at the flagship
+    # shape, on the four cases, step by step from the plain version's state
+    # (attrib.stepwise_vs_plain_bf16: the bf16 bars against each step's
+    # plain bf16-vs-fp32 gap, ReLU decisions recorded by both)
+    def train_case_bf16(case, model, loss, per_member=False, wd=0.0):
+        plan = train_plan(model, loss, per_member, wd, bf16=True)
+        bufs, xs, ys = train_inputs(model, plan, rng, STEPWISE_BF16_STEPS)
+        out = stepwise_vs_plain(plan, bufs, xs, ys, 1e-3, TRAIN_STEP0,
+                                int(rng.integers(1 << 31)),
+                                ft.drop_rates(model.net).to(DEVICE))
+        errors['fused_train_bf16'] = max(errors.get('fused_train_bf16', 0.0),
+                                         *out['max_abs_err'].values())
+        emit('kernel_vs_plain', kernel='fused_train_bf16', case=case,
+             members=plan.num_members, batch=plan.batch, loss=plan.loss,
+             per_member=plan.per_member, weight_decay=plan.weight_decay,
+             dropout_slots=plan.n_drop, step0=TRAIN_STEP0, **out)
+
+    train_case_bf16('joint_l1_clip5_as_built', as_built, 'l1_loss')
+    train_case_bf16('per_member_mse_wd0.01', build_model(args.seed),
+                    'mse_loss', per_member=True, wd=0.01)
+    train_case_bf16('mve_gaussian_nll', build_density(
+        MVEModelBuilder, {'min_variance': MVE_MIN_VARIANCE}, args.seed),
+        'gaussian_nll')
+    train_case_bf16(f'mc_dropout_p{MC_P}', build_mc(args.seed), 'l1_loss')
+    # a whole epoch of the joint case at the trial's learning rate: a
+    # loss-curve check only
+    plan16 = train_plan(as_built, bf16=True)
+    bufs, xs, ys = train_inputs(as_built, plan16, rng, BF16_CURVE_STEPS)
+    seed = int(rng.integers(1 << 31))
+    lr = TRAIN_MODEL_CONFIG['learning_rate']     # the flagship trial's
+    curves = [run(plan, *[b.clone() for b in bufs], xs, ys, lr, TRAIN_STEP0,
+                  seed)[4]
+              for run, plan in ((ft.fused_epoch, plan16),
+                                (ft.fused_epoch_reference, plan16),
+                                (ft.fused_epoch_reference,
+                                 train_plan(as_built)))]
+    shares = bf16_close('fused_train_bf16 loss curve', *curves, gate=False)
+    apart = (curves[0] - curves[1]).abs()
+    gap = (curves[1] - curves[2]).abs()
+    check(float(apart.max()) <= float(gap.max()),
+          f'fused_train_bf16 loss curve: {float(apart.max()):.3e} from the '
+          f'plain bf16 curve, past its gap to fp32 ({float(gap.max()):.3e})')
+    emit('kernel_vs_plain', kernel='fused_train_bf16',
+         case='joint_l1_clip5_as_built_loss_curve', steps=BF16_CURVE_STEPS,
+         curve=shares, max_abs_diff=float(apart.max()),
+         gap_max=float(gap.max()), abs_diff_at_step={k: float(apart[k - 1])
+                                                     for k in (1, 16, 32, 64)})
+
+    # 3d. both forms at the plan the Δ-UQ and PAGER fits give kernel 3
+    # (5c): a single net as built, on the doubled batch of 2 x 128 rows of
+    # 10 anchored features (in_pad 16) gathered as the trainer gathers
+    # them, step by step from the plain version's state: fp32 to TOL_TRAIN
+    # outside the reach of a flipped ReLU decision, bf16 to the bf16 bars
+    dq_train = DeltaUQMLPModelBuilder(
+        FLAGSHIP, {'num_anchors': ANCHORS, 'anchored_batch_size': ANCHORS},
+        seed=args.seed, device=DEVICE).build()
+    arng = np.random.default_rng(args.seed + 31)
+    for bf16 in (False, True):
+        plan = train_plan(dq_train, bf16=bf16, batch=2 * TRAIN_BATCH)
+        check(plan.in_pad == 16, f'anchored plan: in_pad {plan.in_pad}')
+        bufs, xs, ys = train_inputs(dq_train, plan, arng, STEPWISE_BF16_STEPS,
+                                    anchored=True)
+        out = stepwise_vs_plain(plan, bufs, xs, ys, 1e-3, TRAIN_STEP0,
+                                int(arng.integers(1 << 31)),
+                                ft.drop_rates(dq_train.net).to(DEVICE))
+        kernel = 'fused_train_bf16' if bf16 else 'fused_train'
+        errors[kernel] = max(errors[kernel], *out[
+            'max_abs_err' if bf16 else 'max_abs_err_outside_reach'].values())
+        emit('kernel_vs_plain', kernel=kernel,
+             case='delta_uq_anchored_as_built_stepwise', members=1,
+             batch=plan.batch, in_pad=plan.in_pad, loss=plan.loss,
+             step0=TRAIN_STEP0, **out)
+
     # 4. the serving paths: builder -> Predictor -> model -> kernel, each
     # driven with every launch count at 0 just before and read just after
     predictor, ens_launches = serve(
@@ -1185,13 +1315,119 @@ def main():
              first_losses=losses[:3], last_losses=losses[-3:],
              val_loss=tr.callback_metrics['val_loss'], fit_s=seconds)
 
+    # 5b. training in bf16-mixed: the flagship trial with precision
+    # 'bf16-mixed' -> kernel 3's bf16 form every epoch, kernel 1b for
+    # validation; the saved bundle reloads in bf16, serves through kernel
+    # 1b and reproduces its logged validation loss
+    flagship16 = EnsembleModelBuilder(FLAGSHIP, {'num_models': MEMBERS},
+                                      train_config=TRAIN_MODEL_CONFIG,
+                                      seed=args.seed, device=DEVICE).build()
+    trainer16, saver16, train16_launches, fit16_s = fit(
+        'flagship_ensemble_bf16', flagship16, x_all, y_all, epochs,
+        args.seed, precision='bf16-mixed')
+    check(trainer16.fused_epochs_used == epochs,
+          f'bf16 fit: fused_epochs_used {trainer16.fused_epochs_used}')
+    check_launches('flagship bf16 fit', train16_launches,
+                   fused_train_bf16=epochs, fused_ensemble_bf16=epochs
+                   * TRAIN_CONFIG['limit_val_batches'])
+    with open(os.path.join(trainer16.logger.log_dir, 'metrics.csv')) as f:
+        rows16 = list(csv.DictReader(f))
+    means16 = [float(np.mean([float(r['train_loss']) for r in rows16
+                              if r['train_loss'] and int(r['epoch']) == e]))
+               for e in range(epochs)]
+    check(np.isfinite(means16).all() and means16[-1] < means16[0],
+          f'bf16 training loss did not fall: epoch means {means16}')
+    best16 = load_model(os.path.join(trainer16.logger.log_dir, 'model.pth'),
+                        device='cuda')
+    check(best16.precision == 'bf16-mixed'
+          and best16.fused_weights().w_all.dtype == torch.bfloat16,
+          'the bf16 bundle did not reload in bf16')
+    reset_launches()
+    mean16, std16 = Predictor(best16, device=DEVICE).predict(x_req)
+    check_launches('reloaded bf16 bundle serving', read_launches(),
+                   fused_ensemble_bf16=len(DEFAULT_BUCKETS) + 1)
+    x_dev = torch.from_numpy(x_req).to(DEVICE)
+    fw16_best = best16.fused_weights()
+    fw32_best = in_fp32(best16, prepare_fused_weights)
+    serve16_err = {part: bf16_close(f'reloaded bf16 {part}',
+                                    torch.from_numpy(got), want.cpu(),
+                                    ref.cpu())
+                   for part, got, want, ref in zip(
+                       ('mean', 'ue'), (mean16, std16),
+                       fused_forward_plain(fw16_best, x_dev),
+                       fused_forward_plain(fw32_best, x_dev))}
+    val16_again = trainer16.validate(best16, DataLoader(ArrayDataset(
+        x_all[TRAIN_SPLIT:TRAIN_SPLIT + val_rows],
+        y_all[TRAIN_SPLIT:TRAIN_SPLIT + val_rows]), TRAIN_BATCH))
+    check(abs(val16_again - saver16.best) <= 1e-5,
+          f'reloaded bf16 val_loss {val16_again} != logged {saver16.best}')
+    emit('training_bf16', model='ensemble', precision='bf16-mixed',
+         members=MEMBERS, epochs=epochs,
+         steps_per_epoch=TRAIN_CONFIG['limit_train_batches'],
+         batch=TRAIN_BATCH, fused_epochs_used=trainer16.fused_epochs_used,
+         launches=train16_launches, train_loss_epoch_means=means16,
+         fp32_train_loss_epoch_means=epoch_means,
+         val_losses=[float(r['val_loss']) for r in rows16 if r['val_loss']],
+         best_val_loss=saver16.best, reloaded_val_loss=val16_again,
+         reloaded_serving=serve16_err, fit_s=fit16_s,
+         seconds_per_epoch=fit16_s / epochs,
+         trainer_e2e_rows_per_s=train_rows / fit16_s)
+
+    # 5c. Δ-UQ and PAGER: 229 anchors, epoch 0 step by step while the hook
+    # captures the anchors, epoch 1 through kernel 3 at the doubled batch
+    # (256 rows of 10 anchored features), in fp32 and in bf16-mixed;
+    # validation through kernel 5 (5b in bf16) over every anchor
+    for name, builder in (('delta_uq', DeltaUQMLPModelBuilder),
+                          ('pager', PAGERModelBuilder)):
+        for precision in ('32-true', 'bf16-mixed'):
+            bf16 = precision == 'bf16-mixed'
+            one = builder(FLAGSHIP, {'num_anchors': ANCHORS,
+                                     'anchored_batch_size': ANCHORS},
+                          train_config=TRAIN_MODEL_CONFIG, seed=args.seed,
+                          device=DEVICE).build()
+            tr, _, launches, seconds = fit(
+                f'{name}_{precision}', one, x_all, y_all,
+                ANCHORED_FIT_EPOCHS, args.seed, precision=precision,
+                limit_train_batches=ANCHORED_FIT_STEPS)
+            check(tr.fused_epochs_used == ANCHORED_FIT_EPOCHS - 1,
+                  f'{name} {precision}: fused_epochs_used '
+                  f'{tr.fused_epochs_used}')
+            suffix = '_bf16' if bf16 else ''
+            check_launches(f'{name} {precision} fit', launches, **{
+                'fused_train' + suffix: ANCHORED_FIT_EPOCHS - 1,
+                'fused_anchored' + suffix: ANCHORED_FIT_EPOCHS
+                * TRAIN_CONFIG['limit_val_batches']})
+            check(tuple(one.anchors.shape) == (ANCHORS, IN_DIM)
+                  and (name == 'delta_uq'
+                       or tuple(one.anchors_Y.shape) == (ANCHORS, 1)),
+                  f'{name}: anchors not captured')
+            with open(os.path.join(tr.logger.log_dir, 'metrics.csv')) as f:
+                logged = [float(r['train_loss']) for r in csv.DictReader(f)
+                          if r['train_loss']]
+            check(np.isfinite(logged).all() and logged,
+                  f'{name} {precision}: non-finite training losses')
+            val_again = tr.validate(one, DataLoader(ArrayDataset(
+                x_all[TRAIN_SPLIT:TRAIN_SPLIT + val_rows],
+                y_all[TRAIN_SPLIT:TRAIN_SPLIT + val_rows]), TRAIN_BATCH))
+            logged_val = tr.callback_metrics['val_loss']
+            check(abs(val_again - logged_val) <= 1e-5,
+                  f'{name} {precision}: val_loss {val_again} != logged '
+                  f'{logged_val}')
+            emit('training', model=name, precision=precision,
+                 epochs=ANCHORED_FIT_EPOCHS, anchors=ANCHORS,
+                 steps_per_epoch=ANCHORED_FIT_STEPS,
+                 kernel_batch=2 * TRAIN_BATCH,
+                 fused_epochs_used=tr.fused_epochs_used, launches=launches,
+                 first_losses=logged[:3], last_losses=logged[-3:],
+                 val_loss=logged_val, revalidated=val_again, fit_s=seconds)
+
     # 6. timing at the bench's shapes
     kernels, kernels_bf16 = [], []
 
     def record(index, launches, kernel_t, plain_t, flops, moved, library_ms,
-               exps=0, into=kernels, peak=peak_flops, **extra):
+               exps=0, into=kernels, peak=peak_flops, extra_s=0.0, **extra):
         bound_ms, bound_by = bound(flops, moved, peak, peak_bytes, exps,
-                                   ex2_rate)
+                                   ex2_rate, extra_s)
         ms = kernel_t['median_ms']
         emit('timing', kernel=KERNELS[index]['name'], kernel_ms=kernel_t,
              plain=plain_t, flops=flops, bytes=moved, bound_ms=bound_ms,
@@ -1393,6 +1629,42 @@ def main():
            trainer_e2e_rows_per_s=train_rows / fit_s)
     kernels[-1]['plain_steps'] = PLAIN_TRAIN_STEPS
 
+    # kernel 3's bf16 form on the same epoch (its fp32 buffers): bound by
+    # the products at the bf16 tensor-core peak plus the rest (BatchNorm,
+    # ReLU, optimizer) at the fp32 peak; the plain version and the autocast
+    # yardstick, host-bound loops of small ops, timed on 20 and 100 steps,
+    # scaled
+    plan16 = train_plan(flagship, bf16=True)
+    kernel_t = event_ms(lambda: ft.fused_epoch(plan16, *bufs, xs, ys, lr,
+                                               TRAIN_STEP0, 1, drops),
+                        warmup=2, trials=5)
+    plain_bufs = [b.clone() for b in bufs]
+    plain_t = event_ms(lambda: ft.fused_epoch_reference(
+        plan16, *plain_bufs, xs[:PLAIN_BF16_STEPS], ys[:PLAIN_BF16_STEPS],
+        lr, TRAIN_STEP0, 1, drops), warmup=1, trials=3)
+    plain_scaled = {k: v * EPOCH_STEPS / PLAIN_BF16_STEPS
+                    for k, v in plain_t.items()}
+    library_t = event_ms(library_epoch(flagship, xs[:PLAIN_TRAIN_STEPS],
+                                       ys[:PLAIN_TRAIN_STEPS], lr, bf16=True),
+                         warmup=1, trials=3)
+    kernel_t2 = event_ms(lambda: ft.fused_epoch(plan16, *bufs, xs, ys, lr,
+                                                TRAIN_STEP0, 1, drops),
+                         warmup=2, trials=5)
+    rest_flops = train_rest_flops(plan16, EPOCH_STEPS)
+    record(14, train16_launches['fused_train_bf16'], kernel_t, plain_scaled,
+           train_flops(plan16, EPOCH_STEPS), moved,
+           library_t['median_ms'] * scale, into=kernels_bf16, peak=peak_bf16,
+           extra_s=rest_flops / peak_flops, members=MEMBERS,
+           batch=TRAIN_BATCH, steps=EPOCH_STEPS, kernel_again=kernel_t2,
+           plain_steps=PLAIN_BF16_STEPS, plain_measured=plain_t,
+           fp32_rest_flops=rest_flops,
+           library_autocast_measured=library_t,
+           library_steps=PLAIN_TRAIN_STEPS,
+           trainer_seconds_per_epoch=fit16_s / epochs,
+           trainer_e2e_rows_per_s=train_rows / fit16_s)
+    kernels_bf16[-1].update(plain_steps=PLAIN_BF16_STEPS,
+                            library_steps=PLAIN_TRAIN_STEPS)
+
     # 7. attribution: the probes' entry point (nnueehcs_tpu_torch.attrib),
     # both batteries at the flagship shape, every launch count at 0 just
     # before and read just after; each battery holds every variant to its
@@ -1461,7 +1733,7 @@ def main():
     v = fwd['variants']['packed bf16']
     plain_t = event_ms(lambda: af.packed_forward_plain(fw16_a, x_pad))
     library_t = event_ms(lambda: library_chain(fw16_a, x_a))
-    kernels_bf16.append(dict(
+    kernels_bf16.insert(3, dict(
         KERNELS[13], launches=attrib_launches['packed_forward_bf16'],
         max_abs_err=max(fwd['gates']['packed bf16']['max_abs_err']),
         ms=v['median_ms'], plain_ms=plain_t['median_ms'],

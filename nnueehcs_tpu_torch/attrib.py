@@ -31,6 +31,7 @@ measure of the card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -82,6 +83,27 @@ TOL_NORM = {'rtol': 1e-5, 'atol': 0.0}
 # output's own size, far past the gap
 BF16_RMS_SHARE = 0.2
 BF16_MAX_SHARE = 1.0
+# kernel 3's bf16 form against its plain version, step by step: the
+# running statistics, the first moment m (the scaled gradient) and each
+# parameter's change in the step by the bf16 bars above against the plain
+# bf16-vs-fp32 gap of the same step. The per-step losses, one value a step,
+# each a mean over the whole batch: the same bars, but their rms bar is at
+# least BF16_WITNESS_SHARE times the rms distance between two correct
+# plain bf16 versions, the plain epoch on the card and on the host, which
+# sum in other orders (a flipped rounding of a hidden activation counts in
+# every loss, while the bf16-vs-fp32 roundings partly cancel in the mean).
+# The kernel's and the witness's errors are alike in distribution: over 16
+# steps the ratio of their rms passes 2 in about one run of 200 (measured
+# 0.59-1.53 on an H100).
+# v is held to Adam's own update of the kernel's gradient, which m reveals
+# (TOL_ADAM_V of fp32 round-off): a bf16-vs-fp32 gap of v weights each
+# gradient's error by the gradient itself, so a max against it says little
+BF16_WITNESS_SHARE = 2.0
+TOL_ADAM_V = 4.0
+# an l1 sign decision taken the other way moves the output bias's gradient
+# by at least 2 / batch of it (1/64 at 128 rows, 1/512 at 1,024), and
+# round-off by under 1e-5 of it (loss_flips)
+LOSS_FLIP_SHARE = 1e-3
 CLIP = 5.0                     # the flagship's gradient_clip_val
 BINDING_CLIP = 1e-2            # below every step's gradient norm
 # (name substring, fp32 non-tensor FLOP/s, memory bytes/s), NVIDIA data
@@ -150,11 +172,13 @@ def bf16_peak(kind: str):
     return next((flops for key, flops in BF16_PEAKS if key in kind), 989e12)
 
 
-def bound(flops, moved, peak_flops, peak_bytes, exps=0, ex2_rate=1.0):
-    """(bound_ms, bound_by): the largest of fp32 operations over the fp32
-    peak, ``exps`` MUFU ex2 results over the ex2 rate, and bytes over the
-    memory rate."""
-    t_ops = max(flops / peak_flops, exps / ex2_rate)
+def bound(flops, moved, peak_flops, peak_bytes, exps=0, ex2_rate=1.0,
+          extra_s=0.0):
+    """(bound_ms, bound_by): the largest of operations over their peak
+    (``flops`` over ``peak_flops``, plus ``extra_s`` seconds of operations
+    of another type), ``exps`` MUFU ex2 results over the ex2 rate, and bytes
+    over the memory rate."""
+    t_ops = max(flops / peak_flops + extra_s, exps / ex2_rate)
     t_bytes = moved / peak_bytes
     return 1e3 * max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes \
         else 'bytes'
@@ -179,6 +203,28 @@ def event_ms(fn, warmup=5, trials=10):
     core = ms[trim:len(ms) - trim] if len(ms) > 2 * trim + 1 else ms
     return {'median_ms': med, 'min_ms': ms[0], 'max_ms': ms[-1],
             'spread_pct': 100.0 * (core[-1] - core[0]) / med}
+
+
+# fp32 operations of a training step beside its products, per element:
+# BatchNorm's forward (column sum, centre, square, sum, normalise, affine)
+# and backward (four column sums of products, the gradient's update), the
+# ReLU and its mask in the backward, and per parameter element the clip's
+# square and scale, both moments and the update
+BN_FWD_OPS, BN_BWD_OPS, RELU_OPS, ADAM_OPS = 7, 11, 2, 16
+
+
+def train_rest_flops(plan, steps):
+    """fp32 operations of ``steps`` training steps beside the GEMMs
+    (BatchNorm, ReLU and the optimizer, at the true widths), the part of a
+    bf16-mixed step that stays on the fp32 units."""
+    rows = plan.batch * plan.num_members
+    bn = rows * sum(L.out_w for L in plan.lins if L.bn_layer >= 0)
+    relu = rows * sum(L.out_w for L in plan.lins if L.relu)
+    params = plan.num_members * sum(
+        (L.in_w + 1) * L.out_w + (2 * L.out_w if L.bn_layer >= 0 else 0)
+        for L in plan.lins)
+    return float(steps) * (bn * (BN_FWD_OPS + BN_BWD_OPS) + relu * RELU_OPS
+                           + params * ADAM_OPS)
 
 
 def train_flops(plan, steps):
@@ -229,13 +275,17 @@ def _close(name, got, want, tol):
     return float(err.max())
 
 
-def bf16_close(name, got, want, fp32):
+def bf16_close(name, got, want, fp32, rms_share=BF16_RMS_SHARE, gate=True,
+               witness=None):
     """Hold a bf16 form's output ``got`` to its plain version's ``want``
     against the bf16-vs-fp32 gap ``want - fp32`` on the same outputs: the
-    error's root mean square within BF16_RMS_SHARE of the gap's, its max
-    within BF16_MAX_SHARE of the gap's max; raises past either. Returns
-    the errors, the gaps, the bars and the share of outputs beyond the
-    fp32 bars (TOL_MEAN)."""
+    error's root mean square within ``rms_share`` of the gap's (or, given
+    ``witness``, another correct bf16 version's output, within
+    BF16_WITNESS_SHARE of its rms distance to ``want`` where that is
+    larger), its max within BF16_MAX_SHARE of the gap's max; raises past
+    either (with ``gate`` False it only reports). Returns the errors, the
+    gaps, the bars and the share of outputs beyond the fp32 bars
+    (TOL_MEAN)."""
     if got.shape != want.shape or want.shape != fp32.shape:
         raise RuntimeError(f'{name}: shapes {tuple(got.shape)}, '
                            f'{tuple(want.shape)}, {tuple(fp32.shape)}')
@@ -247,9 +297,15 @@ def bf16_close(name, got, want, fp32):
            'rms_err': float(err.square().mean().sqrt()),
            'gap_max': float(gap.abs().max()),
            'gap_rms': float(gap.square().mean().sqrt())}
-    out['bar_rms'] = BF16_RMS_SHARE * out['gap_rms']
+    out['bar_rms'] = rms_share * out['gap_rms']
+    if witness is not None:
+        out['witness_rms'] = float((witness.to(want.device) - want).double()
+                                   .square().mean().sqrt())
+        out['bar_rms'] = max(out['bar_rms'],
+                             BF16_WITNESS_SHARE * out['witness_rms'])
     out['bar_max'] = BF16_MAX_SHARE * out['gap_max']
-    if out['rms_err'] > out['bar_rms'] or out['max_abs_err'] > out['bar_max']:
+    if gate and (out['rms_err'] > out['bar_rms']
+                 or out['max_abs_err'] > out['bar_max']):
         raise RuntimeError(f'{name}: error rms {out["rms_err"]:.3e} (bar '
                            f'{out["bar_rms"]:.3e}), max '
                            f'{out["max_abs_err"]:.3e} (bar '
@@ -473,7 +529,11 @@ def stepwise_vs_plain(plan, bufs, xs, ys, lr, step0, seed, drops):
     differs by more than TOL_TRAIN lies in the reach of a decision the two
     took differently (``flip_reach``), and sigma and the losses agree
     everywhere. Returns the counts and the largest errors, in and outside
-    that reach."""
+    that reach. A bf16-mixed plan is held to the bf16 bars instead
+    (:func:`stepwise_vs_plain_bf16`)."""
+    if plan.bf16:
+        return stepwise_vs_plain_bf16(plan, bufs, xs, ys, lr, step0, seed,
+                                      drops)
     state = [b.clone() for b in bufs]
     shape = (1, plan.num_members, plan.n_bn, plan.batch, ft.LANES)
     out = {'steps': xs.shape[0], 'decisions_per_step': int(np.prod(shape)),
@@ -519,6 +579,145 @@ def stepwise_vs_plain(plan, bufs, xs, ys, lr, step0, seed, drops):
     check(out['over_tol_outside_reach'] == 0,
           f'fused_train: {out["over_tol_outside_reach"]} values off by more '
           f'than {TOL_TRAIN} outside the reach of a ReLU flip: {out}')
+    return out
+
+
+def adam_v_error(plan, m0, v0, m1, v1):
+    """The largest error of ``v1`` against Adam's update of ``v0`` with
+    the clipped gradient that ``m1`` reveals, ``g = (m1 - b1 m0) / (1 -
+    b1)``, in units of its fp32 round-off bound (both moments rounded at
+    each op, the gradient's recovery carried through ``g^2``)."""
+    m0, v0, m1, v1 = (t.double() for t in (m0, v0, m1, v1))
+    eps = float(np.finfo(np.float32).eps)
+    b1, b2 = float(np.float32(plan.b1)), float(np.float32(plan.b2))
+    c1, c2 = float(np.float32(1 - plan.b1)), float(np.float32(1 - plan.b2))
+    g = (m1 - b1 * m0) / c1
+    eg = eps * (b1 * m0.abs() + m1.abs() + c1 * g.abs()) / c1
+    want = b2 * v0 + c2 * g * g
+    bound = eps * (b2 * v0 + 2 * c2 * g * g) + c2 * eg * (2 * g.abs() + eg)
+    return float(((v1 - want).abs() / bound.clamp_min(1e-45)).max())
+
+
+def loss_flips(plan, m0, got_m, want_m):
+    """``(M,)`` bool: the members whose l1 loss took a sign decision one way
+    in ``got_m``'s step and the other in ``want_m``'s. The output layer's
+    bias gradient is the sum over the batch of the loss gradient, +-c a
+    row: summed in any order it is exact to round-off, and one row's
+    decision the other way moves it by 2c, at least 2 / batch of it. So a
+    member flipped where the gradient that m reveals there, ``(m - b1 m0)
+    / (1 - b1)``, differs by more than LOSS_FLIP_SHARE of its size. A
+    flipped decision moves every gradient of the member (and, under the
+    joint mean, of every member), like a ReLU flip of the output."""
+    M = plan.num_members
+    if plan.loss != 'l1_loss':
+        return torch.zeros(M, dtype=torch.bool, device=m0.device)
+    L = plan.lins[-1]
+    rows = [i * plan.slab_rows + L.b_off for i in range(M)]
+    eps = float(np.finfo(np.float32).eps)
+    b1, c1 = float(np.float32(plan.b1)), float(np.float32(1 - plan.b1))
+    m0, got_m, want_m = (t[rows, :L.out_w].double()
+                         for t in (m0, got_m, want_m))
+    g = [(t - b1 * m0) / c1 for t in (got_m, want_m)]
+    # the recovery's own round-off, as in adam_v_error, for both
+    eg = eps * (2 * b1 * m0.abs() + got_m.abs() + want_m.abs()
+                + c1 * (g[0].abs() + g[1].abs())) / c1
+    return ((g[0] - g[1]).abs() > LOSS_FLIP_SHARE * g[1].abs()
+            + 8 * eg).any(dim=1)
+
+
+def stepwise_vs_plain_bf16(plan, bufs, xs, ys, lr, step0, seed, drops):
+    """Kernel 3's bf16 form against its plain version one step at a time,
+    each step from the plain bf16 version's state, beside the plain fp32
+    step from the same state for the bf16-vs-fp32 gap. Both bf16 versions
+    record their ReLU decisions, and the l1 loss's sign decisions show in
+    the output bias (``loss_flips``). Each step's sigma, and outside the
+    reach of a decision the two took differently (a flipped loss decision
+    reaches its whole member), its m and each parameter's change in the
+    step, are held to the bf16 bars (``bf16_close``); v,
+    everywhere, to Adam's update of the gradient m reveals (TOL_ADAM_V);
+    the per-step losses, one value a step, as one curve at the end, with
+    the plain bf16 epoch on the host as the witness of two correct bf16
+    versions (BF16_WITNESS_SHARE). A bf16 rounding that goes the other way
+    moves values by whole bf16 units, so the bars are on the gap, not on
+    fp32 round-off. Returns the counts and each buffer's largest error and
+    error shares."""
+    plan32 = dataclasses.replace(plan, bf16=False)
+    state = [b.clone() for b in bufs]
+    shape = (1, plan.num_members, plan.n_bn, plan.batch, ft.LANES)
+    shares = ('theta', 'm', 'v', 'sigma')
+    out = {'steps': xs.shape[0], 'decisions_per_step': int(np.prod(shape)),
+           'flips': 0, 'steps_with_flips': 0, 'loss_flips': 0,
+           'steps_with_loss_flips': 0, 'steps_buffers_held': 0,
+           'reach_share_max': 0.0,
+           'max_abs_err': dict.fromkeys(TOL_TRAIN, 0.0),
+           'rms_share_max': dict.fromkeys(shares, 0.0),
+           'max_share_max': dict.fromkeys(shares, 0.0),
+           'adam_v_err_max': 0.0}
+    curve = ([], [], [], [])
+    host = [b.cpu() for b in (xs, ys)]
+    host_drops = None if drops is None else drops.cpu()
+    for i in range(xs.shape[0]):
+        signs = [torch.zeros(shape, dtype=torch.uint8, device=xs.device)
+                 for _ in range(2)]
+        rest = (lr, step0 + i, (seed + i * ft.SALT_STEP) & 0xFFFFFFFF)
+        args = (xs[i:i + 1], ys[i:i + 1], *rest, drops)
+        got = ft.fused_epoch(plan, *[b.clone() for b in state], *args,
+                             signs=signs[0])
+        want = ft.fused_epoch_reference(plan, *[b.clone() for b in state],
+                                        *args, signs=signs[1])
+        ref32 = ft.fused_epoch_reference(plan32,
+                                         *[b.clone() for b in state], *args)
+        witness = ft.fused_epoch_reference(
+            plan, *[b.to('cpu', copy=True) for b in state], host[0][i:i + 1],
+            host[1][i:i + 1], *rest, host_drops)[4]
+        flips = (signs[0] != signs[1])[0]
+        n_flips = int(flips.sum())
+        out['flips'] += n_flips
+        out['steps_with_flips'] += int(n_flips > 0)
+        outside = ~flip_reach(plan, flips)
+        flipped = loss_flips(plan, state[1], got[1], want[1])
+        out['loss_flips'] += int(flipped.sum())
+        out['steps_with_loss_flips'] += int(bool(flipped.any()))
+        outside.view(plan.num_members, -1)[flipped] = False
+        out['steps_buffers_held'] += int(bool(outside.any()))
+        out['reach_share_max'] = max(out['reach_share_max'],
+                                     1.0 - float(outside.float().mean()))
+        v_err = adam_v_error(plan, state[1], state[2], got[1], got[2])
+        out['adam_v_err_max'] = max(out['adam_v_err_max'], v_err)
+        check(v_err <= TOL_ADAM_V,
+              f'fused_train_bf16 step {i} v: {v_err:.2f} round-off bounds '
+              f'from Adam\'s update of the gradient m reveals')
+        for j, name in enumerate(TOL_TRAIN):
+            g, w, r = got[j], want[j], ref32[j]
+            check(bool(torch.isfinite(g).all()),
+                  f'fused_train_bf16 step {i} {name}: non-finite values')
+            if name == 'losses':
+                for c, t in zip(curve, (g, w, r, witness)):
+                    c.append(t)
+                continue
+            if name == 'theta':          # the change the step made
+                g, w, r = (t - state[0] for t in (g, w, r))
+            if name in ('theta', 'm', 'v'):
+                if not bool(outside.any()):      # all within a flip's reach
+                    continue
+                g, w, r = g[outside], w[outside], r[outside]
+            # v is reported here; its gate is the Adam update above
+            res = bf16_close(f'fused_train_bf16 step {i} {name}', g, w, r,
+                             gate=name != 'v')
+            err = res['max_abs_err']
+            out['rms_share_max'][name] = max(
+                out['rms_share_max'][name],
+                res['rms_err'] / max(res['gap_rms'], 1e-30))
+            out['max_share_max'][name] = max(
+                out['max_share_max'][name],
+                err / max(res['gap_max'], 1e-30))
+            out['max_abs_err'][name] = max(out['max_abs_err'][name], err)
+        state = list(want[:4])
+    res = bf16_close('fused_train_bf16 losses',
+                     *(torch.cat(c) for c in curve[:3]),
+                     witness=torch.cat(curve[3]))
+    out['max_abs_err']['losses'] = res['max_abs_err']
+    out['losses'] = res
     return out
 
 

@@ -1,10 +1,18 @@
-"""Δ-UQ (anchoring), evaluation side.
+"""Δ-UQ (anchoring).
 
 Counterpart of ``nnueehcs_tpu/models/delta_uq.py``. The network's first
 Linear takes ``2 * num_inputs`` features: an anchored input is
 ``concat([anchor, x - anchor])``. A UE pass evaluates the network anchored
 at each of the first ``num_anchors`` stored anchors and reports the mean and
 the unbiased std (``estimator='std'``) or variance (``'var'``) over them.
+
+Training (reference ``nnueehcs/models.py:306-311``): the forward takes the
+doubled stochastic-centering batch, ``[[a1, x - a1]; [a2, x - a2]]`` with
+``a1``, ``a2`` two independent permutations of the batch itself, against
+the targets ``[y; y]``. The anchors are the first ``num_anchors`` training
+inputs, captured during epoch 0 by the hook of :meth:`get_callbacks` and
+installed before the first validation, which scores the anchored mean over
+at most ``val_num_anchors`` of them.
 
 On the card the pass is the fused kernel
 (:func:`~nnueehcs_tpu_torch.ops.fused_anchored.fused_anchored_stats`)
@@ -25,6 +33,7 @@ import numpy as np
 import torch
 
 from ..ops.fused_anchored import fused_anchored_stats, prepare_fused_anchored
+from ..training.hooks import DeltaUQGetAnchorsHook
 from .base import WrappedModelBase
 
 
@@ -79,6 +88,41 @@ class DeltaUQMLP(WrappedModelBase):
             self._anchors = self._anchors.to(self.device)
         return self
 
+    def get_callbacks(self):
+        return [DeltaUQGetAnchorsHook()]
+
+    # ------------------------------------------------------------- training
+    def train_output(self, x, generator, perm):
+        """The doubled batch through the network in its current mode:
+        ``(2B, out)`` for ``[[x[perm[0]], x - x[perm[0]]]; [x[perm[1]],
+        x - x[perm[1]]]]``. ``perm`` is one step's ``(2, B)`` of
+        :func:`~nnueehcs_tpu_torch.ops.fused_train.anchor_permutations`
+        (the trainer's draws); ``generator`` feeds the Dropout layers."""
+        doubled = torch.cat([anchored_input(x, x[perm[0]]),
+                             anchored_input(x, x[perm[1]])], dim=0)
+        return self.net(doubled, generator)
+
+    def train_targets(self, y):
+        return torch.cat([y, y], dim=0)
+
+    def training_loss(self, batch, generator, perm):
+        x, y = batch
+        return self.loss(self.train_output(x, generator, perm),
+                         self.train_targets(y))
+
+    def validation_loss(self, batch, seed: int = 0):
+        """The loss of the anchored mean over the first
+        ``min(num_anchors, val_num_anchors)`` anchors (all of them when
+        ``val_num_anchors`` is None); the UE path always takes
+        ``num_anchors``."""
+        x, y = batch
+        n = self.num_anchors if self.val_num_anchors is None \
+            else min(self.num_anchors, self.val_num_anchors)
+        with torch.no_grad():
+            mean, _ = self._anchored_stats(x, self._require_anchors(), n)
+        return self.loss(mean, y)
+
+    # ----------------------------------------------------------------- eval
     def _rows_budget(self):
         """Most anchored rows in flight: ``anchored_batch_size`` anchors'
         worth of rows, floored at ``MIN_ROWS_BUDGET`` and capped at

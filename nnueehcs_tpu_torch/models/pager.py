@@ -1,5 +1,4 @@
-"""PAGER: Δ-UQ anchoring plus a conformal anchoring-error score, evaluation
-side.
+"""PAGER: Δ-UQ anchoring plus a conformal anchoring-error score.
 
 Counterpart of ``nnueehcs_tpu/models/pager.py``. The Δ-UQ mean and spread
 come from :class:`~nnueehcs_tpu_torch.models.delta_uq.DeltaUQMLP` (the fused
@@ -9,12 +8,14 @@ input ``a`` when the network is anchored at ``s``:
 ``score(s) = max_a |P[s, a] - anchors_Y[a]|``, and the uncertainty is
 ``max(spread, score)``. The matrix is plain tensor work through the
 modules, chunked so at most the rows budget of anchored rows is in flight,
-as the JAX package computes it outside any kernel.
+as the JAX package computes it outside any kernel. Training is Δ-UQ's; the
+anchor hook also keeps the anchors' targets (``anchors_Y``).
 """
 from __future__ import annotations
 
 import torch
 
+from ..training.hooks import PAGERGetAnchorsHook
 from .delta_uq import DeltaUQMLP, anchored_input
 
 
@@ -35,6 +36,9 @@ class PAGERMLP(DeltaUQMLP):
     @anchors_Y.setter
     def anchors_Y(self, value):
         self._anchors_Y = self._as_buffer(value)
+
+    def get_callbacks(self):
+        return [PAGERGetAnchorsHook()]
 
     def to(self, device):
         super().to(device)

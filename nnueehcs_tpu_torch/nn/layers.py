@@ -30,7 +30,8 @@ arrive in bf16 and the parameters stay fp32 master weights, as in the JAX
 package: ``Linear`` casts its weight to the activation dtype, accumulates
 the dot in fp32 (bf16 products are exact in fp32), adds the fp32 bias in
 fp32 and returns the activation dtype; ``BatchNorm1d`` keeps its statistics
-in fp32 but normalises in the activation dtype (each op rounds); the
+in fp32 (in training mode the batch mean and variance of the up-cast input,
+and their EMA) but normalises in the activation dtype (each op rounds); the
 activations and Dropout keep their input's dtype; ``LayerNorm`` multiplies
 by its fp32 parameters, which promotes its output to fp32 as in JAX.
 """
@@ -113,8 +114,10 @@ class BatchNorm1d(nn.Module):
 
     def forward(self, x):
         if self.training:
-            mean = x.mean(-2)
-            c = x - mean.unsqueeze(-2)
+            # batch statistics and their EMA in fp32, from the up-cast input
+            xf = x.float()
+            mean = xf.mean(-2)
+            c = xf - mean.unsqueeze(-2)
             var = (c * c).mean(-2)
             n = x.shape[-2]
             m = self.momentum
@@ -123,12 +126,11 @@ class BatchNorm1d(nn.Module):
                                         + m * mean.detach())
                 self.running_var.copy_((1 - m) * self.running_var
                                        + m * (var.detach() * (n / max(n - 1, 1))))
-            y = c * torch.rsqrt(var + self.eps).unsqueeze(-2)
         else:
-            # statistics in fp32, the normalise in the activation dtype
-            inv = torch.rsqrt(self.running_var + self.eps).to(x.dtype)
-            y = (x - self.running_mean.to(x.dtype).unsqueeze(-2)) \
-                * inv.unsqueeze(-2)
+            mean, var = self.running_mean, self.running_var
+        # statistics in fp32, the normalise in the activation dtype
+        inv = torch.rsqrt(var + self.eps).to(x.dtype)
+        y = (x - mean.to(x.dtype).unsqueeze(-2)) * inv.unsqueeze(-2)
         if self.affine:
             y = y * self.weight.to(x.dtype).unsqueeze(-2) \
                 + self.bias.to(x.dtype).unsqueeze(-2)

@@ -71,6 +71,10 @@ SIGNATURES = {
         ctypes.c_int,
         [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_float)]
         + [_P] * 15),
+    'nnueehcs_fused_train_bf16': (
+        ctypes.c_int,
+        [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_float)]
+        + [_P] * 15),
     'nnueehcs_fused_train_scratch_floats': (
         ctypes.c_longlong, [ctypes.c_int, ctypes.c_int, ctypes.c_int]),
     'nnueehcs_ablate_chain_f32': (

@@ -35,6 +35,9 @@ def probe_plan(plan: ft.FusedTrainPlan) -> ft.FusedTrainPlan:
 
 
 def _check(plan, theta, xs, mode, unroll, opt_chunk, norms):
+    if plan.bf16:
+        raise ValueError('ablate_epoch: the probe is fp32 only (as the TPU '
+                         'probe), got a bf16-mixed plan')
     if mode not in MODES:
         raise ValueError(f'ablate_epoch: mode {mode!r} is not one of {MODES}')
     if norms is not None and (

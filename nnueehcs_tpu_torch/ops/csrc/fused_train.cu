@@ -74,19 +74,8 @@ int nnueehcs_fused_train_f32(const long long* iconf, const float* fconf,
                              unsigned char* signs, void* stream) {
   const Args A = make_args(iconf, fconf, theta, m, v, sigma, g, xs, ys, losses,
                            lins, drops, scratch, preds, small, signs);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned M = static_cast<unsigned>(A.i[kM]);
-  const unsigned blocks = adam_blocks(A.i[kM] * A.i[kSlabRows] * kLanes);
-  for (int step = 0; step < A.i[kS]; ++step) {
-    if (!A.i[kSingleSweep]) loss_sweep_kernel<<<M, kThreads, 0, st>>>(A, step);
-    member_step_kernel<<<M, kThreads, 0, st>>>(A, step);
-    adam_kernel<<<blocks, kOptThreads, 0, st>>>(A, step);
-    if (step == 0) {
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  return run_epoch<loss_sweep_kernel, member_step_kernel>(
+      A, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -10,6 +10,11 @@
 //
 // Everything here has internal linkage (an unnamed namespace): each .cu file
 // that includes it compiles its own copy.
+//
+// The bodies are templates on their shared-memory type: with Smem they run
+// the fp32 block_gemm below; with fused_train_bf16.cuh's SmemBf16 the same
+// bodies run its bf16 block_gemm overload (found by argument-dependent
+// lookup when they are instantiated), and nothing else changes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -185,8 +190,8 @@ __device__ void block_gemm(int rows, int K, const float* a, long long a_rs,
 
 // sm.col[s][n] = sum over rows r of f(r, n)[s], s < N, in a fixed order:
 // four threads per column sum every fourth row, then one adds the four.
-template <int N, class F>
-__device__ void col_sums(int rows, F f, Smem& sm) {
+template <int N, class F, class Sm>
+__device__ void col_sums(int rows, F f, Sm& sm) {
   const int n = threadIdx.x & (kLanes - 1), part = threadIdx.x >> 7;
   float acc[N];
 #pragma unroll
@@ -213,7 +218,8 @@ __device__ void col_sums(int rows, F f, Smem& sm) {
 
 // The block's sum of one value per thread, in a fixed order; every thread
 // gets it.
-__device__ float block_sum(float v, Smem& sm) {
+template <class Sm>
+__device__ float block_sum(float v, Sm& sm) {
   for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, o));
   if ((threadIdx.x & 31) == 0) sm.warp[threadIdx.x >> 5] = v;
   __syncthreads();
@@ -257,8 +263,9 @@ __device__ __forceinline__ const int* lin_row(const Args& A, int li) {
 // One member's training-mode forward at step `step` with the running-stat
 // EMA; the output (B x 128) is left in s.h, and x-hat, 1/sigma and the
 // masks are kept for the backward.
+template <class Sm>
 __device__ void member_forward(const Args& A, int step, int m,
-                               const Member& s, Smem& sm) {
+                               const Member& s, Sm& sm) {
   const int B = static_cast<int>(A.i[kB]);
   const int in_pad = static_cast<int>(A.i[kInPad]);
   const long long base = m * A.i[kSlabRows], sbase = m * A.i[kSigRows];
@@ -343,8 +350,9 @@ __device__ __forceinline__ float softplus(float x) {
 
 // Loss terms of `pred` (B x 128) against the step's targets: writes
 // dL/dpred / div * inv_members into d and returns the block's term sum.
+template <class Sm>
 __device__ float loss_and_grad(const Args& A, int step, const float* pred,
-                               float* d, Smem& sm) {
+                               float* d, Sm& sm) {
   const int B = static_cast<int>(A.i[kB]);
   const int out_pad = static_cast<int>(A.i[kOutPad]);
   const float* y = A.ys + static_cast<long long>(step) * B * out_pad;
@@ -392,9 +400,9 @@ __device__ float loss_and_grad(const Args& A, int step, const float* pred,
 // The reverse pass of member m at step `step` from d = dL/d(output); writes
 // the member's gradient rows of g. With kSq, each thread adds the squares of
 // the gradient values it writes to its sq (one float&).
-template <bool kSq = false, class... Sq>
+template <bool kSq = false, class Sm, class... Sq>
 __device__ void member_backward(const Args& A, int step, int m,
-                                const Member& s, Smem& sm, Sq&... sq) {
+                                const Member& s, Sm& sm, Sq&... sq) {
   const int B = static_cast<int>(A.i[kB]);
   const int in_pad = static_cast<int>(A.i[kInPad]);
   const long long base = m * A.i[kSlabRows];
@@ -513,7 +521,8 @@ __device__ void member_backward(const Args& A, int step, int m,
 
 // Joint mean only: member blockIdx.x's forward, which saves what its
 // backward needs in the member's scratch; its prediction goes to preds[m].
-__device__ __forceinline__ void loss_sweep(const Args& A, int step, Smem& sm) {
+template <class Sm>
+__device__ __forceinline__ void loss_sweep(const Args& A, int step, Sm& sm) {
   const int m = blockIdx.x;
   const Member s = member_scratch(A, m);
   member_forward(A, step, m, s, sm);
@@ -525,8 +534,9 @@ __device__ __forceinline__ void loss_sweep(const Args& A, int step, Smem& sm) {
 // The joint-mean loss: the mean prediction, summed in member order (as every
 // block computes it), into s.z; its loss gradient into s.d. Returns the
 // block's loss-term sum.
+template <class Sm>
 __device__ __forceinline__ float joint_loss(const Args& A, int step,
-                                            const Member& s, Smem& sm) {
+                                            const Member& s, Sm& sm) {
   const int M = static_cast<int>(A.i[kM]);
   const long long tile = A.i[kB] * kLanes;
   for (long long e = threadIdx.x; e < tile; e += kThreads) {
@@ -542,9 +552,9 @@ __device__ __forceinline__ float joint_loss(const Args& A, int step,
 // prediction, or, in single-sweep mode, its own after its forward), the
 // backward into g, and its sum of g^2 into partials[m]: by a re-read of
 // its slab, or, with kSqFused, as the backward writes g (another order).
-template <bool kSqFused = false>
+template <bool kSqFused = false, class Sm>
 __device__ __forceinline__ void member_step(const Args& A, int step,
-                                            Smem& sm) {
+                                            Sm& sm) {
   const int m = blockIdx.x;
   const Member s = member_scratch(A, m);
   if (!A.i[kSingleSweep]) {
@@ -656,7 +666,10 @@ inline Args make_args(const long long* iconf, const float* fconf, float* theta,
 }
 
 // The production step: loss_sweep_kernel (joint mean only), member_step_kernel
-// and adam_kernel, one block per member for the first two.
+// and adam_kernel, one block per member for the first two. A file that
+// launches only another form's step (fused_train_bf16.cu) defines
+// NNUEEHCS_NO_FP32_STEP first, so its library holds no unlaunched copy.
+#ifndef NNUEEHCS_NO_FP32_STEP
 __global__ void __launch_bounds__(kThreads, 1) loss_sweep_kernel(Args A, int step) {
   __shared__ __align__(16) Smem sm;
   loss_sweep(A, step, sm);
@@ -666,6 +679,7 @@ __global__ void __launch_bounds__(kThreads, 1) member_step_kernel(Args A, int st
   __shared__ __align__(16) Smem sm;
   member_step(A, step, sm);
 }
+#endif
 
 __global__ void __launch_bounds__(kOptThreads) adam_kernel(Args A, int step) {
   adam_step(A, step);
@@ -675,6 +689,26 @@ __global__ void __launch_bounds__(kOptThreads) adam_kernel(Args A, int step) {
 inline unsigned adam_blocks(long long n) {
   const long long blocks = (n + kOptThreads - 1) / kOptThreads;
   return static_cast<unsigned>(blocks > 1024 ? 1024 : blocks);
+}
+
+// Enqueue the S steps of an epoch on `st`, each the form's loss sweep
+// (joint mean only) and member step, then adam_kernel; returns
+// cudaGetLastError() (0 on success), read after the first step and at the
+// end.
+template <void (*Sweep)(Args, int), void (*Step)(Args, int)>
+int run_epoch(const Args& A, cudaStream_t st) {
+  const unsigned M = static_cast<unsigned>(A.i[kM]);
+  const unsigned blocks = adam_blocks(A.i[kM] * A.i[kSlabRows] * kLanes);
+  for (int step = 0; step < A.i[kS]; ++step) {
+    if (!A.i[kSingleSweep]) Sweep<<<M, kThreads, 0, st>>>(A, step);
+    Step<<<M, kThreads, 0, st>>>(A, step);
+    adam_kernel<<<blocks, kOptThreads, 0, st>>>(A, step);
+    if (step == 0) {
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -17,12 +17,19 @@ same, since theta does not change between the two.)
 Parameters, both Adam moments and the gradient live in flat ``(rows, 128)``
 float32 buffers with the JAX package's row layout (:class:`FusedTrainPlan`,
 :func:`pack_tree`), so every buffer compares with the JAX one element by
-element. Dropout masks come from the same stateless lowbias32 hash of
+element. In the bf16-mixed form (``plan.bf16``, the JAX plan's) the three
+products of a block (the forward ``h W``, the weight gradient ``a^T d`` and
+the input gradient ``d W^T``) round both operands to bf16 and sum their
+exact products in fp32; ``d`` is rounded at both backward products while
+the weight gradient and the propagated ``d`` stay fp32, and everything else
+(BatchNorm and its EMA, the loss, masks, clip and Adam) is fp32 as in the
+fp32 form. Dropout masks come from the same stateless lowbias32 hash of
 (epoch seed, step, member, Dropout slot, row, column) as the TPU kernel,
 so the two packages draw identical masks.
 
 :func:`fused_epoch` is the entry point: on CUDA tensors it launches the
-hand-written kernel (``csrc/fused_train.cu``), on CPU tensors it runs
+hand-written kernel (``csrc/fused_train.cu``, or for a bf16-mixed plan its
+bf16 form ``csrc/fused_train_bf16.cu``), on CPU tensors it runs
 :func:`fused_epoch_reference`, which does the kernel's arithmetic step by
 step in tensor ops. It never falls back from one to the other. Both update
 ``theta``, ``m``, ``v`` and ``sigma`` in place (the JAX version donates
@@ -90,6 +97,9 @@ class FusedTrainPlan:
     b1: float = 0.9
     b2: float = 0.999
     adam_eps: float = 1e-8
+    # bf16-mixed: both operands of each of the three products rounded to
+    # bf16, accumulated in fp32; weights, BatchNorm, loss and Adam stay fp32
+    bf16: bool = False
     # parameters with a leading member axis (ensembles) or a single net
     member_stacked: bool = True
     n_drop: int = 0       # dropout-mask slots
@@ -124,6 +134,7 @@ class FusedTrainPlan:
 def plan_fused_train(net, num_members: int, batch: int, *,
                      loss: str = 'l1_loss', per_member: bool = False,
                      clip: Optional[float] = None, weight_decay: float = 0.0,
+                     bf16: bool = False,
                      member_stacked: bool = True) -> Optional[FusedTrainPlan]:
     """The static layout, or None when the network or the configuration is
     outside the kernel's family: [Dropout?, Linear, BatchNorm1d?, ReLU?]*
@@ -131,7 +142,8 @@ def plan_fused_train(net, num_members: int, batch: int, *,
     <= 128, a bias on every Linear, one eps/momentum for every BatchNorm,
     batch a multiple of 8 and >= 8, and a supported loss (the MVE NLL needs
     a 2-wide head). The JAX package's rules, without its VMEM budget: the
-    CUDA kernel keeps the buffers in device memory."""
+    CUDA kernel keeps the buffers in device memory. ``bf16`` selects the
+    bf16-mixed form (the trainer's ``precision: 'bf16-mixed'``)."""
     if loss not in LOSSES:
         return None
     if batch < 2 or batch % 8 != 0:
@@ -207,7 +219,7 @@ def plan_fused_train(net, num_members: int, batch: int, *,
         out_pad=_pad8(lins[-1].out_w), n_bn=max(zh, 1), bn_eps=bn_eps,
         bn_mom=bn_mom, loss=loss, per_member=per_member,
         clip=float(clip) if clip else None,
-        weight_decay=float(weight_decay or 0.0),
+        weight_decay=float(weight_decay or 0.0), bf16=bool(bf16),
         member_stacked=bool(member_stacked), n_drop=n_drop)
 
 
@@ -307,6 +319,46 @@ def gather_epoch_batches(plan: FusedTrainPlan, x, y, idx_flat):
             yb.reshape(S, plan.batch, plan.out_pad).contiguous())
 
 
+def anchor_permutations(generator: torch.Generator, steps: int,
+                        batch: int) -> torch.Tensor:
+    """``(steps, 2, batch)`` int64: for each step, the two independent
+    permutations of its batch that anchor the two halves of a Δ-UQ/PAGER
+    batch (``a1 = x[perm[s, 0]]``, ``a2 = x[perm[s, 1]]``), drawn from
+    ``generator`` on its device (the argsort of uniform float64 draws). The
+    JAX package draws them with ``jax.random.permutation``; the port's
+    stream is its own."""
+    u = torch.rand((steps, 2, batch), generator=generator,
+                   dtype=torch.float64, device=generator.device)
+    return u.argsort(dim=-1)
+
+
+def gather_anchored_epoch_batches(plan: FusedTrainPlan, x, y, idx_flat,
+                                  perms):
+    """The Δ-UQ/PAGER stochastic-centering batches of an epoch: step ``s``
+    takes the ``(B, d)`` batch ``x[idx]`` to ``(2B, 2d) = [[a1, x - a1];
+    [a2, x - a2]]`` with ``a1``, ``a2`` the batch permuted by
+    ``perms[s, 0]`` and ``perms[s, 1]`` (:func:`anchor_permutations`), and
+    its targets to ``[y; y]``, padded to the kernel's ``(S, 2B, in_pad)``
+    and ``(S, 2B, out_pad)``. ``plan.batch`` is the doubled batch."""
+    B = plan.batch // 2
+    S = idx_flat.shape[0] // B
+    xb = x[idx_flat].to(torch.float32).reshape(S, B, -1)
+    yb = y[idx_flat].to(torch.float32)
+    if yb.dim() == 1:
+        yb = yb[:, None]
+    yb = yb.reshape(S, B, -1)
+    d = xb.shape[-1]
+    halves = []
+    for j in range(2):
+        a = torch.gather(xb, 1, perms[:, j, :, None].expand(S, B, d))
+        halves.append(torch.cat([a, xb - a], dim=-1))
+    xs = torch.nn.functional.pad(torch.cat(halves, dim=1),
+                                 (0, plan.in_pad - 2 * d))
+    ys = torch.nn.functional.pad(torch.cat([yb, yb], dim=1),
+                                 (0, plan.out_pad - yb.shape[-1]))
+    return xs.contiguous(), ys.contiguous()
+
+
 # ---------------------------------------------------------------------------
 # float32 constants as the JAX kernel rounds them (Python floats there)
 # ---------------------------------------------------------------------------
@@ -379,6 +431,16 @@ def _saved(plan):
             'mask': [None] * max(plan.n_drop, 1)}
 
 
+def _mm(plan, a, b):
+    """``a @ b`` in the plan's form: fp32, or (bf16-mixed) both operands
+    rounded to bf16 and their exact products summed in fp32, as the JAX
+    kernel's ``astype(bfloat16)`` dot with ``preferred_element_type``
+    float32."""
+    if plan.bf16:
+        return a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()
+    return a @ b
+
+
 def _forward(plan, k, th, sg, x, i, m, seed, drops, saved):
     """One member's training-mode forward on the flat buffers, with the
     running-stat EMA; fills ``saved`` (x-hat, 1/sigma and masks per slot)
@@ -392,7 +454,7 @@ def _forward(plan, k, th, sg, x, i, m, seed, drops, saved):
             saved['mask'][L.mask_idx] = mask
             h = h * mask
         W = th[base + L.w_off:base + L.w_off + L.in_rows]
-        z = h @ W + th[base + L.b_off]
+        z = _mm(plan, h, W) + th[base + L.b_off]
         if L.bn_layer >= 0:
             mu = z.mean(0)
             c = z - mu
@@ -447,10 +509,10 @@ def _backward(plan, k, th, g, x, m, d, saved, signs=None):
                 a = torch.relu(a)
             if L.mask_idx >= 0:
                 a = a * saved['mask'][L.mask_idx]
-        g[base + L.w_off:base + L.w_off + L.in_rows] = a.T @ d
+        g[base + L.w_off:base + L.w_off + L.in_rows] = _mm(plan, a.T, d)
         g[base + L.b_off] = d.sum(0)
         if li > 0:
-            d = d @ th[base + L.w_off:base + L.w_off + L.in_rows].T
+            d = _mm(plan, d, th[base + L.w_off:base + L.w_off + L.in_rows].T)
             if L.mask_idx >= 0:
                 d = d * saved['mask'][L.mask_idx]
 
@@ -632,7 +694,9 @@ def fused_epoch(plan: FusedTrainPlan, theta, m, v, sigma, xs, ys, lr, step0,
     ``sigma`` in place; returns them and the per-step losses. ``signs``
     (a diagnostic, null on the training path) is an ``(S, M, n_bn, B,
     128)`` uint8 tensor that receives each ReLU decision of the backward.
-    ``fused_epoch.launches`` counts the calls that launched the kernel."""
+    ``fused_epoch.launches`` counts the calls that launched the fp32
+    kernel, ``fused_epoch.launches_bf16`` those that launched its bf16 form
+    (``plan.bf16``; the buffers stay fp32 in both)."""
     _check_buffers(plan, theta, m, v, sigma, xs, ys)
     if signs is not None:
         _check_signs(plan, signs, xs.shape[0], theta.device)
@@ -652,8 +716,10 @@ def fused_epoch(plan: FusedTrainPlan, theta, m, v, sigma, xs, ys, lr, step0,
     iconf, fconf = kernel_config(plan, S, lr, step0, seed, plan.single_sweep)
     bufs = kernel_buffers(lib, plan, theta)
     drops = _drop_tensor(plan, drops, device)
+    entry = lib.nnueehcs_fused_train_bf16 if plan.bf16 \
+        else lib.nnueehcs_fused_train_f32
     with torch.cuda.device(device):
-        err = lib.nnueehcs_fused_train_f32(
+        err = entry(
             iconf, fconf, theta.data_ptr(), m.data_ptr(), v.data_ptr(),
             sigma.data_ptr(), bufs['g'].data_ptr(), xs.data_ptr(),
             ys.data_ptr(), losses.data_ptr(), bufs['lins'].data_ptr(),
@@ -664,8 +730,12 @@ def fused_epoch(plan: FusedTrainPlan, theta, m, v, sigma, xs, ys, lr, step0,
     if err != 0:
         raise RuntimeError(f'fused training kernel launch failed: CUDA error '
                            f'{err}')
-    fused_epoch.launches += 1
+    if plan.bf16:
+        fused_epoch.launches_bf16 += 1
+    else:
+        fused_epoch.launches += 1
     return theta, m, v, sigma, losses
 
 
 fused_epoch.launches = 0
+fused_epoch.launches_bf16 = 0

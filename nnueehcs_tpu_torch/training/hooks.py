@@ -1,8 +1,9 @@
 """Trainer hooks (the reference's Lightning callbacks, made explicit).
 
 Counterpart of ``nnueehcs_tpu/training/hooks.py``: the hook points the
-trainer calls, and the KDE and kNN-KDE fit hooks that observe the epoch-0
-training batches. The Δ-UQ and PAGER anchor hooks are not ported yet.
+trainer calls, the KDE and kNN-KDE fit hooks that observe the epoch-0
+training batches, and the Δ-UQ and PAGER hooks that capture anchors from
+them.
 """
 from __future__ import annotations
 
@@ -84,4 +85,45 @@ class KNNKDEFitHook(EpochZeroFitHook):
     def on_validation_epoch_start(self, trainer, model):
         if self._epochs == 0 and self._train_data_to_fit:
             model.fit_kde(np.concatenate(self._train_data_to_fit))
+        self._epochs += 1
+
+
+class DeltaUQGetAnchorsHook(EpochZeroFitHook):
+    """Capture the first ``num_anchors`` training inputs during epoch 0 and
+    install them as anchors before the first validation epoch (reference
+    ``nnueehcs/models.py:354-369``)."""
+
+    def on_train_batch_end(self, trainer, model, batch, batch_idx):
+        bs = np.asarray(batch[0]).shape[0]
+        if self._epochs == 0 and \
+                bs * len(self._train_data_to_fit) < model.num_anchors:
+            self._train_data_to_fit.append(np.asarray(batch[0]))
+
+    def on_validation_epoch_start(self, trainer, model):
+        if self._epochs == 0 and self._train_data_to_fit:
+            data = np.concatenate(self._train_data_to_fit)
+            model.anchors = data[:model.num_anchors]
+        self._epochs += 1
+
+
+class PAGERGetAnchorsHook(EpochZeroFitHook):
+    """Like :class:`DeltaUQGetAnchorsHook`, also capturing the anchors'
+    targets (reference ``nnueehcs/models.py:450-472``)."""
+
+    def __init__(self):
+        super().__init__()
+        self._anchor_X = []
+        self._anchor_Y = []
+
+    def on_train_batch_end(self, trainer, model, batch, batch_idx):
+        bs = np.asarray(batch[0]).shape[0]
+        if self._epochs == 0 and bs * len(self._anchor_X) < model.num_anchors:
+            self._anchor_X.append(np.asarray(batch[0]))
+            self._anchor_Y.append(np.asarray(batch[1]))
+
+    def on_validation_epoch_start(self, trainer, model):
+        if self._epochs == 0 and self._anchor_X:
+            n = model.num_anchors
+            model.anchors = np.concatenate(self._anchor_X)[:n]
+            model.anchors_Y = np.concatenate(self._anchor_Y)[:n]
         self._epochs += 1

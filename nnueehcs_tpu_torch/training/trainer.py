@@ -15,23 +15,31 @@ same explicit behaviours:
   the same points of the loop.
 
 An epoch runs one of two ways, by the JAX package's dispatch rules. Where
-the network fits the training kernel's plan and no hook needs the
-epoch's batches, the whole epoch is one call of
+the network fits the training kernel's plan, the trainer's precision is
+None, ``'32-true'`` or ``'bf16-mixed'`` and no hook needs the epoch's
+batches, the whole epoch is one call of
 :func:`~nnueehcs_tpu_torch.ops.fused_train.fused_epoch` (the CUDA kernel on
-the card) on flat buffers that persist across epochs. Otherwise (KDE's
-epoch 0, a tail batch, a network the plan rejects, ``fused_epochs: False``)
-it runs step by step: torch autograd on the model's ``training_loss`` and
-the optimizer above, written out. The two hand over to each other with the
-Adam step count carried across. Validation goes through the model's
-evaluation path.
+the card; its bf16 form under ``'bf16-mixed'``) on flat fp32 buffers that
+persist across epochs. Otherwise (the epoch 0 of KDE, kNN-KDE, Δ-UQ and
+PAGER, whose hooks read its batches, a tail batch, a network the plan
+rejects, ``fused_epochs: False``, a trainer precision of ``'bf16'``,
+``'bf16-true'`` or ``'32'``) it runs step by step: torch autograd on the
+model's ``training_loss`` through its modules, in the model's compute
+dtype, and the optimizer above, written out. The two hand over to each
+other with the Adam step count carried across. Validation goes through the
+model's evaluation path. A trainer precision is recorded in the model's
+``train_config`` and set on it; a model already in bf16 under a trainer
+precision of None trains the kernel in fp32 and its per-step and
+validation passes in bf16, as in JAX. Δ-UQ and PAGER train on the doubled
+stochastic-centering batch (kernel epochs at batch ``2 * batch_size``).
 
 Differences from the JAX trainer, by design: the shuffle draws from a
-``torch.Generator``, not ``jax.random.permutation``; the per-step path's
-dropout masks from a ``torch.Generator`` (the kernel's are the JAX
-kernel's hash); ``whole_fit`` is read but every epoch runs on its own; and
-only fp32 on one device is ported (``mesh``, ``devices``, a bf16
-precision, the trainer's or the model's, and the
-Δ-UQ/PAGER models raise ``NotImplementedError``).
+``torch.Generator``, not ``jax.random.permutation``, and so do the
+Δ-UQ/PAGER anchor permutations (:meth:`Trainer.anchor_permutations`, one
+stream for both paths) and the per-step path's dropout masks (the kernel's
+are the JAX kernel's hash); ``whole_fit`` is read but every epoch runs on
+its own; and training runs on one device (``mesh`` and ``devices`` raise
+``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -43,16 +51,18 @@ import numpy as np
 import torch
 
 from ..convert import load_pytrees, tensor_trees
-from ..models.base import BF16_PRECISIONS, resolve_device
+from ..models.base import resolve_device
 from ..ops import fused_train as ft
 from .callbacks import EarlyStopping
 from .data import DataLoader
 from .hooks import TrainerHook
 from .loggers import CSVLogger
 
-_SINGLE_NET = ('MCDropoutModel', 'MLPModel', 'KDEMLPModel', 'KNNKDEMLPModel',
-               'MVEMLPModel')
-_NOT_PORTED = ('DeltaUQMLP', 'PAGERMLP')
+_SINGLE_NET = ('MCDropoutModel', 'DeltaUQMLP', 'PAGERMLP', 'MLPModel',
+               'KDEMLPModel', 'KNNKDEMLPModel', 'MVEMLPModel')
+_ANCHORED = ('DeltaUQMLP', 'PAGERMLP')
+# trainer precisions under which an epoch may run the training kernel
+_KERNEL_PRECISIONS = (None, '32-true', 'bf16-mixed')
 
 
 def _inst_init_if_not_none(inst, attr, val, default):
@@ -189,6 +199,17 @@ class Trainer:
         the kernel's per-step stride must stay different from 7919)."""
         return (self.seed * 1000003 + epoch * 7919) & 0x7fffffff
 
+    def anchor_permutations(self, epoch: int, first_step: int, steps: int,
+                            batch: int) -> torch.Tensor:
+        """``(steps, 2, batch)``: the permutations that anchor the
+        Δ-UQ/PAGER batches of steps ``first_step ..`` of ``epoch``, on the
+        kernel path and the per-step path alike, drawn in order from the
+        trainer's anchor stream (a ``torch.Generator`` seeded with
+        ``seed + 2``). The JAX trainer draws them with
+        ``jax.random.permutation`` from keys folded in by epoch and step; a
+        caller may replace this method to feed those."""
+        return ft.anchor_permutations(self._anchor_gen, steps, batch)
+
     def _val_seed(self, epoch: int, batch: int) -> int:
         """Sampling seed of validation batch ``batch`` at ``epoch`` (MC
         dropout's validation mean)."""
@@ -243,17 +264,7 @@ class Trainer:
 
     def _fit(self, model, train_dl: DataLoader, val_dl: Optional[DataLoader]):
         kind = type(model).__name__
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f'training {kind} is not ported yet (its anchored batch and '
-                'anchor hooks come in a later slice)')
-        precision = self.precision if self.precision is not None \
-            else getattr(model, 'precision', None)
-        if precision in BF16_PRECISIONS:
-            raise NotImplementedError(
-                f'training in precision {precision!r} is not ported yet (the '
-                "training kernel's bf16 form comes in a later slice); train "
-                "in '32-true' and serve in bf16 with model.set_precision")
+        anchored = kind in _ANCHORED
         if val_dl is None:
             val_dl = train_dl
         device = self.device
@@ -306,14 +317,17 @@ class Trainer:
         fused_plan = None
         single_net = kind in _SINGLE_NET
         if fused_cfg and (device.type == 'cuda' or fused_cfg == 'force') \
+                and self.precision in _KERNEL_PRECISIONS \
                 and (single_net or kind == 'EnsembleModel'):
             fused_plan = ft.plan_fused_train(
-                model.net, 1 if single_net else model.num_models, bs,
+                model.net, 1 if single_net else model.num_models,
+                2 * bs if anchored else bs,
                 loss='gaussian_nll' if kind == 'MVEMLPModel'
                 else model.train_config.get('loss', 'l1_loss'),
                 per_member=not single_net and model.train_config.get(
                     'ensemble_loss', 'joint_mean') == 'per_member',
                 clip=self.gradient_clip_val, weight_decay=weight_decay,
+                bf16=self.precision == 'bf16-mixed',
                 member_stacked=not single_net)
         fused_buffers = None
         fused_step0 = 0
@@ -363,11 +377,14 @@ class Trainer:
         perm = None if shuffle else torch.arange(n, device=device)
         shuffle_gen = torch.Generator(device=device).manual_seed(self.seed)
         dropout_gen = torch.Generator(device=device).manual_seed(self.seed + 1)
+        self._anchor_gen = torch.Generator(device=device).manual_seed(
+            self.seed + 2)
 
-        def train_step(idx, lr):
+        def train_step(idx, lr, anchor_perm=None):
             model.net.train()
-            loss = model.training_loss((x_train[idx], y_train[idx]),
-                                       dropout_gen)
+            batch = (x_train[idx], y_train[idx])
+            loss = model.training_loss(batch, dropout_gen, anchor_perm) \
+                if anchored else model.training_loss(batch, dropout_gen)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
             opt.step(grads, lr)
             return loss.detach()
@@ -389,9 +406,14 @@ class Trainer:
                 self.fused_epochs_used += 1
                 if fused_buffers is None:
                     fused_buffers, fused_step0 = pack_fused()
-                xs, ys = ft.gather_epoch_batches(
-                    fused_plan, x_train, y_train,
-                    perm[offset:offset + sample_n])
+                idx = perm[offset:offset + sample_n]
+                if anchored:
+                    xs, ys = ft.gather_anchored_epoch_batches(
+                        fused_plan, x_train, y_train, idx,
+                        self.anchor_permutations(epoch, 0, full_batches, bs))
+                else:
+                    xs, ys = ft.gather_epoch_batches(fused_plan, x_train,
+                                                     y_train, idx)
                 *_, losses = ft.fused_epoch(
                     fused_plan, *fused_buffers, xs, ys, lr, fused_step0,
                     seed=self._epoch_seed(epoch), drops=drops)
@@ -417,9 +439,13 @@ class Trainer:
                 # the steps, from the host arrays
                 data_only = all(getattr(h, 'batch_data_only', False)
                                 for h in batch_hooks)
+                anchor_perms = self.anchor_permutations(
+                    epoch, 0, full_batches, bs) if anchored else None
                 losses = []
                 for b in range(full_batches):
-                    losses.append(train_step(idx_mat[b], lr))
+                    losses.append(train_step(
+                        idx_mat[b], lr,
+                        None if anchor_perms is None else anchor_perms[b]))
                     if batch_hooks and not data_only:
                         batch = (x_train[idx_mat[b]], y_train[idx_mat[b]])
                         for h in batch_hooks:
@@ -435,7 +461,10 @@ class Trainer:
                             h.on_train_batch_end(self, model, batch, b)
                 if has_tail:
                     tail_idx = perm[sample_n:sample_n + tail_len]
-                    losses.append(train_step(tail_idx, lr))
+                    losses.append(train_step(
+                        tail_idx, lr, self.anchor_permutations(
+                            epoch, full_batches, 1, tail_len)[0]
+                        if anchored else None))
                     if batch_hooks:
                         batch = (x_train[tail_idx], y_train[tail_idx])
                         for h in batch_hooks:

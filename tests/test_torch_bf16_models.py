@@ -287,8 +287,10 @@ def test_jax_bf16_bundle_serves_in_bf16_and_port_bundle_carries_it_back(
 
 
 def test_trainer_refuses_a_bf16_model(tmp_path):
-    """Training in bf16 is not ported: a model whose precision is bf16 (a
-    loaded bundle's, or set) is refused by the Trainer itself."""
+    """(Named when the Trainer refused a bf16 model.) The Trainer now takes
+    a model whose precision is bf16, a loaded bundle's or set, as the JAX
+    trainer does: under a trainer precision of None it stays bf16, trains
+    its per-step passes and validates in bf16, with fp32 master weights."""
     model = pmb.MLPModelBuilder(descr(in_dim=5, width=16, hidden=1),
                                 device='cpu').build()
     model.set_precision('bf16-mixed')
@@ -296,8 +298,14 @@ def test_trainer_refuses_a_bf16_model(tmp_path):
     dl = ptr.DataLoader(ptr.ArrayDataset(x, x[:, :1]), 16)
     tr = ptr.Trainer('t', {'max_epochs': 1}, callbacks=[],
                      log_dir=str(tmp_path), device='cpu')
-    with pytest.raises(NotImplementedError, match="precision 'bf16-mixed'"):
-        tr.fit(model, dl)
+    tr.fit(model, dl)
+    assert tr.fused_epochs_used == 0
+    assert model.precision == 'bf16-mixed'
+    assert model.net.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.net.parameters())
+    val = tr.validate(model, dl)
+    assert np.isfinite(val) and abs(val - tr.callback_metrics['val_loss']) \
+        < 1e-6
 
 
 def _trial_21_rows(anchors, rows=256, seed=0):

@@ -219,3 +219,43 @@ def test_layer_under_bf16_matches_jax(name, args, kwargs):
     tol = {k: units * v for k, v in TOL_UNIT.items()}
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)), **tol)
+
+
+def test_batchnorm_train_mode_under_bf16_matches_jax():
+    """Training-mode BatchNorm1d on a bf16 input, as the per-step path runs
+    it in bf16-mixed: the batch mean and (biased) variance and the EMA
+    (unbiased) in fp32 from the up-cast input, the normalise and affine in
+    bf16. A mean-50 column is where statistics taken in bf16 would show
+    (one bf16 unit at 50 is 0.25). Output within one bf16 unit of JAX's;
+    running statistics within 1e-6 (fp32 round-off)."""
+    import jax
+    from nnueehcs_tpu.nn.layers import TRAIN_MODE
+    from nnueehcs_tpu.nn.network import build_network as jax_build_network
+    from nnueehcs_tpu_torch import convert
+    from nnueehcs_tpu_torch.nn.network import build_network
+    arch = [{'BatchNorm1d': {'args': [128]}}]
+    jnet = jax_build_network(arch)
+    params, state = jnet.init(jax.random.PRNGKey(0), (128,))
+    params = randomize_params(params, 1)
+    state = randomize_state(state, 2)
+    pnet = build_network(arch)
+    convert.load_pytrees(pnet, jax.tree_util.tree_map(np.asarray, params),
+                         jax.tree_util.tree_map(np.asarray, state))
+    x = np.random.default_rng(3).normal(50.0, 3.0, (128, 128))
+    xb = jnp.asarray(x, jnp.float32).astype(jnp.bfloat16)
+    want, new_state = jnet.layers[0].apply(params[0], state[0], xb,
+                                           TRAIN_MODE)
+    layer = pnet.layers[0].train()
+    with torch.no_grad():
+        got = layer(torch.from_numpy(np.asarray(
+            xb.astype(jnp.float32))).bfloat16())
+    assert got.dtype == torch.bfloat16 and str(want.dtype) == 'bfloat16'
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               **TOL_UNIT)
+    np.testing.assert_allclose(layer.running_mean.numpy(),
+                               np.asarray(new_state['mean']), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(layer.running_var.numpy(),
+                               np.asarray(new_state['var']), rtol=0,
+                               atol=1e-6)

@@ -775,3 +775,114 @@ def test_ablate_epoch_prod_is_kernel_3_bit_for_bit_on_card(card):
     want = ft.fused_epoch(plan, *[b.clone() for b in bufs], xs, ys, 1e-3, 5)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# kernel 3's bf16 form (csrc/fused_train_bf16.cu) against its plain bf16
+# epoch, step by step from the plain version's state
+# (``attrib.stepwise_vs_plain_bf16``): m, the running statistics and each
+# parameter's change in the step within the bf16 bars of the same step's
+# plain bf16-vs-fp32 gap, v to Adam's update of the gradient m reveals, the
+# per-step losses as one curve beside the host's plain epoch; whole epochs
+# of the two part by whole bf16 units at a flipped rounding, so they are
+# not compared
+BF16_TRAIN_CASES = ('small_joint_l1', 'small_mc_p02', 'batch_40', 'batch_256',
+                    'flagship_joint_l1', 'flagship_per_member_mse_wd',
+                    'flagship_mve', 'flagship_mc_p01')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', BF16_TRAIN_CASES)
+def test_training_kernel_bf16_matches_plain_stepwise_on_card(card, case):
+    family, width, hidden, members, batch, loss, per_member, wd, p = \
+        TRAIN_CASES[case]
+    m = _train_model(card, family, width, hidden, members, p)
+    plan = ft.plan_fused_train(m.net, members, batch, loss=loss,
+                               per_member=per_member, clip=5.0,
+                               weight_decay=wd, bf16=True,
+                               member_stacked=family == 'ensemble')
+    bufs, xs, ys = train_inputs(m, plan, np.random.default_rng(16), 6)
+    before = (ft.fused_epoch.launches, ft.fused_epoch.launches_bf16)
+    out = stepwise_vs_plain(plan, bufs, xs, ys, 1e-3, 5, 4242,
+                            ft.drop_rates(m.net).to(card))
+    assert (ft.fused_epoch.launches, ft.fused_epoch.launches_bf16) == \
+        (before[0], before[1] + 6)
+    assert out['steps'] == 6 and out['losses']['gap_max'] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('bf16', [False, True])
+def test_anchored_kernel_epoch_at_the_doubled_batch_on_card(card, bf16):
+    """Δ-UQ's kernel epochs: the anchored gather on the card equals the
+    CPU's, and the kernel at the doubled batch (2 x 128 rows of 10 anchored
+    features) against its plain epoch: fp32 over a whole epoch on a network
+    whose pre-ReLU values sit away from 0, bf16 step by step."""
+    m = DeltaUQMLPModelBuilder(FLAGSHIP, {'num_anchors': 16}, seed=5,
+                               device=card).build()
+    if not bf16:
+        separate_relu(m, torch.Generator().manual_seed(17))
+    plan = ft.plan_fused_train(m.net, 1, 256, clip=5.0, bf16=bf16,
+                               member_stacked=False)
+    assert plan.in_pad == 16 and plan.batch == 256
+    rng = np.random.default_rng(18)
+    x = torch.as_tensor(rng.normal(size=(4 * 128, 5)), dtype=torch.float32)
+    y = torch.sin(x).sum(1, keepdim=True)
+    idx = torch.as_tensor(rng.permutation(4 * 128))
+    perms = ft.anchor_permutations(torch.Generator().manual_seed(19), 4, 128)
+    xs, ys = ft.gather_anchored_epoch_batches(plan, x.to(card), y.to(card),
+                                              idx.to(card), perms.to(card))
+    for a, b in zip((xs, ys), ft.gather_anchored_epoch_batches(
+            plan, x, y, idx, perms)):
+        assert torch.equal(a.cpu(), b)
+    bufs, _, _ = train_inputs(m, plan, rng, 1)
+    if bf16:
+        out = stepwise_vs_plain(plan, bufs, xs, ys, 1e-3, 5, 0, None)
+        assert out['steps'] == 4
+        return
+    got = ft.fused_epoch(plan, *[b.clone() for b in bufs], xs, ys, 1e-3, 5)
+    want = ft.fused_epoch_reference(plan, *[b.clone() for b in bufs], xs, ys,
+                                    1e-3, 5)
+    for (name, tol), a, b in zip(TOL_TRAIN.items(), got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=tol, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('family', ['ensemble', 'delta_uq', 'pager'])
+@pytest.mark.parametrize('precision', ['32-true', 'bf16-mixed'])
+def test_trainer_on_card_runs_the_training_kernel_form(card, family,
+                                                       precision, tmp_path):
+    """Each kernel epoch launches the form of the trainer's precision and
+    no other: the ensemble's three epochs, Δ-UQ's and PAGER's after their
+    per-step anchor epoch; the bf16 bundle reloads in bf16."""
+    arch = _arch(5, 32, 2, 1)
+    if family == 'ensemble':
+        m = EnsembleModelBuilder(arch, {'num_models': 3}, seed=5,
+                                 device=card).build()
+    else:
+        builder = DeltaUQMLPModelBuilder if family == 'delta_uq' \
+            else PAGERModelBuilder
+        m = builder(arch, {'num_anchors': 40}, seed=5, device=card).build()
+    rng = np.random.default_rng(20)
+    x = rng.normal(size=(512, 5)).astype(np.float32)
+    y = np.sin(x).sum(1, keepdims=True).astype(np.float32)
+    tr = Trainer('t', {'max_epochs': 3, 'gradient_clip_val': 5.0,
+                       'precision': precision},
+                 callbacks=m.get_callbacks(), log_dir=str(tmp_path),
+                 device=card)
+    before = (ft.fused_epoch.launches, ft.fused_epoch.launches_bf16)
+    tr.fit(m, DataLoader(ArrayDataset(x, y), 64, shuffle=True,
+                         drop_last=True))
+    kernel_epochs = 3 if family == 'ensemble' else 2
+    bf16 = precision == 'bf16-mixed'
+    assert tr.fused_epochs_used == kernel_epochs
+    assert (ft.fused_epoch.launches, ft.fused_epoch.launches_bf16) == (
+        before[0] + (0 if bf16 else kernel_epochs),
+        before[1] + (kernel_epochs if bf16 else 0))
+    assert np.isfinite(tr.callback_metrics['val_loss'])
+    if family != 'ensemble':
+        assert m.anchors.shape == (40, 5) and m.anchors.device.type == 'cuda'
+    path = str(tmp_path / 'after.pth')
+    save_model(m, path)
+    fresh = load_model(path, device=card)
+    assert fresh.net.compute_dtype == (torch.bfloat16 if bf16 else None)
+    for a, b in zip(m(x, return_ue=True), fresh(x, return_ue=True)):
+        torch.testing.assert_close(a, b, **TOL_MEAN)

@@ -103,10 +103,12 @@ def test_kernels_build_with_plain_nvcc():
         [src.read_text() for src in [*_build.sources(), *headers]]
     assert [s.name for s in _build.sources()] == [
         'ablate_chain.cu', 'ablate_train.cu', 'fused_anchored.cu',
-        'fused_ensemble.cu', 'fused_mc_dropout.cu', 'fused_train.cu', 'kde.cu']
+        'fused_ensemble.cu', 'fused_mc_dropout.cu', 'fused_train.cu',
+        'fused_train_bf16.cu', 'kde.cu']
     assert [h.name for h in headers] == ['fused_chain.cuh',
                                          'fused_chain_bf16.cuh',
-                                         'fused_train.cuh']
+                                         'fused_train.cuh',
+                                         'fused_train_bf16.cuh']
     for text in texts:
         for banned in ('cpp_extension', 'torch/extension.h', 'ninja'):
             assert banned not in text

@@ -170,19 +170,39 @@ def test_unported_cases_raise(tmp_path, monkeypatch):
         with pytest.raises(NotImplementedError, match=key):
             ptr.Trainer('t', {key: value}, log_dir=str(tmp_path),
                         device='cpu')
-    x, y = data()
-    dl = ptr.DataLoader(ptr.ArrayDataset(x, y), BS)
-    tr = ptr.Trainer('t', {'max_epochs': 1}, callbacks=[],
-                     log_dir=str(tmp_path), device='cpu')
-    dq = pmb.DeltaUQMLPModelBuilder(descr(), {'num_anchors': 4},
-                                    device='cpu').build()
-    with pytest.raises(NotImplementedError, match='DeltaUQMLP'):
-        tr.fit(dq, dl)
-    tr = ptr.Trainer('t', {'max_epochs': 1, 'precision': 'bf16-mixed'},
-                     callbacks=[], log_dir=str(tmp_path), device='cpu')
-    model = pmb.MLPModelBuilder(descr(), device='cpu').build()
-    with pytest.raises(NotImplementedError, match="precision 'bf16-mixed'"):
-        tr.fit(model, dl)
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='cuda'):
         ptr.Trainer('t', {}, log_dir=str(tmp_path))
+
+
+def test_delta_uq_trains_through_the_kernel_after_its_anchor_epoch(tmp_path):
+    """Δ-UQ trains (it was refused before its slice): epoch 0 step by step,
+    its hook capturing the anchors, then kernel epochs on the doubled
+    batch; validation scores the anchored mean."""
+    x, y = data()
+    dq = pmb.DeltaUQMLPModelBuilder(descr(), {'num_anchors': 4},
+                                    device='cpu').build()
+    tr = ptr.Trainer('t', {'max_epochs': 2, 'fused_epochs': 'force'},
+                     callbacks=dq.get_callbacks(), log_dir=str(tmp_path),
+                     device='cpu')
+    tr.fit(dq, ptr.DataLoader(ptr.ArrayDataset(x, y), BS, drop_last=True))
+    assert tr.fused_epochs_used == 1
+    np.testing.assert_array_equal(dq.anchors.numpy(), x[:4])
+    assert np.isfinite(column(rows(tr), 'train_loss')).all()
+    assert np.isfinite(tr.callback_metrics['val_loss'])
+
+
+def test_bf16_mixed_precision_trains(tmp_path):
+    """A trainer precision of 'bf16-mixed' trains (it was refused before
+    its slice): per-step on the CPU by default, the precision recorded on
+    the model and in its train_config, the weights fp32."""
+    x, y = data()
+    tr = ptr.Trainer('t', {'max_epochs': 1, 'precision': 'bf16-mixed'},
+                     callbacks=[], log_dir=str(tmp_path), device='cpu')
+    model = pmb.MLPModelBuilder(descr(), device='cpu').build()
+    tr.fit(model, ptr.DataLoader(ptr.ArrayDataset(x, y), BS))
+    assert tr.fused_epochs_used == 0
+    assert model.precision == model.train_config['precision'] == 'bf16-mixed'
+    assert model.net.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.net.parameters())
+    assert np.isfinite(tr.callback_metrics['val_loss'])
