@@ -22,14 +22,20 @@ cases), ``Trainer.fit`` of the flagship ensemble for 3 epochs of 1,000
 steps (``examples/bo_driven/config.yaml``: batch 128, lr 5e-5, clip 5,
 l1, joint mean) on 160,000 rows drawn from ``--seed``, whose saved bundle
 must reload, serve and reproduce its logged validation loss, one epoch each
-of MVE and MC dropout, and the kernel's epoch time beside its plain
-version, a PyTorch yardstick and its bound. Last it runs the attribution
-entry point (``nnueehcs_tpu_torch.attrib``): both batteries of the CUDA
-probes of kernels 1 and 3 at the flagship shape (262,144 rows; 500 steps of
-batch 128), every probe held to its plain version and every form of the
-production math to its kernel bit for bit before it is timed, with the
-serving and training phases checked to have launched no probe. The bf16
-forms of kernels 1, 2 and 5 and of the packed probe are held to their plain
+of MVE and MC dropout, and the kernel's epoch time (one thread-block
+cluster of ``fused_train.CLUSTER`` blocks per member; its registers and
+spills from ptxas) beside its plain version, a PyTorch yardstick, its
+bound, the attribution probe's one-block form of the same step and a
+single net's epoch. Last it runs the attribution entry point
+(``nnueehcs_tpu_torch.attrib``): both batteries of the CUDA probes of
+kernels 1 and 3 at the flagship shape (262,144 rows; 500 steps of batch
+128), every probe held to its plain version and every form of kernel 1's
+math to kernel 1 bit for bit before it is timed, kernel 3 held step by
+step to its plain version at every batch of the batch scaling and timed
+beside its probe, and the training battery again for kernel 3's bf16
+form, with the serving and training phases checked to have launched no
+probe. The bf16 forms of kernels 1, 2 and 5 and of the packed probe are
+held to their plain
 versions at the same shapes, the seven models are served again after
 ``set_precision('bf16-mixed')`` (the JAX package's ``eval_precision``, a
 bf16 evaluation of an fp32-trained model), each answer held to the plain
@@ -599,6 +605,22 @@ def ptxas_report(log):
     return {k: v for k, v in report.items() if 'registers' in v}
 
 
+def cluster_kernels(report, source):
+    """Registers and spills of the training kernel's cluster form compiled
+    from ``source`` (``fused_train`` or ``fused_train_bf16``), by kernel
+    and residency."""
+    out = {}
+    for name, entry in report.items():
+        m = re.search(r'(\d+)_' + source + r'_cu_\w+?(cluster_\w+?_kernel)'
+                      r'ILb([01])ELb([01])E', name)
+        if m:
+            where = 'resident' if m.group(4) == '1' else 'device'
+            out[f'{m.group(2)}<{where}>'] = {
+                k: entry.get(k) for k in ('registers', 'spill_store_bytes',
+                                          'spill_load_bytes')}
+    return out
+
+
 def smooth_target(x):
     """The training target: a smooth function of the 5 inputs."""
     return (np.sin(x[:, :1]) + 0.5 * x[:, 1:2] * x[:, 2:3]
@@ -794,8 +816,12 @@ def main():
 
     # 2. build
     info = _build.build_info()
+    ptxas = ptxas_report(info.log)
     emit('build', seconds=info.seconds, library=str(info.path.name),
-         ptxas=ptxas_report(info.log))
+         ptxas=ptxas)
+    check(all(cluster_kernels(ptxas, src) for src in ('fused_train',
+                                                      'fused_train_bf16')),
+          'ptxas reported no cluster kernel of the training sources')
 
     # 3. kernel vs plain on the card, each kernel at the main path's shapes
     model = build_model(args.seed)
@@ -1606,10 +1632,16 @@ def main():
     plain_scaled = {k: v * scale for k, v in plain_t.items()}
     library_t = event_ms(library_epoch(flagship, xs, ys, lr), warmup=1,
                          trials=3)
+    # the probe's one-block form of the same step (the design the cluster
+    # form replaced; fp32, no dropout) on the same epoch, between the
+    # kernel's two timings
+    probe_t = event_ms(lambda: ae.ablate_epoch(plan, *bufs, xs, ys, lr,
+                                               TRAIN_STEP0),
+                       warmup=1, trials=3)
     kernel_t2 = event_ms(lambda: ft.fused_epoch(plan, *bufs, xs, ys, lr,
                                                 TRAIN_STEP0, 1, drops))
-    # a single net's epoch (MC dropout, one block a step) beside the
-    # 8-member one: per-block work against member count
+    # a single net's epoch (MC dropout: one cluster a step) beside the
+    # 8-member one: per-cluster work against member count
     mc_one = build_mc(args.seed)
     mc_plan = train_plan(mc_one)
     mc_bufs, mc_xs, mc_ys = train_inputs(mc_one, mc_plan, rng, EPOCH_STEPS)
@@ -1619,15 +1651,24 @@ def main():
         warmup=1, trials=3)
     moved = 4.0 * (2 * (3 * plan.total_rows + plan.total_sig_rows) * 128
                    + xs.numel() + ys.numel() + EPOCH_STEPS)
+    layout = ft.train_layout(plan)
+    cluster_row = {'cluster': layout.cluster, 'resident': layout.resident,
+                   'smem_bytes': layout.smem_bytes}
     record(4, train_launches['fused_train'], kernel_t, plain_scaled,
            train_flops(plan, EPOCH_STEPS), moved, library_t['median_ms'],
            members=MEMBERS, batch=TRAIN_BATCH, steps=EPOCH_STEPS,
            kernel_again=kernel_t2, plain_steps=PLAIN_TRAIN_STEPS,
            single_net_mc_dropout_epoch=single_t,
+           probe_one_block_prod_epoch=probe_t, **cluster_row,
            plain_measured=plain_t, library_torch_ops=library_t,
            trainer_seconds_per_epoch=fit_s / epochs,
            trainer_e2e_rows_per_s=train_rows / fit_s)
-    kernels[-1]['plain_steps'] = PLAIN_TRAIN_STEPS
+    kernels[-1].update(
+        plain_steps=PLAIN_TRAIN_STEPS, **cluster_row,
+        share_of_bound=kernels[-1]['bound_ms'] / kernels[-1]['ms'],
+        ptxas=cluster_kernels(ptxas, 'fused_train'),
+        probe_one_block_ms=probe_t['median_ms'],
+        single_net_ms=single_t['median_ms'])
 
     # kernel 3's bf16 form on the same epoch (its fp32 buffers): bound by
     # the products at the bf16 tensor-core peak plus the rest (BatchNorm,
@@ -1650,6 +1691,10 @@ def main():
     kernel_t2 = event_ms(lambda: ft.fused_epoch(plan16, *bufs, xs, ys, lr,
                                                 TRAIN_STEP0, 1, drops),
                          warmup=2, trials=5)
+    mc_plan16 = train_plan(mc_one, bf16=True)
+    single16_t = event_ms(lambda: ft.fused_epoch(
+        mc_plan16, *mc_bufs, mc_xs, mc_ys, lr, TRAIN_STEP0, 1, mc_drops),
+        warmup=1, trials=3)
     rest_flops = train_rest_flops(plan16, EPOCH_STEPS)
     record(14, train16_launches['fused_train_bf16'], kernel_t, plain_scaled,
            train_flops(plan16, EPOCH_STEPS), moved,
@@ -1657,13 +1702,20 @@ def main():
            extra_s=rest_flops / peak_flops, members=MEMBERS,
            batch=TRAIN_BATCH, steps=EPOCH_STEPS, kernel_again=kernel_t2,
            plain_steps=PLAIN_BF16_STEPS, plain_measured=plain_t,
-           fp32_rest_flops=rest_flops,
-           library_autocast_measured=library_t,
+           fp32_rest_flops=rest_flops, single_net_mc_dropout_epoch=single16_t,
+           **cluster_row, library_autocast_measured=library_t,
            library_steps=PLAIN_TRAIN_STEPS,
            trainer_seconds_per_epoch=fit16_s / epochs,
            trainer_e2e_rows_per_s=train_rows / fit16_s)
-    kernels_bf16[-1].update(plain_steps=PLAIN_BF16_STEPS,
-                            library_steps=PLAIN_TRAIN_STEPS)
+    # the one-block bf16 form is gone: its row keeps the probe's fp32
+    # one-block epoch of the same plan, timed above, for the old design
+    kernels_bf16[-1].update(
+        plain_steps=PLAIN_BF16_STEPS, library_steps=PLAIN_TRAIN_STEPS,
+        **cluster_row,
+        share_of_bound=kernels_bf16[-1]['bound_ms'] / kernels_bf16[-1]['ms'],
+        ptxas=cluster_kernels(ptxas, 'fused_train_bf16'),
+        probe_one_block_fp32_ms=probe_t['median_ms'],
+        single_net_ms=single16_t['median_ms'])
 
     # 7. attribution: the probes' entry point (nnueehcs_tpu_torch.attrib),
     # both batteries at the flagship shape, every launch count at 0 just
@@ -1674,6 +1726,8 @@ def main():
     fwd = attrib.forward_battery(DEVICE, args.seed, ROWS, reps=TRIALS)
     trn = attrib.train_battery(DEVICE, args.seed, ATTRIB_STEPS,
                                reps=ATTRIB_TRAIN_REPS)
+    trn16 = attrib.train_battery(DEVICE, args.seed, ATTRIB_STEPS,
+                                 reps=ATTRIB_TRAIN_REPS, bf16=True)
     attrib_launches = read_launches()
     probes = [k['name'] for k in KERNELS[5:10]] + ['packed_forward_bf16']
     check(all(attrib_launches[name] > 0 for name in probes),
@@ -1725,6 +1779,14 @@ def main():
          train_budget=trn['budget'],
          train_batch_scaling_us_per_step={
              b: r['us_per_step'] for b, r in trn['batch_scaling'].items()},
+         train_batch_scaling_probe_us_per_step={
+             b: r['us_per_step']
+             for b, r in trn['batch_scaling_probe'].items()},
+         train_bf16_us_per_step={
+             'library fused_epoch':
+                 trn16['variants']['library fused_epoch']['us_per_step'],
+             **{b: r['us_per_step']
+                for b, r in trn16['batch_scaling'].items()}},
          plain_epoch=plain_t, library_epoch=library_t,
          library_chain=library_fwd,
          clocks_power=nvidia_smi('clocks.sm,power.draw,temperature.gpu'))

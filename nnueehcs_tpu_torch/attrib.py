@@ -10,19 +10,24 @@ built by this package's own builder (8 members, 5 inputs, 6 x [Linear 128 ->
 BatchNorm1d -> ReLU], Linear 128 -> 1, weights from ``--seed``)::
 
     python -m nnueehcs_tpu_torch.attrib {forward,train} [--seed N]
-        [--device cuda] [--rows N] [--steps N] [--reps N]
+        [--device cuda] [--rows N] [--steps N] [--reps N] [--bf16]
 
 Each variant is first held to its plain PyTorch version on the same inputs
-(and each form of the production math to the production kernel, bit for
-bit), then timed: CUDA-event medians over ``--reps`` passes (or epochs)
-after warm-ups, with the spread of the middle 60% and the variant's bound
-(fp32 operations over the card's peak, or bytes over its memory rate). It
-prints one JSON line per gate and per variant, then the decomposition
-lines: kernel 1 against its ``prod`` control, and kernel 3's per-step
-budget and its batch scaling. The TPU-only items of the probes are left
-out: the tile sweeps (the CUDA block is 64 rows, fixed by the register
-tiling) and the MXU identity transpose (the kernel writes feature-major
-outputs directly).
+(and each form of kernel 1's math to kernel 1, bit for bit; kernel 3's
+probe keeps the one-block form of its step, which the production kernel
+left for one thread-block cluster per member, so the training battery
+holds the production kernel to its plain version step by step and times
+the two forms side by side), then timed: CUDA-event medians over
+``--reps`` passes (or epochs) after warm-ups, with the spread of the
+middle 60% and the variant's bound (fp32 operations over the card's peak,
+or bytes over its memory rate). It prints one JSON line per gate and per
+variant, then the decomposition lines: kernel 1 against its ``prod``
+control, and the one-block form's per-step budget and the batch scaling
+of both forms; with ``--bf16`` the training battery runs kernel 3's bf16
+form (gates, epoch, batch scaling). The TPU-only items of the probes are
+left out: the tile sweeps (the CUDA block is 64 rows, fixed by the
+register tiling) and the MXU identity transpose (the kernel writes
+feature-major outputs directly).
 
 It runs on the card unless ``--device cpu`` is given; there the kernels'
 plain versions run, at small sizes, the gates only: a CPU time is no
@@ -525,9 +530,11 @@ def flip_reach(plan, flips):
 def stepwise_vs_plain(plan, bufs, xs, ys, lr, step0, seed, drops):
     """The training kernel against its plain version one step at a time,
     each step from the plain version's state, with both versions' ReLU
-    decisions recorded. Raises unless every element of theta, m and v that
-    differs by more than TOL_TRAIN lies in the reach of a decision the two
-    took differently (``flip_reach``), and sigma and the losses agree
+    decisions recorded and the l1 loss's sign decisions read from the
+    output bias (``loss_flips``). Raises unless every element of theta, m
+    and v that differs by more than TOL_TRAIN lies in the reach of a
+    decision the two took differently (``flip_reach``; a flipped loss
+    decision reaches its whole member), and sigma and the losses agree
     everywhere. Returns the counts and the largest errors, in and outside
     that reach. A bf16-mixed plan is held to the bf16 bars instead
     (:func:`stepwise_vs_plain_bf16`)."""
@@ -537,7 +544,8 @@ def stepwise_vs_plain(plan, bufs, xs, ys, lr, step0, seed, drops):
     state = [b.clone() for b in bufs]
     shape = (1, plan.num_members, plan.n_bn, plan.batch, ft.LANES)
     out = {'steps': xs.shape[0], 'decisions_per_step': int(np.prod(shape)),
-           'flips': 0, 'steps_with_flips': 0, 'over_tol': 0,
+           'flips': 0, 'steps_with_flips': 0, 'loss_flips': 0,
+           'steps_with_loss_flips': 0, 'over_tol': 0,
            'over_tol_outside_reach': 0, 'reach_share_max': 0.0,
            'max_abs_err_outside_reach': dict.fromkeys(TOL_TRAIN, 0.0),
            'max_abs_err_in_reach': dict.fromkeys(('theta', 'm', 'v'), 0.0)}
@@ -557,6 +565,10 @@ def stepwise_vs_plain(plan, bufs, xs, ys, lr, step0, seed, drops):
         out['flips'] += n_flips
         out['steps_with_flips'] += int(n_flips > 0)
         reach = flip_reach(plan, flips)
+        flipped = loss_flips(plan, state[1], got[1], want[1])
+        out['loss_flips'] += int(flipped.sum())
+        out['steps_with_loss_flips'] += int(bool(flipped.any()))
+        reach.view(plan.num_members, -1)[flipped] = True
         out['reach_share_max'] = max(out['reach_share_max'],
                                      float(reach.float().mean()))
         for name, g, w in zip(TOL_TRAIN, got, want):
@@ -578,7 +590,7 @@ def stepwise_vs_plain(plan, bufs, xs, ys, lr, step0, seed, drops):
         state = list(want[:4])
     check(out['over_tol_outside_reach'] == 0,
           f'fused_train: {out["over_tol_outside_reach"]} values off by more '
-          f'than {TOL_TRAIN} outside the reach of a ReLU flip: {out}')
+          f'than {TOL_TRAIN} outside the reach of a ReLU or loss flip: {out}')
     return out
 
 
@@ -722,12 +734,12 @@ def stepwise_vs_plain_bf16(plan, bufs, xs, ys, lr, step0, seed, drops):
 
 
 def train_problem(seed, device, batch=BATCH, steps=STEPS, separate=False,
-                  clip=CLIP):
-    """The flagship's plan and buffers for ``steps`` batches of ``batch``
-    rows, clipped at ``clip``: parameters from the builder (BatchNorm
-    shifted off 0 with ``separate``), Adam moments drawn small and
-    non-zero, and rows of 5 normal features with a smooth target, padded
-    as the trainer pads them.
+                  clip=CLIP, bf16=False):
+    """The flagship's plan (its bf16-mixed form with ``bf16``) and buffers
+    for ``steps`` batches of ``batch`` rows, clipped at ``clip``:
+    parameters from the builder (BatchNorm shifted off 0 with
+    ``separate``), Adam moments drawn small and non-zero, and rows of 5
+    normal features with a smooth target, padded as the trainer pads them.
     (From zero moments, Adam moves a BatchNorm-cancelled Linear bias by
     about lr a step on the sign of a rounding-level gradient, so two
     correct implementations part there at once.)"""
@@ -735,7 +747,7 @@ def train_problem(seed, device, batch=BATCH, steps=STEPS, separate=False,
     if separate:
         separate_relu(model, torch.Generator().manual_seed(seed + 1))
     plan = ft.plan_fused_train(model.net, MEMBERS, batch, loss='l1_loss',
-                               clip=clip)
+                               clip=clip, bf16=bf16)
     params, state = tensor_trees(model.net)
     theta = ft.pack_tree(plan, params, device)
     rng = np.random.default_rng(seed + 2)
@@ -826,126 +838,173 @@ def _train_gate(card, name, plan, bufs, xs, ys, kw):
     return rec
 
 
-def train_battery(device='cuda', seed=0, steps=None, reps=5):
-    """Gate and time kernel 3's probe on the flagship, ``steps`` steps of
-    batch 128 an epoch (default 500 on the card). Returns ``{'gates':
-    {...}, 'variants': {name: {...}}, 'budget': {...}, 'batch_scaling':
-    {...}}``; prints each as a JSON line."""
+def _equal_runs(name, first, again):
+    for k, g, w in zip(TOL_TRAIN, first, again):
+        _equal(f'{name} {k}', g, w)
+
+
+def train_battery(device='cuda', seed=0, steps=None, reps=5, bf16=False):
+    """Gate and time kernel 3 and its probe on the flagship, ``steps``
+    steps of batch 128 an epoch (default 500 on the card). The probe's
+    variants (``ablate_epoch``: the one-block form of the step, carved)
+    are held to their plain versions and timed beside the production
+    kernel (the cluster form, ``library fused_epoch``), which is held step
+    by step to its plain version at every batch of the batch scaling and
+    timed there too. With ``bf16`` the battery runs kernel 3's bf16 form
+    (the probe is fp32 only): its step-by-step gates at every batch, its
+    timed epoch (``library fused_epoch``) and its batch scaling. Returns
+    ``{'gates': {...}, 'variants': {name: {...}}, 'budget': {...},
+    'batch_scaling': {...}, 'batch_scaling_probe': {...}}``; prints each
+    as a JSON line."""
     card = _Card(resolve_device(device))
     dev = card.device
     steps = steps or (STEPS if card.on_card else CPU_STEPS)
-    # gates: every variant against the plain version on a network whose
-    # pre-ReLU values sit away from 0, over GATE_STEPS steps; gn_fused again
-    # with a clip that binds on every step, so that the clip scale carries
-    # its sum of squares
-    _, gplan, gbufs, gxs, gys = train_problem(seed, dev, steps=GATE_STEPS,
-                                              separate=True)
-    gates = {name: _train_gate(card, name, gplan, gbufs, gxs, gys, kw)
-             for name, kw in TRAIN_VARIANTS.items()}
-    name = f'gn_fused clip={BINDING_CLIP:g}'
-    gates[name] = _train_gate(card, name, *train_problem(
-        seed, dev, steps=GATE_STEPS, separate=True, clip=BINDING_CLIP)[1:],
-        {'gn_fused': True})
-    check(gates[name]['clip_binds_steps'] == GATE_STEPS,
-          f'{name}: the clip bound on only '
-          f'{gates[name]["clip_binds_steps"]} of {GATE_STEPS} steps')
-    # prod at each other batch that the batch scaling times: kernel 3 bit
-    # for bit over GATE_STEPS steps, and kernel 3 held to its plain epoch
-    # one step at a time. At these batches a separate_relu network too can
-    # put a pre-ReLU value within rounding of 0, so a value past TOL_TRAIN
-    # must lie in the reach of a ReLU decision the two took differently.
+    gates = {}
+    if not bf16:
+        # gates: every variant against the plain version on a network whose
+        # pre-ReLU values sit away from 0, over GATE_STEPS steps; gn_fused
+        # again with a clip that binds on every step, so that the clip scale
+        # carries its sum of squares
+        _, gplan, gbufs, gxs, gys = train_problem(seed, dev,
+                                                  steps=GATE_STEPS,
+                                                  separate=True)
+        gates = {name: _train_gate(card, name, gplan, gbufs, gxs, gys, kw)
+                 for name, kw in TRAIN_VARIANTS.items()}
+        name = f'gn_fused clip={BINDING_CLIP:g}'
+        gates[name] = _train_gate(card, name, *train_problem(
+            seed, dev, steps=GATE_STEPS, separate=True, clip=BINDING_CLIP)[1:],
+            {'gn_fused': True})
+        check(gates[name]['clip_binds_steps'] == GATE_STEPS,
+              f'{name}: the clip bound on only '
+              f'{gates[name]["clip_binds_steps"]} of {GATE_STEPS} steps')
+    # at each batch of the batch scaling: kernel 3 (its bf16 form with
+    # bf16) held to its plain epoch one step at a time, where a value past
+    # TOL_TRAIN must lie in the reach of a ReLU or loss decision the two
+    # took differently (at these batches a separate_relu network too can
+    # put a pre-ReLU value within rounding of 0), and the probe's prod,
+    # the one-block form, bit for bit with the same bodies replayed as a
+    # CUDA graph (the probe and kernel 3 no longer share code)
+    # (the bf16 form step by step on the flagship as built, as the card
+    # tests hold it: its bars attribute the flipped decisions)
+    form = 'kernel 3b' if bf16 else 'kernel 3'
     for b in BATCHES:
-        if b == BATCH:               # the prod gate above
-            continue
-        name = f'prod B={b}'
+        name = f'{form} B={b}'
         _, bplan, bbufs, bxs, bys = train_problem(
-            seed, dev, batch=b, steps=GATE_STEPS, separate=True)
-        got, want = (fn(bplan, *[t.clone() for t in bbufs], bxs, bys, LR, 0)
-                     for fn in (ae.ablate_epoch, ft.fused_epoch))
-        for k, g, w in zip(TOL_TRAIN, got, want):
-            _equal(f'ablate_epoch {name} {k}', g, w)
-        steps_ = stepwise_vs_plain(bplan, bbufs, bxs, bys, LR, 0, 0, None)
-        gates[name] = {'bit_for_bit_with_kernel_3': True, 'stepwise': steps_}
+            seed, dev, batch=b, steps=GATE_STEPS, separate=not bf16,
+            bf16=bf16)
+        rec = {'stepwise': stepwise_vs_plain(bplan, bbufs, bxs, bys, LR, 0,
+                                             0, None)}
+        if not bf16:
+            _equal_runs(f'ablate_epoch prod B={b}', *(
+                ae.ablate_epoch(bplan, *[t.clone() for t in bbufs], bxs, bys,
+                                LR, 0, unroll=u) for u in (1, 2)))
+            rec['probe_prod_bit_for_bit_with_its_graph'] = True
+        gates[name] = rec
         emit(battery='train', gate=name, steps=GATE_STEPS, batch=b,
-             device=card.kind, bit_for_bit_with_kernel_3=True,
-             stepwise_vs_plain=steps_)
-    # at the timed length, on the flagship as built: prod against kernel 3
-    # itself, and each timed unroll and opt_chunk against the run without
-    # them (they change how the kernel runs, not its sums), bit for bit
-    model, plan, bufs, xs, ys = train_problem(seed, dev, steps=steps)
+             device=card.kind, **{k: v for k, v in rec.items()})
+    # at the timed length, on the flagship as built: kernel 3 and the
+    # probe's prod each twice from the same buffers, bit for bit (fixed
+    # summation orders, no float atomics), and each timed unroll and
+    # opt_chunk against the run without them (they change how the probe
+    # runs, not its sums), bit for bit
+    model, plan, bufs, xs, ys = train_problem(seed, dev, steps=steps,
+                                              bf16=bf16)
 
     def epoch(fn=ae.ablate_epoch, **kw):
         return fn(plan, *[b.clone() for b in bufs], xs, ys, LR, 0, **kw)
 
-    runs = {False: epoch()}
-    for k, g, w in zip(TOL_TRAIN, runs[False], epoch(ft.fused_epoch)):
-        _equal(f'ablate_epoch prod {k}', g, w)
-    gates['prod_vs_kernel_3'] = {'steps': steps, 'bit_for_bit': True}
-    emit(battery='train', gate='prod_vs_kernel_3', steps=steps,
+    _equal_runs(f'{form} repeat', epoch(ft.fused_epoch),
+                epoch(ft.fused_epoch))
+    gates[f'{form} repeat'] = {'steps': steps, 'bit_for_bit': True}
+    emit(battery='train', gate=f'{form} repeat', steps=steps,
          bit_for_bit=True, device=card.kind)
-    for name, kw in TRAIN_VARIANTS.items():
-        if 'unroll' not in kw and 'opt_chunk' not in kw:
-            continue
-        fused = kw.get('gn_fused', False)
-        if fused not in runs:
-            runs[fused] = epoch(gn_fused=True)
-        for k, g, w in zip(TOL_TRAIN, epoch(**kw), runs[fused]):
-            _equal(f'ablate_epoch {name} {k}', g, w)
-        against = 'gn_fused' if fused else 'prod'
-        gates[f'{name}_vs_{against}'] = {'steps': steps, 'bit_for_bit': True}
-        emit(battery='train', gate=f'{name}_vs_{against}', steps=steps,
+    if not bf16:
+        runs = {False: epoch()}
+        _equal_runs('ablate_epoch prod repeat', runs[False], epoch())
+        gates['prod repeat'] = {'steps': steps, 'bit_for_bit': True}
+        emit(battery='train', gate='prod repeat', steps=steps,
              bit_for_bit=True, device=card.kind)
-    out = {'gates': gates, 'variants': {}, 'budget': {}, 'batch_scaling': {}}
+        for name, kw in TRAIN_VARIANTS.items():
+            if 'unroll' not in kw and 'opt_chunk' not in kw:
+                continue
+            fused = kw.get('gn_fused', False)
+            if fused not in runs:
+                runs[fused] = epoch(gn_fused=True)
+            _equal_runs(f'ablate_epoch {name}', epoch(**kw), runs[fused])
+            against = 'gn_fused' if fused else 'prod'
+            gates[f'{name}_vs_{against}'] = {'steps': steps,
+                                             'bit_for_bit': True}
+            emit(battery='train', gate=f'{name}_vs_{against}', steps=steps,
+                 bit_for_bit=True, device=card.kind)
+    out = {'gates': gates, 'variants': {}, 'budget': {}, 'batch_scaling': {},
+           'batch_scaling_probe': {}}
     if not card.on_card:
-        emit(battery='train', device='cpu', steps=steps,
+        emit(battery='train', device='cpu', steps=steps, bf16=bf16,
              note='plain versions only: no device time on the CPU')
         return out
 
     rows = steps * plan.batch
 
     def record(name, run, work, plan_=plan):
+        peak, extra_s = card.flops, 0.0
+        if plan_.bf16:     # products at the bf16 peak, the rest fp32
+            peak = card.bf16_flops
+            extra_s = train_rest_flops(plan_, steps) / card.flops
         t = event_ms(run, 1, reps)
-        bound_ms, bound_by = bound(*work, card.flops, card.bytes)
+        bound_ms, bound_by = bound(*work, peak, card.bytes, extra_s=extra_s)
         ms = t['median_ms']
         emit(battery='train', variant=name, batch=plan_.batch, steps=steps,
-             ms=ms, spread_pct=t['spread_pct'], us_per_step=1e3 * ms / steps,
+             bf16=plan_.bf16, ms=ms, spread_pct=t['spread_pct'],
+             us_per_step=1e3 * ms / steps,
              rows_per_s=steps * plan_.batch / ms * 1e3, bound_ms=bound_ms,
              bound_by=bound_by, share_of_bound=bound_ms / ms,
              device=card.kind)
         return dict(t, flops=work[0], bytes=work[1], bound_ms=bound_ms,
                     bound_by=bound_by, us_per_step=1e3 * ms / steps)
 
+    # kernel 3 (the cluster form) and the probe's one-block prod in turns
+    kernel = lambda: ft.fused_epoch(plan, *bufs, xs, ys, LR, 0)  # noqa: E731
     out['variants']['library fused_epoch'] = record(
-        'library fused_epoch',
-        lambda: ft.fused_epoch(plan, *bufs, xs, ys, LR, 0),
-        _train_work(plan, steps, 'prod'))
-    for name, kw in TRAIN_VARIANTS.items():
-        out['variants'][name] = record(
-            name, lambda kw=kw: ae.ablate_epoch(plan, *bufs, xs, ys, LR, 0,
-                                                **kw),
-            _train_work(plan, steps, kw.get('mode', 'prod')))
-    us = {k: r['us_per_step'] for k, r in out['variants'].items()}
-    p = us['prod']
-    out['budget'] = {
-        'prod_us_per_step': p,
-        'launch_floor_us': us['empty'],
-        'one_member_forward_us': us['fwd1'] - us['empty'],
-        'loss_sweep_us': us['no_bwd'],
-        'backward_us': us['no_opt'] - us['no_bwd'],
-        'optimizer_us': p - us['no_opt'],
-        'graph_saves_us': {k: p - us[k] for k in ('unroll2', 'unroll4')},
-        'share_of_prod': {k: us[k] / p for k in
-                          ('empty', 'fwd1', 'no_bwd', 'no_opt')}}
-    emit(battery='train', budget=out['budget'], steps=steps, rows=rows,
-         nvidia_smi=card.smi,
-         clocks_power=nvidia_smi('clocks.sm,power.draw,temperature.gpu'))
+        'library fused_epoch', kernel, _train_work(plan, steps, 'prod'))
+    if not bf16:
+        for name, kw in TRAIN_VARIANTS.items():
+            out['variants'][name] = record(
+                name, lambda kw=kw: ae.ablate_epoch(plan, *bufs, xs, ys, LR,
+                                                    0, **kw),
+                _train_work(plan, steps, kw.get('mode', 'prod')))
+        out['variants']['library fused_epoch again'] = record(
+            'library fused_epoch again', kernel,
+            _train_work(plan, steps, 'prod'))
+        us = {k: r['us_per_step'] for k, r in out['variants'].items()}
+        p = us['prod']
+        out['budget'] = {
+            'prod_us_per_step': p,
+            'kernel_3_us_per_step': min(us['library fused_epoch'],
+                                        us['library fused_epoch again']),
+            'launch_floor_us': us['empty'],
+            'one_member_forward_us': us['fwd1'] - us['empty'],
+            'loss_sweep_us': us['no_bwd'],
+            'backward_us': us['no_opt'] - us['no_bwd'],
+            'optimizer_us': p - us['no_opt'],
+            'graph_saves_us': {k: p - us[k] for k in ('unroll2', 'unroll4')},
+            'share_of_prod': {k: us[k] / p for k in
+                              ('empty', 'fwd1', 'no_bwd', 'no_opt')}}
+        emit(battery='train', budget=out['budget'], steps=steps, rows=rows,
+             nvidia_smi=card.smi,
+             clocks_power=nvidia_smi('clocks.sm,power.draw,temperature.gpu'))
     for b in BATCHES:
         _, bplan, bbufs, bxs, bys = train_problem(seed, dev, batch=b,
-                                                  steps=steps)
+                                                  steps=steps, bf16=bf16)
+        work = _train_work(bplan, steps, 'prod')
         out['batch_scaling'][b] = record(
-            f'prod B={b}',
-            lambda: ae.ablate_epoch(bplan, *bbufs, bxs, bys, LR, 0),
-            _train_work(bplan, steps, 'prod'), plan_=bplan)
+            f'{form} B={b}',
+            lambda: ft.fused_epoch(bplan, *bbufs, bxs, bys, LR, 0), work,
+            plan_=bplan)
+        if not bf16:
+            out['batch_scaling_probe'][b] = record(
+                f'prod B={b}',
+                lambda: ae.ablate_epoch(bplan, *bbufs, bxs, bys, LR, 0),
+                work, plan_=bplan)
     return out
 
 
@@ -964,6 +1023,9 @@ def main(argv=None):
                              f'the card, {CPU_STEPS} on the CPU)')
     parser.add_argument('--reps', type=int, default=None,
                         help='timed passes (forward 10) or epochs (train 5)')
+    parser.add_argument('--bf16', action='store_true',
+                        help="train: kernel 3's bf16 form (its gates, "
+                             'epoch and batch scaling; the probe is fp32)')
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
     if device.type == 'cuda':
@@ -971,7 +1033,8 @@ def main(argv=None):
     if args.battery == 'forward':
         forward_battery(device, args.seed, args.rows, args.reps or 10)
     else:
-        train_battery(device, args.seed, args.steps, args.reps or 5)
+        train_battery(device, args.seed, args.steps, args.reps or 5,
+                      args.bf16)
     return 0
 
 

@@ -69,12 +69,12 @@ SIGNATURES = {
          ctypes.c_double, _P, _P]),
     'nnueehcs_fused_train_f32': (
         ctypes.c_int,
-        [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_float)]
-        + [_P] * 15),
+        [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_float),
+         ctypes.POINTER(ctypes.c_longlong)] + [_P] * 15),
     'nnueehcs_fused_train_bf16': (
         ctypes.c_int,
-        [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_float)]
-        + [_P] * 15),
+        [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_float),
+         ctypes.POINTER(ctypes.c_longlong)] + [_P] * 15),
     'nnueehcs_fused_train_scratch_floats': (
         ctypes.c_longlong, [ctypes.c_int, ctypes.c_int, ctypes.c_int]),
     'nnueehcs_ablate_chain_f32': (
@@ -108,13 +108,16 @@ def find_nvcc() -> str:
         f'({cuda_home}); the CUDA kernels cannot be built')
 
 
-def sources() -> list[Path]:
-    return sorted(CSRC.glob('*.cu'))
+def sources(names=None) -> list[Path]:
+    """The ``csrc/*.cu`` files, or those named in ``names``."""
+    found = sorted(CSRC.glob('*.cu'))
+    return found if names is None else [p for p in found if p.name in names]
 
 
-def _library_path() -> Path:
-    digest = hashlib.sha256(' '.join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in sorted([*sources(), *CSRC.glob('*.cuh')]):
+def _library_path(flags=(), names=None) -> Path:
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS + LINK_FLAGS
+                                     + tuple(flags)).encode())
+    for src in sorted([*sources(names), *CSRC.glob('*.cuh')]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f'libnnueehcs_kernels-{digest.hexdigest()[:16]}.so'
@@ -144,22 +147,24 @@ def _run_all(cmds):
     return ''.join(outputs)
 
 
-def build() -> BuildInfo:
-    """Compile every ``csrc/*.cu`` file, one nvcc process each, all at
-    once, and link them into one library, unless the library for these
-    sources already exists."""
-    path = _library_path()
+def build(flags=(), names=None) -> BuildInfo:
+    """Compile every ``csrc/*.cu`` file (or those named in ``names``), one
+    nvcc process each, all at once, with ``flags`` added (a ``-D`` define),
+    and link them into one library, unless the library for these sources
+    and flags already exists."""
+    path = _library_path(flags, names)
     log_path = path.with_suffix('.log')
     if path.is_file():
         log = log_path.read_text() if log_path.is_file() else ''
         return BuildInfo(path, 0.0, log)
     nvcc = find_nvcc()
+    srcs = sources(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     start = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR, prefix='.tmp-') as tmp:
-        objects = [os.path.join(tmp, src.stem + '.o') for src in sources()]
-        log = _run_all([[nvcc, *NVCC_FLAGS, '-c', '-o', obj, str(src)]
-                        for src, obj in zip(sources(), objects)])
+        objects = [os.path.join(tmp, src.stem + '.o') for src in srcs]
+        log = _run_all([[nvcc, *NVCC_FLAGS, *flags, '-c', '-o', obj,
+                         str(src)] for src, obj in zip(srcs, objects)])
         lib = os.path.join(tmp, path.name)
         log += _run_all([[nvcc, *LINK_FLAGS, '-o', lib, *objects]])
         seconds = time.perf_counter() - start
@@ -168,15 +173,24 @@ def build() -> BuildInfo:
     return BuildInfo(path, seconds, log)
 
 
-@functools.lru_cache(maxsize=None)
-def _load() -> tuple[ctypes.CDLL, BuildInfo]:
-    info = build()
+def load(flags=(), names=None) -> tuple[ctypes.CDLL, BuildInfo]:
+    """Build (if needed) and load a library of ``names`` compiled with
+    ``flags``, its exported launchers typed; a variant beside the
+    library that :func:`library` loads (for example the training kernel
+    compiled for another cluster size)."""
+    info = build(flags, names)
     lib = ctypes.CDLL(str(info.path))
     for name, (restype, argtypes) in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.restype = restype
-        fn.argtypes = argtypes
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.restype = restype
+            fn.argtypes = argtypes
     return lib, info
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> tuple[ctypes.CDLL, BuildInfo]:
+    return load()
 
 
 def library() -> ctypes.CDLL:

@@ -12,70 +12,65 @@
 // kernel's stateless lowbias32 hash of (epoch seed, step, member, slot,
 // row, column), computed here in uint32.
 //
-// What bounds it on an H100: operations, and this first form is far from
-// the bound. A flagship step (8 members, 7 x 128 MLP, batch 128) is one
-// forward, the weight gradients and the input gradients: 5.1e8 fp32 FLOP,
-// 7.6 us at 67 TFLOP/s. The TPU kernel recomputes each member's forward in
-// its backward because VMEM cannot hold every member's activations; here
-// the loss sweep saves them in a per-member scratch in device memory. The
-// parameters and both moments (3.3 MB each at the flagship) stay resident
-// in the 50 MB L2 for the whole epoch.
+// What bounds it on an H100: operations. A flagship step (8 members, 7 x 128
+// MLP, batch 128) is one forward, the weight gradients and the input
+// gradients: 5.1e8 fp32 FLOP, 7.6 us at 67 TFLOP/s. The parameters and both
+// moments (3.3 MB each at the flagship) stay resident in the 50 MB L2 for
+// the whole epoch.
 //
-// The design, simple and right first:
-// - one step is two or three launches on the caller's stream: a loss sweep
-//   (joint mean only: one block per member runs its forward with the EMA,
-//   saves what the backward needs and writes its prediction), the member
-//   step (one block per member: in single-sweep mode the member's forward;
-//   the joint loss and gradient from all members' predictions, or the
-//   member's own; the backward into g; the member's sum of g^2), and the
-//   optimizer (a grid over the flat buffers; every block adds the
-//   members' partial sums in member order, so the clip scale is the same
-//   everywhere and the run is deterministic: no float atomics);
-// - a block of 512 threads keeps one member's activations in a per-member
-//   scratch in device memory (L2-resident) and runs every product as a
-//   block GEMM: 128-row tiles, both operands staged through shared memory
-//   32 reduction steps at a time, each thread a 4-row x 8-column register
-//   tile of true fp32 FMAs (no TF32);
-// - column statistics (BatchNorm mean and variance, the BatchNorm backward
-//   sums, bias gradients) are sums over the batch per column in a fixed
-//   order;
-// - elementwise steps round each product and sum where the plain version
-//   does (__fmul_rn/__fadd_rn), so nvcc cannot contract them into FMAs;
-//   sqrt and division are IEEE, expf/logf/log1pf the accurate ones.
-// One block per member uses 8 of the 132 SMs at the flagship and one for a
-// single net; spreading a member over a thread-block cluster is later work.
-//
-// The device code is in fused_train.cuh, shared with the attribution probe
-// (ablate_train.cu); this file holds only the entry that drives an epoch.
-#include "fused_train.cuh"
+// The design (fused_train_cluster.cuh): one thread-block cluster per
+// member, each block owning a slice of every layer's lanes, activations
+// exchanged through distributed shared memory, weight slices prefetched
+// with cp.async; one step is two or three launches on the caller's stream
+// (the joint-mean loss sweep, the member step, adam_kernel). The first form
+// ran each member on one block of 512 threads; its bodies stay in
+// fused_train.cuh as the attribution probe's device code (ablate_train.cu),
+// and this file compiles none of its step kernels.
+#define NNUEEHCS_NO_FP32_STEP
+#include "fused_train_cluster.cuh"
 
 extern "C" {
 
-// Floats of one member's scratch for batch B, n_bn BatchNorm slots and
-// n_drop dropout slots; the caller allocates M of them.
+// Floats of one member's scratch of the one-block form (the attribution
+// probe's) for batch B, n_bn BatchNorm slots and n_drop dropout slots; the
+// caller allocates M of them.
 long long nnueehcs_fused_train_scratch_floats(int B, int n_bn, int n_drop) {
   return scratch_floats(B, n_bn, n_drop);
 }
 
-// Run S training steps on `stream`; returns cudaGetLastError() (0 on
-// success). iconf/fconf are host arrays in the order of the int and float
-// enums of fused_train.cuh. The caller checks the shapes (theta/m/v/g:
+// Run S training steps on `stream`; returns a cudaError_t (0 on success).
+// iconf/fconf are host arrays in the order of the int and float enums of
+// fused_train.cuh, layout the host array of fused_train.py's
+// LAYOUT_FIELDS (train_layout). The caller checks the shapes (theta/m/v/g:
 // (M*slab_rows, 128); sigma: (M*sig_rows, 128); xs: (S, B, in_pad); ys:
 // (S, B, out_pad); lins: (n_lins, 12) int32; drops: max(n_drop, 1);
-// scratch: M * scratch_floats; preds: (M, B, 128); small: 2M floats),
+// scratch: M * member_floats; preds: (M, B, 128); small: 2M floats),
 // zeroes g, and keeps every buffer fp32, contiguous and on the device.
 // `signs` is null, or (S, M, n_bn, B, 128) bytes that receive each ReLU
 // decision of the backward (1 where the pre-ReLU value is > 0).
 int nnueehcs_fused_train_f32(const long long* iconf, const float* fconf,
-                             float* theta, float* m, float* v, float* sigma,
-                             float* g, const float* xs, const float* ys,
-                             float* losses, const int* lins, const float* drops,
-                             float* scratch, float* preds, float* small,
-                             unsigned char* signs, void* stream) {
+                             const long long* layout, float* theta, float* m,
+                             float* v, float* sigma, float* g, const float* xs,
+                             const float* ys, float* losses, const int* lins,
+                             const float* drops, float* scratch, float* preds,
+                             float* small, unsigned char* signs,
+                             void* stream) {
   const Args A = make_args(iconf, fconf, theta, m, v, sigma, g, xs, ys, losses,
                            lins, drops, scratch, preds, small, signs);
-  return run_epoch<loss_sweep_kernel, member_step_kernel>(
-      A, static_cast<cudaStream_t>(stream));
+  return run_cluster_epoch<false>(A, layout,
+                                  static_cast<cudaStream_t>(stream));
 }
+
+#ifdef NNUEEHCS_TRAIN_STAMPS
+// The phase stamps of the epochs since the last call
+// (tools/train_step_phases.py), which it then clears.
+int nnueehcs_train_stamps(unsigned long long* out) {
+  void* at = nullptr;
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_stamps, sizeof(g_stamps));
+  if (err == cudaSuccess) err = cudaGetSymbolAddress(&at, g_stamps);
+  if (err == cudaSuccess) err = cudaMemset(at, 0, sizeof(g_stamps));
+  return static_cast<int>(err);
+}
+#endif
 
 }  // extern "C"

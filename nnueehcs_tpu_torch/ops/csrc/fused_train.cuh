@@ -1,20 +1,22 @@
-// Device code of the fused whole-epoch training kernel (kernel 3): shared by
-// fused_train.cu, the production entry, and ablate_train.cu, the attribution
-// probe of the same kernel, so the probe's control runs this very code.
+// Device code of the one-block form of the fused whole-epoch training
+// kernel (kernel 3): each member's step on one block of 512 threads, its
+// activations in a per-member scratch in device memory. The attribution
+// probe (ablate_train.cu) runs these bodies; the production kernel
+// (fused_train.cu, fused_train_bf16.cu) is the cluster form in
+// fused_train_cluster.cuh, which takes from this file only the
+// configuration enums, Args, the dropout hash, the optimizer (adam_step,
+// adam_kernel) and its launch grid.
 //
-// What it computes, what bounds it and how it is laid out: see
-// fused_train.cu. One step is two or three launches of the kernels at the
-// end of this file (loss_sweep_kernel, member_step_kernel, adam_kernel);
-// each is a thin shell around a __forceinline__ body (loss_sweep,
-// member_step, adam_step) that the probe's variants reuse.
+// One step of this form is two or three launches of the kernels at the end
+// of this file (loss_sweep_kernel, member_step_kernel, adam_kernel); each
+// is a thin shell around a __forceinline__ body (loss_sweep, member_step,
+// adam_step) that the probe's variants reuse.
 //
 // Everything here has internal linkage (an unnamed namespace): each .cu file
 // that includes it compiles its own copy.
 //
-// The bodies are templates on their shared-memory type: with Smem they run
-// the fp32 block_gemm below; with fused_train_bf16.cuh's SmemBf16 the same
-// bodies run its bf16 block_gemm overload (found by argument-dependent
-// lookup when they are instantiated), and nothing else changes.
+// The bodies are templates on their shared-memory type (Smem, for the fp32
+// block_gemm below).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -665,10 +667,11 @@ inline Args make_args(const long long* iconf, const float* fconf, float* theta,
   return A;
 }
 
-// The production step: loss_sweep_kernel (joint mean only), member_step_kernel
+// The one-block step: loss_sweep_kernel (joint mean only), member_step_kernel
 // and adam_kernel, one block per member for the first two. A file that
-// launches only another form's step (fused_train_bf16.cu) defines
-// NNUEEHCS_NO_FP32_STEP first, so its library holds no unlaunched copy.
+// launches only the cluster form's step (fused_train.cu,
+// fused_train_bf16.cu) defines NNUEEHCS_NO_FP32_STEP first, so its library
+// holds no unlaunched copy.
 #ifndef NNUEEHCS_NO_FP32_STEP
 __global__ void __launch_bounds__(kThreads, 1) loss_sweep_kernel(Args A, int step) {
   __shared__ __align__(16) Smem sm;

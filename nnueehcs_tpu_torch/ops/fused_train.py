@@ -29,11 +29,15 @@ so the two packages draw identical masks.
 
 :func:`fused_epoch` is the entry point: on CUDA tensors it launches the
 hand-written kernel (``csrc/fused_train.cu``, or for a bf16-mixed plan its
-bf16 form ``csrc/fused_train_bf16.cu``), on CPU tensors it runs
-:func:`fused_epoch_reference`, which does the kernel's arithmetic step by
-step in tensor ops. It never falls back from one to the other. Both update
-``theta``, ``m``, ``v`` and ``sigma`` in place (the JAX version donates
-them).
+bf16 form ``csrc/fused_train_bf16.cu``, both on
+``csrc/fused_train_cluster.cuh``: one thread-block cluster per member), on
+CPU tensors it runs :func:`fused_epoch_reference`, which does the kernel's
+arithmetic step by step in tensor ops. It never falls back from one to the
+other. Both update ``theta``, ``m``, ``v`` and ``sigma`` in place (the JAX
+version donates them). :func:`train_layout` is the one place that decides
+how the kernel lays a plan out on the card (blocks per member, lanes per
+block, whether activations stay in shared memory, shared-memory bytes,
+threads, the scratch offsets); the wrapper passes it to the kernel.
 """
 from __future__ import annotations
 
@@ -639,9 +643,10 @@ def kernel_config(plan: FusedTrainPlan, S: int, lr, step0, seed,
 
 
 def kernel_buffers(lib, plan: FusedTrainPlan, theta) -> dict:
-    """The device buffers the training kernels take besides the caller's:
-    the block table, the per-member scratch, the zeroed gradient, the loss
-    sweep's predictions and the terms/partials pair."""
+    """The device buffers of the one-block form of the step, which the
+    attribution probe (``csrc/ablate_train.cu``) runs, besides the
+    caller's: the block table, the per-member scratch, the zeroed gradient,
+    the loss sweep's predictions and the terms/partials pair."""
     M, B, device = plan.num_members, plan.batch, theta.device
     return {
         'lins': lin_table(plan, device),
@@ -651,6 +656,132 @@ def kernel_buffers(lib, plan: FusedTrainPlan, theta) -> dict:
         'preds': torch.empty((M, B, LANES), dtype=torch.float32,
                              device=device),
         'small': torch.zeros(2 * M, dtype=torch.float32, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# the kernel's launch layout (csrc/fused_train_cluster.cuh)
+# ---------------------------------------------------------------------------
+# blocks per member's thread-block cluster: 8 is the portable cluster size;
+# the kernel is compiled for this one value (NNUEEHCS_TRAIN_CLUSTER)
+CLUSTER = 8
+THREADS = 256
+X_STRIDE = LANES + 4          # floats per row of an exchanged activation
+SMEM_LIMIT = 232_448          # dynamic shared memory a block may use (H100)
+LAYOUT_FIELDS = ('cluster', 'lanes', 'threads', 'resident', 'smem_bytes',
+                 'out_blocks', 'x_stride', 'w_slot', 'smem_x', 'smem_d',
+                 'smem_w', 'smem_red', 'member_floats', 'scratch_x',
+                 'block_floats', 'scratch_blocks', 'scratch_d', 'scratch_zh',
+                 'scratch_inv')
+
+
+def _pad4(v: int) -> int:
+    return -(-v // 4) * 4
+
+
+def red_floats(lanes: int, threads: int = THREADS) -> int:
+    """Floats of a block's reduction area: four partial column sums per
+    thread, four column sums and eight lane parameters per lane, one sum
+    per warp, and the two values a block hands its cluster (loss terms, sum
+    of g^2; eight reserved), padded."""
+    return _pad4(4 * threads + 12 * lanes + threads // 32 + 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainLayout:
+    """How the training kernel lays a plan out on the card: each member is
+    one thread-block cluster of ``cluster`` blocks, block ``r`` owning lanes
+    ``[r * lanes, (r + 1) * lanes)`` of every block's output. Offsets are in
+    floats; -1 marks a region the layout does not use.
+
+    Resident (the whole batch's exchanged activations fit): two ``(batch,
+    x_stride)`` exchange buffers at ``smem_x`` and the block's own-lane
+    buffers ``(batch, lanes)`` at ``smem_d`` (activations or gradients d,
+    the backward's block input a, and two slots into which the backward
+    copies the x-hat it reads) live in shared memory, and blocks write
+    their slices into every peer's buffer (distributed shared memory).
+    Otherwise the exchange buffers and d and a live in the member's
+    scratch in device memory (``scratch_x``; ``scratch_d`` in each block's
+    region) and the backward reads the x-hat where the forward left it.
+    Every layout has the weight ring (two slots of ``w_slot``) at
+    ``smem_w`` and the reduction area at ``smem_red``; each block's scratch
+    region (``block_floats`` from ``scratch_blocks``) holds the x-hat of its
+    lanes per BatchNorm (``scratch_zh``) and their 1/sigma
+    (``scratch_inv``)."""
+    cluster: int
+    lanes: int
+    threads: int
+    resident: bool
+    smem_bytes: int
+    out_blocks: int
+    x_stride: int
+    w_slot: int
+    smem_x: int
+    smem_d: int
+    smem_w: int
+    smem_red: int
+    member_floats: int
+    scratch_x: int
+    block_floats: int
+    scratch_blocks: int
+    scratch_d: int
+    scratch_zh: int
+    scratch_inv: int
+
+    def lane_ranges(self):
+        """The lanes each block of a cluster owns, by rank."""
+        return [(r * self.lanes, (r + 1) * self.lanes)
+                for r in range(self.cluster)]
+
+    def computes_last_layer(self, rank: int) -> bool:
+        """Block ``rank`` owns lanes below the plan's ``out_pad``: only such
+        blocks run the last layer's products and the loss."""
+        return rank < self.out_blocks
+
+    def sum_order(self, members: int):
+        """The order in which the per-block loss terms and sums of g^2 are
+        added: each cluster's blocks in rank order into its member's sum,
+        the members' sums in member order."""
+        return [(m, r) for m in range(members) for r in range(self.cluster)]
+
+    def ints(self):
+        """The layout as the kernel's C entries take it (LAYOUT_FIELDS)."""
+        return [int(getattr(self, f)) for f in LAYOUT_FIELDS]
+
+
+def train_layout(plan: FusedTrainPlan, cluster: int = CLUSTER) -> TrainLayout:
+    """The launch layout of ``plan``: ``cluster`` blocks of THREADS threads
+    per member, ``128 / cluster`` lanes a block, activations resident in
+    shared memory exactly where the resident carve-up fits in SMEM_LIMIT
+    bytes, and the scratch offsets in device memory."""
+    if LANES % cluster or (LANES // cluster) % 8:
+        raise ValueError(f'cluster {cluster}: lanes per block must be a '
+                         f'multiple of 8')
+    L, B = LANES // cluster, plan.batch
+    w_slot = L * X_STRIDE          # >= the forward slice, 128 x L
+    ring, red = 2 * w_slot, red_floats(L)
+    x_floats = 2 * B * X_STRIDE
+    resident = 4 * (x_floats + 4 * B * L + ring + red) <= SMEM_LIMIT
+    own = (4 if resident else 2) * B * L
+    if resident:
+        smem_x, smem_d = 0, x_floats
+        smem_w = smem_d + own
+    else:
+        smem_x = smem_d = -1
+        smem_w = 0
+    smem_red = smem_w + ring
+    d = 0 if resident else own
+    zh = plan.n_bn * B * L
+    block_floats = _pad4(d + zh + plan.n_bn * L)
+    scratch_blocks = 0 if resident else x_floats
+    return TrainLayout(
+        cluster=cluster, lanes=L, threads=THREADS, resident=resident,
+        smem_bytes=4 * (smem_red + red), out_blocks=-(-plan.out_pad // L),
+        x_stride=X_STRIDE, w_slot=w_slot, smem_x=smem_x, smem_d=smem_d,
+        smem_w=smem_w, smem_red=smem_red,
+        member_floats=scratch_blocks + cluster * block_floats,
+        scratch_x=-1 if resident else 0, block_floats=block_floats,
+        scratch_blocks=scratch_blocks, scratch_d=-1 if resident else 0,
+        scratch_zh=d, scratch_inv=d + zh)
 
 
 def _check_buffers(plan: FusedTrainPlan, theta, m, v, sigma, xs, ys):
@@ -684,6 +815,44 @@ def _check_signs(plan: FusedTrainPlan, signs, S, device):
                          f'{want} on {device}')
 
 
+def launch_epoch(lib, plan: FusedTrainPlan, layout: TrainLayout, theta, m,
+                 v, sigma, xs, ys, lr, step0, seed=0, drops=None,
+                 signs=None):
+    """Enqueue one epoch of the training kernel from ``lib`` (the kernel
+    library, compiled for ``layout.cluster``) on CUDA buffers, as
+    :func:`fused_epoch` does, without its checks or its launch count;
+    raises if the launch fails."""
+    device = theta.device
+    S = xs.shape[0]
+    losses = torch.empty(S, dtype=torch.float32, device=device)
+    if S == 0:
+        return theta, m, v, sigma, losses
+    iconf, fconf = kernel_config(plan, S, lr, step0, seed, plan.single_sweep)
+    lay = (ctypes.c_longlong * len(LAYOUT_FIELDS))(*layout.ints())
+    M, B = plan.num_members, plan.batch
+    g = torch.zeros_like(theta)
+    scratch = torch.empty(M * layout.member_floats, dtype=torch.float32,
+                          device=device)
+    preds = torch.empty((M, B, LANES), dtype=torch.float32, device=device)
+    small = torch.zeros(2 * M, dtype=torch.float32, device=device)
+    lins = lin_table(plan, device)
+    drops = _drop_tensor(plan, drops, device)
+    entry = lib.nnueehcs_fused_train_bf16 if plan.bf16 \
+        else lib.nnueehcs_fused_train_f32
+    with torch.cuda.device(device):
+        err = entry(
+            iconf, fconf, lay, theta.data_ptr(), m.data_ptr(), v.data_ptr(),
+            sigma.data_ptr(), g.data_ptr(), xs.data_ptr(), ys.data_ptr(),
+            losses.data_ptr(), lins.data_ptr(), drops.data_ptr(),
+            scratch.data_ptr(), preds.data_ptr(), small.data_ptr(),
+            None if signs is None else signs.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'fused training kernel launch failed: CUDA error '
+                           f'{err}')
+    return theta, m, v, sigma, losses
+
+
 def fused_epoch(plan: FusedTrainPlan, theta, m, v, sigma, xs, ys, lr, step0,
                 seed=0, drops=None, signs=None):
     """Train one epoch of ``S = xs.shape[0]`` steps: the CUDA kernel for
@@ -706,35 +875,15 @@ def fused_epoch(plan: FusedTrainPlan, theta, m, v, sigma, xs, ys, lr, step0,
     if theta.device.type != 'cuda':
         raise ValueError(f'no fused training kernel for device '
                          f'{theta.device}')
-    device = theta.device
-    S = xs.shape[0]
-    losses = torch.empty(S, dtype=torch.float32, device=device)
-    if S == 0:
-        return theta, m, v, sigma, losses
     from ._build import library
-    lib = library()
-    iconf, fconf = kernel_config(plan, S, lr, step0, seed, plan.single_sweep)
-    bufs = kernel_buffers(lib, plan, theta)
-    drops = _drop_tensor(plan, drops, device)
-    entry = lib.nnueehcs_fused_train_bf16 if plan.bf16 \
-        else lib.nnueehcs_fused_train_f32
-    with torch.cuda.device(device):
-        err = entry(
-            iconf, fconf, theta.data_ptr(), m.data_ptr(), v.data_ptr(),
-            sigma.data_ptr(), bufs['g'].data_ptr(), xs.data_ptr(),
-            ys.data_ptr(), losses.data_ptr(), bufs['lins'].data_ptr(),
-            drops.data_ptr(), bufs['scratch'].data_ptr(),
-            bufs['preds'].data_ptr(), bufs['small'].data_ptr(),
-            None if signs is None else signs.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'fused training kernel launch failed: CUDA error '
-                           f'{err}')
-    if plan.bf16:
-        fused_epoch.launches_bf16 += 1
-    else:
-        fused_epoch.launches += 1
-    return theta, m, v, sigma, losses
+    out = launch_epoch(library(), plan, train_layout(plan), theta, m, v,
+                       sigma, xs, ys, lr, step0, seed, drops, signs)
+    if xs.shape[0]:
+        if plan.bf16:
+            fused_epoch.launches_bf16 += 1
+        else:
+            fused_epoch.launches += 1
+    return out
 
 
 fused_epoch.launches = 0

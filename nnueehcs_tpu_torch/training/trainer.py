@@ -12,7 +12,10 @@ same explicit behaviours:
   ``log_every_n_steps`` and ``max_epochs`` with Lightning semantics, and
   ``metrics.csv`` rows in the Lightning layout;
 - hooks (``EarlyStopping``, ``ModelSavingCallback``, the KDE fit hooks) at
-  the same points of the loop.
+  the same points of the loop;
+- the device from ``accelerator`` as the JAX trainer's ``_device`` reads
+  it (``'cpu'`` the CPU, anything else the card; :func:`trainer_device`),
+  unless the caller passes ``device``.
 
 An epoch runs one of two ways, by the JAX package's dispatch rules. Where
 the network fits the training kernel's plan, the trainer's precision is
@@ -150,9 +153,25 @@ class Adam:
             p.copy_(p - lr * u)
 
 
+def trainer_device(accelerator='auto', device=None) -> torch.device:
+    """The device a trainer runs on, from its config's ``accelerator`` as
+    the JAX trainer's ``_device`` reads it and an explicit ``device``:
+    ``'cpu'`` is the CPU; any other value (``'auto'``, ``'gpu'``,
+    ``'cuda'``) is the card, which must exist (no fallback). An explicit
+    ``device`` wins over those; ``'cpu'`` with a CUDA ``device`` is a
+    conflict."""
+    if device is None:
+        return resolve_device('cpu' if accelerator == 'cpu' else 'cuda')
+    dev = torch.device(device)
+    if accelerator == 'cpu' and dev.type != 'cpu':
+        raise ValueError(f"trainer_config accelerator 'cpu' conflicts with "
+                         f'device {device!r}')
+    return resolve_device(dev)
+
+
 class Trainer:
     def __init__(self, name, trainer_config, logger=None, callbacks=None,
-                 version=None, log_dir='logs', device='cuda'):
+                 version=None, log_dir='logs', device=None):
         self.name = name
         self.trainer_config = dict(trainer_config)
         cfg = self.trainer_config
@@ -161,7 +180,8 @@ class Trainer:
                 raise NotImplementedError(
                     f'trainer_config[{key!r}]: training on more than one '
                     'device is not ported; the port trains on one device')
-        self.device = resolve_device(device)
+        self.accelerator = cfg.get('accelerator', 'auto')
+        self.device = trainer_device(self.accelerator, device)
         _inst_init_if_not_none(self, 'callbacks', callbacks,
                                [EarlyStopping(monitor='val_loss')])
         _inst_init_if_not_none(self, 'logger', logger,

@@ -31,20 +31,27 @@ def test_forward_battery_gates_every_variant_on_the_cpu(capsys):
 
 
 def test_train_battery_gates_every_variant_on_the_cpu():
+    """Every probe variant against its plain version; kernel 3 (the
+    cluster form) step by step against its plain version at every batch of
+    the batch scaling, and twice bit for bit; the probe's prod (the
+    one-block form, which kernel 3 no longer shares) bit for bit with its
+    own graph replay at every batch and with a second run."""
     out = attrib.train_battery('cpu', seed=2, steps=8)
     gates = out['gates']
     binding = f'gn_fused clip={attrib.BINDING_CLIP:g}'
-    batches = {f'prod B={b}' for b in attrib.BATCHES if b != attrib.BATCH}
+    batches = {f'kernel 3 B={b}' for b in attrib.BATCHES}
     timed = {'unroll2_vs_prod', 'unroll4_vs_prod', 'ch4096_vs_prod',
              'ch8_vs_prod', 'unroll4+gn+ch4096_vs_gn_fused'}
-    assert set(gates) == set(attrib.TRAIN_VARIANTS) | {
-        'prod_vs_kernel_3', binding} | batches | timed
-    for name in {'prod_vs_kernel_3'} | timed:
+    repeats = {'kernel 3 repeat', 'prod repeat'}
+    assert set(gates) == set(attrib.TRAIN_VARIANTS) | {binding} | batches \
+        | timed | repeats
+    for name in repeats | timed:
         assert gates[name]['bit_for_bit'] and gates[name]['steps'] == 8
     for name in batches:
-        assert gates[name]['bit_for_bit_with_kernel_3']
+        assert gates[name]['probe_prod_bit_for_bit_with_its_graph']
         assert gates[name]['stepwise']['steps'] == attrib.GATE_STEPS
         assert gates[name]['stepwise']['over_tol_outside_reach'] == 0
+        assert gates[name]['stepwise']['loss_flips'] == 0
     for name in set(attrib.TRAIN_VARIANTS) | {binding}:
         errs = gates[name]['max_abs_err']
         assert set(errs) == set(attrib.TOL_TRAIN), name
@@ -56,6 +63,22 @@ def test_train_battery_gates_every_variant_on_the_cpu():
     assert gates[binding]['clip'] == attrib.BINDING_CLIP
     assert gates[binding]['clip_binds_steps'] == attrib.GATE_STEPS
     assert gates[binding]['grad_norm'][0] >= attrib.BINDING_CLIP
+
+
+def test_train_battery_bf16_gates_kernel_3b_on_the_cpu():
+    """The bf16 mode: kernel 3's bf16 form step by step against its plain
+    version (the bf16 bars) at every batch, and twice bit for bit; no
+    probe variant (the probe is fp32 only)."""
+    out = attrib.train_battery('cpu', seed=2, steps=8, bf16=True)
+    gates = out['gates']
+    assert set(gates) == {f'kernel 3b B={b}' for b in attrib.BATCHES} | {
+        'kernel 3b repeat'}
+    for b in attrib.BATCHES:
+        step = gates[f'kernel 3b B={b}']['stepwise']
+        assert step['steps'] == attrib.GATE_STEPS
+        assert step['losses']['gap_max'] > 0
+    assert gates['kernel 3b repeat']['bit_for_bit']
+    assert out['variants'] == {} and out['batch_scaling'] == {}
 
 
 def test_train_work_counts_each_mode():

@@ -27,7 +27,10 @@ kernel; the dropout masks are the same hash in both), over whole epochs on
 networks whose pre-ReLU values are kept away from 0
 (``chip_smoke.separate_relu``), and step by step on the flagship as built,
 where a value beyond tolerance must lie in the reach of a ReLU decision
-the two took differently (``chip_smoke.stepwise_vs_plain``)."""
+the two took differently (``chip_smoke.stepwise_vs_plain``). The training
+kernel (one thread-block cluster per member, activations exchanged through
+distributed shared memory) also runs twice from identical buffers and must
+agree bit for bit: a race on the exchange would show there."""
 import dataclasses
 
 import numpy as np
@@ -767,13 +770,117 @@ def test_ablate_epoch_grad_norms_with_a_binding_clip_on_card(card, variant):
 
 @pytest.mark.cuda
 def test_ablate_epoch_prod_is_kernel_3_bit_for_bit_on_card(card):
+    """The probe's prod keeps the one-block form of kernel 3 that the
+    production kernel left for the cluster form, so the two no longer
+    share code and are not compared bit for bit: the probe's prod is held
+    bit for bit to itself (two runs) and to the same one-block bodies
+    replayed as a CUDA graph, and the production kernel is held step by
+    step to the plain version on the same flagship as built."""
     m = EnsembleModelBuilder(FLAGSHIP, {'num_models': 8}, seed=3,
                              device=card).build()
     plan = train_plan(m)
     bufs, xs, ys = train_inputs(m, plan, np.random.default_rng(15), 40)
     got = ae.ablate_epoch(plan, *[b.clone() for b in bufs], xs, ys, 1e-3, 5)
-    want = ft.fused_epoch(plan, *[b.clone() for b in bufs], xs, ys, 1e-3, 5)
-    for a, b in zip(got, want):
+    for again in (ae.ablate_epoch(plan, *[b.clone() for b in bufs], xs, ys,
+                                  1e-3, 5),
+                  ae.ablate_epoch(plan, *[b.clone() for b in bufs], xs, ys,
+                                  1e-3, 5, unroll=4)):
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+    out = stepwise_vs_plain(plan, bufs, xs[:8], ys[:8], 1e-3, 5, 0, None)
+    assert out['over_tol_outside_reach'] == 0
+
+
+# shapes only the cluster kernel's layout separates: a last layer wider than
+# one block's lanes (several blocks own lanes below out_pad and run the
+# loss), and a single Linear (no exchange before the weight gradient)
+# name: (members, width, hidden, out_dim, batch, loss, per_member)
+LAYOUT_TRAIN_CASES = {
+    'out_20_joint_mse': (3, 32, 2, 20, 24, 'mse_loss', False),
+    'out_40_per_member_l1': (2, 64, 2, 40, 40, 'l1_loss', True),
+    'single_linear_out_3': (2, 0, 0, 3, 16, 'l1_loss', False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('bf16', [False, True])
+@pytest.mark.parametrize('case', sorted(LAYOUT_TRAIN_CASES))
+def test_training_kernel_layout_cases_on_card(card, case, bf16):
+    """fp32: a whole epoch against the plain one on a network whose
+    pre-ReLU values sit away from 0; bf16: step by step on the network as
+    built; and each form twice, bit for bit."""
+    members, width, hidden, out_dim, batch, loss, per_member = \
+        LAYOUT_TRAIN_CASES[case]
+    m = EnsembleModelBuilder(_arch(5, width, hidden, out_dim),
+                             {'num_models': members}, seed=5,
+                             device=card).build()
+    if not bf16:
+        separate_relu(_randomize_bn(m), torch.Generator().manual_seed(11))
+    plan = ft.plan_fused_train(m.net, members, batch, loss=loss,
+                               per_member=per_member, clip=5.0, bf16=bf16)
+    layout = ft.train_layout(plan)
+    assert layout.out_blocks == -(-plan.out_pad // layout.lanes)
+    bufs, xs, ys = train_inputs(m, plan, np.random.default_rng(22), 6)
+    if bf16:
+        stepwise_vs_plain(plan, bufs, xs, ys, 1e-3, 5, 9, None)
+    else:
+        got = ft.fused_epoch(plan, *[b.clone() for b in bufs], xs, ys, 1e-3,
+                             5)
+        want = ft.fused_epoch_reference(plan, *[b.clone() for b in bufs], xs,
+                                        ys, 1e-3, 5)
+        for (name, tol), a, b in zip(TOL_TRAIN.items(), got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=tol, msg=name)
+    runs = [ft.fused_epoch(plan, *[b.clone() for b in bufs], xs, ys, 1e-3, 5)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+# the cluster kernel twice from identical buffers: every output and every
+# recorded ReLU decision bit for bit (fixed summation orders, no float
+# atomics; a race on the exchanged activations would show here)
+DETERMINISM_CASES = {
+    'flagship': TRAIN_CASES['flagship_joint_l1'],
+    'batch_8': ('ensemble', 32, 2, 3, 8, 'l1_loss', False, 0.0, 0.0),
+    'batch_40': TRAIN_CASES['batch_40'],
+    'mve': TRAIN_CASES['flagship_mve'],
+    'mc_dropout': TRAIN_CASES['flagship_mc_p01'],
+    'anchored_single_net_b256': None,
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('bf16', [False, True])
+@pytest.mark.parametrize('case', sorted(DETERMINISM_CASES))
+def test_training_kernel_is_deterministic_on_card(card, case, bf16):
+    if case == 'anchored_single_net_b256':
+        m = DeltaUQMLPModelBuilder(FLAGSHIP, {'num_anchors': 16}, seed=5,
+                                   device=card).build()
+        plan = ft.plan_fused_train(m.net, 1, 256, clip=5.0, bf16=bf16,
+                                   member_stacked=False)
+        assert plan.in_pad == 16
+        bufs, xs, ys = train_inputs(m, plan, np.random.default_rng(21), 6,
+                                    anchored=True)
+    else:
+        family, width, hidden, members, batch, loss, per_member, wd, p = \
+            DETERMINISM_CASES[case]
+        m = _train_model(card, family, width, hidden, members, p)
+        plan = ft.plan_fused_train(m.net, members, batch, loss=loss,
+                                   per_member=per_member, clip=5.0,
+                                   weight_decay=wd, bf16=bf16,
+                                   member_stacked=family == 'ensemble')
+        bufs, xs, ys = train_inputs(m, plan, np.random.default_rng(21), 6)
+    drops = ft.drop_rates(m.net).to(card)
+    shape = (xs.shape[0], plan.num_members, plan.n_bn, plan.batch, ft.LANES)
+    runs = []
+    for _ in range(2):
+        signs = torch.zeros(shape, dtype=torch.uint8, device=card)
+        out = ft.fused_epoch(plan, *[b.clone() for b in bufs], xs, ys, 1e-3, 5,
+                             seed=77, drops=drops, signs=signs)
+        runs.append((*out, signs))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(runs[0][4]).all())
+    for a, b in zip(*runs):
         assert torch.equal(a, b)
 
 

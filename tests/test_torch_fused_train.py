@@ -340,3 +340,4 @@ def test_flip_reach_and_stepwise_check_on_the_cpu():
     out = stepwise_vs_plain(pplan, bufs, xs, ys, 1e-3, 4, 5,
                             pt.drop_rates(port_of(m).net))
     assert out['steps'] == 2 and out['flips'] == 0 and out['over_tol'] == 0
+    assert out['loss_flips'] == 0

@@ -108,7 +108,7 @@ def test_kernels_build_with_plain_nvcc():
     assert [h.name for h in headers] == ['fused_chain.cuh',
                                          'fused_chain_bf16.cuh',
                                          'fused_train.cuh',
-                                         'fused_train_bf16.cuh']
+                                         'fused_train_cluster.cuh']
     for text in texts:
         for banned in ('cpp_extension', 'torch/extension.h', 'ninja'):
             assert banned not in text
