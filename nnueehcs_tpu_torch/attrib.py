@@ -109,6 +109,13 @@ TOL_ADAM_V = 4.0
 # by at least 2 / batch of it (1/64 at 128 rows, 1/512 at 1,024), and
 # round-off by under 1e-5 of it (loss_flips)
 LOSS_FLIP_SHARE = 1e-3
+# in fp32 a loss decision goes the other way only where a row's prediction
+# minus target is within rounding of 0: the fp32 step-by-step gate credits
+# loss flips on at most one step in LOSS_FLIP_STEPS (at least one), so a
+# loss gradient that is wrong, and so "flips" on most steps, fails it (the
+# card's fp32 runs showed none; the bf16 form's roundings flip more often
+# and its bars are on the gap)
+LOSS_FLIP_STEPS = 8
 CLIP = 5.0                     # the flagship's gradient_clip_val
 BINDING_CLIP = 1e-2            # below every step's gradient norm
 # (name substring, fp32 non-tensor FLOP/s, memory bytes/s), NVIDIA data
@@ -527,20 +534,25 @@ def flip_reach(plan, flips):
     return reach.reshape(plan.total_rows, ft.LANES)
 
 
-def stepwise_vs_plain(plan, bufs, xs, ys, lr, step0, seed, drops):
+def stepwise_vs_plain(plan, bufs, xs, ys, lr, step0, seed, drops,
+                      epoch=None):
     """The training kernel against its plain version one step at a time,
     each step from the plain version's state, with both versions' ReLU
     decisions recorded and the l1 loss's sign decisions read from the
     output bias (``loss_flips``). Raises unless every element of theta, m
     and v that differs by more than TOL_TRAIN lies in the reach of a
     decision the two took differently (``flip_reach``; a flipped loss
-    decision reaches its whole member), and sigma and the losses agree
-    everywhere. Returns the counts and the largest errors, in and outside
-    that reach. A bf16-mixed plan is held to the bf16 bars instead
+    decision reaches its whole member), sigma and the losses agree
+    everywhere, and loss decisions flipped on at most one step in
+    LOSS_FLIP_STEPS. Returns the counts and the largest errors, in and
+    outside that reach. ``epoch`` is the kernel held (default
+    ``ft.fused_epoch``; the probe's prod through :func:`probe_prod`). A
+    bf16-mixed plan is held to the bf16 bars instead
     (:func:`stepwise_vs_plain_bf16`)."""
     if plan.bf16:
         return stepwise_vs_plain_bf16(plan, bufs, xs, ys, lr, step0, seed,
                                       drops)
+    epoch = epoch or ft.fused_epoch
     state = [b.clone() for b in bufs]
     shape = (1, plan.num_members, plan.n_bn, plan.batch, ft.LANES)
     out = {'steps': xs.shape[0], 'decisions_per_step': int(np.prod(shape)),
@@ -556,8 +568,8 @@ def stepwise_vs_plain(plan, bufs, xs, ys, lr, step0, seed, drops):
         # Adam count as inside the epoch
         args = (xs[i:i + 1], ys[i:i + 1], lr, step0 + i,
                 (seed + i * ft.SALT_STEP) & 0xFFFFFFFF, drops)
-        got = ft.fused_epoch(plan, *[b.clone() for b in state], *args,
-                             signs=signs[0])
+        got = epoch(plan, *[b.clone() for b in state], *args,
+                    signs=signs[0])
         want = ft.fused_epoch_reference(plan, *[b.clone() for b in state],
                                         *args, signs=signs[1])
         flips = (signs[0] != signs[1])[0]
@@ -591,7 +603,24 @@ def stepwise_vs_plain(plan, bufs, xs, ys, lr, step0, seed, drops):
     check(out['over_tol_outside_reach'] == 0,
           f'fused_train: {out["over_tol_outside_reach"]} values off by more '
           f'than {TOL_TRAIN} outside the reach of a ReLU or loss flip: {out}')
+    check(out['steps_with_loss_flips']
+          <= max(1, out['steps'] // LOSS_FLIP_STEPS),
+          f'fused_train: l1 loss decisions flipped on '
+          f'{out["steps_with_loss_flips"]} of {out["steps"]} steps: {out}')
     return out
+
+
+def probe_prod(plan, theta, m, v, sigma, xs, ys, lr, step0, seed=0,
+               drops=None, signs=None):
+    """The probe's prod (``ablate_epoch``, kernel 3's one-block form) with
+    :func:`~.ops.fused_train.fused_epoch`'s arguments, for
+    :func:`stepwise_vs_plain`: the probe runs no dropout and always the
+    joint mean, so ``plan`` must too, and ``seed`` and ``drops`` are
+    unused."""
+    check(plan.n_drop == 0 and not plan.per_member,
+          'probe_prod: a plan with dropout or a per-member loss')
+    return ae.ablate_epoch(plan, theta, m, v, sigma, xs, ys, lr, step0,
+                           signs=signs)
 
 
 def adam_v_error(plan, m0, v0, m1, v1):
@@ -878,12 +907,13 @@ def train_battery(device='cuda', seed=0, steps=None, reps=5, bf16=False):
               f'{name}: the clip bound on only '
               f'{gates[name]["clip_binds_steps"]} of {GATE_STEPS} steps')
     # at each batch of the batch scaling: kernel 3 (its bf16 form with
-    # bf16) held to its plain epoch one step at a time, where a value past
-    # TOL_TRAIN must lie in the reach of a ReLU or loss decision the two
-    # took differently (at these batches a separate_relu network too can
-    # put a pre-ReLU value within rounding of 0), and the probe's prod,
-    # the one-block form, bit for bit with the same bodies replayed as a
-    # CUDA graph (the probe and kernel 3 no longer share code)
+    # bf16) and the probe's prod (the one-block form; the two no longer
+    # share code) each held to the plain epoch one step at a time, where a
+    # value past TOL_TRAIN must lie in the reach of a ReLU or loss
+    # decision the two took differently (at these batches a separate_relu
+    # network too can put a pre-ReLU value within rounding of 0), and the
+    # probe's prod bit for bit with the same bodies replayed as a CUDA
+    # graph
     # (the bf16 form step by step on the flagship as built, as the card
     # tests hold it: its bars attribute the flipped decisions)
     form = 'kernel 3b' if bf16 else 'kernel 3'
@@ -895,6 +925,8 @@ def train_battery(device='cuda', seed=0, steps=None, reps=5, bf16=False):
         rec = {'stepwise': stepwise_vs_plain(bplan, bbufs, bxs, bys, LR, 0,
                                              0, None)}
         if not bf16:
+            rec['probe_prod_stepwise'] = stepwise_vs_plain(
+                bplan, bbufs, bxs, bys, LR, 0, 0, None, epoch=probe_prod)
             _equal_runs(f'ablate_epoch prod B={b}', *(
                 ae.ablate_epoch(bplan, *[t.clone() for t in bbufs], bxs, bys,
                                 LR, 0, unroll=u) for u in (1, 2)))

@@ -88,7 +88,7 @@ SIGNATURES = {
         [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_float)]
         + [_P] * 13
         + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P,
-           _P, _P]),
+           _P, _P, _P]),
 }
 
 
@@ -108,16 +108,15 @@ def find_nvcc() -> str:
         f'({cuda_home}); the CUDA kernels cannot be built')
 
 
-def sources(names=None) -> list[Path]:
-    """The ``csrc/*.cu`` files, or those named in ``names``."""
-    found = sorted(CSRC.glob('*.cu'))
-    return found if names is None else [p for p in found if p.name in names]
+def sources() -> list[Path]:
+    """The ``csrc/*.cu`` files."""
+    return sorted(CSRC.glob('*.cu'))
 
 
-def _library_path(flags=(), names=None) -> Path:
+def _library_path(flags=()) -> Path:
     digest = hashlib.sha256(' '.join(NVCC_FLAGS + LINK_FLAGS
                                      + tuple(flags)).encode())
-    for src in sorted([*sources(names), *CSRC.glob('*.cuh')]):
+    for src in sorted([*sources(), *CSRC.glob('*.cuh')]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f'libnnueehcs_kernels-{digest.hexdigest()[:16]}.so'
@@ -147,18 +146,18 @@ def _run_all(cmds):
     return ''.join(outputs)
 
 
-def build(flags=(), names=None) -> BuildInfo:
-    """Compile every ``csrc/*.cu`` file (or those named in ``names``), one
-    nvcc process each, all at once, with ``flags`` added (a ``-D`` define),
-    and link them into one library, unless the library for these sources
-    and flags already exists."""
-    path = _library_path(flags, names)
+def build(flags=()) -> BuildInfo:
+    """Compile every ``csrc/*.cu`` file, one nvcc process each, all at
+    once, with ``flags`` added (a ``-D`` define), and link them into one
+    library, unless the library for these sources and flags already
+    exists."""
+    path = _library_path(flags)
     log_path = path.with_suffix('.log')
     if path.is_file():
         log = log_path.read_text() if log_path.is_file() else ''
         return BuildInfo(path, 0.0, log)
     nvcc = find_nvcc()
-    srcs = sources(names)
+    srcs = sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     start = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR, prefix='.tmp-') as tmp:
@@ -173,18 +172,16 @@ def build(flags=(), names=None) -> BuildInfo:
     return BuildInfo(path, seconds, log)
 
 
-def load(flags=(), names=None) -> tuple[ctypes.CDLL, BuildInfo]:
-    """Build (if needed) and load a library of ``names`` compiled with
-    ``flags``, its exported launchers typed; a variant beside the
-    library that :func:`library` loads (for example the training kernel
-    compiled for another cluster size)."""
-    info = build(flags, names)
+def load(flags=()) -> tuple[ctypes.CDLL, BuildInfo]:
+    """Build (if needed) and load the library compiled with ``flags``, its
+    exported launchers typed: :func:`library`'s, or with a ``-D`` define
+    an instrumented one beside it (``tools/train_step_phases.py``)."""
+    info = build(flags)
     lib = ctypes.CDLL(str(info.path))
     for name, (restype, argtypes) in SIGNATURES.items():
-        fn = getattr(lib, name, None)
-        if fn is not None:
-            fn.restype = restype
-            fn.argtypes = argtypes
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
     return lib, info
 
 

@@ -34,7 +34,7 @@ def probe_plan(plan: ft.FusedTrainPlan) -> ft.FusedTrainPlan:
         n_drop=0, per_member=False)
 
 
-def _check(plan, theta, xs, mode, unroll, opt_chunk, norms):
+def _check(plan, theta, xs, mode, unroll, opt_chunk, norms, signs):
     if plan.bf16:
         raise ValueError('ablate_epoch: the probe is fp32 only (as the TPU '
                          'probe), got a bf16-mixed plan')
@@ -46,6 +46,11 @@ def _check(plan, theta, xs, mode, unroll, opt_chunk, norms):
         raise ValueError(f'ablate_epoch: norms must be a float32 '
                          f'({xs.shape[0]},) tensor beside theta, in mode '
                          f'prod or no_opt')
+    if signs is not None:
+        if mode not in ('prod', 'no_opt'):
+            raise ValueError('ablate_epoch: signs in mode prod or no_opt '
+                             'only')
+        ft._check_signs(plan, signs, xs.shape[0], theta.device)
     if unroll < 1 or xs.shape[0] % unroll:
         raise ValueError(f'ablate_epoch: unroll {unroll} must divide the '
                          f'{xs.shape[0]} steps')
@@ -55,14 +60,15 @@ def _check(plan, theta, xs, mode, unroll, opt_chunk, norms):
 
 def ablate_epoch_reference(plan: ft.FusedTrainPlan, theta, m, v, sigma, xs,
                            ys, lr, step0, mode='prod', unroll=1,
-                           gn_fused=False, opt_chunk=None, norms=None):
+                           gn_fused=False, opt_chunk=None, norms=None,
+                           signs=None):
     """:func:`ablate_epoch` in plain tensor ops, step by step, in kernel
     3's order of operations (:func:`~.fused_train.fused_epoch_reference`'s
     pieces). ``unroll``, ``gn_fused`` and ``opt_chunk`` change how the
     kernel runs, not what it computes, so they are checked and change
     nothing here."""
     ft._check_buffers(plan, theta, m, v, sigma, xs, ys)
-    _check(plan, theta, xs, mode, unroll, opt_chunk, norms)
+    _check(plan, theta, xs, mode, unroll, opt_chunk, norms, signs)
     plan = probe_plan(plan)
     k = ft._constants(plan)
     S, M, device = xs.shape[0], plan.num_members, theta.device
@@ -95,7 +101,8 @@ def ablate_epoch_reference(plan: ft.FusedTrainPlan, theta, m, v, sigma, xs,
             continue
         dpred = dpred * k['inv_members']
         for mi in range(M):
-            ft._backward(plan, k, theta, g, x, mi, dpred, saved[mi])
+            ft._backward(plan, k, theta, g, x, mi, dpred, saved[mi],
+                         None if signs is None else signs[i, mi])
         if norms is not None:
             norms[i] = torch.sqrt((g * g).sum())
         if mode == 'prod':
@@ -105,7 +112,7 @@ def ablate_epoch_reference(plan: ft.FusedTrainPlan, theta, m, v, sigma, xs,
 
 def ablate_epoch(plan: ft.FusedTrainPlan, theta, m, v, sigma, xs, ys, lr,
                  step0, mode='prod', unroll=1, gn_fused=False,
-                 opt_chunk=None, norms=None):
+                 opt_chunk=None, norms=None, signs=None):
     """``S = xs.shape[0]`` steps of kernel 3 without dropout and always
     with the joint-mean loss sweep (JAX ``ablate_epoch``), carved by
     ``mode``: ``'prod'`` (the whole step), ``'no_opt'`` (no optimizer:
@@ -120,13 +127,15 @@ def ablate_epoch(plan: ft.FusedTrainPlan, theta, m, v, sigma, xs, ys, lr,
     step's global gradient norm (the clip's input) is written there, in
     modes ``'prod'`` and ``'no_opt'``: on the card as the optimizer forms
     it from the members' partial sums, by one more small launch a step.
+    ``signs``, as :func:`~.fused_train.fused_epoch`'s, receives each ReLU
+    decision of the backward (modes ``'prod'`` and ``'no_opt'``).
     Updates the buffers in place; returns them and the per-step losses."""
     ft._check_buffers(plan, theta, m, v, sigma, xs, ys)
-    _check(plan, theta, xs, mode, unroll, opt_chunk, norms)
+    _check(plan, theta, xs, mode, unroll, opt_chunk, norms, signs)
     if theta.device.type == 'cpu':
         return ablate_epoch_reference(plan, theta, m, v, sigma, xs, ys, lr,
                                       step0, mode, unroll, gn_fused,
-                                      opt_chunk, norms)
+                                      opt_chunk, norms, signs)
     if theta.device.type != 'cuda':
         raise ValueError(f'no training ablation kernel for device '
                          f'{theta.device}')
@@ -153,6 +162,7 @@ def ablate_epoch(plan: ft.FusedTrainPlan, theta, m, v, sigma, xs, ys, lr,
             0 if opt_chunk is None else opt_chunk * ft.LANES, unroll,
             step_base.data_ptr(),
             None if norms is None else norms.data_ptr(),
+            None if signs is None else signs.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'training ablation kernel failed: CUDA error '

@@ -193,8 +193,10 @@ extern "C" {
 // (prod, no_opt, no_bwd, fwd1, empty = 0..4), sq_fused (0/1), chunk (the
 // optimizer's elements per block, 0 for kernel 3's grid), unroll (>= 1,
 // dividing S), step_base (one int32 on the device, 0, used when
-// unroll > 1) and norms (S floats on the device that receive each step's
-// global gradient norm, prod and no_opt only; null for none).
+// unroll > 1), norms (S floats on the device that receive each step's
+// global gradient norm, prod and no_opt only; null for none) and signs
+// (null, or kernel 3's (S, M, n_bn, B, 128) bytes of the backward's ReLU
+// decisions; prod and no_opt only).
 int nnueehcs_ablate_train_f32(const long long* iconf, const float* fconf,
                               float* theta, float* m, float* v, float* sigma,
                               float* g, const float* xs, const float* ys,
@@ -202,12 +204,13 @@ int nnueehcs_ablate_train_f32(const long long* iconf, const float* fconf,
                               const float* drops, float* scratch, float* preds,
                               float* small, int mode, int sq_fused,
                               long long chunk, int unroll, int* step_base,
-                              float* norms, void* stream) {
+                              float* norms, unsigned char* signs,
+                              void* stream) {
   const Args A = make_args(iconf, fconf, theta, m, v, sigma, g, xs, ys, losses,
-                           lins, drops, scratch, preds, small, nullptr);
+                           lins, drops, scratch, preds, small, signs);
   const Variant V{mode, sq_fused != 0, chunk, norms};
   if (mode < kProd || mode > kEmpty || chunk < 0 || unroll < 1 ||
-      (norms && mode != kProd && mode != kNoOpt) ||
+      ((norms || signs) && mode != kProd && mode != kNoOpt) ||
       A.i[kS] % unroll != 0 || A.i[kSingleSweep] != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

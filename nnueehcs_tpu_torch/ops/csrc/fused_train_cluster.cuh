@@ -54,16 +54,14 @@
 
 #include "fused_train.cuh"
 
-#ifndef NNUEEHCS_TRAIN_CLUSTER
-#define NNUEEHCS_TRAIN_CLUSTER 8
-#endif
-
 namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kC = NNUEEHCS_TRAIN_CLUSTER;   // blocks per member
-static_assert(kC == 8 || kC == 16, "cluster size 8 or 16");
+// blocks per member: the portable cluster size (16 blocks, non-portable,
+// ran no faster at the flagship: eight clusters of 16 at this shared-memory
+// carve-up do not fit on the card at once)
+constexpr int kC = 8;
 constexpr int kL = kLanes / kC;    // lanes a block owns
 constexpr int kQ = kL / 4;         // float4 groups of a block's lanes
 constexpr int kT = 256;            // threads a block
@@ -1228,13 +1226,9 @@ inline cudaError_t launch_cluster(void (*kernel)(Args, Layout, int),
 
 inline cudaError_t prepare_kernel(void (*kernel)(Args, Layout, int),
                                   const Layout& lay) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(lay.v[kLaySmemBytes]));
-  if (err == cudaSuccess && kC > 8)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(lay.v[kLaySmemBytes]));
 }
 
 template <bool kBf16, bool kRes>

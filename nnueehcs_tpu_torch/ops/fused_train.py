@@ -661,8 +661,8 @@ def kernel_buffers(lib, plan: FusedTrainPlan, theta) -> dict:
 # ---------------------------------------------------------------------------
 # the kernel's launch layout (csrc/fused_train_cluster.cuh)
 # ---------------------------------------------------------------------------
-# blocks per member's thread-block cluster: 8 is the portable cluster size;
-# the kernel is compiled for this one value (NNUEEHCS_TRAIN_CLUSTER)
+# blocks per member's thread-block cluster (the kernel's kC, the portable
+# cluster size; the entry refuses a layout for any other)
 CLUSTER = 8
 THREADS = 256
 X_STRIDE = LANES + 4          # floats per row of an exchanged activation
@@ -727,36 +727,18 @@ class TrainLayout:
     scratch_zh: int
     scratch_inv: int
 
-    def lane_ranges(self):
-        """The lanes each block of a cluster owns, by rank."""
-        return [(r * self.lanes, (r + 1) * self.lanes)
-                for r in range(self.cluster)]
-
-    def computes_last_layer(self, rank: int) -> bool:
-        """Block ``rank`` owns lanes below the plan's ``out_pad``: only such
-        blocks run the last layer's products and the loss."""
-        return rank < self.out_blocks
-
-    def sum_order(self, members: int):
-        """The order in which the per-block loss terms and sums of g^2 are
-        added: each cluster's blocks in rank order into its member's sum,
-        the members' sums in member order."""
-        return [(m, r) for m in range(members) for r in range(self.cluster)]
-
     def ints(self):
         """The layout as the kernel's C entries take it (LAYOUT_FIELDS)."""
         return [int(getattr(self, f)) for f in LAYOUT_FIELDS]
 
 
-def train_layout(plan: FusedTrainPlan, cluster: int = CLUSTER) -> TrainLayout:
-    """The launch layout of ``plan``: ``cluster`` blocks of THREADS threads
-    per member, ``128 / cluster`` lanes a block, activations resident in
-    shared memory exactly where the resident carve-up fits in SMEM_LIMIT
-    bytes, and the scratch offsets in device memory."""
-    if LANES % cluster or (LANES // cluster) % 8:
-        raise ValueError(f'cluster {cluster}: lanes per block must be a '
-                         f'multiple of 8')
-    L, B = LANES // cluster, plan.batch
+def train_layout(plan: FusedTrainPlan) -> TrainLayout:
+    """The launch layout of ``plan``: CLUSTER blocks of THREADS threads
+    per member, ``128 / CLUSTER`` lanes a block (the blocks owning lanes
+    below ``out_pad`` run the last layer), activations resident in shared
+    memory exactly where the resident carve-up fits in SMEM_LIMIT bytes,
+    and the scratch offsets in device memory."""
+    L, B = LANES // CLUSTER, plan.batch
     w_slot = L * X_STRIDE          # >= the forward slice, 128 x L
     ring, red = 2 * w_slot, red_floats(L)
     x_floats = 2 * B * X_STRIDE
@@ -774,11 +756,11 @@ def train_layout(plan: FusedTrainPlan, cluster: int = CLUSTER) -> TrainLayout:
     block_floats = _pad4(d + zh + plan.n_bn * L)
     scratch_blocks = 0 if resident else x_floats
     return TrainLayout(
-        cluster=cluster, lanes=L, threads=THREADS, resident=resident,
+        cluster=CLUSTER, lanes=L, threads=THREADS, resident=resident,
         smem_bytes=4 * (smem_red + red), out_blocks=-(-plan.out_pad // L),
         x_stride=X_STRIDE, w_slot=w_slot, smem_x=smem_x, smem_d=smem_d,
         smem_w=smem_w, smem_red=smem_red,
-        member_floats=scratch_blocks + cluster * block_floats,
+        member_floats=scratch_blocks + CLUSTER * block_floats,
         scratch_x=-1 if resident else 0, block_floats=block_floats,
         scratch_blocks=scratch_blocks, scratch_d=-1 if resident else 0,
         scratch_zh=d, scratch_inv=d + zh)
@@ -815,13 +797,13 @@ def _check_signs(plan: FusedTrainPlan, signs, S, device):
                          f'{want} on {device}')
 
 
-def launch_epoch(lib, plan: FusedTrainPlan, layout: TrainLayout, theta, m,
-                 v, sigma, xs, ys, lr, step0, seed=0, drops=None,
-                 signs=None):
+def launch_epoch(lib, plan: FusedTrainPlan, theta, m, v, sigma, xs, ys, lr,
+                 step0, seed=0, drops=None, signs=None):
     """Enqueue one epoch of the training kernel from ``lib`` (the kernel
-    library, compiled for ``layout.cluster``) on CUDA buffers, as
+    library, or an instrumented build of it) on CUDA buffers, as
     :func:`fused_epoch` does, without its checks or its launch count;
     raises if the launch fails."""
+    layout = train_layout(plan)
     device = theta.device
     S = xs.shape[0]
     losses = torch.empty(S, dtype=torch.float32, device=device)
@@ -876,8 +858,8 @@ def fused_epoch(plan: FusedTrainPlan, theta, m, v, sigma, xs, ys, lr, step0,
         raise ValueError(f'no fused training kernel for device '
                          f'{theta.device}')
     from ._build import library
-    out = launch_epoch(library(), plan, train_layout(plan), theta, m, v,
-                       sigma, xs, ys, lr, step0, seed, drops, signs)
+    out = launch_epoch(library(), plan, theta, m, v, sigma, xs, ys, lr,
+                       step0, seed, drops, signs)
     if xs.shape[0]:
         if plan.bf16:
             fused_epoch.launches_bf16 += 1

@@ -9,7 +9,12 @@ import os
 import subprocess
 import sys
 
+import pytest
+import torch
+
 from nnueehcs_tpu_torch import attrib
+from nnueehcs_tpu_torch.ops import ablate_epoch as ae
+from nnueehcs_tpu_torch.ops import fused_train as ft
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -32,10 +37,10 @@ def test_forward_battery_gates_every_variant_on_the_cpu(capsys):
 
 def test_train_battery_gates_every_variant_on_the_cpu():
     """Every probe variant against its plain version; kernel 3 (the
-    cluster form) step by step against its plain version at every batch of
-    the batch scaling, and twice bit for bit; the probe's prod (the
-    one-block form, which kernel 3 no longer shares) bit for bit with its
-    own graph replay at every batch and with a second run."""
+    cluster form) and the probe's prod (the one-block form, which kernel 3
+    no longer shares) each step by step against the plain version at every
+    batch of the batch scaling, and twice bit for bit; the probe's prod
+    bit for bit with its own graph replay at every batch."""
     out = attrib.train_battery('cpu', seed=2, steps=8)
     gates = out['gates']
     binding = f'gn_fused clip={attrib.BINDING_CLIP:g}'
@@ -52,6 +57,9 @@ def test_train_battery_gates_every_variant_on_the_cpu():
         assert gates[name]['stepwise']['steps'] == attrib.GATE_STEPS
         assert gates[name]['stepwise']['over_tol_outside_reach'] == 0
         assert gates[name]['stepwise']['loss_flips'] == 0
+        probe = gates[name]['probe_prod_stepwise']
+        assert probe['steps'] == attrib.GATE_STEPS
+        assert probe['over_tol_outside_reach'] == probe['loss_flips'] == 0
     for name in set(attrib.TRAIN_VARIANTS) | {binding}:
         errs = gates[name]['max_abs_err']
         assert set(errs) == set(attrib.TOL_TRAIN), name
@@ -103,3 +111,47 @@ def test_command_line_on_the_cpu():
     lines = [json.loads(l) for l in proc.stdout.splitlines()]
     assert lines[-1]['device'] == 'cpu' and lines[-1]['rows'] == 64
     assert sum('gate' in l for l in lines) == len(lines) - 1
+
+
+def test_probe_prod_records_the_plain_versions_relu_decisions():
+    """The probe's prod with ``signs`` (its plain version on the CPU)
+    records the same ReLU decisions as kernel 3's plain version and
+    computes the same step, so the step-by-step gate can hold it."""
+    _, plan, bufs, xs, ys = attrib.train_problem(4, 'cpu', batch=16, steps=2,
+                                                 separate=True)
+    shape = (2, plan.num_members, plan.n_bn, plan.batch, ft.LANES)
+    signs = [torch.zeros(shape, dtype=torch.uint8) for _ in range(2)]
+    got = attrib.probe_prod(plan, *[b.clone() for b in bufs], xs, ys,
+                            attrib.LR, 0, signs=signs[0])
+    want = ft.fused_epoch_reference(plan, *[b.clone() for b in bufs], xs,
+                                    ys, attrib.LR, 0, signs=signs[1])
+    assert torch.equal(signs[0], signs[1]) and bool(signs[1].any())
+    for (name, tol), a, b in zip(attrib.TOL_TRAIN.items(), got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=tol, msg=name)
+    with pytest.raises(ValueError, match='signs'):
+        ae.ablate_epoch(plan, *[b.clone() for b in bufs], xs, ys, attrib.LR,
+                        0, mode='no_bwd', signs=signs[0])
+
+
+def test_stepwise_gate_refuses_a_wrong_loss_gradient(monkeypatch):
+    """A kernel whose l1 loss gradient has the wrong sign moves every
+    member's output bias as a flipped loss decision would, on every step;
+    the fp32 gate credits such flips on at most one step in
+    LOSS_FLIP_STEPS, so it fails."""
+    _, plan, bufs, xs, ys = attrib.train_problem(5, 'cpu', batch=16, steps=2,
+                                                 separate=True)
+    right = ft._loss_and_grad
+
+    def wrong_sign(*args):
+        term, grad = right(*args)
+        return term, -grad
+
+    def wrong(*args, signs=None):
+        with monkeypatch.context() as patch:
+            patch.setattr(ft, '_loss_and_grad', wrong_sign)
+            return ft.fused_epoch_reference(*args, signs=signs)
+
+    with pytest.raises(RuntimeError, match='loss decisions flipped on 2 of '
+                                           '2 steps'):
+        attrib.stepwise_vs_plain(plan, bufs, xs, ys, attrib.LR, 0, 0, None,
+                                 epoch=wrong)

@@ -39,7 +39,8 @@ import torch
 
 from chip_smoke import (FLAGSHIP, TOL_TRAIN, separate_relu,
                         stepwise_vs_plain, train_inputs, train_plan)
-from nnueehcs_tpu_torch.attrib import BINDING_CLIP, TOL_NORM, bf16_close
+from nnueehcs_tpu_torch.attrib import (BINDING_CLIP, TOL_NORM, bf16_close,
+                                       probe_prod)
 from nnueehcs_tpu_torch.convert import tensor_trees
 from nnueehcs_tpu_torch.model_builder import (DeltaUQMLPModelBuilder,
                                               EnsembleModelBuilder,
@@ -770,12 +771,12 @@ def test_ablate_epoch_grad_norms_with_a_binding_clip_on_card(card, variant):
 
 @pytest.mark.cuda
 def test_ablate_epoch_prod_is_kernel_3_bit_for_bit_on_card(card):
-    """The probe's prod keeps the one-block form of kernel 3 that the
-    production kernel left for the cluster form, so the two no longer
-    share code and are not compared bit for bit: the probe's prod is held
-    bit for bit to itself (two runs) and to the same one-block bodies
-    replayed as a CUDA graph, and the production kernel is held step by
-    step to the plain version on the same flagship as built."""
+    """The probe's prod runs the one-block form of kernel 3 (the form the
+    production kernel had before its cluster form; the two no longer share
+    code, so they are not compared bit for bit). On the flagship as built,
+    the probe's prod is held bit for bit to a second run and to the same
+    one-block bodies replayed as a CUDA graph, and, like the production
+    kernel, step by step to the plain version."""
     m = EnsembleModelBuilder(FLAGSHIP, {'num_models': 8}, seed=3,
                              device=card).build()
     plan = train_plan(m)
@@ -787,8 +788,10 @@ def test_ablate_epoch_prod_is_kernel_3_bit_for_bit_on_card(card):
                                   1e-3, 5, unroll=4)):
         for a, b in zip(got, again):
             assert torch.equal(a, b)
-    out = stepwise_vs_plain(plan, bufs, xs[:8], ys[:8], 1e-3, 5, 0, None)
-    assert out['over_tol_outside_reach'] == 0
+    for epoch in (probe_prod, None):
+        out = stepwise_vs_plain(plan, bufs, xs[:8], ys[:8], 1e-3, 5, 0, None,
+                                epoch=epoch)
+        assert out['over_tol_outside_reach'] == 0
 
 
 # shapes only the cluster kernel's layout separates: a last layer wider than

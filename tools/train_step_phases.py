@@ -4,8 +4,8 @@ its phases on one card:
 
     python3 tools/train_step_phases.py [--seed N]
 
-Builds the two training sources with ``-DNNUEEHCS_TRAIN_STAMPS`` beside the
-package's library: thread 0 of member 0's first block then records
+Builds the kernel library with ``-DNNUEEHCS_TRAIN_STAMPS`` beside the
+package's own: thread 0 of member 0's first block then records
 ``%globaltimer`` at each phase boundary of the epoch's middle step
 (``fused_train_cluster.cuh`` ``TRAIN_STAMP``). Runs a 20-step epoch of the
 flagship ensemble (8 members, 7 x 128, batch 128, joint-mean l1) and of a
@@ -55,8 +55,7 @@ BWD = {'relu_batchnorm': 1, 'd_exchange_and_a': 2, 'barrier': 3,
 
 
 def stamps_library():
-    lib, _ = _build.load(('-DNNUEEHCS_TRAIN_STAMPS',),
-                         ('fused_train.cu', 'fused_train_bf16.cu'))
+    lib, _ = _build.load(('-DNNUEEHCS_TRAIN_STAMPS',))
     for name in ('nnueehcs_train_stamps', 'nnueehcs_train_stamps_bf16'):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
@@ -122,9 +121,8 @@ def main(argv=None):
             plan = train_plan(model, bf16=bf16)
             bufs, xs, ys = train_inputs(model, plan, rng, STEPS)
             for _ in range(2):          # the last epoch's stamps are read
-                ft.launch_epoch(lib, plan, ft.train_layout(plan),
-                                *[b.clone() for b in bufs], xs, ys, 5e-5, 5,
-                                1, drops)
+                ft.launch_epoch(lib, plan, *[b.clone() for b in bufs], xs,
+                                ys, 5e-5, 5, 1, drops)
             torch.cuda.synchronize()
             read = lib.nnueehcs_train_stamps_bf16 if bf16 \
                 else lib.nnueehcs_train_stamps
