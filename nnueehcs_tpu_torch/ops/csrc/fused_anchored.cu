@@ -117,10 +117,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   const Identity none;
 
   // u = bf16(x) @ W_bot + b0 in fp32, without the ReLU; x is staged in act
+  EVAL_BEGIN();
   fb::dense_layer<true, true>(act, ubuf, sw, w_all, b_all, d, false, x_tile,
                               d, valid, none, none);
   for (int j = 0; j < k; ++j) {
+    EVAL_PHASE(9);
     __syncthreads();  // u's stores, or the last anchor's reads of act
+    EVAL_PHASE(8);
     const float* vj = v + static_cast<size_t>(j) * kWidth;
     for (int e = threadIdx.x; e < kWidth * kTileRows; e += kThreads) {
       const int r = e / kWidth, n = e % kWidth;
@@ -133,7 +136,9 @@ __global__ void __launch_bounds__(kThreads, 2)
           b_all + static_cast<size_t>(l) * kWidth, kWidth,
           __ldg(relu + l) != 0, nullptr, 0, valid, none, none);
     }
+    EVAL_PHASE(9);
     __syncthreads();  // the last epilogue's stores must land before the reads
+    EVAL_PHASE(6);
     const int l = L - 1;
     fb::last_layer_stats(
         fb::ActLoad{act}, valid,
@@ -141,8 +146,11 @@ __global__ void __launch_bounds__(kThreads, 2)
         b_all + static_cast<size_t>(l) * kWidth, kWidth, __ldg(relu + l) != 0,
         out_dim, j == 0, sc, s1, s2);
   }
+  EVAL_PHASE(9);
   __syncthreads();  // the slots' owners are not write_stats' threads
+  EVAL_PHASE(7);
   write_stats(sc, s1, s2, k, valid, row0, out_dim, mean, std);
+  EVAL_END();
 }
 
 }  // namespace
@@ -188,5 +196,11 @@ int nnueehcs_fused_anchored_bf16(const float* x, long long B, int d,
       x, B, d, w_all, b_all, L, relu, v, k, out_dim, mean, std);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef NNUEEHCS_EVAL_STAMPS
+int nnueehcs_eval_stamps_anchored(unsigned long long* out) {
+  return eval_stamps::read(out);
+}
+#endif
 
 }  // extern "C"

@@ -176,6 +176,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const bf16* w_hidden = w_all + static_cast<size_t>(d) * kWidth;
   const Identity none;
 
+  EVAL_BEGIN();
   for (int p = 0; p <= S; ++p) {
     const auto mask_for = [&](int l) {
       DropMask m;
@@ -189,6 +190,7 @@ __global__ void __launch_bounds__(kThreads, 2)
           static_cast<uint32_t>(__ldg(key + l)) * 0x85EBCA6Bu);
       return m;
     };
+    EVAL_PHASE(9);
     __syncthreads();  // the previous pass's last layer may still read act0
     bf16* in = act0;
     bf16* out = act1;
@@ -208,7 +210,9 @@ __global__ void __launch_bounds__(kThreads, 2)
       in = out;
       out = t;
     }
+    EVAL_PHASE(9);
     __syncthreads();  // the last epilogue's stores must land before the reads
+    EVAL_PHASE(6);
     const int l = L - 1;
     const float* b = b_all + static_cast<size_t>(l) * kWidth;
     const bool act = __ldg(relu + l) != 0;
@@ -222,8 +226,11 @@ __global__ void __launch_bounds__(kThreads, 2)
           act, out_dim, p == 0, sc, s1, s2);
     }
   }
+  EVAL_PHASE(9);
   __syncthreads();  // the slots' owners are not write_stats' threads
+  EVAL_PHASE(7);
   write_stats(sc, s1, s2, S, valid, row0, out_dim, mean, std);
+  EVAL_END();
 }
 
 }  // namespace
@@ -274,5 +281,11 @@ int nnueehcs_fused_mc_dropout_bf16(const float* x, long long B, int d,
       mean, std);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef NNUEEHCS_EVAL_STAMPS
+int nnueehcs_eval_stamps_mc(unsigned long long* out) {
+  return eval_stamps::read(out);
+}
+#endif
 
 }  // extern "C"

@@ -123,6 +123,25 @@ def _check_inputs(aw: AnchoredWeights, x, anchors):
             raise ValueError(f'weights and anchors must be on {x.device}')
 
 
+def launch_anchored(lib, aw: AnchoredWeights, x, v, mean, std):
+    """Launch the kernel form of ``aw``'s compute dtype from the kernel
+    library ``lib`` (``_build.library()``, or an instrumented build) on
+    checked inputs and the anchor rows ``v``, filling ``mean`` and
+    ``std``; raises on a CUDA error."""
+    bf16 = aw.compute_dtype == torch.bfloat16
+    launch = lib.nnueehcs_fused_anchored_bf16 if bf16 else \
+        lib.nnueehcs_fused_anchored_f32
+    with torch.cuda.device(x.device):
+        err = launch(
+            x.data_ptr(), x.shape[0], aw.in_dim, aw.w_all.data_ptr(),
+            aw.b_all.data_ptr(), aw.num_layers, aw.relu_flags.data_ptr(),
+            v.data_ptr(), v.shape[0], aw.out_dim, mean.data_ptr(),
+            std.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'fused anchored kernel launch failed: CUDA error '
+                           f'{err}')
+
+
 def fused_anchored_stats(aw: AnchoredWeights, x, anchors, n_anchors=None):
     """``(mean, std)``, each ``(B, out_dim)``, over the anchored passes of
     the first ``n_anchors`` anchors (all of them when None): the CUDA kernel
@@ -144,20 +163,8 @@ def fused_anchored_stats(aw: AnchoredWeights, x, anchors, n_anchors=None):
     if rows == 0:
         return mean, std
     from ._build import library
-    lib = library()
-    bf16 = aw.compute_dtype == torch.bfloat16
-    launch = lib.nnueehcs_fused_anchored_bf16 if bf16 else \
-        lib.nnueehcs_fused_anchored_f32
-    with torch.cuda.device(x.device):
-        err = launch(
-            x.data_ptr(), rows, aw.in_dim, aw.w_all.data_ptr(),
-            aw.b_all.data_ptr(), aw.num_layers, aw.relu_flags.data_ptr(),
-            v.data_ptr(), v.shape[0], aw.out_dim, mean.data_ptr(),
-            std.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'fused anchored kernel launch failed: CUDA error '
-                           f'{err}')
-    if bf16:
+    launch_anchored(library(), aw, x, v, mean, std)
+    if aw.compute_dtype == torch.bfloat16:
         fused_anchored_stats.launches_bf16 += 1
     else:
         fused_anchored_stats.launches += 1

@@ -203,6 +203,27 @@ def _check_inputs(mw: McWeights, x, num_samples):
             raise ValueError(f'folded weights must be contiguous on {x.device}')
 
 
+def launch_mc(lib, mw: McWeights, x, num_samples: int, seed: int, mean,
+              std):
+    """Launch the kernel form of ``mw``'s compute dtype from the kernel
+    library ``lib`` (``_build.library()``, or an instrumented build) on
+    checked inputs, filling ``mean`` and ``std``; raises on a CUDA error."""
+    bf16 = mw.compute_dtype == torch.bfloat16
+    launch = lib.nnueehcs_fused_mc_dropout_bf16 if bf16 else \
+        lib.nnueehcs_fused_mc_dropout_f32
+    with torch.cuda.device(x.device):
+        err = launch(
+            x.data_ptr(), x.shape[0], mw.in_dim, mw.w_all.data_ptr(),
+            mw.b_all.data_ptr(), mw.num_layers, mw.relu_flags.data_ptr(),
+            mw.drop_thresh.data_ptr(), mw.drop_scale.data_ptr(),
+            mw.drop_key.data_ptr(), num_samples, seed, mw.out_dim,
+            mean.data_ptr(), std.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'fused MC-dropout kernel launch failed: CUDA '
+                           f'error {err}')
+
+
 def fused_mc_forward(mw: McWeights, x, num_samples: int, seed: int):
     """``(mean, std)``, each ``(B, out_dim)``, over ``num_samples`` dropout
     samples drawn with call seed ``seed``: the CUDA kernel of the weights'
@@ -222,22 +243,8 @@ def fused_mc_forward(mw: McWeights, x, num_samples: int, seed: int):
     if rows == 0:
         return mean, std
     from ._build import library
-    lib = library()
-    bf16 = mw.compute_dtype == torch.bfloat16
-    launch = lib.nnueehcs_fused_mc_dropout_bf16 if bf16 else \
-        lib.nnueehcs_fused_mc_dropout_f32
-    with torch.cuda.device(x.device):
-        err = launch(
-            x.data_ptr(), rows, mw.in_dim, mw.w_all.data_ptr(),
-            mw.b_all.data_ptr(), mw.num_layers, mw.relu_flags.data_ptr(),
-            mw.drop_thresh.data_ptr(), mw.drop_scale.data_ptr(),
-            mw.drop_key.data_ptr(), num_samples, seed, mw.out_dim,
-            mean.data_ptr(), std.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'fused MC-dropout kernel launch failed: CUDA '
-                           f'error {err}')
-    if bf16:
+    launch_mc(library(), mw, x, num_samples, seed, mean, std)
+    if mw.compute_dtype == torch.bfloat16:
         fused_mc_forward.launches_bf16 += 1
     else:
         fused_mc_forward.launches += 1
