@@ -54,11 +54,13 @@ SIGNATURES = {
     'nnueehcs_fused_mc_dropout_bf16': (
         ctypes.c_int,
         [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P,
-         _P, _P, ctypes.c_int, ctypes.c_uint32, ctypes.c_int, _P, _P, _P]),
+         _P, _P, ctypes.c_int, ctypes.c_uint32, ctypes.c_int, _P, _P,
+         ctypes.POINTER(ctypes.c_int), _P]),
     'nnueehcs_fused_anchored_bf16': (
         ctypes.c_int,
         [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P,
-         ctypes.c_int, ctypes.c_int, _P, _P, _P]),
+         ctypes.c_int, ctypes.c_int, _P, _P, ctypes.POINTER(ctypes.c_int),
+         _P]),
     'nnueehcs_packed_forward_bf16': (
         ctypes.c_int,
         [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, _P, _P,

@@ -29,10 +29,14 @@
 // in fp32; v_j = a_j @ (W_top - W_bot) stays fp32 (unrounded anchors, the
 // fp32 W_top - W_bot); h = u + v_j is fp32 and is rounded to bf16 only at
 // the next dot, as every later activation is. What bounds it: operations,
-// at the dense bf16 tensor-core peak (989 TFLOP/s on an H100 SXM); its
-// tile is fused_chain_bf16.cuh's, with u in a (64, 136) fp32 buffer.
+// at the dense bf16 tensor-core peak (989 TFLOP/s on an H100 SXM). Its
+// design is fused_chain_wgmma.cuh's: persistent blocks holding the chain
+// in shared memory, two warpgroups of wgmma products a block with the
+// activations in registers; u stays in the warpgroup's registers for the
+// whole anchor loop, and each anchor's layer 0 is relu(u + v_j) in fp32,
+// rounded into the A operand, with v_j read through L1.
 #include "fused_chain.cuh"
-#include "fused_chain_bf16.cuh"
+#include "fused_chain_wgmma.cuh"
 
 using namespace fused_chain;
 
@@ -90,66 +94,109 @@ __global__ void __launch_bounds__(kThreads, 2)
   write_stats(sc, s1, s2, k, valid, row0, out_dim, mean, std);
 }
 
-// The bf16 form: w_all as above in bf16, b_all and v fp32.
-__global__ void __launch_bounds__(kThreads, 2)
+namespace fw = fused_chain_wgmma;
+
+// The bf16 form. image: the chain packed by ops/fused_eval_chain.py
+// (chain_image, W_bot as layer 0); b_all (L, 128), v (k, 128) fp32; lay:
+// the launch layout (eval_layout).
+template <bool kRing>
+__global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 2 * fw::kWgThreads, 1)
     fused_anchored_bf16_kernel(const float* __restrict__ x, long long B, int d,
-                               const __nv_bfloat16* __restrict__ w_all,
+                               const unsigned char* __restrict__ image,
                                const float* __restrict__ b_all, int L,
                                const int* __restrict__ relu,
                                const float* __restrict__ v, int k,
                                int out_dim, float* __restrict__ mean,
-                               float* __restrict__ std) {
-  namespace fb = fused_chain_bf16;
-  using bf16 = fb::bf16;
-  extern __shared__ __align__(16) unsigned char smem_bf16[];
-  bf16* act = reinterpret_cast<bf16*>(smem_bf16);
-  bf16* sw = act + kTileRows * fb::kAStride;
-  float* ubuf = reinterpret_cast<float*>(sw + 2 * kChunk * fb::kWStride);
-  float* sc = ubuf + kTileRows * fb::kUStride;
-  float* s1 = sc + kTileRows * out_dim;
-  float* s2 = s1 + kTileRows * out_dim;
-
-  const long long row0 = static_cast<long long>(blockIdx.x) * kTileRows;
-  const int valid = static_cast<int>(min(static_cast<long long>(kTileRows), B - row0));
-  const float* x_tile = x + row0 * d;
-  const bf16* w_hidden = w_all + static_cast<size_t>(d) * kWidth;
-  const bool relu0 = __ldg(relu) != 0;
-  const Identity none;
-
-  // u = bf16(x) @ W_bot + b0 in fp32, without the ReLU; x is staged in act
-  EVAL_BEGIN();
-  fb::dense_layer<true, true>(act, ubuf, sw, w_all, b_all, d, false, x_tile,
-                              d, valid, none, none);
-  for (int j = 0; j < k; ++j) {
-    EVAL_PHASE(9);
-    __syncthreads();  // u's stores, or the last anchor's reads of act
-    EVAL_PHASE(8);
-    const float* vj = v + static_cast<size_t>(j) * kWidth;
-    for (int e = threadIdx.x; e < kWidth * kTileRows; e += kThreads) {
-      const int r = e / kWidth, n = e % kWidth;
-      const float h = ubuf[r * fb::kUStride + n] + __ldg(vj + n);
-      act[r * fb::kAStride + n] = __float2bfloat16_rn(relu0 ? fmaxf(h, 0.f) : h);
-    }
-    for (int l = 1; l + 1 < L; ++l) {
-      fb::dense_layer<false>(
-          act, act, sw, w_hidden + static_cast<size_t>(l - 1) * kWidth * kWidth,
-          b_all + static_cast<size_t>(l) * kWidth, kWidth,
-          __ldg(relu + l) != 0, nullptr, 0, valid, none, none);
-    }
-    EVAL_PHASE(9);
-    __syncthreads();  // the last epilogue's stores must land before the reads
-    EVAL_PHASE(6);
-    const int l = L - 1;
-    fb::last_layer_stats(
-        fb::ActLoad{act}, valid,
-        w_hidden + static_cast<size_t>(l - 1) * kWidth * kWidth,
-        b_all + static_cast<size_t>(l) * kWidth, kWidth, __ldg(relu + l) != 0,
-        out_dim, j == 0, sc, s1, s2);
+                               float* __restrict__ std, fw::Layout lay) {
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  const fw::Chain chain(d, L, lay.out_groups);
+  fw::Weights<kRing> wts(smem_wg, lay);
+  const int wg = threadIdx.x / fw::kWgThreads;
+  if (threadIdx.x == 0) wts.init(lay.warpgroups);
+  __syncthreads();
+  const fw::Tiles tiles(B, lay, wg);
+  if (kRing && wg == lay.warpgroups) {  // the ring's producer warp
+    if (threadIdx.x % 32 == 0)
+      for (long long r = 0; r < tiles.rounds; ++r) {
+        for (int b = 0; b < chain.nb0; ++b) wts.produce(chain, image, b);
+        for (int j = 0; j < k; ++j)
+          for (int b = chain.nb0; b < chain.blocks(); ++b)
+            wts.produce(chain, image, b);
+      }
+    return;
   }
-  EVAL_PHASE(9);
-  __syncthreads();  // the slots' owners are not write_stats' threads
-  EVAL_PHASE(7);
-  write_stats(sc, s1, s2, k, valid, row0, out_dim, mean, std);
+  EVAL_BEGIN();
+  if (!kRing) {
+    if (threadIdx.x == 0) wts.load_image(image, lay.image_bytes);
+    EVAL_PHASE(1);
+    fw::mbar_wait(wts.full, 0);
+  }
+  const fw::Thread t(threadIdx.x);
+  float4* st = reinterpret_cast<float4*>(smem_wg + lay.smem_stats) +
+               (wg * lay.out_groups * 3) * fw::kWgThreads + t.lt;
+  const int groups = lay.out_groups;
+  const int last = L - 1;
+  const float* b_last = b_all + static_cast<size_t>(last) * fw::kWidth;
+  const bool relu0 = __ldg(relu) != 0;
+  const bool relu_last = __ldg(relu + last) != 0;
+  const uint32_t none[2] = {0u, 0u};
+  float acc[64], u[64], acc_last[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  uint32_t a[8][4];
+  for (long long r = 0;; ++r) {
+    const long long tile = tiles.tile(r);
+    if (tile < 0) break;
+    const long long row0 = tile * fw::kRows;
+    const int valid = tiles.valid(tile, B);
+    const float* x_tile = x + (valid > 0 ? row0 * d : 0);
+    // u = bf16(x) @ W_bot + b0, fp32, kept for every anchor
+    fw::layer0_from_x(acc, wts, chain, x_tile, d, valid, t, fw::NoMask(),
+                      [] {});
+    EVAL_PHASE(7);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const float2 b0 =
+          __ldg(reinterpret_cast<const float2*>(b_all + 8 * i + 2 * t.q));
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        u[4 * i + e] = acc[4 * i + e] + ((e & 1) ? b0.y : b0.x);
+    }
+    for (int j = 0; j < k; ++j) {
+      // layer 0 of anchor j: relu(u + v_j), rounded into A
+      EVAL_PHASE(7);
+      const float* vj = v + static_cast<size_t>(j) * fw::kWidth;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float2 vv =
+            __ldg(reinterpret_cast<const float2*>(vj + 8 * i + 2 * t.q));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float h0 = u[4 * i + 2 * h] + vv.x, h1 = u[4 * i + 2 * h + 1] + vv.y;
+          if (relu0) {
+            h0 = fmaxf(h0, 0.f);
+            h1 = fmaxf(h1, 0.f);
+          }
+          a[i >> 1][2 * (i & 1) + h] = fw::pack(h0, h1);
+        }
+      }
+      for (int l = 1; l < last; ++l) {
+        const uint32_t addr = wts.acquire(chain, chain.nb0 + l - 1);
+        fw::issue_n128(acc, a, addr);
+        fw::wait_acc(acc, a);
+        wts.release(t.lane0);
+        fw::epilogue<false>(acc, b_all + static_cast<size_t>(l) * fw::kWidth,
+                            __ldg(relu + l) != 0, none, 1.f, t, a);
+      }
+      const uint32_t addr = wts.acquire(chain, chain.nb0 + last - 1);
+      for (int g = 0; g < groups; ++g) {
+        fw::last_group(acc_last, a, addr, g);
+        fw::stats_update(acc_last, b_last, relu_last, g, t, j == 0, st);
+      }
+      wts.release(t.lane0);
+    }
+    fw::stats_write(st, groups, k, t, valid, row0, out_dim, mean, std);
+  }
   EVAL_END();
 }
 
@@ -179,21 +226,24 @@ int nnueehcs_fused_anchored_f32(const float* x, long long B, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 form; as nnueehcs_fused_anchored_f32 with w_all in bf16.
+// The bf16 form: as nnueehcs_fused_anchored_f32 with the chain as its
+// bf16 image (ops/fused_eval_chain.py chain_image) in place of w_all, and
+// the launch layout (eval_layout, LAYOUT_FIELDS) as host ints.
 int nnueehcs_fused_anchored_bf16(const float* x, long long B, int d,
-                                 const __nv_bfloat16* w_all,
+                                 const unsigned char* image,
                                  const float* b_all, int L, const int* relu,
                                  const float* v, int k, int out_dim,
-                                 float* mean, float* std, void* stream) {
-  const size_t smem = fused_chain_bf16::smem_bytes(out_dim, true);
+                                 float* mean, float* std, const int* layout,
+                                 void* stream) {
+  const fused_chain_wgmma::Layout lay = fused_chain_wgmma::Layout::from(layout);
+  const auto kernel = lay.ring ? fused_anchored_bf16_kernel<true> : fused_anchored_bf16_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_anchored_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lay.smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (B + kTileRows - 1) / kTileRows;
-  fused_anchored_bf16_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+  kernel<<<lay.grid, lay.threads, lay.smem_bytes,
                                static_cast<cudaStream_t>(stream)>>>(
-      x, B, d, w_all, b_all, L, relu, v, k, out_dim, mean, std);
+      x, B, d, image, b_all, L, relu, v, k, out_dim, mean, std, lay);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -32,7 +32,6 @@
 
 #include <cuda_bf16.h>
 
-#include "eval_stamps.cuh"
 #include "fused_chain.cuh"
 
 namespace fused_chain_bf16 {
@@ -79,7 +78,6 @@ template <class S, class F>
 __device__ __forceinline__ void stream_weights(bf16* sw, const bf16* w, int K,
                                                S&& stage, F&& compute) {
   const int nchunks = (K + kChunk - 1) / kChunk;
-  EVAL_PHASE(1);
   load_chunk(sw, w, 0, min(kChunk, K));
   fused_chain::cp_async_commit();
   for (int c = 0; c < nchunks; ++c) {
@@ -91,16 +89,11 @@ __device__ __forceinline__ void stream_weights(bf16* sw, const bf16* w, int K,
     fused_chain::cp_async_commit();
     const int k0 = c * kChunk, rows = min(kChunk, K - k0);
     stage(c, k0, rows);
-    EVAL_PHASE(2);
     fused_chain::cp_async_wait_all_but_one();
     __syncthreads();
-    EVAL_PHASE(3);
     compute(sw + (c & 1) * kChunk * kWStride, c, k0, rows);
-    EVAL_PHASE(4);
     __syncthreads();
-    EVAL_PHASE(1);
   }
-  EVAL_PHASE(5);
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {

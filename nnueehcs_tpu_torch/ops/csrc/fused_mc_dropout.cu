@@ -34,10 +34,18 @@
 // applied in fp32 and the activation is rounded to bf16 only at the next
 // dot, so the epilogue masks the fp32 value before it rounds; the
 // dropout-free shift pass runs in bf16 too, and the masks are the same hash.
-// What bounds it: operations, at the dense bf16 tensor-core peak (989
-// TFLOP/s on an H100 SXM); its tile is fused_chain_bf16.cuh's.
+// What bounds it: the bf16 products at the dense tensor-core peak (989
+// TFLOP/s on an H100 SXM, 5.7 ms at the flagship) and the mask hash, about
+// a dozen integer operations for each of the 2.1e10 masked elements, on the
+// INT32 pipes (64 a clock per SM). Its design is fused_chain_wgmma.cuh's:
+// persistent blocks holding the chain in shared memory, warpgroups of
+// wgmma products with the activations in registers, two warpgroups a
+// block so that one's epilogue and hash overlap the other's products;
+// each layer's keep bits for the next Linear are hashed while the layer's
+// products are in flight, packed 64 to two words, and applied in the
+// epilogue.
 #include "fused_chain.cuh"
-#include "fused_chain_bf16.cuh"
+#include "fused_chain_wgmma.cuh"
 
 using namespace fused_chain;
 
@@ -147,11 +155,103 @@ __global__ void __launch_bounds__(kThreads, 2)
   write_stats(sc, s1, s2, S, valid, row0, out_dim, mean, std);
 }
 
-// The bf16 form: w_all as above in bf16, b_all fp32.
-__global__ void __launch_bounds__(kThreads, 2)
+namespace fw = fused_chain_wgmma;
+
+// One Dropout's mask in one sample, for a thread's two rows (r0, r0 + 8 of
+// the tile): bq[h] = stream + row term + column 2 q's term, so that value
+// (h, column 2 q + o) keeps when the top 24 bits of lowbias32(bq[h] +
+// o * 0x27D4EB2F) fall below the threshold, as DropMask's.
+struct Drop {
+  bool active;
+  uint32_t threshold;
+  float scale;
+  uint32_t col;     // 2 q, the column bq includes
+  uint32_t bq[2];
+
+  __device__ __forceinline__ bool keep(int h, uint32_t o) const {
+    return (lowbias32(bq[h] + o * 0x27D4EB2Fu) >> 8) < threshold;
+  }
+  // value (h, column c) of x through the mask
+  __device__ __forceinline__ float operator()(int h, int c, float v) const {
+    if (!active) return v;
+    return v * (keep(h, static_cast<uint32_t>(c) - col) ? scale : 0.f);
+  }
+};
+
+__device__ __forceinline__ Drop drop_for(int p, int l, uint32_t seed,
+                                         const int* thresh,
+                                         const float* scale, const int* key,
+                                         long long row0,
+                                         const fw::Thread& t) {
+  Drop m;
+  const int th = __ldg(thresh + l);
+  m.active = p > 0 && th >= 0;
+  m.threshold = static_cast<uint32_t>(th);
+  m.scale = __ldg(scale + l);
+  const uint32_t stream =
+      lowbias32(lowbias32(seed + static_cast<uint32_t>(p - 1) * 0x9E3779B9u) +
+                static_cast<uint32_t>(__ldg(key + l)) * 0x85EBCA6Bu);
+  m.col = static_cast<uint32_t>(2 * t.q);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    m.bq[h] = stream +
+              (static_cast<uint32_t>(row0) + static_cast<uint32_t>(t.r0 + 8 * h)) *
+                  0xC2B2AE35u +
+              m.col * 0x27D4EB2Fu;
+  return m;
+}
+
+// The keep bits of the thread's 64 accumulator slots (slot j = 4 i + 2 h +
+// e: row r0 + 8 h, column 8 i + 2 q + e) at bit j % 32 of word j / 32. Two
+// column groups a step: eight hashes in flight per thread keep the INT32
+// pipes busy without the registers of all 64.
+__device__ __forceinline__ void keep_words(const Drop& m, uint32_t (&w)[2]) {
+  EVAL_PHASE(4);
+  uint32_t b0 = m.bq[0], b1 = m.bq[1];
+  fw::pin(b0);   // not before the products are issued
+  fw::pin(b1);
+#pragma unroll
+  for (int word = 0; word < 2; ++word) {
+    uint32_t bits_of = 0u;
+#pragma unroll 2
+    for (int i = 0; i < 8; ++i) {
+      const uint32_t col = 8u * (8 * word + i);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const uint32_t bits =
+              lowbias32((h ? b1 : b0) + (col + e) * 0x27D4EB2Fu);
+          const uint32_t keep = (bits >> 8) < m.threshold ? 1u : 0u;
+          bits_of |= keep << (4 * i + 2 * h + e);
+        }
+      }
+    }
+    w[word] = bits_of;
+  }
+  fw::pin(w[0]);  // formed before the wait
+  fw::pin(w[1]);
+}
+
+__device__ __forceinline__ void mask_epilogue(const float (&acc)[64],
+                                              const float* bias, bool relu,
+                                              const Drop& m,
+                                              const uint32_t (&keep)[2],
+                                              const fw::Thread& t,
+                                              uint32_t (&a)[8][4]) {
+  if (m.active)
+    fw::epilogue<true>(acc, bias, relu, keep, m.scale, t, a);
+  else
+    fw::epilogue<false>(acc, bias, relu, keep, m.scale, t, a);
+}
+
+// The bf16 form. image: the chain packed by ops/fused_eval_chain.py
+// (chain_image); b_all (L, 128) fp32; relu, thresh, scale, key as for the
+// fp32 kernel; lay: the launch layout (eval_layout).
+template <bool kRing>
+__global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 2 * fw::kWgThreads, 1)
     fused_mc_dropout_bf16_kernel(const float* __restrict__ x, long long B,
-                                 int d,
-                                 const __nv_bfloat16* __restrict__ w_all,
+                                 int d, const unsigned char* __restrict__ image,
                                  const float* __restrict__ b_all, int L,
                                  const int* __restrict__ relu,
                                  const int* __restrict__ thresh,
@@ -159,77 +259,86 @@ __global__ void __launch_bounds__(kThreads, 2)
                                  const int* __restrict__ key, int S,
                                  uint32_t seed, int out_dim,
                                  float* __restrict__ mean,
-                                 float* __restrict__ std) {
-  namespace fb = fused_chain_bf16;
-  using bf16 = fb::bf16;
-  extern __shared__ __align__(16) unsigned char smem_bf16[];
-  bf16* act0 = reinterpret_cast<bf16*>(smem_bf16);
-  bf16* act1 = act0 + kTileRows * fb::kAStride;
-  bf16* sw = act1 + kTileRows * fb::kAStride;
-  float* sc = reinterpret_cast<float*>(sw + 2 * kChunk * fb::kWStride);
-  float* s1 = sc + kTileRows * out_dim;
-  float* s2 = s1 + kTileRows * out_dim;
-
-  const long long row0 = static_cast<long long>(blockIdx.x) * kTileRows;
-  const int valid = static_cast<int>(min(static_cast<long long>(kTileRows), B - row0));
-  const float* x_tile = x + row0 * d;
-  const bf16* w_hidden = w_all + static_cast<size_t>(d) * kWidth;
-  const Identity none;
-
-  EVAL_BEGIN();
-  for (int p = 0; p <= S; ++p) {
-    const auto mask_for = [&](int l) {
-      DropMask m;
-      const int t = __ldg(thresh + l);
-      m.active = p > 0 && t >= 0;
-      m.threshold = static_cast<uint32_t>(t);
-      m.scale = __ldg(scale + l);
-      m.row0 = static_cast<uint32_t>(row0);
-      m.stream = lowbias32(
-          lowbias32(seed + static_cast<uint32_t>(p - 1) * 0x9E3779B9u) +
-          static_cast<uint32_t>(__ldg(key + l)) * 0x85EBCA6Bu);
-      return m;
-    };
-    EVAL_PHASE(9);
-    __syncthreads();  // the previous pass's last layer may still read act0
-    bf16* in = act0;
-    bf16* out = act1;
-    for (int l = 0; l + 1 < L; ++l) {
-      const float* b = b_all + static_cast<size_t>(l) * kWidth;
-      const bool act = __ldg(relu + l) != 0;
-      const DropMask next = mask_for(l + 1);
-      if (l == 0) {
-        fb::dense_layer<true>(in, out, sw, w_all, b, d, act, x_tile, d, valid,
-                              mask_for(0), next);
-      } else {
-        fb::dense_layer<false>(
-            in, out, sw, w_hidden + static_cast<size_t>(l - 1) * kWidth * kWidth,
-            b, kWidth, act, nullptr, 0, valid, none, next);
-      }
-      bf16* t = in;
-      in = out;
-      out = t;
-    }
-    EVAL_PHASE(9);
-    __syncthreads();  // the last epilogue's stores must land before the reads
-    EVAL_PHASE(6);
-    const int l = L - 1;
-    const float* b = b_all + static_cast<size_t>(l) * kWidth;
-    const bool act = __ldg(relu + l) != 0;
-    if (l == 0) {  // one Linear: x masked and rounded as it is read
-      fb::last_layer_stats(fb::XLoad<DropMask>{x_tile, d, mask_for(0)}, valid,
-                           w_all, b, d, act, out_dim, p == 0, sc, s1, s2);
-    } else {
-      fb::last_layer_stats(
-          fb::ActLoad{in}, valid,
-          w_hidden + static_cast<size_t>(l - 1) * kWidth * kWidth, b, kWidth,
-          act, out_dim, p == 0, sc, s1, s2);
-    }
+                                 float* __restrict__ std, fw::Layout lay) {
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  const fw::Chain chain(d, L, lay.out_groups);
+  fw::Weights<kRing> wts(smem_wg, lay);
+  const int wg = threadIdx.x / fw::kWgThreads;
+  if (threadIdx.x == 0) wts.init(lay.warpgroups);
+  __syncthreads();
+  const fw::Tiles tiles(B, lay, wg);
+  if (kRing && wg == lay.warpgroups) {  // the ring's producer warp
+    if (threadIdx.x % 32 == 0)
+      for (long long r = 0; r < tiles.rounds; ++r)
+        for (int p = 0; p <= S; ++p) {
+          if (L == 1) {  // layer 0 once for each column group
+            for (int g = 0; g < lay.out_groups; ++g)
+              for (int b = 0; b < chain.nb0; ++b) wts.produce(chain, image, b);
+          } else {
+            for (int b = 0; b < chain.blocks(); ++b)
+              wts.produce(chain, image, b);
+          }
+        }
+    return;
   }
-  EVAL_PHASE(9);
-  __syncthreads();  // the slots' owners are not write_stats' threads
-  EVAL_PHASE(7);
-  write_stats(sc, s1, s2, S, valid, row0, out_dim, mean, std);
+  EVAL_BEGIN();
+  if (!kRing) {
+    if (threadIdx.x == 0) wts.load_image(image, lay.image_bytes);
+    EVAL_PHASE(1);
+    fw::mbar_wait(wts.full, 0);
+  }
+  const fw::Thread t(threadIdx.x);
+  float4* st = reinterpret_cast<float4*>(smem_wg + lay.smem_stats) +
+               (wg * lay.out_groups * 3) * fw::kWgThreads + t.lt;
+  const int groups = lay.out_groups;
+  const int last = L - 1;
+  const float* b_last = b_all + static_cast<size_t>(last) * fw::kWidth;
+  const bool relu_last = __ldg(relu + last) != 0;
+  float acc[64], acc_last[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  uint32_t a[8][4];
+  for (long long r = 0;; ++r) {
+    const long long tile = tiles.tile(r);
+    if (tile < 0) break;
+    const long long row0 = tile * fw::kRows;
+    const int valid = tiles.valid(tile, B);
+    const float* x_tile = x + (valid > 0 ? row0 * d : 0);
+    for (int p = 0; p <= S; ++p) {
+      const Drop m0 = drop_for(p, 0, seed, thresh, scale, key, row0, t);
+      if (L == 1) {  // one Linear: the last layer straight from x
+        for (int g = 0; g < groups; ++g) {
+          fw::last_group_from_x(acc_last, wts, chain, x_tile, d, valid, t, g,
+                                m0);
+          fw::stats_update(acc_last, b_last, relu_last, g, t, p == 0, st);
+        }
+        continue;
+      }
+      Drop m = drop_for(p, 1, seed, thresh, scale, key, row0, t);
+      uint32_t keep[2] = {0u, 0u};
+      fw::layer0_from_x(acc, wts, chain, x_tile, d, valid, t, m0, [&] {
+        if (m.active) keep_words(m, keep);
+      });
+      mask_epilogue(acc, b_all, __ldg(relu) != 0, m, keep, t, a);
+      for (int l = 1; l < last; ++l) {
+        const uint32_t addr = wts.acquire(chain, chain.nb0 + l - 1);
+        fw::issue_n128(acc, a, addr);
+        m = drop_for(p, l + 1, seed, thresh, scale, key, row0, t);
+        if (m.active) keep_words(m, keep);
+        fw::wait_acc(acc, a);
+        wts.release(t.lane0);
+        mask_epilogue(acc, b_all + static_cast<size_t>(l) * fw::kWidth,
+                      __ldg(relu + l) != 0, m, keep, t, a);
+      }
+      const uint32_t addr = wts.acquire(chain, chain.nb0 + last - 1);
+      for (int g = 0; g < groups; ++g) {
+        fw::last_group(acc_last, a, addr, g);
+        fw::stats_update(acc_last, b_last, relu_last, g, t, p == 0, st);
+      }
+      wts.release(t.lane0);
+    }
+    fw::stats_write(st, groups, S, t, valid, row0, out_dim, mean, std);
+  }
   EVAL_END();
 }
 
@@ -261,24 +370,26 @@ int nnueehcs_fused_mc_dropout_f32(const float* x, long long B, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 form; as nnueehcs_fused_mc_dropout_f32 with w_all in bf16.
+// The bf16 form: as nnueehcs_fused_mc_dropout_f32 with the chain as its
+// bf16 image (ops/fused_eval_chain.py chain_image) in place of w_all, and
+// the launch layout (eval_layout, LAYOUT_FIELDS) as host ints.
 int nnueehcs_fused_mc_dropout_bf16(const float* x, long long B, int d,
-                                   const __nv_bfloat16* w_all,
+                                   const unsigned char* image,
                                    const float* b_all, int L, const int* relu,
                                    const int* thresh, const float* scale,
                                    const int* key, int S, uint32_t seed,
                                    int out_dim, float* mean, float* std,
-                                   void* stream) {
-  const size_t smem = fused_chain_bf16::smem_bytes(out_dim);
+                                   const int* layout, void* stream) {
+  const fused_chain_wgmma::Layout lay = fused_chain_wgmma::Layout::from(layout);
+  const auto kernel = lay.ring ? fused_mc_dropout_bf16_kernel<true> : fused_mc_dropout_bf16_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mc_dropout_bf16_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, lay.smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (B + kTileRows - 1) / kTileRows;
-  fused_mc_dropout_bf16_kernel<<<static_cast<unsigned>(blocks), kThreads,
-                                 smem, static_cast<cudaStream_t>(stream)>>>(
-      x, B, d, w_all, b_all, L, relu, thresh, scale, key, S, seed, out_dim,
-      mean, std);
+  kernel<<<lay.grid, lay.threads, lay.smem_bytes,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      x, B, d, image, b_all, L, relu, thresh, scale, key, S, seed, out_dim,
+      mean, std, lay);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from .fused_eval_chain import launch_args
 from .fused_ensemble import (WIDTH, FusedWeights, _fold_linear_chain,
                              check_weights_dtype, check_x, compute_dtype_of,
                              shifted_stats)
@@ -127,16 +128,20 @@ def launch_anchored(lib, aw: AnchoredWeights, x, v, mean, std):
     """Launch the kernel form of ``aw``'s compute dtype from the kernel
     library ``lib`` (``_build.library()``, or an instrumented build) on
     checked inputs and the anchor rows ``v``, filling ``mean`` and
-    ``std``; raises on a CUDA error."""
-    bf16 = aw.compute_dtype == torch.bfloat16
-    launch = lib.nnueehcs_fused_anchored_bf16 if bf16 else \
-        lib.nnueehcs_fused_anchored_f32
+    ``std``; raises on a CUDA error. The bf16 form takes the chain as its
+    image and the launch layout of :mod:`.fused_eval_chain`."""
     with torch.cuda.device(x.device):
-        err = launch(
-            x.data_ptr(), x.shape[0], aw.in_dim, aw.w_all.data_ptr(),
-            aw.b_all.data_ptr(), aw.num_layers, aw.relu_flags.data_ptr(),
-            v.data_ptr(), v.shape[0], aw.out_dim, mean.data_ptr(),
-            std.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        args = [x.data_ptr(), x.shape[0], aw.in_dim, aw.w_all.data_ptr(),
+                aw.b_all.data_ptr(), aw.num_layers, aw.relu_flags.data_ptr(),
+                v.data_ptr(), v.shape[0], aw.out_dim, mean.data_ptr(),
+                std.data_ptr()]
+        if aw.compute_dtype == torch.bfloat16:
+            image, layout = launch_args('anchored', aw, x.shape[0], x.device)
+            args[3] = image.data_ptr()
+            err = lib.nnueehcs_fused_anchored_bf16(*args, layout, stream)
+        else:
+            err = lib.nnueehcs_fused_anchored_f32(*args, stream)
     if err != 0:
         raise RuntimeError(f'fused anchored kernel launch failed: CUDA error '
                            f'{err}')

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..nn.layers import Dropout, Linear
+from .fused_eval_chain import launch_args
 from .fused_ensemble import (FusedWeights, _check_widths, check_weights_dtype,
                              check_x, compute_dtype_of, fold_mc_dropout_params,
                              shifted_stats)
@@ -207,18 +208,22 @@ def launch_mc(lib, mw: McWeights, x, num_samples: int, seed: int, mean,
               std):
     """Launch the kernel form of ``mw``'s compute dtype from the kernel
     library ``lib`` (``_build.library()``, or an instrumented build) on
-    checked inputs, filling ``mean`` and ``std``; raises on a CUDA error."""
-    bf16 = mw.compute_dtype == torch.bfloat16
-    launch = lib.nnueehcs_fused_mc_dropout_bf16 if bf16 else \
-        lib.nnueehcs_fused_mc_dropout_f32
+    checked inputs, filling ``mean`` and ``std``; raises on a CUDA error.
+    The bf16 form takes the chain as its image and the launch layout of
+    :mod:`.fused_eval_chain`."""
     with torch.cuda.device(x.device):
-        err = launch(
-            x.data_ptr(), x.shape[0], mw.in_dim, mw.w_all.data_ptr(),
-            mw.b_all.data_ptr(), mw.num_layers, mw.relu_flags.data_ptr(),
-            mw.drop_thresh.data_ptr(), mw.drop_scale.data_ptr(),
-            mw.drop_key.data_ptr(), num_samples, seed, mw.out_dim,
-            mean.data_ptr(), std.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        args = [x.data_ptr(), x.shape[0], mw.in_dim, mw.w_all.data_ptr(),
+                mw.b_all.data_ptr(), mw.num_layers, mw.relu_flags.data_ptr(),
+                mw.drop_thresh.data_ptr(), mw.drop_scale.data_ptr(),
+                mw.drop_key.data_ptr(), num_samples, seed, mw.out_dim,
+                mean.data_ptr(), std.data_ptr()]
+        if mw.compute_dtype == torch.bfloat16:
+            image, layout = launch_args('mc', mw, x.shape[0], x.device)
+            args[3] = image.data_ptr()
+            err = lib.nnueehcs_fused_mc_dropout_bf16(*args, layout, stream)
+        else:
+            err = lib.nnueehcs_fused_mc_dropout_f32(*args, stream)
     if err != 0:
         raise RuntimeError(f'fused MC-dropout kernel launch failed: CUDA '
                            f'error {err}')

@@ -51,6 +51,7 @@ from nnueehcs_tpu_torch.model_builder import (DeltaUQMLPModelBuilder,
 from nnueehcs_tpu_torch.ops import ablate_epoch as ae
 from nnueehcs_tpu_torch.ops import ablate_forward as af
 from nnueehcs_tpu_torch.ops import fused_anchored as fa
+from nnueehcs_tpu_torch.ops import fused_eval_chain as ec
 from nnueehcs_tpu_torch.ops import fused_mc_dropout as mc
 from nnueehcs_tpu_torch.ops.fused_anchored import (anchor_rows,
                                                    fused_anchored_plain,
@@ -326,6 +327,157 @@ def test_bf16_anchored_kernel_matches_plain_on_card(card, case):
             fused_anchored_stats.launches_bf16) == (before[0], before[1] + 1)
     _bf16_pair(case, got, fused_anchored_plain(aw, x, anchor_rows(aw, m.anchors)),
                fused_anchored_plain(aw32, x, anchor_rows(aw32, m.anchors)))
+
+
+# The bf16 MC-dropout and anchored kernels (2b, 5b: warpgroup products on a
+# chain held in shared memory, or streamed through a ring when too deep;
+# ops/fused_eval_chain.py) at the edges of their tiles, inputs, outputs and
+# depths, held to their plain versions with the same bf16 bars.
+WGMMA_MC_CASES = {
+    # name: (in_dim, width, hidden, out_dim, p, samples, rows, far)
+    'b1_d1_one_linear': (1, 8, 0, 1, 0.2, 4, 1, False),
+    'b63_d5_w96_out3': (5, 96, 1, 3, 0.3, 8, 63, False),
+    'b64_d37_out128': (37, 128, 6, 128, 0.1, 5, 64, False),
+    'b65_w40_one_sample': (5, 40, 3, 1, 0.5, 1, 65, False),
+    'b262143_flagship': (5, 128, 6, 1, 0.1, 16, 262_143, False),
+    'one_linear_d37_out128': (37, 37, 0, 128, 0.1, 3, 300, False),
+    'deep_12_linears_ring': (5, 128, 11, 1, 0.1, 8, 1000, False),
+    'far_ood': (5, 128, 6, 1, 0.1, 32, 4096, True),
+}
+WGMMA_ANCHORED_CASES = {
+    # name: (in_dim, width, hidden, out_dim, anchors, rows, far)
+    'k1_b65': (5, 128, 6, 1, 1, 65, False),
+    'k229_b262143': (5, 128, 6, 1, 229, 262_143, False),
+    'b1_d1_out3': (1, 128, 2, 3, 5, 1, False),
+    'b63_d37_w64_out128': (37, 64, 1, 128, 7, 63, False),
+    'b64_w96_out3': (5, 96, 6, 3, 11, 64, False),
+    'deep_12_linears_ring': (5, 128, 11, 1, 17, 1000, False),
+    'far_ood': (5, 128, 6, 1, 229, 4096, True),
+}
+FAR = 40.0      # far_ood: every input feature moved 40 past the data
+
+
+def _inputs(card, rows, in_dim, far, seed=6):
+    x = np.random.default_rng(seed).normal(size=(rows, in_dim))
+    return torch.as_tensor(x + (FAR if far else 0.0), dtype=torch.float32,
+                           device=card)
+
+
+def _form(kernel, w, rows):
+    return ec.eval_layout(kernel, w.in_dim, w.num_layers, w.out_dim, rows,
+                          torch.cuda.get_device_properties(0)
+                          .multi_processor_count)
+
+
+def _one_linear_mc(card, in_dim, out_dim, p):
+    """bf16 and fp32 McWeights of one Linear with a Dropout before it (a
+    chain the builder never makes, which the kernels take: the mask then
+    falls on x)."""
+    gen = torch.Generator().manual_seed(4)
+    w = (torch.randn((1, in_dim, out_dim), generator=gen) / in_dim ** 0.5)
+    b = torch.randn((1, out_dim), generator=gen) * 0.1
+    folded = [(w.to(card), b.to(card), False)]
+    return (mc.McWeights(folded, [p], [0], torch.bfloat16),
+            mc.McWeights(folded, [p], [0], torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(WGMMA_MC_CASES))
+def test_bf16_mc_wgmma_kernel_matches_plain_on_card(card, case):
+    in_dim, width, hidden, out_dim, p, samples, rows, far = \
+        WGMMA_MC_CASES[case]
+    if hidden == 0:
+        mw, mw32 = _one_linear_mc(card, in_dim, out_dim, p)
+    else:
+        mw, mw32 = _both(_mc_model(card, in_dim, width, hidden, out_dim, p,
+                                   samples),
+                         lambda net: mc.prepare_mc_weights(net))
+    assert mw.num_layers == hidden + 1
+    assert _form('mc', mw, rows).resident == (hidden + 1 < 9)
+    x = _inputs(card, rows, in_dim, far)
+    before = (fused_mc_forward.launches, fused_mc_forward.launches_bf16)
+    got = fused_mc_forward(mw, x, samples, 1234567)
+    torch.cuda.synchronize()
+    assert (fused_mc_forward.launches,
+            fused_mc_forward.launches_bf16) == (before[0], before[1] + 1)
+    _bf16_pair(case, got, fused_mc_forward_plain(mw, x, samples, 1234567),
+               fused_mc_forward_plain(mw32, x, samples, 1234567))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(WGMMA_ANCHORED_CASES))
+def test_bf16_anchored_wgmma_kernel_matches_plain_on_card(card, case):
+    in_dim, width, hidden, out_dim, anchors, rows, far = \
+        WGMMA_ANCHORED_CASES[case]
+    m = _anchored_model(card, DeltaUQMLPModelBuilder, in_dim, width, hidden,
+                        out_dim, anchors)
+    aw, aw32 = _both(m, lambda net: fa.prepare_fused_anchored(net))
+    assert _form('anchored', aw, rows).resident == (hidden + 1 < 9)
+    x = _inputs(card, rows, in_dim, far)
+    before = (fused_anchored_stats.launches,
+              fused_anchored_stats.launches_bf16)
+    got = fused_anchored_stats(aw, x, m.anchors)
+    torch.cuda.synchronize()
+    assert (fused_anchored_stats.launches,
+            fused_anchored_stats.launches_bf16) == (before[0], before[1] + 1)
+    _bf16_pair(case, got,
+               fused_anchored_plain(aw, x, anchor_rows(aw, m.anchors)),
+               fused_anchored_plain(aw32, x, anchor_rows(aw32, m.anchors)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('seed', [0, 1234567, 2**32 - 1])
+def test_bf16_mc_kernel_draws_the_plain_masks_bit_for_bit_on_card(card,
+                                                                  seed):
+    """A network whose output is its masks: layer 0 gives 1 everywhere, two
+    Dropouts (p = 0.5, scale 2) before two identity Linears and an identity
+    last Linear, so one sample's mean is 4 where both masks keep a value
+    and 0 elsewhere, exactly in bf16; the kernel must equal the plain
+    version bit for bit on every (row, column)."""
+    arch = [{'Linear': {'args': [5, 128]}}, {'ReLU': {}},
+            {'Linear': {'args': [128, 128]}}, {'ReLU': {}},
+            {'Linear': {'args': [128, 128]}}, {'ReLU': {}},
+            {'Linear': {'args': [128, 128]}}]
+    m = MCDropoutModelBuilder(arch, {'num_samples': 1,
+                                     'dropout_percent': 0.5},
+                              seed=5, device=card).build()
+    linears = [layer for layer in m.net.layers
+               if type(layer).__name__ == 'Linear']
+    with torch.no_grad():
+        linears[0].weight.zero_()
+        linears[0].bias.fill_(1.0)
+        for layer in linears[1:]:
+            layer.weight.copy_(torch.eye(128))
+            layer.bias.zero_()
+    m.set_precision('bf16-mixed')
+    mw = mc.prepare_mc_weights(m.net)
+    assert mw.compute_dtype == torch.bfloat16
+    assert sum(t >= 0 for t in mw.thresholds) == 2
+    x = _inputs(card, 1000, 5, False)
+    mean, std = fused_mc_forward(mw, x, 1, seed)
+    want, _ = fused_mc_forward_plain(mw, x, 1, seed)
+    torch.cuda.synchronize()
+    assert torch.equal(mean, want)
+    kept = float((mean == 4.0).float().mean())
+    assert set(torch.unique(mean).tolist()) == {0.0, 4.0}
+    assert 0.2 < kept < 0.3                 # both masks keep 1/4 of values
+    assert float(std.abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_bf16_eval_wgmma_kernels_give_the_same_bits_twice_on_card(card):
+    mw, _ = _both(_mc_model(card, 5, 128, 6, 1, 0.1, 32),
+                  lambda net: mc.prepare_mc_weights(net))
+    m = _anchored_model(card, DeltaUQMLPModelBuilder, 5, 128, 6, 1, 229)
+    aw, _ = _both(m, lambda net: fa.prepare_fused_anchored(net))
+    x = _inputs(card, 20_000, 5, False)
+    for run in (lambda: fused_mc_forward(mw, x, 32, 99),
+                lambda: fused_anchored_stats(aw, x, m.anchors)):
+        first = [t.clone() for t in run()]
+        again = run()
+        torch.cuda.synchronize()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -38,13 +38,12 @@ from nnueehcs_tpu_torch.ops import fused_mc_dropout as mc  # noqa: E402
 
 # eval_stamps.cuh: kPhases cycle sums, then the two timer readings
 PHASES = 12
-# the phase ids the kernels stamp (fused_chain_bf16.cuh, fused_mc_dropout.cu,
+# the phase ids the kernels stamp (fused_chain_wgmma.cuh, fused_mc_dropout.cu,
 # fused_anchored.cu)
-NAMES = {0: 'other', 1: 'chunk_issue_and_x_stage',
-         2: 'chunk_wait_and_barrier', 3: 'mma_sync_products',
-         4: 'barrier_after_chunk', 5: 'epilogue_and_mask_hash',
-         6: 'last_layer_and_statistics', 7: 'write_statistics',
-         8: 'u_plus_v', 9: 'pass_barriers'}
+NAMES = {0: 'other', 1: 'weights_wait', 2: 'x_fragments',
+         3: 'products_issue', 4: 'mask_hash_in_flight', 5: 'products_wait',
+         6: 'epilogue', 7: 'u_plus_v', 8: 'last_layer_and_statistics',
+         9: 'write_statistics', 10: 'slot_release'}
 
 
 def stamps_library():
