@@ -36,7 +36,11 @@ beside its probe, and the training battery again for kernel 3's bf16
 form, with the serving and training phases checked to have launched no
 probe. The bf16 forms of kernels 1, 2 and 5 and of the packed probe are
 held to their plain
-versions at the same shapes, the seven models are served again after
+versions at the same shapes (2 and 5 also on a chain twelve Linears deep,
+which their wgmma forms stream through a ring of shared-memory slots; the
+build phase checks that both forms of each compile without spills and with
+HGMMA instructions, and counts the integer operations of one mask hash in
+the MC kernel's SASS for row 2b's bound), the seven models are served again after
 ``set_precision('bf16-mixed')`` (the JAX package's ``eval_precision``, a
 bf16 evaluation of an fp32-trained model), each answer held to the plain
 bf16 function on the card against its bf16-vs-fp32 gap, with each
@@ -64,6 +68,7 @@ anything.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import re
 import shutil
@@ -95,6 +100,7 @@ from nnueehcs_tpu_torch.convert import tensor_trees
 from nnueehcs_tpu_torch.ops import _build
 from nnueehcs_tpu_torch.ops import ablate_epoch as ae
 from nnueehcs_tpu_torch.ops import ablate_forward as af
+from nnueehcs_tpu_torch.ops import fused_eval_chain as ec
 from nnueehcs_tpu_torch.ops import fused_train as ft
 from nnueehcs_tpu_torch.ops.fused_anchored import (anchor_rows,
                                                    fused_anchored_plain,
@@ -131,6 +137,9 @@ WIDE_INPUT = [{'Linear': {'args': [WIDE_IN, WIDTH]}},
               {'Linear': {'args': [WIDTH, 1]}}]
 # with one hidden Linear, so the MC-dropout builder puts a Dropout before it
 WIDE_INPUT_MC = WIDE_INPUT[:3] + FLAGSHIP[3:6] + WIDE_INPUT[3:]
+# the flagship block twelve Linears deep: too deep for the bf16 eval kernels
+# to hold in shared memory, so they stream it through their ring
+DEEP_RING = FLAGSHIP[:3] + FLAGSHIP[3:6] * 10 + FLAGSHIP[-1:]
 # the grid's UQ passes (bench.py): MC dropout with 128 samples at p = 0.1;
 # Δ-UQ (and PAGER) with 229 anchors and anchored_batch_size 229
 MC_SAMPLES, MC_P = 128, 0.1
@@ -308,9 +317,13 @@ PROBE_GATES = {
 ATTRIB_STEPS = attrib.STEPS                  # attrib_train.py's 500 steps
 ATTRIB_TRAIN_REPS = 3                        # epochs per training variant
 PLAIN_ABLATE_STEPS = 20                      # the plain epoch, scaled
-# MUFU ex2 results per SM per clock (CUDA programming guide, arithmetic
-# instruction throughput, compute capability 9.0)
+# MUFU ex2 results per SM per clock, and 32-bit integer operations (add,
+# multiply-add, shift, compare, bitwise) per SM per clock (CUDA programming
+# guide, arithmetic instruction throughput, compute capability 9.0)
 EX2_PER_SM_PER_CLOCK = 16
+INT32_PER_SM_PER_CLOCK = 64
+# the lowbias32 multiply that every mask hash does once (fused_mc_dropout.cu)
+HASH_MARKER = '0x7feb352d'
 
 
 def emit(phase, **fields):
@@ -360,8 +373,8 @@ def build_mc(seed, layers=FLAGSHIP, p=MC_P):
     return model
 
 
-def build_anchored(builder, seed, estimator='std'):
-    model = builder(FLAGSHIP, {'estimator': estimator, 'num_anchors': ANCHORS,
+def build_anchored(builder, seed, estimator='std', layers=FLAGSHIP):
+    model = builder(layers, {'estimator': estimator, 'num_anchors': ANCHORS,
                                'anchored_batch_size': ANCHORS},
                     seed=seed, device=DEVICE).build()
     randomize_bn(model, torch.Generator().manual_seed(seed + 1))
@@ -621,6 +634,47 @@ def cluster_kernels(report, source):
     return out
 
 
+def compare_sass():
+    """tools/compare_sass.py beside this script, as a module."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tools',
+                        'compare_sass.py')
+    spec = importlib.util.spec_from_file_location('compare_sass', path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def eval_chain_sass(lib_path, ptxas):
+    """The bf16 eval kernels 2b and 5b in both forms (resident, ring): their
+    ptxas registers and spills, which must be 0, and their HGMMA (wgmma)
+    instructions, which must be there; and the MC kernel's mask loop, whose
+    instructions per hash (per lowbias32 multiply by HASH_MARKER) count the
+    hash's integer operations in row 2b's bound."""
+    sass = compare_sass()
+    funcs = sass.instructions(lib_path)
+    out = {}
+    for kernel in ('fused_mc_dropout_bf16_kernel',
+                   'fused_anchored_bf16_kernel'):
+        for form, tag in (('resident', 'ILb0E'), ('ring', 'ILb1E')):
+            names = [n for n in funcs if kernel in n and tag in n]
+            regs = [v for k, v in ptxas.items() if kernel in k and tag in k]
+            check(len(names) == 1 and len(regs) == 1,
+                  f'{kernel}<{form}>: {len(names)} SASS functions, '
+                  f'{len(regs)} ptxas entries')
+            row = {k: regs[0].get(k) for k in ('registers', 'spill_store_bytes',
+                                              'spill_load_bytes')}
+            row['hgmma'] = sum('HGMMA' in t for _, t in funcs[names[0]])
+            check(row['spill_store_bytes'] == 0 and row['spill_load_bytes'] == 0,
+                  f'{kernel}<{form}> spills: {row}')
+            check(row['hgmma'] > 0, f'{kernel}<{form}>: no HGMMA in its SASS')
+            out[f'{kernel}<{form}>'] = row
+            if kernel.startswith('fused_mc') and form == 'resident':
+                mask = sass.loop_mix(funcs[names[0]], HASH_MARKER)
+                check(mask is not None, 'no mask loop in the MC kernel SASS')
+                out['mask_loop'] = mask
+    return out
+
+
 def smooth_target(x):
     """The training target: a smooth function of the 5 inputs."""
     return (np.sin(x[:, :1]) + 0.5 * x[:, 1:2] * x[:, 2:3]
@@ -822,6 +876,8 @@ def main():
     check(all(cluster_kernels(ptxas, src) for src in ('fused_train',
                                                       'fused_train_bf16')),
           'ptxas reported no cluster kernel of the training sources')
+    eval_chain = eval_chain_sass(info.path, ptxas)
+    emit('build_eval_chain', **eval_chain)
 
     # 3. kernel vs plain on the card, each kernel at the main path's shapes
     model = build_model(args.seed)
@@ -980,6 +1036,29 @@ def main():
             lambda x: fused_anchored_plain(aw16, x,
                                            anchor_rows(aw16, anchors)),
             lambda x: fused_anchored_plain(aw, x, anchor_rows(aw, anchors)))
+    # a chain too deep to stay in shared memory: both kernels' ring form
+    mc_deep = build_mc(args.seed, DEEP_RING)
+    dq_deep = build_anchored(DeltaUQMLPModelBuilder, args.seed,
+                             layers=DEEP_RING)
+    mw_deep16 = in_bf16(mc_deep, prepare_mc_weights)
+    aw_deep16 = in_bf16(dq_deep, prepare_fused_anchored)
+    aw_deep, mw_deep = dq_deep.anchored_weights(), mc_deep.mc_weights()
+    for form, w in (('mc', mw_deep16), ('anchored', aw_deep16)):
+        check(not ec.eval_layout(form, w.in_dim, w.num_layers, w.out_dim,
+                                 4096, sms).resident,
+              f'{form}: the {w.num_layers}-Linear chain is not a ring')
+    bf16_vs_plain(
+        'fused_mc_dropout_bf16', 'deep_12_linears_ring', 4096, IN_DIM,
+        lambda x: fused_mc_forward(mw_deep16, x, MC_SAMPLES, 2100),
+        lambda x: fused_mc_forward_plain(mw_deep16, x, MC_SAMPLES, 2100),
+        lambda x: fused_mc_forward_plain(mw_deep, x, MC_SAMPLES, 2100))
+    bf16_vs_plain(
+        'fused_anchored_bf16', 'deep_12_linears_ring', 4096, IN_DIM,
+        lambda x: fused_anchored_stats(aw_deep16, x, dq_deep.anchors),
+        lambda x: fused_anchored_plain(aw_deep16, x,
+                                       anchor_rows(aw_deep16, dq_deep.anchors)),
+        lambda x: fused_anchored_plain(aw_deep, x,
+                                       anchor_rows(aw_deep, dq_deep.anchors)))
 
     def train_case(case, model, loss, per_member=False, wd=0.0):
         """Hold the training kernel against its plain version for
@@ -1451,9 +1530,10 @@ def main():
     kernels, kernels_bf16 = [], []
 
     def record(index, launches, kernel_t, plain_t, flops, moved, library_ms,
-               exps=0, into=kernels, peak=peak_flops, extra_s=0.0, **extra):
+               exps=0, into=kernels, peak=peak_flops, extra_s=0.0,
+               exp_rate=ex2_rate, **extra):
         bound_ms, bound_by = bound(flops, moved, peak, peak_bytes, exps,
-                                   ex2_rate, extra_s)
+                                   exp_rate, extra_s)
         ms = kernel_t['median_ms']
         emit('timing', kernel=KERNELS[index]['name'], kernel_ms=kernel_t,
              plain=plain_t, flops=flops, bytes=moved, bound_ms=bound_ms,
@@ -1581,15 +1661,35 @@ def main():
                                                       MC_SAMPLES, 7))
     gemm_t = event_ms(lambda: mc_gemm_only(mw16, x, MC_SAMPLES))
     e2e_s = e2e_median_s(bf16_predictors['mc_dropout'], ROWS)
-    record(11, bf16_launches['mc_dropout'], kernel_t, plain_t,
-           2.0 * ROWS * (MC_SAMPLES + 1) * mw16.macs_per_row,
+    # beside the bf16 products, the mask hash: one for every masked element
+    # (the inputs of the Linears a Dropout precedes, over every row and
+    # sample), each the mask loop's integer instructions per hash (SASS)
+    masked = sum(IN_DIM if layer == 0 else WIDTH
+                 for layer, t in enumerate(mw16.thresholds) if t >= 0)
+    hashes = ROWS * MC_SAMPLES * masked
+    per_hash = eval_chain['mask_loop']['per_marker']
+    int_rate = INT32_PER_SM_PER_CLOCK * sms * int(clock_mhz.group(1)) * 1e6
+    flops16 = 2.0 * ROWS * (MC_SAMPLES + 1) * mw16.macs_per_row
+    record(11, bf16_launches['mc_dropout'], kernel_t, plain_t, flops16,
            moved16(mw16, x.numel(), ROWS), None, into=kernels_bf16,
-           peak=peak_bf16, rows=ROWS, samples=MC_SAMPLES, p=MC_P,
+           peak=peak_bf16, exps=hashes * per_hash, exp_rate=int_rate,
+           rows=ROWS, samples=MC_SAMPLES, p=MC_P,
            plain_rows=MC_PLAIN_TIMING_ROWS, gemm_only_reference=gemm_t,
+           masked_elements=hashes, int_ops_per_hash=per_hash,
+           int_ops_per_s=int_rate, products_ms=1e3 * flops16 / peak_bf16,
+           hash_ms=1e3 * hashes * per_hash / int_rate,
            predictor_e2e_median_s=e2e_s,
            predictor_e2e_samples_per_s=ROWS / e2e_s)
-    kernels_bf16[-1]['plain_rows'] = MC_PLAIN_TIMING_ROWS
-    kernels_bf16[-1]['gemm_only_reference_ms'] = gemm_t['median_ms']
+    kernels_bf16[-1].update(
+        plain_rows=MC_PLAIN_TIMING_ROWS,
+        gemm_only_reference_ms=gemm_t['median_ms'],
+        bound_terms_ms={'bf16_products': 1e3 * flops16 / peak_bf16,
+                        'mask_hash_int_ops': 1e3 * hashes * per_hash
+                        / int_rate},
+        int_ops_per_hash=per_hash,
+        share_of_bound=kernels_bf16[-1]['bound_ms'] / kernels_bf16[-1]['ms'],
+        ptxas={k: v for k, v in eval_chain.items()
+               if k.startswith('fused_mc')})
 
     lib16 = anchored_library(aw16, xa, anchors)
     ref16 = fused_anchored_plain(aw16, xa, anchor_rows(aw16, anchors))
@@ -1609,6 +1709,10 @@ def main():
            library_bf16_gemm_chain=library_t, library_max_abs_diff=lib16_err,
            predictor_e2e_median_s=e2e_s,
            predictor_e2e_samples_per_s=ANCHORED_ROWS / e2e_s)
+    kernels_bf16[-1].update(
+        share_of_bound=kernels_bf16[-1]['bound_ms'] / kernels_bf16[-1]['ms'],
+        ptxas={k: v for k, v in eval_chain.items()
+               if k.startswith('fused_anchored')})
     e2e16 = {name: e2e_median_s(bf16_predictors[name], ROWS)
              for name in ('kde', 'knn_kde', 'mve')}
     emit('timing_bf16_kernel_free', rows=ROWS,

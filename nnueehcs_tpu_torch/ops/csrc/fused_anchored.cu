@@ -117,7 +117,7 @@ __global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 2 * fw::kWgThrea
   const fw::Tiles tiles(B, lay, wg);
   if (kRing && wg == lay.warpgroups) {  // the ring's producer warp
     if (threadIdx.x % 32 == 0)
-      for (long long r = 0; r < tiles.rounds; ++r) {
+      for (int r = 0; r < tiles.rounds; ++r) {
         for (int b = 0; b < chain.nb0; ++b) wts.produce(chain, image, b);
         for (int j = 0; j < k; ++j)
           for (int b = chain.nb0; b < chain.blocks(); ++b)
@@ -140,14 +140,12 @@ __global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 2 * fw::kWgThrea
   const bool relu0 = __ldg(relu) != 0;
   const bool relu_last = __ldg(relu + last) != 0;
   const uint32_t none[2] = {0u, 0u};
-  float acc[64], u[64], acc_last[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float acc[64], u[64], acc_last[4];   // written by each first product
   uint32_t a[8][4];
-  for (long long r = 0;; ++r) {
-    const long long tile = tiles.tile(r);
+  for (int r = 0;; ++r) {
+    const int tile = tiles.tile<kRing>(r);
     if (tile < 0) break;
-    const long long row0 = tile * fw::kRows;
+    const long long row0 = static_cast<long long>(tile) * fw::kRows;
     const int valid = tiles.valid(tile, B);
     const float* x_tile = x + (valid > 0 ? row0 * d : 0);
     // u = bf16(x) @ W_bot + b0, fp32, kept for every anchor

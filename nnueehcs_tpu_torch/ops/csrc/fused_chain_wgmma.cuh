@@ -201,6 +201,43 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64],
         "r"(scale_d));
 }
 
+// acc = a x B, as wgmma_n128 with scale_d 0, the accumulator written
+// only: its old values are dead before the product, so their registers
+// may hold other values until it is issued.
+__device__ __forceinline__ void wgmma_n128_first(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 z;\nmov.b32 z, 0;\nsetp.ne.b32 p, z, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
+        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
+        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]),
+        "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
 // d (64 x 8 fp32) = (scale_d ? d : 0) + a (64 x 16 bf16, registers) x B
 // (16 x 8 bf16, K-major in shared memory at desc_b).
 __device__ __forceinline__ void wgmma_n8(float& d0, float& d1, float& d2,
@@ -213,6 +250,19 @@ __device__ __forceinline__ void wgmma_n8(float& d0, float& d1, float& d2,
       : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d));
+}
+
+// d = a x B, as wgmma_n8 with scale_d 0, d written only.
+__device__ __forceinline__ void wgmma_n8_first(float& d0, float& d1,
+                                               float& d2, float& d3,
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 z;\nmov.b32 z, 0;\nsetp.ne.b32 p, z, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "=f"(d0), "=f"(d1), "=f"(d2), "=f"(d3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
 }
 
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
@@ -392,10 +442,12 @@ __device__ __forceinline__ void layer0_from_x(float (&acc)[64], W& wts,
       x_fragment(x_tile, d, valid, b * (kKBlock / 16) + kk, t, f, a);
       EVAL_PHASE(3);
       pin(a);
-      pin(acc);
       wgmma_fence();
-      wgmma_n128(acc, a, desc(addr + kk * 256, 128, c.rows(b) * 16),
-                 (b | kk) != 0);
+      if ((b | kk) == 0) {
+        wgmma_n128_first(acc, a, desc(addr, 128, c.rows(b) * 16));
+      } else {
+        wgmma_n128(acc, a, desc(addr + kk * 256, 128, c.rows(b) * 16), 1);
+      }
       wgmma_commit();
       if (b + 1 == c.nb0 && kk + 1 == steps) last();
       EVAL_PHASE(5);
@@ -415,11 +467,11 @@ __device__ __forceinline__ void issue_n128(float (&acc)[64],
   EVAL_PHASE(3);
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) pin(a[kk]);
-  pin(acc);
   wgmma_fence();
+  wgmma_n128_first(acc, a[0], desc(addr, 128, kKBlock * 16));
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
-    wgmma_n128(acc, a[kk], desc(addr + kk * 256, 128, kKBlock * 16), kk);
+  for (int kk = 1; kk < 8; ++kk)
+    wgmma_n128(acc, a[kk], desc(addr + kk * 256, 128, kKBlock * 16), 1);
   wgmma_commit();
 }
 
@@ -434,20 +486,32 @@ __device__ __forceinline__ void wait_acc(float (&acc)[64],
   for (int kk = 0; kk < 8; ++kk) pin(a[kk]);
 }
 
+// Where the keep bit of accumulator slot (i, h, e) (row r0 + 8 h, column
+// 8 i + 2 q + e) lies: word i / 8, bit keep_bit(i, h, e). Each of the four
+// bytes of a word gathers one (h, e) pair's bits, the first column group's
+// highest.
+__device__ __forceinline__ constexpr int keep_bit(int i, int h, int e) {
+  return 8 * (2 * h + e) + 7 - (i & 7);
+}
+
 // The next layer's A from the accumulator: bias (fp32, 128), ReLU, with
-// kMask the keep bits (slot j = 4 i + 2 h + e at bit j % 32 of word j / 32)
-// times `scale`, rounded to bf16 and packed where the A operand wants it.
-template <bool kMask>
+// kMask the keep bits (keep_bit) times `scale`, rounded to bf16 and packed
+// where the A operand wants it. kLateBias keeps the bias loads after the
+// products' wait, where the accumulator's registers free up, not before it
+// beside the operands in flight (for a kernel at a tight register cap).
+template <bool kMask, bool kLateBias = false>
 __device__ __forceinline__ void epilogue(const float (&acc)[64],
                                          const float* bias, bool relu,
                                          const uint32_t (&keep)[2],
                                          float scale, const Thread& t,
                                          uint32_t (&a)[8][4]) {
   EVAL_PHASE(6);
+  uint64_t at = reinterpret_cast<uint64_t>(bias + 2 * t.q);
+  if (kLateBias) asm volatile("" : "+l"(at)::"memory");
+  const float* bq = reinterpret_cast<const float*>(at);
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const float2 b =
-        __ldg(reinterpret_cast<const float2*>(bias + 8 * i + 2 * t.q));
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bq + 8 * i));
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int j = 4 * i + 2 * h;
@@ -457,8 +521,8 @@ __device__ __forceinline__ void epilogue(const float (&acc)[64],
         v1 = fmaxf(v1, 0.f);
       }
       if (kMask) {
-        v0 *= (keep[j >> 5] >> (j & 31)) & 1u ? scale : 0.f;
-        v1 *= (keep[j >> 5] >> ((j + 1) & 31)) & 1u ? scale : 0.f;
+        v0 *= (keep[i >> 3] >> keep_bit(i, h, 0)) & 1u ? scale : 0.f;
+        v1 *= (keep[i >> 3] >> keep_bit(i, h, 1)) & 1u ? scale : 0.f;
       }
       a[i >> 1][2 * (i & 1) + h] = pack(v0, v1);
     }
@@ -474,12 +538,14 @@ __device__ __forceinline__ void last_group(float (&acc)[4],
   EVAL_PHASE(8);
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) pin(a[kk]);
-  pin(acc);
   wgmma_fence();
+  const uint32_t base = addr + g * kKBlock * 16;
+  wgmma_n8_first(acc[0], acc[1], acc[2], acc[3], a[0],
+                 desc(base, 128, kKBlock * 16));
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 1; kk < 8; ++kk)
     wgmma_n8(acc[0], acc[1], acc[2], acc[3], a[kk],
-             desc(addr + g * kKBlock * 16 + kk * 256, 128, kKBlock * 16), kk);
+             desc(base + kk * 256, 128, kKBlock * 16), 1);
   wgmma_commit();
   wgmma_wait_all();
   pin(acc);
@@ -506,11 +572,15 @@ __device__ __forceinline__ void last_group_from_x(float (&acc)[4],
       x_fragment(x_tile, d, valid, b * (kKBlock / 16) + kk, t, f, a);
       EVAL_PHASE(8);
       pin(a);
-      pin(acc);
       wgmma_fence();
-      wgmma_n8(acc[0], acc[1], acc[2], acc[3], a,
-               desc(addr + g * rows * 16 + kk * 256, 128, rows * 16),
-               (b | kk) != 0);
+      const uint32_t base = addr + g * rows * 16;
+      if ((b | kk) == 0) {
+        wgmma_n8_first(acc[0], acc[1], acc[2], acc[3], a,
+                       desc(base, 128, rows * 16));
+      } else {
+        wgmma_n8(acc[0], acc[1], acc[2], acc[3], a,
+                 desc(base + kk * 256, 128, rows * 16), 1);
+      }
       wgmma_commit();
       wgmma_wait_all();
       pin(acc);
@@ -597,29 +667,28 @@ __device__ __forceinline__ void stats_write(const float4* st, int groups,
 // The tiles of consumer warpgroup gw of `stride` (all blocks' warpgroups):
 // tiles gw, gw + stride, ...; in the ring form every warpgroup takes
 // `rounds` of them, past the last tile as a tile of no rows, so that all
-// consume the ring's blocks alike.
+// consume the ring's blocks alike. Tile counts are 32-bit (up to 2^37 rows).
 struct Tiles {
-  long long count, stride, rounds;
-  int gw;
-  bool ring;
+  int count, stride, rounds, gw;
 
   __device__ __forceinline__ Tiles(long long B, const Layout& lay, int wg)
-      : count((B + kRows - 1) / kRows),
-        stride(static_cast<long long>(gridDim.x) * lay.warpgroups),
+      : count(static_cast<int>((B + kRows - 1) / kRows)),
+        stride(static_cast<int>(gridDim.x) * lay.warpgroups),
         rounds(0),
-        gw(static_cast<int>(blockIdx.x) * lay.warpgroups + wg),
-        ring(lay.ring > 0) {
+        gw(static_cast<int>(blockIdx.x) * lay.warpgroups + wg) {
     rounds = (count + stride - 1) / stride;
   }
   // the tile of round r, or -1 when this warpgroup is done
-  __device__ __forceinline__ long long tile(long long r) const {
+  template <bool kRing>
+  __device__ __forceinline__ int tile(int r) const {
     if (r >= rounds) return -1;
-    const long long t = r * stride + gw;
-    return ring || t < count ? t : -1;
+    const int t = r * stride + gw;
+    return kRing || t < count ? t : -1;
   }
-  __device__ __forceinline__ int valid(long long t, long long B) const {
+  __device__ __forceinline__ int valid(int t, long long B) const {
     return t < count ? static_cast<int>(min(static_cast<long long>(kRows),
-                                            B - t * kRows))
+                                            B - static_cast<long long>(t) *
+                                                    kRows))
                      : 0;
   }
 };

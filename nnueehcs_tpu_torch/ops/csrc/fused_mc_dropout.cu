@@ -39,8 +39,8 @@
 // a dozen integer operations for each of the 2.1e10 masked elements, on the
 // INT32 pipes (64 a clock per SM). Its design is fused_chain_wgmma.cuh's:
 // persistent blocks holding the chain in shared memory, warpgroups of
-// wgmma products with the activations in registers, two warpgroups a
-// block so that one's epilogue and hash overlap the other's products;
+// wgmma products with the activations in registers, three warpgroups a
+// block so that two's epilogues and hashes overlap the third's products;
 // each layer's keep bits for the next Linear are hashed while the layer's
 // products are in flight, packed 64 to two words, and applied in the
 // epilogue.
@@ -201,8 +201,10 @@ __device__ __forceinline__ Drop drop_for(int p, int l, uint32_t seed,
   return m;
 }
 
-// The keep bits of the thread's 64 accumulator slots (slot j = 4 i + 2 h +
-// e: row r0 + 8 h, column 8 i + 2 q + e) at bit j % 32 of word j / 32. Two
+// The keep bits of the thread's 64 accumulator slots (fw::keep_bit). A
+// value keeps when the top 24 bits of its hash fall below the threshold,
+// that is when (bits >> 8) - threshold is negative (both lie in [0, 2^24]);
+// a funnel shift moves that sign bit into the byte of its (h, e) pair. Two
 // column groups a step: eight hashes in flight per thread keep the INT32
 // pipes busy without the registers of all 64.
 __device__ __forceinline__ void keep_words(const Drop& m, uint32_t (&w)[2]) {
@@ -212,7 +214,7 @@ __device__ __forceinline__ void keep_words(const Drop& m, uint32_t (&w)[2]) {
   fw::pin(b1);
 #pragma unroll
   for (int word = 0; word < 2; ++word) {
-    uint32_t bits_of = 0u;
+    uint32_t k[4] = {0u, 0u, 0u, 0u};
 #pragma unroll 2
     for (int i = 0; i < 8; ++i) {
       const uint32_t col = 8u * (8 * word + i);
@@ -222,12 +224,12 @@ __device__ __forceinline__ void keep_words(const Drop& m, uint32_t (&w)[2]) {
         for (int e = 0; e < 2; ++e) {
           const uint32_t bits =
               lowbias32((h ? b1 : b0) + (col + e) * 0x27D4EB2Fu);
-          const uint32_t keep = (bits >> 8) < m.threshold ? 1u : 0u;
-          bits_of |= keep << (4 * i + 2 * h + e);
+          k[2 * h + e] =
+              __funnelshift_l((bits >> 8) - m.threshold, k[2 * h + e], 1);
         }
       }
     }
-    w[word] = bits_of;
+    w[word] = k[0] | (k[1] << 8) | (k[2] << 16) | (k[3] << 24);
   }
   fw::pin(w[0]);  // formed before the wait
   fw::pin(w[1]);
@@ -240,16 +242,16 @@ __device__ __forceinline__ void mask_epilogue(const float (&acc)[64],
                                               const fw::Thread& t,
                                               uint32_t (&a)[8][4]) {
   if (m.active)
-    fw::epilogue<true>(acc, bias, relu, keep, m.scale, t, a);
+    fw::epilogue<true, true>(acc, bias, relu, keep, m.scale, t, a);
   else
-    fw::epilogue<false>(acc, bias, relu, keep, m.scale, t, a);
+    fw::epilogue<false, true>(acc, bias, relu, keep, m.scale, t, a);
 }
 
 // The bf16 form. image: the chain packed by ops/fused_eval_chain.py
 // (chain_image); b_all (L, 128) fp32; relu, thresh, scale, key as for the
 // fp32 kernel; lay: the launch layout (eval_layout).
 template <bool kRing>
-__global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 2 * fw::kWgThreads, 1)
+__global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 3 * fw::kWgThreads, 1)
     fused_mc_dropout_bf16_kernel(const float* __restrict__ x, long long B,
                                  int d, const unsigned char* __restrict__ image,
                                  const float* __restrict__ b_all, int L,
@@ -269,7 +271,7 @@ __global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 2 * fw::kWgThrea
   const fw::Tiles tiles(B, lay, wg);
   if (kRing && wg == lay.warpgroups) {  // the ring's producer warp
     if (threadIdx.x % 32 == 0)
-      for (long long r = 0; r < tiles.rounds; ++r)
+      for (int r = 0; r < tiles.rounds; ++r)
         for (int p = 0; p <= S; ++p) {
           if (L == 1) {  // layer 0 once for each column group
             for (int g = 0; g < lay.out_groups; ++g)
@@ -294,14 +296,12 @@ __global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 2 * fw::kWgThrea
   const int last = L - 1;
   const float* b_last = b_all + static_cast<size_t>(last) * fw::kWidth;
   const bool relu_last = __ldg(relu + last) != 0;
-  float acc[64], acc_last[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float acc[64], acc_last[4];   // written by each layer's first product
   uint32_t a[8][4];
-  for (long long r = 0;; ++r) {
-    const long long tile = tiles.tile(r);
+  for (int r = 0;; ++r) {
+    const int tile = tiles.tile<kRing>(r);
     if (tile < 0) break;
-    const long long row0 = tile * fw::kRows;
+    const long long row0 = static_cast<long long>(tile) * fw::kRows;
     const int valid = tiles.valid(tile, B);
     const float* x_tile = x + (valid > 0 ? row0 * d : 0);
     for (int p = 0; p <= S; ++p) {

@@ -17,9 +17,9 @@ weights; the kernel copies it into shared memory as it is.
 statistics of every consumer warpgroup and the barriers fit in a block's
 shared memory (``SMEM_LIMIT``), else a *ring* of 2 or 3 slots of one block
 each (32 KB), filled by a producer warp. It takes as many consumer
-warpgroups as fit, up to the kernels' limit (``MAX_WARPGROUPS``: two, or
-one beside the ring's producer warp; a thread holds an accumulator and an
-A operand, and the anchored kernel's also ``u``, in registers).
+warpgroups as fit, up to the kernels' limit (``MAX_WARPGROUPS``: three for
+the resident MC-dropout kernel, two for the resident anchored one, whose
+threads also hold ``u`` in registers, one beside a ring's producer warp).
 Every shape the kernels' gate takes (any ``d``, any depth, hidden widths
 and ``out_dim`` up to 128) has a layout: one warpgroup with a 2-slot ring
 and ``out_dim`` 128 needs 160 KB.
@@ -40,10 +40,11 @@ STAT_BYTES = 3 * WG_THREADS * 16   # sc, s1, s2 of a group of 8 columns
 SMEM_LIMIT = 232_448      # dynamic shared memory a block may use (227 KB)
 # consumer warpgroups of a block at most, (resident form, ring form): the
 # ring form adds a producer warp, and ptxas caps a thread's registers at
-# 65,536 over the threads rounded up to whole warpgroups; both kernels need
-# more than the 168 that three warpgroups (or two and a warp) would leave
-# them (ptxas spills), and fit the 255 of two (or one and a warp)
-MAX_WARPGROUPS = {'mc': (2, 1), 'anchored': (2, 1)}
+# 65,536 over the threads rounded up to whole warpgroups: 168 for three
+# warpgroups (or two and a warp), 255 for two (or one and a warp). The MC
+# kernel fits 168 in its resident form; the anchored one, which also holds
+# u in registers, needs more; both ring forms need more than 168.
+MAX_WARPGROUPS = {'mc': (3, 1), 'anchored': (2, 1)}
 RING_SLOTS = (3, 2)       # ring sizes tried, larger first
 # the Layout struct of csrc/fused_chain_wgmma.cuh, in its order
 LAYOUT_FIELDS = ('warpgroups', 'ring', 'out_groups', 'image_bytes',

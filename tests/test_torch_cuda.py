@@ -337,7 +337,7 @@ WGMMA_MC_CASES = {
     # name: (in_dim, width, hidden, out_dim, p, samples, rows, far)
     'b1_d1_one_linear': (1, 8, 0, 1, 0.2, 4, 1, False),
     'b63_d5_w96_out3': (5, 96, 1, 3, 0.3, 8, 63, False),
-    'b64_d37_out128': (37, 128, 6, 128, 0.1, 5, 64, False),
+    'b64_d37_out128_ring': (37, 128, 6, 128, 0.1, 5, 64, False),
     'b65_w40_one_sample': (5, 40, 3, 1, 0.5, 1, 65, False),
     'b262143_flagship': (5, 128, 6, 1, 0.1, 16, 262_143, False),
     'one_linear_d37_out128': (37, 37, 0, 128, 0.1, 3, 300, False),
@@ -349,7 +349,7 @@ WGMMA_ANCHORED_CASES = {
     'k1_b65': (5, 128, 6, 1, 1, 65, False),
     'k229_b262143': (5, 128, 6, 1, 229, 262_143, False),
     'b1_d1_out3': (1, 128, 2, 3, 5, 1, False),
-    'b63_d37_w64_out128': (37, 64, 1, 128, 7, 63, False),
+    'b63_d37_w64_out128': (37, 64, 1, 128, 7, 63, False),   # 32 KB + 2 x 96
     'b64_w96_out3': (5, 96, 6, 3, 11, 64, False),
     'deep_12_linears_ring': (5, 128, 11, 1, 17, 1000, False),
     'far_ood': (5, 128, 6, 1, 229, 4096, True),
@@ -393,7 +393,7 @@ def test_bf16_mc_wgmma_kernel_matches_plain_on_card(card, case):
                                    samples),
                          lambda net: mc.prepare_mc_weights(net))
     assert mw.num_layers == hidden + 1
-    assert _form('mc', mw, rows).resident == (hidden + 1 < 9)
+    assert _form('mc', mw, rows).resident == ('ring' not in case)
     x = _inputs(card, rows, in_dim, far)
     before = (fused_mc_forward.launches, fused_mc_forward.launches_bf16)
     got = fused_mc_forward(mw, x, samples, 1234567)
@@ -412,7 +412,7 @@ def test_bf16_anchored_wgmma_kernel_matches_plain_on_card(card, case):
     m = _anchored_model(card, DeltaUQMLPModelBuilder, in_dim, width, hidden,
                         out_dim, anchors)
     aw, aw32 = _both(m, lambda net: fa.prepare_fused_anchored(net))
-    assert _form('anchored', aw, rows).resident == (hidden + 1 < 9)
+    assert _form('anchored', aw, rows).resident == ('ring' not in case)
     x = _inputs(card, rows, in_dim, far)
     before = (fused_anchored_stats.launches,
               fused_anchored_stats.launches_bf16)
