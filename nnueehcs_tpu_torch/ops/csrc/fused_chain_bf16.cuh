@@ -1,6 +1,7 @@
-// The bf16 forms of the fused eval kernels (kernels 1, 2 and 5 and the
-// packed probe of kernel 1): fused_chain.cuh's tile machinery with bf16 GEMM
-// operands on the tensor cores. The function is the JAX package's
+// The bf16 forms of the fused ensemble kernel (kernel 1) and of its packed
+// probe: fused_chain.cuh's tile machinery with bf16 GEMM operands on the
+// tensor cores (the bf16 MC-dropout and anchored kernels are
+// fused_chain_wgmma.cuh's). The function is the JAX package's
 // compute_dtype=bfloat16: weights folded in fp32 and then rounded to bf16,
 // every input of a dot rounded to bf16 (x as it is staged, each hidden
 // activation after bias, ReLU and any dropout mask), products accumulated in
@@ -18,9 +19,8 @@
 //   output tile and runs mma.sync.m16n8k16 (bf16 x bf16 -> fp32), operands
 //   loaded with ldmatrix (.trans for the weights); its 8 accumulators of
 //   4 fp32 are the slice.
-// - The epilogue adds the fp32 bias and applies the ReLU (and the dropout
-//   mask) on the fp32 accumulator, then rounds to bf16 into the other
-//   buffer, or (kernel 5's u) stores fp32.
+// - The epilogue adds the fp32 bias and applies the ReLU on the fp32
+//   accumulator, then rounds to bf16 into the other buffer.
 // - x is staged 32 feature columns a chunk into a (64, 40) bf16 slot,
 //   zero-padded to a multiple of 16 features.
 // - The last layer keeps the scalar dot products over its real columns, on
@@ -45,7 +45,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kAStride = kWidth + 8;   // bf16 activation row (272 bytes)
 constexpr int kWStride = kWidth + 8;   // bf16 weight chunk row
 constexpr int kXStride = kChunk + 8;   // bf16 staged x row (80 bytes)
-constexpr int kUStride = kWidth + 8;   // fp32 u row (kernel 5)
 constexpr int kSlotThreads = 4;        // threads per last-layer slot
 
 // Copy 16 bytes, or write 16 zero bytes when !valid.
@@ -133,13 +132,13 @@ __device__ __forceinline__ float round_bf16(float v) {
 
 // out = epi(r, n, act(bf16(in) @ bf16(w) + b)) for the tile's 64 rows and
 // all 128 (padded) columns: rounded to bf16 into `out` (row stride
-// kAStride), or with kOutF32 stored fp32 into `out` (row stride kUStride).
+// kAStride).
 // in/out may be the same buffer. w is a (K, 128) bf16 weight in device
 // memory. With kFromX (layer 0) the input is the tile's rows of x (fp32,
 // element (r, k) at x[r * ldx + k]): each 32-column chunk is staged, through
 // xform and a rounding to bf16, into one of two (64, kXStride) slots of `in`
 // (rows past `valid` and features past K as zeros) beside its weights.
-template <bool kFromX, bool kOutF32 = false, class XForm, class Epi>
+template <bool kFromX, class XForm, class Epi>
 __device__ __forceinline__ void dense_layer(bf16* in, void* out, bf16* sw,
                                             const bf16* w, const float* b,
                                             int K, bool relu, const float* x,
@@ -203,16 +202,11 @@ __device__ __forceinline__ void dense_layer(bf16* in, void* out, bf16* sw,
       }
       v0 = epi(r, col, v0);
       v1 = epi(r, col + 1, v1);
-      if constexpr (kOutF32) {
-        *reinterpret_cast<float2*>(static_cast<float*>(out) + r * kUStride +
-                                   col) = make_float2(v0, v1);
-      } else {
-        __nv_bfloat162 p;
-        p.x = __float2bfloat16_rn(v0);
-        p.y = __float2bfloat16_rn(v1);
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) +
-                                           r * kAStride + col) = p;
-      }
+      __nv_bfloat162 p;
+      p.x = __float2bfloat16_rn(v0);
+      p.y = __float2bfloat16_rn(v1);
+      *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) +
+                                         r * kAStride + col) = p;
     }
   }
 }
@@ -280,12 +274,9 @@ struct XLoad {
 };
 
 // Shared memory of a kernel with two bf16 activation buffers, the two bf16
-// weight chunk buffers and the shifted sums; kernel 5 (with_u) has one
-// activation buffer and its fp32 u.
-inline size_t smem_bytes(int out_dim, bool with_u = false) {
-  return sizeof(bf16) * ((with_u ? 1 : 2) * kTileRows * kAStride +
-                         2 * kChunk * kWStride) +
-         (with_u ? sizeof(float) * kTileRows * kUStride : 0) +
+// weight chunk buffers and the shifted sums.
+inline size_t smem_bytes(int out_dim) {
+  return sizeof(bf16) * (2 * kTileRows * kAStride + 2 * kChunk * kWStride) +
          sizeof(float) * 3 * kTileRows * out_dim;
 }
 

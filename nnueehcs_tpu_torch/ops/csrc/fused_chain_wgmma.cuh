@@ -49,7 +49,6 @@ constexpr int kWgThreads = 128;        // threads of a warpgroup
 constexpr int kKBlock = 128;           // input rows of an image block
 constexpr int kSlotBytes = kKBlock * kWidth * 2;   // the largest block
 constexpr int kStatBytes = 3 * kWgThreads * 16;    // sc, s1, s2 of a group
-constexpr int kLayoutInts = 9;         // ops/fused_eval_chain.py LAYOUT_FIELDS
 
 // The launch layout, as the host computes it (LAYOUT_FIELDS, same order).
 struct Layout {

@@ -15,14 +15,13 @@ weights; the kernel copies it into shared memory as it is.
 
 :func:`eval_layout` chooses the form: *resident* when the image, the
 statistics of every consumer warpgroup and the barriers fit in a block's
-shared memory (``SMEM_LIMIT``), else a *ring* of 2 or 3 slots of one block
-each (32 KB), filled by a producer warp. It takes as many consumer
-warpgroups as fit, up to the kernels' limit (``MAX_WARPGROUPS``: three for
-the resident MC-dropout kernel, two for the resident anchored one, whose
-threads also hold ``u`` in registers, one beside a ring's producer warp).
-Every shape the kernels' gate takes (any ``d``, any depth, hidden widths
-and ``out_dim`` up to 128) has a layout: one warpgroup with a 2-slot ring
-and ``out_dim`` 128 needs 160 KB.
+shared memory (``SMEM_LIMIT``), with as many consumer warpgroups as fit up
+to the kernel's limit (``MAX_WARPGROUPS``: three for the MC-dropout kernel,
+two for the anchored one, whose threads also hold ``u`` in registers);
+else a *ring* of three slots of one block each (32 KB), filled by a
+producer warp, for one consumer warpgroup. Every shape the kernels' gate
+takes (any ``d``, any depth, hidden widths and ``out_dim`` up to 128) has a
+layout: the ring with ``out_dim`` 128 needs 192 KB.
 """
 from __future__ import annotations
 
@@ -38,14 +37,15 @@ SLOT_BYTES = K_BLOCK * WIDTH * 2
 WG_THREADS = 128
 STAT_BYTES = 3 * WG_THREADS * 16   # sc, s1, s2 of a group of 8 columns
 SMEM_LIMIT = 232_448      # dynamic shared memory a block may use (227 KB)
-# consumer warpgroups of a block at most, (resident form, ring form): the
-# ring form adds a producer warp, and ptxas caps a thread's registers at
-# 65,536 over the threads rounded up to whole warpgroups: 168 for three
-# warpgroups (or two and a warp), 255 for two (or one and a warp). The MC
-# kernel fits 168 in its resident form; the anchored one, which also holds
-# u in registers, needs more; both ring forms need more than 168.
-MAX_WARPGROUPS = {'mc': (3, 1), 'anchored': (2, 1)}
-RING_SLOTS = (3, 2)       # ring sizes tried, larger first
+# consumer warpgroups of a block at most in the resident form: ptxas caps a
+# thread's registers at 65,536 over the threads rounded up to whole
+# warpgroups, 168 for three warpgroups and 255 for two; the MC kernel fits
+# 168, the anchored one, whose threads also hold u, needs more. The ring
+# form runs one warpgroup beside its producer warp (which the cap counts as
+# a second warpgroup), with RING_SLOTS slots: 96 KB, which fits beside the
+# largest statistics, 96 KB for 128 outputs.
+MAX_WARPGROUPS = {'mc': 3, 'anchored': 2}
+RING_SLOTS = 3
 # the Layout struct of csrc/fused_chain_wgmma.cuh, in its order
 LAYOUT_FIELDS = ('warpgroups', 'ring', 'out_groups', 'image_bytes',
                  'smem_stats', 'smem_bars', 'smem_bytes', 'grid', 'threads')
@@ -113,32 +113,21 @@ def eval_layout(kernel: str, in_dim: int, num_layers: int, out_dim: int,
     """The layout of ``kernel`` ('mc' or 'anchored') for a chain of
     ``num_layers`` Linears from ``in_dim`` features to ``out_dim`` outputs
     (hidden widths padded to 128) over ``rows`` rows on a card of ``sms``
-    SMs: resident with the most warpgroups that fit, else a ring with the
-    most warpgroups and then slots that fit; at most one block per SM and
-    no more blocks than the tiles fill."""
+    SMs: resident with the most warpgroups that fit, else the ring; at most
+    one block per SM and no more blocks than the tiles fill."""
     if not (1 <= out_dim <= WIDTH and in_dim >= 1 and num_layers >= 1):
         raise ValueError(f'no eval layout for in_dim {in_dim}, '
                          f'{num_layers} layers, out_dim {out_dim}')
     out_groups = -(-out_dim // 8)
     image = image_bytes(in_dim, num_layers, out_dim)
-    top, top_ring = MAX_WARPGROUPS[kernel]
-    choice = None
-    for wgs in range(top, 0, -1):
+    for wgs in range(MAX_WARPGROUPS[kernel], 0, -1):
         stats, bars, total = _carve(image, wgs, out_groups, 0)
         if total <= SMEM_LIMIT:
-            choice = (wgs, 0, stats, bars, total)
+            ring = 0
             break
-    if choice is None:
-        for wgs in range(top_ring, 0, -1):
-            for ring in RING_SLOTS:
-                stats, bars, total = _carve(ring * SLOT_BYTES, wgs,
-                                            out_groups, ring)
-                if total <= SMEM_LIMIT:
-                    choice = (wgs, ring, stats, bars, total)
-                    break
-            if choice is not None:
-                break
-    wgs, ring, stats, bars, total = choice
+    else:
+        wgs, ring = 1, RING_SLOTS
+        stats, bars, total = _carve(ring * SLOT_BYTES, wgs, out_groups, ring)
     tiles = -(-max(rows, 1) // 64)
     grid = max(1, min(sms, -(-tiles // wgs)))
     return EvalLayout(
@@ -173,26 +162,6 @@ def cached_image(fw) -> torch.Tensor:
         image = chain_image(fw.ws, fw.out_dim)
         fw._wgmma_image = image
     return image
-
-
-def read_block(image: torch.Tensor, offset: int, rows: int, cols: int):
-    """A block of the image back as its ``(rows, cols)`` matrix, read the
-    way the kernel's descriptors address it: k-step ``kk`` starts at
-    ``offset + 256 kk`` bytes, its second 8 rows one leading byte offset
-    (128) further, each group of 8 columns one stride byte offset (``16
-    rows``) further; within a core matrix column n's 8 k values are 16
-    contiguous bytes."""
-    flat = image.view(-1)
-    out = image.new_zeros((rows, cols))
-    lbo, sbo = 128, 16 * rows
-    for kk in range(rows // 16):
-        for half in range(2):
-            for ng in range(cols // 8):
-                base = (offset + 256 * kk + lbo * half + sbo * ng) // 2
-                core = flat[base:base + 64].reshape(8, 8)   # [n % 8][k % 8]
-                out[16 * kk + 8 * half:16 * kk + 8 * half + 8,
-                    8 * ng:8 * ng + 8] = core.t()
-    return out
 
 
 @functools.lru_cache(maxsize=None)

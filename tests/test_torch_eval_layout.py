@@ -37,12 +37,32 @@ def _kernel_offset(b, d, L, out_dim):
     return 2 * d16 * ec.WIDTH + (b - nb0) * ec.SLOT_BYTES
 
 
+def _read_block(image: torch.Tensor, offset: int, rows: int, cols: int):
+    """A block of the image back as its ``(rows, cols)`` matrix, read the
+    way the kernel's descriptors address it: k-step ``kk`` starts at
+    ``offset + 256 kk`` bytes, its second 8 rows one leading byte offset
+    (128) further, each group of 8 columns one stride byte offset (``16
+    rows``) further; within a core matrix column n's 8 k values are 16
+    contiguous bytes."""
+    flat = image.view(-1)
+    out = image.new_zeros((rows, cols))
+    lbo, sbo = 128, 16 * rows
+    for kk in range(rows // 16):
+        for half in range(2):
+            for ng in range(cols // 8):
+                base = (offset + 256 * kk + lbo * half + sbo * ng) // 2
+                core = flat[base:base + 64].reshape(8, 8)   # [n % 8][k % 8]
+                out[16 * kk + 8 * half:16 * kk + 8 * half + 8,
+                    8 * ng:8 * ng + 8] = core.t()
+    return out
+
+
 def test_every_gate_shape_has_a_layout_that_fits():
     for kernel, d, L, out in _gate_shapes():
         for rows in ROWS:
             lay = ec.eval_layout(kernel, d, L, out, rows, SMS)
             assert lay.smem_bytes <= ec.SMEM_LIMIT == 232_448
-            assert 1 <= lay.warpgroups <= (3 if kernel == "mc" else 2)
+            assert 1 <= lay.warpgroups <= ec.MAX_WARPGROUPS[kernel]
             assert lay.threads == 128 * lay.warpgroups + (32 if lay.ring
                                                           else 0)
             assert lay.out_groups == -(-out // 8)
@@ -50,7 +70,8 @@ def test_every_gate_shape_has_a_layout_that_fits():
             if lay.resident:
                 assert lay.smem_stats == lay.image_bytes
             else:
-                assert lay.ring in ec.RING_SLOTS
+                assert lay.ring == ec.RING_SLOTS == 3
+                assert lay.warpgroups == 1
                 assert lay.smem_stats == lay.ring * ec.SLOT_BYTES
             # statistics after the weights, barriers after the statistics
             assert lay.smem_bars >= lay.smem_stats + \
@@ -123,7 +144,7 @@ def test_image_blocks_read_back_through_the_descriptor_layout(d, L, out):
         want = torch.zeros((rows, cols), dtype=torch.bfloat16)
         src = ws[layer][0, k0:k0 + rows, :cols]
         want[:src.shape[0]] = src
-        assert torch.equal(ec.read_block(image, offset, rows, cols), want)
+        assert torch.equal(_read_block(image, offset, rows, cols), want)
         assert 2 * rows * cols <= ec.SLOT_BYTES
         offset += 2 * rows * cols
     assert offset == ec.image_bytes(d, L, out)

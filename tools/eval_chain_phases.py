@@ -13,10 +13,10 @@ flagship shape (MC dropout: 262,144 rows x 128 samples, p = 0.1; Δ-UQ:
 from ``--seed``) and prints one JSON line per kernel: microseconds per
 phase of block 0's thread 0 (clock sums scaled by the block's wall time),
 each phase's share, the block's wall time, and the kernel's time by CUDA
-events; then a line of the package library's SASS (``cuobjdump``): HGMMA
-instructions per kernel and the MC kernel's mask loop, instructions per
-hash and their opcodes; then the card's ``nvidia-smi`` name and power
-limit. What the thread waits for at a barrier is counted in the barrier.
+events; then a line of the package library's build (``chip_smoke``
+``eval_chain_sass``: each form's registers, spills and HGMMA instructions,
+and the MC kernel's mask loop, its instructions per hash and their
+opcodes); then the card's ``nvidia-smi`` name and power limit. What the thread waits for at a barrier is counted in the barrier.
 It needs a CUDA card.
 """
 import argparse
@@ -30,9 +30,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from compare_sass import instructions, loop_mix  # noqa: E402
 from chip_smoke import (ANCHORED_ROWS, IN_DIM, MC_SAMPLES, ROWS,  # noqa: E402
-                        build_anchored, build_mc, in_bf16)
+                        build_anchored, build_mc, eval_chain_sass, in_bf16,
+                        ptxas_report)
 from nnueehcs_tpu_torch.attrib import event_ms, nvidia_smi  # noqa: E402
 from nnueehcs_tpu_torch.model_builder import DeltaUQMLPModelBuilder  # noqa: E402
 from nnueehcs_tpu_torch.ops import _build  # noqa: E402
@@ -83,26 +83,6 @@ def run(lib, read, launch):
             'block_wall_us': wall_us, 'sm_clock_ghz': per_ns}
 
 
-def sass_report(lib_path):
-    """HGMMA instructions of each bf16 eval kernel in the package's library,
-    and the MC kernel's mask loop (the loop holding the most lowbias32
-    multiplies by 0x7feb352d, one a hash): instructions per hash and their
-    opcodes."""
-    funcs = instructions(lib_path)
-    out = {}
-    for name, ins in funcs.items():
-        for kernel in ('fused_mc_dropout_bf16_kernel',
-                       'fused_anchored_bf16_kernel'):
-            if kernel in name:
-                form = 'ring' if 'ILb1E' in name else 'resident'
-                out[f'{kernel}<{form}>'] = {
-                    'hgmma': sum(t.split()[0].startswith('HGMMA')
-                                 or ' HGMMA' in t for _, t in ins)}
-                if kernel.startswith('fused_mc') and form == 'resident':
-                    out['mask_loop'] = loop_mix(ins, '0x7feb352d')
-    return {'sass': out}
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -143,7 +123,10 @@ def main(argv=None):
         print(json.dumps({'kernel': name, **shape, **out,
                           'kernel_ms_unstamped': kernel_t['median_ms'],
                           'device': kind}), flush=True)
-    print(json.dumps(sass_report(_build.build_info().path)), flush=True)
+    info = _build.build_info()
+    print(json.dumps({'sass': eval_chain_sass(info.path,
+                                              ptxas_report(info.log))}),
+          flush=True)
     print(nvidia_smi('name,power.limit'), flush=True)
     return 0
 
