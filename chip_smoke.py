@@ -39,8 +39,9 @@ held to their plain
 versions at the same shapes (2 and 5 also on a chain twelve Linears deep,
 which their wgmma forms stream through a ring of shared-memory slots; the
 build phase checks that both forms of each compile without spills and with
-HGMMA instructions, and counts the integer operations of one mask hash in
-the MC kernel's SASS for row 2b's bound), the seven models are served again after
+HGMMA instructions, and that the MC kernel's mask loop spends a plausible
+number of SASS instructions a hash; row 2b's bound counts the hash's
+operations from its function, by integer pipe), the seven models are served again after
 ``set_precision('bf16-mixed')`` (the JAX package's ``eval_precision``, a
 bf16 evaluation of an fp32-trained model), each answer held to the plain
 bf16 function on the card against its bf16-vs-fp32 gap, with each
@@ -68,7 +69,6 @@ anything.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import re
 import shutil
@@ -109,12 +109,14 @@ from nnueehcs_tpu_torch.ops.fused_anchored import (anchor_rows,
 from nnueehcs_tpu_torch.ops.fused_ensemble import (fused_forward_plain,
                                                    fused_forward_prefolded,
                                                    prepare_fused_weights)
-from nnueehcs_tpu_torch.ops.fused_mc_dropout import (fused_mc_forward,
+from nnueehcs_tpu_torch.ops.fused_mc_dropout import (MASK_HASH_OPS,
+                                                     fused_mc_forward,
                                                      fused_mc_forward_plain,
                                                      prepare_mc_weights)
 from nnueehcs_tpu_torch.ops.kde import (_log_norm_const, bandwidth_value,
                                         centre, kde_logpdf, kde_logpdf_plain,
                                         knn_kde_density)
+from nnueehcs_tpu_torch.sass import eval_chain_sass
 from nnueehcs_tpu_torch.serving import DEFAULT_BUCKETS, Predictor
 from nnueehcs_tpu_torch.training import (ArrayDataset, DataLoader,
                                          EarlyStopping, ModelSavingCallback,
@@ -319,11 +321,13 @@ ATTRIB_TRAIN_REPS = 3                        # epochs per training variant
 PLAIN_ABLATE_STEPS = 20                      # the plain epoch, scaled
 # MUFU ex2 results per SM per clock, and 32-bit integer operations (add,
 # multiply-add, shift, compare, bitwise) per SM per clock (CUDA programming
-# guide, arithmetic instruction throughput, compute capability 9.0)
+# guide, arithmetic instruction throughput, compute capability 9.0). IMAD
+# and IMUL run on the FMA pipe, the other integer operations on the ALU
+# pipe (Nsight Compute kernel profiling guide, "Pipelines"), 64 a clock
+# each; the four schedulers of an SM issue 128 thread instructions a clock,
+# which the two pipes together never exceed.
 EX2_PER_SM_PER_CLOCK = 16
-INT32_PER_SM_PER_CLOCK = 64
-# the lowbias32 multiply that every mask hash does once (fused_mc_dropout.cu)
-HASH_MARKER = '0x7feb352d'
+INT_PIPE_PER_SM_PER_CLOCK = 64
 
 
 def emit(phase, **fields):
@@ -634,45 +638,13 @@ def cluster_kernels(report, source):
     return out
 
 
-def compare_sass():
-    """tools/compare_sass.py beside this script, as a module."""
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tools',
-                        'compare_sass.py')
-    spec = importlib.util.spec_from_file_location('compare_sass', path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-def eval_chain_sass(lib_path, ptxas):
-    """The bf16 eval kernels 2b and 5b in both forms (resident, ring): their
-    ptxas registers and spills, which must be 0, and their HGMMA (wgmma)
-    instructions, which must be there; and the MC kernel's mask loop, whose
-    instructions per hash (per lowbias32 multiply by HASH_MARKER) count the
-    hash's integer operations in row 2b's bound."""
-    sass = compare_sass()
-    funcs = sass.instructions(lib_path)
-    out = {}
-    for kernel in ('fused_mc_dropout_bf16_kernel',
-                   'fused_anchored_bf16_kernel'):
-        for form, tag in (('resident', 'ILb0E'), ('ring', 'ILb1E')):
-            names = [n for n in funcs if kernel in n and tag in n]
-            regs = [v for k, v in ptxas.items() if kernel in k and tag in k]
-            check(len(names) == 1 and len(regs) == 1,
-                  f'{kernel}<{form}>: {len(names)} SASS functions, '
-                  f'{len(regs)} ptxas entries')
-            row = {k: regs[0].get(k) for k in ('registers', 'spill_store_bytes',
-                                              'spill_load_bytes')}
-            row['hgmma'] = sum('HGMMA' in t for _, t in funcs[names[0]])
-            check(row['spill_store_bytes'] == 0 and row['spill_load_bytes'] == 0,
-                  f'{kernel}<{form}> spills: {row}')
-            check(row['hgmma'] > 0, f'{kernel}<{form}>: no HGMMA in its SASS')
-            out[f'{kernel}<{form}>'] = row
-            if kernel.startswith('fused_mc') and form == 'resident':
-                mask = sass.loop_mix(funcs[names[0]], HASH_MARKER)
-                check(mask is not None, 'no mask loop in the MC kernel SASS')
-                out['mask_loop'] = mask
-    return out
+def hash_clocks(ops):
+    """Least SM clocks that one mask element's operations ``ops``
+    (``fused_mc_dropout.MASK_HASH_OPS``) take: the ALU and the FMA pipe at
+    INT_PIPE_PER_SM_PER_CLOCK each, the operations either can run split
+    between them to balance them."""
+    return min(max(ops['alu'] + k, ops['fma'] + ops['either'] - k)
+               for k in range(ops['either'] + 1)) / INT_PIPE_PER_SM_PER_CLOCK
 
 
 def smooth_target(x):
@@ -1663,30 +1635,33 @@ def main():
     e2e_s = e2e_median_s(bf16_predictors['mc_dropout'], ROWS)
     # beside the bf16 products, the mask hash: one for every masked element
     # (the inputs of the Linears a Dropout precedes, over every row and
-    # sample), each the mask loop's integer instructions per hash (SASS)
+    # sample), each the function's operations (MASK_HASH_OPS) on the
+    # integer pipes; the mask loop's SASS instructions a hash beside it
     masked = sum(IN_DIM if layer == 0 else WIDTH
                  for layer, t in enumerate(mw16.thresholds) if t >= 0)
     hashes = ROWS * MC_SAMPLES * masked
-    per_hash = eval_chain['mask_loop']['per_marker']
-    int_rate = INT32_PER_SM_PER_CLOCK * sms * int(clock_mhz.group(1)) * 1e6
+    clocks = hash_clocks(MASK_HASH_OPS)
+    hash_rate = sms * int(clock_mhz.group(1)) * 1e6 / clocks
     flops16 = 2.0 * ROWS * (MC_SAMPLES + 1) * mw16.macs_per_row
     record(11, bf16_launches['mc_dropout'], kernel_t, plain_t, flops16,
            moved16(mw16, x.numel(), ROWS), None, into=kernels_bf16,
-           peak=peak_bf16, exps=hashes * per_hash, exp_rate=int_rate,
+           peak=peak_bf16, exps=hashes, exp_rate=hash_rate,
            rows=ROWS, samples=MC_SAMPLES, p=MC_P,
            plain_rows=MC_PLAIN_TIMING_ROWS, gemm_only_reference=gemm_t,
-           masked_elements=hashes, int_ops_per_hash=per_hash,
-           int_ops_per_s=int_rate, products_ms=1e3 * flops16 / peak_bf16,
-           hash_ms=1e3 * hashes * per_hash / int_rate,
+           masked_elements=hashes, hash_ops=MASK_HASH_OPS,
+           hash_clocks_per_sm=clocks, hashes_per_s=hash_rate,
+           products_ms=1e3 * flops16 / peak_bf16,
+           hash_ms=1e3 * hashes / hash_rate,
+           mask_loop=eval_chain['mask_loop'],
            predictor_e2e_median_s=e2e_s,
            predictor_e2e_samples_per_s=ROWS / e2e_s)
     kernels_bf16[-1].update(
         plain_rows=MC_PLAIN_TIMING_ROWS,
         gemm_only_reference_ms=gemm_t['median_ms'],
         bound_terms_ms={'bf16_products': 1e3 * flops16 / peak_bf16,
-                        'mask_hash_int_ops': 1e3 * hashes * per_hash
-                        / int_rate},
-        int_ops_per_hash=per_hash,
+                        'mask_hash_int_ops': 1e3 * hashes / hash_rate},
+        hash_ops=MASK_HASH_OPS,
+        sass_instructions_per_hash=eval_chain['mask_loop']['per_marker'],
         share_of_bound=kernels_bf16[-1]['bound_ms'] / kernels_bf16[-1]['ms'],
         ptxas={k: v for k, v in eval_chain.items()
                if k.startswith('fused_mc')})

@@ -177,7 +177,7 @@ def build(flags=()) -> BuildInfo:
 def load(flags=()) -> tuple[ctypes.CDLL, BuildInfo]:
     """Build (if needed) and load the library compiled with ``flags``, its
     exported launchers typed: :func:`library`'s, or with a ``-D`` define
-    an instrumented one beside it (``tools/train_step_phases.py``)."""
+    an instrumented one beside it (:func:`stamped_library`)."""
     info = build(flags)
     lib = ctypes.CDLL(str(info.path))
     for name, (restype, argtypes) in SIGNATURES.items():
@@ -200,3 +200,35 @@ def library() -> ctypes.CDLL:
 def build_info() -> BuildInfo:
     """How the loaded library was built (builds it if needed)."""
     return _load()[1]
+
+
+# the phase stamps (csrc/stamps.cuh): a build with this define, the
+# translation units whose kernels stamp, and the words each one's reader
+# gives (kSlots clock sums, then the stamped spans' wall ns)
+STAMPS_FLAG = '-DNNUEEHCS_STAMPS'
+STAMPED_UNITS = ('fused_train', 'fused_train_bf16', 'fused_mc_dropout',
+                 'fused_anchored')
+STAMP_SLOTS = 1024
+
+
+def stamped_library() -> ctypes.CDLL:
+    """The kernel library built with :data:`STAMPS_FLAG` beside the
+    package's own (for the phase tools under ``tools/``)."""
+    lib, _ = load((STAMPS_FLAG,))
+    for unit in STAMPED_UNITS:
+        fn = getattr(lib, f'nnueehcs_stamps_{unit}')
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def read_stamps(lib: ctypes.CDLL, unit: str) -> tuple[list[int], int]:
+    """Read and clear the stamps of translation unit ``unit`` of a
+    :func:`stamped_library`: the clock cycles of each phase slot and the
+    stamped spans' wall time in ns, summed since the last read."""
+    buf = (ctypes.c_ulonglong * (STAMP_SLOTS + 1))()
+    err = getattr(lib, f'nnueehcs_stamps_{unit}')(ctypes.addressof(buf))
+    if err:
+        raise RuntimeError(f'reading the {unit} stamps: CUDA error {err}')
+    words = list(buf)
+    return words[:STAMP_SLOTS], words[STAMP_SLOTS]

@@ -125,10 +125,10 @@ __global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 2 * fw::kWgThrea
       }
     return;
   }
-  EVAL_BEGIN();
+  STAMP_BEGIN(true, 0);
   if (!kRing) {
     if (threadIdx.x == 0) wts.load_image(image, lay.image_bytes);
-    EVAL_PHASE(1);
+    STAMP(1);
     fw::mbar_wait(wts.full, 0);
   }
   const fw::Thread t(threadIdx.x);
@@ -151,7 +151,7 @@ __global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 2 * fw::kWgThrea
     // u = bf16(x) @ W_bot + b0, fp32, kept for every anchor
     fw::layer0_from_x(acc, wts, chain, x_tile, d, valid, t, fw::NoMask(),
                       [] {});
-    EVAL_PHASE(7);
+    STAMP(7);
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const float2 b0 =
@@ -162,7 +162,7 @@ __global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 2 * fw::kWgThrea
     }
     for (int j = 0; j < k; ++j) {
       // layer 0 of anchor j: relu(u + v_j), rounded into A
-      EVAL_PHASE(7);
+      STAMP(7);
       const float* vj = v + static_cast<size_t>(j) * fw::kWidth;
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
@@ -195,7 +195,7 @@ __global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 2 * fw::kWgThrea
     }
     fw::stats_write(st, groups, k, t, valid, row0, out_dim, mean, std);
   }
-  EVAL_END();
+  STAMP_END();
 }
 
 }  // namespace
@@ -245,10 +245,6 @@ int nnueehcs_fused_anchored_bf16(const float* x, long long B, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
-#ifdef NNUEEHCS_EVAL_STAMPS
-int nnueehcs_eval_stamps_anchored(unsigned long long* out) {
-  return eval_stamps::read(out);
-}
-#endif
-
 }  // extern "C"
+
+STAMPS_READER(fused_anchored)

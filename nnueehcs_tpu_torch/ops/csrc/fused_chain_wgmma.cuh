@@ -37,7 +37,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "eval_stamps.cuh"
+#include "stamps.cuh"
 
 namespace fused_chain_wgmma {
 
@@ -349,7 +349,7 @@ struct Weights {
 
   // the shared-memory address of block b, once it is there
   __device__ __forceinline__ uint32_t acquire(const Chain& c, int b) {
-    EVAL_PHASE(1);
+    STAMP(1);
     if (!kRing) return smem_u32(base) + c.offset(b);
     const uint32_t s = seq % slots;
     mbar_wait(full + s, (seq / slots) & 1);
@@ -359,7 +359,7 @@ struct Weights {
   // after the warp's products on the block have completed
   __device__ __forceinline__ void release(bool lane0) {
     if (!kRing) return;
-    EVAL_PHASE(10);
+    STAMP(10);
     __syncwarp();
     if (lane0) mbar_arrive(empty + seq % slots);
     ++seq;
@@ -436,10 +436,10 @@ __device__ __forceinline__ void layer0_from_x(float (&acc)[64], W& wts,
     const uint32_t addr = wts.acquire(c, b);
     const int steps = c.rows(b) / 16;
     for (int kk = 0; kk < steps; ++kk) {
-      EVAL_PHASE(2);
+      STAMP(2);
       uint32_t a[4];
       x_fragment(x_tile, d, valid, b * (kKBlock / 16) + kk, t, f, a);
-      EVAL_PHASE(3);
+      STAMP(3);
       pin(a);
       wgmma_fence();
       if ((b | kk) == 0) {
@@ -449,7 +449,7 @@ __device__ __forceinline__ void layer0_from_x(float (&acc)[64], W& wts,
       }
       wgmma_commit();
       if (b + 1 == c.nb0 && kk + 1 == steps) last();
-      EVAL_PHASE(5);
+      STAMP(5);
       wgmma_wait_all();
       pin(acc);
       pin(a);
@@ -463,7 +463,7 @@ __device__ __forceinline__ void layer0_from_x(float (&acc)[64], W& wts,
 __device__ __forceinline__ void issue_n128(float (&acc)[64],
                                            uint32_t (&a)[8][4],
                                            uint32_t addr) {
-  EVAL_PHASE(3);
+  STAMP(3);
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) pin(a[kk]);
   wgmma_fence();
@@ -478,7 +478,7 @@ __device__ __forceinline__ void issue_n128(float (&acc)[64],
 // (a) are this thread's again.
 __device__ __forceinline__ void wait_acc(float (&acc)[64],
                                          uint32_t (&a)[8][4]) {
-  EVAL_PHASE(5);
+  STAMP(5);
   wgmma_wait_all();
   pin(acc);
 #pragma unroll
@@ -504,7 +504,7 @@ __device__ __forceinline__ void epilogue(const float (&acc)[64],
                                          const uint32_t (&keep)[2],
                                          float scale, const Thread& t,
                                          uint32_t (&a)[8][4]) {
-  EVAL_PHASE(6);
+  STAMP(6);
   uint64_t at = reinterpret_cast<uint64_t>(bias + 2 * t.q);
   if (kLateBias) asm volatile("" : "+l"(at)::"memory");
   const float* bq = reinterpret_cast<const float*>(at);
@@ -534,7 +534,7 @@ __device__ __forceinline__ void epilogue(const float (&acc)[64],
 __device__ __forceinline__ void last_group(float (&acc)[4],
                                            uint32_t (&a)[8][4],
                                            uint32_t addr, int g) {
-  EVAL_PHASE(8);
+  STAMP(8);
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) pin(a[kk]);
   wgmma_fence();
@@ -566,10 +566,10 @@ __device__ __forceinline__ void last_group_from_x(float (&acc)[4],
     const uint32_t addr = wts.acquire(c, b);
     const int rows = c.rows(b), steps = rows / 16;
     for (int kk = 0; kk < steps; ++kk) {
-      EVAL_PHASE(2);
+      STAMP(2);
       uint32_t a[4];
       x_fragment(x_tile, d, valid, b * (kKBlock / 16) + kk, t, f, a);
-      EVAL_PHASE(8);
+      STAMP(8);
       pin(a);
       wgmma_fence();
       const uint32_t base = addr + g * rows * 16;
@@ -636,7 +636,7 @@ __device__ __forceinline__ void stats_write(const float4* st, int groups,
                                             int valid, long long row0,
                                             int out_dim, float* mean,
                                             float* std) {
-  EVAL_PHASE(9);
+  STAMP(9);
   const float n = static_cast<float>(count);
   const float dof = static_cast<float>(count > 1 ? count - 1 : 1);
   for (int g = 0; g < groups; ++g) {

@@ -35,15 +35,16 @@
 // dot, so the epilogue masks the fp32 value before it rounds; the
 // dropout-free shift pass runs in bf16 too, and the masks are the same hash.
 // What bounds it: the bf16 products at the dense tensor-core peak (989
-// TFLOP/s on an H100 SXM, 5.7 ms at the flagship) and the mask hash, about
-// a dozen integer operations for each of the 2.1e10 masked elements, on the
-// INT32 pipes (64 a clock per SM). Its design is fused_chain_wgmma.cuh's:
-// persistent blocks holding the chain in shared memory, warpgroups of
-// wgmma products with the activations in registers, three warpgroups a
-// block so that two's epilogues and hashes overlap the third's products;
-// each layer's keep bits for the next Linear are hashed while the layer's
-// products are in flight, packed 64 to two words, and applied in the
-// epilogue.
+// TFLOP/s on an H100 SXM, 5.7 ms at the flagship) and the mask hash, 11
+// integer operations for each of the 2.1e10 masked elements, 7 of which
+// only the ALU pipe runs (64 a clock per SM; ops/fused_mc_dropout.py
+// MASK_HASH_OPS), 9.0 ms at the flagship. Its design is
+// fused_chain_wgmma.cuh's: persistent blocks holding the chain in shared
+// memory, warpgroups of wgmma products with the activations in registers,
+// three warpgroups a block so that two's epilogues and hashes overlap the
+// third's products; each layer's keep bits for the next Linear are hashed
+// while the layer's products are in flight, packed 64 to two words, and
+// applied in the epilogue.
 #include "fused_chain.cuh"
 #include "fused_chain_wgmma.cuh"
 
@@ -208,7 +209,7 @@ __device__ __forceinline__ Drop drop_for(int p, int l, uint32_t seed,
 // column groups a step: eight hashes in flight per thread keep the INT32
 // pipes busy without the registers of all 64.
 __device__ __forceinline__ void keep_words(const Drop& m, uint32_t (&w)[2]) {
-  EVAL_PHASE(4);
+  STAMP(4);
   uint32_t b0 = m.bq[0], b1 = m.bq[1];
   fw::pin(b0);   // not before the products are issued
   fw::pin(b1);
@@ -283,10 +284,10 @@ __global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 3 * fw::kWgThrea
         }
     return;
   }
-  EVAL_BEGIN();
+  STAMP_BEGIN(true, 0);
   if (!kRing) {
     if (threadIdx.x == 0) wts.load_image(image, lay.image_bytes);
-    EVAL_PHASE(1);
+    STAMP(1);
     fw::mbar_wait(wts.full, 0);
   }
   const fw::Thread t(threadIdx.x);
@@ -339,7 +340,7 @@ __global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 3 * fw::kWgThrea
     }
     fw::stats_write(st, groups, S, t, valid, row0, out_dim, mean, std);
   }
-  EVAL_END();
+  STAMP_END();
 }
 
 }  // namespace
@@ -393,10 +394,6 @@ int nnueehcs_fused_mc_dropout_bf16(const float* x, long long B, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
-#ifdef NNUEEHCS_EVAL_STAMPS
-int nnueehcs_eval_stamps_mc(unsigned long long* out) {
-  return eval_stamps::read(out);
-}
-#endif
-
 }  // extern "C"
+
+STAMPS_READER(fused_mc_dropout)

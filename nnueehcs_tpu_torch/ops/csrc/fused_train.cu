@@ -61,16 +61,6 @@ int nnueehcs_fused_train_f32(const long long* iconf, const float* fconf,
                                   static_cast<cudaStream_t>(stream));
 }
 
-#ifdef NNUEEHCS_TRAIN_STAMPS
-// The phase stamps of the epochs since the last call
-// (tools/train_step_phases.py), which it then clears.
-int nnueehcs_train_stamps(unsigned long long* out) {
-  void* at = nullptr;
-  cudaError_t err = cudaMemcpyFromSymbol(out, g_stamps, sizeof(g_stamps));
-  if (err == cudaSuccess) err = cudaGetSymbolAddress(&at, g_stamps);
-  if (err == cudaSuccess) err = cudaMemset(at, 0, sizeof(g_stamps));
-  return static_cast<int>(err);
-}
-#endif
-
 }  // extern "C"
+
+STAMPS_READER(fused_train)

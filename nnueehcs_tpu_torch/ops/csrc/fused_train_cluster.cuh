@@ -53,6 +53,7 @@
 #include <cuda_bf16.h>
 
 #include "fused_train.cuh"
+#include "stamps.cuh"
 
 namespace {
 
@@ -85,27 +86,6 @@ enum {
 struct Layout {
   long long v[kLayFields];
 };
-
-// Phase stamps for tools/train_step_phases.py: with NNUEEHCS_TRAIN_STAMPS
-// defined, thread 0 of the first block records %globaltimer at phase
-// boundaries of the epoch's middle step (the ids are documented there);
-// otherwise the stamps compile to nothing.
-#ifdef NNUEEHCS_TRAIN_STAMPS
-__device__ unsigned long long g_stamps[1024];
-#define TRAIN_STAMP(id)                                                    \
-  do {                                                                     \
-    if (blockIdx.x == 0 && threadIdx.x == 0 && step == A.i[kS] / 2 &&     \
-        (id) < 1024) {                                                     \
-      unsigned long long t_;                                               \
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));               \
-      g_stamps[(id)] = t_;                                                 \
-    }                                                                      \
-  } while (0)
-#else
-#define TRAIN_STAMP(id) \
-  do {                  \
-  } while (0)
-#endif
 
 // lane parameters kept in the reduction area, kL floats each
 enum { kPMu, kPInv, kPGam, kPBet, kPPGam, kPPBet, kNumPar = 8 };
@@ -768,7 +748,7 @@ __device__ void bn_forward(const Args& A, const Blk& k, int step, int li,
                     __fmul_rn(A.f[kMom], __fmul_rn(var, A.f[kUnbias])));
   }
   __syncthreads();
-  TRAIN_STAMP(sid + 4);
+  STAMP(sid + 4);
   const bool relu = L[kRelu] != 0;
   const Mask mk = mask_of(A, step, k.m, lin_row(A, li + 1));
   float* zh = k.zh + static_cast<long long>(zi) * B * kL;
@@ -793,7 +773,7 @@ __device__ void bn_forward(const Args& A, const Blk& k, int step, int li,
                       static_cast<long long>(r) * kXSt<kBf16> + k.off + n0,
                       make_float4(hv[0], hv[1], hv[2], hv[3]));
   }
-  TRAIN_STAMP(sid + 5);
+  STAMP(sid + 5);
   broadcast<kBf16, kRes>(k, Xout, B);
 }
 
@@ -822,17 +802,17 @@ __device__ void cluster_forward(const Args& A, const Blk& k, int step, int& s,
       fetch_bwd(A, k, n - 1, next);
     const float* wf = k.ring + (s & 1) * kWSlot;
     ++s;
-    TRAIN_STAMP(sbase + 10 * li);
+    STAMP(sbase + 10 * li);
     if (!last || k.rank < k.out_blocks)
       xw<kBf16, kRes>(B, L[kInRows], xin, wf,
                       A.theta + (k.base + L[kBOff]) * kLanes + k.off, k.d);
     __syncthreads();
-    TRAIN_STAMP(sbase + 10 * li + 1);
+    STAMP(sbase + 10 * li + 1);
     if (last) break;
     bn_forward<kBf16, kRes>(A, k, step, li, xout, sbase + 10 * li);
-    TRAIN_STAMP(sbase + 10 * li + 2);
+    STAMP(sbase + 10 * li + 2);
     exchange_sync<kRes>(cl);
-    TRAIN_STAMP(sbase + 10 * li + 3);
+    STAMP(sbase + 10 * li + 3);
     float* t = xin;
     xin = xout;
     xout = t;
@@ -932,7 +912,7 @@ __device__ void cluster_backward(const Args& A, const Blk& k, int step, int& s,
       wr = k.ring + (s & 1) * kWSlot;
       ++s;
     }
-    TRAIN_STAMP(500 + 10 * li);
+    STAMP(500 + 10 * li);
     const int zi = L[kZhIdx];
     const float* zh =
         zi < 0 ? nullptr
@@ -1004,7 +984,7 @@ __device__ void cluster_backward(const Args& A, const Blk& k, int step, int& s,
         A.g[(k.base + L[kBOff]) * kLanes + k.off + threadIdx.x] = t;
       }
     }
-    TRAIN_STAMP(500 + 10 * li + 1);
+    STAMP(500 + 10 * li + 1);
     // d into every peer's Xd: the owners' lanes (all of them but for the
     // last block)
     if (owner) {
@@ -1048,9 +1028,9 @@ __device__ void cluster_backward(const Args& A, const Blk& k, int step, int& s,
                           : 0.f;
       }
     }
-    TRAIN_STAMP(500 + 10 * li + 2);
+    STAMP(500 + 10 * li + 2);
     exchange_sync<kRes>(cl);
-    TRAIN_STAMP(500 + 10 * li + 3);
+    STAMP(500 + 10 * li + 3);
     // dW[own, :] = a[:, own]^T d over the lanes that carry d (the last
     // block's: those of the owners), into rows w_off + off.. of g
     const int nred = last ? k.out_blocks * kL : kLanes;
@@ -1064,15 +1044,15 @@ __device__ void cluster_backward(const Args& A, const Blk& k, int step, int& s,
         A.g[(k.base + L[kBOff]) * kLanes + k.off + threadIdx.x] =
             k.col[threadIdx.x];
     }
-    TRAIN_STAMP(500 + 10 * li + 4);
+    STAMP(500 + 10 * li + 4);
     if (li == 0) break;
     __syncthreads();
     // d = (d W^T) * mask on the block's input lanes
     dwt<kBf16, kRes>(B, nred, Xd, wr, D, mk, k.off);
     __syncthreads();
-    TRAIN_STAMP(500 + 10 * li + 5);
+    STAMP(500 + 10 * li + 5);
     cl.sync();   // every peer is done reading Xd
-    TRAIN_STAMP(500 + 10 * li + 6);
+    STAMP(500 + 10 * li + 6);
   }
 }
 
@@ -1123,12 +1103,12 @@ __global__ void __launch_bounds__(kT, 1)
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cl = cg::this_cluster();
   const Blk k = make_blk<kRes>(A, lay, smem, cl);
-  TRAIN_STAMP(950);
+  STAMP_BEGIN(step == A.i[kS] / 2, 950);  // the middle step
   int s = 0;
   fetch_fwd(A, k, 0, k.ring);
   load_x<kBf16, kRes>(A, k, step, k.x0);
   exchange_sync<kRes>(cl);
-  TRAIN_STAMP(951);
+  STAMP(951);
   cluster_forward<kBf16, kRes>(A, k, step, s, false, cl);
   if (k.rank < k.out_blocks) {
     const int B = static_cast<int>(A.i[kB]);
@@ -1136,7 +1116,7 @@ __global__ void __launch_bounds__(kT, 1)
     for (int e = threadIdx.x; e < B * kL; e += kT)
       pr[(e / kL) * kLanes + e % kL] = k.d[e];
   }
-  TRAIN_STAMP(952);
+  STAMP_END();
 }
 
 // The member's step: its forward (single sweep) or the joint mean of the
@@ -1151,7 +1131,7 @@ __global__ void __launch_bounds__(kT, 1)
   const int B = static_cast<int>(A.i[kB]);
   const int n = static_cast<int>(A.i[kNLins]);
   const bool owner = k.rank < k.out_blocks;
-  TRAIN_STAMP(900);
+  STAMP_BEGIN(step == A.i[kS] / 2, 900);  // the middle step
   int s = 0;
   float term = 0.f;
   if (A.i[kSingleSweep]) {
@@ -1159,7 +1139,7 @@ __global__ void __launch_bounds__(kT, 1)
     load_x<kBf16, kRes>(A, k, step, k.x0);
     exchange_sync<kRes>(cl);
     cluster_forward<kBf16, kRes>(A, k, step, s, true, cl);
-    TRAIN_STAMP(901);
+    STAMP(901);
     if (owner) term = cluster_loss(A, k, step);
   } else {
     if (n >= 2) fetch_bwd(A, k, n - 1, k.ring);
@@ -1181,7 +1161,7 @@ __global__ void __launch_bounds__(kT, 1)
         cp_wait_all();
         __syncthreads();
       }
-      TRAIN_STAMP(901);
+      STAMP(901);
       for (int e = threadIdx.x; e < B * kL; e += kT) {
         const long long at = (e / kL) * kLanes + k.off + e % kL;
         float sum = staged ? k.x0[e] : A.preds[at];
@@ -1192,18 +1172,18 @@ __global__ void __launch_bounds__(kT, 1)
         k.d[e] = __fmul_rn(sum, A.f[kInvMembers]);
       }
       __syncthreads();
-      TRAIN_STAMP(902);
+      STAMP(902);
       term = cluster_loss(A, k, step);
     }
   }
-  TRAIN_STAMP(903);
+  STAMP(903);
   // every peer is done reading the forward's buffers (and has started)
   cl.sync();
-  TRAIN_STAMP(904);
+  STAMP(904);
   cluster_backward<kBf16, kRes>(A, k, step, s, cl);
-  TRAIN_STAMP(905);
+  STAMP(905);
   cluster_reduce(A, k, term, cl);
-  TRAIN_STAMP(906);
+  STAMP_END();
 }
 
 inline cudaError_t launch_cluster(void (*kernel)(Args, Layout, int),

@@ -124,29 +124,6 @@ def _check_inputs(aw: AnchoredWeights, x, anchors):
             raise ValueError(f'weights and anchors must be on {x.device}')
 
 
-def launch_anchored(lib, aw: AnchoredWeights, x, v, mean, std):
-    """Launch the kernel form of ``aw``'s compute dtype from the kernel
-    library ``lib`` (``_build.library()``, or an instrumented build) on
-    checked inputs and the anchor rows ``v``, filling ``mean`` and
-    ``std``; raises on a CUDA error. The bf16 form takes the chain as its
-    image and the launch layout of :mod:`.fused_eval_chain`."""
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        args = [x.data_ptr(), x.shape[0], aw.in_dim, aw.w_all.data_ptr(),
-                aw.b_all.data_ptr(), aw.num_layers, aw.relu_flags.data_ptr(),
-                v.data_ptr(), v.shape[0], aw.out_dim, mean.data_ptr(),
-                std.data_ptr()]
-        if aw.compute_dtype == torch.bfloat16:
-            image, layout = launch_args('anchored', aw, x.shape[0], x.device)
-            args[3] = image.data_ptr()
-            err = lib.nnueehcs_fused_anchored_bf16(*args, layout, stream)
-        else:
-            err = lib.nnueehcs_fused_anchored_f32(*args, stream)
-    if err != 0:
-        raise RuntimeError(f'fused anchored kernel launch failed: CUDA error '
-                           f'{err}')
-
-
 def fused_anchored_stats(aw: AnchoredWeights, x, anchors, n_anchors=None):
     """``(mean, std)``, each ``(B, out_dim)``, over the anchored passes of
     the first ``n_anchors`` anchors (all of them when None): the CUDA kernel
@@ -168,8 +145,26 @@ def fused_anchored_stats(aw: AnchoredWeights, x, anchors, n_anchors=None):
     if rows == 0:
         return mean, std
     from ._build import library
-    launch_anchored(library(), aw, x, v, mean, std)
-    if aw.compute_dtype == torch.bfloat16:
+    lib = library()
+    bf16 = aw.compute_dtype == torch.bfloat16
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        args = [x.data_ptr(), rows, aw.in_dim, aw.w_all.data_ptr(),
+                aw.b_all.data_ptr(), aw.num_layers, aw.relu_flags.data_ptr(),
+                v.data_ptr(), v.shape[0], aw.out_dim, mean.data_ptr(),
+                std.data_ptr()]
+        if bf16:
+            # the bf16 form takes the chain as its image and the launch
+            # layout of .fused_eval_chain
+            image, layout = launch_args('anchored', aw, rows, x.device)
+            args[3] = image.data_ptr()
+            err = lib.nnueehcs_fused_anchored_bf16(*args, layout, stream)
+        else:
+            err = lib.nnueehcs_fused_anchored_f32(*args, stream)
+    if err != 0:
+        raise RuntimeError(f'fused anchored kernel launch failed: CUDA error '
+                           f'{err}')
+    if bf16:
         fused_anchored_stats.launches_bf16 += 1
     else:
         fused_anchored_stats.launches += 1

@@ -93,6 +93,16 @@ def dropout_scale(seed: int, sample: int, key: int, threshold: int,
                        torch.tensor(0.0, dtype=torch.float32, device=device))
 
 
+# The operations one mask element costs, counted from dropout_scale (the
+# stream and row terms are per row, shared by every column): the column
+# term's add; lowbias32's three shifts, three xors and two multiplies; the
+# threshold test's shift and compare. By the SM pipes that can run them:
+# shifts and xors only the ALU pipe, multiplies only the FMA pipe (IMAD),
+# an add or a compare (the sign of a subtraction) either. Row 2b's bound in
+# chip_smoke.py counts these.
+MASK_HASH_OPS = {'alu': 7, 'fma': 2, 'either': 2}
+
+
 class McWeights(FusedWeights):
     """Folded weights of one MC-dropout network, packed as for the ensemble
     kernel with one member, plus per-Linear dropout parameters:
@@ -204,31 +214,6 @@ def _check_inputs(mw: McWeights, x, num_samples):
             raise ValueError(f'folded weights must be contiguous on {x.device}')
 
 
-def launch_mc(lib, mw: McWeights, x, num_samples: int, seed: int, mean,
-              std):
-    """Launch the kernel form of ``mw``'s compute dtype from the kernel
-    library ``lib`` (``_build.library()``, or an instrumented build) on
-    checked inputs, filling ``mean`` and ``std``; raises on a CUDA error.
-    The bf16 form takes the chain as its image and the launch layout of
-    :mod:`.fused_eval_chain`."""
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        args = [x.data_ptr(), x.shape[0], mw.in_dim, mw.w_all.data_ptr(),
-                mw.b_all.data_ptr(), mw.num_layers, mw.relu_flags.data_ptr(),
-                mw.drop_thresh.data_ptr(), mw.drop_scale.data_ptr(),
-                mw.drop_key.data_ptr(), num_samples, seed, mw.out_dim,
-                mean.data_ptr(), std.data_ptr()]
-        if mw.compute_dtype == torch.bfloat16:
-            image, layout = launch_args('mc', mw, x.shape[0], x.device)
-            args[3] = image.data_ptr()
-            err = lib.nnueehcs_fused_mc_dropout_bf16(*args, layout, stream)
-        else:
-            err = lib.nnueehcs_fused_mc_dropout_f32(*args, stream)
-    if err != 0:
-        raise RuntimeError(f'fused MC-dropout kernel launch failed: CUDA '
-                           f'error {err}')
-
-
 def fused_mc_forward(mw: McWeights, x, num_samples: int, seed: int):
     """``(mean, std)``, each ``(B, out_dim)``, over ``num_samples`` dropout
     samples drawn with call seed ``seed``: the CUDA kernel of the weights'
@@ -248,8 +233,27 @@ def fused_mc_forward(mw: McWeights, x, num_samples: int, seed: int):
     if rows == 0:
         return mean, std
     from ._build import library
-    launch_mc(library(), mw, x, num_samples, seed, mean, std)
-    if mw.compute_dtype == torch.bfloat16:
+    lib = library()
+    bf16 = mw.compute_dtype == torch.bfloat16
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        args = [x.data_ptr(), rows, mw.in_dim, mw.w_all.data_ptr(),
+                mw.b_all.data_ptr(), mw.num_layers, mw.relu_flags.data_ptr(),
+                mw.drop_thresh.data_ptr(), mw.drop_scale.data_ptr(),
+                mw.drop_key.data_ptr(), num_samples, seed, mw.out_dim,
+                mean.data_ptr(), std.data_ptr()]
+        if bf16:
+            # the bf16 form takes the chain as its image and the launch
+            # layout of .fused_eval_chain
+            image, layout = launch_args('mc', mw, rows, x.device)
+            args[3] = image.data_ptr()
+            err = lib.nnueehcs_fused_mc_dropout_bf16(*args, layout, stream)
+        else:
+            err = lib.nnueehcs_fused_mc_dropout_f32(*args, stream)
+    if err != 0:
+        raise RuntimeError(f'fused MC-dropout kernel launch failed: CUDA '
+                           f'error {err}')
+    if bf16:
         fused_mc_forward.launches_bf16 += 1
     else:
         fused_mc_forward.launches += 1

@@ -1,0 +1,151 @@
+"""Read the SASS of the port's kernel library (``cuobjdump -sass``, on a
+machine with the CUDA toolkit): the per-kernel listings that
+``tools/compare_sass.py`` compares between two builds, and the checks
+``chip_smoke.py`` and ``tools/eval_chain_phases.py`` make of the bf16 eval
+kernels 2b and 5b (no spills, HGMMA instructions, the MC kernel's mask
+loop).
+"""
+from __future__ import annotations
+
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+_ANON = re.compile(r'_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}')
+_ADDR = re.compile(r'/\*[0-9a-f]{4,}\*/')
+
+# the lowbias32 multiply that every mask hash does once (fused_mc_dropout.cu)
+HASH_MARKER = '0x7feb352d'
+# instructions a hash that the MC kernel's mask loop may spend, around the
+# hash's 11 operations (ops/fused_mc_dropout.py MASK_HASH_OPS): fewer where
+# an instruction does two (a shift and an add in LEA.HI), more for packing
+# the keep bits and the loop's own; outside, the loop search found another
+# loop than the mask loop
+MASK_LOOP_WINDOW = (8.0, 16.0)
+EVAL_KERNELS = ('fused_mc_dropout_bf16_kernel', 'fused_anchored_bf16_kernel')
+# the template argument kRing of each form in the mangled name
+EVAL_FORMS = (('resident', 'ILb0E'), ('ring', 'ILb1E'))
+
+
+def cuobjdump() -> str:
+    found = shutil.which('cuobjdump')
+    return found or str(Path('/usr/local/cuda/bin/cuobjdump'))
+
+
+def dump(lib) -> str:
+    """``cuobjdump -sass`` of the library ``lib``."""
+    return subprocess.run([cuobjdump(), '-sass', str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+
+
+def parse_functions(text: str) -> dict[str, list[str]]:
+    """{normalised mangled name: [SASS lines]} of a listing: each
+    instruction with its encoding, and the control words; the per-file hash
+    of the anonymous namespace, the address comments and the column padding
+    (which cuobjdump sets per file) taken out."""
+    funcs, name = {}, None
+    for line in text.splitlines():
+        head = re.match(r'\s*Function : (\S+)', line)
+        if head:
+            name = _ANON.sub('_GLOBAL_', head.group(1))
+            funcs[name] = []
+        elif name is not None and '/*' in line:   # instructions, control
+            funcs[name].append(' '.join(_ADDR.sub('', line).split()))
+    return funcs
+
+
+def parse_instructions(text: str) -> dict[str, list[tuple[int, str]]]:
+    """{mangled name: [(address, instruction)]} of a listing, the
+    instruction text without its encoding."""
+    funcs, name = {}, None
+    for line in text.splitlines():
+        head = re.match(r'\s*Function : (\S+)', line)
+        if head:
+            name = head.group(1)
+            funcs[name] = []
+            continue
+        ins = re.match(r'\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;', line)
+        if name is not None and ins:
+            funcs[name].append((int(ins.group(1), 16), ins.group(2)))
+    return funcs
+
+
+def opcode(text: str) -> str:
+    """The opcode of an instruction, its predicate guard dropped."""
+    words = text.split()
+    if words and words[0].startswith('@'):
+        words = words[1:]
+    return words[0] if words else ''
+
+
+def loop_mix(instrs, marker):
+    """The loop (a backward branch and the instructions from its target to
+    it) where instructions that contain ``marker`` are densest, the
+    innermost one that holds them: its instruction count, the markers in
+    it, instructions per marker, the FMA-pipe ones (IMAD, IMUL) per marker
+    and the opcode counts; None when no loop holds one."""
+    best = None
+    for addr, text in instrs:
+        if not opcode(text).startswith('BRA'):
+            continue
+        target = re.search(r'0x([0-9a-f]+)', text.split('BRA', 1)[1])
+        if not target or int(target.group(1), 16) >= addr:
+            continue
+        lo = int(target.group(1), 16)
+        body = [t for a, t in instrs if lo <= a <= addr]
+        hits = sum(marker in t for t in body)
+        if hits and (best is None
+                     or len(body) / hits < best['per_marker']):
+            ops = {}
+            for t in body:
+                ops[opcode(t)] = ops.get(opcode(t), 0) + 1
+            fma = sum(n for op, n in ops.items()
+                      if op.startswith(('IMAD', 'IMUL')))
+            best = {'instructions': len(body), 'markers': hits,
+                    'per_marker': len(body) / hits,
+                    'fma_pipe_per_marker': fma / hits, 'opcodes': ops}
+    return best
+
+
+def eval_chain_rows(funcs, ptxas):
+    """The bf16 eval kernels 2b and 5b in both forms (resident, ring), from
+    the SASS ``funcs`` (:func:`parse_instructions`) and the ptxas report
+    ``ptxas`` ({kernel: {'registers', 'spill_store_bytes', ...}}): their
+    registers and spills, which must be 0, and their HGMMA (wgmma)
+    instructions, which must be there; and the MC kernel's mask loop, whose
+    instructions per hash (per lowbias32 multiply by HASH_MARKER) must lie
+    in MASK_LOOP_WINDOW. Raises RuntimeError where one does not hold."""
+    out = {}
+    for kernel in EVAL_KERNELS:
+        for form, tag in EVAL_FORMS:
+            names = [n for n in funcs if kernel in n and tag in n]
+            regs = [v for k, v in ptxas.items() if kernel in k and tag in k]
+            if len(names) != 1 or len(regs) != 1:
+                raise RuntimeError(f'{kernel}<{form}>: {len(names)} SASS '
+                                   f'functions, {len(regs)} ptxas entries')
+            row = {k: regs[0].get(k) for k in ('registers', 'spill_store_bytes',
+                                              'spill_load_bytes')}
+            row['hgmma'] = sum('HGMMA' in t for _, t in funcs[names[0]])
+            if row['spill_store_bytes'] != 0 or row['spill_load_bytes'] != 0:
+                raise RuntimeError(f'{kernel}<{form}> spills: {row}')
+            if row['hgmma'] == 0:
+                raise RuntimeError(f'{kernel}<{form}>: no HGMMA in its SASS')
+            out[f'{kernel}<{form}>'] = row
+            if kernel.startswith('fused_mc') and form == 'resident':
+                mask = loop_mix(funcs[names[0]], HASH_MARKER)
+                if mask is None:
+                    raise RuntimeError('no mask loop in the MC kernel SASS')
+                lo, hi = MASK_LOOP_WINDOW
+                if not lo <= mask['per_marker'] <= hi:
+                    raise RuntimeError(
+                        f'the MC kernel mask loop found spends '
+                        f'{mask["per_marker"]} instructions a hash, outside '
+                        f'{MASK_LOOP_WINDOW}: {mask}')
+                out['mask_loop'] = mask
+    return out
+
+
+def eval_chain_sass(lib_path, ptxas):
+    """:func:`eval_chain_rows` of the library at ``lib_path``."""
+    return eval_chain_rows(parse_instructions(dump(lib_path)), ptxas)

@@ -105,12 +105,12 @@ def test_kernels_build_with_plain_nvcc():
         'ablate_chain.cu', 'ablate_train.cu', 'fused_anchored.cu',
         'fused_ensemble.cu', 'fused_mc_dropout.cu', 'fused_train.cu',
         'fused_train_bf16.cu', 'kde.cu']
-    assert [h.name for h in headers] == ['eval_stamps.cuh',
-                                         'fused_chain.cuh',
+    assert [h.name for h in headers] == ['fused_chain.cuh',
                                          'fused_chain_bf16.cuh',
                                          'fused_chain_wgmma.cuh',
                                          'fused_train.cuh',
-                                         'fused_train_cluster.cuh']
+                                         'fused_train_cluster.cuh',
+                                         'stamps.cuh']
     for text in texts:
         for banned in ('cpp_extension', 'torch/extension.h', 'ninja'):
             assert banned not in text

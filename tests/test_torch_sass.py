@@ -1,0 +1,267 @@
+"""The SASS reader (``nnueehcs_tpu_torch.sass``), row 2b's mask-hash bound,
+the phase-stamp reader of ``ops/_build.py`` and the phase tools' arithmetic,
+on the CPU: synthetic ``cuobjdump -sass`` listings and stamp words stand in
+for what the card's toolchain gives."""
+import ast
+import ctypes
+import importlib.util
+import inspect
+import os
+
+import pytest
+
+import chip_smoke
+from nnueehcs_tpu_torch import sass
+from nnueehcs_tpu_torch.ops import _build
+from nnueehcs_tpu_torch.ops import fused_mc_dropout as mc
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def tool(name):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, 'tools', f'{name}.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def listing(functions):
+    """A cuobjdump-style listing of {name: [instruction text]}, 16 bytes an
+    instruction, each followed by its control word."""
+    lines = []
+    for name, instrs in functions.items():
+        lines.append(f'\t\tFunction : {name}')
+        lines.append('\t.headerflags\t@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"')
+        for i, text in enumerate(instrs):
+            lines.append(f'        /*{16 * i:04x}*/                   {text} ;'
+                         f'   /* 0x{i:016x} */')
+            lines.append(f'                                             '
+                         f'   /* 0x000fe2000{i:07x} */')
+    return '\n'.join(lines)
+
+
+def mask_loop(per_hash_extra=0, hashes=2):
+    """A kernel body whose inner loop does ``hashes`` lowbias32 hashes of 9
+    instructions each (two of them IMADs), plus ``per_hash_extra`` others a
+    hash, inside an outer loop of 20 more instructions."""
+    body = ['MOV R1, c[0x0][0x28]'] + ['NOP'] * 3
+    outer_start = len(body)
+    body += ['IADD3 R9, R9, 0x1, RZ'] * 20
+    inner_start = len(body)
+    for _ in range(hashes):
+        body += ['SHF.R.U32.HI R3, RZ, 0x10, R2', 'LOP3.LUT R2, R2, R3, RZ, 0x3c, !PT',
+                 'IMAD R2, R2, 0x7feb352d, RZ', 'SHF.R.U32.HI R3, RZ, 0xf, R2',
+                 'LOP3.LUT R2, R2, R3, RZ, 0x3c, !PT', 'IMAD R2, R2, -0x7b935975, RZ',
+                 'SHF.R.U32.HI R3, RZ, 0x10, R2', 'LOP3.LUT R2, R2, R3, RZ, 0x3c, !PT',
+                 'LEA.HI R4, R2, -R5, RZ, 0x18']
+        body += ['SHF.L.W.U32.HI R6, R4, 0x1, R6'] * per_hash_extra
+    body.append(f'@P0 BRA 0x{16 * inner_start:x}')
+    body.append(f'@P1 BRA 0x{16 * outer_start:x}')
+    body += ['HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24', 'EXIT']
+    return body
+
+
+def eval_kernels(mc_body):
+    """SASS ({name: [(address, text)]}) and a ptxas report of both forms of
+    kernels 2b and 5b, the MC kernel's resident form ``mc_body``."""
+    bodies = {}
+    ptxas = {}
+    for kernel in sass.EVAL_KERNELS:
+        for _, tag in sass.EVAL_FORMS:
+            name = f'_ZN12_GLOBAL__N_1{len(kernel)}{kernel}{tag}Ev'
+            resident = tag == 'ILb0E'
+            bodies[name] = (mc_body if kernel.startswith('fused_mc') and resident
+                            else ['HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24',
+                                  'EXIT'])
+            ptxas[name] = {'registers': 168, 'spill_store_bytes': 0,
+                           'spill_load_bytes': 0}
+    return sass.parse_instructions(listing(bodies)), ptxas
+
+
+def test_parse_functions_drops_addresses_padding_and_the_file_hash():
+    body = ['MOV R1, c[0x0][0x28]', 'EXIT']
+    a = listing({'_ZN37_GLOBAL__N__1a2b3c4d_12_fused_ab_cu_0badf00d6kernelEv':
+                 body})
+    b = listing({'_ZN37_GLOBAL__N__99999999_12_fused_ab_cu_12345678'
+                 '6kernelEv': body}).replace('        /*', '  /*')
+    fa, fb = sass.parse_functions(a), sass.parse_functions(b)
+    assert list(fa) == ['_ZN37_GLOBAL_6kernelEv']
+    assert fa == fb
+    assert len(fa['_ZN37_GLOBAL_6kernelEv']) == 4     # 2 instructions, 2 words
+
+
+def test_parse_instructions_and_opcode():
+    funcs = sass.parse_instructions(listing({'k': ['@P0 BRA 0x10',
+                                                   'IMAD.IADD R1, R2, 0x1, R3']}))
+    assert funcs == {'k': [(0, '@P0 BRA 0x10'),
+                           (16, 'IMAD.IADD R1, R2, 0x1, R3')]}
+    assert [sass.opcode(t) for _, t in funcs['k']] == ['BRA', 'IMAD.IADD']
+
+
+@pytest.mark.parametrize('hashes,extra', [(1, 0), (2, 0), (2, 3), (4, 1)])
+def test_loop_mix_takes_the_innermost_loop_of_the_marker(hashes, extra):
+    instrs = sass.parse_instructions(
+        listing({'k': mask_loop(extra, hashes)}))['k']
+    mix = sass.loop_mix(instrs, sass.HASH_MARKER)
+    per_hash = 9 + extra
+    assert mix['markers'] == hashes
+    assert mix['instructions'] == hashes * per_hash + 1       # + the branch
+    assert mix['per_marker'] == pytest.approx(per_hash + 1 / hashes)
+    assert mix['fma_pipe_per_marker'] == 2
+    assert mix['opcodes']['LOP3.LUT'] == 3 * hashes
+
+
+def test_loop_mix_finds_no_loop_without_the_marker():
+    instrs = sass.parse_instructions(listing({'k': ['NOP', 'BRA 0x0']}))['k']
+    assert sass.loop_mix(instrs, sass.HASH_MARKER) is None
+
+
+def test_eval_chain_rows_reads_registers_hgmma_and_the_mask_loop():
+    funcs, ptxas = eval_kernels(mask_loop())
+    rows = sass.eval_chain_rows(funcs, ptxas)
+    assert rows['mask_loop']['per_marker'] == pytest.approx(9.5)
+    for kernel in sass.EVAL_KERNELS:
+        for form, _ in sass.EVAL_FORMS:
+            assert rows[f'{kernel}<{form}>']['hgmma'] >= 1
+            assert rows[f'{kernel}<{form}>']['spill_store_bytes'] == 0
+
+
+@pytest.mark.parametrize('fault', ['spill', 'no_hgmma', 'no_loop',
+                                   'loop_too_long', 'missing_form'])
+def test_eval_chain_rows_refuses(fault):
+    body = mask_loop(per_hash_extra=37 if fault == 'loop_too_long' else 0)
+    if fault == 'no_loop':
+        body = [t for t in body if 'BRA' not in t]
+    funcs, ptxas = eval_kernels(body)
+    name = next(n for n in funcs if 'ILb1E' in n)
+    if fault == 'spill':
+        ptxas[name]['spill_store_bytes'] = 8
+    elif fault == 'no_hgmma':
+        funcs[name] = [(0, 'EXIT')]
+    elif fault == 'missing_form':
+        del funcs[name]
+    with pytest.raises(RuntimeError):
+        sass.eval_chain_rows(funcs, ptxas)
+
+
+def _binops(fn, op):
+    tree = ast.parse(inspect.getsource(fn))
+    return sum(isinstance(n, ast.BinOp) and isinstance(n.op, op)
+               for n in ast.walk(tree))
+
+
+def test_mask_hash_ops_are_the_functions_own():
+    # lowbias32: three xor-shifts and two multiplies (by _mul32)
+    assert _binops(mc.lowbias32, ast.RShift) == 3
+    assert _binops(mc.lowbias32, ast.BitXor) == 3
+    calls = [n.func.id for n in ast.walk(ast.parse(inspect.getsource(
+        mc.lowbias32))) if isinstance(n, ast.Call)]
+    assert calls.count('_mul32') == 2
+    # the threshold test: one shift and one compare
+    src = inspect.getsource(mc.dropout_scale)
+    assert '(bits >> 8) < threshold' in src
+    ops = mc.MASK_HASH_OPS
+    assert ops['alu'] == 3 + 3 + 1          # shifts and xors
+    assert ops['fma'] == 2                  # the multiplies
+    assert ops['either'] == 2               # the column add, the compare
+    assert sum(ops.values()) == 11
+
+
+@pytest.mark.parametrize('ops,clocks', [
+    (mc.MASK_HASH_OPS, 7 / 64),             # the ALU pipe bounds it
+    ({'alu': 0, 'fma': 0, 'either': 4}, 2 / 64),
+    ({'alu': 1, 'fma': 9, 'either': 0}, 9 / 64),
+    ({'alu': 4, 'fma': 4, 'either': 0}, 4 / 64),
+    ({'alu': 3, 'fma': 1, 'either': 6}, 5 / 64)])
+def test_hash_clocks_balances_the_pipes(ops, clocks):
+    assert chip_smoke.hash_clocks(ops) == pytest.approx(clocks)
+
+
+class _FakeStamps:
+    """A stamped library whose reader fills slot i with i and the wall word
+    with 1e6, or returns ``err``."""
+
+    def __init__(self, err=0):
+        self.err = err
+        self.reads = []
+
+    def __getattr__(self, name):
+        def read(address):
+            self.reads.append(name)
+            words = (ctypes.c_ulonglong * (_build.STAMP_SLOTS + 1)).from_address(
+                address)
+            for i in range(_build.STAMP_SLOTS):
+                words[i] = i
+            words[_build.STAMP_SLOTS] = 10 ** 6
+            return self.err
+        return read
+
+
+def test_read_stamps_gives_slots_and_wall_time():
+    lib = _FakeStamps()
+    cycles, wall_ns = _build.read_stamps(lib, 'fused_mc_dropout')
+    assert lib.reads == ['nnueehcs_stamps_fused_mc_dropout']
+    assert cycles == list(range(_build.STAMP_SLOTS))
+    assert wall_ns == 10 ** 6
+    assert set(_build.STAMPED_UNITS) == {'fused_train', 'fused_train_bf16',
+                                         'fused_mc_dropout', 'fused_anchored'}
+
+
+def test_read_stamps_raises_on_a_cuda_error():
+    with pytest.raises(RuntimeError, match='CUDA error 700'):
+        _build.read_stamps(_FakeStamps(err=700), 'fused_train')
+
+
+def test_stamps_header_is_the_only_stamp_mechanism():
+    texts = {p.name: p.read_text() for p in
+             [*_build.sources(), *_build.CSRC.glob('*.cuh')]}
+    assert 'stamps.cuh' in texts
+    for name, text in texts.items():
+        for old in ('TRAIN_STAMP', 'EVAL_PHASE', 'NNUEEHCS_TRAIN_STAMPS',
+                    'NNUEEHCS_EVAL_STAMPS', 'g_eval_sums'):
+            assert old not in text, (name, old)
+    readers = sorted(name for name, text in texts.items()
+                     if 'STAMPS_READER(' in text and name != 'stamps.cuh')
+    assert readers == sorted(f'{u}.cu' for u in _build.STAMPED_UNITS)
+    for unit in _build.STAMPED_UNITS:
+        assert f'STAMPS_READER({unit})' in texts[f'{unit}.cu']
+
+
+def test_eval_phase_split_scales_cycles_by_wall_time():
+    phases = tool('eval_chain_phases')
+    cycles = [0] * _build.STAMP_SLOTS
+    cycles[3], cycles[4], cycles[6] = 2000, 1000, 1000   # 4,000 cycles
+    us, per_ns = phases.split(cycles, 2000)             # in 2 us
+    assert per_ns == 2.0
+    assert us == {'products_issue': 1.0, 'mask_hash_in_flight': 0.5,
+                  'epilogue': 0.5}
+
+
+@pytest.mark.parametrize('joint', [False, True])
+def test_train_phases_sum_each_span_once(joint):
+    phases = tool('train_step_phases')
+    n = 3
+    us = [0.0] * _build.STAMP_SLOTS
+    base = 100 if joint else 300
+    fired = ([950, 951] if joint else []) + [900, 901, 903, 904, 905]
+    if joint:
+        fired.append(902)
+    for li in range(n - 1):
+        fired += [base + 10 * li + j for j in phases.FWD.values()]
+    fired += [base + 10 * (n - 1), base + 10 * (n - 1) + 1]
+    for li in range(n - 1, -1, -1):
+        fired += [500 + 10 * li + j for j in phases.BWD.values()
+                  if li > 0 or j <= phases.BWD['dW_and_bias']]
+    for i, slot in enumerate(fired):
+        us[slot] = 1.0 + i
+    out = phases.phases(us, n, joint)
+    total = sum(us)
+    step = out['step_launch'] + (out['sweep_launch'] if joint else 0.0)
+    assert step == pytest.approx(total)
+    assert out['backward'] == pytest.approx(
+        us[904] + sum(sum(r.values()) for r in out['backward_layers']))
+    assert len(out['backward_layers'][-1]) == 4        # layer 0 stops at dW
+    if not joint:
+        assert out['forward'] == pytest.approx(
+            us[900] + sum(sum(r.values()) for r in out['forward_layers']))

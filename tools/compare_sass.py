@@ -15,94 +15,19 @@ last line with the counts; exits 1 if a kernel of OLD is missing from NEW
 or compiles to other SASS.
 """
 import json
-import re
-import shutil
-import subprocess
+import os
 import sys
-from pathlib import Path
 
-_ANON = re.compile(r'_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}')
-_ADDR = re.compile(r'/\*[0-9a-f]{4,}\*/')
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-
-def cuobjdump():
-    found = shutil.which('cuobjdump')
-    return found or str(Path('/usr/local/cuda/bin/cuobjdump'))
-
-
-def functions(lib):
-    """{normalised mangled name: [SASS lines]} of ``lib``: each
-    instruction with its encoding, and the control words."""
-    out = subprocess.run([cuobjdump(), '-sass', str(lib)], check=True,
-                         capture_output=True, text=True).stdout
-    funcs, name = {}, None
-    for line in out.splitlines():
-        head = re.match(r'\s*Function : (\S+)', line)
-        if head:
-            name = _ANON.sub('_GLOBAL_', head.group(1))
-            funcs[name] = []
-        elif name is not None and '/*' in line:   # instructions, control
-            funcs[name].append(' '.join(_ADDR.sub('', line).split()))
-    return funcs
-
-
-def instructions(lib):
-    """{mangled name: [(address, instruction)]} of ``lib``, the
-    instruction text without its encoding."""
-    out = subprocess.run([cuobjdump(), '-sass', str(lib)], check=True,
-                         capture_output=True, text=True).stdout
-    funcs, name = {}, None
-    for line in out.splitlines():
-        head = re.match(r'\s*Function : (\S+)', line)
-        if head:
-            name = head.group(1)
-            funcs[name] = []
-            continue
-        ins = re.match(r'\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;', line)
-        if name is not None and ins:
-            funcs[name].append((int(ins.group(1), 16), ins.group(2)))
-    return funcs
-
-
-def opcode(text):
-    """The opcode of an instruction, its predicate guard dropped."""
-    words = text.split()
-    if words and words[0].startswith('@'):
-        words = words[1:]
-    return words[0] if words else ''
-
-
-def loop_mix(instrs, marker):
-    """The loop (a backward branch and the instructions from its target to
-    it) where instructions that contain ``marker`` are densest, the
-    innermost one that holds them: its instruction count, the markers in
-    it, instructions per marker and the opcode counts; None when no loop
-    holds one."""
-    best = None
-    for addr, text in instrs:
-        if not opcode(text).startswith('BRA'):
-            continue
-        target = re.search(r'0x([0-9a-f]+)', text.split('BRA', 1)[1])
-        if not target or int(target.group(1), 16) >= addr:
-            continue
-        lo = int(target.group(1), 16)
-        body = [t for a, t in instrs if lo <= a <= addr]
-        hits = sum(marker in t for t in body)
-        if hits and (best is None
-                     or len(body) / hits < best['per_marker']):
-            ops = {}
-            for t in body:
-                ops[opcode(t)] = ops.get(opcode(t), 0) + 1
-            best = {'instructions': len(body), 'markers': hits,
-                    'per_marker': len(body) / hits, 'opcodes': ops}
-    return best
+from nnueehcs_tpu_torch.sass import dump, parse_functions  # noqa: E402
 
 
 def main(argv):
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
         return 2
-    old, new = (functions(p) for p in argv)
+    old, new = (parse_functions(dump(p)) for p in argv)
     same = 0
     for name, sass in sorted(old.items()):
         other = new.get(name)

@@ -4,23 +4,25 @@ into their phases on one card:
 
     python3 tools/eval_chain_phases.py [--seed N]
 
-Builds the kernel library with ``-DNNUEEHCS_EVAL_STAMPS`` beside the
-package's own (``csrc/eval_stamps.cuh``): thread 0 of block 0 then sums the
-SM clock it spends in each phase and reads ``%globaltimer`` at its first
-and last stamp. Runs each kernel once to warm up and once stamped at the
-flagship shape (MC dropout: 262,144 rows x 128 samples, p = 0.1; Δ-UQ:
-65,536 rows x 229 anchors; 5 inputs, 7 Linear layers 128 wide, weights
-from ``--seed``) and prints one JSON line per kernel: microseconds per
-phase of block 0's thread 0 (clock sums scaled by the block's wall time),
-each phase's share, the block's wall time, and the kernel's time by CUDA
-events; then a line of the package library's build (``chip_smoke``
-``eval_chain_sass``: each form's registers, spills and HGMMA instructions,
-and the MC kernel's mask loop, its instructions per hash and their
-opcodes); then the card's ``nvidia-smi`` name and power limit. What the thread waits for at a barrier is counted in the barrier.
-It needs a CUDA card.
+Builds the kernel library with the phase stamps (``csrc/stamps.cuh``,
+``_build.stamped_library``) beside the package's own: thread 0 of block 0
+then sums the SM clock it spends in each phase, and the wall time of its
+span. Runs each kernel through its wrapper (``fused_mc_forward``,
+``fused_anchored_stats``) on the stamped library once to warm up and once
+stamped at the flagship shape (MC dropout: 262,144 rows x 128 samples,
+p = 0.1; Δ-UQ: 65,536 rows x 229 anchors; 5 inputs, 7 Linear layers 128
+wide, weights from ``--seed``) and prints one JSON line per kernel:
+microseconds per phase of block 0's thread 0 (clock sums scaled by the
+span's wall time), each phase's share, the span's wall time, and the
+wrapper's time by CUDA events on the package's library; then a line of the
+package library's build (``sass.eval_chain_sass``: each form's registers,
+spills and HGMMA instructions, and the MC kernel's mask loop, its
+instructions per hash and their opcodes); then the card's ``nvidia-smi``
+name and power limit. What the thread waits for at a barrier is counted
+in the barrier. It needs a CUDA card.
 """
 import argparse
-import ctypes
+import contextlib
 import json
 import os
 import sys
@@ -31,16 +33,14 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from chip_smoke import (ANCHORED_ROWS, IN_DIM, MC_SAMPLES, ROWS,  # noqa: E402
-                        build_anchored, build_mc, eval_chain_sass, in_bf16,
-                        ptxas_report)
+                        build_anchored, build_mc, in_bf16, ptxas_report)
 from nnueehcs_tpu_torch.attrib import event_ms, nvidia_smi  # noqa: E402
 from nnueehcs_tpu_torch.model_builder import DeltaUQMLPModelBuilder  # noqa: E402
 from nnueehcs_tpu_torch.ops import _build  # noqa: E402
 from nnueehcs_tpu_torch.ops import fused_anchored as fa  # noqa: E402
 from nnueehcs_tpu_torch.ops import fused_mc_dropout as mc  # noqa: E402
+from nnueehcs_tpu_torch.sass import eval_chain_sass  # noqa: E402
 
-# eval_stamps.cuh: kPhases cycle sums, then the two timer readings
-PHASES = 12
 # the phase ids the kernels stamp (fused_chain_wgmma.cuh, fused_mc_dropout.cu,
 # fused_anchored.cu)
 NAMES = {0: 'other', 1: 'weights_wait', 2: 'x_fragments',
@@ -49,38 +49,37 @@ NAMES = {0: 'other', 1: 'weights_wait', 2: 'x_fragments',
          9: 'write_statistics', 10: 'slot_release'}
 
 
-def stamps_library():
-    lib, _ = _build.load(('-DNNUEEHCS_EVAL_STAMPS',))
-    for name in ('nnueehcs_eval_stamps_mc', 'nnueehcs_eval_stamps_anchored'):
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p]
-    return lib
+@contextlib.contextmanager
+def wrappers_on(lib):
+    """The wrappers launch from ``lib`` (they take ``_build.library()``)."""
+    package = _build.library
+    _build.library = lambda: lib
+    try:
+        yield
+    finally:
+        _build.library = package
 
 
-def split(words):
-    """{phase: us}, the block's wall us and the clock rate from the stamp
-    words (cycle sums, first and last timer reading in ns)."""
-    cycles = words[:PHASES]
-    wall_ns = words[PHASES + 1] - words[PHASES]
+def split(cycles, wall_ns):
+    """{phase: us} and the clock rate (cycles a ns) from the stamps."""
     per_ns = sum(cycles) / wall_ns if wall_ns else float('nan')
     us = {NAMES.get(i, f'phase_{i}'): c / per_ns / 1e3
           for i, c in enumerate(cycles) if c}
-    return us, wall_ns / 1e3, per_ns
+    return us, per_ns
 
 
-def run(lib, read, launch):
-    launch(lib)
-    launch(lib)
-    torch.cuda.synchronize()
-    buf = (ctypes.c_ulonglong * (PHASES + 2))()
-    err = read(ctypes.addressof(buf))
-    if err:
-        raise RuntimeError(f'reading the stamps: CUDA error {err}')
-    us, wall_us, per_ns = split(list(buf))
+def run(lib, unit, launch):
+    with wrappers_on(lib):
+        launch()
+        torch.cuda.synchronize()
+        _build.read_stamps(lib, unit)     # clears the warm-up's
+        launch()
+        torch.cuda.synchronize()
+    cycles, wall_ns = _build.read_stamps(lib, unit)
+    us, per_ns = split(cycles, wall_ns)
     total = sum(us.values())
     return {'us': us, 'share': {k: v / total for k, v in us.items()},
-            'block_wall_us': wall_us, 'sm_clock_ghz': per_ns}
+            'block_wall_us': wall_ns / 1e3, 'sm_clock_ghz': per_ns}
 
 
 def main(argv=None):
@@ -90,38 +89,32 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print('eval_chain_phases: no CUDA card', file=sys.stderr)
         return 2
-    lib = stamps_library()
+    lib = _build.stamped_library()
     kind = torch.cuda.get_device_name(0)
     rng = np.random.default_rng(args.seed)
     x = torch.as_tensor(rng.normal(size=(ROWS, IN_DIM)), dtype=torch.float32,
                         device='cuda')
     mw = in_bf16(build_mc(args.seed), mc.prepare_mc_weights)
-    mean = torch.empty((ROWS, mw.out_dim), device='cuda')
-    std = torch.empty_like(mean)
-
-    def mc_launch(library):
-        mc.launch_mc(library, mw, x, MC_SAMPLES, 7, mean, std)
-
     dq = build_anchored(DeltaUQMLPModelBuilder, args.seed)
     aw = in_bf16(dq, fa.prepare_fused_anchored)
     xa = x[:ANCHORED_ROWS].contiguous()
-    v = fa.anchor_rows(aw, torch.as_tensor(dq.anchors, device='cuda'))
-    amean = torch.empty((ANCHORED_ROWS, aw.out_dim), device='cuda')
-    astd = torch.empty_like(amean)
+    anchors = torch.as_tensor(dq.anchors, dtype=torch.float32, device='cuda')
 
-    def dq_launch(library):
-        fa.launch_anchored(library, aw, xa, v, amean, astd)
+    def mc_launch():
+        mc.fused_mc_forward(mw, x, MC_SAMPLES, 7)
 
-    for name, read, launch, shape in (
-            ('fused_mc_dropout_bf16', lib.nnueehcs_eval_stamps_mc, mc_launch,
+    def dq_launch():
+        fa.fused_anchored_stats(aw, xa, anchors)
+
+    for name, unit, launch, shape in (
+            ('fused_mc_dropout_bf16', 'fused_mc_dropout', mc_launch,
              {'rows': ROWS, 'samples': MC_SAMPLES}),
-            ('fused_anchored_bf16', lib.nnueehcs_eval_stamps_anchored,
-             dq_launch, {'rows': ANCHORED_ROWS, 'anchors': v.shape[0]})):
-        out = run(lib, read, launch)
-        plain = _build.library()
-        kernel_t = event_ms(lambda: launch(plain), warmup=2, trials=5)
+            ('fused_anchored_bf16', 'fused_anchored', dq_launch,
+             {'rows': ANCHORED_ROWS, 'anchors': anchors.shape[0]})):
+        out = run(lib, unit, launch)
+        kernel_t = event_ms(launch, warmup=2, trials=5)
         print(json.dumps({'kernel': name, **shape, **out,
-                          'kernel_ms_unstamped': kernel_t['median_ms'],
+                          'wrapper_ms_unstamped': kernel_t['median_ms'],
                           'device': kind}), flush=True)
     info = _build.build_info()
     print(json.dumps({'sass': eval_chain_sass(info.path,
