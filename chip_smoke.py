@@ -36,12 +36,16 @@ beside its probe, and the training battery again for kernel 3's bf16
 form, with the serving and training phases checked to have launched no
 probe. The bf16 forms of kernels 1, 2 and 5 and of the packed probe are
 held to their plain
-versions at the same shapes (2 and 5 also on a chain twelve Linears deep,
-which their wgmma forms stream through a ring of shared-memory slots; the
-build phase checks that both forms of each compile without spills and with
-HGMMA instructions, and that the MC kernel's mask loop spends a plausible
-number of SASS instructions a hash; row 2b's bound counts the hash's
-operations from its function, by integer pipe), the seven models are served again after
+versions at the same shapes (1, 2 and 5 also on a chain twelve Linears
+deep, which their wgmma forms stream through a ring of shared-memory
+slots; 1b, one thread-block cluster of member blocks, also at 1 to 32
+members, a +1e3 mean and requests of 1 and 300 rows, and twice on the
+same rows, bit for bit; the build phase checks that both forms of each
+compile without spills and with HGMMA instructions, and that the MC
+kernel's mask loop spends a plausible number of SASS instructions a hash;
+row 2b's bound counts the hash's operations from its function, by integer
+pipe; the KDE kernel is also held at every d from 1 to 8 and for one
+query, and row 4's bound is counted by pipe), the seven models are served again after
 ``set_precision('bf16-mixed')`` (the JAX package's ``eval_precision``, a
 bf16 evaluation of an fp32-trained model), each answer held to the plain
 bf16 function on the card against its bf16-vs-fp32 gap, with each
@@ -114,8 +118,8 @@ from nnueehcs_tpu_torch.ops.fused_mc_dropout import (MASK_HASH_OPS,
                                                      fused_mc_forward_plain,
                                                      prepare_mc_weights)
 from nnueehcs_tpu_torch.ops.kde import (_log_norm_const, bandwidth_value,
-                                        centre, kde_logpdf, kde_logpdf_plain,
-                                        knn_kde_density)
+                                        centre, kde_bound_terms, kde_logpdf,
+                                        kde_logpdf_plain, knn_kde_density)
 from nnueehcs_tpu_torch.sass import eval_chain_sass
 from nnueehcs_tpu_torch.serving import DEFAULT_BUCKETS, Predictor
 from nnueehcs_tpu_torch.training import (ArrayDataset, DataLoader,
@@ -156,6 +160,8 @@ KDE_FIT_ROWS, KDE_RTOL, KNN_K, MVE_MIN_VARIANCE = 16_384, 1000, 220, 1e-7
 MINIBUDE_KDE = (100_003, 45_824, 6)
 WIDE_KDE = (10_000, 3_001, 37)
 OFFSET_KDE = (20_000, KDE_FIT_ROWS, IN_DIM)
+KDE_RAGGED = (1_001, 3_001)          # (queries, references) at each d <= 8
+EXTRA_SEED = 101                     # the generator of the cases above
 KDE_LIBRARY_CHUNK = 4096             # references per yardstick chunk
 
 DEVICE = 'cuda'
@@ -163,6 +169,8 @@ ROWS = 262_144                       # the bench's evaluation batch
 REQUESTS = (1, 300, 4096, 65_536, 262_144)
 ANCHORED_ROWS = 65_536               # the bench's Δ-UQ shape, 65536 x 229
 MODEL_REQUESTS = (1, 300, 4096, 65_536)
+# kernel 1b's other member counts (the BO range is 2-32, and 1)
+ENSEMBLE_MEMBERS = (1, 2, 3, 12, 32)
 # the plain MC version hashes every mask element in int64 tensor ops, too
 # slow for 15 timed passes at ROWS; its timing runs at this many rows
 MC_PLAIN_TIMING_ROWS = 16_384
@@ -361,8 +369,8 @@ def randomize_bn(model, generator):
                     t.copy_(v)
 
 
-def build_model(seed, layers=FLAGSHIP):
-    model = EnsembleModelBuilder(layers, {'num_models': MEMBERS}, seed=seed,
+def build_model(seed, layers=FLAGSHIP, members=MEMBERS):
+    model = EnsembleModelBuilder(layers, {'num_models': members}, seed=seed,
                                  device=DEVICE).build()
     randomize_bn(model, torch.Generator().manual_seed(seed + 1))
     return model
@@ -832,7 +840,8 @@ def main():
     max_sm_clock = nvidia_smi('clocks.max.sm')
     clock_mhz = re.match(r'\s*(\d+)', max_sm_clock)
     check(clock_mhz is not None, f'nvidia-smi gave no SM clock: {max_sm_clock}')
-    ex2_rate = EX2_PER_SM_PER_CLOCK * sms * int(clock_mhz.group(1)) * 1e6
+    clock_hz = int(clock_mhz.group(1)) * 1e6
+    ex2_rate = EX2_PER_SM_PER_CLOCK * sms * clock_hz
     emit('device', kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
          fp32_peak_flops=peak_flops, bf16_peak_flops=peak_bf16,
@@ -850,6 +859,7 @@ def main():
           'ptxas reported no cluster kernel of the training sources')
     eval_chain = eval_chain_sass(info.path, ptxas)
     emit('build_eval_chain', **eval_chain)
+    emit('build_kde', ptxas={k: v for k, v in ptxas.items() if 'kde' in k})
 
     # 3. kernel vs plain on the card, each kernel at the main path's shapes
     model = build_model(args.seed)
@@ -927,14 +937,14 @@ def main():
                                                       anchor_rows(w, anchors)),
             square=case == 'estimator_var')
 
-    def kde_case(case, rows, refs, d, offset=0.0, far=False):
+    def kde_case(case, rows, refs, d, offset=0.0, far=False, gen=rng):
         """Hold the KDE kernel against its plain version on one corpus and
         query set from ``rng``; ``far`` moves the queries 50 bandwidths
         past the corpus, where the log density must stay finite and the
         score -exp(log p) be exactly 0."""
-        data = rng.normal(size=(refs, d)) + offset
+        data = gen.normal(size=(refs, d)) + offset
         h = bandwidth_value('silverman', refs, d)
-        x = rng.normal(size=(rows, d)) + offset
+        x = gen.normal(size=(rows, d)) + offset
         if far:
             x[:, 0] += 2 * np.abs(data).max() + 50 * h
         x, data = (torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
@@ -959,11 +969,20 @@ def main():
     kde_case('offset_1e3', *OFFSET_KDE, offset=1e3)
     kde_case('far_ood', *OFFSET_KDE, far=True)
     kde_case(f'd{WIDE_KDE[2]}', *WIDE_KDE)
+    # every width of the tensor-core path (one or two k steps of 8), with
+    # query and reference counts that are multiples of no tile, and one
+    # query; these cases (and kernel 1b's besides the first three) draw from
+    # their own generator, so every other phase keeps its inputs
+    extra = np.random.default_rng(args.seed + EXTRA_SEED)
+    for d in range(1, 9):
+        kde_case(f'd{d}_ragged', *KDE_RAGGED, d, gen=extra)
+    kde_case('one_query', 1, KDE_RAGGED[1], IN_DIM, gen=extra)
 
     # 3b. the bf16 forms against their plain versions at the same shapes,
     # each within the bf16 bars of the bf16-vs-fp32 gap on the same rows
-    def bf16_vs_plain(kernel, case, rows, in_dim, run, plain, plain32):
-        x = torch.as_tensor(rng.normal(size=(rows, in_dim)),
+    def bf16_vs_plain(kernel, case, rows, in_dim, run, plain, plain32,
+                      gen=rng):
+        x = torch.as_tensor(gen.normal(size=(rows, in_dim)),
                             dtype=torch.float32, device=DEVICE)
         got, want, ref32 = run(x), plain(x), plain32(x)
         torch.cuda.synchronize()
@@ -978,14 +997,50 @@ def main():
     check(fw16.w_all.dtype == torch.bfloat16, 'bf16 fold is not bf16')
     fw16_wide = in_bf16(build_model(args.seed, WIDE_INPUT),
                         prepare_fused_weights)
-    for case, w16, w32, rows in (('flagship', fw16, fw, ROWS),
-                                 ('ragged', fw16, fw, 1000),
-                                 (f'input_{WIDE_IN}', fw16_wide, fw_wide,
-                                  1000)):
+    # kernel 1b: the flagship is one resident cluster of 8 member blocks
+    # with the most warpgroups; more members, or a chain too deep, take the
+    # ring; requests of 1 and 300 rows; 1 to 32 members (the BO range)
+    flag = ec.eval_layout('ensemble', fw16.in_dim, fw16.num_layers,
+                          fw16.out_dim, ROWS, sms, members=MEMBERS)
+    check(flag.resident and flag.cluster == MEMBERS
+          and flag.warpgroups == ec.MAX_WARPGROUPS['ensemble'],
+          f'1b flagship layout: {flag}')
+    ens_deep = build_model(args.seed, DEEP_RING)
+    ens_cases = [('flagship', fw16, fw, ROWS), ('ragged', fw16, fw, 1000),
+                 (f'input_{WIDE_IN}', fw16_wide, fw_wide, 1000),
+                 ('mean_1e3', in_bf16(shifted, prepare_fused_weights),
+                  fw_shifted, 4096),
+                 ('deep_12_linears_ring',
+                  in_bf16(ens_deep, prepare_fused_weights),
+                  prepare_fused_weights(ens_deep.net), 4096),
+                 ('request_1', fw16, fw, 1), ('request_300', fw16, fw, 300)]
+    for members in ENSEMBLE_MEMBERS:
+        m = build_model(args.seed, members=members)
+        ens_cases.append((f'members_{members}',
+                          in_bf16(m, prepare_fused_weights),
+                          prepare_fused_weights(m.net), 4096))
+    for k, (case, w16, w32, rows) in enumerate(ens_cases):
+        lay = ec.eval_layout('ensemble', w16.in_dim, w16.num_layers,
+                             w16.out_dim, rows, sms, members=w16.num_members)
+        emit('layout', kernel='fused_ensemble_bf16', case=case,
+             members=w16.num_members, layers=w16.num_layers,
+             resident=lay.resident, cluster=lay.cluster,
+             warpgroups=lay.warpgroups, members_a_block=lay.members,
+             slots=lay.slots, smem_bytes=lay.smem_bytes)
         bf16_vs_plain('fused_ensemble_bf16', case, rows, w16.in_dim,
                       lambda x, w=w16: fused_forward_prefolded(w, x),
                       lambda x, w=w16: fused_forward_plain(w, x),
-                      lambda x, w=w32: fused_forward_plain(w, x))
+                      lambda x, w=w32: fused_forward_plain(w, x),
+                      gen=rng if k < 3 else extra)
+    x_bits = torch.as_tensor(extra.normal(size=(ROWS, IN_DIM)),
+                             dtype=torch.float32, device=DEVICE)
+    first = [t.clone() for t in fused_forward_prefolded(fw16, x_bits)]
+    again = fused_forward_prefolded(fw16, x_bits)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          '1b: two runs on the same rows gave different bits')
+    emit('kernel_vs_plain', kernel='fused_ensemble_bf16',
+         case='same_bits_twice', rows=ROWS, equal=True)
     mw16 = in_bf16(mc_model, prepare_mc_weights)
     mc_p0 = build_mc(args.seed, p=0.0)
     for i, (case, w16, w32, rows) in enumerate((
@@ -1503,9 +1558,11 @@ def main():
 
     def record(index, launches, kernel_t, plain_t, flops, moved, library_ms,
                exps=0, into=kernels, peak=peak_flops, extra_s=0.0,
-               exp_rate=ex2_rate, **extra):
-        bound_ms, bound_by = bound(flops, moved, peak, peak_bytes, exps,
-                                   exp_rate, extra_s)
+               exp_rate=ex2_rate, counted=None, **extra):
+        """``counted``: (bound_ms, bound_by) counted by pipe, in place of
+        the bound of ``flops``, ``exps`` and ``moved``."""
+        bound_ms, bound_by = counted or bound(flops, moved, peak, peak_bytes,
+                                              exps, exp_rate, extra_s)
         ms = kernel_t['median_ms']
         emit('timing', kernel=KERNELS[index]['name'], kernel_ms=kernel_t,
              plain=plain_t, flops=flops, bytes=moved, bound_ms=bound_ms,
@@ -1586,13 +1643,29 @@ def main():
     kernel_t2 = event_ms(lambda: kde_logpdf(x, data, h))
     e2e_s = e2e_median_s(kde_predictor, ROWS)
     pairs = ROWS * KDE_FIT_ROWS
+    # the bound counted by pipe (ops/kde.py kde_bound_terms): the exponent's
+    # dot on the tensor cores (dense TF32, half the bf16 rate) or FFMAs, a
+    # share of the exps as FMA-pipe polynomials; beside it the bound of
+    # earlier rows, every exp on MUFU or the fp32 FLOP
+    kde_terms = kde_bound_terms(pairs, IN_DIM, sms, clock_hz, peak_bf16 / 2)
+    kde_moved = 4.0 * (x.numel() + data.numel() + ROWS)
+    old_bound_ms, _ = bound(pairs * (2.0 * IN_DIM + 6), kde_moved, peak_flops,
+                            peak_bytes, pairs, ex2_rate)
     record(3, kde_launches, kernel_t, plain_t, pairs * (2.0 * IN_DIM + 6),
-           4.0 * (x.numel() + data.numel() + ROWS), library_t['median_ms'],
-           exps=pairs, rows=ROWS, references=KDE_FIT_ROWS, kernel_again=kernel_t2,
+           kde_moved, library_t['median_ms'],
+           counted=(max(kde_terms['ms'], 1e3 * kde_moved / peak_bytes),
+                    'operations'),
+           rows=ROWS, references=KDE_FIT_ROWS, kernel_again=kernel_t2,
+           bound_by_pipe=kde_terms, bound_ms_every_exp_on_mufu=old_bound_ms,
            fp32_ms=1e3 * pairs * (2.0 * IN_DIM + 6) / peak_flops,
            ex2_ms=1e3 * pairs / ex2_rate, library_chain=library_t,
            predictor_e2e_median_s=e2e_s,
            predictor_e2e_samples_per_s=ROWS / e2e_s)
+    kernels[-1].update(
+        bound_terms_ms=kde_terms['pipes_ms'],
+        bound_ms_every_exp_on_mufu=old_bound_ms,
+        share_of_bound=kernels[-1]['bound_ms'] / kernels[-1]['ms'],
+        ptxas={k: v for k, v in ptxas.items() if 'kde' in k})
 
     # the kernel-free paths: kNN-KDE's exact top-k and MVE's one pass
     knn_t = event_ms(lambda: knn_kde_density(x, knn_model._fit_data,
@@ -1625,8 +1698,14 @@ def main():
            moved16(fw16, x.numel(), ROWS), library_t['median_ms'],
            into=kernels_bf16, peak=peak_bf16, rows=ROWS,
            library_bf16_baddbmm=library_t, library_max_abs_diff=lib16_err,
+           layout=dict(zip(ec.ENSEMBLE_FIELDS, ec.launch_args(
+               'ensemble', fw16, ROWS, x.device)[1])),
            predictor_e2e_median_s=e2e_s,
            predictor_e2e_samples_per_s=ROWS / e2e_s)
+    kernels_bf16[-1].update(
+        share_of_bound=kernels_bf16[-1]['bound_ms'] / kernels_bf16[-1]['ms'],
+        ptxas={k: v for k, v in eval_chain.items()
+               if k.startswith('fused_ensemble')})
 
     kernel_t = event_ms(lambda: fused_mc_forward(mw16, x, MC_SAMPLES, 7))
     plain_t = event_ms(lambda: fused_mc_forward_plain(mw16, x_plain,

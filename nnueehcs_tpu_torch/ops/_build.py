@@ -50,7 +50,10 @@ SIGNATURES = {
     'nnueehcs_fused_ensemble_bf16': (
         ctypes.c_int,
         [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, ctypes.c_int,
-         ctypes.c_int, _P, ctypes.c_int, _P, _P, _P]),
+         ctypes.c_int, _P, ctypes.c_int, _P, _P,
+         ctypes.POINTER(ctypes.c_int), _P]),
+    'nnueehcs_fused_ensemble_bf16_clusters': (
+        ctypes.c_int, [ctypes.POINTER(ctypes.c_int)]),
     'nnueehcs_fused_mc_dropout_bf16': (
         ctypes.c_int,
         [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P,
@@ -64,7 +67,10 @@ SIGNATURES = {
     'nnueehcs_packed_forward_bf16': (
         ctypes.c_int,
         [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, _P, _P,
-         ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P, _P]),
+         ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
+         ctypes.POINTER(ctypes.c_int), _P]),
+    'nnueehcs_packed_forward_bf16_clusters': (
+        ctypes.c_int, [ctypes.POINTER(ctypes.c_int)]),
     'nnueehcs_kde_logpdf_f32': (
         ctypes.c_int,
         [_P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int,
@@ -207,7 +213,7 @@ def build_info() -> BuildInfo:
 # gives (kSlots clock sums, then the stamped spans' wall ns)
 STAMPS_FLAG = '-DNNUEEHCS_STAMPS'
 STAMPED_UNITS = ('fused_train', 'fused_train_bf16', 'fused_mc_dropout',
-                 'fused_anchored')
+                 'fused_anchored', 'fused_ensemble', 'kde')
 STAMP_SLOTS = 1024
 
 
@@ -219,7 +225,19 @@ def stamped_library() -> ctypes.CDLL:
         fn = getattr(lib, f'nnueehcs_stamps_{unit}')
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p]
+        fn = getattr(lib, f'nnueehcs_stamps_block_{unit}')
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int]
     return lib
+
+
+def stamp_block(lib: ctypes.CDLL, unit: str, block: int) -> None:
+    """Stamp block ``block`` of translation unit ``unit``'s kernels (block
+    0 until this is called) from the next launch on."""
+    err = getattr(lib, f'nnueehcs_stamps_block_{unit}')(block)
+    if err:
+        raise RuntimeError(f'choosing the {unit} stamp block: CUDA error '
+                           f'{err}')
 
 
 def read_stamps(lib: ctypes.CDLL, unit: str) -> tuple[list[int], int]:

@@ -18,7 +18,9 @@ one to the other. ``<function>.launches`` counts kernel launches.
 
 ``packed_forward`` also takes bf16 folded weights (``compute_dtype``, the
 JAX probe's ``compute_dtype='bfloat16'``): it then launches an instance of
-kernel 1's bf16 body and counts it in ``packed_forward.launches_bf16``. The
+kernel 1b's body (``fused_chain_wgmma.cuh``'s cluster ``ensemble_pass``,
+with kernel 1b's images and layout) and counts it in
+``packed_forward.launches_bf16``. The
 other probes have no bf16 form and refuse such weights.
 """
 from __future__ import annotations
@@ -26,6 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .fused_eval_chain import launch_args
 from .fused_ensemble import (WIDTH, FusedWeights, check_weights_dtype,
                              shifted_stats)
 
@@ -291,11 +294,13 @@ def packed_forward(fw: FusedWeights, x_pad):
     if x_pad.shape[0] and fw.compute_dtype == torch.bfloat16:
         from ._build import library
         with torch.cuda.device(x_pad.device):
+            image, layout = launch_args('ensemble', fw, x_pad.shape[0],
+                                        x_pad.device, probe=True)
             err = library().nnueehcs_packed_forward_bf16(
                 x_pad.data_ptr(), x_pad.shape[0], fw.in_dim, x_pad.shape[1],
-                fw.w_all.data_ptr(), fw.b_all.data_ptr(), fw.num_members,
+                image.data_ptr(), fw.b_all.data_ptr(), fw.num_members,
                 fw.num_layers, fw.relu_flags.data_ptr(), fw.out_dim,
-                out.data_ptr(),
+                out.data_ptr(), layout,
                 torch.cuda.current_stream(x_pad.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f'packed bf16 kernel launch failed: CUDA '

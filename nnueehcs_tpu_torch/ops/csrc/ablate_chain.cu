@@ -13,8 +13,9 @@
 //   an 8- or 128-column x, 8- or 128-column mean and std;
 // - experiments/grid_r4/kernel_variants.py::packed_forward (body
 //   packed_kernel): mean and std packed into one (B, 128) buffer, fp32, and
-//   in bf16 (compute_dtype=bfloat16) as an instance of kernel 1's bf16 body,
-//   fused_chain_bf16.cuh's ensemble_pass.
+//   in bf16 (compute_dtype=bfloat16) as an instance of kernel 1b's body,
+//   fused_chain_wgmma.cuh's ensemble_pass (the same cluster design, launch
+//   layout and images, x read with its row stride).
 // The outputs keep the TPU probes' padded widths, zeros past the chain's
 // real width.
 //
@@ -28,7 +29,7 @@
 // tile is fixed at 64 rows by the register tiling; `tile` only sets which
 // row io_floor reads, as the TPU grid's block did.
 #include "fused_chain.cuh"
-#include "fused_chain_bf16.cuh"
+#include "fused_chain_wgmma.cuh"
 
 using namespace fused_chain;
 
@@ -77,17 +78,19 @@ Kernel pick(int mode, int n_out, int x_cols, int out) {
   return nullptr;
 }
 
-// The packed probe in bf16: kernel 1's bf16 body with the packed output.
-__global__ void __launch_bounds__(kThreads, 2)
+namespace fw = fused_chain_wgmma;
+
+// The packed probe in bf16: kernel 1b's body with the packed output.
+template <bool kRing>
+__global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 3 * fw::kWgThreads, 1)
     packed_bf16_kernel(const float* __restrict__ x, long long B, int d,
-                       long long ldx, const __nv_bfloat16* __restrict__ w_all,
+                       long long ldx, const unsigned char* __restrict__ images,
                        const float* __restrict__ b_all, int M, int L,
                        const int* __restrict__ relu, int out_dim,
-                       float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem_bf16[];
-  fused_chain_bf16::ensemble_pass<kOutPacked>(smem_bf16, x, B, d, ldx, w_all,
-                                              b_all, M, L, relu, out_dim, out,
-                                              nullptr);
+                       float* __restrict__ out, fw::EnsembleLayout lay) {
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  fw::ensemble_pass<kRing, true>(smem_wg, x, B, d, ldx, images, b_all, M, L,
+                                 relu, out_dim, out, nullptr, lay);
 }
 
 }  // namespace
@@ -126,24 +129,28 @@ int nnueehcs_ablate_chain_f32(int mode, int n_out, int x_cols, int out_layout,
 }
 
 // The packed probe in bf16, on `stream`; returns a cudaError_t. The caller
-// checks: x (B, ldx) row-major with d real features, ldx >= d; w_all as
-// nnueehcs_fused_ensemble_bf16's (bf16), b_all and relu too; out_dim <= 64;
-// out a (B, 128) fp32 contiguous device buffer.
+// checks: x (B, ldx) row-major with d real features, ldx >= d; images,
+// b_all, relu and layout as nnueehcs_fused_ensemble_bf16's (the layout of
+// this probe's own kernel: nnueehcs_packed_forward_bf16_clusters);
+// out_dim <= 64; out a (B, 128) fp32 contiguous device buffer.
 int nnueehcs_packed_forward_bf16(const float* x, long long B, int d,
-                                 long long ldx, const __nv_bfloat16* w_all,
+                                 long long ldx, const unsigned char* images,
                                  const float* b_all, int M, int L,
                                  const int* relu, int out_dim, float* out,
-                                 void* stream) {
-  const size_t smem = fused_chain_bf16::smem_bytes(out_dim);
-  cudaError_t err = cudaFuncSetAttribute(
-      packed_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (B + kTileRows - 1) / kTileRows;
-  packed_bf16_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      x, B, d, ldx, w_all, b_all, M, L, relu, out_dim, out);
-  return static_cast<int>(cudaGetLastError());
+                                 const int* layout, void* stream) {
+  const fw::EnsembleLayout lay = fw::EnsembleLayout::from(layout);
+  const auto kernel =
+      lay.base.ring ? packed_bf16_kernel<true> : packed_bf16_kernel<false>;
+  return static_cast<int>(fw::launch_cluster(
+      kernel, lay, static_cast<cudaStream_t>(stream), x, B, d, ldx, images,
+      b_all, M, L, relu, out_dim, out, lay));
+}
+
+// As nnueehcs_fused_ensemble_bf16_clusters, for the probe's kernel.
+int nnueehcs_packed_forward_bf16_clusters(const int* layout) {
+  const fw::EnsembleLayout lay = fw::EnsembleLayout::from(layout);
+  return lay.base.ring ? fw::max_clusters(packed_bf16_kernel<true>, lay)
+                       : fw::max_clusters(packed_bf16_kernel<false>, lay);
 }
 
 }  // extern "C"

@@ -149,7 +149,7 @@ __global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 2 * fw::kWgThrea
     const int valid = tiles.valid(tile, B);
     const float* x_tile = x + (valid > 0 ? row0 * d : 0);
     // u = bf16(x) @ W_bot + b0, fp32, kept for every anchor
-    fw::layer0_from_x(acc, wts, chain, x_tile, d, valid, t, fw::NoMask(),
+    fw::layer0_from_x(acc, wts, chain, x_tile, d, d, valid, t, fw::NoMask(),
                       [] {});
     STAMP(7);
 #pragma unroll
@@ -193,7 +193,8 @@ __global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 2 * fw::kWgThrea
       }
       wts.release(t.lane0);
     }
-    fw::stats_write(st, groups, k, t, valid, row0, out_dim, mean, std);
+    fw::stats_write(st, groups, k, t, valid, row0, out_dim, out_dim, mean,
+                    std);
   }
   STAMP_END();
 }

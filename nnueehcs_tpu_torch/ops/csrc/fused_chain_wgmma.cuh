@@ -1,11 +1,13 @@
-// The bf16 forms of the MC-dropout and anchored eval kernels (kernels 2b and
-// 5b) on Hopper's warpgroup products: one network's bf16 chain, applied
-// many times (129 passes of MC dropout, 229 anchors) to each 64-row tile.
-// The function is the JAX package's compute_dtype=bfloat16, as in
-// fused_chain_bf16.cuh: weights folded in fp32 and rounded to bf16, every
-// input of a dot rounded to bf16 (x as it is read, each hidden activation
-// after bias, ReLU and any dropout mask), products accumulated in fp32;
-// biases, the last layer's output and the statistics in fp32.
+// The bf16 eval kernels on Hopper's warpgroup products: the MC-dropout and
+// anchored kernels (2b and 5b: one network's bf16 chain applied many times,
+// 129 passes of MC dropout, 229 anchors, to each 64-row tile) and the
+// ensemble (1b, and its packed probe 10b: M members' chains on each tile,
+// one thread-block cluster of member blocks; its section at the end). The
+// function is the JAX package's compute_dtype=bfloat16: weights folded in
+// fp32 and rounded to bf16, every input of a dot rounded to bf16 (x as it is
+// read, each hidden activation after bias, ReLU and any dropout mask),
+// products accumulated in fp32; biases, the last layer's output and the
+// statistics in fp32.
 //
 // The design (ops/fused_eval_chain.py lays it out on the host):
 // - Persistent blocks, at most one per SM. Each holds the chain's weights
@@ -338,13 +340,16 @@ struct Weights {
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
 
-  // resident form: one thread starts the copy of the whole image
+  // resident form: one thread starts the copy of the whole image, or of
+  // `count` images `stride` bytes apart in device memory, one after another
   __device__ __forceinline__ void load_image(const unsigned char* image,
-                                             uint32_t bytes) {
-    mbar_expect_tx(full, bytes);
-    for (uint32_t off = 0; off < bytes; off += kSlotBytes)
-      bulk_load(base + off, image + off,
-                min(bytes - off, static_cast<uint32_t>(kSlotBytes)), full);
+                                             uint32_t bytes, int count = 1,
+                                             long long stride = 0) {
+    mbar_expect_tx(full, bytes * count);
+    for (int i = 0; i < count; ++i)
+      for (uint32_t off = 0; off < bytes; off += kSlotBytes)
+        bulk_load(base + i * bytes + off, image + i * stride + off,
+                  min(bytes - off, static_cast<uint32_t>(kSlotBytes)), full);
   }
 
   // the shared-memory address of block b, once it is there
@@ -393,12 +398,12 @@ struct Thread {
 };
 
 // The A fragment of 16-feature step kk of the tile's rows of x (x_tile:
-// the tile's first row, row stride d): value (row r, feature c) is
+// the tile's first row, row stride ldx): value (row r, feature c) is
 // f(h, c, x) for r = r0 + 8 h, rounded to bf16; zeros past `valid` rows
 // and past d features.
 template <class F>
 __device__ __forceinline__ void x_fragment(const float* x_tile, int d,
-                                           int valid, int kk,
+                                           long long ldx, int valid, int kk,
                                            const Thread& t, const F& f,
                                            uint32_t (&a)[4]) {
 #pragma unroll
@@ -408,7 +413,7 @@ __device__ __forceinline__ void x_fragment(const float* x_tile, int d,
       const int r = t.r0 + 8 * h, c = 16 * kk + 8 * s + 2 * t.q;
       float v0 = 0.f, v1 = 0.f;
       if (r < valid) {
-        const float* p = x_tile + static_cast<long long>(r) * d;
+        const float* p = x_tile + r * ldx;
         if (c < d) v0 = f(h, c, __ldg(p + c));
         if (c + 1 < d) v1 = f(h, c + 1, __ldg(p + c + 1));
       }
@@ -430,15 +435,16 @@ template <class W, class F, class G>
 __device__ __forceinline__ void layer0_from_x(float (&acc)[64], W& wts,
                                               const Chain& c,
                                               const float* x_tile, int d,
-                                              int valid, const Thread& t,
-                                              const F& f, const G& last) {
+                                              long long ldx, int valid,
+                                              const Thread& t, const F& f,
+                                              const G& last) {
   for (int b = 0; b < c.nb0; ++b) {
     const uint32_t addr = wts.acquire(c, b);
     const int steps = c.rows(b) / 16;
     for (int kk = 0; kk < steps; ++kk) {
       STAMP(2);
       uint32_t a[4];
-      x_fragment(x_tile, d, valid, b * (kKBlock / 16) + kk, t, f, a);
+      x_fragment(x_tile, d, ldx, valid, b * (kKBlock / 16) + kk, t, f, a);
       STAMP(3);
       pin(a);
       wgmma_fence();
@@ -560,15 +566,16 @@ __device__ __forceinline__ void last_group_from_x(float (&acc)[4],
                                                   W& wts,
                                                   const Chain& c,
                                                   const float* x_tile, int d,
-                                                  int valid, const Thread& t,
-                                                  int g, const F& f) {
+                                                  long long ldx, int valid,
+                                                  const Thread& t, int g,
+                                                  const F& f) {
   for (int b = 0; b < c.nb0; ++b) {
     const uint32_t addr = wts.acquire(c, b);
     const int rows = c.rows(b), steps = rows / 16;
     for (int kk = 0; kk < steps; ++kk) {
       STAMP(2);
       uint32_t a[4];
-      x_fragment(x_tile, d, valid, b * (kKBlock / 16) + kk, t, f, a);
+      x_fragment(x_tile, d, ldx, valid, b * (kKBlock / 16) + kk, t, f, a);
       STAMP(8);
       pin(a);
       wgmma_fence();
@@ -589,22 +596,31 @@ __device__ __forceinline__ void last_group_from_x(float (&acc)[4],
   }
 }
 
-// The shifted sums of the thread's slots in column group g, from the last
-// layer's accumulator: sc, s1 and s2 are st[(3 g + k) * 128] (float4, slot
-// e = 2 h + e' at row r0 + 8 h, column 8 g + 2 q + e'). The first pass sets
-// the shift sc = h and zeroes s1, s2; every later one adds h - sc and its
-// square, in pass order.
-__device__ __forceinline__ void stats_update(const float (&acc)[4],
-                                             const float* bias, bool relu,
-                                             int g, const Thread& t,
-                                             bool first, float4* st) {
+// The last layer's outputs h of the thread's slots in column group g (slot
+// e = 2 h' + e' at row r0 + 8 h', column 8 g + 2 q + e'): its accumulator
+// plus the bias, through the ReLU when one follows.
+__device__ __forceinline__ void last_values(const float (&acc)[4],
+                                            const float* bias, bool relu,
+                                            int g, const Thread& t,
+                                            float (&v)[4]) {
   const float2 b =
       __ldg(reinterpret_cast<const float2*>(bias + 8 * g + 2 * t.q));
-  float v[4] = {acc[0] + b.x, acc[1] + b.y, acc[2] + b.x, acc[3] + b.y};
+  v[0] = acc[0] + b.x;
+  v[1] = acc[1] + b.y;
+  v[2] = acc[2] + b.x;
+  v[3] = acc[3] + b.y;
   if (relu) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) v[e] = fmaxf(v[e], 0.f);
   }
+}
+
+// Fold one pass's (or member's) outputs v of the thread's slots in column
+// group g into the shifted sums sc, s1 and s2, st[(3 g + k) * 128] (float4,
+// one slot a lane). The first pass sets the shift sc = h and zeroes s1, s2;
+// every later one adds h - sc and its square, in pass order.
+__device__ __forceinline__ void stats_fold(const float (&v)[4], int g,
+                                           bool first, float4* st) {
   float4* p = st + 3 * g * kWgThreads;
   if (first) {
     p[0] = make_float4(v[0], v[1], v[2], v[3]);
@@ -628,14 +644,25 @@ __device__ __forceinline__ void stats_update(const float (&acc)[4],
   }
 }
 
+// The shifted sums from the last layer's accumulator of column group g.
+__device__ __forceinline__ void stats_update(const float (&acc)[4],
+                                             const float* bias, bool relu,
+                                             int g, const Thread& t,
+                                             bool first, float4* st) {
+  float v[4];
+  last_values(acc, bias, relu, g, t, v);
+  stats_fold(v, g, first, st);
+}
+
 // mean = c + s1/n and std = sqrt(max(s2 - n m1^2, 0) / max(n - 1, 1)),
 // m1 = s1/n, of the thread's slots in the tile's valid rows, with n m1^2
-// rounded before the subtraction (fused_chain::write_stats' arithmetic).
+// rounded before the subtraction (fused_chain::write_stats' arithmetic);
+// element (row, column) of each output at row * ldo + column.
 __device__ __forceinline__ void stats_write(const float4* st, int groups,
                                             int count, const Thread& t,
                                             int valid, long long row0,
-                                            int out_dim, float* mean,
-                                            float* std) {
+                                            int out_dim, long long ldo,
+                                            float* mean, float* std) {
   STAMP(9);
   const float n = static_cast<float>(count);
   const float dof = static_cast<float>(count > 1 ? count - 1 : 1);
@@ -654,7 +681,7 @@ __device__ __forceinline__ void stats_write(const float4* st, int groups,
           const float var =
               fmaxf(__fsub_rn(s2[e], __fmul_rn(__fmul_rn(n, m1), m1)), 0.f) /
               dof;
-          const size_t o = static_cast<size_t>(row0 + r) * out_dim + col;
+          const long long o = (row0 + r) * ldo + col;
           mean[o] = c[e] + m1;
           std[o] = sqrtf(var);
         }
@@ -671,10 +698,16 @@ struct Tiles {
   int count, stride, rounds, gw;
 
   __device__ __forceinline__ Tiles(long long B, const Layout& lay, int wg)
+      : Tiles(B, lay, wg, static_cast<int>(gridDim.x),
+              static_cast<int>(blockIdx.x)) {}
+  // the same over `units` units of blocks that share their tiles (the
+  // clusters of the ensemble kernel), this block in unit `unit`
+  __device__ __forceinline__ Tiles(long long B, const Layout& lay, int wg,
+                                   int units, int unit)
       : count(static_cast<int>((B + kRows - 1) / kRows)),
-        stride(static_cast<int>(gridDim.x) * lay.warpgroups),
+        stride(units * lay.warpgroups),
         rounds(0),
-        gw(static_cast<int>(blockIdx.x) * lay.warpgroups + wg) {
+        gw(unit * lay.warpgroups + wg) {
     rounds = (count + stride - 1) / stride;
   }
   // the tile of round r, or -1 when this warpgroup is done
@@ -691,5 +724,395 @@ struct Tiles {
                      : 0;
   }
 };
+
+// ---------------------------------------------------------------------------
+// Kernel 1b (the ensemble) and its packed probe 10b: one thread-block
+// cluster of c = min(M, 8) blocks walks the tiles of a unit, block r
+// running members r, r + c, ... of every tile; their last-layer outputs meet
+// in the leader block (rank 0) through distributed shared memory.
+
+// The launch layout of the ensemble kernel: Layout, then the cluster's
+// fields (ENSEMBLE_FIELDS of ops/fused_eval_chain.py, same order).
+struct EnsembleLayout {
+  Layout base;
+  int cluster;        // blocks of a cluster, c = min(M, 8)
+  int members;        // images a block holds resident, ceil(M / c)
+  int slots;          // slots of each exchange ring
+  int smem_exchange;  // byte offset of the exchange rings
+
+  static EnsembleLayout from(const int* v) {
+    return EnsembleLayout{Layout::from(v), v[9], v[10], v[11], v[12]};
+  }
+};
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The address in block `rank`'s shared memory of the local address `local`.
+__device__ __forceinline__ uint32_t map_to(uint32_t local, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(local), "r"(rank));
+  return r;
+}
+
+// Every thread of the cluster: the writes before it are seen by every
+// thread after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::
+          : "memory");
+}
+
+// 16 bytes into a peer's shared memory at `remote`, completing 16 bytes of
+// the transaction count of the peer's mbarrier at `remote_bar`.
+__device__ __forceinline__ void st_async16(uint32_t remote,
+                                           const float (&v)[4],
+                                           uint32_t remote_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 "
+      "[%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(remote),
+      "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]), "r"(remote_bar)
+      : "memory");
+}
+
+// Arrive on a peer's mbarrier (the default semantics, as CUTLASS's cluster
+// barriers arrive: a release at cluster scope costs the leader a fence on
+// every slot it frees).
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t remote_bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   remote_bar)
+               : "memory");
+}
+
+// The lanes of a quad (q = 0..3: columns 2 q, 2 q + 1 of a group) that
+// hold real outputs when there are out_dim of them, and the bytes of an
+// exchange slot: a column group of a tile from those lanes, 16 bytes each.
+__host__ __device__ __forceinline__ constexpr int exchange_lanes(int out_dim) {
+  return out_dim >= 8 ? 4 : (out_dim + 1) / 2;
+}
+__host__ __device__ __forceinline__ constexpr int exchange_slot_bytes(
+    int out_dim) {
+  return 32 * exchange_lanes(out_dim) * 16;
+}
+
+// A consumer warpgroup's exchange. Peer p >= 1 sends each of its members'
+// outputs of the warpgroup's tile, one column group at a time (its n-th
+// group in order), into ring p - 1 of `slots` slots in the leader's shared
+// memory: the 4 fp32 slot values (last_values) of each thread whose lane
+// of the quad holds real columns (q < lanes) as one 16-byte st.async, to
+// the place the leader's thread of the same slots reads. full[p - 1][s] in
+// the leader counts the bytes in (the leader's thread 0 arrives with the
+// count it expects before the warpgroup waits); empty[s] in the peer counts
+// the leader's four warps done with slot s (their lane 0 arrives from the
+// leader).
+struct Exchange {
+  unsigned char* rings;   // the warpgroup's rings, [p - 1][slot]
+  uint64_t* full;         // [p - 1][slot]
+  uint64_t* empty;        // [slot]
+  int slots, lanes, slot_bytes;
+
+  static __device__ __forceinline__ uint64_t* bars(
+      unsigned char* smem, const EnsembleLayout& lay) {
+    return reinterpret_cast<uint64_t*>(smem + lay.base.smem_bars) +
+           (lay.base.ring > 0 ? 2 * lay.base.ring : 1);
+  }
+
+  __device__ __forceinline__ Exchange(unsigned char* smem,
+                                      const EnsembleLayout& lay, int wg,
+                                      int out_dim)
+      : slots(lay.slots),
+        lanes(exchange_lanes(out_dim)),
+        slot_bytes(exchange_slot_bytes(out_dim)) {
+    const int peers = lay.cluster - 1;
+    rings = smem + lay.smem_exchange + wg * peers * slots * slot_bytes;
+    full = bars(smem, lay) + wg * peers * slots;
+    empty = bars(smem, lay) + lay.base.warpgroups * peers * slots +
+            wg * slots;
+  }
+
+  // one thread, before Weights::init (whose fence covers these)
+  static __device__ __forceinline__ void init(unsigned char* smem,
+                                              const EnsembleLayout& lay) {
+    uint64_t* b = bars(smem, lay);
+    const int n_full = lay.base.warpgroups * (lay.cluster - 1) * lay.slots;
+    for (int i = 0; i < n_full; ++i) mbar_init(b + i, 1);
+    for (int i = 0; i < lay.base.warpgroups * lay.slots; ++i)
+      mbar_init(b + n_full + i, 4);
+  }
+
+  // peer `rank`: its n-th group v to the leader, once the slot is free
+  __device__ __forceinline__ void send(int rank, uint32_t n,
+                                       const float (&v)[4],
+                                       const Thread& t) {
+    STAMP(11);
+    const uint32_t s = n % slots, use = n / slots;
+    if (use > 0) mbar_wait(empty + s, (use - 1) & 1);
+    if (t.q >= lanes) return;
+    const int i = (rank - 1) * slots + static_cast<int>(s);
+    st_async16(map_to(smem_u32(rings + i * slot_bytes + at(t)), 0), v,
+               map_to(smem_u32(full + i), 0));
+  }
+
+  // a sending thread's 16 bytes within a slot
+  __device__ __forceinline__ int at(const Thread& t) const {
+    return ((t.lt >> 2) * lanes + t.q) * 16;
+  }
+
+  // the leader: peer p's n-th group into v, once it is in
+  __device__ __forceinline__ void read(int p, uint32_t n, const Thread& t,
+                                       float (&v)[4]) {
+    STAMP(12);
+    const int i = (p - 1) * slots + static_cast<int>(n % slots);
+    if (t.lt == 0) mbar_expect_tx(full + i, slot_bytes);
+    mbar_wait(full + i, (n / slots) & 1);
+    const float4 q =
+        t.q < lanes
+            ? *reinterpret_cast<const float4*>(rings + i * slot_bytes + at(t))
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  }
+
+  // the leader, lane 0 of each warp once the warp has read it: peer p's
+  // slot of its n-th group back to the peer
+  __device__ __forceinline__ void free_slot(int p, uint32_t n) {
+    mbar_arrive_remote(map_to(smem_u32(empty + n % slots), p));
+  }
+};
+
+// Kernel 1b's body (and, with kPacked, probe 10b's): the M members of the
+// folded chain on x's d real features (element (row, feature) at
+// x[row * ldx + feature]); images: member m's chain image (chain_image) at
+// images + m * image_bytes; b_all (L, M, 128) fp32. Block r of a cluster
+// holds its members' images resident (or streams them through its ring) and
+// runs them in turn on every tile of its warpgroups, members r, r + c, ...;
+// the leader folds its own member j c and then the peers' members j c + 1,
+// ..., j c + c - 1, in member order (member 0 the shift), and writes mean
+// and std: (B, out_dim) each into out0 and out1, or with kPacked one (B,
+// 128) buffer out0, mean in columns [0, out_dim), std in [out_dim,
+// 2 out_dim), zeros past.
+template <bool kRing, bool kPacked>
+__device__ __forceinline__ void ensemble_pass(
+    unsigned char* smem, const float* __restrict__ x, long long B, int d,
+    long long ldx, const unsigned char* __restrict__ images,
+    const float* __restrict__ b_all, int M, int L,
+    const int* __restrict__ relu, int out_dim, float* __restrict__ out0,
+    float* __restrict__ out1, const EnsembleLayout& lay) {
+  const Layout& base = lay.base;
+  const int c = lay.cluster;
+  const int rank = static_cast<int>(cluster_rank());
+  const int own = (M - rank + c - 1) / c;   // members rank, rank + c, ...
+  const long long image_bytes = base.image_bytes;
+  const Chain chain(d, L, base.out_groups);
+  Weights<kRing> wts(smem, base);
+  const int wg = threadIdx.x / kWgThreads;
+  if (threadIdx.x == 0) {
+    Exchange::init(smem, lay);
+    wts.init(base.warpgroups);
+  }
+  cluster_sync();   // every block's barriers are set before a peer's use
+  const Tiles tiles(B, base, wg, static_cast<int>(gridDim.x) / c,
+                    static_cast<int>(blockIdx.x) / c);
+  if (kRing && wg == base.warpgroups) {   // the ring's producer warp
+    if (threadIdx.x % 32 == 0)
+      for (int r = 0; r < tiles.rounds; ++r)
+        for (int j = 0; j < own; ++j) {
+          const unsigned char* image = images + (rank + j * c) * image_bytes;
+          if (L == 1) {   // layer 0 once for each column group
+            for (int g = 0; g < base.out_groups; ++g)
+              for (int b = 0; b < chain.nb0; ++b) wts.produce(chain, image, b);
+          } else {
+            for (int b = 0; b < chain.blocks(); ++b)
+              wts.produce(chain, image, b);
+          }
+        }
+  } else {
+    STAMP_BEGIN(true, 0);
+    if (!kRing) {
+      if (threadIdx.x == 0)
+        wts.load_image(images + rank * image_bytes, base.image_bytes, own,
+                       c * image_bytes);
+      STAMP(1);
+      mbar_wait(wts.full, 0);
+    }
+    const Thread t(threadIdx.x);
+    Exchange ex(smem, lay, wg, out_dim);
+    float4* st = reinterpret_cast<float4*>(smem + base.smem_stats) +
+                 (wg * base.out_groups * 3) * kWgThreads + t.lt;
+    const int groups = base.out_groups;
+    const int last = L - 1;
+    const size_t layer_stride = static_cast<size_t>(M) * kWidth;
+    const bool relu_last = __ldg(relu + last) != 0;
+    const uint32_t none[2] = {0u, 0u};
+    float acc[64], acc_last[4];   // written by each layer's first product
+    uint32_t a[8][4];
+    for (int i = 0;; ++i) {
+      const int tile = tiles.tile<kRing>(i);
+      if (tile < 0) break;
+      const long long row0 = static_cast<long long>(tile) * kRows;
+      const int valid = tiles.valid(tile, B);
+      const float* x_tile = x + (valid > 0 ? row0 * ldx : 0);
+      for (int j = 0; j < own; ++j) {
+        const int m = rank + j * c;
+        if (!kRing) wts.base = smem + j * image_bytes;
+        const float* bm = b_all + static_cast<size_t>(m) * kWidth;
+        const float* b_last = bm + last * layer_stride;
+        // member m's outputs of column group g: folded by the leader, sent
+        // by a peer
+        const auto deliver = [&](int g) {
+          float v[4];
+          last_values(acc_last, b_last, relu_last, g, t, v);
+          if (rank == 0)
+            stats_fold(v, g, m == 0, st);
+          else
+            ex.send(rank,
+                    (static_cast<uint32_t>(i) * own + j) * groups + g, v, t);
+        };
+        if (L == 1) {   // one Linear: the last layer straight from x
+          for (int g = 0; g < groups; ++g) {
+            last_group_from_x(acc_last, wts, chain, x_tile, d, ldx, valid, t,
+                              g, NoMask());
+            deliver(g);
+          }
+        } else {
+          layer0_from_x(acc, wts, chain, x_tile, d, ldx, valid, t, NoMask(),
+                        [] {});
+          epilogue<false, true>(acc, bm, __ldg(relu) != 0, none, 1.f, t, a);
+          for (int l = 1; l < last; ++l) {
+            const uint32_t addr = wts.acquire(chain, chain.nb0 + l - 1);
+            issue_n128(acc, a, addr);
+            wait_acc(acc, a);
+            wts.release(t.lane0);
+            epilogue<false, true>(acc, bm + l * layer_stride,
+                                  __ldg(relu + l) != 0, none, 1.f, t, a);
+          }
+          const uint32_t addr = wts.acquire(chain, chain.nb0 + last - 1);
+          for (int g = 0; g < groups; ++g) {
+            last_group(acc_last, a, addr, g);
+            deliver(g);
+          }
+          wts.release(t.lane0);
+        }
+        if (rank == 0) {
+          // the peers' members of the round, in member order, into the
+          // sums in registers (stats_fold's arithmetic); a warp gives the
+          // slots of a column group back together once it has read them
+          const int peers = min(c, M - j * c) - 1;
+          const auto seq = [&](int p, int g) {
+            return (static_cast<uint32_t>(i) * ((M - p + c - 1) / c) + j) *
+                       groups + g;
+          };
+          for (int g = 0; g < groups; ++g) {
+            float4* q = st + 3 * g * kWgThreads;
+            const float4 c4 = q[0];
+            float4 s1 = q[kWgThreads], s2 = q[2 * kWgThreads];
+            for (int p = 1; p <= peers; ++p) {
+              float v[4];
+              ex.read(p, seq(p, g), t, v);
+              STAMP(13);
+              const float d0 = v[0] - c4.x, d1 = v[1] - c4.y,
+                          d2 = v[2] - c4.z, d3 = v[3] - c4.w;
+              s1.x += d0;
+              s1.y += d1;
+              s1.z += d2;
+              s1.w += d3;
+              s2.x += d0 * d0;
+              s2.y += d1 * d1;
+              s2.z += d2 * d2;
+              s2.w += d3 * d3;
+            }
+            q[kWgThreads] = s1;
+            q[2 * kWgThreads] = s2;
+            __syncwarp();
+            if (t.lane0)
+              for (int p = 1; p <= peers; ++p) ex.free_slot(p, seq(p, g));
+          }
+          if (j + 1 == own) {
+            if (kPacked)
+              stats_write(st, groups, M, t, valid, row0, out_dim, kWidth,
+                          out0, out0 + out_dim);
+            else
+              stats_write(st, groups, M, t, valid, row0, out_dim, out_dim,
+                          out0, out1);
+          }
+        }
+      }
+      if (kPacked) {   // zeros in columns [2 out_dim, 128): rows r = rank
+                       // mod c of the tile, 16 bytes a store
+        const int mine = (kRows - rank + c - 1) / c;
+        for (int e = t.lt; e < mine * (kWidth / 4); e += kWgThreads) {
+          const int r = rank + (e / (kWidth / 4)) * c;
+          const int c4 = 4 * (e % (kWidth / 4));
+          if (r >= valid || c4 + 4 <= 2 * out_dim) continue;
+          float* q = out0 + (row0 + r) * kWidth + c4;
+          if (c4 >= 2 * out_dim) {
+            *reinterpret_cast<float4*>(q) = make_float4(0.f, 0.f, 0.f, 0.f);
+          } else {
+            for (int k = 2 * out_dim - c4; k < 4; ++k) q[k] = 0.f;
+          }
+        }
+      }
+    }
+    STAMP_END();
+  }
+  cluster_sync();   // no block leaves while a peer may still reach into it
+}
+
+// Host: launch `kernel` (an ensemble_pass instance taking `args`) as
+// lay.base.grid / lay.cluster clusters of lay.cluster blocks.
+template <class... P>
+inline cudaLaunchConfig_t cluster_config(void (*kernel)(P...),
+                                         const EnsembleLayout& lay,
+                                         cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(lay.base.grid));
+  cfg.blockDim = dim3(static_cast<unsigned>(lay.base.threads));
+  cfg.dynamicSmemBytes = static_cast<size_t>(lay.base.smem_bytes);
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(lay.cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <class... P, class... A>
+inline cudaError_t launch_cluster(void (*kernel)(P...),
+                                  const EnsembleLayout& lay,
+                                  cudaStream_t stream, A&&... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lay.base.smem_bytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(kernel, lay, stream, attr);
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<A&&>(args)...);
+}
+
+// The clusters of `kernel` at this layout that the card runs at once
+// (cudaOccupancyMaxActiveClusters), or minus a cudaError_t.
+template <class... P>
+inline int max_clusters(void (*kernel)(P...), const EnsembleLayout& lay) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lay.base.smem_bytes);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(kernel, lay, nullptr, attr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
 
 }  // namespace fused_chain_wgmma

@@ -32,16 +32,24 @@
 // Tensor cores (wgmma with a 3xTF32 split to keep fp32 accuracy) are left to
 // a later version.
 //
-// The bf16 form (fused_ensemble_bf16_kernel) replaces the same TPU kernel
-// run with compute_dtype=bfloat16: weights folded in fp32 and rounded to
-// bf16, x and every hidden activation rounded to bf16 at the next dot,
-// products accumulated in fp32, bias, ReLU, the last layer and the shifted
-// sums in fp32. What bounds it: operations, at the dense bf16 tensor-core
-// peak (989 TFLOP/s on an H100 SXM). Its tile (fused_chain_bf16.cuh) runs
-// the hidden layers as mma.sync.m16n8k16 on bf16 operands in shared memory,
-// with the weights streamed as bf16.
+// The bf16 form (fused_ensemble_bf16_kernel, kernel 1b) replaces the same
+// TPU kernel run with compute_dtype=bfloat16: weights folded in fp32 and
+// rounded to bf16, x and every hidden activation rounded to bf16 at the next
+// dot, products accumulated in fp32, bias, ReLU, the last layer and the
+// shifted sums in fp32. What bounds it: operations, at the dense bf16
+// tensor-core peak (989 TFLOP/s on an H100 SXM, 0.35 ms at the flagship).
+// Its design is fused_chain_wgmma.cuh's ensemble_pass: one thread-block
+// cluster of c = min(M, 8) blocks, block r holding members r, r + c, ... of
+// the chain resident in shared memory (169,984 bytes a member at the
+// flagship; streamed through a ring when they do not fit), consumer
+// warpgroups of wgmma products with the activations in registers, each
+// owning a 64-row tile that every block of the cluster runs for its own
+// members; the members' outputs meet in the leader block through
+// distributed shared memory, where they are summed in member order. A
+// persistent grid of as many clusters as the card runs at once. Weights
+// are read from device memory once per block, not once per tile.
 #include "fused_chain.cuh"
-#include "fused_chain_bf16.cuh"
+#include "fused_chain_wgmma.cuh"
 
 using namespace fused_chain;
 
@@ -61,17 +69,23 @@ __global__ void __launch_bounds__(kThreads, 2)
                 out_dim, 0, mean, std);
 }
 
-// The bf16 form: w_all as above in bf16, b_all fp32.
-__global__ void __launch_bounds__(kThreads, 2)
+namespace fw = fused_chain_wgmma;
+
+// The bf16 form. images: each member's chain image (ops/fused_eval_chain.py
+// chain_image), member-major; b_all (L, M, 128) fp32; lay: the launch
+// layout (eval_layout('ensemble', ...)).
+template <bool kRing>
+__global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 3 * fw::kWgThreads, 1)
     fused_ensemble_bf16_kernel(const float* __restrict__ x, long long B, int d,
-                               const __nv_bfloat16* __restrict__ w_all,
+                               const unsigned char* __restrict__ images,
                                const float* __restrict__ b_all, int M, int L,
                                const int* __restrict__ relu, int out_dim,
                                float* __restrict__ mean,
-                               float* __restrict__ std) {
-  extern __shared__ __align__(16) unsigned char smem_bf16[];
-  fused_chain_bf16::ensemble_pass(smem_bf16, x, B, d, d, w_all, b_all, M, L,
-                                  relu, out_dim, mean, std);
+                               float* __restrict__ std,
+                               fw::EnsembleLayout lay) {
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  fw::ensemble_pass<kRing, false>(smem_wg, x, B, d, d, images, b_all, M, L,
+                                  relu, out_dim, mean, std, lay);
 }
 
 }  // namespace
@@ -99,22 +113,32 @@ int nnueehcs_fused_ensemble_f32(const float* x, long long B, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 form; as nnueehcs_fused_ensemble_f32 with w_all in bf16.
+// The bf16 form: as nnueehcs_fused_ensemble_f32 with the members' chain
+// images (ops/fused_eval_chain.py chain_image, member-major) in place of
+// w_all, and the launch layout (eval_layout('ensemble', ...),
+// ENSEMBLE_FIELDS) as host ints.
 int nnueehcs_fused_ensemble_bf16(const float* x, long long B, int d,
-                                 const __nv_bfloat16* w_all,
+                                 const unsigned char* images,
                                  const float* b_all, int M, int L,
                                  const int* relu, int out_dim, float* mean,
-                                 float* std, void* stream) {
-  const size_t smem = fused_chain_bf16::smem_bytes(out_dim);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_ensemble_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (B + kTileRows - 1) / kTileRows;
-  fused_ensemble_bf16_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      x, B, d, w_all, b_all, M, L, relu, out_dim, mean, std);
-  return static_cast<int>(cudaGetLastError());
+                                 float* std, const int* layout, void* stream) {
+  const fw::EnsembleLayout lay = fw::EnsembleLayout::from(layout);
+  const auto kernel = lay.base.ring ? fused_ensemble_bf16_kernel<true>
+                                    : fused_ensemble_bf16_kernel<false>;
+  return static_cast<int>(fw::launch_cluster(
+      kernel, lay, static_cast<cudaStream_t>(stream), x, B, d, images, b_all,
+      M, L, relu, out_dim, mean, std, lay));
+}
+
+// The thread-block clusters of the bf16 form's layout `layout` that the card
+// runs at once, or minus a cudaError_t.
+int nnueehcs_fused_ensemble_bf16_clusters(const int* layout) {
+  const fw::EnsembleLayout lay = fw::EnsembleLayout::from(layout);
+  return lay.base.ring ? fw::max_clusters(fused_ensemble_bf16_kernel<true>, lay)
+                       : fw::max_clusters(fused_ensemble_bf16_kernel<false>,
+                                          lay);
 }
 
 }  // extern "C"
+
+STAMPS_READER(fused_ensemble)

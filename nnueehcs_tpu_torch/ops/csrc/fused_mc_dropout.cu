@@ -309,15 +309,15 @@ __global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 3 * fw::kWgThrea
       const Drop m0 = drop_for(p, 0, seed, thresh, scale, key, row0, t);
       if (L == 1) {  // one Linear: the last layer straight from x
         for (int g = 0; g < groups; ++g) {
-          fw::last_group_from_x(acc_last, wts, chain, x_tile, d, valid, t, g,
-                                m0);
+          fw::last_group_from_x(acc_last, wts, chain, x_tile, d, d, valid, t,
+                                g, m0);
           fw::stats_update(acc_last, b_last, relu_last, g, t, p == 0, st);
         }
         continue;
       }
       Drop m = drop_for(p, 1, seed, thresh, scale, key, row0, t);
       uint32_t keep[2] = {0u, 0u};
-      fw::layer0_from_x(acc, wts, chain, x_tile, d, valid, t, m0, [&] {
+      fw::layer0_from_x(acc, wts, chain, x_tile, d, d, valid, t, m0, [&] {
         if (m.active) keep_words(m, keep);
       });
       mask_epilogue(acc, b_all, __ldg(relu) != 0, m, keep, t, a);
@@ -338,7 +338,8 @@ __global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 3 * fw::kWgThrea
       }
       wts.release(t.lane0);
     }
-    fw::stats_write(st, groups, S, t, valid, row0, out_dim, mean, std);
+    fw::stats_write(st, groups, S, t, valid, row0, out_dim, out_dim, mean,
+                    std);
   }
   STAMP_END();
 }

@@ -1,6 +1,7 @@
 // Phase stamps, for a build with -DNNUEEHCS_STAMPS (ops/_build.py
 // stamped_library; tools/train_step_phases.py, tools/eval_chain_phases.py).
-// Thread 0 of block 0 splits its time into phases by the SM clock
+// Thread 0 of one block (block 0 unless the unit's STAMPS_BLOCK entry names
+// another) splits its time into phases by the SM clock
 // (clock64): STAMP_BEGIN(on, id) starts a stamped span of the launch when
 // `on` holds and opens phase `id`; STAMP(id) closes the open phase, adds
 // its cycles to slot `open` of the translation unit's g_stamps, and opens
@@ -27,6 +28,7 @@ constexpr int kWords = kSlots + 1;
 constexpr unsigned long long kOff = ~0ull;   // no stamped span open
 
 __device__ unsigned long long g_stamps[kWords];
+__device__ int g_block;   // the stamped block
 
 __device__ __forceinline__ unsigned long long* state() {
   // the open phase (kOff outside a span), its clock at opening, the span's
@@ -36,7 +38,7 @@ __device__ __forceinline__ unsigned long long* state() {
 }
 
 __device__ __forceinline__ bool stamper() {
-  return blockIdx.x == 0 && threadIdx.x == 0;
+  return static_cast<int>(blockIdx.x) == g_block && threadIdx.x == 0;
 }
 
 __device__ __forceinline__ unsigned long long globaltimer() {
@@ -83,15 +85,24 @@ inline int read(unsigned long long* out) {
   return static_cast<int>(err);
 }
 
+// Stamp block `block` from the next launch on.
+inline int set_block(int block) {
+  return static_cast<int>(cudaMemcpyToSymbol(g_block, &block, sizeof(int)));
+}
+
 }  // namespace stamps
 
 #define STAMP_BEGIN(on, id) stamps::begin((on), (id))
 #define STAMP(id) stamps::phase(id)
 #define STAMP_END() stamps::end()
-// the translation unit's reader, extern "C" int nnueehcs_stamps_<unit>(out)
+// the translation unit's reader, extern "C" int nnueehcs_stamps_<unit>(out),
+// and its choice of block, extern "C" int nnueehcs_stamps_block_<unit>(b)
 #define STAMPS_READER(unit)                                          \
   extern "C" int nnueehcs_stamps_##unit(unsigned long long* out) {   \
     return stamps::read(out);                                        \
+  }                                                                  \
+  extern "C" int nnueehcs_stamps_block_##unit(int block) {           \
+    return stamps::set_block(block);                                 \
   }
 
 #else

@@ -10,7 +10,9 @@ mean and unbiased std over members come from sums shifted by member 0's
 output, so the one-pass variance does not cancel when ``|mean| >> std``.
 
 :func:`fused_forward_prefolded` is the entry point: on a CUDA tensor it
-launches the hand-written kernel (``csrc/fused_ensemble.cu``), on a CPU
+launches the hand-written kernel (``csrc/fused_ensemble.cu``; the bf16 form
+runs one thread-block cluster of member-resident chains, laid out by
+:func:`.fused_eval_chain.eval_layout`), on a CPU
 tensor it runs :func:`fused_forward_plain`, which computes the same
 function with plain tensor ops. It never falls back from one to the other.
 
@@ -28,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from ..nn.layers import BatchNorm1d, Dropout, Linear, ReLU
+from .fused_eval_chain import launch_args
 
 WIDTH = 128        # every layer is padded to 128 output columns
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)   # the kernels' forms
@@ -248,14 +251,21 @@ def fused_forward_prefolded(fw: FusedWeights, x):
     from ._build import library
     lib = library()
     bf16 = fw.compute_dtype == torch.bfloat16
-    launch = lib.nnueehcs_fused_ensemble_bf16 if bf16 else \
-        lib.nnueehcs_fused_ensemble_f32
     with torch.cuda.device(x.device):
-        err = launch(
-            x.data_ptr(), rows, fw.in_dim, fw.w_all.data_ptr(),
-            fw.b_all.data_ptr(), fw.num_members, fw.num_layers,
-            fw.relu_flags.data_ptr(), fw.out_dim, mean.data_ptr(),
-            std.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if bf16:
+            image, layout = launch_args('ensemble', fw, rows, x.device)
+            err = lib.nnueehcs_fused_ensemble_bf16(
+                x.data_ptr(), rows, fw.in_dim, image.data_ptr(),
+                fw.b_all.data_ptr(), fw.num_members, fw.num_layers,
+                fw.relu_flags.data_ptr(), fw.out_dim, mean.data_ptr(),
+                std.data_ptr(), layout, stream)
+        else:
+            err = lib.nnueehcs_fused_ensemble_f32(
+                x.data_ptr(), rows, fw.in_dim, fw.w_all.data_ptr(),
+                fw.b_all.data_ptr(), fw.num_members, fw.num_layers,
+                fw.relu_flags.data_ptr(), fw.out_dim, mean.data_ptr(),
+                std.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f'fused ensemble kernel launch failed: CUDA error '
                            f'{err}')

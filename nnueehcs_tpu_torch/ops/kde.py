@@ -151,6 +151,66 @@ def kde_logpdf(x, data, h: float):
 
 kde_logpdf.launches = 0
 
+# Kernel 4's work a pair, by pipe, counted from the function (csrc/kde.cu):
+# the log-sum-exp's clamp at 0 and running max on the ALU pipe, its
+# subtraction and sum on the FMA pipe, and one exp: a MUFU ex2, or a
+# polynomial on the FMA pipe (Cody-Waite reduction: a magic-number add and
+# two subtractions; a degree-6 minimax polynomial, 6 FFMAs; the exponent
+# shifted into the result's bits, one ALU operation). The exponent is one
+# dot of depth d + 2 (the constants folded in): on the tensor cores as three
+# TF32 products (the 3xTF32 split) of depth 8 ceil((d + 2) / 8), or as d
+# FFMAs and an add.
+LSE_OPS = {'alu': 2, 'fma': 2}
+EXP2_POLY_OPS = {'alu': 1, 'fma': 9}
+# per SM a clock: MUFU ex2 results, ALU and FMA pipe lanes, and the thread
+# instructions the four schedulers issue (CUDA programming guide,
+# arithmetic instruction throughput, compute capability 9.0)
+PIPE_RATES = {'mufu': 16, 'alu': 64, 'fma': 128, 'issue': 128}
+# an m16n8k8 product covers 128 pairs and is one warp instruction
+MMA_PAIRS = 128
+
+
+def kde_bound_terms(pairs: float, d: int, sms: int, clock_hz: float,
+                    tf32_peak: float, steps: int = 1000) -> dict:
+    """The least time (ms) kernel 4's function can take for ``pairs``
+    (query, reference) pairs of ``d`` features on a card of ``sms`` SMs at
+    ``clock_hz``, counted by pipe: for each place of the exponent's dot (the
+    tensor cores at ``tf32_peak`` FLOP/s, or FFMAs) and each share of the
+    exps on MUFU (the rest as FMA-pipe polynomials, in ``steps`` steps), the
+    slowest of MUFU, ALU, FMA, instruction issue and the tensor cores; the
+    least over those choices. Returns ``ms``, the choice (``cross``,
+    ``mufu_share``), each pipe's ms at it, and ``mufu_only_ms``, the MUFU
+    time with every exp an ex2 (the bound before it was counted by pipe)."""
+    depth = 8 * -(-(d + 2) // 8)
+    clocks = sms * clock_hz
+    best = None
+    for cross in ('tensor', 'ffma'):
+        for i in range(steps + 1):
+            f = i / steps
+            poly = 1.0 - f
+            alu = LSE_OPS['alu'] + EXP2_POLY_OPS['alu'] * poly
+            fma = LSE_OPS['fma'] + EXP2_POLY_OPS['fma'] * poly
+            issue = alu + fma + f
+            tensor_s = 0.0
+            if cross == 'tensor':
+                tensor_s = pairs * 2.0 * 3 * depth / tf32_peak
+                issue += 3 * (depth // 8) * 32 / MMA_PAIRS
+            else:
+                fma += d + 1
+                issue += d + 1
+            pipes = {'mufu': f / PIPE_RATES['mufu'],
+                     'alu': alu / PIPE_RATES['alu'],
+                     'fma': fma / PIPE_RATES['fma'],
+                     'issue': issue / PIPE_RATES['issue']}
+            pipes_ms = {k: 1e3 * pairs * v / clocks for k, v in pipes.items()}
+            pipes_ms['tensor'] = 1e3 * tensor_s
+            ms = max(pipes_ms.values())
+            if best is None or ms < best['ms']:
+                best = {'ms': ms, 'cross': cross, 'mufu_share': f,
+                        'pipes_ms': pipes_ms}
+    best['mufu_only_ms'] = 1e3 * pairs / PIPE_RATES['mufu'] / clocks
+    return best
+
 
 # --------------------------------------------------------------------------
 # kNN-KDE: truncated KDE over the k nearest references

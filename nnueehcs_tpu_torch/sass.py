@@ -2,7 +2,7 @@
 machine with the CUDA toolkit): the per-kernel listings that
 ``tools/compare_sass.py`` compares between two builds, and the checks
 ``chip_smoke.py`` and ``tools/eval_chain_phases.py`` make of the bf16 eval
-kernels 2b and 5b (no spills, HGMMA instructions, the MC kernel's mask
+kernels 1b, 2b and 5b (no spills, HGMMA instructions, the MC kernel's mask
 loop).
 """
 from __future__ import annotations
@@ -23,7 +23,8 @@ HASH_MARKER = '0x7feb352d'
 # the keep bits and the loop's own; outside, the loop search found another
 # loop than the mask loop
 MASK_LOOP_WINDOW = (8.0, 16.0)
-EVAL_KERNELS = ('fused_mc_dropout_bf16_kernel', 'fused_anchored_bf16_kernel')
+EVAL_KERNELS = ('fused_mc_dropout_bf16_kernel', 'fused_anchored_bf16_kernel',
+                'fused_ensemble_bf16_kernel')
 # the template argument kRing of each form in the mangled name
 EVAL_FORMS = (('resident', 'ILb0E'), ('ring', 'ILb1E'))
 
@@ -109,7 +110,7 @@ def loop_mix(instrs, marker):
 
 
 def eval_chain_rows(funcs, ptxas):
-    """The bf16 eval kernels 2b and 5b in both forms (resident, ring), from
+    """The bf16 eval kernels 1b, 2b and 5b in both forms (resident, ring), from
     the SASS ``funcs`` (:func:`parse_instructions`) and the ptxas report
     ``ptxas`` ({kernel: {'registers', 'spill_store_bytes', ...}}): their
     registers and spills, which must be 0, and their HGMMA (wgmma)

@@ -1,7 +1,10 @@
 """The port's CUDA kernels on a card (the fused ensemble, MC-dropout,
 anchored, KDE and training kernels, and the attribution probes of the
 ensemble and training kernels), each held against its plain PyTorch
-version on the same inputs, and the serving path of each model on the card. Every test here is
+version on the same inputs, and the serving path of each model on the card.
+Kernel 1b (one thread-block cluster of member blocks) runs 1 to 32
+members, resident and through its ring, and twice on the same rows, bit
+for bit; the KDE kernel runs every d of its tensor-core path. Every test here is
 marked ``cuda`` and skips without a card. The file imports neither JAX nor
 the JAX package, so it runs on a CUDA-only machine (with ``--noconftest``,
 since tests/conftest.py imports JAX):
@@ -202,6 +205,75 @@ def test_bf16_kernel_matches_plain_on_card(card, case):
                fused_forward_plain(fw32, x))
     with pytest.raises(TypeError):
         fused_forward_prefolded(fw, x.bfloat16())
+
+
+# kernel 1b (one thread-block cluster of member-resident chains,
+# csrc/fused_chain_wgmma.cuh ensemble_pass): 1 to 32 members (the resident
+# cluster up to 8, the ring past it), the bench's cases, a chain too deep to
+# stay resident, the requests of 1 and 300 rows, and 128 outputs
+ENSEMBLE_BF16_CASES = {
+    # name: (members, in_dim, width, hidden, out_dim, rows, mean shift)
+    'members_1': (1, 5, 128, 6, 1, 4096, 0.0),
+    'members_2': (2, 5, 128, 6, 1, 4096, 0.0),
+    'members_3': (3, 5, 128, 6, 1, 4096, 0.0),
+    'members_8_flagship': (8, 5, 128, 6, 1, 262_144, 0.0),
+    'members_12_ring': (12, 5, 128, 6, 1, 4096, 0.0),
+    'members_32_ring': (32, 5, 128, 6, 1, 1000, 0.0),
+    'ragged_1000': (8, 5, 128, 6, 1, 1000, 0.0),
+    'mean_1e3': (8, 5, 128, 6, 1, 4096, 1e3),
+    'input_200_one_warpgroup': (8, 200, 128, 6, 1, 1000, 0.0),
+    'deep_12_linears_ring': (8, 5, 128, 11, 1, 4096, 0.0),
+    'request_1': (8, 5, 128, 6, 1, 1, 0.0),
+    'request_300': (8, 5, 128, 6, 1, 300, 0.0),
+    'out_128_resident': (3, 37, 128, 2, 128, 300, 0.0),
+    'out_128_ring': (3, 5, 128, 6, 128, 300, 0.0),
+    'members_5_out_9_one_linear': (5, 17, 17, 0, 9, 65, 0.0),
+}
+
+
+def _ensemble_bf16(card, members, in_dim, width, hidden, out_dim, shift):
+    m = _model(card, members, in_dim, width, hidden, out_dim)
+    if shift:
+        with torch.no_grad():
+            m.net.layers[-1].bias += shift
+    return _both(m, prepare_fused_weights)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(ENSEMBLE_BF16_CASES))
+def test_bf16_ensemble_cluster_kernel_matches_plain_on_card(card, case):
+    members, in_dim, width, hidden, out_dim, rows, shift = \
+        ENSEMBLE_BF16_CASES[case]
+    fw, fw32 = _ensemble_bf16(card, members, in_dim, width, hidden, out_dim,
+                              shift)
+    lay = ec.eval_layout('ensemble', fw.in_dim, fw.num_layers, fw.out_dim,
+                         rows, torch.cuda.get_device_properties(0)
+                         .multi_processor_count, members=members)
+    assert lay.resident == ('ring' not in case)
+    assert lay.cluster == min(members, 8)
+    x = _inputs(card, rows, in_dim, False)
+    before = (fused_forward_prefolded.launches,
+              fused_forward_prefolded.launches_bf16)
+    got = fused_forward_prefolded(fw, x)
+    torch.cuda.synchronize()
+    assert (fused_forward_prefolded.launches,
+            fused_forward_prefolded.launches_bf16) == (before[0],
+                                                       before[1] + 1)
+    _bf16_pair(case, got, fused_forward_plain(fw, x),
+               fused_forward_plain(fw32, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('members', [3, 8, 12])
+def test_bf16_ensemble_cluster_kernel_gives_the_same_bits_twice_on_card(
+        card, members):
+    fw, _ = _ensemble_bf16(card, members, 5, 128, 6, 1, 0.0)
+    x = _inputs(card, 100_000, 5, False)
+    first = [t.clone() for t in fused_forward_prefolded(fw, x)]
+    again = fused_forward_prefolded(fw, x)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 MC_CASES = {
@@ -561,6 +633,16 @@ KDE_CASES = {
     'd1_one_reference': (333, 1, 1, 0.0, False),
     'd8': (777, 1025, 8, 0.0, False),
     'd9_one_query': (1, 300, 9, 0.0, False),
+    # the tensor-core path at every d <= 8 (one k step of 8 up to d = 6,
+    # two at 7 and 8), counts that are multiples of no tile, one query
+    'd2_ragged': (1001, 3001, 2, 0.0, False),
+    'd3_ragged': (1001, 3001, 3, 0.0, False),
+    'd4_ragged': (1001, 3001, 4, 0.0, False),
+    'd5_ragged': (1001, 3001, 5, 0.0, False),
+    'd7_ragged': (1001, 3001, 7, 0.0, False),
+    'd8_far_ood': (1001, 3001, 8, 0.0, True),
+    'd5_one_query': (1, 3001, 5, 0.0, False),
+    'd6_offset_1e3_one_query': (1, 257, 6, 1e3, False),
 }
 TOL_LOGPDF = {'rtol': 1e-5, 'atol': 1e-4}
 

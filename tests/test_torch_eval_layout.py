@@ -1,10 +1,11 @@
-"""The launch layout and weight image of the bf16 eval kernels 2b and 5b
+"""The launch layout and weight image of the bf16 eval kernels 1b, 2b and 5b
 (``ops/fused_eval_chain.py``), the one place that decides how a chain runs
 on the card: resident in shared memory or streamed through a ring, how many
-consumer warpgroups a block runs, and where each weight block lies. Checked
-over the shapes the kernels' gate accepts (any input width, any depth,
-hidden widths and outputs up to 128). The kernels themselves run only on a
-card (tests/test_torch_cuda.py)."""
+consumer warpgroups a block runs, where each weight block lies, and for the
+ensemble (1b) the thread-block cluster, its exchange rings and its grid.
+Checked over the shapes the kernels' gate accepts (any input width, any
+depth, hidden widths and outputs up to 128, 1 to 32 members). The kernels
+themselves run only on a card (tests/test_torch_cuda.py)."""
 import itertools
 
 import pytest
@@ -158,3 +159,133 @@ def test_image_is_cached_on_the_weights():
     fw = Folded()
     first = ec.cached_image(fw)
     assert ec.cached_image(fw) is first
+
+
+# kernel 1b, the ensemble: clusters of c = min(M, 8) member blocks
+ENSEMBLE_WIDTHS = ((1, 1), (5, 1), (37, 3), (200, 9), (1000, 64), (5, 128))
+ENSEMBLE_DEPTHS = (1, 2, 7, 12)
+
+
+def _ensemble_layouts(members):
+    for (d, out), L, rows in itertools.product(ENSEMBLE_WIDTHS,
+                                               ENSEMBLE_DEPTHS, ROWS):
+        yield (d, L, out, rows), ec.eval_layout('ensemble', d, L, out, rows,
+                                                SMS, members=members)
+
+
+@pytest.mark.parametrize('members', range(1, 33))
+def test_every_member_count_has_an_ensemble_layout_that_fits(members):
+    c = min(members, 8)
+    for (d, L, out, rows), lay in _ensemble_layouts(members):
+        assert lay.smem_bytes <= ec.SMEM_LIMIT == 232_448
+        assert lay.cluster == c and lay.members == -(-members // c)
+        assert 1 <= lay.warpgroups <= ec.MAX_WARPGROUPS['ensemble'] == 3
+        assert lay.threads == 128 * lay.warpgroups + (32 if lay.ring else 0)
+        weights = (lay.members * lay.image_bytes if lay.resident
+                   else ec.RING_SLOTS * ec.SLOT_BYTES)
+        assert lay.smem_stats == weights
+        assert lay.smem_exchange == lay.smem_stats + \
+            lay.warpgroups * lay.out_groups * ec.STAT_BYTES
+        # one exchange ring per peer, each up to two members' outputs
+        assert (lay.slots == 0) == (c == 1)
+        assert lay.slots <= ec.EXCHANGE_MEMBERS * lay.out_groups
+        assert lay.smem_bars >= lay.smem_exchange + lay.warpgroups * (
+            c - 1) * lay.slots * ec.exchange_slot_bytes(out)
+        assert lay.smem_bars % 8 == 0
+        weight_bars = 2 * lay.ring if lay.ring else 1
+        exchange_bars = lay.warpgroups * c * lay.slots if c > 1 else 0
+        assert lay.smem_bytes == lay.smem_bars + 8 * (weight_bars
+                                                      + exchange_bars)
+        if not lay.resident:
+            assert lay.warpgroups == 1 and lay.ring == ec.RING_SLOTS
+
+
+def test_flagship_ensemble_is_one_resident_cluster_of_8_with_the_most_warpgroups():
+    lay = ec.eval_layout('ensemble', 5, 7, 1, 262_144, SMS, members=8)
+    assert lay.resident and lay.cluster == 8 and lay.members == 1
+    assert lay.warpgroups == ec.MAX_WARPGROUPS['ensemble'] == 3
+    assert lay.image_bytes == 169_984
+    assert lay.slots >= 1 and lay.smem_bytes <= ec.SMEM_LIMIT
+    assert lay.grid == 8 * (SMS // 8)
+
+
+@pytest.mark.parametrize('members,L,resident', [
+    (8, 7, True), (2, 7, True), (1, 7, True), (12, 7, False),
+    (32, 7, False), (8, 12, False), (12, 2, True)])
+def test_ensemble_resident_or_ring(members, L, resident):
+    lay = ec.eval_layout('ensemble', 5, L, 1, 4096, SMS, members=members)
+    assert lay.resident == resident
+    if not resident:
+        assert lay.ring == 3 and lay.warpgroups == 1 and lay.threads == 160
+
+
+@pytest.mark.parametrize('members', [1, 2, 3, 7, 8, 9, 12, 32])
+@pytest.mark.parametrize('rows', [1, 64, 300, 4096, 262_144, 262_145])
+@pytest.mark.parametrize('clusters', [None, 1, 7, 16])
+def test_ensemble_grid_is_a_whole_number_of_clusters(members, rows,
+                                                     clusters):
+    lay = ec.eval_layout('ensemble', 5, 7, 1, rows, SMS, members=members,
+                         clusters=clusters)
+    c = min(members, 8)
+    assert lay.grid % lay.cluster == 0 and lay.cluster == c
+    units = lay.grid // c
+    tiles = -(-rows // 64)
+    assert 1 <= units <= (SMS // c if clusters is None else clusters)
+    assert units <= max(1, -(-tiles // lay.warpgroups))
+
+
+@pytest.mark.parametrize('members,d,L,out', [(8, 5, 7, 1), (3, 37, 3, 3),
+                                             (2, 1, 1, 128), (12, 200, 2, 9),
+                                             (4, 16, 12, 64)])
+def test_each_member_image_reads_back_to_its_weights(members, d, L, out):
+    gen = torch.Generator().manual_seed(members * 1000 + d * 10 + L)
+    ws = [torch.randn((members, d, 128), generator=gen).bfloat16()] + \
+        [torch.randn((members, 128, 128), generator=gen).bfloat16()
+         for _ in range(L - 1)]
+
+    class Folded:
+        pass
+    fw = Folded()
+    fw.ws, fw.out_dim = ws, out
+    images = ec.cached_image(fw)
+    size = ec.image_bytes(d, L, out)
+    assert 2 * images.numel() == members * size
+    for m in range(members):
+        image = images[m * size // 2:(m + 1) * size // 2]
+        assert torch.equal(image, ec.chain_image(ws, out, m))
+        offset = 0
+        for b, (layer, k0, rows, cols) in enumerate(
+                ec.chain_blocks(d, L, out)):
+            assert offset == _kernel_offset(b, d, L, out)
+            want = torch.zeros((rows, cols), dtype=torch.bfloat16)
+            src = ws[layer][m, k0:k0 + rows, :cols]
+            want[:src.shape[0]] = src
+            assert torch.equal(_read_block(image, offset, rows, cols), want)
+            offset += 2 * rows * cols
+
+
+@pytest.mark.parametrize('out_dim,lanes', [(1, 1), (2, 1), (3, 2), (4, 2),
+                                           (5, 3), (7, 4), (8, 4), (9, 4),
+                                           (128, 4)])
+def test_exchange_slots_carry_the_lanes_of_real_columns(out_dim, lanes):
+    """A lane q of a quad holds columns 2 q, 2 q + 1 of each group of 8: a
+    slot carries 16 bytes from each of the 32 quads' first ``lanes``."""
+    assert lanes == min(4, -(-min(out_dim, 8) // 2))
+    assert ec.exchange_slot_bytes(out_dim) == 32 * lanes * 16
+
+
+def test_flagship_ensemble_exchange_is_double_buffered():
+    lay = ec.eval_layout('ensemble', 5, 7, 1, 262_144, SMS, members=8)
+    assert lay.slots == ec.EXCHANGE_MEMBERS == 2
+    assert ec.exchange_slot_bytes(1) == 512
+
+
+def test_ensemble_layout_ints_follow_the_kernel_struct():
+    lay = ec.eval_layout('ensemble', 5, 7, 1, 4096, SMS, members=8)
+    assert ec.ENSEMBLE_FIELDS[:len(ec.LAYOUT_FIELDS)] == ec.LAYOUT_FIELDS
+    assert ec.ENSEMBLE_FIELDS[len(ec.LAYOUT_FIELDS):] == (
+        'cluster', 'members', 'slots', 'smem_exchange')
+    assert lay.ints() == [getattr(lay, f) for f in ec.ENSEMBLE_FIELDS]
+    # the MC-dropout and anchored kernels read the Layout struct, its start
+    mc = ec.eval_layout('mc', 5, 7, 1, 4096, SMS)
+    assert (mc.cluster, mc.members, mc.slots) == (1, 1, 0)

@@ -106,7 +106,6 @@ def test_kernels_build_with_plain_nvcc():
         'fused_ensemble.cu', 'fused_mc_dropout.cu', 'fused_train.cu',
         'fused_train_bf16.cu', 'kde.cu']
     assert [h.name for h in headers] == ['fused_chain.cuh',
-                                         'fused_chain_bf16.cuh',
                                          'fused_chain_wgmma.cuh',
                                          'fused_train.cuh',
                                          'fused_train_cluster.cuh',

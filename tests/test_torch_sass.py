@@ -1,5 +1,6 @@
 """The SASS reader (``nnueehcs_tpu_torch.sass``), row 2b's mask-hash bound,
-the phase-stamp reader of ``ops/_build.py`` and the phase tools' arithmetic,
+row 4's bound by pipe (``ops/kde.py kde_bound_terms``), the phase-stamp
+reader of ``ops/_build.py`` and the phase tools' arithmetic,
 on the CPU: synthetic ``cuobjdump -sass`` listings and stamp words stand in
 for what the card's toolchain gives."""
 import ast
@@ -14,6 +15,7 @@ import chip_smoke
 from nnueehcs_tpu_torch import sass
 from nnueehcs_tpu_torch.ops import _build
 from nnueehcs_tpu_torch.ops import fused_mc_dropout as mc
+from nnueehcs_tpu_torch.ops import kde
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -205,7 +207,8 @@ def test_read_stamps_gives_slots_and_wall_time():
     assert cycles == list(range(_build.STAMP_SLOTS))
     assert wall_ns == 10 ** 6
     assert set(_build.STAMPED_UNITS) == {'fused_train', 'fused_train_bf16',
-                                         'fused_mc_dropout', 'fused_anchored'}
+                                         'fused_mc_dropout', 'fused_anchored',
+                                         'fused_ensemble', 'kde'}
 
 
 def test_read_stamps_raises_on_a_cuda_error():
@@ -265,3 +268,44 @@ def test_train_phases_sum_each_span_once(joint):
     if not joint:
         assert out['forward'] == pytest.approx(
             us[900] + sum(sum(r.values()) for r in out['forward_layers']))
+
+
+KDE_PAIRS, SMS, CLOCK = 262_144 * 16_384, 132, 1.98e9
+
+
+def test_kde_bound_counts_each_pipe_and_takes_the_least_choice():
+    out = kde.kde_bound_terms(KDE_PAIRS, 5, SMS, CLOCK, 495e12)
+    mufu_only = 1e3 * KDE_PAIRS / 16 / (SMS * CLOCK)       # 1.027 ms
+    assert out['mufu_only_ms'] == pytest.approx(mufu_only)
+    assert out['mufu_only_ms'] == pytest.approx(1.0271, abs=1e-4)
+    assert out['ms'] == max(out['pipes_ms'].values())
+    # moving a share of the exps to the FMA pipe beats the MUFU floor, until
+    # instruction issue (128 a clock per SM) binds beside MUFU
+    assert out['cross'] == 'tensor' and 0.5 < out['mufu_share'] < 1.0
+    assert out['ms'] < mufu_only
+    assert out['pipes_ms']['issue'] == pytest.approx(out['ms'], rel=2e-3)
+    assert out['pipes_ms']['mufu'] == pytest.approx(out['ms'], rel=2e-3)
+    # the 3xTF32 dot of depth 8: 48 FLOP a pair at the TF32 peak
+    assert out['pipes_ms']['tensor'] == pytest.approx(
+        1e3 * KDE_PAIRS * 48 / 495e12)
+
+
+@pytest.mark.parametrize('d,depth', [(1, 8), (6, 8), (7, 16), (8, 16),
+                                     (37, 40)])
+def test_kde_bound_dot_depth_follows_d(d, depth):
+    out = kde.kde_bound_terms(KDE_PAIRS, d, SMS, CLOCK, 495e12, steps=10)
+    if out['cross'] == 'tensor':
+        assert out['pipes_ms']['tensor'] == pytest.approx(
+            1e3 * KDE_PAIRS * 6 * depth / 495e12)
+    assert out['ms'] >= 1e3 * KDE_PAIRS * (
+        kde.LSE_OPS['alu'] / kde.PIPE_RATES['alu']) / (SMS * CLOCK)
+
+
+def test_eval_phase_names_cover_the_cluster_exchange_and_kde():
+    phases = tool('eval_chain_phases')
+    assert {phases.NAMES[i] for i in (11, 12, 13)} == {
+        'dsmem_send', 'dsmem_wait', 'member_statistics'}
+    us, _ = phases.split([0, 10, 20, 30, 40] + [0] * (_build.STAMP_SLOTS - 5),
+                         100, phases.KDE_NAMES)
+    assert list(us) == ['reference_staging', 'tensor_core_products',
+                        'log_sum_exp', 'merge_and_write']

@@ -1,25 +1,27 @@
 #!/usr/bin/env python3
-"""Split the bf16 MC-dropout and anchored eval kernels (kernels 2b and 5b)
-into their phases on one card:
+"""Split the bf16 eval kernels (1b, 2b and 5b) and the KDE kernel (4) into
+their phases on one card:
 
     python3 tools/eval_chain_phases.py [--seed N]
 
 Builds the kernel library with the phase stamps (``csrc/stamps.cuh``,
-``_build.stamped_library``) beside the package's own: thread 0 of block 0
+``_build.stamped_library``) beside the package's own: thread 0 of one block
 then sums the SM clock it spends in each phase, and the wall time of its
-span. Runs each kernel through its wrapper (``fused_mc_forward``,
-``fused_anchored_stats``) on the stamped library once to warm up and once
-stamped at the flagship shape (MC dropout: 262,144 rows x 128 samples,
-p = 0.1; Δ-UQ: 65,536 rows x 229 anchors; 5 inputs, 7 Linear layers 128
-wide, weights from ``--seed``) and prints one JSON line per kernel:
-microseconds per phase of block 0's thread 0 (clock sums scaled by the
-span's wall time), each phase's share, the span's wall time, and the
-wrapper's time by CUDA events on the package's library; then a line of the
-package library's build (``sass.eval_chain_sass``: each form's registers,
-spills and HGMMA instructions, and the MC kernel's mask loop, its
-instructions per hash and their opcodes); then the card's ``nvidia-smi``
-name and power limit. What the thread waits for at a barrier is counted
-in the barrier. It needs a CUDA card.
+span. Runs each kernel through its wrapper on the stamped library once to
+warm up and once stamped at the flagship shape (5 inputs, 7 Linear layers
+128 wide, weights from ``--seed``; MC dropout: 262,144 rows x 128 samples,
+p = 0.1; Δ-UQ: 65,536 rows x 229 anchors; the 8-member ensemble: 262,144
+rows, stamped in block 0, its cluster's leader, and in block 1, a peer
+that sends its member to the leader; KDE: 262,144 queries x 16,384
+references) and prints one JSON line per kernel: microseconds per phase of
+the stamped thread (clock sums scaled by the span's wall time), each
+phase's share, the span's wall time, and the wrapper's time by CUDA events
+on the package's library; then a line of the package library's build
+(``sass.eval_chain_sass``: each form's registers, spills and HGMMA
+instructions, and the MC kernel's mask loop, its instructions per hash and
+their opcodes); then the card's ``nvidia-smi`` name and power limit. What
+the thread waits for at a barrier is counted in the barrier. It needs a
+CUDA card.
 """
 import argparse
 import contextlib
@@ -32,21 +34,29 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from chip_smoke import (ANCHORED_ROWS, IN_DIM, MC_SAMPLES, ROWS,  # noqa: E402
-                        build_anchored, build_mc, in_bf16, ptxas_report)
+from chip_smoke import (ANCHORED_ROWS, IN_DIM, KDE_FIT_ROWS,  # noqa: E402
+                        MC_SAMPLES, ROWS, build_anchored, build_mc,
+                        build_model, in_bf16, ptxas_report)
 from nnueehcs_tpu_torch.attrib import event_ms, nvidia_smi  # noqa: E402
 from nnueehcs_tpu_torch.model_builder import DeltaUQMLPModelBuilder  # noqa: E402
 from nnueehcs_tpu_torch.ops import _build  # noqa: E402
 from nnueehcs_tpu_torch.ops import fused_anchored as fa  # noqa: E402
 from nnueehcs_tpu_torch.ops import fused_mc_dropout as mc  # noqa: E402
+from nnueehcs_tpu_torch.ops.fused_ensemble import (  # noqa: E402
+    fused_forward_prefolded, prepare_fused_weights)
+from nnueehcs_tpu_torch.ops.kde import bandwidth_value, kde_logpdf  # noqa: E402
 from nnueehcs_tpu_torch.sass import eval_chain_sass  # noqa: E402
 
 # the phase ids the kernels stamp (fused_chain_wgmma.cuh, fused_mc_dropout.cu,
-# fused_anchored.cu)
+# fused_anchored.cu, fused_ensemble.cu), and kde.cu's
 NAMES = {0: 'other', 1: 'weights_wait', 2: 'x_fragments',
          3: 'products_issue', 4: 'mask_hash_in_flight', 5: 'products_wait',
          6: 'epilogue', 7: 'u_plus_v', 8: 'last_layer_and_statistics',
-         9: 'write_statistics', 10: 'slot_release'}
+         9: 'write_statistics', 10: 'slot_release', 11: 'dsmem_send',
+         12: 'dsmem_wait', 13: 'member_statistics'}
+KDE_NAMES = {0: 'query_operands', 1: 'reference_staging',
+             2: 'tensor_core_products', 3: 'log_sum_exp',
+             4: 'merge_and_write'}
 
 
 @contextlib.contextmanager
@@ -60,26 +70,29 @@ def wrappers_on(lib):
         _build.library = package
 
 
-def split(cycles, wall_ns):
+def split(cycles, wall_ns, names=NAMES):
     """{phase: us} and the clock rate (cycles a ns) from the stamps."""
     per_ns = sum(cycles) / wall_ns if wall_ns else float('nan')
-    us = {NAMES.get(i, f'phase_{i}'): c / per_ns / 1e3
+    us = {names.get(i, f'phase_{i}'): c / per_ns / 1e3
           for i, c in enumerate(cycles) if c}
     return us, per_ns
 
 
-def run(lib, unit, launch):
+def run(lib, unit, launch, block=0, names=NAMES):
+    _build.stamp_block(lib, unit, block)
     with wrappers_on(lib):
         launch()
         torch.cuda.synchronize()
         _build.read_stamps(lib, unit)     # clears the warm-up's
         launch()
         torch.cuda.synchronize()
+    _build.stamp_block(lib, unit, 0)
     cycles, wall_ns = _build.read_stamps(lib, unit)
-    us, per_ns = split(cycles, wall_ns)
+    us, per_ns = split(cycles, wall_ns, names)
     total = sum(us.values())
     return {'us': us, 'share': {k: v / total for k, v in us.items()},
-            'block_wall_us': wall_ns / 1e3, 'sm_clock_ghz': per_ns}
+            'block': block, 'block_wall_us': wall_ns / 1e3,
+            'sm_clock_ghz': per_ns}
 
 
 def main(argv=None):
@@ -100,18 +113,36 @@ def main(argv=None):
     xa = x[:ANCHORED_ROWS].contiguous()
     anchors = torch.as_tensor(dq.anchors, dtype=torch.float32, device='cuda')
 
+    fw16 = in_bf16(build_model(args.seed), prepare_fused_weights)
+    corpus = torch.as_tensor(rng.normal(size=(KDE_FIT_ROWS, IN_DIM)),
+                             dtype=torch.float32, device='cuda')
+    h = bandwidth_value('silverman', KDE_FIT_ROWS, IN_DIM)
+
     def mc_launch():
         mc.fused_mc_forward(mw, x, MC_SAMPLES, 7)
 
     def dq_launch():
         fa.fused_anchored_stats(aw, xa, anchors)
 
-    for name, unit, launch, shape in (
+    def ens_launch():
+        fused_forward_prefolded(fw16, x)
+
+    def kde_launch():
+        kde_logpdf(x, corpus, h)
+
+    ens_shape = {'rows': ROWS, 'members': fw16.num_members}
+    for name, unit, launch, shape, block, names in (
             ('fused_mc_dropout_bf16', 'fused_mc_dropout', mc_launch,
-             {'rows': ROWS, 'samples': MC_SAMPLES}),
+             {'rows': ROWS, 'samples': MC_SAMPLES}, 0, NAMES),
             ('fused_anchored_bf16', 'fused_anchored', dq_launch,
-             {'rows': ANCHORED_ROWS, 'anchors': anchors.shape[0]})):
-        out = run(lib, unit, launch)
+             {'rows': ANCHORED_ROWS, 'anchors': anchors.shape[0]}, 0, NAMES),
+            ('fused_ensemble_bf16 leader', 'fused_ensemble', ens_launch,
+             ens_shape, 0, NAMES),
+            ('fused_ensemble_bf16 peer', 'fused_ensemble', ens_launch,
+             ens_shape, 1, NAMES),
+            ('kde', 'kde', kde_launch,
+             {'rows': ROWS, 'references': KDE_FIT_ROWS}, 0, KDE_NAMES)):
+        out = run(lib, unit, launch, block, names)
         kernel_t = event_ms(launch, warmup=2, trials=5)
         print(json.dumps({'kernel': name, **shape, **out,
                           'wrapper_ms_unstamped': kernel_t['median_ms'],

@@ -1,0 +1,98 @@
+#!/usr/bin/env python3
+"""Time kernels 1b (the bf16 ensemble), 10b (its packed probe) and 4 (KDE)
+at the flagship shapes on one card, from the package of a given tree:
+
+    python3 tools/time_kernels.py [--tree DIR] [--seed N]
+
+``--tree`` is the root of a checkout of this repository (default: this
+one); its package and its ``chip_smoke.py`` are imported from there and its
+kernels built into its own ``build/``, so two trees (a parent commit
+unpacked with ``git archive`` and this one) can be timed in turns in one
+call on one card. Shapes: the 8-member ensemble (5 inputs, 7 Linear layers
+128 wide, weights from ``--seed``, bf16-mixed) on 262,144 rows, the packed
+probe on the same rows padded to 128 features, and the KDE log density of
+262,144 queries under a 16,384 x 5 corpus. Each kernel: CUDA events over
+10 passes after 5 warm-ups (``attrib.event_ms``). Prints one JSON line per
+kernel (median, extremes, spread, the tree, the card's name), then the
+card's ``nvidia-smi`` name and power limit. It needs a CUDA card.
+
+``--ensemble-forms`` (this tree only) also times kernel 1b with fewer
+consumer warpgroups than its layout takes (``MAX_WARPGROUPS['ensemble']``
+lowered), and the same chains without the exchange: one member on eight
+times the rows, one block a unit of tiles.
+"""
+import argparse
+import json
+import os
+import sys
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('--tree', default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    parser.add_argument('--seed', type=int, default=0)
+    parser.add_argument('--ensemble-forms', action='store_true')
+    args = parser.parse_args(argv)
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    if not torch.cuda.is_available():
+        print('time_kernels: no CUDA card', file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from nnueehcs_tpu_torch.attrib import event_ms, nvidia_smi
+    from nnueehcs_tpu_torch.ops import ablate_forward as af
+    from nnueehcs_tpu_torch.ops.fused_ensemble import (
+        fused_forward_prefolded, prepare_fused_weights)
+    from nnueehcs_tpu_torch.ops.kde import bandwidth_value, kde_logpdf
+    package = os.path.dirname(sys.modules['nnueehcs_tpu_torch'].__file__)
+    if not package.startswith(tree):
+        raise RuntimeError(f'imported {package}, not the tree {tree}')
+
+    kind = torch.cuda.get_device_name(0)
+    rng = np.random.default_rng(args.seed)
+    x = torch.as_tensor(rng.normal(size=(cs.ROWS, cs.IN_DIM)),
+                        dtype=torch.float32, device='cuda')
+    x_pad = F.pad(x, (0, cs.WIDTH - cs.IN_DIM))
+    fw16 = cs.in_bf16(cs.build_model(args.seed), prepare_fused_weights)
+    corpus = torch.as_tensor(rng.normal(size=(cs.KDE_FIT_ROWS, cs.IN_DIM)),
+                             dtype=torch.float32, device='cuda')
+    h = bandwidth_value('silverman', cs.KDE_FIT_ROWS, cs.IN_DIM)
+    for name, run, shape in (
+            ('fused_ensemble_bf16', lambda: fused_forward_prefolded(fw16, x),
+             {'rows': cs.ROWS, 'members': fw16.num_members}),
+            ('packed_forward_bf16', lambda: af.packed_forward(fw16, x_pad),
+             {'rows': cs.ROWS, 'members': fw16.num_members}),
+            ('kde', lambda: kde_logpdf(x, corpus, h),
+             {'rows': cs.ROWS, 'references': cs.KDE_FIT_ROWS,
+              'features': cs.IN_DIM})):
+        print(json.dumps({'kernel': name, 'tree': tree, **shape,
+                          **event_ms(run), 'device': kind}), flush=True)
+    if args.ensemble_forms:
+        from nnueehcs_tpu_torch.ops import fused_eval_chain as ec
+        most = ec.MAX_WARPGROUPS['ensemble']
+        for wgs in range(most - 1, 0, -1):
+            ec.MAX_WARPGROUPS['ensemble'] = wgs
+            print(json.dumps({
+                'kernel': 'fused_ensemble_bf16', 'warpgroups': wgs,
+                'rows': cs.ROWS, 'members': fw16.num_members,
+                **event_ms(lambda: fused_forward_prefolded(fw16, x)),
+                'device': kind}), flush=True)
+        ec.MAX_WARPGROUPS['ensemble'] = most
+        one = cs.in_bf16(cs.build_model(args.seed, members=1),
+                         prepare_fused_weights)
+        x8 = x.repeat(fw16.num_members, 1)
+        print(json.dumps({
+            'kernel': 'fused_ensemble_bf16', 'members': 1,
+            'rows': x8.shape[0], 'note': 'the same chains, no exchange',
+            **event_ms(lambda: fused_forward_prefolded(one, x8)),
+            'device': kind}), flush=True)
+    print(nvidia_smi('name,power.limit'), flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())
