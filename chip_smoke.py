@@ -63,7 +63,25 @@ validation loss; Δ-UQ and PAGER (229 anchors) train for 2 epochs in fp32
 and in bf16, epoch 0 step by step while their hooks capture the anchors,
 epoch 1 through the training kernel at the doubled batch, with every
 launch count checked; the bf16 form's epoch is timed beside its plain
-version, an autocast yardstick and its bound. It prints one JSON line per
+version, an autocast yardstick and its bound. Last, the ``bo_trial``
+phase runs the system's main path, the BO experiment loop
+(``nnueehcs_tpu_torch.driver.run_bo_experiment``: data, training,
+evaluation, metrics, BO, results tree), on
+``examples/bo_driven/config.yaml`` read by the port's YAML reader: the
+flagship ensemble cell on binomial_options, 262,144 rows generated by the
+port's ``datagen`` from ``--seed`` and written as a tab-delimited file, 2
+epochs a trial, 2 trials, then a restart to 3 that must run the third
+only, then one trial with ``eval_precision: 'bf16-mixed'``. Each run has
+every launch count set to 0 just before and read just after: kernel 3
+once an epoch, kernel 1 once a validation batch and as often as the
+evaluation protocol and the configured metrics imply (its bf16 form for
+the UE passes of the bf16 trial, and then no fp32 form beyond validation),
+no other kernel; the native parser read every data file; each trial wrote
+its files and no failed row. The first trial's recorded
+``percentile_score`` must match a recomputation from its reloaded bundle's
+UEs through kernel 1's plain version on the card, and the config's
+``max_memory_usage`` metric on the bf16 trial's bundle must lie between 0
+and the card's memory. It prints one JSON line per
 phase, then the card's ``nvidia-smi`` name and power limit, then a
 ``{"kernels": [...]}`` line (fifteen kernels: the ten fp32 ones, then the
 five bf16 forms), and last ``{"ok": true, "device": {...}}``. Any failure
@@ -77,6 +95,7 @@ import json
 import re
 import shutil
 import sys
+import tempfile
 import time
 
 import csv
@@ -94,6 +113,8 @@ from nnueehcs_tpu_torch.model_builder import (DeltaUQMLPModelBuilder,
                                               MVEModelBuilder,
                                               PAGERModelBuilder)
 from nnueehcs_tpu_torch import attrib
+from nnueehcs_tpu_torch import config as config_reader
+from nnueehcs_tpu_torch import datagen
 from nnueehcs_tpu_torch.attrib import (TOL_MEAN, TOL_STD, TOL_TRAIN,
                                        bf16_close, bf16_peak, bound, check,
                                        event_ms, flip_reach, nvidia_smi,
@@ -101,6 +122,14 @@ from nnueehcs_tpu_torch.attrib import (TOL_MEAN, TOL_STD, TOL_TRAIN,
                                        stepwise_vs_plain, train_flops,
                                        train_rest_flops)
 from nnueehcs_tpu_torch.convert import tensor_trees
+from nnueehcs_tpu_torch.data_utils import get_dataset, prepare_dataset_for_use
+from nnueehcs_tpu_torch.driver import run_bo_experiment
+from nnueehcs_tpu_torch.evaluation import (RuntimeEvaluation,
+                                           UncertaintyEvaluationMetric,
+                                           get_evaluator,
+                                           get_uncertainty_evaluator)
+from nnueehcs_tpu_torch.models import base as model_base
+from nnueehcs_tpu_torch.native import load_delimited
 from nnueehcs_tpu_torch.ops import _build
 from nnueehcs_tpu_torch.ops import ablate_epoch as ae
 from nnueehcs_tpu_torch.ops import ablate_forward as af
@@ -125,6 +154,7 @@ from nnueehcs_tpu_torch.serving import DEFAULT_BUCKETS, Predictor
 from nnueehcs_tpu_torch.training import (ArrayDataset, DataLoader,
                                          EarlyStopping, ModelSavingCallback,
                                          Trainer, load_model)
+from nnueehcs_tpu_torch.utility import ResultsTable
 from nnueehcs_tpu_torch.utils.timing import timed_passes
 
 # flagship surrogate (bench.py): 8 members, 5 inputs, 6 x [Linear 128 ->
@@ -336,6 +366,16 @@ PLAIN_ABLATE_STEPS = 20                      # the plain epoch, scaled
 # which the two pipes together never exceed.
 EX2_PER_SM_PER_CLOCK = 16
 INT_PIPE_PER_SM_PER_CLOCK = 64
+# the BO trial phase: the system's main path (run_bo_experiment) on the
+# committed BO config, the flagship ensemble on binomial_options at the
+# bench's 262,144 rows written as a tab-delimited file, 2 epochs a trial
+BO_CONFIG = os.path.join('examples', 'bo_driven', 'config.yaml')
+BO_BENCHMARK, BO_METHOD, BO_SPLIT = 'binomial_options', 'ensemble', 'tails'
+BO_ROWS, BO_EPOCHS = 262_144, 2
+BO_TRIALS, BO_RESTART_TRIALS = 2, 3
+BO_FILES = ('ax_client.json', 'ax_client_optimization_step.json',
+            'trial_results.csv', 'metrics.csv', 'model.pth')
+BO_DIR = 'build'                     # its temporary directory lives here
 
 
 def emit(phase, **fields):
@@ -814,6 +854,234 @@ def bf16_judge(name, reference16, reference32):
 def check_launches(name, launches, **expected):
     want = {k: expected.get(k, 0) for k in WRAPPERS}
     check(launches == want, f'{name}: launches {launches}, expected {want}')
+
+
+def bo_config(data_path, trials, **uq):
+    """``examples/bo_driven/config.yaml`` read by the port's YAML reader,
+    its binomial_options tails split pointed at the tab-delimited
+    ``data_path``, BO_EPOCHS epochs a trial and ``trials`` trials; ``uq``
+    added to the ensemble's section (``eval_precision``). The rest of the
+    trainer and training sections stay as committed: batch 128, lr 5e-5,
+    clip 5, 1,000 steps an epoch, 100 validation batches, l1."""
+    cfg = config_reader.load_path(BO_CONFIG)
+    cfg['trainer']['max_epochs'] = BO_EPOCHS
+    cfg['bo_config']['trials'] = trials
+    datasets = cfg['benchmarks'][BO_BENCHMARK]['datasets']
+    for split, percentiles in (('tails_id', '[0, 70]'),
+                               ('tails_ood', '[70, 100]')):
+        datasets[split] = {'format': 'character_delimited',
+                           'path': data_path, 'delimiter': '\t',
+                           'percentiles': percentiles, 'dtype': 'float32'}
+    cfg['uq_methods'][BO_METHOD].update(uq)
+    return cfg
+
+
+def passes(n):
+    """Kernel launches of one model call on ``n`` rows: one a chunk of up
+    to 2^19 rows."""
+    return -(-n // model_base._MAX_BUCKET)
+
+
+def bo_trial_launches(cfg, n_id, n_ood):
+    """Kernel 1's launches in one trial of ``cfg`` on ``n_id`` ID and
+    ``n_ood`` OOD rows: (the fit's validation passes, the evaluation's UE
+    passes)."""
+    batch = next(p['value'] for p in cfg['training']['parameter_space']
+                 if p['name'] == 'batch_size')
+    trainer = cfg['trainer']
+    # a validation batch a pass, the fit validating on the ID rows
+    val = trainer['max_epochs'] * min(trainer['limit_val_batches'],
+                                      -(-n_id // batch)) * passes(batch)
+    n_all = n_id + n_ood
+    # driver.evaluate: WARMUP passes on ID, one warm and TRIALS timed
+    # passes each on combined, ID and OOD, then one on ID and one on OOD
+    ue = (WARMUP * passes(n_id)
+          + (1 + TRIALS) * (passes(n_all) + passes(n_id) + passes(n_ood))
+          + passes(n_id) + passes(n_ood))
+    for metric in get_uncertainty_evaluator(
+            cfg['bo_config']['evaluation_metric']).metrics:
+        if isinstance(metric, RuntimeEvaluation):
+            ue += (metric.num_warmup + metric.num_trials) * passes(n_all)
+        elif isinstance(metric, UncertaintyEvaluationMetric):
+            ue += passes(n_id) + passes(n_ood)
+        else:
+            raise ValueError(f'bo_trial: no launch count for {metric}')
+    return val, ue
+
+
+def bo_run(label, cfg, out, restart, new_trials, n_id, n_ood, bf16=False):
+    """One ``run_bo_experiment`` call of the BO trial phase, with every
+    launch count and the native parser's read count set to 0 just before
+    and read just after. Checks that the trials ``new_trials`` (and no
+    other) ran: their files, the parser's three reads a trial (training,
+    ID and OOD sets), kernel 3 once an epoch, kernel 1 for each validation
+    batch and as often as the evaluation protocol implies (its bf16 form
+    for the UE passes with ``bf16``, the fp32 form then only for
+    validation), no other kernel, no failed row; emits each trial's times.
+    Returns the rows of ``trial_results.csv`` by trial and the run's
+    seconds."""
+    reset_launches()
+    load_delimited.native_reads = 0
+    start = time.time()
+    results = run_bo_experiment(BO_BENCHMARK, BO_METHOD, cfg, BO_SPLIT, out,
+                                restart=restart)
+    torch.cuda.synchronize()
+    seconds = time.time() - start
+    launches = read_launches()
+    reads = load_delimited.native_reads
+    trials = len(new_trials)
+    check(reads == 3 * trials, f'bo_trial {label}: the native parser read '
+                               f'{reads} files, expected {3 * trials}')
+    val, ue = bo_trial_launches(cfg, n_id, n_ood)
+    expected = {'fused_train': BO_EPOCHS * trials}
+    if bf16:
+        expected.update(fused_ensemble=val * trials,
+                        fused_ensemble_bf16=ue * trials)
+    else:
+        expected['fused_ensemble'] = (val + ue) * trials
+    check_launches(f'bo_trial {label}', launches, **expected)
+    method_dir = os.path.join(out, BO_BENCHMARK, BO_SPLIT, BO_METHOD)
+    check(sorted(os.listdir(method_dir)) == sorted(
+        f'bo_trial_{k}' for k in range(new_trials[-1] + 1)),
+        f'bo_trial {label}: trial directories {os.listdir(method_dir)}')
+    last = os.path.join(method_dir, f'bo_trial_{new_trials[-1]}')
+    check(os.path.isfile(os.path.join(last, 'pareto_parameters.json')),
+          f'bo_trial {label}: no pareto_parameters.json in {last}')
+    rows = {r['trial']: r for r in ResultsTable(
+        os.path.join(last, 'trial_results.csv')).records()}
+    check(sorted(rows) == sorted(results) == list(range(new_trials[-1] + 1)),
+          f'bo_trial {label}: trials {sorted(rows)} recorded, '
+          f'{sorted(results)} returned')
+    done = start
+    for k in new_trials:
+        trial_dir = os.path.join(method_dir, f'bo_trial_{k}')
+        missing = [f for f in BO_FILES
+                   if not os.path.isfile(os.path.join(trial_dir, f))]
+        check(not missing, f'bo_trial {label}: {trial_dir} lacks {missing}')
+        row = rows[k]
+        check(row['failed'] is False and row['platform'] == 'gpu',
+              f'bo_trial {label}: trial {k} failed or ran off the card: '
+              f'{row}')
+        finished = os.stat(os.path.join(
+            trial_dir, 'ax_client_optimization_step.json')).st_mtime
+        emit('bo_trial', run=label, trial=k, num_models=row['num_models'],
+             train_time_s=row['train_time'], ue_time_s=row['ue_time'],
+             ue_throughput=row['ue_throughput'], wall_s=finished - done,
+             id_time_s=row['id_time'], ood_time_s=row['ood_time'],
+             percentile_score=row['percentile_score'],
+             uncertainty_estimating_throughput=row[
+                 'uncertainty_estimating_throughput'],
+             max_memory_usage_mb=row.get('max_memory_usage'),
+             id_loss=row['id_loss'], ood_loss=row['ood_loss'])
+        done = finished
+    emit('bo_trial_run', run=label, trials=list(new_trials), seconds=seconds,
+         launches=launches, expected_launches={k: v for k, v in
+                                               expected.items()},
+         native_reads=reads, id_rows=n_id, ood_rows=n_ood)
+    return rows, seconds
+
+
+def bo_data(cfg):
+    """The ID and OOD sets of ``cfg``'s tails split, scaled as the driver
+    scales them (OOD by the ID statistics)."""
+    datasets = cfg['benchmarks'][BO_BENCHMARK]['datasets']
+    dset_id = get_dataset(datasets, BO_SPLIT)
+    dset_ood = prepare_dataset_for_use(
+        get_dataset(datasets, BO_SPLIT, is_ood=True), cfg['training'],
+        scaling_dset=dset_id)
+    return prepare_dataset_for_use(dset_id, cfg['training']), dset_ood
+
+
+def bo_trial_phase(seed):
+    """The system's main path on the card: ``run_bo_experiment`` of the
+    flagship ensemble on binomial_options (``datagen`` at BO_ROWS rows
+    from ``seed``, written tab-delimited), BO_TRIALS trials, then a
+    restart to BO_RESTART_TRIALS that must run the last trial only, then
+    one trial with ``eval_precision: 'bf16-mixed'``. The first trial's
+    recorded ``percentile_score`` must match the one recomputed from its
+    reloaded bundle's UEs through kernel 1's plain version on the card,
+    within TOL_STD; the bf16 trial's bundle is measured by the config's
+    post-hoc ``max_memory_usage`` metric (the BO metrics do not take
+    it)."""
+    os.makedirs(BO_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BO_DIR,
+                                     prefix='chip_smoke_bo-') as tmp:
+        start = time.time()
+        ipt, opt = datagen.generate_binomial_options(BO_ROWS, seed=seed)
+        data_path = os.path.join(tmp, 'binomial_options.tsv')
+        datagen.write_delimited(data_path, ipt, opt, '\t')
+        data_s = time.time() - start
+        cfg = bo_config(data_path, BO_TRIALS)
+        dset_id, dset_ood = bo_data(cfg)
+        n_id, n_ood = len(dset_id), len(dset_ood)
+        out = os.path.join(tmp, 'results')
+        rows, fresh_s = bo_run('fresh', cfg, out, False,
+                               list(range(BO_TRIALS)), n_id, n_ood)
+        method_dir = os.path.join(out, BO_BENCHMARK, BO_SPLIT, BO_METHOD)
+
+        def stamps():
+            return {k: os.stat(os.path.join(method_dir, f'bo_trial_{k}', f))
+                    .st_mtime_ns for k in range(BO_TRIALS) for f in BO_FILES}
+        before = stamps()
+        rows3, restart_s = bo_run(
+            'restart', bo_config(data_path, BO_RESTART_TRIALS), out, True,
+            list(range(BO_TRIALS, BO_RESTART_TRIALS)), n_id, n_ood)
+        check(stamps() == before, 'bo_trial restart: an earlier trial\'s '
+                                  'files were written again')
+        check(all(json.dumps(rows3[k], sort_keys=True)
+                  == json.dumps(rows[k], sort_keys=True) for k in rows),
+              'bo_trial restart: the earlier trials\' rows changed')
+
+        # the recorded percentile_score against the reloaded bundle's UEs
+        # through kernel 1's plain version on the card
+        bundle = load_model(os.path.join(method_dir, 'bo_trial_0',
+                                         'model.pth'), device=DEVICE)
+        x_id = torch.as_tensor(np.asarray(dset_id.input), device=DEVICE)
+        with torch.no_grad():
+            _, std = fused_forward_plain(prepare_fused_weights(bundle.net),
+                                         x_id)
+        percentile = next(m['percentile'] for m in
+                          cfg['bo_config']['evaluation_metric']
+                          if m['name'] == 'percentile_score')
+        want = float(np.percentile(std.cpu().numpy(), percentile))
+        got = rows[0]['percentile_score']
+        score_err = abs(got - want)
+        check(score_err <= TOL_STD['atol'] + TOL_STD['rtol'] * abs(want),
+              f'bo_trial: trial 0 recorded percentile_score {got}, the '
+              f'plain version gives {want} (tolerance {TOL_STD})')
+        del bundle, x_id, std
+
+        # one trial's UE passes in bf16-mixed (training stays fp32)
+        out16 = os.path.join(tmp, 'results_bf16')
+        _, bf16_s = bo_run('bf16_eval', bo_config(
+            data_path, 1, eval_precision='bf16-mixed'), out16, False, [0],
+            n_id, n_ood, bf16=True)
+        # the config's post-hoc memory metric on that trial's bundle, in
+        # bf16-mixed: one pass over the combined rows
+        bundle = load_model(os.path.join(out16, BO_BENCHMARK, BO_SPLIT,
+                                         BO_METHOD, 'bo_trial_0',
+                                         'model.pth'), device=DEVICE)
+        bundle.set_precision('bf16-mixed')
+        memory = get_evaluator([m for m in cfg['evaluation']['metrics']
+                                if m['name'] == 'max_memory_usage'])
+        check(len(memory.metrics) == 1,
+              f'{BO_CONFIG} configures no max_memory_usage metric')
+        reset_launches()
+        memory_mb = memory.evaluate(
+            bundle, (dset_id.input, dset_id.output),
+            (dset_ood.input, dset_ood.output))['max_memory_usage']
+        check_launches('bo_trial max_memory_usage', read_launches(),
+                       fused_ensemble_bf16=passes(n_id + n_ood))
+        card_mb = torch.cuda.get_device_properties(0).total_memory / 2 ** 20
+        check(0 < memory_mb < card_mb,
+              f'bo_trial bf16_eval: max_memory_usage {memory_mb} MB, the '
+              f'card holds {card_mb} MB')
+    emit('bo_trial_summary', rows=BO_ROWS, epochs=BO_EPOCHS,
+         data_s=data_s, fresh_s=fresh_s, restart_s=restart_s, bf16_s=bf16_s,
+         percentile_score=got, percentile_score_plain=want,
+         percentile_score_abs_err=score_err, tol=TOL_STD,
+         max_memory_usage_mb=memory_mb, card_mb=card_mb,
+         seconds=time.time() - start)
 
 
 def main():
@@ -1962,6 +2230,10 @@ def main():
     kernels += kernels_bf16
     check([k['name'] for k in kernels] == [k['name'] for k in KERNELS],
           'the kernels line is out of order')
+
+    # 8. the BO trial: data -> train -> evaluate -> metrics -> BO ->
+    # results tree, through the port's driver
+    bo_trial_phase(args.seed)
 
     print(smi, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)

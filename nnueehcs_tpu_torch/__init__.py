@@ -9,18 +9,30 @@ wrappers and builders, ``model.pth`` bundles and the bucketed
 models (``training.Trainer``). The fused UE passes, the KDE density and the
 whole training epoch are hand-written CUDA kernels for Hopper
 (``ops/csrc/*.cu``: ensemble, MC dropout, anchored, KDE, training), each
-beside its plain PyTorch version.
+beside its plain PyTorch version. It runs the BO experiment loop
+(``driver.run_bo_experiment``, ``python -m nnueehcs_tpu_torch.driver``):
+the datasets (``data_utils``, ``datagen``, the native delimited parser),
+the metrics (``evaluation``, ``classification``), the BO engine (``bo``),
+the results tree (``utility``) and a reader for the configs' YAML subset
+(``config``).
 Entry points take ``device`` (default ``'cuda'``) and never fall back to
 the CPU on their own.
 """
 
 __version__ = '0.1.0'
 
+from . import bo
+from . import classification
+from . import config
 from . import convert
+from . import data_utils
+from . import datagen
+from . import evaluation
 from . import model_builder
 from . import models
 from . import nn
 from . import ops
 from . import serving
 from . import training
+from . import utility
 from . import utils

@@ -110,6 +110,11 @@ class WrappedModelBase:
         self.net.to(resolve_device(device))
         return self
 
+    def eval(self):
+        """No-op kept for the JAX package's API (the metrics call it): the
+        network is in evaluation mode outside the trainer's steps."""
+        return self
+
     def init(self, generator: torch.Generator):
         """Draw fresh parameters from ``generator``."""
         self.net.reset_parameters(generator)

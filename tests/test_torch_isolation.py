@@ -55,6 +55,44 @@ def test_port_and_chip_smoke_import_with_heavy_packages_blocked():
     assert int(proc.stdout.split()[-1]) >= 24
 
 
+_DRIVER_HELP = _IMPORT_ALL.split('import nnueehcs_tpu_torch\n')[0] + r'''
+import contextlib, io, json, runpy
+from nnueehcs_tpu_torch import config
+out = io.StringIO()
+sys.argv = ['nnueehcs_tpu_torch.driver', '--help']
+try:
+    with contextlib.redirect_stdout(out):
+        runpy.run_module('nnueehcs_tpu_torch.driver', run_name='__main__')
+except SystemExit as e:
+    assert e.code == 0, e.code
+cfg = config.load_path(sys.argv_config)
+leaked = sorted(n for n in sys.modules if n.split('.')[0] in BLOCKED)
+assert not leaked, leaked
+print(json.dumps({'help': out.getvalue(), 'config': cfg}))
+'''
+
+
+def test_driver_cli_and_config_reader_run_with_heavy_packages_blocked():
+    """``python -m nnueehcs_tpu_torch.driver --help`` and a committed config
+    read through ``nnueehcs_tpu_torch.config``, with yaml, pandas, h5py,
+    click and the rest blocked."""
+    import json
+    import yaml
+    path = os.path.join(REPO, 'examples', 'bo_driven', 'config.yaml')
+    script = _DRIVER_HELP.replace('sys.argv_config', repr(path))
+    proc = subprocess.run(
+        [sys.executable, '-c', script, ','.join(BLOCKED)], cwd=REPO,
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.splitlines()[-1])
+    for flag in ('--benchmark', '--uq_method', '--config', '--dataset',
+                 '--output', '--restart', '--device'):
+        assert flag in result['help']
+    with open(path) as f:
+        assert result['config'] == json.loads(json.dumps(yaml.safe_load(f)))
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)

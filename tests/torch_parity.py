@@ -4,6 +4,8 @@ counterparts on the CPU, and the comparison tolerances."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from nnueehcs_tpu.model_builder import EnsembleModelBuilder
 from nnueehcs_tpu_torch.training.checkpoint import FORMAT, build_from_bundle
@@ -12,6 +14,18 @@ from nnueehcs_tpu_torch.training.checkpoint import FORMAT, build_from_bundle
 # variance against the two-pass reference (tests/test_fused_ensemble.py)
 TOL_MEAN = {'rtol': 1e-5, 'atol': 1e-5}
 TOL_STD = {'rtol': 1e-3, 'atol': 1e-5}
+
+
+@pytest.fixture(scope='module')
+def one_torch_thread():
+    """torch on one intra-op thread for a module's tests: the suite runs
+    several pytest-xdist workers on the same cores, and there the many
+    small tensor ops of a BO loop or a GP fit spend their time waiting on
+    the other workers' thread pools."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def descr(in_dim=5, width=32, hidden=2, out_dim=1, bn=True):
