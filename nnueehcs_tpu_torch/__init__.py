@@ -13,8 +13,11 @@ beside its plain PyTorch version. It runs the BO experiment loop
 (``driver.run_bo_experiment``, ``python -m nnueehcs_tpu_torch.driver``):
 the datasets (``data_utils``, ``datagen``, the native delimited parser),
 the metrics (``evaluation``, ``classification``), the BO engine (``bo``),
-the results tree (``utility``) and a reader for the configs' YAML subset
-(``config``).
+the results tree (``utility``) and a reader and writer of the configs'
+YAML subset (``config``). The user entry points of ``examples/`` (the HTTP
+server, the post-hoc metric and classification tools, collate, the
+workflow drivers, the data generator) are ported under ``examples/``,
+profiling helpers on ``torch.profiler`` under ``utils/profiling.py``.
 Entry points take ``device`` (default ``'cuda'``) and never fall back to
 the CPU on their own.
 """

@@ -316,16 +316,24 @@ def bf16_close(name, got, want, fp32, rms_share=BF16_RMS_SHARE, gate=True,
         out['bar_rms'] = max(out['bar_rms'],
                              BF16_WITNESS_SHARE * out['witness_rms'])
     out['bar_max'] = BF16_MAX_SHARE * out['gap_max']
-    if gate and (out['rms_err'] > out['bar_rms']
-                 or out['max_abs_err'] > out['bar_max']):
-        raise RuntimeError(f'{name}: error rms {out["rms_err"]:.3e} (bar '
-                           f'{out["bar_rms"]:.3e}), max '
-                           f'{out["max_abs_err"]:.3e} (bar '
-                           f'{out["bar_max"]:.3e}); bf16-vs-fp32 gap rms '
-                           f'{out["gap_rms"]:.3e}, max {out["gap_max"]:.3e}')
+    verdict = bf16_verdict(name, out)
+    if gate and verdict:
+        raise RuntimeError(verdict)
     beyond = err.abs() > TOL_MEAN['atol'] + TOL_MEAN['rtol'] * want.abs()
     out['share_beyond_fp32_bars'] = float(beyond.double().mean())
     return out
+
+
+def bf16_verdict(name, res):
+    """None when :func:`bf16_close`'s result ``res`` is within both bars,
+    else the message that names the bar it passed."""
+    if (res['rms_err'] <= res['bar_rms']
+            and res['max_abs_err'] <= res['bar_max']):
+        return None
+    return (f'{name}: error rms {res["rms_err"]:.3e} (bar '
+            f'{res["bar_rms"]:.3e}), max {res["max_abs_err"]:.3e} (bar '
+            f'{res["bar_max"]:.3e}); bf16-vs-fp32 gap rms '
+            f'{res["gap_rms"]:.3e}, max {res["gap_max"]:.3e}')
 
 
 def _equal(name, got, want):
@@ -666,7 +674,8 @@ def loss_flips(plan, m0, got_m, want_m):
             + 8 * eg).any(dim=1)
 
 
-def stepwise_vs_plain_bf16(plan, bufs, xs, ys, lr, step0, seed, drops):
+def stepwise_vs_plain_bf16(plan, bufs, xs, ys, lr, step0, seed, drops,
+                           gate=True, on_step=None, epoch=None):
     """Kernel 3's bf16 form against its plain version one step at a time,
     each step from the plain bf16 version's state, beside the plain fp32
     step from the same state for the bf16-vs-fp32 gap. Both bf16 versions
@@ -680,8 +689,14 @@ def stepwise_vs_plain_bf16(plan, bufs, xs, ys, lr, step0, seed, drops):
     the plain bf16 epoch on the host as the witness of two correct bf16
     versions (BF16_WITNESS_SHARE). A bf16 rounding that goes the other way
     moves values by whole bf16 units, so the bars are on the gap, not on
-    fp32 round-off. Returns the counts and each buffer's largest error and
-    error shares."""
+    fp32 round-off. Raises at the first bar passed; with ``gate`` False it
+    runs every step and lists the bars passed under ``failures`` (and the
+    first such step under ``first_failed_step``). ``on_step`` receives
+    each step's record (flips, loss flips, v's error, each buffer's error
+    shares, the bars it passed). ``epoch`` is the kernel held (default
+    ``ft.fused_epoch``). Returns the counts and each buffer's largest
+    error and error shares."""
+    epoch = epoch or ft.fused_epoch
     plan32 = dataclasses.replace(plan, bf16=False)
     state = [b.clone() for b in bufs]
     shape = (1, plan.num_members, plan.n_bn, plan.batch, ft.LANES)
@@ -693,7 +708,18 @@ def stepwise_vs_plain_bf16(plan, bufs, xs, ys, lr, step0, seed, drops):
            'max_abs_err': dict.fromkeys(TOL_TRAIN, 0.0),
            'rms_share_max': dict.fromkeys(shares, 0.0),
            'max_share_max': dict.fromkeys(shares, 0.0),
-           'adam_v_err_max': 0.0}
+           'adam_v_err_max': 0.0, 'failures': [],
+           'first_failed_step': None}
+
+    def bar(step, ok, msg, record):
+        if ok:
+            return
+        check(not gate, msg)
+        record['failed'].append(msg)
+        out['failures'].append(msg)
+        if out['first_failed_step'] is None:
+            out['first_failed_step'] = step
+
     curve = ([], [], [], [])
     host = [b.cpu() for b in (xs, ys)]
     host_drops = None if drops is None else drops.cpu()
@@ -702,8 +728,8 @@ def stepwise_vs_plain_bf16(plan, bufs, xs, ys, lr, step0, seed, drops):
                  for _ in range(2)]
         rest = (lr, step0 + i, (seed + i * ft.SALT_STEP) & 0xFFFFFFFF)
         args = (xs[i:i + 1], ys[i:i + 1], *rest, drops)
-        got = ft.fused_epoch(plan, *[b.clone() for b in state], *args,
-                             signs=signs[0])
+        got = epoch(plan, *[b.clone() for b in state], *args,
+                    signs=signs[0])
         want = ft.fused_epoch_reference(plan, *[b.clone() for b in state],
                                         *args, signs=signs[1])
         ref32 = ft.fused_epoch_reference(plan32,
@@ -721,13 +747,17 @@ def stepwise_vs_plain_bf16(plan, bufs, xs, ys, lr, step0, seed, drops):
         out['steps_with_loss_flips'] += int(bool(flipped.any()))
         outside.view(plan.num_members, -1)[flipped] = False
         out['steps_buffers_held'] += int(bool(outside.any()))
-        out['reach_share_max'] = max(out['reach_share_max'],
-                                     1.0 - float(outside.float().mean()))
+        reach = 1.0 - float(outside.float().mean())
+        out['reach_share_max'] = max(out['reach_share_max'], reach)
         v_err = adam_v_error(plan, state[1], state[2], got[1], got[2])
         out['adam_v_err_max'] = max(out['adam_v_err_max'], v_err)
-        check(v_err <= TOL_ADAM_V,
-              f'fused_train_bf16 step {i} v: {v_err:.2f} round-off bounds '
-              f'from Adam\'s update of the gradient m reveals')
+        record = {'step': i, 'flips': n_flips,
+                  'loss_flips': int(flipped.sum()), 'reach_share': reach,
+                  'adam_v_err': v_err, 'rms_share': {}, 'max_share': {},
+                  'failed': []}
+        bar(i, v_err <= TOL_ADAM_V,
+            f'fused_train_bf16 step {i} v: {v_err:.2f} round-off bounds '
+            f'from Adam\'s update of the gradient m reveals', record)
         for j, name in enumerate(TOL_TRAIN):
             g, w, r = got[j], want[j], ref32[j]
             check(bool(torch.isfinite(g).all()),
@@ -742,21 +772,28 @@ def stepwise_vs_plain_bf16(plan, bufs, xs, ys, lr, step0, seed, drops):
                 if not bool(outside.any()):      # all within a flip's reach
                     continue
                 g, w, r = g[outside], w[outside], r[outside]
+            label = f'fused_train_bf16 step {i} {name}'
+            res = bf16_close(label, g, w, r, gate=False)
             # v is reported here; its gate is the Adam update above
-            res = bf16_close(f'fused_train_bf16 step {i} {name}', g, w, r,
-                             gate=name != 'v')
+            if name != 'v':
+                verdict = bf16_verdict(label, res)
+                bar(i, verdict is None, verdict, record)
             err = res['max_abs_err']
-            out['rms_share_max'][name] = max(
-                out['rms_share_max'][name],
-                res['rms_err'] / max(res['gap_rms'], 1e-30))
-            out['max_share_max'][name] = max(
-                out['max_share_max'][name],
-                err / max(res['gap_max'], 1e-30))
+            record['rms_share'][name] = (res['rms_err']
+                                         / max(res['gap_rms'], 1e-30))
+            record['max_share'][name] = err / max(res['gap_max'], 1e-30)
+            for key in ('rms_share', 'max_share'):
+                out[key + '_max'][name] = max(out[key + '_max'][name],
+                                              record[key][name])
             out['max_abs_err'][name] = max(out['max_abs_err'][name], err)
+        if on_step is not None:
+            on_step(record)
         state = list(want[:4])
     res = bf16_close('fused_train_bf16 losses',
                      *(torch.cat(c) for c in curve[:3]),
-                     witness=torch.cat(curve[3]))
+                     witness=torch.cat(curve[3]), gate=False)
+    verdict = bf16_verdict('fused_train_bf16 losses', res)
+    bar(xs.shape[0], verdict is None, verdict, {'failed': []})
     out['max_abs_err']['losses'] = res['max_abs_err']
     out['losses'] = res
     return out

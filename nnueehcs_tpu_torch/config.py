@@ -334,3 +334,112 @@ def load_path(path) -> Any:
     """Read the config at ``path``."""
     with open(path) as f:
         return safe_load(f)
+
+
+# ---------------------------------------------------------------------------
+# the writer: the same subset, in PyYAML's block layout
+# ---------------------------------------------------------------------------
+_DOUBLE = {v: k for k, v in _ESCAPES.items() if k != '/'}
+
+
+def _dump_str(text: str) -> str:
+    """``text`` plain where this reader and PyYAML both read it back as
+    the same string, else quoted."""
+    plain_ok = (text and text == text.strip() and text.isprintable()
+                and '#' not in text and text[0] not in _INDICATORS + '-\'"[],'
+                and ': ' not in text and not text.endswith(':'))
+    if plain_ok:
+        try:
+            plain_ok = _plain(text, 0) == text
+        except ConfigError:
+            plain_ok = False
+    if plain_ok:
+        return text
+    if text.isprintable():
+        return "'" + text.replace("'", "''") + "'"
+    chars = []
+    for c in text:
+        if c in _DOUBLE:
+            chars.append('\\' + _DOUBLE[c])
+        elif not c.isprintable():
+            raise ConfigError(f'{text!r}: character {c!r} has no escape in '
+                              'the subset')
+        else:
+            chars.append(c)
+    return '"' + ''.join(chars) + '"'
+
+
+def _dump_scalar(value) -> str:
+    if value is None:
+        return 'null'
+    if isinstance(value, bool):
+        return 'true' if value else 'false'
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if value != value or value in (float('inf'), float('-inf')):
+            raise ConfigError(f'{value!r}: not in the subset')
+        text = repr(value)
+        mantissa, e, exponent = text.partition('e')
+        if '.' not in mantissa:
+            mantissa += '.0'
+        return mantissa + e + exponent
+    if isinstance(value, str):
+        return _dump_str(value)
+    raise ConfigError(f'{value!r}: a {type(value).__name__} is not in the '
+                      'subset')
+
+
+def _dump_block(value, indent: int, out: List[str]) -> None:
+    """``value`` (a non-empty dict or list) as block lines at ``indent``."""
+    pad = ' ' * indent
+    if isinstance(value, dict):
+        for key, item in value.items():
+            if not isinstance(key, str):
+                raise ConfigError(f'key {key!r}: only string keys are in '
+                                  'the subset')
+            head = f'{pad}{_dump_str(key)}:'
+            if isinstance(item, (dict, list)) and item:
+                out.append(head)
+                # a sequence under a key sits at the key's indentation
+                _dump_block(item, indent + 2 * isinstance(item, dict), out)
+            else:
+                out.append(f'{head} {_dump_inline(item)}')
+        return
+    for item in value:
+        if isinstance(item, dict) and item:
+            start = len(out)
+            _dump_block(item, indent + 2, out)
+            out[start] = f'{pad}- {out[start][indent + 2:]}'
+        elif isinstance(item, list) and item:
+            out.append(f'{pad}-')
+            _dump_block(item, indent + 2, out)
+        else:
+            out.append(f'{pad}- {_dump_inline(item)}')
+
+
+def _dump_inline(value) -> str:
+    if isinstance(value, dict):
+        return '{}'
+    if isinstance(value, list):
+        return '[]'
+    return _dump_scalar(value)
+
+
+def dump(data, stream=None) -> Optional[str]:
+    """``data`` (dicts with string keys, lists, strings, numbers, booleans
+    and None) as a document of the subset, in PyYAML's block layout, which
+    both :func:`safe_load` and ``yaml.safe_load`` read back as ``data``.
+    Written to ``stream`` when given, else returned. Raises ConfigError for
+    anything outside the subset (other types, nan, infinities, non-string
+    keys, control characters without an escape)."""
+    if isinstance(data, (dict, list)) and data:
+        lines: List[str] = []
+        _dump_block(data, 0, lines)
+    else:
+        lines = [_dump_inline(data)]
+    text = '\n'.join(lines) + '\n'
+    if stream is None:
+        return text
+    stream.write(text)
+    return None

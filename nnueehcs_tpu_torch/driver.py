@@ -37,9 +37,7 @@ package.
 from __future__ import annotations
 
 import argparse
-import csv
 import json
-import math
 import re
 import time
 from dataclasses import dataclass
@@ -60,22 +58,9 @@ from .model_builder import (EnsembleModelBuilder, KDEModelBuilder,
 from .training import (Trainer, ModelSavingCallback, EarlyStopping,
                        DataLoader, load_model)
 from .training.trainer import trainer_device
-from .utility import ResultsTable, find_latest_finished_trial
+from .utility import (ResultsTable, find_latest_finished_trial,
+                      union_columns, write_table)
 from .utils.timing import device_sync, timed_passes
-
-
-def _csv_cell(value) -> str:
-    """A value as pandas' ``to_csv`` writes it: nan and None empty,
-    booleans ``True``/``False``, floats as their shortest repr."""
-    if value is None:
-        return ''
-    if isinstance(value, (bool, np.bool_)):
-        return str(bool(value))
-    if isinstance(value, (int, np.integer)):
-        return str(int(value))
-    if isinstance(value, (float, np.floating)):
-        return '' if math.isnan(value) else repr(float(value))
-    return str(value)
 
 
 class OutputManager:
@@ -117,15 +102,10 @@ class OutputManager:
         column in the order rows first name it (a row without a column
         leaves its cell empty), as pandas' ``DataFrame.from_dict(...,
         orient='index').to_csv`` writes it."""
-        columns = []
-        for row in trial_results_dict.values():
-            columns += [c for c in row if c not in columns]
-        with open(f'{self.output_dir_path}/{name}.csv', 'w', newline='') as f:
-            writer = csv.writer(f, lineterminator='\n')
-            writer.writerow(['trial'] + columns)
-            for index, row in trial_results_dict.items():
-                writer.writerow([_csv_cell(index)]
-                                + [_csv_cell(row.get(c)) for c in columns])
+        columns = union_columns(trial_results_dict.values())
+        write_table(f'{self.output_dir_path}/{name}.csv', ['trial'] + columns,
+                    [[index] + [row.get(c) for c in columns]
+                     for index, row in trial_results_dict.items()])
 
     def get_optimization_step(self):
         with open(f'{self.output_dir_path}/ax_client_optimization_step.json') as f:

@@ -37,6 +37,11 @@ def to_numpy(data):
     return np.asarray(data)
 
 
+class MetricError(ValueError):
+    """A metric refuses the UEs it was given (empty, of mismatched
+    dimensions, one class only): the trial's fault, not the device's."""
+
+
 # ---------------------------------------------------------------------------
 # UE container
 # ---------------------------------------------------------------------------
@@ -52,15 +57,15 @@ class UncertaintyEstimate:
         self.data = self._to_numpy(data)
         if isinstance(self.data, tuple):
             if any(d.size == 0 for d in self.data):
-                raise ValueError(
+                raise MetricError(
                     'Cannot create UncertaintyEstimate from empty tuple data')
             shapes = [d.shape[0] for d in self.data]
             if len(set(shapes)) > 1:
-                raise ValueError(
+                raise MetricError(
                     f'All arrays in tuple must have same first dimension, '
                     f'got shapes: {shapes}')
         elif self.data.size == 0:
-            raise ValueError('Cannot create UncertaintyEstimate from empty data')
+            raise MetricError('Cannot create UncertaintyEstimate from empty data')
 
     @property
     def dimensions(self) -> int:
@@ -68,7 +73,7 @@ class UncertaintyEstimate:
 
     def flatten(self):
         if self.dimensions != 1:
-            raise ValueError('Can only flatten 1D uncertainty estimates')
+            raise MetricError('Can only flatten 1D uncertainty estimates')
         return self.data.flatten()
 
     def mean(self):
@@ -80,7 +85,7 @@ class UncertaintyEstimate:
         try:
             return np.concatenate([d.flatten() for d in self.data])
         except ValueError as e:
-            raise ValueError(f'Failed to combine data dimensions: {e}')
+            raise MetricError(f'Failed to combine data dimensions: {e}')
 
     def _to_numpy(self, data):
         if isinstance(data, tuple):
@@ -167,7 +172,7 @@ def auroc_score(y_true, y_score):
     n_pos = int(y_true.sum())
     n_neg = y_true.size - n_pos
     if n_pos == 0 or n_neg == 0:
-        raise ValueError('AUROC requires both classes present')
+        raise MetricError('AUROC requires both classes present')
     rank_sum = ranks[y_true == 1].sum()
     u = rank_sum - n_pos * (n_pos + 1) / 2.0
     return float(u / (n_pos * n_neg))
@@ -232,7 +237,7 @@ class WassersteinEvaluation(UncertaintyEvaluationMetric):
 
     def _evaluate_uncertainties(self, id_ue, ood_ue) -> dict:
         if id_ue.dimensions != ood_ue.dimensions:
-            raise ValueError('Uncertainty estimates must have the same dimensions')
+            raise MetricError('Uncertainty estimates must have the same dimensions')
         if id_ue.dimensions == 1:
             value = wasserstein_1d(id_ue.flatten(), ood_ue.flatten())
         else:
@@ -258,7 +263,7 @@ class EuclideanEvaluation(UncertaintyEvaluationMetric):
 
     def _evaluate_uncertainties(self, id_ue, ood_ue) -> dict:
         if id_ue.dimensions != ood_ue.dimensions:
-            raise ValueError('Uncertainty estimates must have the same dimensions')
+            raise MetricError('Uncertainty estimates must have the same dimensions')
         result = np.mean(np.sqrt(np.sum(
             (np.asarray(id_ue.data) - np.asarray(ood_ue.data)) ** 2, axis=-1)))
         return {self.name: float(result)}
@@ -280,7 +285,7 @@ class JensenShannonEvaluation(UncertaintyEvaluationMetric):
 
     def _evaluate_uncertainties(self, id_ue, ood_ue) -> dict:
         if id_ue.dimensions != ood_ue.dimensions:
-            raise ValueError('Uncertainty estimates must have the same dimensions')
+            raise MetricError('Uncertainty estimates must have the same dimensions')
         return {self.name: self._average_js_distance(id_ue.data, ood_ue.data)}
 
     def _average_js_distance(self, p1, p2) -> float:
@@ -318,7 +323,7 @@ class MeanScoreEvaluation(UncertaintyEvaluationMetric):
 
     def _evaluate_uncertainties(self, id_ue, ood_ue) -> dict:
         if id_ue.dimensions != ood_ue.dimensions:
-            raise ValueError('Uncertainty estimates must have the same dimensions')
+            raise MetricError('Uncertainty estimates must have the same dimensions')
         return {self.name: np.mean(id_ue.data)}
 
     @classmethod
@@ -366,7 +371,7 @@ class PercentileScoreEvaluation(UncertaintyEvaluationMetric):
 
     def _evaluate_uncertainties(self, id_ue, ood_ue) -> dict:
         if id_ue.dimensions != ood_ue.dimensions:
-            raise ValueError('Uncertainty estimates must have the same dimensions')
+            raise MetricError('Uncertainty estimates must have the same dimensions')
         return {self.name: np.percentile(id_ue.data, self.percentile)}
 
     @classmethod

@@ -11,10 +11,13 @@ pandas' default parser keeps about 15 significant digits).
 from __future__ import annotations
 
 import csv
+import math
 import os
 import re
 from pathlib import Path
-from typing import Callable, Dict, List
+from typing import Callable, Dict, Iterable, List, Sequence
+
+import numpy as np
 
 
 def _cell(text: str):
@@ -56,6 +59,49 @@ class ResultsTable:
     def records(self) -> List[Dict]:
         """One dict per row."""
         return [dict(zip(self.columns, row)) for row in self.rows]
+
+
+
+def missing(value) -> bool:
+    """A cell pandas counts as missing: None or NaN."""
+    return value is None or (isinstance(value, float) and math.isnan(value))
+
+
+def csv_cell(value) -> str:
+    """A value as pandas' ``to_csv`` writes it: nan and None empty,
+    booleans ``True``/``False``, floats as their shortest repr."""
+    if value is None:
+        return ''
+    if isinstance(value, (bool, np.bool_)):
+        return str(bool(value))
+    if isinstance(value, (int, np.integer)):
+        return str(int(value))
+    if isinstance(value, (float, np.floating)):
+        return '' if math.isnan(value) else repr(float(value))
+    return str(value)
+
+
+def write_table(path, columns: Sequence[str], rows: Iterable) -> None:
+    """Write ``rows`` (sequences in ``columns`` order, or dicts keyed by
+    column, a missing key empty) as pandas' ``to_csv(index=False)``
+    would."""
+    with open(path, 'w', newline='') as f:
+        writer = csv.writer(f, lineterminator='\n')
+        writer.writerow(columns)
+        for row in rows:
+            if isinstance(row, dict):
+                row = [row.get(c) for c in columns]
+            writer.writerow([csv_cell(v) for v in row])
+
+
+def union_columns(tables: Iterable[Sequence[str]]) -> List[str]:
+    """The columns of several tables in order of first appearance, as
+    ``pandas.concat`` orders them."""
+    columns: List[str] = []
+    for names in tables:
+        columns += [c for c in names if c not in columns]
+    return columns
+
 
 DefaultFileMap = {
     'optimization_step': 'ax_client_optimization_step.json',
