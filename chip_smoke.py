@@ -52,8 +52,11 @@ bf16 function on the card against its bf16-vs-fp32 gap, with each
 kernel's bf16 form launched exactly as often as its fp32 form was and no
 fp32 form at all, and each bf16 form is timed. Training in bf16-mixed:
 the training kernel's bf16 form is held to its plain version step by step
-on the four cases at the flagship shape (the bf16 bars against each step's
-bf16-vs-fp32 gap) and over one epoch's loss curve (its distance to the
+on the four cases at the flagship shape and on the MC-dropout flagship
+with every pre-ReLU value kept away from 0 (64 steps; the bf16 bars
+against each step's bf16-vs-fp32 gap, widened by how far two more correct
+bf16 steps part on that step, the excursions past them capped) and
+over one epoch's loss curve (its distance to the
 plain bf16 curve against the host's plain bf16 curve's), and both forms step by
 step at the plan the Δ-UQ and PAGER fits give it (one net, 256 anchored
 rows of 10 features); ``Trainer.fit`` of the
@@ -98,7 +101,15 @@ trace names the span and the kernel, the allocator's statistics read
 through ``utils/profiling.py``, and p50/p99 latency at 1 and 4,096 rows. The ``workflow`` phase runs ``workflow_driver`` over the ensemble
 and MC-dropout cells (subprocesses on the card) and
 ``mesh_workflow_driver`` over the MC cell on ``cuda:0`` (kernels 2 and 3
-launched exactly). It prints one JSON line per
+launched exactly). The ``cnn`` phase takes tests/test_cnn.py's CNN and
+CNN-128 (two 3 x 3 convolutions 128 channels wide with BatchNorm2d, a
+max pool, a 128-wide Linear block) on 1 x 8 x 8 images through the
+ensemble, MC dropout, Δ-UQ and PAGER: one epoch of ``Trainer.fit`` each
+(250 steps of 128 images for CNN-128), bundles reloaded to their logged
+validation loss, then ``Predictor`` in fp32 and bf16-mixed against the
+plain computation member by member and anchor by anchor, with every
+launch count 0 (no kernel takes a Conv2d network), images/s and the
+allocator's peak. It prints one JSON line per
 phase, then the card's ``nvidia-smi`` name and power limit, then a
 ``{"kernels": [...]}`` line (fifteen kernels: the ten fp32 ones, then the
 five bf16 forms), and last ``{"ok": true, "device": {...}}``. Any failure
@@ -108,6 +119,7 @@ anything.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import re
 import shutil
@@ -138,12 +150,14 @@ from nnueehcs_tpu_torch import config as config_reader
 from nnueehcs_tpu_torch import datagen
 from nnueehcs_tpu_torch.attrib import (BF16_WITNESS_SHARE, TOL_MEAN,
                                        TOL_STD, TOL_TRAIN,
-                                       bf16_close, bf16_peak, bound, check,
+                                       bf16_close, bf16_peak, bf16_verdict,
+                                       bound, check,
                                        event_ms, flip_reach, nvidia_smi,
                                        peaks, separate_relu,
-                                       stepwise_vs_plain, train_flops,
+                                       stepwise_vs_plain,
+                                       stepwise_vs_plain_bf16, train_flops,
                                        train_rest_flops)
-from nnueehcs_tpu_torch.convert import tensor_trees
+from nnueehcs_tpu_torch.convert import load_pytrees, tensor_trees
 from nnueehcs_tpu_torch.data_utils import get_dataset, prepare_dataset_for_use
 from nnueehcs_tpu_torch.driver import run_bo_experiment
 from nnueehcs_tpu_torch.classification import PercentileBasedIdOodClassifier
@@ -160,7 +174,10 @@ from nnueehcs_tpu_torch.examples.metric_evaluation import evaluate_metrics
 from nnueehcs_tpu_torch.examples.metric_evaluation import metric_eval_driver
 from nnueehcs_tpu_torch.examples.serving.serve import make_handler
 from nnueehcs_tpu_torch.models import base as model_base
+from nnueehcs_tpu_torch.models.delta_uq import anchored_input
 from nnueehcs_tpu_torch.native import load_delimited
+from nnueehcs_tpu_torch.nn.layers import Dropout
+from nnueehcs_tpu_torch.nn.network import build_network
 from nnueehcs_tpu_torch.ops import _build
 from nnueehcs_tpu_torch.ops import ablate_epoch as ae
 from nnueehcs_tpu_torch.ops import ablate_forward as af
@@ -176,6 +193,8 @@ from nnueehcs_tpu_torch.ops.fused_ensemble import (fused_forward_plain,
 from nnueehcs_tpu_torch.ops.fused_mc_dropout import (MASK_HASH_OPS,
                                                      fused_mc_forward,
                                                      fused_mc_forward_plain,
+                                                     keep_threshold,
+                                                     lowbias32, mask_stream,
                                                      prepare_mc_weights)
 from nnueehcs_tpu_torch.ops.kde import (_log_norm_const, bandwidth_value,
                                         centre, kde_bound_terms, kde_logpdf,
@@ -276,6 +295,7 @@ PLAIN_TRAIN_STEPS = 100                  # the plain epoch is timed on 100
 # rounding two correct bf16 trajectories part and the parting compounds;
 # bf16_curve_bars)
 STEPWISE_BF16_STEPS = 16
+BF16_SEPARATE_STEPS = 64
 BF16_CURVE_STEPS = 64
 # Δ-UQ and PAGER fits: 229 anchors, epoch 0 step by step (the anchor hook
 # reads its batches), epoch 1 through the kernel at the doubled batch; 250
@@ -419,6 +439,35 @@ HTTP_LATENCY_REQUESTS = 50
 WORKFLOW_ROWS = 32_768
 WORKFLOW_METHODS = ('ensemble', 'mc_dropout')
 
+
+# the CNN phase: tests/test_cnn.py's CNN_DESCR (1 x 8 x 8 images, 4
+# channels) and CNN-128, the flagship's hidden width on the same images;
+# no kernel takes a Conv2d network (the folds and the training plan refuse
+# it), so both train step by step and serve through their modules
+CNN_IMAGE = (1, 8, 8)
+CNN_DESCR = [{'Conv2d': {'args': [1, 4, 3], 'padding': 1}},
+             {'BatchNorm2d': {'args': [4]}}, {'ReLU': {}},
+             {'MaxPool2d': {'args': [2]}}, {'Flatten': {}},
+             {'Linear': {'args': [4 * 4 * 4, 16]}}, {'ReLU': {}},
+             {'Linear': {'args': [16, 1]}}]
+CNN_128 = [{'Conv2d': {'args': [1, WIDTH, 3], 'padding': 1}},
+           {'BatchNorm2d': {'args': [WIDTH]}}, {'ReLU': {}},
+           {'Conv2d': {'args': [WIDTH, WIDTH, 3], 'padding': 1}},
+           {'BatchNorm2d': {'args': [WIDTH]}}, {'ReLU': {}},
+           {'MaxPool2d': {'args': [2]}}, {'Flatten': {}},
+           {'Linear': {'args': [WIDTH * 4 * 4, WIDTH]}},
+           {'BatchNorm1d': {'args': [WIDTH]}}, {'ReLU': {}},
+           {'Linear': {'args': [WIDTH, 1]}}]
+# name: (architecture, training steps of TRAIN_BATCH images, the
+# ensemble's requests, the other classes' requests); CNN_DESCR at a
+# smaller depth
+CNN_CASES = {
+    'cnn_128': (CNN_128, 250, (1, 300, 4096, 16_384), (1, 300, 4096)),
+    'cnn_descr': (CNN_DESCR, 50, (1, 300, 4096), (1, 300)),
+}
+CNN_BUCKETS = (256, 1024, 4096, 16_384)
+CNN_VAL_BATCHES = 8                       # validation: 1,024 images
+CNN_CLASSES = ('ensemble', 'mc_dropout', 'delta_uq', 'pager')
 
 STARTED = time.perf_counter()      # the imports done
 
@@ -645,20 +694,24 @@ def read_launches():
 
 
 def serve(name, model, requests, rng, reference, kernel, tol_ue=TOL_STD,
-          judge=None, phase='serving'):
+          judge=None, phase='serving', shape=(IN_DIM,),
+          buckets=DEFAULT_BUCKETS):
     """Drive ``Predictor`` on ``model``: warm-up, then one request of each
-    size. Launch counts are set to 0 just before and read just after;
+    size, each request ``(n,) + shape`` (rows of features, or NCHW
+    images), with ``buckets``. Launch counts are set to 0 just before and
+    read just after;
     ``kernel`` must have launched once per bucket in the warm-up and once
     per chunk of each request, and no other kernel at all (with ``kernel``
     None, no kernel at all). ``reference(x, call_index)`` gives the unfused
     answer on the card for a request that was the model's
     ``call_index``-th call; ``judge(x, call_index, mean, ue)``, when given,
     checks an answer instead and returns its errors."""
-    x_requests = [rng.normal(size=(n, IN_DIM)).astype(np.float32)
+    x_requests = [rng.normal(size=(n,) + tuple(shape)).astype(np.float32)
                   for n in requests]
     reset_launches()
     start = time.perf_counter()
-    predictor = Predictor(model, buckets=DEFAULT_BUCKETS, device=DEVICE)
+    predictor = Predictor(model, buckets=buckets, device=DEVICE, warmup=False)
+    predictor.warmup(shape)
     warmup_s = time.perf_counter() - start
     answers, latencies, calls = [], [], []
     for x in x_requests:
@@ -671,8 +724,8 @@ def serve(name, model, requests, rng, reference, kernel, tol_ue=TOL_STD,
     if kernel is not None:
         # warm-up drives each bucket once; a request runs once per chunk of
         # up to the largest bucket
-        expected[kernel] = len(DEFAULT_BUCKETS) + sum(
-            -(-n // DEFAULT_BUCKETS[-1]) for n in requests)
+        expected[kernel] = len(buckets) + sum(
+            -(-n // buckets[-1]) for n in requests)
     check(launches == expected, f'{name}: launches {launches} on the serving '
                                 f'path, expected {expected}')
     errs = []
@@ -690,7 +743,9 @@ def serve(name, model, requests, rng, reference, kernel, tol_ue=TOL_STD,
                                    torch.from_numpy(ue), ref_ue.cpu(), tol_ue)})
     torch.cuda.synchronize()
     emit(phase, model=name, warmup_s=warmup_s, request_rows=list(requests),
-         request_s=latencies, launches=launches, expected_launches=expected,
+         request_s=latencies,
+         request_rows_per_s=[n / t for n, t in zip(requests, latencies)],
+         launches=launches, expected_launches=expected,
          max_abs_err_vs_unfused=errs)
     return predictor, launches[kernel] if kernel is not None else 0
 
@@ -901,13 +956,15 @@ def in_fp32(model, prepare):
     return weights
 
 
-def bf16_judge(name, reference16, reference32):
+def bf16_judge(name, reference16, reference32, pooled=None):
     """A ``serve`` judge for a model in bf16: each answer against
     ``reference16(x, call)`` (the plain bf16 function on the card), within
     the bf16 bars of its gap to ``reference32(x, call)`` (the same model's
     fp32 function); an output whose fp32 reference is None does not depend
     on the precision (KDE's and kNN-KDE's density scores) and is held to
-    TOL_SCORE."""
+    TOL_SCORE. Given a dict ``pooled``, each answer is held to the max bar
+    alone and kept there per part, for ``bf16_pooled`` to hold the rms bar
+    over every request of the run at once."""
     def judge(x, call, mean, ue):
         out = {}
         for part, got, want, ref32 in zip(('mean', 'ue'), (mean, ue),
@@ -918,10 +975,26 @@ def bf16_judge(name, reference16, reference32):
             if ref32 is None:
                 out[part] = {'max_abs_err': compare(label, got, want.cpu(),
                                                     TOL_SCORE)}
-            else:
+            elif pooled is None:
                 out[part] = bf16_close(label, got, want.cpu(), ref32.cpu())
+            else:
+                res = bf16_close(label, got, want.cpu(), ref32.cpu(),
+                                 gate=False)
+                check(res['max_abs_err'] <= res['bar_max'],
+                      bf16_verdict(label, res))
+                out[part] = res
+                pooled.setdefault(part, []).append(
+                    (got, want.cpu(), ref32.cpu()))
         return out
     return judge
+
+
+def bf16_pooled(name, pooled):
+    """The rms bar of ``bf16_close`` over every answer ``bf16_judge`` kept
+    in ``pooled``, part by part."""
+    return {part: bf16_close(f'{name} {part}, every request',
+                             *(torch.cat(t) for t in zip(*kept)))
+            for part, kept in pooled.items()}
 
 
 def check_launches(name, launches, **expected):
@@ -1519,6 +1592,258 @@ def workflow_phase(seed):
          seconds=time.time() - start)
 
 
+def image_target(x):
+    """The CNN phase's target: a smooth function of a 1 x 8 x 8 image."""
+    return (x.mean(axis=(1, 2, 3))
+            + 0.5 * np.sin(x[:, 0, :4, :4].mean(axis=(1, 2)))
+            - 0.3 * x[:, 0, 4:, 4:].mean(axis=(1, 2)))[:, None].astype(
+                np.float32)
+
+
+def cnn_model(kind, arch, seed):
+    """A CNN of UQ class ``kind`` as the port's builders make it, on the
+    card: 8 members, MC dropout at p = 0.1 with 128 samples, Δ-UQ and PAGER
+    with 229 anchors."""
+    descr = {
+        'ensemble': (EnsembleModelBuilder, {'num_models': MEMBERS}),
+        'mc_dropout': (MCDropoutModelBuilder, {'num_samples': MC_SAMPLES,
+                                               'dropout_percent': MC_P}),
+        'delta_uq': (DeltaUQMLPModelBuilder, {
+            'num_anchors': ANCHORS, 'anchored_batch_size': ANCHORS}),
+        'pager': (PAGERModelBuilder, {'num_anchors': ANCHORS,
+                                      'anchored_batch_size': ANCHORS}),
+    }
+    builder, uq = descr[kind]
+    return builder(arch, uq, train_config=TRAIN_MODEL_CONFIG, seed=seed,
+                   device=DEVICE).build()
+
+
+def member_nets(model):
+    """The ensemble's members as single networks (each member's slice of
+    the stacked parameters), for the member-by-member reference."""
+    params, state = tensor_trees(model.net)
+    nets = []
+    for i in range(model.num_models):
+        net = build_network(model.net.architecture).to(DEVICE)
+        load_pytrees(net, [{k: t[i] for k, t in p.items()} for p in params],
+                     [{k: t[i] for k, t in s.items()} for s in state])
+        nets.append(net)
+    return nets
+
+
+def mc_reference(net, x, samples, seed):
+    """MC dropout's answer through ``net``'s layers sample by sample,
+    written apart from the served path (``mc_forward_modules``): sample s
+    keeps element (b, c, i, j) of the activation entering Dropout module k
+    (or (b, f) of a row) where lowbias32 of the mask stream of (``seed``,
+    s, k) plus the hashed row b plus the hashed column, the element's
+    place ((c H) + i) W + j in its row, has its top 24 bits under the keep
+    threshold; the mean and the unbiased std over the samples in float64.
+    In the network's compute dtype the activations are in it, as the
+    served path runs them."""
+    def hashed(index, multiplier):          # index * multiplier mod 2^32
+        lo, hi = index & 0xFFFF, index >> 16
+        return (lo * multiplier + (((hi * multiplier) & 0xFFFF) << 16)) \
+            & 0xFFFFFFFF
+
+    cd = net.compute_dtype
+    outs = []
+    for s in range(samples):
+        h = x if cd is None else x.to(cd)
+        for k, layer in enumerate(net.layers):
+            if not isinstance(layer, Dropout):
+                h = layer(h)
+                continue
+            threshold, scale = keep_threshold(layer.p)
+            if threshold < 0:
+                continue
+            dims = h.shape[1:]
+            column = torch.zeros(dims, dtype=torch.int64, device=h.device)
+            for d, size in enumerate(dims):
+                place = torch.arange(size, device=h.device).reshape(
+                    (size,) + (1,) * (len(dims) - d - 1))
+                column = column * size + place
+            row = torch.arange(h.shape[0], device=h.device).reshape(
+                (-1,) + (1,) * len(dims))
+            bits = lowbias32((mask_stream(seed, s, k) + hashed(row, 0xC2B2AE35)
+                              + hashed(column, 0x27D4EB2F)) & 0xFFFFFFFF)
+            keep = (bits >> 8) < threshold
+            h = (h * torch.where(keep, scale, 0.0)).to(h.dtype)
+        outs.append(h.double())
+    p = torch.stack(outs)
+    return p.mean(0).float(), p.std(0, correction=1).float()
+
+
+def cnn_reference(model, nets, x, call, dtype):
+    """The plain computation of a CNN model's answer on the card, in
+    compute dtype ``dtype`` (None: fp32): the ensemble member by member
+    (``nets``), Δ-UQ and PAGER anchor by anchor (PAGER's prediction matrix
+    one anchor's column at a time), the statistics over members or
+    anchors in float64; MC dropout sample by sample through a second copy
+    of the network with the call's mask seed (``nets``,
+    ``mc_reference``). Returns (mean, ue)."""
+    def stats(preds):
+        p = preds.double()
+        return p.mean(0).float(), p.std(0, correction=1).float()
+    with torch.no_grad():
+        if model.uq_method == 'ensemble':
+            for net in nets:
+                net.compute_dtype = dtype
+            return stats(torch.stack([net(x) for net in nets]))
+        if model.uq_method == 'mc_dropout':
+            nets[0].compute_dtype = dtype
+            return mc_reference(nets[0], x, model.num_samples,
+                                model.call_seed(call))
+        net, before = model.net, model.net.compute_dtype
+        net.compute_dtype = dtype
+        try:
+            anchors = model.anchors[:model.num_anchors]
+            mean, spread = stats(torch.stack([
+                net(anchored_input(x, a.expand_as(x))) for a in anchors]))
+            if model.uq_method == 'pager':
+                cols = torch.stack([
+                    net(anchored_input(a.expand_as(x), x))[:, 0]
+                    for a in anchors], dim=1)
+                y = model.anchors_Y[:model.num_anchors].reshape(1, -1)
+                score = (cols - y).abs().amax(dim=1, keepdim=True)
+                spread = torch.maximum(spread, score)
+            return mean, spread
+        finally:
+            net.compute_dtype = before
+
+
+def cnn_phase(seed):
+    """The CNN layers through the four UQ classes on the card: for each
+    architecture of CNN_CASES, ``Trainer.fit`` of the ensemble, MC
+    dropout, Δ-UQ and PAGER for one epoch (batch 128, lr 5e-5, clip 5,
+    fp32) on images drawn from ``seed``, every launch count 0 and the
+    bundle reloading to its logged validation loss; then ``Predictor`` on
+    the reloaded model, in fp32 against the plain computation
+    (``cnn_reference``: mean 1e-5; UE 1e-3 relative + 1e-5) and after
+    ``set_precision('bf16-mixed')`` against its bf16-vs-fp32 gap
+    (``attrib.bf16_close``), every launch count 0. Reports images/s and
+    the allocator's peak, which must stay under the card's memory."""
+    phase_start = time.perf_counter()
+    rng = np.random.default_rng(seed + 61)
+    total = torch.cuda.get_device_properties(0).total_memory
+    for case, (arch, steps, ens_requests, requests) in CNN_CASES.items():
+        n_train = steps * TRAIN_BATCH
+        n_val = CNN_VAL_BATCHES * TRAIN_BATCH
+        x = rng.normal(size=(n_train + n_val,) + CNN_IMAGE).astype(np.float32)
+        y = image_target(x)
+        train_dl = DataLoader(ArrayDataset(x[:n_train], y[:n_train]),
+                              TRAIN_BATCH, shuffle=True, drop_last=True)
+        val_dl = DataLoader(ArrayDataset(x[n_train:], y[n_train:]),
+                            TRAIN_BATCH)
+        for kind in CNN_CLASSES:
+            name = f'{case}_{kind}'
+            model = cnn_model(kind, arch, seed)
+            check(prepare_fused_weights(model.net) is None
+                  and prepare_mc_weights(model.net) is None
+                  and prepare_fused_anchored(model.net) is None
+                  and ft.plan_fused_train(model.net, 1, TRAIN_BATCH) is None,
+                  f'{name}: a kernel took the Conv2d network')
+            saver = ModelSavingCallback(defer_serialization=True)
+            trainer = Trainer(name, dict(
+                TRAIN_CONFIG, max_epochs=1, limit_train_batches=steps,
+                limit_val_batches=CNN_VAL_BATCHES, seed=seed),
+                callbacks=[EarlyStopping(), saver] + model.get_callbacks(),
+                log_dir=TRAIN_DIR, version=f'seed_{seed}', device=DEVICE)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            start = time.perf_counter()
+            trainer.fit(model, train_dl, val_dl)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - start
+            check_launches(f'{name} fit', read_launches())
+            check(trainer.fused_epochs_used == 0,
+                  f'{name}: {trainer.fused_epochs_used} kernel epochs')
+            fit_peak = torch.cuda.max_memory_allocated()
+            log = os.path.join(trainer.logger.log_dir, 'metrics.csv')
+            with open(log) as f:
+                losses = [float(r['train_loss']) for r in csv.DictReader(f)
+                          if r.get('train_loss')]
+            check(losses and np.isfinite(losses).all(),
+                  f'{name}: non-finite training losses')
+            best = load_model(os.path.join(trainer.logger.log_dir,
+                                           'model.pth'), device=DEVICE)
+            reset_launches()
+            val_again = trainer.validate(best, val_dl)
+            check_launches(f'{name} revalidation', read_launches())
+            check(abs(val_again - saver.best) <= 1e-5,
+                  f'{name}: reloaded val_loss {val_again} != logged '
+                  f'{saver.best}')
+            if kind in ('delta_uq', 'pager'):
+                check(tuple(best.anchors.shape) == (ANCHORS,) + CNN_IMAGE,
+                      f'{name}: anchors {tuple(best.anchors.shape)}')
+            nets = member_nets(best) if kind == 'ensemble' else \
+                [copy.deepcopy(best.net)] if kind == 'mc_dropout' else None
+            served = {}
+            for precision in ('32-true', 'bf16-mixed'):
+                best.set_precision(precision)
+                if kind == 'mc_dropout':
+                    best.reseed(seed)
+                bf16 = precision == 'bf16-mixed'
+                # the served and the plain convolutions sum in orders cuDNN
+                # picks per shape, so a bf16 rounding may go the other way:
+                # a 1-image request's one value a part read 0.209 of its
+                # gap once on an H100, so the rms bar holds the run's
+                # requests at once
+                pooled = {}
+                judge = bf16_judge(
+                    f'{name} bf16',
+                    lambda xd, call: cnn_reference(best, nets, xd, call,
+                                                   torch.bfloat16),
+                    lambda xd, call: cnn_reference(best, nets, xd, call,
+                                                   None),
+                    pooled) if bf16 else None
+                sizes = ens_requests if kind == 'ensemble' else requests
+                # the buckets up to the first that holds the largest request
+                top = next(b for b in CNN_BUCKETS if b >= max(sizes))
+                torch.cuda.reset_peak_memory_stats()
+                start = time.perf_counter()
+                serve(f'{name} {precision}', best, sizes, rng,
+                      lambda xd, call: cnn_reference(best, nets, xd, call,
+                                                     None),
+                      None, judge=judge, phase='cnn_serving',
+                      shape=CNN_IMAGE,
+                      buckets=tuple(b for b in CNN_BUCKETS if b <= top))
+                served[precision] = {
+                    'seconds': time.perf_counter() - start,
+                    'peak_bytes': torch.cuda.max_memory_allocated()}
+                if bf16:
+                    served[precision]['bf16_every_request'] = bf16_pooled(
+                        f'{name} bf16', pooled)
+                check(served[precision]['peak_bytes'] < total,
+                      f'{name}: peak {served[precision]["peak_bytes"]} B')
+            if case == 'cnn_128' and kind == 'ensemble':
+                # the Predictor's own buckets, to 65,536 images: the model
+                # chunks them by their activations (models/base.py)
+                best.set_precision('32-true')
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                warm_s = Predictor(best, device=DEVICE,
+                                   warmup=False).warmup(CNN_IMAGE)
+                check_launches(f'{name} default buckets', read_launches())
+                served['default_buckets'] = {
+                    'largest': DEFAULT_BUCKETS[-1], 'seconds': warm_s,
+                    'images_per_forward': best.max_rows(
+                        torch.zeros((1,) + CNN_IMAGE, device=DEVICE)),
+                    'peak_bytes': torch.cuda.max_memory_allocated()}
+                check(served['default_buckets']['peak_bytes'] < total,
+                      f'{name}: default buckets peak '
+                      f'{served["default_buckets"]["peak_bytes"]} B')
+            emit('cnn', case=case, model=kind, steps=steps,
+                 batch=TRAIN_BATCH, fit_s=fit_s,
+                 train_images_per_s=n_train / fit_s,
+                 fit_peak_bytes=fit_peak, fit_peak_share=fit_peak / total,
+                 first_losses=losses[:3], last_losses=losses[-3:],
+                 val_loss=saver.best, reloaded_val_loss=val_again,
+                 serving=served)
+    emit('cnn', seconds=time.perf_counter() - phase_start,
+         nvidia_smi=nvidia_smi('name,power.limit'))
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -1847,12 +2172,14 @@ def main():
     # shape, on the four cases, step by step from the plain version's state
     # (attrib.stepwise_vs_plain_bf16: the bf16 bars against each step's
     # plain bf16-vs-fp32 gap, ReLU decisions recorded by both)
-    def train_case_bf16(case, model, loss, per_member=False, wd=0.0):
+    def train_case_bf16(case, model, loss, per_member=False, wd=0.0,
+                        steps=STEPWISE_BF16_STEPS, gen=rng, witnessed=False):
         plan = train_plan(model, loss, per_member, wd, bf16=True)
-        bufs, xs, ys = train_inputs(model, plan, rng, STEPWISE_BF16_STEPS)
-        out = stepwise_vs_plain(plan, bufs, xs, ys, 1e-3, TRAIN_STEP0,
-                                int(rng.integers(1 << 31)),
-                                ft.drop_rates(model.net).to(DEVICE))
+        bufs, xs, ys = train_inputs(model, plan, gen, steps)
+        out = stepwise_vs_plain_bf16(plan, bufs, xs, ys, 1e-3, TRAIN_STEP0,
+                                     int(gen.integers(1 << 31)),
+                                     ft.drop_rates(model.net).to(DEVICE),
+                                     witnessed=witnessed)
         errors['fused_train_bf16'] = max(errors.get('fused_train_bf16', 0.0),
                                          *out['max_abs_err'].values())
         emit('kernel_vs_plain', kernel='fused_train_bf16', case=case,
@@ -1867,6 +2194,14 @@ def main():
         MVEModelBuilder, {'min_variance': MVE_MIN_VARIANCE}, args.seed),
         'gaussian_nll')
     train_case_bf16(f'mc_dropout_p{MC_P}', build_mc(args.seed), 'l1_loss')
+    # MC dropout with every pre-ReLU value away from 0, where two correct
+    # bf16 versions part by up to the gap on single steps: held over
+    # BF16_SEPARATE_STEPS steps, with witnessed bars (inputs from a
+    # generator of its own, so every later phase keeps its inputs)
+    train_case_bf16(f'mc_dropout_p{MC_P}_separate_relu', separate_relu(
+        build_mc(args.seed), torch.Generator().manual_seed(args.seed + 7)),
+        'l1_loss', steps=BF16_SEPARATE_STEPS,
+        gen=np.random.default_rng(args.seed + 71), witnessed=True)
     # a whole epoch of the joint case at the trial's learning rate: a
     # loss-curve check only
     plan16 = train_plan(as_built, bf16=True)
@@ -2682,6 +3017,8 @@ def main():
     # trained bundles, then the workflow drivers
     http_phase(served_bundles, rng)
     workflow_phase(args.seed)
+    # 10. the CNN layers through every UQ class (no kernel on their path)
+    cnn_phase(args.seed)
 
     print(smi, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)

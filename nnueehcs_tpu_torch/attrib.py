@@ -102,7 +102,21 @@ BF16_MAX_SHARE = 1.0
 # 0.59-1.53 on an H100).
 # v is held to Adam's own update of the kernel's gradient, which m reveals
 # (TOL_ADAM_V of fp32 round-off): a bf16-vs-fp32 gap of v weights each
-# gradient's error by the gradient itself, so a max against it says little
+# gradient's error by the gradient itself, so a max against it says little.
+# On networks whose BatchNorm shifts keep every ReLU on one side
+# (``separate_relu``), with dropout slots, two correct bf16 steps part by
+# up to the whole gap on single steps: the plain step on the host goes past
+# the per-step bars against the plain step on the card on 1-12 steps of
+# 64, about as often as the kernel does, but on other steps
+# (tools/bf16_mc_stepwise.py on an H100). There (``witnessed``) a step is
+# held to the per-step bars widened to BF16_WITNESS_SHARE times how far
+# the witnesses (the host's plain step, the plain step with its products
+# on the tensor cores) part from the card's plain step on that same step;
+# a step past them is an excursion, which must stay within
+# BF16_WITNESS_SHARE times the gap's own rms and max (or the witnesses'
+# shares, where larger), and there may be at most BF16_WITNESS_SHARE
+# times as many excursions as steps on which a witness itself goes past
+# the per-step bars (counted as at least one)
 BF16_WITNESS_SHARE = 2.0
 TOL_ADAM_V = 4.0
 # an l1 sign decision taken the other way moves the output bias's gradient
@@ -674,8 +688,25 @@ def loss_flips(plan, m0, got_m, want_m):
             + 8 * eg).any(dim=1)
 
 
+def tensor_core_products(plan, a, b):
+    """``a @ b`` in ``plan``'s form, summed another way than
+    :func:`~.ops.fused_train._mm` sums it: in bf16-mixed, both operands
+    rounded to bf16 and their products summed into fp32 by cuBLAS's bf16
+    tensor-core GEMM on the card (``torch.mm(..., out_dtype=float32)``),
+    the hardware kernel 3b's ``mma.sync`` sums on; on the CPU, which has
+    no such GEMM, summed exactly in float64 and rounded to fp32. An fp32
+    plan's product is ``a @ b``."""
+    if not plan.bf16:
+        return a @ b
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if a.device.type == 'cuda':
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return (a.double() @ b.double()).float()
+
+
 def stepwise_vs_plain_bf16(plan, bufs, xs, ys, lr, step0, seed, drops,
-                           gate=True, on_step=None, epoch=None):
+                           gate=True, on_step=None, epoch=None,
+                           witnessed=False):
     """Kernel 3's bf16 form against its plain version one step at a time,
     each step from the plain bf16 version's state, beside the plain fp32
     step from the same state for the bf16-vs-fp32 gap. Both bf16 versions
@@ -683,19 +714,40 @@ def stepwise_vs_plain_bf16(plan, bufs, xs, ys, lr, step0, seed, drops,
     the output bias (``loss_flips``). Each step's sigma, and outside the
     reach of a decision the two took differently (a flipped loss decision
     reaches its whole member), its m and each parameter's change in the
-    step, are held to the bf16 bars (``bf16_close``); v,
-    everywhere, to Adam's update of the gradient m reveals (TOL_ADAM_V);
-    the per-step losses, one value a step, as one curve at the end, with
-    the plain bf16 epoch on the host as the witness of two correct bf16
-    versions (BF16_WITNESS_SHARE). A bf16 rounding that goes the other way
-    moves values by whole bf16 units, so the bars are on the gap, not on
-    fp32 round-off. Raises at the first bar passed; with ``gate`` False it
-    runs every step and lists the bars passed under ``failures`` (and the
-    first such step under ``first_failed_step``). ``on_step`` receives
-    each step's record (flips, loss flips, v's error, each buffer's error
-    shares, the bars it passed). ``epoch`` is the kernel held (default
-    ``ft.fused_epoch``). Returns the counts and each buffer's largest
-    error and error shares."""
+    step, are held to the bf16 bars (``bf16_close``) against the step's
+    bf16-vs-fp32 gap (under a clip the l1 decisions are read from an
+    unclipped launch of both on the same state as well, since the clip's
+    rescaling can hide a flip in the output bias); v, everywhere, to
+    Adam's update of the gradient m
+    reveals (TOL_ADAM_V); the per-step losses, one value a step, as one
+    curve at the end, with the plain bf16 epoch on the host as the witness
+    of two correct bf16 versions (BF16_WITNESS_SHARE). A bf16 rounding
+    that goes the other way moves values by whole bf16 units, so the bars
+    are on the gap, not on fp32 round-off.
+
+    Each step also records how far two more correct bf16 steps part from
+    the card's plain step, on the same elements and the same scale: the
+    host's plain step (``host_*``) and the plain step with its products
+    summed on the tensor cores (``witness_*``,
+    :func:`tensor_core_products`). With ``witnessed`` (for networks whose
+    BatchNorm shifts keep every ReLU on one side, ``separate_relu``, where
+    correct versions part by up to the whole gap on single steps) a step's
+    bars are widened to BF16_WITNESS_SHARE times the larger of those two
+    shares on that step; a step past them is an excursion, held within
+    BF16_WITNESS_SHARE times the gap's own rms and max (or the witnesses'
+    shares, where larger), and the excursions may number at most
+    BF16_WITNESS_SHARE times the steps on which a witness goes past the
+    per-step bars itself (at least one such step is counted).
+
+    Raises at the first bar passed; with ``gate`` False it runs every step
+    and lists the bars passed under ``failures`` (and the first such step
+    under ``first_failed_step``). ``on_step`` receives each step's record
+    (flips, loss flips, v's error, each buffer's error shares and those of
+    the two witnesses, whether it was an excursion, the bars it passed).
+    ``epoch`` is the kernel held (default ``ft.fused_epoch``). Returns the
+    counts, each buffer's largest error and error shares, and the
+    excursions (``excursions``: the steps, the allowance, the steps each
+    witness spent past the per-step bars)."""
     epoch = epoch or ft.fused_epoch
     plan32 = dataclasses.replace(plan, bf16=False)
     state = [b.clone() for b in bufs]
@@ -710,6 +762,16 @@ def stepwise_vs_plain_bf16(plan, bufs, xs, ys, lr, step0, seed, drops,
            'max_share_max': dict.fromkeys(shares, 0.0),
            'adam_v_err_max': 0.0, 'failures': [],
            'first_failed_step': None}
+    gap_bars = {'rms_share': BF16_RMS_SHARE, 'max_share': BF16_MAX_SHARE}
+    # clipping rescales the whole gradient by its global norm, which a
+    # flipped l1 decision moves too, and in the output bias the two can
+    # cancel (tools/bf16_mc_stepwise.py --inspect), so the l1 decisions
+    # are also read from an unclipped step
+    unclipped = (dataclasses.replace(plan, clip=None)
+                 if plan.loss == 'l1_loss' and plan.clip is not None
+                 else None)
+    excursions = {'steps': 0, 'witnessed': witnessed,
+                  'witness_steps_over': {'host': 0, 'witness': 0}}
 
     def bar(step, ok, msg, record):
         if ok:
@@ -734,15 +796,25 @@ def stepwise_vs_plain_bf16(plan, bufs, xs, ys, lr, step0, seed, drops,
                                         *args, signs=signs[1])
         ref32 = ft.fused_epoch_reference(plan32,
                                          *[b.clone() for b in state], *args)
-        witness = ft.fused_epoch_reference(
+        host_out = ft.fused_epoch_reference(
             plan, *[b.to('cpu', copy=True) for b in state], host[0][i:i + 1],
-            host[1][i:i + 1], *rest, host_drops)[4]
+            host[1][i:i + 1], *rest, host_drops)
+        tensor_cores = ft.fused_epoch_reference(
+            plan, *[b.clone() for b in state], *args,
+            products=tensor_core_products)
         flips = (signs[0] != signs[1])[0]
         n_flips = int(flips.sum())
         out['flips'] += n_flips
         out['steps_with_flips'] += int(n_flips > 0)
         outside = ~flip_reach(plan, flips)
         flipped = loss_flips(plan, state[1], got[1], want[1])
+        if unclipped is not None:
+            flipped |= loss_flips(
+                unclipped, state[1],
+                epoch(unclipped, *[b.clone() for b in state], *args)[1],
+                ft.fused_epoch_reference(unclipped,
+                                         *[b.clone() for b in state],
+                                         *args)[1])
         out['loss_flips'] += int(flipped.sum())
         out['steps_with_loss_flips'] += int(bool(flipped.any()))
         outside.view(plan.num_members, -1)[flipped] = False
@@ -754,41 +826,81 @@ def stepwise_vs_plain_bf16(plan, bufs, xs, ys, lr, step0, seed, drops,
         record = {'step': i, 'flips': n_flips,
                   'loss_flips': int(flipped.sum()), 'reach_share': reach,
                   'adam_v_err': v_err, 'rms_share': {}, 'max_share': {},
-                  'failed': []}
+                  'witness_rms_share': {}, 'witness_max_share': {},
+                  'host_rms_share': {}, 'host_max_share': {},
+                  'excursion': False, 'failed': []}
         bar(i, v_err <= TOL_ADAM_V,
             f'fused_train_bf16 step {i} v: {v_err:.2f} round-off bounds '
             f'from Adam\'s update of the gradient m reveals', record)
+        over = {'host': False, 'witness': False}
         for j, name in enumerate(TOL_TRAIN):
             g, w, r = got[j], want[j], ref32[j]
             check(bool(torch.isfinite(g).all()),
                   f'fused_train_bf16 step {i} {name}: non-finite values')
             if name == 'losses':
-                for c, t in zip(curve, (g, w, r, witness)):
+                for c, t in zip(curve, (g, w, r, host_out[4])):
                     c.append(t)
                 continue
+            h, tc = host_out[j].to(w.device), tensor_cores[j]
             if name == 'theta':          # the change the step made
-                g, w, r = (t - state[0] for t in (g, w, r))
+                g, w, r, h, tc = (t - state[0] for t in (g, w, r, h, tc))
             if name in ('theta', 'm', 'v'):
                 if not bool(outside.any()):      # all within a flip's reach
                     continue
-                g, w, r = g[outside], w[outside], r[outside]
+                g, w, r, h, tc = (t[outside] for t in (g, w, r, h, tc))
             label = f'fused_train_bf16 step {i} {name}'
             res = bf16_close(label, g, w, r, gate=False)
-            # v is reported here; its gate is the Adam update above
-            if name != 'v':
-                verdict = bf16_verdict(label, res)
-                bar(i, verdict is None, verdict, record)
             err = res['max_abs_err']
             record['rms_share'][name] = (res['rms_err']
                                          / max(res['gap_rms'], 1e-30))
             record['max_share'][name] = err / max(res['gap_max'], 1e-30)
+            for key, other in (('witness', tc), ('host', h)):
+                apart = (other - w).double()
+                record[key + '_rms_share'][name] = float(
+                    apart.square().mean().sqrt()) / max(res['gap_rms'], 1e-30)
+                record[key + '_max_share'][name] = float(
+                    apart.abs().max()) / max(res['gap_max'], 1e-30)
+                over[key] |= name != 'v' and any(
+                    record[f'{key}_{k}'][name] > b
+                    for k, b in gap_bars.items())
             for key in ('rms_share', 'max_share'):
                 out[key + '_max'][name] = max(out[key + '_max'][name],
                                               record[key][name])
             out['max_abs_err'][name] = max(out['max_abs_err'][name], err)
+            if name == 'v':      # v's gate is the Adam update above
+                continue
+            if not witnessed:
+                verdict = bf16_verdict(label, res)
+                bar(i, verdict is None, verdict, record)
+                continue
+            for key, share in gap_bars.items():
+                apart = max(record['witness_' + key][name],
+                            record['host_' + key][name])
+                kernel = record[key][name]
+                if kernel <= max(share, BF16_WITNESS_SHARE * apart):
+                    continue
+                record['excursion'] = True
+                limit = BF16_WITNESS_SHARE * max(1.0, apart)
+                bar(i, kernel <= limit,
+                    f'{label}: {key.replace("_", " ")} of the gap '
+                    f'{kernel:.3f}, past an excursion\'s bar {limit:.3f} '
+                    f'(the witnesses\' {apart:.3f})', record)
+        for key, past in over.items():
+            excursions['witness_steps_over'][key] += int(past)
+        excursions['steps'] += int(record['excursion'])
         if on_step is not None:
             on_step(record)
         state = list(want[:4])
+    allowed = BF16_WITNESS_SHARE * max(
+        1, *excursions['witness_steps_over'].values())
+    excursions['allowed'] = allowed
+    out['excursions'] = excursions
+    if witnessed:
+        bar(xs.shape[0], excursions['steps'] <= allowed,
+            f'fused_train_bf16: {excursions["steps"]} excursions past the '
+            f'per-step bars, more than {allowed:g} ({BF16_WITNESS_SHARE:g} x '
+            f'the steps a witness went past them: '
+            f'{excursions["witness_steps_over"]})', {'failed': []})
     res = bf16_close('fused_train_bf16 losses',
                      *(torch.cat(c) for c in curve[:3]),
                      witness=torch.cat(curve[3]), gate=False)

@@ -2,25 +2,25 @@
 
 The JAX package keeps a network's weights as two tuples with one entry per
 layer: ``params`` (``Linear``: ``{'w': (in, out), 'b': (out,)}``,
-``BatchNorm1d`` and ``LayerNorm``: ``{'scale', 'bias'}``) and ``state``
-(``BatchNorm1d``: ``{'mean', 'var'}``), with a leading member axis on every
-array for an ensemble. ``model.pth`` bundles store exactly these, as numpy
-arrays.
+``Conv2d``: ``{'w': (out, in, k, k), 'b': (out,)}``, the port's own OIHW
+layout, ``BatchNorm1d``, ``BatchNorm2d`` and ``LayerNorm``: ``{'scale',
+'bias'}``) and ``state`` (the BatchNorms: ``{'mean', 'var'}``), with a
+leading member axis on every array for an ensemble. ``model.pth``
+bundles store exactly these, as numpy arrays.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .nn.layers import BatchNorm1d, LayerNorm, Linear
+from .nn.layers import BatchNorm1d, BatchNorm2d, Conv2d, LayerNorm, Linear
 
 # port attribute -> (pytree, key) in the JAX layout
 _LN_FIELDS = {'weight': ('params', 'scale'), 'bias': ('params', 'bias')}
-_NORM_FIELDS = {
-    BatchNorm1d: {**_LN_FIELDS, 'running_mean': ('state', 'mean'),
-                  'running_var': ('state', 'var')},
-    LayerNorm: _LN_FIELDS,
-}
+_BN_FIELDS = {**_LN_FIELDS, 'running_mean': ('state', 'mean'),
+              'running_var': ('state', 'var')}
+_NORM_FIELDS = {BatchNorm1d: _BN_FIELDS, BatchNorm2d: _BN_FIELDS,
+                LayerNorm: _LN_FIELDS}
 
 
 def _copy(dst: torch.Tensor, src, what: str):
@@ -41,8 +41,10 @@ def tensor_trees(net, values=None):
     params, state = [], []
     for layer in net.layers:
         p, s = {}, {}
-        if isinstance(layer, Linear):
-            p['w'] = of(layer.weight).transpose(-1, -2)
+        if isinstance(layer, (Linear, Conv2d)):
+            p['w'] = of(layer.weight)
+            if isinstance(layer, Linear):
+                p['w'] = p['w'].transpose(-1, -2)
             if layer.bias is not None:
                 p['b'] = of(layer.bias)
         elif type(layer) in _NORM_FIELDS:

@@ -45,6 +45,24 @@ _DTYPE_MAP = {
 }
 
 
+# the fields pandas' read_csv reads as NaN by default
+_NA_FIELDS = frozenset((
+    '', '#N/A', '#N/A N/A', '#NA', '-1.#IND', '-1.#QNAN', '-NaN', '-nan',
+    '1.#IND', '1.#QNAN', '<NA>', 'N/A', 'NA', 'NULL', 'NaN', 'None', 'n/a',
+    'nan', 'null'))
+
+
+def _number(field: str) -> float:
+    """One delimited field (quotes already stripped) as pandas reads a
+    numeric column: a missing-value marker is NaN, anything else a Python
+    float literal without digit separators, which pandas does not take."""
+    if field in _NA_FIELDS:
+        return np.nan
+    if '_' in field:
+        raise ValueError(f'not a number: {field!r}')
+    return float(field)
+
+
 def _resolve_dtype(name: str):
     dt = _DTYPE_MAP.get(name)
     if dt == 'bfloat16':
@@ -289,12 +307,17 @@ class CharacterDelimitedDataset(DatasetCommon):
     @staticmethod
     def _loadtxt(path, delimiter, has_header):
         """A numeric table through numpy: whitespace runs for ``\\s+`` and
-        ``' '``, else the delimiter itself."""
+        ``' '``, else the delimiter itself. As pandas reads a table: a
+        field in double quotes is read without them, and an empty field or
+        one of pandas' missing-value markers (``NA``, ``null``, ...) is
+        NaN. A ragged row or a field that is not a number raises
+        ``ValueError``."""
         if hasattr(path, 'seek'):
             path.seek(0)
         sep = None if delimiter in (r'\s+', ' ') else delimiter
         return np.loadtxt(path, delimiter=sep, skiprows=1 if has_header else 0,
-                          ndmin=2, dtype=np.float64, comments=None)
+                          ndmin=2, dtype=np.float64, comments=None,
+                          quotechar='"', converters=_number)
 
     def file_has_header(self, path, sep):
         if isinstance(path, str):

@@ -10,7 +10,10 @@ casts float64 input to float32, pads the batch up to a power-of-two bucket
 (256 .. 2^19 rows) by repeating its first row, chunks anything larger than
 2^19 rows, runs :meth:`WrappedModelBase.eval_output` and trims the padding.
 Forward passes are row-independent, so the padding changes no answer; the
-buckets keep the set of shapes the device sees small.
+buckets keep the set of shapes the device sees small. The buckets are
+sized for rows of features; an NCHW image holds more activations a row, so
+its largest bucket and its chunks hold proportionally fewer images
+(:meth:`WrappedModelBase.max_rows`).
 
 Precision: ``set_precision`` takes the JAX package's names. ``'bf16'``,
 ``'bf16-mixed'`` and ``'bf16-true'`` all mean bf16 GEMM operands with fp32
@@ -71,6 +74,10 @@ class WrappedModelBase:
     """Base for the UQ model wrappers."""
 
     uq_method = 'mlp'
+    #: activations in one row of the largest bucket: the buckets are sized
+    #: for rows of features at width 128 (2^19 rows, 256 MiB of fp32 a
+    #: layer, as the JAX package sizes them)
+    ROW_ELEMENTS = 128
 
     def __init__(self, net, train_config=None, validation_config=None):
         self.net = net.eval()
@@ -83,6 +90,7 @@ class WrappedModelBase:
         self.dtype = torch.float32
         self._folded = None
         self._folded_key = None
+        self._row_elements = {}
 
     def set_precision(self, precision):
         """Set the compute precision: under a bf16 name the activations and
@@ -141,6 +149,41 @@ class WrappedModelBase:
     def get_callbacks(self):
         return []
 
+    def _row_sample(self, x):
+        """One row of ``x`` as the network takes it."""
+        return x[:1]
+
+    def row_elements(self, x):
+        """The most activations one row of ``x`` holds at any layer of the
+        network (every member's, for a stacked network), from an
+        evaluation-mode forward of one row (kept per sample shape)."""
+        key = tuple(x.shape[1:])
+        if key not in self._row_elements:
+            sizes, training = [], self.net.training
+            hooks = [layer.register_forward_hook(
+                lambda mod, args, out: sizes.append(out.numel()))
+                for layer in self.net.layers]
+            try:
+                with torch.no_grad():
+                    self.net.eval()(self._row_sample(x))
+            finally:
+                self.net.train(training)
+                for hook in hooks:
+                    hook.remove()
+            self._row_elements[key] = max(sizes)
+        return self._row_elements[key]
+
+    def max_rows(self, x) -> int:
+        """Most rows of ``x`` one forward takes: the largest bucket for
+        rows of features; for images (NCHW), a power of two of them that
+        holds no more activations at the network's widest layer than that
+        bucket of ROW_ELEMENTS-wide rows."""
+        if x.dim() <= 2:
+            return _MAX_BUCKET
+        rows = _MAX_BUCKET * self.ROW_ELEMENTS // max(self.row_elements(x),
+                                                      self.ROW_ELEMENTS)
+        return 1 << max(rows.bit_length() - 1, 0)
+
     # ----------------------------------------------------------------- training
     def train_output(self, x, generator=None):
         """The network's output in its current mode (the trainer puts it in
@@ -178,15 +221,15 @@ class WrappedModelBase:
         squeeze_batch = x.dim() == 1
         if squeeze_batch:
             x = x[None]
-        n = x.shape[0]
-        if n > _MAX_BUCKET:
-            outputs = [self(x[i:i + _MAX_BUCKET], return_ue=return_ue)
-                       for i in range(0, n, _MAX_BUCKET)]
+        n, limit = x.shape[0], self.max_rows(x)
+        if n > limit:
+            outputs = [self(x[i:i + limit], return_ue=return_ue)
+                       for i in range(0, n, limit)]
             if isinstance(outputs[0], tuple):
                 return tuple(torch.cat([o[i] for o in outputs])
                              for i in range(len(outputs[0])))
             return torch.cat(outputs)
-        bucket = _bucket_size(n)
+        bucket = min(_bucket_size(n), limit)
         if bucket != n:
             # pad with the first row repeated to keep values in-distribution
             x = torch.cat([x, x[:1].expand((bucket - n,) + x.shape[1:])])

@@ -2,9 +2,11 @@
 
 Counterpart of ``nnueehcs_tpu/models/delta_uq.py``. The network's first
 Linear takes ``2 * num_inputs`` features: an anchored input is
-``concat([anchor, x - anchor])``. A UE pass evaluates the network anchored
-at each of the first ``num_anchors`` stored anchors and reports the mean and
-the unbiased std (``estimator='std'``) or variance (``'var'``) over them.
+``concat([anchor, x - anchor])`` (on the channel axis for NCHW images,
+whose first Conv2d takes ``2 * C`` channels). A UE pass evaluates the
+network anchored at each of the first ``num_anchors`` stored anchors and
+reports the mean and the unbiased std (``estimator='std'``) or variance
+(``'var'``) over them.
 
 Training (reference ``nnueehcs/models.py:306-311``): the forward takes the
 doubled stochastic-centering batch, ``[[a1, x - a1]; [a2, x - a2]]`` with
@@ -17,13 +19,13 @@ at most ``val_num_anchors`` of them.
 On the card the pass is the fused kernel
 (:func:`~nnueehcs_tpu_torch.ops.fused_anchored.fused_anchored_stats`)
 whenever the TPU kernel would take the network and at least two anchors are
-used; on the CPU the same call runs its plain version. Otherwise the
-anchored passes run through the modules in anchor groups that keep at most
-:meth:`DeltaUQMLP._rows_budget` anchored rows in flight, combined with
-Chan's parallel-variance update. The JAX package makes its kernel opt-in;
-here it is the path. A model without anchors raises: the JAX package's
-anchor-less fallback draws from ``jax.random``, which the port cannot
-reproduce.
+used; on the CPU the same call runs its plain version. Otherwise (a CNN
+among them) the anchored passes run through the modules in anchor groups
+that keep at most :meth:`DeltaUQMLP._rows_budget` anchored rows in
+flight, combined with Chan's parallel-variance update. The JAX package
+makes its kernel opt-in; here it is the path. A model without anchors
+raises: the JAX package's anchor-less fallback draws from ``jax.random``,
+which the port cannot reproduce.
 """
 from __future__ import annotations
 
@@ -123,15 +125,27 @@ class DeltaUQMLP(WrappedModelBase):
         return self.loss(mean, y)
 
     # ----------------------------------------------------------------- eval
-    def _rows_budget(self):
+    def _rows_budget(self, x=None):
         """Most anchored rows in flight: ``anchored_batch_size`` anchors'
         worth of rows, floored at ``MIN_ROWS_BUDGET`` and capped at
-        ``anchor_rows_budget``, as in the JAX package."""
+        ``anchor_rows_budget``, as in the JAX package. Those are rows of at
+        most ``ROW_ELEMENTS`` activations; an image batch ``x`` (NCHW)
+        takes fewer rows, as many as hold the same activations at the
+        network's widest layer (:meth:`row_elements` of an anchored
+        row)."""
         if self.batch_size == sys.maxsize:
-            return self.anchor_rows_budget
-        return min(self.anchor_rows_budget,
-                   max(self.num_anchors * self.batch_size,
-                       self.MIN_ROWS_BUDGET))
+            rows = self.anchor_rows_budget
+        else:
+            rows = min(self.anchor_rows_budget,
+                       max(self.num_anchors * self.batch_size,
+                           self.MIN_ROWS_BUDGET))
+        if x is not None and x.dim() > 2:
+            rows = max(1, rows * self.ROW_ELEMENTS
+                       // max(self.row_elements(x), self.ROW_ELEMENTS))
+        return rows
+
+    def _row_sample(self, x):
+        return anchored_input(x[:1], x[:1])
 
     def anchored_weights(self):
         """The folded, split weights for the current parameters (None when
@@ -151,13 +165,14 @@ class DeltaUQMLP(WrappedModelBase):
         anchors, combined with Chan's update."""
         a_all = anchors[:n_anchors]
         k, rows = a_all.shape[0], x.shape[0]
-        g = max(1, min(k, self._rows_budget() // max(rows, 1)))
+        g = max(1, min(k, self._rows_budget(x) // max(rows, 1)))
         n, mean, m2 = 0, None, None
         for start in range(0, k, g):
             a = a_all[start:start + g]
-            inp = anchored_input(x.unsqueeze(0).expand(a.shape[0], *x.shape),
-                                 a.unsqueeze(1).expand(-1, rows, -1))
-            p = self.net(inp.reshape(-1, inp.shape[-1])).reshape(
+            inp = anchored_input(
+                x.unsqueeze(0).expand(a.shape[0], *x.shape),
+                a.unsqueeze(1).expand((-1, rows) + a.shape[1:]))
+            p = self.net(inp.reshape((-1,) + inp.shape[2:])).reshape(
                 a.shape[0], rows, -1)
             cg = p.shape[0]
             mean_g = p.mean(0)

@@ -50,13 +50,14 @@ class PAGERMLP(DeltaUQMLP):
         """``(B, A)``: the first output for each anchor input while the
         network is anchored at each row of ``x``."""
         rows, count = x.shape[0], anchors_x.shape[0]
-        g = max(1, min(rows, self._rows_budget() // max(count, 1)))
+        g = max(1, min(rows, self._rows_budget(x) // max(count, 1)))
         out = []
         for start in range(0, rows, g):
             s = x[start:start + g]
-            inp = anchored_input(anchors_x.unsqueeze(0).expand(s.shape[0], -1, -1),
-                                 s.unsqueeze(1).expand(-1, count, -1))
-            p = self.net(inp.reshape(-1, inp.shape[-1]))
+            inp = anchored_input(
+                anchors_x.unsqueeze(0).expand((s.shape[0],) + anchors_x.shape),
+                s.unsqueeze(1).expand((-1, count) + s.shape[1:]))
+            p = self.net(inp.reshape((-1,) + inp.shape[2:]))
             out.append(p.reshape(s.shape[0], count, -1)[..., 0])
         return torch.cat(out)
 

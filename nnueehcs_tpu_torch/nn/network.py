@@ -14,7 +14,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from .layers import LAYER_REGISTRY, Dropout
+from .layers import LAYER_REGISTRY, Dropout, Flatten
 
 
 class LayerBuilder:
@@ -38,7 +38,8 @@ class LayerBuilder:
 class Network(nn.Module):
     """A sequential stack of layers, built in evaluation mode. With
     ``members=M`` every layer's parameters carry a leading member axis and
-    ``forward`` returns ``(M, B, out)``. In training mode ``generator``
+    ``forward`` returns ``(M, B, out)`` (a ``Flatten`` after the first
+    layer with parameters keeps that axis). In training mode ``generator``
     feeds the Dropout layers. ``compute_dtype`` (None, or
     ``torch.bfloat16``; set by the model's ``set_precision``) is the dtype
     of the activations: a floating input of another dtype is cast to it on
@@ -52,6 +53,12 @@ class Network(nn.Module):
         self.architecture = copy.deepcopy(architecture)
         self.members = members
         self.compute_dtype = None
+        # with members, the activations carry the member axis from the
+        # first layer that holds parameters or buffers on
+        self._adds_member_axis = tuple(
+            members is not None
+            and any(True for _ in (*layer.parameters(), *layer.buffers()))
+            for layer in self.layers)
         self.eval()
 
     def reset_parameters(self, generator: torch.Generator):
@@ -65,8 +72,15 @@ class Network(nn.Module):
         if cd is not None and x.is_floating_point() and x.dtype != cd:
             out_dtype = x.dtype
             x = x.to(cd)
-        for layer in self.layers:
-            x = layer(x, generator) if isinstance(layer, Dropout) else layer(x)
+        stacked = False
+        for layer, adds in zip(self.layers, self._adds_member_axis):
+            if isinstance(layer, Dropout):
+                x = layer(x, generator)
+            elif isinstance(layer, Flatten):
+                x = layer(x, stacked)
+            else:
+                x = layer(x)
+            stacked = stacked or adds
         return x if out_dtype is None else x.to(out_dtype)
 
 

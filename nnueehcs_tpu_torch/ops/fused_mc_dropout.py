@@ -181,8 +181,10 @@ def fused_mc_forward_plain(mw: McWeights, x, num_samples: int, seed: int):
 
 def mc_forward_modules(net, x, num_samples: int, seed: int):
     """The same statistics through the network's modules, for a network
-    the fold does not take: each Dropout multiplies by the hash mask keyed
-    by its module index, every other layer runs as it is. Under a compute
+    the fold does not take (a CNN among them): each Dropout multiplies by
+    the hash mask keyed by its module index (an NCHW activation's columns
+    are its flattened C x H x W elements), every other layer runs as it
+    is. Under a compute
     dtype the walk runs in it, as ``Network`` does (x cast on entry, a
     masked activation returned in its dtype, the output back in fp32)."""
     cd = getattr(net, 'compute_dtype', None)
@@ -193,9 +195,9 @@ def mc_forward_modules(net, x, num_samples: int, seed: int):
             if isinstance(layer, Dropout):
                 threshold, scale = keep_threshold(layer.p)
                 if sample is not None and threshold >= 0:
-                    h = (h * dropout_scale(seed, sample, i, threshold, scale,
-                                           h.shape[0], h.shape[1],
-                                           x.device)).to(h.dtype)
+                    mask = dropout_scale(seed, sample, i, threshold, scale,
+                                         h.shape[0], h[0].numel(), x.device)
+                    h = (h * mask.reshape(h.shape)).to(h.dtype)
             else:
                 h = layer(h)
         return h.to(x.dtype)

@@ -445,10 +445,10 @@ def _mm(plan, a, b):
     return a @ b
 
 
-def _forward(plan, k, th, sg, x, i, m, seed, drops, saved):
+def _forward(plan, k, th, sg, x, i, m, seed, drops, saved, mm=_mm):
     """One member's training-mode forward on the flat buffers, with the
     running-stat EMA; fills ``saved`` (x-hat, 1/sigma and masks per slot)
-    for the backward."""
+    for the backward. ``mm`` forms the products (:func:`_mm`)."""
     base, sbase = m * plan.slab_rows, m * plan.sig_rows
     h = x
     for L in plan.lins:
@@ -458,7 +458,7 @@ def _forward(plan, k, th, sg, x, i, m, seed, drops, saved):
             saved['mask'][L.mask_idx] = mask
             h = h * mask
         W = th[base + L.w_off:base + L.w_off + L.in_rows]
-        z = _mm(plan, h, W) + th[base + L.b_off]
+        z = mm(plan, h, W) + th[base + L.b_off]
         if L.bn_layer >= 0:
             mu = z.mean(0)
             c = z - mu
@@ -479,7 +479,7 @@ def _forward(plan, k, th, sg, x, i, m, seed, drops, saved):
     return h
 
 
-def _backward(plan, k, th, g, x, m, d, saved, signs=None):
+def _backward(plan, k, th, g, x, m, d, saved, signs=None, mm=_mm):
     """The reverse pass of one member, writing its gradient rows into g
     and, when given, its ReLU decisions into ``signs`` (n_bn, B, 128)."""
     B = plan.batch
@@ -513,10 +513,10 @@ def _backward(plan, k, th, g, x, m, d, saved, signs=None):
                 a = torch.relu(a)
             if L.mask_idx >= 0:
                 a = a * saved['mask'][L.mask_idx]
-        g[base + L.w_off:base + L.w_off + L.in_rows] = _mm(plan, a.T, d)
+        g[base + L.w_off:base + L.w_off + L.in_rows] = mm(plan, a.T, d)
         g[base + L.b_off] = d.sum(0)
         if li > 0:
-            d = _mm(plan, d, th[base + L.w_off:base + L.w_off + L.in_rows].T)
+            d = mm(plan, d, th[base + L.w_off:base + L.w_off + L.in_rows].T)
             if L.mask_idx >= 0:
                 d = d * saved['mask'][L.mask_idx]
 
@@ -542,12 +542,16 @@ def _adam(plan, k, theta, m, v, g, lr, t):
 
 
 def fused_epoch_reference(plan: FusedTrainPlan, theta, m, v, sigma, xs, ys,
-                          lr, step0, seed=0, drops=None, signs=None):
+                          lr, step0, seed=0, drops=None, signs=None,
+                          products=_mm):
     """The kernel's epoch in plain tensor ops, step by step and member by
     member, in the kernel's order of operations; updates the buffers in
     place and returns ``(theta, m, v, sigma, losses[S])``. ``signs``, when
     given, is an ``(S, M, n_bn, B, 128)`` uint8 tensor that receives each
-    ReLU decision of the backward, as the kernel writes it."""
+    ReLU decision of the backward, as the kernel writes it. ``products``
+    forms each product (``_mm``: the plan's rounding, summed in fp32 by
+    ``torch.matmul``); another summation of the same rounded operands
+    gives a second correct version of the epoch."""
     drops = _drop_tensor(plan, drops, theta.device)
     k = _constants(plan)
     S, M = xs.shape[0], plan.num_members
@@ -564,7 +568,7 @@ def fused_epoch_reference(plan: FusedTrainPlan, theta, m, v, sigma, xs, ys,
             predsum = None
             for mi in range(M):
                 h = _forward(plan, k, theta, sigma, x, i, mi, seed, drops,
-                             saved[mi])
+                             saved[mi], products)
                 predsum = h if predsum is None else predsum + h
             term, dpred = _loss_and_grad(plan, k, predsum * k['inv_members'],
                                          ypad)
@@ -574,14 +578,14 @@ def fused_epoch_reference(plan: FusedTrainPlan, theta, m, v, sigma, xs, ys,
         for mi in range(M):
             if plan.single_sweep:
                 h = _forward(plan, k, theta, sigma, x, i, mi, seed, drops,
-                             saved[mi])
+                             saved[mi], products)
                 term, d = _loss_and_grad(plan, k, h, ypad)
                 loss_sum = loss_sum + term
                 d = d * k['inv_members']
             else:
                 d = dpred
             _backward(plan, k, theta, g, x, mi, d, saved[mi],
-                      None if signs is None else signs[i, mi])
+                      None if signs is None else signs[i, mi], products)
         if plan.single_sweep:
             loss_t = loss_sum / k['sweep_div']
         _adam(plan, k, theta, m, v, g, lr, step0 + i + 1)

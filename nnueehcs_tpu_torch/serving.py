@@ -2,8 +2,9 @@
 
 Counterpart of ``nnueehcs_tpu/serving.py``. The predictor loads a bundle
 (or takes a model), places it on ``device``, warms every batch bucket once,
-pads each request to the nearest bucket by repeating its first row, chunks
-requests larger than the largest bucket, and trims the answers. Forward
+pads each request (rows of features, or NCHW images) to the nearest
+bucket by repeating its first row, chunks requests larger than the
+largest bucket, and trims the answers. Forward
 passes are row-independent, so padding changes no answer. A model in
 bf16-mixed (``set_precision``, or a bundle's ``train_config``) serves as
 it is, its warm-up building and folding for that precision; the answers
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from .models.base import resolve_device
-from .nn.layers import Linear
+from .nn.layers import Conv2d, Linear
 from .training.checkpoint import load_model
 from .utils.timing import device_sync
 
@@ -40,9 +41,12 @@ class Predictor:
             self.warmup()
 
     def _infer_features(self) -> Optional[int]:
+        """The feature count of a request row; None for a network without a
+        Linear or one that starts with a Conv2d (an image's height and
+        width are not in its architecture)."""
         first = next((l for l in self.model.net.layers
-                      if isinstance(l, Linear)), None)
-        if first is None:
+                      if isinstance(l, (Linear, Conv2d))), None)
+        if not isinstance(first, Linear):
             return None
         if self.model.uq_method in ('delta_uq', 'pager'):
             return first.in_features // 2   # the anchored input doubles it
@@ -62,13 +66,24 @@ class Predictor:
         """One exactly-bucket-sized forward through the model."""
         return self.model(torch.from_numpy(chunk), return_ue=self.return_ue)
 
-    def warmup(self) -> float:
-        """Drive one forward per bucket, so first-use set-up (the kernel
-        build, the weight fold) is paid before the first request. Returns
-        the seconds it took."""
+    def warmup(self, sample_shape=None) -> float:
+        """Drive one forward per bucket on zero requests of
+        ``sample_shape`` (default ``(num_features,)``), so first-use set-up
+        (the kernel build, the weight fold) is paid before the first
+        request. An image model's request shape is not in its
+        architecture: it raises ``ValueError`` without ``sample_shape``
+        (build its Predictor with ``warmup=False``, then call
+        ``warmup(sample_shape)``). Returns the seconds it took."""
+        if sample_shape is None:
+            if self._num_features is None:
+                raise ValueError(
+                    'the request shape of this model is not in its '
+                    'architecture: build the Predictor with warmup=False '
+                    'and call warmup(sample_shape), e.g. (C, H, W)')
+            sample_shape = (self._num_features,)
         start = time.perf_counter()
         for b in self.buckets:
-            zeros = np.zeros((b, self._num_features), np.float32)
+            zeros = np.zeros((b,) + tuple(sample_shape), np.float32)
             device_sync(self._run_bucket(zeros))
         return time.perf_counter() - start
 

@@ -34,16 +34,22 @@ the two took differently (``chip_smoke.stepwise_vs_plain``). The training
 kernel (one thread-block cluster per member, activations exchanged through
 distributed shared memory) also runs twice from identical buffers and must
 agree bit for bit: a race on the exchange would show there."""
+import copy
+import csv
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (FLAGSHIP, TOL_TRAIN, separate_relu,
+from chip_smoke import (CNN_128, CNN_IMAGE, FLAGSHIP, TOL_TRAIN, cnn_model,
+                        cnn_reference, image_target, member_nets,
+                        read_launches, reset_launches, separate_relu,
                         stepwise_vs_plain, train_inputs, train_plan)
 from nnueehcs_tpu_torch.attrib import (BINDING_CLIP, TOL_NORM, bf16_close,
-                                       probe_prod)
+                                       probe_prod, stepwise_vs_plain_bf16)
 from nnueehcs_tpu_torch.convert import tensor_trees
 from nnueehcs_tpu_torch.model_builder import (DeltaUQMLPModelBuilder,
                                               EnsembleModelBuilder,
@@ -70,6 +76,8 @@ from nnueehcs_tpu_torch.ops import fused_train as ft
 from nnueehcs_tpu_torch.serving import Predictor
 from nnueehcs_tpu_torch.training import (ArrayDataset, DataLoader, Trainer,
                                          load_model, save_model)
+
+REPO = Path(__file__).resolve().parents[1]
 
 TOL_MEAN = {'rtol': 1e-5, 'atol': 1e-5}
 TOL_STD = {'rtol': 1e-3, 'atol': 1e-5}
@@ -1148,8 +1156,11 @@ def test_training_kernel_bf16_matches_plain_stepwise_on_card(card, case):
     before = (ft.fused_epoch.launches, ft.fused_epoch.launches_bf16)
     out = stepwise_vs_plain(plan, bufs, xs, ys, 1e-3, 5, 4242,
                             ft.drop_rates(m.net).to(card))
+    # a clipped l1 plan's step is launched twice: the second launch,
+    # unclipped, reads the l1 decisions the clip can hide
+    per_step = 2 if plan.loss == 'l1_loss' and plan.clip is not None else 1
     assert (ft.fused_epoch.launches, ft.fused_epoch.launches_bf16) == \
-        (before[0], before[1] + 6)
+        (before[0], before[1] + 6 * per_step)
     assert out['steps'] == 6 and out['losses']['gap_max'] > 0
 
 
@@ -1230,3 +1241,129 @@ def test_trainer_on_card_runs_the_training_kernel_form(card, family,
     assert fresh.net.compute_dtype == (torch.bfloat16 if bf16 else None)
     for a, b in zip(m(x, return_ue=True), fresh(x, return_ue=True)):
         torch.testing.assert_close(a, b, **TOL_MEAN)
+
+
+# kernel 3b on the MC-dropout flagship with every pre-ReLU value kept off 0
+# (``separate_relu``), 64 steps, with the witnessed bars
+# (``attrib.stepwise_vs_plain_bf16``: each step's bars widened by how far
+# the host's plain step and the tensor cores' part from the card's plain
+# step on that step, the excursions past them capped in reach and number);
+# each planted fault of tools/bf16_mc_stepwise.py fails them: the learning
+# rate doubled on every step or on step 17 alone past an excursion's bar,
+# half the gap on every step by the count
+def _mc_tool():
+    spec = importlib.util.spec_from_file_location(
+        'bf16_mc_stepwise', REPO / 'tools' / 'bf16_mc_stepwise.py')
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('seed', [0, 1])
+def test_training_kernel_bf16_on_separate_relu_mc_dropout_on_card(card,
+                                                                   seed):
+    model = separate_relu(
+        MCDropoutModelBuilder(FLAGSHIP, {'num_samples': 128,
+                                         'dropout_percent': 0.1},
+                              seed=seed, device=card).build(),
+        torch.Generator().manual_seed(seed + 7))
+    plan = train_plan(model, bf16=True)
+    assert plan.n_drop == 5
+    bufs, xs, ys = train_inputs(model, plan, np.random.default_rng(seed), 64)
+    drops = ft.drop_rates(model.net).to(card)
+    out = stepwise_vs_plain_bf16(plan, bufs, xs, ys, 1e-3, 5, 4242, drops,
+                                 witnessed=True)
+    assert out['failures'] == []
+    assert out['excursions']['steps'] <= out['excursions']['allowed']
+    tool = _mc_tool()
+    for plant, (lr_scale, gap_share, steps) in tool.PLANTS.items():
+        fault = stepwise_vs_plain_bf16(
+            plan, bufs, xs, ys, 1e-3, 5, 4242, drops, gate=False,
+            witnessed=True,
+            epoch=tool.planted_fault(ft, lr_scale, gap_share, steps, first=5))
+        if plant == 'gap':
+            assert 'excursions past' in fault['failures'][-1], plant
+        else:
+            assert fault['first_failed_step'] == (steps or (0,))[0], plant
+
+
+# CNN-128 (chip_smoke.CNN_128: 1 x 8 x 8 images, two 3 x 3 convolutions 128
+# channels wide) through the four UQ classes on the card: no kernel takes a
+# Conv2d network, so every launch count stays 0; the answers against the
+# plain computation member by member and anchor by anchor
+# (``chip_smoke.cnn_reference``), mean 1e-5, UE 1e-3 relative + 1e-5
+CNN_KINDS = ('ensemble', 'mc_dropout', 'delta_uq', 'pager')
+
+
+def _cnn(kind, card, seed=0):
+    model = cnn_model(kind, CNN_128, seed).to(card)
+    if kind in ('delta_uq', 'pager'):
+        rng = np.random.default_rng(seed + 1)
+        model.anchors = rng.normal(size=(229,) + CNN_IMAGE).astype(
+            np.float32)
+        if kind == 'pager':
+            model.anchors_Y = rng.normal(size=(229, 1)).astype(np.float32)
+    return model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', CNN_KINDS)
+def test_cnn128_serves_as_the_plain_computation_on_card(card, kind):
+    model = _cnn(kind, card)
+    nets = member_nets(model) if kind == 'ensemble' else \
+        [copy.deepcopy(model.net)] if kind == 'mc_dropout' else None
+    x = np.random.default_rng(3).normal(size=(300,) + CNN_IMAGE).astype(
+        np.float32)
+    reset_launches()
+    pred = Predictor(model, buckets=(256, 1024), device=card, warmup=False)
+    pred.warmup(CNN_IMAGE)
+    call = getattr(model, '_eval_calls', None)
+    mean, ue = pred.predict(x)
+    assert set(read_launches().values()) == {0}
+    ref_mean, ref_ue = cnn_reference(model, nets, torch.from_numpy(x).to(card),
+                                     call, None)
+    torch.testing.assert_close(torch.from_numpy(mean), ref_mean.cpu(),
+                               **TOL_MEAN)
+    torch.testing.assert_close(torch.from_numpy(ue), ref_ue.cpu(), **TOL_STD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', CNN_KINDS)
+def test_cnn128_trains_an_epoch_on_card_as_on_the_cpu(card, kind, tmp_path):
+    """Eight unshuffled steps of 32 images from the same build on the card
+    and on the CPU: no kernel epoch, no launch; the per-step losses within
+    1e-4 (two fp32 trajectories, as chip_smoke's TOL_CROSS; MC dropout's
+    masks come from each device's own generator, so its losses are held
+    only to be finite), Δ-UQ and PAGER anchored by the same permutations."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(256,) + CNN_IMAGE).astype(np.float32)
+    y = image_target(x)
+    perms = ft.anchor_permutations(torch.Generator().manual_seed(9), 8, 32)
+    losses = {}
+    for device in (card, torch.device('cpu')):
+        model = cnn_model(kind, CNN_128, 0).to(device)
+        trainer = Trainer('t', {'max_epochs': 1, 'limit_train_batches': 8,
+                                'gradient_clip_val': 5.0,
+                                'log_every_n_steps': 1},
+                          callbacks=model.get_callbacks(),
+                          log_dir=str(tmp_path), version=device.type,
+                          device=device)
+        trainer.anchor_permutations = \
+            lambda epoch, first, steps, batch, d=device: \
+            perms[first:first + steps].to(d)
+        reset_launches()
+        trainer.fit(model, DataLoader(ArrayDataset(x, y), 32,
+                                      drop_last=True),
+                    DataLoader(ArrayDataset(x[:64], y[:64]), 32))
+        assert set(read_launches().values()) == {0}
+        assert trainer.fused_epochs_used == 0
+        with open(f'{trainer.logger.log_dir}/metrics.csv') as f:
+            losses[device.type] = np.array([
+                float(r['train_loss']) for r in csv.DictReader(f)
+                if r.get('train_loss')])
+    assert losses['cuda'].shape == (8,)
+    assert np.isfinite(losses['cuda']).all()
+    if kind != 'mc_dropout':
+        np.testing.assert_allclose(losses['cuda'], losses['cpu'], rtol=0,
+                                   atol=1e-4)

@@ -48,7 +48,7 @@ def assert_same(ours, theirs):
     for a, b in ((ours.input, theirs.input), (ours.output, theirs.output)):
         a, b = np.asarray(a), np.asarray(b)
         assert a.dtype == b.dtype and a.shape == b.shape
-        assert np.array_equal(a, b)
+        assert np.array_equal(a, b, equal_nan=True)
 
 
 @pytest.fixture(scope='module')
@@ -75,6 +75,20 @@ def files(table, tmp_path_factory):
         f.write('a,b,c,d,e,target\n')
         with open(paths['comma']) as g:
             f.write(g.read())
+    with open(paths['comma']) as g:
+        rows = [line.rstrip('\n').split(',') for line in g]
+    # files the native parser declines: every field in double quotes;
+    # empty input fields and pandas' missing-value markers (NaN to pandas)
+    paths['quoted'] = str(tmp / 'q.csv')
+    with open(paths['quoted'], 'w') as f:
+        f.writelines(','.join(f'"{v}"' for v in row) + '\n' for row in rows)
+    paths['empty'] = str(tmp / 'e.csv')
+    with open(paths['empty'], 'w') as f:
+        for i, row in enumerate(rows):
+            row = list(row)
+            if i % 5 == 1:
+                row[i % 4] = ('', 'NA', 'null', '')[i % 4]
+            f.write(','.join(row) + '\n')
     return paths
 
 
@@ -105,13 +119,15 @@ def test_every_reader_gives_the_jax_arrays(files, kind):
         assert ours.parser == 'native'
 
 
-@pytest.mark.parametrize('kind', ['tab', 'space', 'comma', 'header'])
+@pytest.mark.parametrize('kind', ['tab', 'space', 'comma', 'header',
+                                  'quoted', 'empty'])
 def test_numpy_parsed_delimited_gives_the_jax_arrays(files, kind,
                                                      monkeypatch):
-    """Without the native parser (a file object, or no library), the port
-    parses with numpy where the JAX package uses pandas."""
-    _, extra = READERS[kind]
-    delim = extra(None)['delimiter']
+    """Without the native parser (a file object, a file it declines, or
+    no library), the port parses with numpy where the JAX package uses
+    pandas: quoted fields without their quotes, empty fields and pandas'
+    missing-value markers as NaN."""
+    delim = READERS[kind][1](None)['delimiter'] if kind in READERS else ','
     with open(files[kind]) as f:
         text = f.read()
     ours = data_utils.CharacterDelimitedDataset(io.StringIO(text), delim)
@@ -122,6 +138,32 @@ def test_numpy_parsed_delimited_gives_the_jax_arrays(files, kind,
     ours = data_utils.CharacterDelimitedDataset(files[kind], delim)
     assert ours.parser == 'numpy'
     assert_same(ours, theirs)
+
+
+def test_quoted_and_empty_fields_are_what_pandas_reads(files):
+    """The two files the native parser declines hold the comma file's
+    numbers, and NaN exactly where a field was blanked."""
+    plain = data_utils.CharacterDelimitedDataset(files['comma'], ',')
+    quoted = data_utils.CharacterDelimitedDataset(files['quoted'], ',')
+    empty = data_utils.CharacterDelimitedDataset(files['empty'], ',')
+    assert (quoted.parser, empty.parser) == ('numpy', 'numpy')
+    assert_same(quoted, plain)
+    blank = np.isnan(empty.input)
+    assert blank.sum() == len(range(1, len(plain), 5))
+    assert np.array_equal(empty.input[~blank], plain.input[~blank])
+    assert np.array_equal(empty.output, plain.output)
+
+
+@pytest.mark.parametrize('text', [
+    '1.5,2.5,3.5\n4.5,5.5\n7.5,8.5,9.5\n',          # a ragged row
+    '1.5,True,3.5\n4.5,False,6.5\n7.5,True,9.5\n'],  # a boolean column
+    ids=['ragged', 'boolean'])
+def test_files_pandas_reads_oddly_are_refused(text):
+    """pandas pads a short row with NaN (so the percentile split drops
+    every row, and the JAX package gives empty arrays) and reads True and
+    False as booleans; the port refuses both files."""
+    with pytest.raises(ValueError):
+        data_utils.CharacterDelimitedDataset(io.StringIO(text), ',')
 
 
 def test_native_parser_counts_its_reads_and_declines_non_numeric(tmp_path,
