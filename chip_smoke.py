@@ -109,7 +109,24 @@ ensemble, MC dropout, Δ-UQ and PAGER: one epoch of ``Trainer.fit`` each
 validation loss, then ``Predictor`` in fp32 and bf16-mixed against the
 plain computation member by member and anchor by anchor, with every
 launch count 0 (no kernel takes a Conv2d network), images/s and the
-allocator's peak. It prints one JSON line per
+allocator's peak. The ``parallel`` phase runs ``nnueehcs_tpu_torch.parallel``:
+a gloo world of two ranks both on ``cuda:0`` (``parallel.launch``; NCCL
+refuses two ranks on one card) serves the flagship shapes dp-sharded
+through ``Predictor(mesh=)`` (the ensemble and MC dropout in fp32 and
+bf16-mixed, Δ-UQ, KDE and kNN-KDE on a corpus split over the ranks, and
+the ensemble split 4 + 4 over ``member``), each answer held to the
+unsharded call within the parity bars (MC dropout bit for bit), each
+rank's share of a row-sharded answer equal bit for bit to its rows run
+alone, every rank holding the same answer and launching its kernel
+exactly once a bucket (kernel 4 on its corpus shard); probes which
+collectives gloo takes on CUDA tensors; fits the flagship trial's
+ensemble for 5 validated epochs of 20 steps on ``{'dp': 2}`` and
+``{'member': 2}`` against the same fit unsharded (the first epoch's
+losses and validation loss within stated bars, kernel 3 never
+launched); then an NCCL world of one rank a visible card sums over its
+group and serves a dp-sharded ensemble request. Kernels 2 and 2b are
+also held to their plain versions with a nonzero ``row0`` (a rank's
+first row). It prints one JSON line per
 phase, then the card's ``nvidia-smi`` name and power limit, then a
 ``{"kernels": [...]}`` line (fifteen kernels: the ten fp32 ones, then the
 five bf16 forms), and last ``{"ok": true, "device": {...}}``. Any failure
@@ -233,6 +250,8 @@ DEEP_RING = FLAGSHIP[:3] + FLAGSHIP[3:6] * 10 + FLAGSHIP[-1:]
 # the grid's UQ passes (bench.py): MC dropout with 128 samples at p = 0.1;
 # Δ-UQ (and PAGER) with 229 anchors and anchored_batch_size 229
 MC_SAMPLES, MC_P = 128, 0.1
+# the first row of a rank's share in the kernel-vs-plain row0 cases
+MC_ROW0 = 3_000_017
 ANCHORS = 229
 # the bench's KDE workload (bench.py:189-193): a 16,384 x 5 fit corpus and
 # rtol 1000; kNN-KDE with k = 220, the median k of the 83 committed kNN
@@ -1844,6 +1863,404 @@ def cnn_phase(seed):
          nvidia_smi=nvidia_smi('name,power.limit'))
 
 
+# the parallel phase: meshes over torch.distributed ranks. A gloo world of
+# two ranks both on cuda:0 (the script needs only one card, and NCCL
+# refuses two ranks on one card) runs every sharded path; an NCCL
+# world of one rank a visible card runs its collectives and a dp-sharded
+# ensemble request. Sharded fits: the flagship trial's ensemble
+# (TRAIN_MODEL_CONFIG) for 5 epochs of 20 steps of batch 128, each epoch
+# validated, on dp = 2 and on {'member': 2}, against the same fit unsharded
+# on the per-step path (fused_epochs off). A split batch sums in another
+# order, and two float32 trajectories part exponentially from their first
+# rounding difference (Adam's first steps move a weight whose gradient is
+# rounding noise by a whole learning rate), so the bars read the first
+# epoch: its CROSS_CHECKED losses within TOL_CROSS, as the kernel fit is
+# held to the per-step fit, and its validation loss within PARALLEL_VAL_REL
+# relative. On the card over seeds 0-4 the dp fit read at most 1.87e-5 and
+# 3.24e-6 (the member fit 6e-8 and 9e-9); the planted faults that a bar
+# sees read at least 7.6e-4 on the losses (BatchNorm gradients left
+# unsummed) and 2.3e-4 and 8.1e-4 on the validation (those, and the
+# running variance unbiased with a rank's rows). The later epochs are
+# printed, not held: by step 100 the clean parting (2.2e-3 on a loss, 7.3e-3
+# relative on the validation) is as large as the faults'
+# (tools/parallel_fit_bars.py; PERF.md section 6).
+PARALLEL_GLOO_DEVICES = ('cuda:0', 'cuda:0')
+PARALLEL_FIT_EPOCHS, PARALLEL_EPOCH_STEPS = 5, CROSS_CHECKED
+PARALLEL_FIT_VAL_BATCHES = 10
+PARALLEL_VAL_REL = 3e-5
+PARALLEL_TIMEOUT = 600                   # a world's limit, seconds
+# the kernels whose dp ranks each launch on their rows of a bucket (the
+# KDE kernel splits the corpus instead; MC dropout is checked bit for bit)
+ROW_SHARDED = ('fused_ensemble', 'fused_ensemble_bf16', 'fused_anchored')
+GLOO_CUDA_PROBES = ('all_reduce', 'broadcast', 'all_gather',
+                    'all_gather_into_tensor', 'reduce_scatter_tensor',
+                    'barrier')
+
+
+def _sync(device):
+    if torch.device(device).type == 'cuda':
+        torch.cuda.synchronize(device)
+
+
+def _digest(out):
+    """A hash of an answer's bytes: two ranks' answers are equal iff their
+    digests are."""
+    import hashlib
+    h = hashlib.sha256()
+    for o in (out if isinstance(out, tuple) else (out,)):
+        h.update(np.ascontiguousarray(o).tobytes())
+    return h.hexdigest()
+
+
+def _rank_trace(rank, start, *what):
+    """A rank's progress on stderr: a world that stalls shows where."""
+    print(f'parallel rank {rank} {time.perf_counter() - start:.2f} s:',
+          *what, file=sys.stderr, flush=True)
+
+
+def _shown(record):
+    """A record as the phase prints it: no digest, launches that ran."""
+    out = {k: v for k, v in record.items() if k != 'digest'}
+    out['launches'] = {k: v for k, v in record['launches'].items() if v}
+    return out
+
+
+def gloo_cuda_probe(device):
+    """Which collectives gloo takes on tensors on ``device``: each one
+    tried on the default group, 'ok' or the error."""
+    import torch.distributed as dist
+    world = dist.get_world_size()
+    ops = {
+        'all_reduce': lambda: dist.all_reduce(torch.ones(4, device=device)),
+        'broadcast': lambda: dist.broadcast(torch.ones(4, device=device), 0),
+        'all_gather': lambda: dist.all_gather(
+            [torch.empty(4, device=device) for _ in range(world)],
+            torch.ones(4, device=device)),
+        'all_gather_into_tensor': lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * world, device=device),
+            torch.ones(4, device=device)),
+        'reduce_scatter_tensor': lambda: dist.reduce_scatter_tensor(
+            torch.empty(4, device=device),
+            torch.ones(4 * world, device=device)),
+        'barrier': dist.barrier,
+    }
+    out = {}
+    for name in GLOO_CUDA_PROBES:
+        try:
+            ops[name]()
+            _sync(device)
+            out[name] = 'ok'
+        except RuntimeError as e:
+            out[name] = f'{type(e).__name__}: {str(e)[:120]}'
+    return out
+
+
+def parallel_models(seed, corpus):
+    """(name, make, kernel launched a bucket, rows, MC) of the dp-sharded
+    requests: every class with a kernel on its path, fp32 and bf16-mixed
+    for the ensemble and MC dropout, and kNN-KDE (no kernel)."""
+    def bf16(model):
+        return model.set_precision('bf16-mixed')
+    return [
+        ('ensemble', lambda: build_model(seed), 'fused_ensemble', ROWS,
+         False),
+        ('ensemble_bf16', lambda: bf16(build_model(seed)),
+         'fused_ensemble_bf16', ROWS, False),
+        ('mc_dropout', lambda: build_mc(seed), 'fused_mc_dropout', ROWS,
+         True),
+        ('mc_dropout_bf16', lambda: bf16(build_mc(seed)),
+         'fused_mc_dropout_bf16', ROWS, True),
+        ('delta_uq', lambda: build_anchored(DeltaUQMLPModelBuilder, seed),
+         'fused_anchored', ANCHORED_ROWS, False),
+        ('kde', lambda: build_density(KDEModelBuilder, {'rtol': KDE_RTOL},
+                                      seed, corpus), 'kde', ROWS, False),
+        ('knn_kde', lambda: build_density(KNNKDEModelBuilder, {'k': KNN_K},
+                                          seed, corpus), None, ROWS, False),
+    ]
+
+
+def share_witness(make, x, dp, got, ref):
+    """Each dp rank's share of a row-sharded answer ``got`` against the
+    same model unsharded, run in this process on exactly that rank's rows
+    of each bucket (``bucket[lo:hi]``, the rows its kernel launch took).
+    Returns (every share equal to that bit for bit, the number of the
+    shares' values that differ from the same rows of the whole-bucket
+    call ``ref``)."""
+    from nnueehcs_tpu_torch.parallel import Mesh, local_rows
+    bucket = DEFAULT_BUCKETS[-1]
+    check(x.shape[0] % bucket == 0,
+          f'the share witness takes whole buckets, not {x.shape[0]} rows')
+    model = make()
+    same, moved = True, 0
+    with torch.no_grad():
+        for c0 in range(0, x.shape[0], bucket):
+            chunk = torch.from_numpy(x[c0:c0 + bucket]).to(DEVICE)
+            for r in range(dp):
+                lo, hi = local_rows(bucket, Mesh({'dp': dp}, r, None, {},
+                                                 None))
+                share = model.eval_rows(chunk, lo, hi, return_ue=True)
+                for part, t in enumerate(share):
+                    mine = t.float().cpu().numpy()
+                    same &= np.array_equal(mine, got[part][c0 + lo:c0 + hi])
+                    moved += int(np.sum(mine != ref[part][c0 + lo:c0 + hi]))
+    return same, moved
+
+
+def parallel_fit_data(seed):
+    """The sharded fits' rows, PARALLEL_FIT_EPOCHS x PARALLEL_EPOCH_STEPS
+    training batches then PARALLEL_FIT_VAL_BATCHES validation batches, and
+    their targets."""
+    rng = np.random.default_rng(seed + 79)
+    n = (PARALLEL_FIT_EPOCHS * PARALLEL_EPOCH_STEPS
+         + PARALLEL_FIT_VAL_BATCHES) * TRAIN_BATCH
+    x = rng.normal(size=(n, IN_DIM)).astype(np.float32)
+    return x, smooth_target(x)
+
+
+def parallel_fit(model, x, y, seed, log_dir, mesh=None, devices=None):
+    """PARALLEL_FIT_EPOCHS epochs of PARALLEL_EPOCH_STEPS per-step training
+    steps of batch TRAIN_BATCH (drawn from the training rows of
+    :func:`parallel_fit_data`), each followed by PARALLEL_FIT_VAL_BATCHES
+    validation batches, on the mesh of axes ``mesh`` over ``devices``
+    (rank r on ``devices[r]``) or unsharded; returns (trainer, per-step
+    losses, per-epoch validation losses, launches, seconds). The losses are
+    rank 0's logs (None on the other ranks)."""
+    n = PARALLEL_FIT_EPOCHS * PARALLEL_EPOCH_STEPS * TRAIN_BATCH
+    n_val = PARALLEL_FIT_VAL_BATCHES * TRAIN_BATCH
+    cfg = dict(TRAIN_CONFIG, max_epochs=PARALLEL_FIT_EPOCHS,
+               limit_train_batches=PARALLEL_EPOCH_STEPS,
+               limit_val_batches=PARALLEL_FIT_VAL_BATCHES,
+               log_every_n_steps=1, seed=seed, fused_epochs=False)
+    if mesh is not None:
+        cfg.update(mesh=mesh, devices=list(devices))
+    model.train_config.update(TRAIN_MODEL_CONFIG)
+    trainer = Trainer('parallel', cfg,
+                      callbacks=[EarlyStopping(patience=PARALLEL_FIT_EPOCHS)],
+                      log_dir=log_dir, version=f'seed_{seed}_{mesh}',
+                      device=DEVICE)
+    reset_launches()
+    start = time.perf_counter()
+    trainer.fit(model, DataLoader(ArrayDataset(x[:n], y[:n]), TRAIN_BATCH,
+                                  shuffle=True, drop_last=True),
+                DataLoader(ArrayDataset(x[n:n + n_val], y[n:n + n_val]),
+                           TRAIN_BATCH))
+    _sync(DEVICE)
+    seconds = time.perf_counter() - start
+    launches = read_launches()
+    losses = vals = None
+    if trainer.mesh is None or trainer.mesh.rank == 0:
+        with open(os.path.join(trainer.logger.log_dir, 'metrics.csv')) as f:
+            rows = list(csv.DictReader(f))
+        losses = [float(r['train_loss']) for r in rows if r.get('train_loss')]
+        vals = [float(r['val_loss']) for r in rows if r.get('val_loss')]
+    return trainer, losses, vals, launches, seconds
+
+
+def fit_readings(losses, vals, ref_losses, ref_vals):
+    """A sharded fit's distances from the unsharded fit: the first
+    CROSS_CHECKED losses' largest (``first``), every step's (``all``), the
+    first validation loss's relative distance (``val_first_rel``) and the
+    last's (``val_last_rel``)."""
+    diff = np.abs(np.array(losses) - np.array(ref_losses))
+    rel = np.abs(np.array(vals) - np.array(ref_vals)) / np.abs(ref_vals)
+    return {'first': float(diff[:CROSS_CHECKED].max()),
+            'all': float(diff.max()), 'val_first_rel': float(rel[0]),
+            'val_last_rel': float(rel[-1])}
+
+
+def parallel_gloo_rank(rank, mesh, devices, seed, log_dir):
+    """One rank of the gloo world: the collectives probe, every dp-sharded
+    request against the unsharded call (rank 0 runs the references), the
+    member-sharded ensemble, and the sharded fits against the unsharded
+    fit (rank 0). Returns what rank 0 compared and what every rank
+    launched and hashed."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    from nnueehcs_tpu_torch.parallel import make_mesh
+    lead = rank == 0
+    start = time.perf_counter()
+    out = {'probe': gloo_cuda_probe(DEVICE), 'requests': {}, 'fits': {}}
+    _rank_trace(rank, start, 'probed', out['probe'])
+    rng = np.random.default_rng(seed + 71)
+    corpus = rng.normal(size=(KDE_FIT_ROWS, IN_DIM)).astype(np.float32)
+    dp = make_mesh({'dp': mesh.size}, devices)
+    member = make_mesh({'member': mesh.size}, devices)
+    cases = parallel_models(seed, corpus)
+    cases.append(('ensemble_member_sharded', lambda: build_model(seed),
+                  'fused_ensemble', ROWS, False))
+    for name, make, kernel, n, mc in cases:
+        _rank_trace(rank, start, name)
+        x = rng.normal(size=(n, IN_DIM)).astype(np.float32)
+        ref, ref_s = None, None
+        if lead:
+            predictor = Predictor(make(), device=DEVICE)
+            t0 = time.perf_counter()
+            ref = predictor.predict(x)
+            ref_s = time.perf_counter() - t0
+            _rank_trace(rank, start, name, 'unsharded answered')
+        on = member if name == 'ensemble_member_sharded' else dp
+        # built, warmed and called as the reference was: MC dropout's call
+        # counter stands where the reference's stood
+        predictor = Predictor(make(), mesh=on)
+        _rank_trace(rank, start, name, 'sharded warm')
+        reset_launches()
+        t0 = time.perf_counter()
+        got = predictor.predict(x)
+        _sync(DEVICE)
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        record = {'rows': n, 'seconds': seconds, 'launches': launches,
+                  'kernel': kernel, 'digest': _digest(got),
+                  'buckets': -(-n // DEFAULT_BUCKETS[-1])}
+        if lead:
+            tol = TOL_SCORE if name in ('kde', 'knn_kde') else TOL_STD
+            if mc:
+                equal = all(np.array_equal(a, b) for a, b in zip(got, ref))
+                check(equal, f'parallel {name}: the dp-sharded answer is not '
+                             'the unsharded one bit for bit')
+                err = {'mean': 0.0, 'ue': 0.0}
+            else:
+                err = {'mean': compare(f'parallel {name} mean',
+                                       torch.from_numpy(got[0]),
+                                       torch.from_numpy(ref[0]), TOL_MEAN),
+                       'ue': compare(f'parallel {name} ue',
+                                     torch.from_numpy(got[1]),
+                                     torch.from_numpy(ref[1]), tol)}
+            if on is dp and not mc and kernel in ROW_SHARDED:
+                # the cause of any difference from the whole-bucket call:
+                # each rank's share is its rows launched alone
+                same, moved = share_witness(make, x, mesh.size, got, ref)
+                check(same, f'parallel {name}: a rank\'s share is not the '
+                            'unsharded call on its rows bit for bit')
+                record.update(shares_bit_equal=same,
+                              share_values_off_whole_bucket=moved)
+            record.update(max_abs_err=err, unsharded_seconds=ref_s,
+                          bit_equal=all(np.array_equal(a, b)
+                                        for a, b in zip(got, ref)))
+        out['requests'][name] = record
+    # sharded fits against the unsharded per-step fit
+    x, y = parallel_fit_data(seed)
+    if lead:
+        _, ref_losses, ref_vals, _, ref_s = parallel_fit(
+            build_model(seed), x, y, seed, log_dir)
+    for axes in ({'dp': mesh.size}, {'member': mesh.size}):
+        _rank_trace(rank, start, 'fit', axes)
+        trainer, losses, vals, launches, seconds = parallel_fit(
+            build_model(seed), x, y, seed, log_dir, mesh=axes,
+            devices=devices)
+        record = {'seconds': seconds, 'launches': launches,
+                  'val_loss': trainer.callback_metrics['val_loss'],
+                  'fused_epochs_used': trainer.fused_epochs_used}
+        if lead:
+            steps = PARALLEL_FIT_EPOCHS * PARALLEL_EPOCH_STEPS
+            check(len(losses) == len(ref_losses) == steps
+                  and len(vals) == len(ref_vals) == PARALLEL_FIT_EPOCHS,
+                  f'parallel fit {axes}: {len(losses)} steps, {len(vals)} '
+                  'validations')
+            got = fit_readings(losses, vals, ref_losses, ref_vals)
+            record.update(steps=steps, unsharded_seconds=ref_s,
+                          unsharded_val_loss=ref_vals[-1], **got)
+            check(got['first'] <= TOL_CROSS['atol'],
+                  f'parallel fit {axes}: the first {CROSS_CHECKED} losses '
+                  f'part by {got["first"]} from the unsharded fit')
+            check(got['val_first_rel'] <= PARALLEL_VAL_REL,
+                  f'parallel fit {axes}: the validation loss after '
+                  f'{PARALLEL_EPOCH_STEPS} steps is {vals[0]} against '
+                  f'{ref_vals[0]} unsharded')
+        out['fits'][str(axes)] = record
+    return out
+
+
+def parallel_nccl_rank(rank, mesh, seed):
+    """One rank of the NCCL world (one a card): a sum over the default
+    group, then a dp-sharded 8-member ensemble request through kernel 1
+    against the unsharded call on the same card."""
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    total = torch.tensor([float(rank + 1)], device=mesh.device)
+    dist.all_reduce(total)
+    x = np.random.default_rng(seed + 73).normal(
+        size=(ROWS, IN_DIM)).astype(np.float32)
+    ref = Predictor(build_model(seed), device=mesh.device).predict(x)
+    predictor = Predictor(build_model(seed), mesh=mesh)
+    reset_launches()
+    got = predictor.predict(x)
+    torch.cuda.synchronize(mesh.device)
+    return {'sum': float(total.item()), 'launches': read_launches(),
+            'max_abs_err': [float(np.abs(a - b).max())
+                            for a, b in zip(got, ref)],
+            'digest': _digest(got), 'device': str(mesh.device)}
+
+
+def parallel_phase(seed):
+    """``parallel/`` on the card: the gloo world of PARALLEL_GLOO_DEVICES
+    (two ranks on cuda:0), then the NCCL world of one rank a visible
+    card. Every sharded answer is held to the unsharded call (MC dropout
+    bit for bit), every rank must hold the same answer, and each rank's
+    launches are exact: kernel 1, 2 and 5 (or their bf16 forms) once a
+    bucket, kernel 4 once a bucket on the rank's shard, none for kNN-KDE,
+    and kernel 3 never in a sharded fit (validation launches kernel 1
+    once a batch)."""
+    from nnueehcs_tpu_torch.parallel import launch
+    phase_start = time.perf_counter()
+    devices = PARALLEL_GLOO_DEVICES
+    log_dir = tempfile.mkdtemp(dir=BO_DIR, prefix='parallel_')
+    try:
+        answers = launch(parallel_gloo_rank, len(devices), backend='gloo',
+                         devices=devices, timeout=PARALLEL_TIMEOUT,
+                         all_ranks=True,
+                         args=(list(devices), seed, log_dir))
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    lead = answers[0]
+    for name, record in lead['requests'].items():
+        for other in answers[1:]:
+            check(other['requests'][name]['digest'] == record['digest'],
+                  f'parallel {name}: the ranks hold different answers')
+        for ans in answers:
+            want = {record['kernel']: record['buckets']} \
+                if record['kernel'] else {}
+            check_launches(f'parallel {name}', ans['requests'][name][
+                'launches'], **want)
+        emit('parallel', world='gloo, 2 ranks on cuda:0', request=name,
+             **_shown(record))
+    for axes, record in lead['fits'].items():
+        for ans in answers:
+            check_launches(f'parallel fit {axes}', ans['fits'][axes][
+                'launches'], fused_ensemble=PARALLEL_FIT_EPOCHS
+                * PARALLEL_FIT_VAL_BATCHES)
+            check(ans['fits'][axes]['fused_epochs_used'] == 0,
+                  f'parallel fit {axes}: kernel epochs in a sharded fit')
+            check(ans['fits'][axes]['val_loss'] == record['val_loss'],
+                  f'parallel fit {axes}: the ranks stopped apart')
+        emit('parallel', world='gloo, 2 ranks on cuda:0', fit=axes,
+             batch=TRAIN_BATCH, **_shown(record))
+    probe = lead['probe']
+    emit('parallel', world='gloo, 2 ranks on cuda:0',
+         gloo_cuda_collectives=probe)
+    gloo_seconds = time.perf_counter() - phase_start
+    count = torch.cuda.device_count()
+    nccl_answers = launch(parallel_nccl_rank, count, backend='nccl',
+                          timeout=PARALLEL_TIMEOUT, all_ranks=True,
+                          args=(seed,))
+    for ans in nccl_answers:
+        check(ans['sum'] == count * (count + 1) / 2,
+              f'NCCL all-reduce gave {ans["sum"]}')
+        check_launches('parallel nccl ensemble', ans['launches'],
+                       fused_ensemble=-(-ROWS // DEFAULT_BUCKETS[-1]))
+        check(ans['digest'] == nccl_answers[0]['digest'],
+              'NCCL ranks hold different answers')
+        check(max(ans['max_abs_err']) <= TOL_MEAN['atol'],
+              f'NCCL dp-sharded ensemble: {ans["max_abs_err"]}')
+        ans['launches'] = {k: v for k, v in ans['launches'].items() if v}
+    emit('parallel', world=f'nccl, {count} rank(s), one a card',
+         ranks=[{k: v for k, v in ans.items() if k != 'digest'}
+                for ans in nccl_answers])
+    emit('parallel', seconds=time.perf_counter() - phase_start,
+         gloo_seconds=gloo_seconds)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -1945,6 +2362,12 @@ def main():
             lambda x, w=weights, s=seed: fused_mc_forward(w, x, MC_SAMPLES, s),
             lambda x, w=weights, s=seed: fused_mc_forward_plain(w, x,
                                                                 MC_SAMPLES, s))
+    # a rank's share of a dp-sharded request: its rows hash from row0
+    kernel_vs_plain(
+        'fused_mc_dropout', 'row0', 4096, IN_DIM,
+        lambda x: fused_mc_forward(mw, x, MC_SAMPLES, 1999, row0=MC_ROW0),
+        lambda x: fused_mc_forward_plain(mw, x, MC_SAMPLES, 1999,
+                                         row0=MC_ROW0))
 
     dq_model = build_anchored(DeltaUQMLPModelBuilder, args.seed)
     aw = dq_model.anchored_weights()
@@ -2083,6 +2506,13 @@ def main():
                                                             s),
             lambda x, w=w32, s=seed: fused_mc_forward_plain(w, x, MC_SAMPLES,
                                                             s))
+    bf16_vs_plain(
+        'fused_mc_dropout_bf16', 'row0', 4096, IN_DIM,
+        lambda x: fused_mc_forward(mw16, x, MC_SAMPLES, 2999, row0=MC_ROW0),
+        lambda x: fused_mc_forward_plain(mw16, x, MC_SAMPLES, 2999,
+                                         row0=MC_ROW0),
+        lambda x: fused_mc_forward_plain(mw, x, MC_SAMPLES, 2999,
+                                         row0=MC_ROW0))
     aw16 = in_bf16(dq_model, prepare_fused_anchored)
     for case, rows in (('flagship', ANCHORED_ROWS), ('ragged', 1000)):
         bf16_vs_plain(
@@ -3019,6 +3449,9 @@ def main():
     workflow_phase(args.seed)
     # 10. the CNN layers through every UQ class (no kernel on their path)
     cnn_phase(args.seed)
+    # 11. meshes over torch.distributed ranks: every sharded path against
+    # its unsharded call, launches exact on each rank
+    parallel_phase(args.seed)
 
     print(smi, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -18,7 +18,8 @@ YAML subset (``config``). The user entry points of ``examples/`` (the HTTP
 server, the post-hoc metric and classification tools, collate, the
 workflow drivers, the data generator) are ported under ``examples/``,
 profiling helpers on ``torch.profiler`` under ``utils/profiling.py``.
-Entry points take ``device`` (default ``'cuda'``) and never fall back to
+``parallel`` shards evaluation and training over meshes of
+``torch.distributed`` ranks (one process a rank). Entry points take ``device`` (default ``'cuda'``) and never fall back to
 the CPU on their own.
 """
 
@@ -35,6 +36,7 @@ from . import model_builder
 from . import models
 from . import nn
 from . import ops
+from . import parallel
 from . import serving
 from . import training
 from . import utility

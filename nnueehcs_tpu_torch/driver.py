@@ -20,8 +20,12 @@ Differences from the JAX driver:
   ``device='cpu'`` or the config's trainer names ``accelerator: cpu`` (no
   fallback to the CPU without a card). The model is built there, the
   trainer trains there and the saved bundle is reloaded there;
-- ``devices=`` (a slice of a mesh) raises ``NotImplementedError``, as the
-  port's ``Trainer`` does for ``mesh``/``devices``;
+- ``devices=`` of more than one device runs the cell on one process a
+  device (``parallel.launch``: NCCL on cards, gloo on the CPU). Every rank
+  runs every trial's body; rank 0 owns the BO client, the state files and
+  the results tree and broadcasts each trial's parameters; the trainer
+  trains on the configured mesh or ``{'dp': n}``, and evaluation shards
+  over the same mesh. ``max_memory_usage`` is rank 0's allocator peak;
 - the models compute in fp32, so the JAX driver's cast of the model to the
   dataset's dtype has no counterpart; ``eval_precision`` maps to the
   port's ``set_precision`` for the timed and UE passes;
@@ -41,7 +45,7 @@ import json
 import re
 import time
 from dataclasses import dataclass
-from datetime import datetime
+from datetime import datetime, timedelta
 from pathlib import Path
 
 import numpy as np
@@ -55,6 +59,8 @@ from .model_builder import (EnsembleModelBuilder, KDEModelBuilder,
                             KNNKDEModelBuilder, DeltaUQMLPModelBuilder,
                             PAGERModelBuilder, MCDropoutModelBuilder,
                             MVEModelBuilder)
+from .models.base import resolve_device
+from .parallel.launch import launch
 from .training import (Trainer, ModelSavingCallback, EarlyStopping,
                        DataLoader, load_model)
 from .training.trainer import trainer_device
@@ -324,15 +330,48 @@ def run_bo_experiment(benchmark, uq_method, config: dict, dataset, output,
     (reference ``bo.py:313-510``). Returns the trial-results dict.
 
     The trial runs on ``device`` (None: from the trainer's
-    ``accelerator``, the card unless it names the CPU). ``devices`` (a
-    slice of a device mesh in the JAX package) raises
-    ``NotImplementedError``: multi-device runs are not ported.
+    ``accelerator``, the card unless it names the CPU), or on ``devices``:
+    one of them runs as ``device``; several run one rank each (see the
+    module docstring), and rank 0's trial results are returned.
     """
     if devices is not None:
-        raise NotImplementedError(
-            'devices=: running a trial on a slice of a device mesh is not '
-            'ported; the port runs each trial on one device')
+        devices = [resolve_device(d) for d in devices]
+        if len(devices) > 1:
+            return launch(_bo_rank, len(devices),
+                          backend='nccl' if devices[0].type == 'cuda'
+                          else 'gloo', devices=devices, timeout=None,
+                          group_timeout=RANK_WAIT,
+                          args=(benchmark, uq_method, config, dataset, output,
+                                restart, [str(d) for d in devices]))
+        device = devices[0]
+    return _run_bo(benchmark, uq_method, config, dataset, output, restart,
+                   device)
+
+
+#: the longest a rank waits for the others at one collective (rank 0's BO
+#: step and metrics run while the others wait for the next trial)
+RANK_WAIT = timedelta(minutes=30)
+
+
+def _bo_rank(rank, mesh, benchmark, uq_method, config, dataset, output,
+             restart, devices):
+    return _run_bo(benchmark, uq_method, config, dataset, output, restart,
+                   mesh.device, mesh, devices)
+
+
+def _run_bo(benchmark, uq_method, config, dataset, output, restart, device,
+            mesh=None, devices=None) -> dict:
+    """The BO loop on this process: alone, or as one rank of ``mesh``."""
+    lead = mesh is None or mesh.rank == 0
+
+    def share(obj):
+        """Rank 0's ``obj`` on every rank."""
+        return obj if mesh is None else mesh.broadcast_object(obj)
+
     trainer_cfg = dict(config['trainer'])
+    if mesh is not None:
+        trainer_cfg['mesh'] = trainer_cfg.get('mesh') or {'dp': mesh.size}
+        trainer_cfg['devices'] = devices
     device = trainer_device(trainer_cfg.get('accelerator', 'auto'), device)
     training_cfg = dict(config['training'])
     model_cfg = config['benchmarks'][benchmark]['model']
@@ -369,7 +408,8 @@ def run_bo_experiment(benchmark, uq_method, config: dict, dataset, output,
             outcome_constraints=bo_params.parameter_constraints)
         return client
 
-    if restart:
+    bo_idx, trial_results, ax_client = 0, {}, None
+    if lead and restart:
         try:
             bo_idx, ax_client, trial_results = get_restart(
                 output, name, dataset, uq_method)
@@ -377,8 +417,9 @@ def run_bo_experiment(benchmark, uq_method, config: dict, dataset, output,
         except (ValueError, FileNotFoundError) as e:
             print(f'Warning: {e}. Starting fresh optimization run.')
             bo_idx, trial_results, ax_client = 0, {}, fresh_client()
-    else:
-        bo_idx, trial_results, ax_client = 0, {}, fresh_client()
+    elif lead:
+        ax_client = fresh_client()
+    bo_idx = share(bo_idx)
 
     # successes already recorded count toward the quota after a restart
     # (the reference zeroed its counter, so a restarted run could never
@@ -389,9 +430,13 @@ def run_bo_experiment(benchmark, uq_method, config: dict, dataset, output,
     opt_manager = None
     for bo_trial in range(bo_idx,
                           bo_config['trials'] + bo_config['max_failures']):
-        if successful_trials >= bo_config['trials']:
+        next_trial = None
+        if lead and successful_trials < bo_config['trials']:
+            next_trial = ax_client.get_next_trial()
+        next_trial = share(next_trial)
+        if next_trial is None:
             break
-        trial, index = ax_client.get_next_trial()
+        trial, index = next_trial
         lr = trial.pop('learning_rate')
         bs = trial.pop('batch_size')
         wd = trial.pop('weight_decay', 0.0)
@@ -407,8 +452,9 @@ def run_bo_experiment(benchmark, uq_method, config: dict, dataset, output,
         trainer = get_trainer(trainer_cfg, name, model, uq_method, dataset,
                               version=f'bo_trial_{bo_trial}', log_dir=output,
                               device=device)
-        opt_manager = OutputManager(trainer.logger.log_dir, benchmark,
-                                    append_benchmark_name=False)
+        if lead:
+            opt_manager = OutputManager(trainer.logger.log_dir, benchmark,
+                                        append_benchmark_name=False)
 
         train_dl = DataLoader(dset, batch_size=training_cfg['batch_size'],
                               shuffle=True, drop_last=True)
@@ -420,10 +466,14 @@ def run_bo_experiment(benchmark, uq_method, config: dict, dataset, output,
             torch.cuda.synchronize(device)
         training_time = time.time() - train_start
 
+        if mesh is not None:
+            mesh.barrier()                 # rank 0 has written the bundle
         model = load_model(f'{trainer.logger.log_dir}/model.pth',
                            device=trainer.device)
         if eval_precision:
             model.set_precision(eval_precision)
+        if mesh is not None:
+            model.attach_mesh(trainer.mesh)
 
         dset_id = get_dataset(dataset_cfg, dataset)
         dset_ood = get_dataset(dataset_cfg, dataset, is_ood=True)
@@ -453,7 +503,9 @@ def run_bo_experiment(benchmark, uq_method, config: dict, dataset, output,
                         metric_result[keys[0]], metric_result[keys[1]])
                 else:
                     trial_result[metric.get_name()] = (metric_result[keys[0]], 0)
-            ax_client.complete_trial(trial_index=index, raw_data=trial_result)
+            if lead:
+                ax_client.complete_trial(trial_index=index,
+                                         raw_data=trial_result)
 
             row = dict(trial)
             row['learning_rate'] = lr
@@ -495,13 +547,15 @@ def run_bo_experiment(benchmark, uq_method, config: dict, dataset, output,
             row['failed'] = True
             row['error_message'] = str(e)
             trial_results[index] = row
-            ax_client.log_trial_failure(trial_index=index)
+            if lead:
+                ax_client.log_trial_failure(trial_index=index)
 
-        opt_manager.save_trial_results_dict(trial_results)
-        opt_manager.save_optimization_state(index, ax_client)
+        if lead:
+            opt_manager.save_trial_results_dict(trial_results)
+            opt_manager.save_optimization_state(index, ax_client)
 
-        if successful_trials == bo_config['trials']:
-            break
+    if not lead:
+        return {}
 
     if opt_manager is None and trial_results:
         # quota already met at restart: no trial ran this invocation, but

@@ -4,11 +4,11 @@
 One process owns the devices; each (benchmark x uq_method x dataset split)
 cell runs its full restartable BO loop on a slice leased from a queue, so
 a fast cell's thread never starts the next cell on a slice another cell
-still uses. The port's trainer runs on one device (the JAX package's
-multi-device slices wait for the port of ``parallel/``, ``ROADMAP.md``
-item 12), so a slice is one card, ``cuda:0`` to ``cuda:<n-1>`` (fewer
-or more slices than cards raises), or with ``--device cpu`` one of ``--slices``
-threads on the CPU::
+still uses. A slice is a list of devices, cut as the JAX driver cuts them:
+``cards // slices`` cards each (more slices than cards raises). A slice of
+one card runs its trials there; a slice of several runs each trial on one
+process a card, sharded over a dp mesh (``driver.run_bo_experiment(devices=)``).
+With ``--device cpu`` each of ``--slices`` threads runs on the CPU::
 
     python -m nnueehcs_tpu_torch.examples.bo_driven.mesh_workflow_driver \\
         --config config.yaml --output results [--slices 2] [--device cpu]
@@ -29,15 +29,14 @@ from .workflow_driver import grid
 
 
 def device_slices(device, slices=None):
-    """The slices, one device each. On the cards, as the JAX driver cuts
-    its devices: ``slices`` (default: one a card) slices of ``cards //
-    slices`` devices; more than one device a slice raises, since the
-    port's trainer runs on one device, and so do more slices than cards
-    (the JAX driver cuts them down) and no card at all. On the CPU, ``slices`` (default 1)
-    threads share it."""
+    """The slices, each a list of devices. On the cards, as the JAX driver
+    cuts its devices: ``slices`` (default: one a card) slices of ``cards //
+    slices`` cards each, in order; more slices than cards (the JAX driver
+    cuts them down) and no card at all raise. On the CPU, ``slices``
+    (default 1) threads share it, one ``'cpu'`` device each."""
     dev = resolve_device(device)
     if dev.type == 'cpu':
-        return ['cpu'] * (slices or 1)
+        return [['cpu'] for _ in range(slices or 1)]
     count = torch.cuda.device_count()
     if count == 0:
         raise RuntimeError(f'device {device!r}: no CUDA card is visible; '
@@ -46,16 +45,14 @@ def device_slices(device, slices=None):
         raise ValueError(f'--slices {slices}: {count} cards make 1 to '
                          f'{count} slices')
     n_slices = slices or count
-    if count // n_slices != 1:
-        raise NotImplementedError(
-            f'{count} cards in {n_slices} slices: a trial on several devices '
-            'waits for the port of parallel/ (ROADMAP.md item 12); each '
-            'slice is one card (ask for one slice a card)')
-    return [f'cuda:{i}' for i in range(n_slices)]
+    per = count // n_slices
+    return [[f'cuda:{i * per + j}' for j in range(per)]
+            for i in range(n_slices)]
 
 
 def run_cells(cells, config_data, output, slices, retries=3):
-    """Run every cell on a slice leased from a queue; returns
+    """Run every cell on a slice (a device, or a list of them) leased from a
+    queue; returns
     ``[(benchmark, method, dataset, 'OK' or 'FAILED')]`` in ``cells``'
     order."""
     free_slices = queue.Queue()
@@ -67,9 +64,17 @@ def run_cells(cells, config_data, output, slices, retries=3):
         try:
             for attempt in range(retries + 1):
                 try:
-                    run_bo_experiment(bench, method, config_data, dset,
-                                      output, restart=True,
-                                      device=slices[slice_idx])
+                    devices = slices[slice_idx]
+                    if isinstance(devices, str):
+                        devices = [devices]
+                    if len(devices) > 1:
+                        run_bo_experiment(bench, method, config_data, dset,
+                                          output, restart=True,
+                                          devices=devices)
+                    else:
+                        run_bo_experiment(bench, method, config_data, dset,
+                                          output, restart=True,
+                                          device=devices[0])
                     return (bench, method, dset, 'OK')
                 except Exception as e:  # noqa: BLE001 (retried, reported)
                     print(f'{bench}/{method}/{dset} attempt {attempt} '
@@ -107,7 +112,9 @@ def main(argv=None):
     except ValueError as e:
         parser.error(str(e))
     slices = device_slices(args.device, args.slices)
-    print(f'{len(slices)} slices of 1 device: {", ".join(slices)}')
+    per = len(slices[0])
+    print(f'{len(slices)} slices of {per} device{"s" if per > 1 else ""}: '
+          + ', '.join('+'.join(s) for s in slices))
 
     results = run_cells(cells, config_data, args.output, slices,
                         args.retries)

@@ -15,6 +15,17 @@ sized for rows of features; an NCHW image holds more activations a row, so
 its largest bucket and its chunks hold proportionally fewer images
 (:meth:`WrappedModelBase.max_rows`).
 
+Meshes (:mod:`~nnueehcs_tpu_torch.parallel`): ``attach_mesh(mesh)``, as
+in the JAX package, shards evaluation. Every rank calls the model with the
+same request (one program on every rank, as JAX's one controller sees
+it): the bucket rounds up to a multiple of ``dp``, each rank runs the
+model's usual path (its kernel on the card) on its ``bucket / dp`` rows
+(:meth:`WrappedModelBase.eval_rows`), and an all-gather over ``dp``
+returns the whole answer on every rank. An ensemble on a ``member`` axis
+holds its rank's members and merges their statistics
+(:mod:`~nnueehcs_tpu_torch.models.ensemble`); KDE and kNN-KDE split their
+corpus over ``dp`` (:mod:`~nnueehcs_tpu_torch.models.kde`).
+
 Precision: ``set_precision`` takes the JAX package's names. ``'bf16'``,
 ``'bf16-mixed'`` and ``'bf16-true'`` all mean bf16 GEMM operands with fp32
 accumulation, everything else fp32 (``Network.compute_dtype``, the kernels'
@@ -29,6 +40,7 @@ import torch
 
 from .. import convert
 from ..ops.losses import get_loss_fn
+from ..parallel.mesh import local_rows, placed
 
 training_defaults = {
     'learning_rate': 1e-3,
@@ -91,6 +103,7 @@ class WrappedModelBase:
         self._folded = None
         self._folded_key = None
         self._row_elements = {}
+        self._mesh = None
 
     def set_precision(self, precision):
         """Set the compute precision: under a bf16 name the activations and
@@ -117,6 +130,31 @@ class WrappedModelBase:
         """Place the model on ``device`` (a CUDA device must exist)."""
         self.net.to(resolve_device(device))
         return self
+
+    # ------------------------------------------------------------- sharding
+    @property
+    def mesh(self):
+        """The attached :class:`~nnueehcs_tpu_torch.parallel.Mesh`, or
+        None."""
+        return self._mesh
+
+    def attach_mesh(self, mesh):
+        """Shard evaluation over ``mesh`` (see the module docstring): the
+        model's ``member``-sharded state, if any, goes to this rank's
+        slice. The model must already be on the mesh's device (when it
+        names one): another device raises ``ValueError``, as a model is
+        never moved off its card. Every rank of the mesh attaches it, with
+        the same model."""
+        placed(mesh, self.device)
+        self._mesh = mesh
+        self._shard_members()
+        return self
+
+    def _shard_members(self):
+        """Hold this rank's part of a member-stacked model (ensembles)."""
+
+    def _dp(self) -> int:
+        return 1 if self._mesh is None else self._mesh.axis_size('dp')
 
     def eval(self):
         """No-op kept for the JAX package's API (the metrics call it): the
@@ -208,6 +246,14 @@ class WrappedModelBase:
             return self.loss(self.eval_output(x), y)
 
     # ------------------------------------------------------------- pure eval
+    def eval_rows(self, x, lo: int, hi: int, return_ue: bool = False):
+        """The answer for rows ``lo .. hi - 1`` of the padded bucket ``x``
+        (all of it without a dp mesh; every rank holds the whole bucket).
+        Rows are independent, so by default it is :meth:`eval_output` of
+        those rows."""
+        rows = x if (lo, hi) == (0, x.shape[0]) else x[lo:hi]
+        return self.eval_output(rows, return_ue=return_ue)
+
     def eval_output(self, x, return_ue: bool = False):
         if return_ue:
             raise NotImplementedError(
@@ -230,11 +276,19 @@ class WrappedModelBase:
                              for i in range(len(outputs[0])))
             return torch.cat(outputs)
         bucket = min(_bucket_size(n), limit)
+        dp = self._dp()
+        # the padded batch must divide evenly over the dp axis
+        bucket = -(-bucket // dp) * dp
         if bucket != n:
             # pad with the first row repeated to keep values in-distribution
             x = torch.cat([x, x[:1].expand((bucket - n,) + x.shape[1:])])
+        lo, hi = local_rows(bucket, self._mesh)
         with torch.no_grad():
-            out = self.eval_output(x.contiguous(), return_ue=return_ue)
+            out = self.eval_rows(x.contiguous(), lo, hi, return_ue)
+        if dp > 1:
+            gather = lambda o: self._mesh.all_gather(o, 'dp')  # noqa: E731
+            out = tuple(map(gather, out)) if isinstance(out, tuple) \
+                else gather(out)
 
         def trim(o):
             o = o[:n].float()

@@ -94,22 +94,29 @@ class DeltaUQMLP(WrappedModelBase):
         return [DeltaUQGetAnchorsHook()]
 
     # ------------------------------------------------------------- training
-    def train_output(self, x, generator, perm):
+    def train_output(self, x, generator, perm, rows=None):
         """The doubled batch through the network in its current mode:
         ``(2B, out)`` for ``[[x[perm[0]], x - x[perm[0]]]; [x[perm[1]],
         x - x[perm[1]]]]``. ``perm`` is one step's ``(2, B)`` of
         :func:`~nnueehcs_tpu_torch.ops.fused_train.anchor_permutations`
-        (the trainer's draws); ``generator`` feeds the Dropout layers."""
-        doubled = torch.cat([anchored_input(x, x[perm[0]]),
-                             anchored_input(x, x[perm[1]])], dim=0)
+        (the trainer's draws); ``generator`` feeds the Dropout layers.
+        ``rows = (lo, hi)`` keeps rows ``lo .. hi - 1`` of each half (a
+        rank's share of a batch split over ranks; the anchors still come
+        from the whole batch)."""
+        lo, hi = (0, x.shape[0]) if rows is None else rows
+        xs = x[lo:hi]
+        doubled = torch.cat([anchored_input(xs, x[perm[0][lo:hi]]),
+                             anchored_input(xs, x[perm[1][lo:hi]])], dim=0)
         return self.net(doubled, generator)
 
     def train_targets(self, y):
         return torch.cat([y, y], dim=0)
 
-    def training_loss(self, batch, generator, perm):
+    def training_loss(self, batch, generator, perm, rows=None):
         x, y = batch
-        return self.loss(self.train_output(x, generator, perm),
+        if rows is not None:
+            y = y[rows[0]:rows[1]]
+        return self.loss(self.train_output(x, generator, perm, rows),
                          self.train_targets(y))
 
     def validation_loss(self, batch, seed: int = 0):

@@ -16,6 +16,12 @@ package's ``default_rng(0)`` permutation, bundles carry it (``kde_data``,
 ``knn_fit_data``) and ``to(device)`` moves it with the network. A UE pass
 before fitting raises ``ValueError('KDE not fitted yet')``; the prediction
 alone needs no corpus.
+
+On a mesh with ``dp > 1`` each rank predicts its rows of the bucket and
+scores every row of it against its shard of the corpus
+(``ops.kde.kde_logpdf_sharded``, ``knn_kde_density_sharded``), as the
+JAX package routes a dp mesh; the rank keeps its rows of the merged
+score.
 """
 from __future__ import annotations
 
@@ -24,7 +30,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from ..ops.kde import bandwidth_value, kde_logpdf, knn_kde_density
+from ..ops.kde import (bandwidth_value, kde_logpdf, kde_logpdf_sharded,
+                       knn_kde_density, knn_kde_density_sharded)
 from ..training.hooks import KDEFitHook, KNNKDEFitHook
 from .mlp import MLPModel
 
@@ -93,6 +100,15 @@ class KDEMLPModel(MLPModel):
         # negated so that a higher density gives a lower uncertainty
         return pred, -torch.exp(self.kde.score_samples(x))
 
+    def eval_rows(self, x, lo: int, hi: int, return_ue: bool = False):
+        if self._dp() == 1 or not return_ue:
+            return super().eval_rows(x, lo, hi, return_ue)
+        if self.kde is None:
+            raise ValueError('KDE not fitted yet')
+        log_dens = kde_logpdf_sharded(x, self.kde.data, self.kde.bandwidth_,
+                                      self._mesh)
+        return self.net(x[lo:hi]), -torch.exp(log_dens[lo:hi])
+
     def get_callbacks(self):
         return [KDEFitHook()]
 
@@ -151,6 +167,16 @@ class KNNKDEMLPModel(MLPModel):
             raise ValueError('KDE not fitted yet')
         return pred, -knn_kde_density(x, self._fit_data,
                                       self._bandwidth_value, self.k)
+
+    def eval_rows(self, x, lo: int, hi: int, return_ue: bool = False):
+        if self._dp() == 1 or not return_ue:
+            return super().eval_rows(x, lo, hi, return_ue)
+        if self._fit_data is None:
+            raise ValueError('KDE not fitted yet')
+        dens = knn_kde_density_sharded(x, self._fit_data,
+                                       self._bandwidth_value, self.k,
+                                       self._mesh)
+        return self.net(x[lo:hi]), -dens[lo:hi]
 
     def get_callbacks(self):
         return [KNNKDEFitHook()]

@@ -15,7 +15,9 @@ index, row, column), not from the JAX package's ``jax.random`` stream, so
 the two packages agree statistically, not draw for draw, whatever
 ``prng_impl`` a bundle names. As in the JAX package, every call draws new
 masks (a per-call counter feeds the seed) and ``reseed(s)`` repeats the
-stream from its start.
+stream from its start. On a dp mesh every rank makes the same calls, so
+their counters stay in step, and a rank hashes its rows by their index in
+the whole bucket: the sharded answer is the unsharded one bit for bit.
 """
 from __future__ import annotations
 
@@ -61,17 +63,23 @@ class MCDropoutModel(WrappedModelBase):
         the kernel does not take the network), rebuilt when they change."""
         return self._folded_weights(prepare_mc_weights)
 
-    def mc_stats(self, x, seed: int):
-        """Mean and std of ``num_samples`` masked passes drawn with ``seed``."""
+    def mc_stats(self, x, seed: int, row0: int = 0):
+        """Mean and std of ``num_samples`` masked passes drawn with
+        ``seed``, ``x``'s first row row ``row0`` of the masks."""
         mw = self.mc_weights()
         if mw is not None:
-            return fused_mc_forward(mw, x, self.num_samples, seed)
-        return mc_forward_modules(self.net, x, self.num_samples, seed)
+            return fused_mc_forward(mw, x, self.num_samples, seed, row0)
+        return mc_forward_modules(self.net, x, self.num_samples, seed, row0)
 
-    def eval_output(self, x, return_ue: bool = False):
+    def eval_rows(self, x, lo: int, hi: int, return_ue: bool = False):
+        return self.eval_output(x[lo:hi], return_ue=return_ue, row0=lo)
+
+    def eval_output(self, x, return_ue: bool = False, row0: int = 0):
+        """The next call's statistics of ``x``, its first row row ``row0``
+        of the masks."""
         seed = self.call_seed(self._eval_calls)
         self._eval_calls += 1
-        mean, std = self.mc_stats(x, seed)
+        mean, std = self.mc_stats(x, seed, row0)
         return (mean, std) if return_ue else mean
 
     def validation_loss(self, batch, seed: int = 0):

@@ -26,7 +26,11 @@ its running statistics by an EMA that takes the unbiased variance
 ``var * n / (n - 1)``; Dropout keeps a value with probability ``1 - p``,
 scales it by ``1 / (1 - p)`` and zeroes the rest with ``where``
 (``p = 1`` gives exact zeros), drawing from the ``torch.Generator`` it is
-given. The elementwise activations and ``LayerNorm`` follow the JAX package's
+given. When a training step's batch is split over ranks
+(:mod:`nnueehcs_tpu_torch.training.sharded`), a BatchNorm's
+``batch_reduce`` sums its batch moments over the ranks (differentiably),
+so the statistics are the global batch's, and a Dropout draws the global
+batch's mask and keeps its rows. The elementwise activations and ``LayerNorm`` follow the JAX package's
 definitions (``LayerNorm`` normalises the last axis with the biased
 variance and keeps ``weight``/``bias`` for the JAX ``scale``/``bias``).
 
@@ -196,6 +200,19 @@ class _BatchNorm(nn.Module):
             self.register_parameter('bias', None)
         self.register_buffer('running_mean', torch.zeros(shape))
         self.register_buffer('running_var', torch.ones(shape))
+        # the batch split over ranks: sums over them (training/sharded.py)
+        self.batch_reduce = None
+
+    def _batch_mean(self, t, dims):
+        """The mean of ``t`` over the batch axes ``dims``: of this rank's
+        rows, or of the global batch when the batch is split."""
+        if self.batch_reduce is None:
+            return t.mean(dims)
+        return self.batch_reduce.mean(t, dims)
+
+    def _batch_count(self, x, dims) -> int:
+        n = math.prod(x.shape[d] for d in dims)
+        return n if self.batch_reduce is None else self.batch_reduce.count(n)
 
     def reset_parameters(self, generator: torch.Generator):
         with torch.no_grad():
@@ -211,10 +228,10 @@ class BatchNorm1d(_BatchNorm):
         if self.training:
             # batch statistics and their EMA in fp32, from the up-cast input
             xf = x.float()
-            mean = xf.mean(-2)
+            mean = self._batch_mean(xf, (-2,))
             c = xf - mean.unsqueeze(-2)
-            var = (c * c).mean(-2)
-            n = x.shape[-2]
+            var = self._batch_mean(c * c, (-2,))
+            n = self._batch_count(x, (-2,))
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.copy_((1 - m) * self.running_mean
@@ -244,10 +261,10 @@ class BatchNorm2d(_BatchNorm):
             # batch statistics and their EMA in fp32, from the up-cast input
             xf = x.float()
             dims = (-4, -2, -1)
-            mean = xf.mean(dims)
+            mean = self._batch_mean(xf, dims)
             c = xf - ch(mean)
-            var = (c * c).mean(dims)
-            n = x.shape[-4] * x.shape[-2] * x.shape[-1]
+            var = self._batch_mean(c * c, dims)
+            n = self._batch_count(x, dims)
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.copy_((1 - m) * self.running_mean
@@ -334,14 +351,31 @@ class Dropout(nn.Module):
         super().__init__()
         self.p = float(p)
 
-    def forward(self, x, generator: torch.Generator = None):
+    def forward(self, x, generator: torch.Generator = None, rows=None):
+        """``rows``, for a batch split over ranks: ``(batch axis, global
+        rows, this rank's row indices, global members, first member)``; the
+        mask is drawn for the global batch (and every member) and this
+        rank's part kept, so the split changes no mask."""
         if not self.training or self.p <= 0.0:
             return x
         if generator is None:
             raise ValueError('Dropout in training mode draws from an explicit '
                              'torch.Generator; pass generator=')
         keep = 1.0 - self.p
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        if rows is None:
+            mask = torch.rand(x.shape, generator=generator,
+                              device=x.device) < keep
+        else:
+            axis, total, index, members, first = rows
+            shape = list(x.shape)
+            shape[axis] = total
+            if axis == 1:
+                shape[0] = members
+            mask = torch.rand(shape, generator=generator,
+                              device=x.device) < keep
+            mask = mask.index_select(axis, index)
+            if axis == 1:
+                mask = mask[first:first + x.shape[0]]
         return torch.where(mask, x / keep,
                            torch.zeros((), dtype=x.dtype, device=x.device))
 

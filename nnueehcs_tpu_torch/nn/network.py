@@ -44,7 +44,9 @@ class Network(nn.Module):
     ``torch.bfloat16``; set by the model's ``set_precision``) is the dtype
     of the activations: a floating input of another dtype is cast to it on
     entry and the output back to the input's dtype on exit, while the
-    parameters stay fp32."""
+    parameters stay fp32. ``shard`` (None, or a training step's
+    :class:`~nnueehcs_tpu_torch.training.sharded.NetShard`) runs the
+    forward of a rank whose batch or features are split over a mesh."""
 
     def __init__(self, layers: Sequence[nn.Module],
                  architecture: Optional[list] = None, members=None):
@@ -53,6 +55,7 @@ class Network(nn.Module):
         self.architecture = copy.deepcopy(architecture)
         self.members = members
         self.compute_dtype = None
+        self.shard = None
         # with members, the activations carry the member axis from the
         # first layer that holds parameters or buffers on
         self._adds_member_axis = tuple(
@@ -67,6 +70,8 @@ class Network(nn.Module):
                 layer.reset_parameters(generator)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
+        if self.shard is not None:
+            return self.shard.forward(self, x, generator)
         cd = self.compute_dtype
         out_dtype = None
         if cd is not None and x.is_floating_point() and x.dtype != cd:

@@ -13,7 +13,10 @@
 // hashes (call seed, sample, Dropout module index, global row, column)
 // through the lowbias32 finalizer, exactly as the plain version
 // (ops/fused_mc_dropout.py) does in int64 tensor ops, so the two draw the
-// same masks. A value is kept when the top 24 bits of its hash are below
+// same masks. A row's global index is row_base plus its index in the call:
+// a caller that splits one request's rows over several launches (a rank's
+// share of a dp-sharded request) passes its first row, and draws the
+// masks the whole request would. A value is kept when the top 24 bits of its hash are below
 // keep * 2^24.
 //
 // What bounds it on an H100: operations. The flagship (5 inputs, 7 Linear
@@ -66,7 +69,7 @@ __host__ __device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
 struct DropMask {
   bool active;
   uint32_t stream;  // lowbias32(lowbias32(seed + sample*A) + key*B)
-  uint32_t row0;    // global row of the tile's first row
+  uint32_t row0;    // global row of the tile's first row (row_base added)
   uint32_t threshold;
   float scale;
 
@@ -91,7 +94,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                             const int* __restrict__ thresh,
                             const float* __restrict__ scale,
                             const int* __restrict__ key, int S, uint32_t seed,
-                            int out_dim, float* __restrict__ mean,
+                            uint32_t row_base, int out_dim,
+                            float* __restrict__ mean,
                             float* __restrict__ std) {
   extern __shared__ __align__(16) float smem[];
   float* act0 = smem;
@@ -115,7 +119,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       m.active = p > 0 && t >= 0;
       m.threshold = static_cast<uint32_t>(t);
       m.scale = __ldg(scale + l);
-      m.row0 = static_cast<uint32_t>(row0);
+      m.row0 = static_cast<uint32_t>(row0) + row_base;
       m.stream = lowbias32(
           lowbias32(seed + static_cast<uint32_t>(p - 1) * 0x9E3779B9u) +
           static_cast<uint32_t>(__ldg(key + l)) * 0x85EBCA6Bu);
@@ -182,7 +186,7 @@ struct Drop {
 __device__ __forceinline__ Drop drop_for(int p, int l, uint32_t seed,
                                          const int* thresh,
                                          const float* scale, const int* key,
-                                         long long row0,
+                                         uint32_t row0,
                                          const fw::Thread& t) {
   Drop m;
   const int th = __ldg(thresh + l);
@@ -196,7 +200,7 @@ __device__ __forceinline__ Drop drop_for(int p, int l, uint32_t seed,
 #pragma unroll
   for (int h = 0; h < 2; ++h)
     m.bq[h] = stream +
-              (static_cast<uint32_t>(row0) + static_cast<uint32_t>(t.r0 + 8 * h)) *
+              (row0 + static_cast<uint32_t>(t.r0 + 8 * h)) *
                   0xC2B2AE35u +
               m.col * 0x27D4EB2Fu;
   return m;
@@ -260,8 +264,8 @@ __global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 3 * fw::kWgThrea
                                  const int* __restrict__ thresh,
                                  const float* __restrict__ scale,
                                  const int* __restrict__ key, int S,
-                                 uint32_t seed, int out_dim,
-                                 float* __restrict__ mean,
+                                 uint32_t seed, uint32_t row_base,
+                                 int out_dim, float* __restrict__ mean,
                                  float* __restrict__ std, fw::Layout lay) {
   extern __shared__ __align__(128) unsigned char smem_wg[];
   const fw::Chain chain(d, L, lay.out_groups);
@@ -305,8 +309,9 @@ __global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 3 * fw::kWgThrea
     const long long row0 = static_cast<long long>(tile) * fw::kRows;
     const int valid = tiles.valid(tile, B);
     const float* x_tile = x + (valid > 0 ? row0 * d : 0);
+    const uint32_t hash_row0 = static_cast<uint32_t>(row0) + row_base;
     for (int p = 0; p <= S; ++p) {
-      const Drop m0 = drop_for(p, 0, seed, thresh, scale, key, row0, t);
+      const Drop m0 = drop_for(p, 0, seed, thresh, scale, key, hash_row0, t);
       if (L == 1) {  // one Linear: the last layer straight from x
         for (int g = 0; g < groups; ++g) {
           fw::last_group_from_x(acc_last, wts, chain, x_tile, d, d, valid, t,
@@ -315,7 +320,7 @@ __global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 3 * fw::kWgThrea
         }
         continue;
       }
-      Drop m = drop_for(p, 1, seed, thresh, scale, key, row0, t);
+      Drop m = drop_for(p, 1, seed, thresh, scale, key, hash_row0, t);
       uint32_t keep[2] = {0u, 0u};
       fw::layer0_from_x(acc, wts, chain, x_tile, d, d, valid, t, m0, [&] {
         if (m.active) keep_words(m, keep);
@@ -324,7 +329,7 @@ __global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 3 * fw::kWgThrea
       for (int l = 1; l < last; ++l) {
         const uint32_t addr = wts.acquire(chain, chain.nb0 + l - 1);
         fw::issue_n128(acc, a, addr);
-        m = drop_for(p, l + 1, seed, thresh, scale, key, row0, t);
+        m = drop_for(p, l + 1, seed, thresh, scale, key, hash_row0, t);
         if (m.active) keep_words(m, keep);
         fw::wait_acc(acc, a);
         wts.release(t.lane0);
@@ -352,13 +357,15 @@ extern "C" {
 // checks d >= 1, 1 <= out_dim <= 128, every hidden width <= 128 (zero-padded
 // to 128 in w_all/b_all), L >= 1, S >= 1, B >= 1, fp32 contiguous device
 // buffers, relu/thresh/key as L int32 and scale as L float32 values on the
-// device, and allocates mean/std as (B, out_dim).
+// device, and allocates mean/std as (B, out_dim). row_base is the global
+// index of x's first row in the masks' hash.
 int nnueehcs_fused_mc_dropout_f32(const float* x, long long B, int d,
                                   const float* w_all, const float* b_all,
                                   int L, const int* relu, const int* thresh,
                                   const float* scale, const int* key, int S,
-                                  uint32_t seed, int out_dim, float* mean,
-                                  float* std, void* stream) {
+                                  uint32_t seed, uint32_t row_base,
+                                  int out_dim, float* mean, float* std,
+                                  void* stream) {
   const size_t smem = smem_bytes(out_dim);
   cudaError_t err = cudaFuncSetAttribute(
       fused_mc_dropout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -367,8 +374,8 @@ int nnueehcs_fused_mc_dropout_f32(const float* x, long long B, int d,
   const long long blocks = (B + kTileRows - 1) / kTileRows;
   fused_mc_dropout_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
-      x, B, d, w_all, b_all, L, relu, thresh, scale, key, S, seed, out_dim,
-      mean, std);
+      x, B, d, w_all, b_all, L, relu, thresh, scale, key, S, seed, row_base,
+      out_dim, mean, std);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -380,7 +387,8 @@ int nnueehcs_fused_mc_dropout_bf16(const float* x, long long B, int d,
                                    const float* b_all, int L, const int* relu,
                                    const int* thresh, const float* scale,
                                    const int* key, int S, uint32_t seed,
-                                   int out_dim, float* mean, float* std,
+                                   uint32_t row_base, int out_dim,
+                                   float* mean, float* std,
                                    const int* layout, void* stream) {
   const fused_chain_wgmma::Layout lay = fused_chain_wgmma::Layout::from(layout);
   const auto kernel = lay.ring ? fused_mc_dropout_bf16_kernel<true> : fused_mc_dropout_bf16_kernel<false>;
@@ -390,8 +398,8 @@ int nnueehcs_fused_mc_dropout_bf16(const float* x, long long B, int d,
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<lay.grid, lay.threads, lay.smem_bytes,
                                  static_cast<cudaStream_t>(stream)>>>(
-      x, B, d, image, b_all, L, relu, thresh, scale, key, S, seed, out_dim,
-      mean, std, lay);
+      x, B, d, image, b_all, L, relu, thresh, scale, key, S, seed, row_base,
+      out_dim, mean, std, lay);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,7 +14,10 @@ draws them from a counter-based hash instead, the lowbias32 finalizer of
 Dropout module index, row, column) are a pure function of those five
 numbers, so the kernel, :func:`fused_mc_forward_plain` and
 :func:`mc_forward_modules` draw the same masks and agree to round-off, and
-a row's answer does not depend on the rows padded around it. A value is
+a row's answer does not depend on the rows padded around it. A row's index
+is ``row0`` plus its index in ``x``: a rank that evaluates rows ``lo ..``
+of a dp-sharded request passes ``row0=lo`` and draws, bit for bit, the
+masks of the unsharded call. A value is
 kept when the top 24 bits of its draw fall below ``keep * 2^24``, and kept
 values are scaled by ``1/keep``; rate 1 drops everything (zeros, not NaN).
 
@@ -82,10 +85,12 @@ def keep_threshold(p: float) -> tuple[int, float]:
 
 
 def dropout_scale(seed: int, sample: int, key: int, threshold: int,
-                  scale: float, rows: int, cols: int, device):
-    """``(rows, cols)`` float32 multipliers (``scale`` or 0) of one mask."""
+                  scale: float, rows: int, cols: int, device, row0: int = 0):
+    """``(rows, cols)`` float32 multipliers (``scale`` or 0) of one mask,
+    for the rows ``row0 .. row0 + rows - 1``."""
     stream = mask_stream(seed, sample, key)
-    r = _mul32(torch.arange(rows, dtype=torch.int64, device=device), 0xC2B2AE35)
+    r = _mul32(torch.arange(row0, row0 + rows, dtype=torch.int64,
+                            device=device) & _M32, 0xC2B2AE35)
     c = _mul32(torch.arange(cols, dtype=torch.int64, device=device), 0x27D4EB2F)
     bits = lowbias32((stream + r[:, None] + c[None, :]) & _M32)
     keep = (bits >> 8) < threshold
@@ -154,10 +159,12 @@ def _sample_stats(forward, num_samples):
     return shifted_stats(s1, s2, c, num_samples)
 
 
-def fused_mc_forward_plain(mw: McWeights, x, num_samples: int, seed: int):
+def fused_mc_forward_plain(mw: McWeights, x, num_samples: int, seed: int,
+                           row0: int = 0):
     """The kernel's function in plain tensor ops: the dropout-free forward
     as the shift, then ``num_samples`` masked forwards, then the shifted
-    statistics over the samples. ``x`` is ``(B, in_dim)``."""
+    statistics over the samples. ``x`` is ``(B, in_dim)``, its first row
+    row ``row0`` of the masks."""
     rows = x.shape[0]
     last = mw.num_layers - 1
 
@@ -167,7 +174,7 @@ def fused_mc_forward_plain(mw: McWeights, x, num_samples: int, seed: int):
             if sample is not None and mw.thresholds[l] >= 0:
                 h = h * dropout_scale(seed, sample, mw.keys[l],
                                       mw.thresholds[l], mw.scales[l], rows,
-                                      h.shape[1], x.device)
+                                      h.shape[1], x.device, row0)
             w, b = mw.ws[l][0], mw.b_all[l, 0]
             if l == last:
                 w, b = w[:, :mw.out_dim], b[:mw.out_dim]
@@ -179,12 +186,12 @@ def fused_mc_forward_plain(mw: McWeights, x, num_samples: int, seed: int):
     return _sample_stats(forward, num_samples)
 
 
-def mc_forward_modules(net, x, num_samples: int, seed: int):
+def mc_forward_modules(net, x, num_samples: int, seed: int, row0: int = 0):
     """The same statistics through the network's modules, for a network
     the fold does not take (a CNN among them): each Dropout multiplies by
     the hash mask keyed by its module index (an NCHW activation's columns
     are its flattened C x H x W elements), every other layer runs as it
-    is. Under a compute
+    is; ``x``'s first row is row ``row0`` of the masks. Under a compute
     dtype the walk runs in it, as ``Network`` does (x cast on entry, a
     masked activation returned in its dtype, the output back in fp32)."""
     cd = getattr(net, 'compute_dtype', None)
@@ -196,7 +203,8 @@ def mc_forward_modules(net, x, num_samples: int, seed: int):
                 threshold, scale = keep_threshold(layer.p)
                 if sample is not None and threshold >= 0:
                     mask = dropout_scale(seed, sample, i, threshold, scale,
-                                         h.shape[0], h[0].numel(), x.device)
+                                         h.shape[0], h[0].numel(), x.device,
+                                         row0)
                     h = (h * mask.reshape(h.shape)).to(h.dtype)
             else:
                 h = layer(h)
@@ -216,16 +224,20 @@ def _check_inputs(mw: McWeights, x, num_samples):
             raise ValueError(f'folded weights must be contiguous on {x.device}')
 
 
-def fused_mc_forward(mw: McWeights, x, num_samples: int, seed: int):
+def fused_mc_forward(mw: McWeights, x, num_samples: int, seed: int,
+                     row0: int = 0):
     """``(mean, std)``, each ``(B, out_dim)``, over ``num_samples`` dropout
-    samples drawn with call seed ``seed``: the CUDA kernel of the weights'
+    samples drawn with call seed ``seed``, ``x``'s first row row ``row0``
+    of the masks: the CUDA kernel of the weights'
     compute dtype for a CUDA tensor, :func:`fused_mc_forward_plain` for a
     CPU tensor. ``fused_mc_forward.launches`` counts the fp32 kernel's
     launches, ``.launches_bf16`` the bf16 form's."""
     _check_inputs(mw, x, num_samples)
     seed &= _M32
+    if not 0 <= row0 < 1 << 32:
+        raise ValueError(f'row0 must be a uint32, got {row0}')
     if x.device.type == 'cpu':
-        return fused_mc_forward_plain(mw, x, num_samples, seed)
+        return fused_mc_forward_plain(mw, x, num_samples, seed, row0)
     if x.device.type != 'cuda':
         raise ValueError(f'no fused MC-dropout kernel for device {x.device}')
     rows = x.shape[0]
@@ -242,7 +254,7 @@ def fused_mc_forward(mw: McWeights, x, num_samples: int, seed: int):
         args = [x.data_ptr(), rows, mw.in_dim, mw.w_all.data_ptr(),
                 mw.b_all.data_ptr(), mw.num_layers, mw.relu_flags.data_ptr(),
                 mw.drop_thresh.data_ptr(), mw.drop_scale.data_ptr(),
-                mw.drop_key.data_ptr(), num_samples, seed, mw.out_dim,
+                mw.drop_key.data_ptr(), num_samples, seed, row0, mw.out_dim,
                 mean.data_ptr(), std.data_ptr()]
         if bf16:
             # the bf16 form takes the chain as its image and the launch

@@ -1,8 +1,7 @@
 """Gaussian KDE and kNN-KDE density scoring: the KDE kernel's wrapper, its
 plain PyTorch version and the exact kNN top-k.
 
-Counterpart of ``nnueehcs_tpu/ops/kde.py`` without the mesh-sharded
-functions. The exact Gaussian-KDE log density of a query ``x`` under a
+Counterpart of ``nnueehcs_tpu/ops/kde.py``. The exact Gaussian-KDE log density of a query ``x`` under a
 reference corpus is ``logsumexp_j(-gamma * |x - y_j|^2)`` plus the log
 normalising constant, with ``gamma = 1 / (2 h^2)`` and sklearn's bandwidth
 rules. Both sides are first centred at the reference mean (distances are
@@ -19,6 +18,17 @@ kNN-KDE has no kernel in either package: :func:`knn_sq_dists` is an exact
 running top-k merge over reference chunks in tensor ops, on any device.
 sklearn's ``rtol`` pruning tolerance has no analogue in an exact
 evaluation; the models record it and nothing reads it.
+
+Mesh-sharded forms (:func:`kde_logpdf_sharded`, :func:`knn_sq_dists_sharded`,
+:func:`knn_kde_density_sharded`), for a corpus split contiguously over
+a mesh's ``dp`` ranks with the queries on every rank: all ranks centre at
+the global corpus mean (the shards' sums all-reduced); each rank launches
+kernel 4 on its shard through :func:`kde_lse`, the entry that takes
+centred data and returns the raw log-sum-exp, and the partial log-sum-exps
+merge with an all-reduce max and a sum of ``exp(l - max)``; kNN takes an
+exact top-k of each shard, padded with ``+inf`` to ``k``, all-gathers the
+candidates and takes an exact top-k of the pool. A rank whose shard is
+empty contributes ``-inf`` (or ``+inf`` distances) and launches nothing.
 """
 from __future__ import annotations
 
@@ -97,14 +107,19 @@ def kde_logpdf_plain(x, data, h: float, chunk: int = 8192):
     running one over chunks of ``chunk`` references (the ragged last chunk
     holds only real references, so nothing needs masking). Queries go in
     tiles that keep each (rows, chunk) buffer near 1 GiB."""
+    data = torch.as_tensor(data, dtype=torch.float32)
+    return kde_lse_plain(x, data, h, chunk) + _log_norm_const(*data.shape, h)
+
+
+def kde_lse_plain(x, data, h: float, chunk: int = 8192):
+    """:func:`kde_logpdf_plain` without the normalising constant: the raw
+    log-sum-exp, kernel 4's function."""
     x = torch.as_tensor(x, dtype=torch.float32)
     data = torch.as_tensor(data, dtype=torch.float32, device=x.device)
-    n, d = data.shape
     gamma = 1.0 / (2.0 * h * h)
-    width = min(n, chunk)
-    out = _by_row_tiles(lambda xt: _logpdf_tile(xt, data, gamma, width), x,
-                        width)
-    return out + _log_norm_const(n, d, h)
+    width = min(data.shape[0], chunk)
+    return _by_row_tiles(lambda xt: _logpdf_tile(xt, data, gamma, width), x,
+                         width)
 
 
 def _check_kde_inputs(x, data):
@@ -118,6 +133,34 @@ def _check_kde_inputs(x, data):
         raise ValueError('the reference corpus is empty')
 
 
+def kde_lse(xc, dc, h: float):
+    """``logsumexp_j(-|x - y_j|^2 / (2 h^2))`` (B,) of centred ``xc`` (B, d)
+    under centred ``dc`` (N, d): no centring here and no normalising
+    constant. A CUDA tensor launches kernel 4 (counted in
+    ``kde_logpdf.launches``), a CPU tensor runs its plain version."""
+    _check_kde_inputs(xc, dc)
+    if xc.device.type == 'cpu':
+        return kde_lse_plain(xc, dc, h)
+    if xc.device.type != 'cuda':
+        raise ValueError(f'no KDE kernel for device {xc.device}')
+    xc, dc = xc.contiguous(), dc.contiguous()
+    rows, (n, d) = xc.shape[0], dc.shape
+    out = torch.empty((rows,), dtype=torch.float32, device=xc.device)
+    if rows == 0:
+        return out
+    from ._build import library
+    lib = library()
+    with torch.cuda.device(xc.device):
+        err = lib.nnueehcs_kde_logpdf_f32(
+            xc.data_ptr(), rows, dc.data_ptr(), n, d,
+            1.0 / (2.0 * h * h), out.data_ptr(),
+            torch.cuda.current_stream(xc.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'KDE kernel launch failed: CUDA error {err}')
+    kde_logpdf.launches += 1
+    return out
+
+
 def kde_logpdf(x, data, h: float):
     """Exact Gaussian-KDE log density (B,) of ``x`` (B, d) under ``data``
     (N, d), both centred at the reference mean first. A CUDA tensor runs
@@ -129,24 +172,7 @@ def kde_logpdf(x, data, h: float):
     xc, dc = centre(x, data)
     if x.device.type == 'cpu':
         return kde_logpdf_plain(xc, dc, h)
-    if x.device.type != 'cuda':
-        raise ValueError(f'no KDE kernel for device {x.device}')
-    xc, dc = xc.contiguous(), dc.contiguous()
-    rows, (n, d) = xc.shape[0], dc.shape
-    out = torch.empty((rows,), dtype=torch.float32, device=x.device)
-    if rows == 0:
-        return out
-    from ._build import library
-    lib = library()
-    with torch.cuda.device(x.device):
-        err = lib.nnueehcs_kde_logpdf_f32(
-            xc.data_ptr(), rows, dc.data_ptr(), n, d,
-            1.0 / (2.0 * h * h), out.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'KDE kernel launch failed: CUDA error {err}')
-    kde_logpdf.launches += 1
-    return out + _log_norm_const(n, d, h)
+    return kde_lse(xc, dc, h) + _log_norm_const(*dc.shape, h)
 
 
 kde_logpdf.launches = 0
@@ -234,7 +260,11 @@ def knn_sq_dists(x, data, k: int, chunk: int = 4096):
     a running merge of each chunk's distances into the best k so far.
     Queries go in tiles that keep each (rows, chunk + k) buffer near
     1 GiB."""
-    xc, dc = centre(x, data)
+    return _knn_topk(*centre(x, data), k, chunk)
+
+
+def _knn_topk(xc, dc, k: int, chunk: int = 4096):
+    """:func:`knn_sq_dists` of centred ``xc`` and ``dc``."""
     n = dc.shape[0]
     k = min(int(k), n)
     if n <= chunk:
@@ -258,6 +288,70 @@ def knn_kde_density(x, data, h: float, k: int):
     KDE as ``k -> N``)."""
     n, d = data.shape
     sqd = knn_sq_dists(x, data, k)
+    gamma = 1.0 / (2.0 * h * h)
+    return torch.exp(torch.logsumexp(-sqd * gamma, dim=1)
+                     + _log_norm_const(n, d, h))
+
+
+# --------------------------------------------------------------------------
+# mesh-sharded forms: the corpus split over the mesh's dp ranks
+# --------------------------------------------------------------------------
+def _centred_shard(x, data, mesh, axis):
+    """``x`` and this rank's contiguous shard of ``data``, both centred at
+    the global corpus mean (the shards' float64 sums and counts
+    all-reduced over ``axis``)."""
+    from ..parallel.mesh import local_rows
+    x = torch.as_tensor(x, dtype=torch.float32)
+    data = torch.as_tensor(data, dtype=torch.float32, device=x.device)
+    _check_kde_inputs(x, data)
+    lo, hi = local_rows(data.shape[0], mesh)
+    shard = data[lo:hi]
+    sums = torch.cat([shard.double().sum(0),
+                      torch.tensor([float(hi - lo)], dtype=torch.float64,
+                                   device=x.device)])
+    sums = mesh.all_reduce(sums, axis)
+    center = (sums[:-1] / sums[-1]).float()
+    return x - center, shard - center
+
+
+def kde_logpdf_sharded(x, data, h: float, mesh, axis: str = 'dp'):
+    """:func:`kde_logpdf` with ``data`` split over ``mesh``'s ``axis``
+    (every rank passes the same ``x`` and ``data`` and takes its shard):
+    one kernel-4 launch a non-empty shard, the partial log-sum-exps merged
+    with collectives (JAX's ``pmax``/``psum`` and their ``-inf`` guards),
+    the normalising constant over the whole corpus."""
+    xc, shard = _centred_shard(x, data, mesh, axis)
+    n, d = data.shape
+    if shard.shape[0]:
+        local = kde_lse(xc, shard, h)
+    else:
+        local = torch.full((xc.shape[0],), -math.inf, device=xc.device)
+    top = mesh.all_reduce(local, axis, op='max')
+    top = torch.where(torch.isneginf(top), torch.zeros_like(top), top)
+    total = mesh.all_reduce(torch.exp(local - top), axis)
+    return top + torch.log(total) + _log_norm_const(n, d, h)
+
+
+def knn_sq_dists_sharded(x, data, k: int, mesh, axis: str = 'dp',
+                         chunk: int = 4096):
+    """:func:`knn_sq_dists` with ``data`` split over ``mesh``'s ``axis``:
+    each rank's exact top ``min(k, shard)``, padded with ``+inf`` to ``k``,
+    all-gathered, then an exact top-k of the pool (ascending)."""
+    xc, shard = _centred_shard(x, data, mesh, axis)
+    k = min(int(k), data.shape[0])
+    best = torch.full((xc.shape[0], k), math.inf, device=xc.device)
+    if shard.shape[0]:
+        mine = _knn_topk(xc, shard, k, chunk)
+        best[:, :mine.shape[1]] = mine
+    pool = mesh.all_gather(best, axis, dim=1)
+    return torch.topk(pool, k, dim=1, largest=False).values
+
+
+def knn_kde_density_sharded(x, data, h: float, k: int, mesh,
+                            axis: str = 'dp'):
+    """:func:`knn_kde_density` with the corpus split over the mesh."""
+    n, d = data.shape
+    sqd = knn_sq_dists_sharded(x, data, k, mesh, axis)
     gamma = 1.0 / (2.0 * h * h)
     return torch.exp(torch.logsumexp(-sqd * gamma, dim=1)
                      + _log_norm_const(n, d, h))

@@ -9,6 +9,14 @@ passes are row-independent, so padding changes no answer. A model in
 bf16-mixed (``set_precision``, or a bundle's ``train_config``) serves as
 it is, its warm-up building and folding for that precision; the answers
 are fp32 in either precision.
+
+With ``mesh`` (a :class:`~nnueehcs_tpu_torch.parallel.Mesh`) the model is
+attached to it and requests shard as the model shards them: every rank of
+the mesh builds the predictor and calls ``predict`` with the same rows, and
+every rank gets the whole answer. The predictor runs on the mesh's
+device; a ``device`` that names another one raises ``ValueError``. The
+HTTP server stays on one card, as
+the JAX package's does.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import torch
 
 from .models.base import resolve_device
 from .nn.layers import Conv2d, Linear
+from .parallel.mesh import placed
 from .training.checkpoint import load_model
 from .utils.timing import device_sync
 
@@ -28,12 +37,15 @@ DEFAULT_BUCKETS = (256, 1024, 4096, 16384, 65536)
 
 class Predictor:
     def __init__(self, model_or_path, buckets: Sequence[int] = DEFAULT_BUCKETS,
-                 return_ue: bool = True, device='cuda', warmup: bool = True):
-        device = resolve_device(device)
+                 return_ue: bool = True, device='cuda', warmup: bool = True,
+                 mesh=None):
+        device = resolve_device(placed(mesh, device))
         if isinstance(model_or_path, str):
             self.model = load_model(model_or_path, device=device)
         else:
             self.model = model_or_path.to(device)
+        if mesh is not None:
+            self.model.attach_mesh(mesh)
         self.return_ue = return_ue
         self.buckets = tuple(sorted(buckets))
         self._num_features = self._infer_features()

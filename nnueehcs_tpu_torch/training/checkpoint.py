@@ -32,11 +32,16 @@ class _BundleUnpickler(pickle.Unpickler):
 
 
 def save_model(model, path: str):
+    """Write ``model``'s bundle to ``path``. On a mesh every rank calls it
+    (the arrays may be gathered from the ranks) and rank 0 writes."""
     bundle = {
         'format': FORMAT,
         'config': model.config_dict(),
         'arrays': model.arrays_dict(),
     }
+    mesh = getattr(model, 'mesh', None)
+    if mesh is not None and mesh.rank != 0:
+        return
     with open(path, 'wb') as f:
         pickle.dump(bundle, f)
 

@@ -40,9 +40,27 @@ Differences from the JAX trainer, by design: the shuffle draws from a
 ``torch.Generator``, not ``jax.random.permutation``, and so do the
 Δ-UQ/PAGER anchor permutations (:meth:`Trainer.anchor_permutations`, one
 stream for both paths) and the per-step path's dropout masks (the kernel's
-are the JAX kernel's hash); ``whole_fit`` is read but every epoch runs on
-its own; and training runs on one device (``mesh`` and ``devices`` raise
-``NotImplementedError``).
+are the JAX kernel's hash); and ``whole_fit`` is read but every epoch
+runs on its own.
+
+Meshes: ``trainer_config['mesh']`` (an ``{axis: size}`` dict or
+``'auto'``) makes a :class:`~nnueehcs_tpu_torch.parallel.Mesh` over the
+ranks of the process group, rank ``r`` on ``devices[r]`` when
+``trainer_config['devices']`` lists them (without a mesh, ``devices``
+names the one device, its first). The rank trains on its mesh device;
+a ``device`` (or an accelerator) that asks for another one raises
+``ValueError``. Every rank builds the same trainer and
+calls ``fit`` with the same model and loaders, as JAX's one controller
+does once. A mesh of more than one rank trains step by step, as the JAX
+trainer turns its kernel off under a mesh, through
+:mod:`~nnueehcs_tpu_torch.training.sharded`, which keeps the unsharded
+step's mathematics (global batch statistics, the loss's share, summed
+gradients, the global clip norm, the same shuffle and dropout masks).
+Validation losses are rank 0's on every rank, so every rank stops on the
+same epoch; only rank 0 writes the logs and the bundle, whose weights are
+gathered whole. A mesh of one rank (``{'dp': 1}``) is one device and may
+run the training kernel, where the JAX trainer turns it off under any
+mesh.
 """
 from __future__ import annotations
 
@@ -56,10 +74,12 @@ import torch
 from ..convert import load_pytrees, tensor_trees
 from ..models.base import resolve_device
 from ..ops import fused_train as ft
+from ..parallel.mesh import make_mesh, placed
 from .callbacks import EarlyStopping
 from .data import DataLoader
 from .hooks import TrainerHook
 from .loggers import CSVLogger
+from .sharded import ShardedTraining
 
 _SINGLE_NET = ('MCDropoutModel', 'DeltaUQMLP', 'PAGERMLP', 'MLPModel',
                'KDEMLPModel', 'KNNKDEMLPModel', 'MVEMLPModel')
@@ -118,8 +138,10 @@ class Adam:
     written out in its order of operations. ``count`` is the step count."""
 
     def __init__(self, params, clip=None, weight_decay=0.0, b1=0.9, b2=0.999,
-                 eps=1e-8):
+                 eps=1e-8, sq_norm=None):
         self.params = list(params)
+        # the gradients' global squared norm (a sharded fit's collectives)
+        self.sq_norm = sq_norm
         self.clip = float(clip) if clip else None
         self.weight_decay = float(weight_decay or 0.0)
         self.b1, self.b2, self.eps = b1, b2, eps
@@ -136,7 +158,8 @@ class Adam:
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.params, grads)]
         if self.clip is not None:
-            gn = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            gn = torch.sqrt(self.sq_norm(grads) if self.sq_norm is not None
+                            else sum(torch.sum(g * g) for g in grads))
             grads = [torch.where(gn < self.clip, g, (g / gn) * self.clip)
                      for g in grads]
         self.count += 1
@@ -169,23 +192,44 @@ def trainer_device(accelerator='auto', device=None) -> torch.device:
     return resolve_device(dev)
 
 
+class _RankLogger(CSVLogger):
+    """The logger of a rank other than 0: the same directory, no files."""
+
+    def log_hyperparams(self, params: dict):
+        self._hparams.update(params)
+
+    def save(self):
+        pass
+
+
 class Trainer:
     def __init__(self, name, trainer_config, logger=None, callbacks=None,
                  version=None, log_dir='logs', device=None):
         self.name = name
         self.trainer_config = dict(trainer_config)
         cfg = self.trainer_config
-        for key in ('mesh', 'devices'):
-            if cfg.get(key):
-                raise NotImplementedError(
-                    f'trainer_config[{key!r}]: training on more than one '
-                    'device is not ported; the port trains on one device')
         self.accelerator = cfg.get('accelerator', 'auto')
+        # mesh: None (one device), 'auto' (every rank on dp) or an
+        # {axis: size} dict; devices: each rank's device, in rank order
+        self.mesh_config = cfg.get('mesh', None)
+        self.devices = cfg.get('devices', None)
+        self.mesh = make_mesh(self.mesh_config, self.devices) \
+            if self.mesh_config else None
+        if self.mesh is not None:
+            # the mesh's device, which must be the one asked for
+            device = placed(self.mesh, device if device is not None else
+                            'cpu' if self.accelerator == 'cpu' else 'cuda')
+        elif device is None and self.devices:
+            device = self.devices[0]
+            if isinstance(device, int):          # a card's index
+                device = torch.device('cuda', device)
         self.device = trainer_device(self.accelerator, device)
+        rank0 = self.mesh is None or self.mesh.rank == 0
         _inst_init_if_not_none(self, 'callbacks', callbacks,
                                [EarlyStopping(monitor='val_loss')])
         _inst_init_if_not_none(self, 'logger', logger,
-                               CSVLogger(log_dir, name=name, version=version))
+                               (CSVLogger if rank0 else _RankLogger)(
+                                   log_dir, name=name, version=version))
         self.logger.log_hyperparams(self.trainer_config)
 
         self.max_epochs = cfg.get('max_epochs', 1000)
@@ -293,6 +337,10 @@ class Trainer:
             # recorded on the model, so the bundle restores it
             model.train_config['precision'] = self.precision
             model.set_precision(self.precision)
+        mesh = self.mesh
+        sharded = mesh is not None and not mesh.is_trivial
+        if mesh is not None:
+            model.attach_mesh(mesh)
 
         def as_dev(a):
             return torch.as_tensor(np.asarray(a), dtype=torch.float32,
@@ -328,15 +376,25 @@ class Trainer:
         # ----- optimizer
         weight_decay = float(model.train_config.get('weight_decay', 0) or 0)
         base_lr = float(model.train_config['learning_rate'])
-        params = list(model.net.parameters())
+        shards = None
+        if sharded:
+            if bs < mesh.axis_size('dp'):
+                raise ValueError(f'batch size {bs} is smaller than the mesh '
+                                 f"axis 'dp' of size {mesh.axis_size('dp')}")
+            shards = ShardedTraining(model, mesh, anchored)
+            params = shards.params
+        else:
+            params = list(model.net.parameters())
         opt = Adam(params, clip=self.gradient_clip_val,
-                   weight_decay=weight_decay)
+                   weight_decay=weight_decay,
+                   sq_norm=None if shards is None else shards.sq_norm)
 
         # ----- the training kernel's plan (the JAX trainer's dispatch rules)
         fused_cfg = self.trainer_config.get('fused_epochs', True)
         fused_plan = None
         single_net = kind in _SINGLE_NET
-        if fused_cfg and (device.type == 'cuda' or fused_cfg == 'force') \
+        if fused_cfg and not sharded \
+                and (device.type == 'cuda' or fused_cfg == 'force') \
                 and self.precision in _KERNEL_PRECISIONS \
                 and (single_net or kind == 'EnsembleModel'):
             fused_plan = ft.plan_fused_train(
@@ -402,6 +460,13 @@ class Trainer:
 
         def train_step(idx, lr, anchor_perm=None):
             model.net.train()
+            if shards is not None:
+                loss = shards.loss(x_train, y_train, idx, dropout_gen,
+                                   anchor_perm)
+                grads = shards.sync_grads(torch.autograd.grad(
+                    loss, params, allow_unused=True))
+                opt.step(grads, lr)
+                return loss.detach()
             batch = (x_train[idx], y_train[idx])
             loss = model.training_loss(batch, dropout_gen, anchor_perm) \
                 if anchored else model.training_loss(batch, dropout_gen)
@@ -461,6 +526,8 @@ class Trainer:
                                 for h in batch_hooks)
                 anchor_perms = self.anchor_permutations(
                     epoch, 0, full_batches, bs) if anchored else None
+                if shards is not None:
+                    shards.train_mode()
                 losses = []
                 for b in range(full_batches):
                     losses.append(train_step(
@@ -490,6 +557,11 @@ class Trainer:
                         for h in batch_hooks:
                             h.on_train_batch_end(self, model, batch,
                                                  full_batches)
+                if shards is not None:
+                    shards.eval_mode()
+                    if losses:
+                        losses = list(shards.global_losses(
+                            torch.stack(losses)))
                 model.net.eval()
                 losses_np = torch.stack(losses).cpu().numpy() if losses \
                     else np.zeros(0, np.float32)
@@ -500,6 +572,9 @@ class Trainer:
             for h in hooks:
                 h.on_validation_epoch_start(self, model)
             vl = self._weighted_val(model, x_val, y_val, val_bs, nb_val, epoch)
+            if sharded:
+                # rank 0's value everywhere: every rank decides alike
+                vl = mesh.broadcast_object(vl)
             self.callback_metrics['val_loss'] = vl
             self.logger.log_metrics({'val_loss': vl, 'epoch': epoch},
                                     step=self.global_step - 1)

@@ -1367,3 +1367,100 @@ def test_cnn128_trains_an_epoch_on_card_as_on_the_cpu(card, kind, tmp_path):
     if kind != 'mc_dropout':
         np.testing.assert_allclose(losses['cuda'], losses['cpu'], rtol=0,
                                    atol=1e-4)
+
+
+# ``parallel/`` on the card: a gloo world of two ranks on one card (NCCL
+# refuses two ranks on a card), and an NCCL world of one rank a card. The
+# rank bodies live in tests/torch_parallel_cases.py (no JAX there either).
+PARALLEL_ROWS = 70_000            # one ragged bucket of 131,072 rows
+
+
+@pytest.fixture(scope='module')
+def gloo_card_world():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels have no CPU mode')
+    import torch_parallel_cases as cases
+    from nnueehcs_tpu_torch.parallel import launch
+    return launch(cases.card_cases, 2, backend='gloo',
+                  devices=['cuda:0', 'cuda:0'], all_ranks=True,
+                  timeout=cases.WORLD_TIMEOUT, args=(PARALLEL_ROWS,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['fused_ensemble', 'fused_mc_dropout',
+                                  'kde'])
+def test_dp_sharded_models_on_card_match_the_unsharded_call(gloo_card_world,
+                                                            name):
+    """Each rank launched its kernel once for the bucket, on its half of
+    the rows (kernel 4 on its corpus shard), every rank holds the whole
+    answer, and the answer is the unsharded call's: MC dropout bit for
+    bit (each rank hashes its rows from row0), the ensemble bit for bit
+    (rows are independent), KDE within its bar (the corpus merge reorders
+    sums)."""
+    first = None
+    for want, got, launches in (rank[name] for rank in gloo_card_world):
+        assert launches == {k: int(k == name) for k in launches}
+        if first is None:
+            first = got
+        for a, b in zip(got, first):
+            np.testing.assert_array_equal(a, b)
+        if name == 'kde':
+            np.testing.assert_allclose(got[0], want[0], rtol=1e-5,
+                                       atol=1e-5)
+            np.testing.assert_allclose(got[1], want[1], rtol=2e-4,
+                                       atol=1e-30)
+        else:
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('bf16', [False, True])
+def test_mc_kernel_row0_is_the_rows_place_in_the_whole_call(card, bf16):
+    """Kernels 2 and 2b with a nonzero row0 against their plain version,
+    and a tail of the rows launched from its row0 equal to the same rows
+    of the whole call, bit for bit."""
+    m = MCDropoutModelBuilder(_arch(5, 64, 3, 1), {'num_samples': 32,
+                                                   'dropout_percent': 0.2},
+                              seed=3, device=card).build()
+    if bf16:
+        m.set_precision('bf16-mixed')
+    mw = m.mc_weights()
+    x = torch.randn(5000, 5, device=card)
+    got = fused_mc_forward(mw, x, 32, 77, row0=123_457)
+    want = fused_mc_forward_plain(mw, x, 32, 77, row0=123_457)
+    whole = fused_mc_forward(mw, x, 32, 77)
+    tail = fused_mc_forward(mw, x[1234:].contiguous(), 32, 77, row0=1234)
+    torch.cuda.synchronize()
+    if bf16:
+        m32 = MCDropoutModelBuilder(_arch(5, 64, 3, 1), {
+            'num_samples': 32, 'dropout_percent': 0.2}, seed=3,
+            device=card).build()
+        ref32 = fused_mc_forward_plain(m32.mc_weights(), x, 32, 77,
+                                       row0=123_457)
+        for part, g, w, r in zip(('mean', 'std'), got, want, ref32):
+            bf16_close(f'2b row0 {part}', g, w, r)
+    else:
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-3, atol=1e-5)
+    for a, b in zip(whole, tail):
+        assert torch.equal(a[1234:], b)
+    assert not torch.equal(got[1], whole[1])
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_every_card(card):
+    """One NCCL rank a visible card: the world's sum reaches every rank;
+    two NCCL ranks on one card are refused with ValueError, not moved to
+    gloo."""
+    import torch_parallel_cases as cases
+    from nnueehcs_tpu_torch.parallel import launch
+    count = torch.cuda.device_count()
+    sums = launch(cases.nccl_sum, count, backend='nccl', all_ranks=True,
+                  timeout=240)
+    assert [s for s, _ in sums] == [count * (count + 1) / 2] * count
+    assert [d for _, d in sums] == [f'cuda:{i}' for i in range(count)]
+    with pytest.raises(ValueError, match='duplicate GPU'):
+        launch(cases.nccl_sum, 2, backend='nccl',
+               devices=['cuda:0', 'cuda:0'],
+               timeout=240)

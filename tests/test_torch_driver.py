@@ -274,6 +274,7 @@ def test_the_card_is_the_default_and_no_fallback(port_tree, tmp_path,
     with pytest.raises(RuntimeError, match='cuda'):
         driver.main(args[:-2])                  # without --device cpu
     assert not os.path.exists(out)
-    with pytest.raises(NotImplementedError, match='devices'):
+    with pytest.raises(RuntimeError, match='cuda'):
         driver.run_bo_experiment('minibude', 'ensemble', {}, 'tails', out,
-                                 devices=['cpu'])
+                                 devices=['cuda:0', 'cuda:1'])
+    assert not os.path.exists(out)

@@ -230,29 +230,24 @@ def test_mesh_workflow_driver_runs_cells_on_two_cpu_slices(grid_config,
 
 
 def test_mesh_slices_on_the_cpu_are_threads():
-    assert mesh_workflow_driver.device_slices('cpu', 3) == ['cpu'] * 3
-    assert mesh_workflow_driver.device_slices('cpu') == ['cpu']
+    assert mesh_workflow_driver.device_slices('cpu', 3) == [['cpu']] * 3
+    assert mesh_workflow_driver.device_slices('cpu') == [['cpu']]
 
 
 @pytest.mark.parametrize('cards,slices,want', [
-    (4, None, ['cuda:0', 'cuda:1', 'cuda:2', 'cuda:3']),
-    (4, 4, ['cuda:0', 'cuda:1', 'cuda:2', 'cuda:3']),
-    (1, None, ['cuda:0']),
-    (4, 2, None),               # the JAX driver: 2 slices of 2 devices
-    (4, 1, None),
+    (4, None, [['cuda:0'], ['cuda:1'], ['cuda:2'], ['cuda:3']]),
+    (4, 4, [['cuda:0'], ['cuda:1'], ['cuda:2'], ['cuda:3']]),
+    (1, None, [['cuda:0']]),
+    (4, 2, [['cuda:0', 'cuda:1'], ['cuda:2', 'cuda:3']]),
+    (4, 1, [['cuda:0', 'cuda:1', 'cuda:2', 'cuda:3']]),
 ])
 def test_mesh_slices_cut_the_cards_as_jax_does(monkeypatch, cards, slices,
                                                want):
-    """The JAX driver gives each slice ``devices // slices`` devices; the
-    port runs a trial on one, so a cut into larger slices raises, naming
-    the item it waits for."""
+    """The JAX driver gives each slice ``devices // slices`` devices, in
+    order; a slice of several cards runs its trials sharded over them."""
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
     monkeypatch.setattr(torch.cuda, 'device_count', lambda: cards)
-    if want is None:
-        with pytest.raises(NotImplementedError, match='ROADMAP.md item 12'):
-            mesh_workflow_driver.device_slices('cuda', slices)
-    else:
-        assert mesh_workflow_driver.device_slices('cuda', slices) == want
+    assert mesh_workflow_driver.device_slices('cuda', slices) == want
 
 
 @pytest.mark.parametrize('cards,slices,error', [

@@ -166,11 +166,18 @@ def test_deferred_checkpoint_saves_the_best_epoch(tmp_path):
 
 
 def test_unported_cases_raise(tmp_path, monkeypatch):
-    for key, value in (('mesh', 'auto'), ('devices', [0])):
-        with pytest.raises(NotImplementedError, match=key):
-            ptr.Trainer('t', {key: value}, log_dir=str(tmp_path),
-                        device='cpu')
+    """A mesh needs as many ranks as it names, as JAX's needs as many
+    devices; one process is a world of one rank, where ``'auto'`` is the
+    all-ones mesh."""
+    with pytest.raises(ValueError, match='needs 2 ranks, have 1'):
+        ptr.Trainer('t', {'mesh': {'dp': 2}}, log_dir=str(tmp_path),
+                    device='cpu')
+    trivial = ptr.Trainer('t', {'mesh': 'auto'}, log_dir=str(tmp_path),
+                          device='cpu')
+    assert trivial.mesh.shape == {'dp': 1} and trivial.mesh.is_trivial
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='cuda'):
+        ptr.Trainer('t', {'devices': [0]}, log_dir=str(tmp_path))
     with pytest.raises(RuntimeError, match='cuda'):
         ptr.Trainer('t', {}, log_dir=str(tmp_path))
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time kernels 1b (the bf16 ensemble), 10b (its packed probe) and 4 (KDE)
-at the flagship shapes on one card, from the package of a given tree:
+"""Time kernels 1b (the bf16 ensemble), 10b (its packed probe), 4 (KDE), 2
+and 2b (MC dropout, fp32 and bf16) at the flagship shapes on one card,
+from the package of a given tree:
 
     python3 tools/time_kernels.py [--tree DIR] [--seed N]
 
@@ -10,8 +11,10 @@ kernels built into its own ``build/``, so two trees (a parent commit
 unpacked with ``git archive`` and this one) can be timed in turns in one
 call on one card. Shapes: the 8-member ensemble (5 inputs, 7 Linear layers
 128 wide, weights from ``--seed``, bf16-mixed) on 262,144 rows, the packed
-probe on the same rows padded to 128 features, and the KDE log density of
-262,144 queries under a 16,384 x 5 corpus. Each kernel: CUDA events over
+probe on the same rows padded to 128 features, the KDE log density of
+262,144 queries under a 16,384 x 5 corpus, and MC dropout on the same
+262,144 rows with 128 samples (the flagship chain, rate 0.1, fp32 and
+bf16). Each kernel: CUDA events over
 10 passes after 5 warm-ups (``attrib.event_ms``). Prints one JSON line per
 kernel (median, extremes, spread, the tree, the card's name), then the
 card's ``nvidia-smi`` name and power limit. It needs a CUDA card.
@@ -47,6 +50,8 @@ def main(argv=None):
     from nnueehcs_tpu_torch.ops import ablate_forward as af
     from nnueehcs_tpu_torch.ops.fused_ensemble import (
         fused_forward_prefolded, prepare_fused_weights)
+    from nnueehcs_tpu_torch.ops.fused_mc_dropout import (
+        fused_mc_forward, prepare_mc_weights)
     from nnueehcs_tpu_torch.ops.kde import bandwidth_value, kde_logpdf
     package = os.path.dirname(sys.modules['nnueehcs_tpu_torch'].__file__)
     if not package.startswith(tree):
@@ -61,6 +66,8 @@ def main(argv=None):
     corpus = torch.as_tensor(rng.normal(size=(cs.KDE_FIT_ROWS, cs.IN_DIM)),
                              dtype=torch.float32, device='cuda')
     h = bandwidth_value('silverman', cs.KDE_FIT_ROWS, cs.IN_DIM)
+    mw = prepare_mc_weights(cs.build_mc(args.seed).net)
+    mw16 = cs.in_bf16(cs.build_mc(args.seed), prepare_mc_weights)
     for name, run, shape in (
             ('fused_ensemble_bf16', lambda: fused_forward_prefolded(fw16, x),
              {'rows': cs.ROWS, 'members': fw16.num_members}),
@@ -68,7 +75,13 @@ def main(argv=None):
              {'rows': cs.ROWS, 'members': fw16.num_members}),
             ('kde', lambda: kde_logpdf(x, corpus, h),
              {'rows': cs.ROWS, 'references': cs.KDE_FIT_ROWS,
-              'features': cs.IN_DIM})):
+              'features': cs.IN_DIM}),
+            ('fused_mc_dropout',
+             lambda: fused_mc_forward(mw, x, cs.MC_SAMPLES, 7),
+             {'rows': cs.ROWS, 'samples': cs.MC_SAMPLES}),
+            ('fused_mc_dropout_bf16',
+             lambda: fused_mc_forward(mw16, x, cs.MC_SAMPLES, 7),
+             {'rows': cs.ROWS, 'samples': cs.MC_SAMPLES})):
         print(json.dumps({'kernel': name, 'tree': tree, **shape,
                           **event_ms(run), 'device': kind}), flush=True)
     if args.ensemble_forms:
