@@ -126,7 +126,18 @@ losses and validation loss within stated bars, kernel 3 never
 launched); then an NCCL world of one rank a visible card sums over its
 group and serves a dp-sharded ensemble request. Kernels 2 and 2b are
 also held to their plain versions with a nonzero ``row0`` (a rank's
-first row). It prints one JSON line per
+first row). The ``bo_trial`` phase also runs one trial with
+``whole_fit: true``, and the ``whole_fit`` phase fits the flagship trial
+on that phase's ID rows with ``whole_fit`` true (every epoch of the fit
+enqueued in one dispatch, under ``torch.cuda.set_sync_debug_mode('error')``)
+and false from the same seed, 6 epochs in fp32 and in bf16-mixed, an
+early stop and a plateau on 50-step epochs, Δ-UQ (229 anchors) and MC
+dropout for 3 epochs: theta, m, v, sigma, every step's loss, the stop
+epoch, the pinned best and the validation losses bit for bit, kernel 3
+launched once an epoch that trained; it prints seconds
+an epoch both ways beside kernel 3's and 3b's epochs, and what a stop
+costs (a stopped kernel epoch's time and a validation pass's). It prints
+one JSON line per
 phase, then the card's ``nvidia-smi`` name and power limit, then a
 ``{"kernels": [...]}`` line (fifteen kernels: the ten fp32 ones, then the
 five bf16 forms), and last ``{"ok": true, "device": {...}}``. Any failure
@@ -221,6 +232,8 @@ from nnueehcs_tpu_torch.serving import DEFAULT_BUCKETS, Predictor
 from nnueehcs_tpu_torch.training import (ArrayDataset, DataLoader,
                                          EarlyStopping, ModelSavingCallback,
                                          Trainer, load_model)
+from nnueehcs_tpu_torch.training.whole_fit import weighted_mean
+from nnueehcs_tpu_torch.training.trainer import VALIDATION_STREAMS
 from nnueehcs_tpu_torch.utility import ResultsTable
 from nnueehcs_tpu_torch.utils.profiling import (TRACE_FILE, annotate,
                                                 device_memory_stats,
@@ -487,6 +500,18 @@ CNN_CASES = {
 CNN_BUCKETS = (256, 1024, 4096, 16_384)
 CNN_VAL_BATCHES = 8                       # validation: 1,024 images
 CNN_CLASSES = ('ensemble', 'mc_dropout', 'delta_uq', 'pager')
+# the whole-fit phase: the flagship trial (1,000 steps, 100 validation
+# batches) on the bo_trial phase's ID rows, each case fitted with
+# whole_fit true and false from the same seed; the early-stop and plateau
+# cases on 50-step epochs (the plateau on one Linear layer, whose
+# validation loss no BatchNorm statistic moves)
+WHOLE_FIT_EPOCHS = 6
+WHOLE_FIT_SHORT_STEPS = 50
+WHOLE_FIT_STOP_EPOCHS = 12
+WHOLE_FIT_PLATEAU_EPOCHS, WHOLE_FIT_PLATEAU_LR = 14, 1e-9
+WHOLE_FIT_FAMILY_EPOCHS = 3
+WHOLE_FIT_ANCHORED_STEPS = 100      # Δ-UQ's epoch 0 runs step by step
+WHOLE_FIT_DIR = os.path.join('build', 'chip_smoke_whole_fit')
 
 STARTED = time.perf_counter()      # the imports done
 
@@ -1180,7 +1205,8 @@ def bo_trial_phase(seed):
     reloaded bundle's UEs through kernel 1's plain version on the card,
     within TOL_STD; the bf16 trial's bundle is measured by the config's
     post-hoc ``max_memory_usage`` metric (the BO metrics do not take
-    it)."""
+    it); then one trial with ``whole_fit: true``. Returns the ID set's
+    scaled rows ``(x, y)``."""
     os.makedirs(BO_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BO_DIR,
                                      prefix='chip_smoke_bo-') as tmp:
@@ -1254,15 +1280,287 @@ def bo_trial_phase(seed):
         check(0 < memory_mb < card_mb,
               f'bo_trial bf16_eval: max_memory_usage {memory_mb} MB, the '
               f'card holds {card_mb} MB')
+        # one trial with whole_fit true through the driver: every epoch of
+        # the fit in one dispatch
+        cfg_whole = bo_config(data_path, 1)
+        cfg_whole['trainer']['whole_fit'] = True
+        _, whole_s = bo_run('whole_fit', cfg_whole,
+                            os.path.join(tmp, 'results_whole_fit'), False,
+                            [0], n_id, n_ood)
         # the post-hoc tools on the fp32 tree, before it is deleted
         posthoc_phase(tmp, bo_config(data_path, BO_RESTART_TRIALS), out,
                       dset_id, dset_ood)
     emit('bo_trial_summary', rows=BO_ROWS, epochs=BO_EPOCHS,
          data_s=data_s, fresh_s=fresh_s, restart_s=restart_s, bf16_s=bf16_s,
+         whole_fit_s=whole_s,
          percentile_score=got, percentile_score_plain=want,
          percentile_score_abs_err=score_err, tol=TOL_STD,
          max_memory_usage_mb=memory_mb, card_mb=card_mb,
          seconds=time.time() - start)
+    return (np.asarray(dset_id.input, dtype=np.float32),
+            np.asarray(dset_id.output, dtype=np.float32))
+
+
+class SyncCheckedTrainer(Trainer):
+    """The port's ``Trainer`` with its whole-fit dispatch's epochs enqueued
+    under ``torch.cuda.set_sync_debug_mode('error')``: any operation there
+    that waits for the card raises. The dispatch's stated check point, its
+    one wait after the last epoch is enqueued, lies outside."""
+
+    def _enqueue_whole_fit(self, enqueue, poll, e0):
+        previous = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            return super()._enqueue_whole_fit(enqueue, poll, e0)
+        finally:
+            torch.cuda.set_sync_debug_mode(previous)
+
+
+def whole_fit_run(name, model, x, y, epochs, seed, whole, callbacks=None,
+                  **config):
+    """``Trainer.fit`` (:class:`SyncCheckedTrainer`) of ``model`` on the
+    first TRAIN_SPLIT rows of ``x``, validated on the next ones, with
+    ``whole_fit: whole`` and every step's loss logged; launch counts set to
+    0 just before and read just after. Returns (trainer, checkpoint
+    callback, launches, seconds, metrics rows)."""
+    train_dl = DataLoader(ArrayDataset(x[:TRAIN_SPLIT], y[:TRAIN_SPLIT]),
+                          TRAIN_BATCH, shuffle=True, drop_last=True)
+    val_dl = DataLoader(ArrayDataset(x[TRAIN_SPLIT:], y[TRAIN_SPLIT:]),
+                        TRAIN_BATCH)
+    saver = ModelSavingCallback(defer_serialization=True)
+    trainer = SyncCheckedTrainer(
+        name, {**TRAIN_CONFIG, 'max_epochs': epochs, 'seed': seed,
+               'whole_fit': whole, 'log_every_n_steps': 1, **config},
+        callbacks=(callbacks or [EarlyStopping()]) + [saver]
+        + model.get_callbacks(),
+        log_dir=WHOLE_FIT_DIR,
+        version=f'{name}_' + ('whole' if whole else 'per_epoch'),
+        device=DEVICE)
+    reset_launches()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    trainer.fit(model, train_dl, val_dl)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    with open(os.path.join(trainer.logger.log_dir, 'metrics.csv')) as f:
+        rows = list(csv.DictReader(f))
+    return trainer, saver, read_launches(), seconds, rows
+
+
+def whole_fit_case(name, make, x, y, epochs, seed, kernel, val_kernel,
+                   callbacks=None, **config):
+    """One case of the whole-fit phase: the fit with ``whole_fit`` true
+    (one dispatch, its epochs enqueued with sync debugging on) and false
+    (an epoch at a time) from the same seeded model. The two must leave
+    theta, m, v and sigma, every step's loss, the stop epoch, the pinned
+    best bundle and the validation losses (the best one too) bit for bit
+    equal: both paths take the mean through one reduction
+    (``weighted_mean``).
+    The whole fit launches ``kernel`` once for each epoch that
+    trained and ``val_kernel`` once a validation batch of each epoch it
+    enqueued. Returns both fits' readings."""
+    fits = {}
+    for whole in (False, True):
+        fits[whole] = whole_fit_run(name, make(), x, y, epochs, seed, whole,
+                                    callbacks=callbacks() if callbacks
+                                    else None, **config)
+    (tw, sw, lw, secw, rw), (te, se, le, sece, re_) = fits[True], fits[False]
+    check(tw.whole_fit_dispatches == 1 and te.whole_fit_dispatches == 0,
+          f'{name}: whole_fit_dispatches {tw.whole_fit_dispatches}, '
+          f'{te.whole_fit_dispatches}')
+    check(tw.fused_epochs_used == te.fused_epochs_used,
+          f'{name}: {tw.fused_epochs_used} kernel epochs whole, '
+          f'{te.fused_epochs_used} per epoch')
+    for part, a, b in zip(('theta', 'm', 'v', 'sigma'), tw.fused_buffers,
+                          te.fused_buffers):
+        check(torch.equal(a, b), f'{name}: {part} differs between the '
+                                 'whole fit and the per-epoch fit')
+    check([(r['epoch'], r['step'], r['train_loss']) for r in rw]
+          == [(r['epoch'], r['step'], r['train_loss']) for r in re_],
+          f'{name}: the logged step losses differ')
+    vw, ve = ([float(r['val_loss']) for r in rows if r['val_loss']]
+              for rows in (rw, re_))
+    check(vw == ve, f'{name}: validation losses {vw} against {ve}')
+    check(tw.current_epoch == te.current_epoch
+          and tw.should_stop == te.should_stop,
+          f'{name}: stopped after epoch {tw.current_epoch} whole, '
+          f'{te.current_epoch} per epoch')
+    check(sw.best == se.best and all(
+        torch.equal(a, b) for a, b in zip(sw._pinned.values(),
+                                          se._pinned.values())),
+          f'{name}: the pinned best differs')
+    trained = tw.fused_epochs_used
+    lost = tw.whole_fit_epochs_lost
+    val_batches = TRAIN_CONFIG['limit_val_batches']
+    check(lw[kernel] == le[kernel] == trained,
+          f'{name}: {kernel} launched {lw[kernel]} times whole, '
+          f'{le[kernel]} per epoch, {trained} epochs trained')
+    check(lw[val_kernel] == (trained + lost) * val_batches
+          + (le[val_kernel] - trained * val_batches),
+          f'{name}: {val_kernel} launched {lw[val_kernel]} times whole, '
+          f'{le[val_kernel]} per epoch ({lost} epochs enqueued past the '
+          'stop)')
+    first = epochs - trained
+    emit('whole_fit', case=name, epochs=epochs, epochs_trained=trained,
+         per_step_epochs=first, stopped_after=tw.current_epoch,
+         epochs_lost=lost, launches_whole=lw, launches_per_epoch=le,
+         val_losses=vw, best_val_loss=sw.best,
+         seconds_whole=secw, seconds_per_epoch_path=sece,
+         whole_fit_seconds=tw.whole_fit_seconds)
+    return fits
+
+
+def validation_ms(model, x, y):
+    """CUDA-event times of one validation pass of ``model`` as the
+    trainer runs it (TRAIN_CONFIG's 100 batches of 128 rows after
+    TRAIN_SPLIT, the float64 mean on the card): one batch after another,
+    as the per-epoch path runs them, and as the whole fit runs them (over
+    VALIDATION_STREAMS streams for the model's compute dtype), which must
+    give the same mean bit for bit."""
+    rows = TRAIN_CONFIG['limit_val_batches'] * TRAIN_BATCH
+    x_val = torch.as_tensor(x[TRAIN_SPLIT:TRAIN_SPLIT + rows], device=DEVICE)
+    y_val = torch.as_tensor(y[TRAIN_SPLIT:TRAIN_SPLIT + rows], device=DEVICE)
+    probe = Trainer('probe', {}, log_dir=WHOLE_FIT_DIR, device=DEVICE)
+    streams = [torch.cuda.Stream() for _ in range(
+        VALIDATION_STREAMS[model.net.compute_dtype])]
+    weights = probe._val_weights(x_val, TRAIN_BATCH,
+                                 TRAIN_CONFIG['limit_val_batches'])
+
+    def mean(spread):
+        return weighted_mean(probe._val_losses(
+            model, x_val, y_val, TRAIN_BATCH,
+            TRAIN_CONFIG['limit_val_batches'], 0,
+            streams if spread else ()), weights)
+    check(torch.equal(mean(False), mean(True)),
+          'validation as the whole fit runs it gave another mean')
+    return {'serial': event_ms(lambda: mean(False), warmup=2, trials=5),
+            'whole_fit': event_ms(lambda: mean(True), warmup=2, trials=5),
+            'streams': len(streams)}
+
+
+def whole_fit_phase(seed, x, y, kernel_ms):
+    """Whole-fit dispatch on the card (``Trainer`` ``whole_fit``): every
+    case against the same fit an epoch at a time, bit for bit, with no
+    sync inside the dispatch. ``x``, ``y``: the bo_trial phase's ID rows;
+    ``kernel_ms``: kernels 3 and 3b's epoch times of the timing phase.
+    Prints seconds an epoch both ways beside the kernel's, the time a stop
+    loses and the dispatch's fixed host cost."""
+    phase_start = time.perf_counter()
+    shutil.rmtree(WHOLE_FIT_DIR, ignore_errors=True)
+    check(len(x) >= TRAIN_SPLIT + TRAIN_CONFIG['limit_val_batches']
+          * TRAIN_BATCH, f'whole_fit: {len(x)} rows are too few')
+
+    def flagship(builder=EnsembleModelBuilder, descr=FLAGSHIP, uq=None,
+                 **train):
+        return lambda: builder(descr, uq or {'num_models': MEMBERS},
+                               train_config=dict(TRAIN_MODEL_CONFIG, **train),
+                               seed=seed, device=DEVICE).build()
+
+    timing = {}
+    for precision, kernel, val_kernel in (
+            ('32-true', 'fused_train', 'fused_ensemble'),
+            ('bf16-mixed', 'fused_train_bf16', 'fused_ensemble_bf16')):
+        fits = whole_fit_case(f'flagship_{precision}', flagship(), x, y,
+                              WHOLE_FIT_EPOCHS, seed, kernel, val_kernel,
+                              precision=precision)
+        # seconds an epoch as a fit of 6 epochs less one of 2 (a fit's
+        # fixed costs cancel), after the case's fits warmed both paths
+        seconds = {}
+        for epochs in (2, WHOLE_FIT_EPOCHS):
+            for whole in (False, True):
+                seconds[epochs, whole] = whole_fit_run(
+                    f'time_{precision}', flagship()(), x, y, epochs, seed,
+                    whole, precision=precision)[3]
+        marginal = {whole: (seconds[WHOLE_FIT_EPOCHS, whole]
+                            - seconds[2, whole]) / (WHOLE_FIT_EPOCHS - 2)
+                    for whole in (False, True)}
+        model = flagship()()
+        model.set_precision(precision)
+        timing[precision] = {
+            'seconds_per_epoch_whole': marginal[True],
+            'seconds_per_epoch_per_epoch_path': marginal[False],
+            'saving_per_epoch_s': marginal[False] - marginal[True],
+            'fit_seconds': {f'{e}_{"whole" if w else "per_epoch"}': t
+                            for (e, w), t in seconds.items()},
+            'kernel_epoch_ms': kernel_ms[kernel],
+            'validation_pass_ms': validation_ms(model, x, y),
+            'dispatch_setup_s': fits[True][0].whole_fit_seconds['setup'],
+            'whole_fit_seconds': fits[True][0].whole_fit_seconds}
+
+    # early stop: no epoch beats a min_delta of 1e6, patience 1 stops the
+    # fit after epoch 1; the epochs enqueued past it change nothing
+    stop_fits = whole_fit_case(
+        'early_stop', flagship(), x, y, WHOLE_FIT_STOP_EPOCHS, seed,
+        'fused_train', 'fused_ensemble',
+        callbacks=lambda: [EarlyStopping(min_delta=1e6, patience=1)],
+        limit_train_batches=WHOLE_FIT_SHORT_STEPS)
+    check(stop_fits[True][0].current_epoch == 1,
+          f'early_stop: stopped after epoch '
+          f'{stop_fits[True][0].current_epoch}, expected 1')
+
+    # plateau: at lr 1e-9 no epoch improves on epoch 0 by the scheduler's
+    # threshold, so the scale drops after epoch 11 and epochs 12 and 13
+    # train at 0.1x (the whole fit reads its learning rate on the card)
+    one_linear = [{'Linear': {'args': [IN_DIM, 1]}}]
+    plateau = whole_fit_case(
+        'plateau', flagship(descr=one_linear,
+                            learning_rate=WHOLE_FIT_PLATEAU_LR),
+        x, y, WHOLE_FIT_PLATEAU_EPOCHS, seed, 'fused_train',
+        'fused_ensemble', callbacks=lambda: [EarlyStopping(patience=100)],
+        limit_train_batches=WHOLE_FIT_SHORT_STEPS)
+    scales = [1.0] * 12 + [0.1] * (WHOLE_FIT_PLATEAU_EPOCHS - 12)
+    check(plateau[True][0].lr_scales == plateau[False][0].lr_scales
+          == scales, f'plateau: scales {plateau[True][0].lr_scales} whole, '
+                     f'{plateau[False][0].lr_scales} per epoch, expected '
+                     f'{scales}')
+
+    # Δ-UQ (epoch 0 step by step while the hook captures 229 anchors) and
+    # MC dropout
+    whole_fit_case('delta_uq', flagship(
+        DeltaUQMLPModelBuilder, uq={'num_anchors': ANCHORS,
+                                    'anchored_batch_size': ANCHORS}),
+        x, y, WHOLE_FIT_FAMILY_EPOCHS, seed, 'fused_train',
+        'fused_anchored', limit_train_batches=WHOLE_FIT_ANCHORED_STEPS)
+    whole_fit_case('mc_dropout', flagship(
+        MCDropoutModelBuilder, uq={'num_samples': MC_SAMPLES,
+                                   'dropout_percent': MC_P}),
+        x, y, WHOLE_FIT_FAMILY_EPOCHS, seed, 'fused_train',
+        'fused_mc_dropout')
+
+    # what a stop costs: the epochs enqueued past it, each a stopped
+    # kernel epoch (its launches return at once) and a validation pass
+    model = flagship()()
+    plan = train_plan(model)
+    bufs, xs, ys = train_inputs(model, plan, np.random.default_rng(seed),
+                                EPOCH_STEPS)
+    lr_dev = torch.full((1,), TRAIN_MODEL_CONFIG['learning_rate'],
+                        dtype=torch.float32, device=DEVICE)
+    stopped = torch.ones(1, dtype=torch.int32, device=DEVICE)
+    before = [b.clone() for b in bufs]
+    stopped_t = event_ms(lambda: ft.fused_epoch(plan, *bufs, xs, ys, lr_dev,
+                                                0, stop=stopped))
+    check(all(torch.equal(a, b) for a, b in zip(bufs, before)),
+          'a stopped kernel epoch changed its buffers')
+    val_t = timing['32-true']['validation_pass_ms']['whole_fit']
+    lost = stop_fits[True][0].whole_fit_epochs_lost
+    stop_ms = lost * (stopped_t['median_ms'] + val_t['median_ms'])
+    # 'auto' engages whenever a fit is eligible: a dispatch's host set-up
+    # must stay under an fp32 epoch's saving
+    setup_ms = timing['32-true']['dispatch_setup_s'] * 1e3
+    saving_ms = timing['32-true']['saving_per_epoch_s'] * 1e3
+    emit('whole_fit_summary', timing=timing,
+         epochs_lost_after_stop=lost,
+         stopped_kernel_epoch_ms=stopped_t,
+         validation_pass_ms=val_t,
+         auto_setup_ms=setup_ms, auto_saving_ms_per_epoch=saving_ms,
+         auto_setup_under_one_epochs_saving=setup_ms < saving_ms,
+         stop_loses_ms=stop_ms,
+         stop_loses_note='epochs enqueued past the stop x (a stopped '
+                         f'{EPOCH_STEPS}-step kernel epoch + a validation '
+                         'pass); the early_stop case ran '
+                         f'{WHOLE_FIT_SHORT_STEPS}-step epochs',
+         nvidia_smi=nvidia_smi('name,power.limit'),
+         seconds=time.perf_counter() - phase_start)
 
 
 def plain_stds(bundle_path, xs):
@@ -3442,7 +3740,10 @@ def main():
 
     # 8. the BO trial: data -> train -> evaluate -> metrics -> BO ->
     # results tree, through the port's driver
-    bo_trial_phase(args.seed)
+    x_id, y_id = bo_trial_phase(args.seed)
+    # 8b. whole-fit dispatch on the trial's rows, against the per-epoch fit
+    whole_fit_phase(args.seed, x_id, y_id,
+                    {k['name']: k['ms'] for k in kernels})
     # 9. the user entry points around a trial: the HTTP server on the
     # trained bundles, then the workflow drivers
     http_phase(served_bundles, rng)

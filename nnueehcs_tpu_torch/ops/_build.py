@@ -79,11 +79,11 @@ SIGNATURES = {
     'nnueehcs_fused_train_f32': (
         ctypes.c_int,
         [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_float),
-         ctypes.POINTER(ctypes.c_longlong)] + [_P] * 15),
+         ctypes.POINTER(ctypes.c_longlong)] + [_P] * 17),
     'nnueehcs_fused_train_bf16': (
         ctypes.c_int,
         [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_float),
-         ctypes.POINTER(ctypes.c_longlong)] + [_P] * 15),
+         ctypes.POINTER(ctypes.c_longlong)] + [_P] * 17),
     'nnueehcs_fused_train_scratch_floats': (
         ctypes.c_longlong, [ctypes.c_int, ctypes.c_int, ctypes.c_int]),
     'nnueehcs_ablate_chain_f32': (

@@ -48,15 +48,24 @@ long long nnueehcs_fused_train_scratch_floats(int B, int n_bn, int n_drop) {
 // zeroes g, and keeps every buffer fp32, contiguous and on the device.
 // `signs` is null, or (S, M, n_bn, B, 128) bytes that receive each ReLU
 // decision of the backward (1 where the pre-ReLU value is > 0).
+// `lr` is null (the learning rate is fconf's) or one device float that
+// the optimizer reads at each step; `stop` is null or one device int:
+// when it holds a nonzero value as the epoch's launches run, every launch
+// returns at once and the epoch leaves every buffer as it found it (the
+// trainer's whole-fit dispatch, which enqueues epochs past an early stop
+// that only the device has seen).
 int nnueehcs_fused_train_f32(const long long* iconf, const float* fconf,
                              const long long* layout, float* theta, float* m,
                              float* v, float* sigma, float* g, const float* xs,
                              const float* ys, float* losses, const int* lins,
                              const float* drops, float* scratch, float* preds,
                              float* small, unsigned char* signs,
+                             const float* lr, const int* stop,
                              void* stream) {
-  const Args A = make_args(iconf, fconf, theta, m, v, sigma, g, xs, ys, losses,
-                           lins, drops, scratch, preds, small, signs);
+  Args A = make_args(iconf, fconf, theta, m, v, sigma, g, xs, ys, losses, lins,
+                     drops, scratch, preds, small, signs);
+  A.lr_dev = lr;
+  A.stop = stop;
   return run_cluster_epoch<false>(A, layout,
                                   static_cast<cudaStream_t>(stream));
 }

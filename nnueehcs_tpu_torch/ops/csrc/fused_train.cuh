@@ -69,7 +69,19 @@ struct Args {
   float* terms;       // (M): loss-term sums
   float* partials;    // (M): sums of g^2 per member slab
   unsigned char* signs;  // optional (S, M, n_bn, B, 128): ReLU decisions
+  // optional one-element device values (null: the host configuration):
+  // the learning rate the optimizer reads in place of f[kLr], and a flag
+  // that, when nonzero, makes every launch of the epoch return at once
+  const float* lr_dev;
+  const int* stop;
 };
+
+// True when the launch is one of a stopped epoch's: it must return before
+// it reads or writes anything (in a cluster kernel, before its first
+// cluster barrier; every block reads the same value, so all return).
+__device__ __forceinline__ bool stopped(const Args& A) {
+  return A.stop != nullptr && *A.stop != 0;
+}
 
 __host__ __device__ long long scratch_floats(long long B, long long n_bn,
                                              long long n_drop) {
@@ -620,7 +632,7 @@ __device__ __forceinline__ void adam_step(const Args& A, int step) {
   const float t = static_cast<float>(A.i[kStep0] + step + 1);
   const float c1 = __fsub_rn(1.0f, expf(__fmul_rn(t, A.f[kLnB1])));
   const float c2 = __fsub_rn(1.0f, expf(__fmul_rn(t, A.f[kLnB2])));
-  const float lr = A.f[kLr];
+  const float lr = A.lr_dev != nullptr ? *A.lr_dev : A.f[kLr];
   const long long n = A.i[kM] * A.i[kSlabRows] * kLanes;
   for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        e < n; e += static_cast<long long>(gridDim.x) * blockDim.x) {
@@ -664,6 +676,8 @@ inline Args make_args(const long long* iconf, const float* fconf, float* theta,
   A.terms = small;
   A.partials = small + A.i[kM];
   A.signs = signs;
+  A.lr_dev = nullptr;
+  A.stop = nullptr;
   return A;
 }
 
@@ -685,6 +699,7 @@ __global__ void __launch_bounds__(kThreads, 1) member_step_kernel(Args A, int st
 #endif
 
 __global__ void __launch_bounds__(kOptThreads) adam_kernel(Args A, int step) {
+  if (stopped(A)) return;
   adam_step(A, step);
 }
 

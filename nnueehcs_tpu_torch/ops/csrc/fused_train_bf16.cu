@@ -30,16 +30,19 @@ extern "C" {
 
 // Run S bf16-mixed training steps on `stream`; returns a cudaError_t (0 on
 // success). Arguments and buffers as nnueehcs_fused_train_f32
-// (fused_train.cu): every buffer stays fp32.
+// (fused_train.cu), `lr` and `stop` included: every buffer stays fp32.
 int nnueehcs_fused_train_bf16(const long long* iconf, const float* fconf,
                               const long long* layout, float* theta, float* m,
                               float* v, float* sigma, float* g,
                               const float* xs, const float* ys, float* losses,
                               const int* lins, const float* drops,
                               float* scratch, float* preds, float* small,
-                              unsigned char* signs, void* stream) {
-  const Args A = make_args(iconf, fconf, theta, m, v, sigma, g, xs, ys, losses,
-                           lins, drops, scratch, preds, small, signs);
+                              unsigned char* signs, const float* lr,
+                              const int* stop, void* stream) {
+  Args A = make_args(iconf, fconf, theta, m, v, sigma, g, xs, ys, losses, lins,
+                     drops, scratch, preds, small, signs);
+  A.lr_dev = lr;
+  A.stop = stop;
   return run_cluster_epoch<true>(A, layout, static_cast<cudaStream_t>(stream));
 }
 

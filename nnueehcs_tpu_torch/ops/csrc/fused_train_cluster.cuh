@@ -1100,6 +1100,7 @@ __device__ void cluster_reduce(const Args& A, const Blk& k, float term,
 template <bool kBf16, bool kRes>
 __global__ void __launch_bounds__(kT, 1)
     cluster_sweep_kernel(Args A, Layout lay, int step) {
+  if (stopped(A)) return;
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cl = cg::this_cluster();
   const Blk k = make_blk<kRes>(A, lay, smem, cl);
@@ -1125,6 +1126,7 @@ __global__ void __launch_bounds__(kT, 1)
 template <bool kBf16, bool kRes>
 __global__ void __launch_bounds__(kT, 1)
     cluster_step_kernel(Args A, Layout lay, int step) {
+  if (stopped(A)) return;
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cl = cg::this_cluster();
   const Blk k = make_blk<kRes>(A, lay, smem, cl);

@@ -36,6 +36,19 @@ WIDTH = 128        # every layer is padded to 128 output columns
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)   # the kernels' forms
 
 
+def device_values(values, dtype, device) -> torch.Tensor:
+    """A small host sequence as a tensor on ``device``, copied without
+    waiting for the card: ``torch.tensor(..., device=cuda)`` copies from
+    pageable memory, which may synchronise the stream and would stall a
+    fit that enqueues its epochs ahead of the card; a copy from pinned
+    memory is stream-ordered (PyTorch's pinned allocator keeps the block
+    until the copy has run)."""
+    host = torch.tensor(values, dtype=dtype)
+    if torch.device(device).type == 'cuda':
+        host = host.pin_memory()
+    return host.to(device, non_blocking=True)
+
+
 def _fold_linear_chain(net, allow_dropout: bool = False):
     """Fold a ``[Dropout?, Linear, BatchNorm1d?, ReLU?]*`` chain into
     ``(folded, drops)``: ``folded`` is a list of ``(w (..., in, out),
@@ -123,8 +136,7 @@ class FusedWeights:
         self.w_all = torch.cat([w.reshape(-1) for w in ws]).contiguous().to(
             compute_dtype)
         self.b_all = torch.stack(bs).contiguous()
-        self.relu_flags = torch.tensor(self.relus, dtype=torch.int32,
-                                       device=w0.device)
+        self.relu_flags = device_values(self.relus, torch.int32, w0.device)
         self.ws = [v.view_as(w) for v, w in zip(
             self.w_all.split([w.numel() for w in ws]), ws)]
 

@@ -37,8 +37,8 @@ import torch
 from ..nn.layers import Dropout, Linear
 from .fused_eval_chain import launch_args
 from .fused_ensemble import (FusedWeights, _check_widths, check_weights_dtype,
-                             check_x, compute_dtype_of, fold_mc_dropout_params,
-                             shifted_stats)
+                             check_x, compute_dtype_of, device_values,
+                             fold_mc_dropout_params, shifted_stats)
 
 _M32 = 0xFFFFFFFF
 
@@ -94,8 +94,9 @@ def dropout_scale(seed: int, sample: int, key: int, threshold: int,
     c = _mul32(torch.arange(cols, dtype=torch.int64, device=device), 0x27D4EB2F)
     bits = lowbias32((stream + r[:, None] + c[None, :]) & _M32)
     keep = (bits >> 8) < threshold
-    return torch.where(keep, torch.tensor(scale, dtype=torch.float32, device=device),
-                       torch.tensor(0.0, dtype=torch.float32, device=device))
+    return torch.where(keep, torch.full((), scale, dtype=torch.float32,
+                                        device=device),
+                       torch.zeros((), dtype=torch.float32, device=device))
 
 
 # The operations one mask element costs, counted from dropout_scale (the
@@ -122,11 +123,9 @@ class McWeights(FusedWeights):
         self.thresholds = tuple(t for t, _ in pairs)
         self.scales = tuple(s for _, s in pairs)
         self.keys = tuple(keys)
-        self.drop_thresh = torch.tensor(self.thresholds, dtype=torch.int32,
-                                        device=device)
-        self.drop_scale = torch.tensor(self.scales, dtype=torch.float32,
-                                       device=device)
-        self.drop_key = torch.tensor(self.keys, dtype=torch.int32, device=device)
+        self.drop_thresh = device_values(self.thresholds, torch.int32, device)
+        self.drop_scale = device_values(self.scales, torch.float32, device)
+        self.drop_key = device_values(self.keys, torch.int32, device)
 
 
 def prepare_mc_weights(net):

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..nn.layers import BatchNorm1d, Dropout, Linear, ReLU
+from .fused_ensemble import device_values
 from .fused_mc_dropout import _M32, _mul32, lowbias32
 
 LANES = 128
@@ -543,7 +544,7 @@ def _adam(plan, k, theta, m, v, g, lr, t):
 
 def fused_epoch_reference(plan: FusedTrainPlan, theta, m, v, sigma, xs, ys,
                           lr, step0, seed=0, drops=None, signs=None,
-                          products=_mm):
+                          products=_mm, stop=None):
     """The kernel's epoch in plain tensor ops, step by step and member by
     member, in the kernel's order of operations; updates the buffers in
     place and returns ``(theta, m, v, sigma, losses[S])``. ``signs``, when
@@ -551,13 +552,18 @@ def fused_epoch_reference(plan: FusedTrainPlan, theta, m, v, sigma, xs, ys,
     ReLU decision of the backward, as the kernel writes it. ``products``
     forms each product (``_mm``: the plan's rounding, summed in fp32 by
     ``torch.matmul``); another summation of the same rounded operands
-    gives a second correct version of the epoch."""
+    gives a second correct version of the epoch. ``lr`` and ``stop`` are
+    as :func:`fused_epoch` takes them: a stopped epoch changes nothing and
+    returns uninitialised losses."""
     drops = _drop_tensor(plan, drops, theta.device)
     k = _constants(plan)
     S, M = xs.shape[0], plan.num_members
-    g = torch.zeros_like(theta)
-    lr = torch.tensor(float(lr), dtype=torch.float32, device=theta.device)
     losses = torch.empty(S, dtype=torch.float32, device=theta.device)
+    if stop is not None and int(stop.reshape(())) != 0:
+        return theta, m, v, sigma, losses
+    g = torch.zeros_like(theta)
+    lr = lr.reshape(()).clone() if isinstance(lr, torch.Tensor) else \
+        torch.tensor(float(lr), dtype=torch.float32, device=theta.device)
     for i in range(S):
         x, y = xs[i], ys[i]
         ypad = torch.nn.functional.pad(y, (0, LANES - y.shape[1]))
@@ -600,7 +606,7 @@ def _drop_tensor(plan, drops, device):
     drops = torch.as_tensor(drops, dtype=torch.float32).reshape(-1)
     if drops.numel() != n:
         raise ValueError(f'expected {n} dropout rates, got {drops.numel()}')
-    return drops.to(device)
+    return drops.to(device, non_blocking=True)
 
 
 # ---------------------------------------------------------------------------
@@ -619,11 +625,19 @@ LIN_FIELDS = ('w_off', 'in_rows', 'in_w', 'out_w', 'b_off', 'g_off', 'be_off',
               'mean_off', 'var_off', 'zh_idx', 'relu', 'mask_idx')
 
 
+_LIN_TABLES = {}
+
+
 def lin_table(plan: FusedTrainPlan, device) -> torch.Tensor:
     """The plan's blocks as an ``(n_lins, 12)`` int32 table, as the kernel
-    reads it."""
-    rows = [[int(getattr(L, f)) for f in LIN_FIELDS] for L in plan.lins]
-    return torch.tensor(rows, dtype=torch.int32, device=device)
+    reads it: made once per plan and device and kept (the kernel only
+    reads it), copied without waiting for the card."""
+    key = (plan, torch.device(device))
+    table = _LIN_TABLES.get(key)
+    if table is None:
+        rows = [[int(getattr(L, f)) for f in LIN_FIELDS] for L in plan.lins]
+        table = _LIN_TABLES[key] = device_values(rows, torch.int32, device)
+    return table
 
 
 def kernel_config(plan: FusedTrainPlan, S: int, lr, step0, seed,
@@ -802,18 +816,20 @@ def _check_signs(plan: FusedTrainPlan, signs, S, device):
 
 
 def launch_epoch(lib, plan: FusedTrainPlan, theta, m, v, sigma, xs, ys, lr,
-                 step0, seed=0, drops=None, signs=None):
+                 step0, seed=0, drops=None, signs=None, stop=None):
     """Enqueue one epoch of the training kernel from ``lib`` (the kernel
     library, or an instrumented build of it) on CUDA buffers, as
     :func:`fused_epoch` does, without its checks or its launch count;
-    raises if the launch fails."""
+    raises if the launch fails. Nothing here waits for the card."""
     layout = train_layout(plan)
     device = theta.device
     S = xs.shape[0]
     losses = torch.empty(S, dtype=torch.float32, device=device)
     if S == 0:
         return theta, m, v, sigma, losses
-    iconf, fconf = kernel_config(plan, S, lr, step0, seed, plan.single_sweep)
+    lr_dev = lr if isinstance(lr, torch.Tensor) else None
+    iconf, fconf = kernel_config(plan, S, 0.0 if lr_dev is not None else lr,
+                                 step0, seed, plan.single_sweep)
     lay = (ctypes.c_longlong * len(LAYOUT_FIELDS))(*layout.ints())
     M, B = plan.num_members, plan.batch
     g = torch.zeros_like(theta)
@@ -832,6 +848,8 @@ def launch_epoch(lib, plan: FusedTrainPlan, theta, m, v, sigma, xs, ys, lr,
             losses.data_ptr(), lins.data_ptr(), drops.data_ptr(),
             scratch.data_ptr(), preds.data_ptr(), small.data_ptr(),
             None if signs is None else signs.data_ptr(),
+            None if lr_dev is None else lr_dev.data_ptr(),
+            None if stop is None else stop.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'fused training kernel launch failed: CUDA error '
@@ -839,31 +857,50 @@ def launch_epoch(lib, plan: FusedTrainPlan, theta, m, v, sigma, xs, ys, lr,
     return theta, m, v, sigma, losses
 
 
+def _check_scalar(name, t, dtype, device):
+    if not isinstance(t, torch.Tensor) or t.dtype != dtype \
+            or t.numel() != 1 or t.device != device:
+        raise ValueError(f'{name}: expected a one-element {dtype} tensor on '
+                         f'{device}')
+
+
 def fused_epoch(plan: FusedTrainPlan, theta, m, v, sigma, xs, ys, lr, step0,
-                seed=0, drops=None, signs=None):
+                seed=0, drops=None, signs=None, stop=None):
     """Train one epoch of ``S = xs.shape[0]`` steps: the CUDA kernel for
     CUDA tensors, :func:`fused_epoch_reference` for CPU tensors. ``lr`` is
-    a runtime scalar, ``step0`` the Adam step count before the epoch,
-    ``seed`` the epoch's dropout seed and ``drops`` the per-slot dropout
-    rates (:func:`drop_rates`). Updates ``theta``, ``m``, ``v`` and
-    ``sigma`` in place; returns them and the per-step losses. ``signs``
-    (a diagnostic, null on the training path) is an ``(S, M, n_bn, B,
-    128)`` uint8 tensor that receives each ReLU decision of the backward.
+    the learning rate: a number (rounded to float32 on the host), or a
+    one-element float32 tensor on the buffers' device that the kernel reads
+    when its steps run (the trainer's whole-fit dispatch, whose plateau
+    schedule lives on the card). ``step0`` is the Adam step count before
+    the epoch, ``seed`` the epoch's dropout seed and ``drops`` the per-slot
+    dropout rates (:func:`drop_rates`). ``stop``, when given, is a
+    one-element int32 tensor on that device: nonzero when the launches run,
+    the epoch returns at once and leaves every buffer as it was. Updates
+    ``theta``, ``m``, ``v`` and ``sigma`` in place; returns them and the
+    per-step losses (uninitialised after a stop). ``signs`` (a diagnostic,
+    null on the training path) is an ``(S, M, n_bn, B, 128)`` uint8 tensor
+    that receives each ReLU decision of the backward.
     ``fused_epoch.launches`` counts the calls that launched the fp32
     kernel, ``fused_epoch.launches_bf16`` those that launched its bf16 form
-    (``plan.bf16``; the buffers stay fp32 in both)."""
+    (``plan.bf16``; the buffers stay fp32 in both). A launch that the card
+    stopped is taken off its count by :func:`uncount_stopped` once the
+    caller reads the stop, so the counts are the epochs that trained."""
     _check_buffers(plan, theta, m, v, sigma, xs, ys)
     if signs is not None:
         _check_signs(plan, signs, xs.shape[0], theta.device)
+    if isinstance(lr, torch.Tensor):
+        _check_scalar('lr', lr, torch.float32, theta.device)
+    if stop is not None:
+        _check_scalar('stop', stop, torch.int32, theta.device)
     if theta.device.type == 'cpu':
         return fused_epoch_reference(plan, theta, m, v, sigma, xs, ys, lr,
-                                     step0, seed, drops, signs)
+                                     step0, seed, drops, signs, stop=stop)
     if theta.device.type != 'cuda':
         raise ValueError(f'no fused training kernel for device '
                          f'{theta.device}')
     from ._build import library
     out = launch_epoch(library(), plan, theta, m, v, sigma, xs, ys, lr,
-                       step0, seed, drops, signs)
+                       step0, seed, drops, signs, stop)
     if xs.shape[0]:
         if plan.bf16:
             fused_epoch.launches_bf16 += 1
@@ -874,3 +911,16 @@ def fused_epoch(plan: FusedTrainPlan, theta, m, v, sigma, xs, ys, lr, step0,
 
 fused_epoch.launches = 0
 fused_epoch.launches_bf16 = 0
+
+
+def uncount_stopped(plan: FusedTrainPlan, stopped: int, device):
+    """Take ``stopped`` launches of ``plan``'s form on a CUDA ``device``
+    off :func:`fused_epoch`'s count: launches that the card stopped
+    (``stop`` set), which trained nothing. Launches on the CPU are not
+    counted, so there is nothing to take off."""
+    if torch.device(device).type != 'cuda' or stopped <= 0:
+        return
+    if plan.bf16:
+        fused_epoch.launches_bf16 -= stopped
+    else:
+        fused_epoch.launches -= stopped

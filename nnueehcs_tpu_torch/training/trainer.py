@@ -36,12 +36,37 @@ precision of None trains the kernel in fp32 and its per-step and
 validation passes in bf16, as in JAX. Δ-UQ and PAGER train on the doubled
 stochastic-centering batch (kernel epochs at batch ``2 * batch_size``).
 
+Whole fit (``whole_fit``: ``False``, ``True`` or ``'auto'``, the
+default), the JAX trainer's one-program fit: once every remaining epoch
+may run the kernel and every hook's validation behaviour can be replayed
+(the JAX package's ``_whole_fit_ok`` rules: one EarlyStopping and any
+ModelSavingCallback on ``val_loss``, no other ``on_validation_end``, no
+batch hooks), the trainer enqueues every remaining epoch without waiting
+for the card: the shuffle window, the (anchored) gather, the kernel, the
+validation batches and their size-weighted mean in float64, then
+ReduceLROnPlateau, EarlyStopping and the best-parameter pin as tensors on
+the card (:mod:`~nnueehcs_tpu_torch.training.whole_fit`). The kernel
+reads its learning rate and a stop flag from device memory; epochs the
+host enqueued past the card's stop change nothing. The host looks at the
+stop flag only through copies the card has finished (no wait), waits once
+after the last epoch, then replays the logs and hooks from the per-epoch
+loss buffers, ModelSavingCallback only at the best epoch, with the pinned
+parameters in the modules. ``'auto'`` engages whenever the fit is
+eligible.
+
 Differences from the JAX trainer, by design: the shuffle draws from a
 ``torch.Generator``, not ``jax.random.permutation``, and so do the
 Δ-UQ/PAGER anchor permutations (:meth:`Trainer.anchor_permutations`, one
 stream for both paths) and the per-step path's dropout masks (the kernel's
-are the JAX kernel's hash); and ``whole_fit`` is read but every epoch
-runs on its own.
+are the JAX kernel's hash). In the whole fit: the card's decisions are
+taken in float64 on the host path's validation loss (JAX compares in
+float32); a failed dispatch raises, where JAX falls back to per-epoch
+kernels (a CUDA error after a launch leaves the context unusable); the
+``'auto'`` has no break-even or survival delay (JAX's 160 / 120 / 40
+epochs pay for its compile; the port's dispatch costs a few milliseconds
+of host set-up, under one epoch's saving, measured on the card,
+``PERF.md``); there is no environment switch
+(``NNUEEHCS_TPU_NO_WHOLE_FIT``), the config key is the only one.
 
 Meshes: ``trainer_config['mesh']`` (an ``{axis: size}`` dict or
 ``'auto'``) makes a :class:`~nnueehcs_tpu_torch.parallel.Mesh` over the
@@ -59,8 +84,8 @@ gradients, the global clip norm, the same shuffle and dropout masks).
 Validation losses are rank 0's on every rank, so every rank stops on the
 same epoch; only rank 0 writes the logs and the bundle, whose weights are
 gathered whole. A mesh of one rank (``{'dp': 1}``) is one device and may
-run the training kernel, where the JAX trainer turns it off under any
-mesh.
+run the training kernel and the whole fit, where the JAX trainer turns
+the kernel off under any mesh.
 """
 from __future__ import annotations
 
@@ -73,19 +98,27 @@ import torch
 
 from ..convert import load_pytrees, tensor_trees
 from ..models.base import resolve_device
+from ..ops.fused_ensemble import device_values
 from ..ops import fused_train as ft
 from ..parallel.mesh import make_mesh, placed
-from .callbacks import EarlyStopping
+from .callbacks import EarlyStopping, ModelSavingCallback
 from .data import DataLoader
 from .hooks import TrainerHook
 from .loggers import CSVLogger
 from .sharded import ShardedTraining
+from .whole_fit import DeviceDecisions, StopPoll, weighted_mean
 
 _SINGLE_NET = ('MCDropoutModel', 'DeltaUQMLP', 'PAGERMLP', 'MLPModel',
                'KDEMLPModel', 'KNNKDEMLPModel', 'MVEMLPModel')
 _ANCHORED = ('DeltaUQMLP', 'PAGERMLP')
 # trainer precisions under which an epoch may run the training kernel
 _KERNEL_PRECISIONS = (None, '32-true', 'bf16-mixed')
+# CUDA streams a whole fit's validation batches spread over, by the dtype
+# its passes compute in (the model's ``compute_dtype``, None: fp32). On the
+# flagship an fp32 pass of 100 batches of 128 rows is bound by the card
+# (37 ms one batch after another, 24 on 8 streams); a bf16 pass is bound by
+# the host, which streams only add to (tools/validation_streams.py)
+VALIDATION_STREAMS = {None: 8, torch.bfloat16: 0}
 
 
 def _inst_init_if_not_none(inst, attr, val, default):
@@ -291,22 +324,66 @@ class Trainer:
         if losses_np.shape[0]:
             self.callback_metrics['train_loss'] = float(losses_np[-1])
 
+    @staticmethod
+    def _val_bounds(n_val, val_bs, nb_val):
+        """The row ranges of the first ``nb_val`` validation batches."""
+        return [(b * val_bs, min(b * val_bs + val_bs, n_val))
+                for b in range(nb_val) if b * val_bs < n_val]
+
+    def _val_weights(self, x_val, val_bs, nb_val) -> torch.Tensor:
+        """The sizes of the first ``nb_val`` validation batches, the
+        weights of their mean, as float64 on ``x_val``'s device."""
+        return device_values([hi - lo for lo, hi in self._val_bounds(
+            x_val.shape[0], val_bs, nb_val)], torch.float64, x_val.device)
+
+    def _val_losses(self, model, x_val, y_val, val_bs, nb_val, epoch,
+                    streams=()) -> torch.Tensor:
+        """The losses of the first ``nb_val`` validation batches, in batch
+        order as one tensor on the device, through the model's evaluation
+        path. With ``streams`` (CUDA streams), batch 0 runs on the current
+        stream (where the model folds its weights for the epoch) and the
+        others in as many runs of consecutive batches, one a stream, which
+        wait for it; each run stacks its losses on its stream, and the
+        current stream waits for the runs at the end. A batch's loss is the
+        same either way: a validation batch takes one SM or a few, so the
+        runs overlap instead of queueing."""
+        model.net.eval()
+        bounds = self._val_bounds(x_val.shape[0], val_bs, nb_val)
+
+        def losses(first, end):
+            return torch.stack([
+                model.validation_loss((x_val[lo:hi], y_val[lo:hi]),
+                                      seed=self._val_seed(epoch, b))
+                for b, (lo, hi) in enumerate(bounds[first:end], first)])
+        if not streams or len(bounds) < 2:
+            return losses(0, len(bounds))
+        main = torch.cuda.current_stream(x_val.device)
+        runs = [losses(0, 1)]
+        rest = len(bounds) - 1
+        for k, stream in enumerate(streams):
+            first = 1 + k * rest // len(streams)
+            end = 1 + (k + 1) * rest // len(streams)
+            if first == end:
+                continue
+            stream.wait_stream(main)
+            with torch.cuda.stream(stream):
+                runs.append(losses(first, end))
+            # the caller reads it on the current stream
+            runs[-1].record_stream(main)
+        # only once every run is enqueued: a stream that waited for the
+        # current one after it waited for a run would queue behind it
+        for stream in streams:
+            main.wait_stream(stream)
+        return torch.cat(runs)
+
     def _weighted_val(self, model, x_val, y_val, val_bs, nb_val, epoch):
         """Size-weighted mean validation loss over the first ``nb_val``
-        batches, through the model's evaluation path."""
-        model.net.eval()
-        losses, weights = [], []
-        n_val = x_val.shape[0]
-        for b in range(nb_val):
-            lo = b * val_bs
-            hi = min(lo + val_bs, n_val)
-            if lo >= hi:
-                break
-            losses.append(model.validation_loss(
-                (x_val[lo:hi], y_val[lo:hi]), seed=self._val_seed(epoch, b)))
-            weights.append(hi - lo)
-        losses = torch.stack(losses).cpu().numpy()
-        return float(np.average(losses.astype(np.float64), weights=weights))
+        batches, through the model's evaluation path: the whole fit's
+        :func:`~nnueehcs_tpu_torch.training.whole_fit.weighted_mean`, read
+        back."""
+        return float(weighted_mean(
+            self._val_losses(model, x_val, y_val, val_bs, nb_val, epoch),
+            self._val_weights(x_val, val_bs, nb_val)))
 
     def validate(self, model, dataloaders) -> float:
         """A standalone validation pass: the sample-weighted mean
@@ -320,10 +397,32 @@ class Trainer:
         bs = dl.batch_size
         return self._weighted_val(model, x, y, bs, -(-x.shape[0] // bs), 0)
 
+    def _enqueue_whole_fit(self, enqueue, poll, e0: int) -> int:
+        """Enqueue epochs ``e0 ..`` of a whole-fit dispatch, ``enqueue(e)``
+        each, without waiting for the card; before each epoch after the
+        first, the host looks at the copies of the stop flag that the card
+        has finished (``poll``) and ends the dispatch when one is set.
+        Returns the number of epochs enqueued: those past the card's stop
+        change nothing."""
+        e = e0
+        while e < self.max_epochs:
+            if e > e0 and poll.stopped():
+                break
+            enqueue(e)
+            e += 1
+        return e - e0
+
     # ------------------------------------------------------------------ fit
     def fit(self, model, train_dataloaders, val_dataloaders=None):
-        # epochs that ran through the training kernel (observable)
+        # epochs that ran through the training kernel, whole-fit dispatches
+        # and the epochs a dispatch enqueued past the card's stop
+        # (observable)
         self.fused_epochs_used = 0
+        self.whole_fit_dispatches = 0
+        self.whole_fit_epochs_lost = 0
+        self.whole_fit_seconds = None
+        # the plateau scale each epoch trained with, in epoch order
+        self.lr_scales = []
         return self._fit(model, train_dataloaders, val_dataloaders)
 
     def _fit(self, model, train_dl: DataLoader, val_dl: Optional[DataLoader]):
@@ -409,7 +508,7 @@ class Trainer:
                 member_stacked=not single_net)
         fused_buffers = None
         fused_step0 = 0
-        drops = ft.drop_rates(model.net).to(device)
+        drops = ft.drop_rates(model.net).to(device, non_blocking=True)
         num_layers = len(model.net.layers)
 
         def pack_fused():
@@ -441,6 +540,36 @@ class Trainer:
             return all(h.fusion_quiescent(epoch) for h in hooks)
 
         nb_val_full = min(nb_val, x_val.shape[0] // val_bs)
+        es_hook = next((h for h in hooks if isinstance(h, EarlyStopping)),
+                       None)
+
+        def whole_fit_ok(e0):
+            """Every epoch from ``e0`` on may run in one whole-fit
+            dispatch: ``whole_fit`` allows it (``True`` or ``'auto'``),
+            every hook's validation behaviour can be replayed
+            afterwards (one EarlyStopping and any ModelSavingCallback on
+            ``val_loss``, no other ``on_validation_end``) and no remaining
+            epoch wants batches or a hook between its phases. The JAX
+            trainer's ``_whole_fit_ok``."""
+            if not self.trainer_config.get('whole_fit', 'auto'):
+                return False
+            n_es = 0
+            for h in hooks:
+                if isinstance(h, EarlyStopping):
+                    n_es += 1
+                    if h.mode != 'min' or h.monitor != 'val_loss':
+                        return False
+                elif isinstance(h, ModelSavingCallback):
+                    if h.monitor != 'val_loss':
+                        return False
+                elif (type(h).on_validation_end
+                      is not TrainerHook.on_validation_end):
+                    return False
+            if n_es > 1:
+                return False
+            return all(val_fusion_ok(e)
+                       and not any(_wants_batches(h, e) for h in hooks)
+                       for e in range(e0, self.max_epochs))
 
         # ----- batching geometry, constant across epochs
         full_batches = min(nb_train, n // bs)
@@ -483,6 +612,106 @@ class Trainer:
             lr = base_lr * lr_scale
             batch_hooks = [h for h in hooks if _wants_batches(h, epoch)]
 
+            if (fused_plan is not None and nb_val_full > 0 and not batch_hooks
+                    and not has_tail and full_batches > 0
+                    and whole_fit_ok(epoch)):
+                # ---- every remaining epoch in one dispatch, then the host
+                # replays the logs and hooks from the card's buffers
+                self.whole_fit_dispatches += 1
+                t0 = time.perf_counter()
+                if fused_buffers is None:
+                    fused_buffers, fused_step0 = pack_fused()
+                dec = DeviceDecisions(device, plateau, es_hook, base_lr,
+                                      epoch, self.max_epochs, full_batches,
+                                      fused_buffers[0], fused_buffers[3])
+                poll = StopPoll(device)
+                streams = [torch.cuda.Stream(device) for _ in range(
+                    VALIDATION_STREAMS[model.net.compute_dtype])] \
+                    if device.type == 'cuda' else ()
+                val_w = self._val_weights(x_val, val_bs, nb_val)
+                e0, step0 = epoch, fused_step0
+
+                def enqueue(e):
+                    nonlocal perm
+                    if shuffle and e % windows == 0 and e != e0:
+                        perm = torch.randperm(n, generator=shuffle_gen,
+                                              device=device)
+                    off = (e % windows) * sample_n
+                    idx = perm[off:off + sample_n]
+                    run = dec.begin_epoch()
+                    if anchored:
+                        xs, ys = ft.gather_anchored_epoch_batches(
+                            fused_plan, x_train, y_train, idx,
+                            self.anchor_permutations(e, 0, full_batches, bs))
+                    else:
+                        xs, ys = ft.gather_epoch_batches(fused_plan, x_train,
+                                                         y_train, idx)
+                    *_, losses = ft.fused_epoch(
+                        fused_plan, *fused_buffers, xs, ys, dec.lr,
+                        step0 + (e - e0) * full_batches,
+                        seed=self._epoch_seed(e), drops=drops, stop=dec.stop)
+                    unpack_fused(fused_buffers)
+                    vl = weighted_mean(self._val_losses(
+                        model, x_val, y_val, val_bs, nb_val, e, streams),
+                        val_w)
+                    dec.end_epoch(e, run, losses, vl, fused_buffers[0],
+                                  fused_buffers[3])
+                    poll.record(dec.stop)
+
+                t1 = time.perf_counter()
+                enqueued = self._enqueue_whole_fit(enqueue, poll, e0)
+                t2 = time.perf_counter()
+                # the dispatch's one wait for the card
+                done = int(dec.done)
+                lbuf = dec.losses.cpu().numpy()
+                vlbuf = dec.val_losses.cpu().numpy()
+                t3 = time.perf_counter()
+                trained = done - e0
+                self.whole_fit_epochs_lost = enqueued - trained
+                ft.uncount_stopped(fused_plan, enqueued - trained, device)
+                fused_step0 += trained * full_batches
+                unpack_fused(fused_buffers)
+                vslice = vlbuf[e0:done]
+                argmin_e = int(np.nanargmin(vslice)) + e0 \
+                    if done > e0 and not np.all(np.isnan(vslice)) else e0
+                for e in range(e0, done):
+                    self.current_epoch = e
+                    self.fused_epochs_used += 1
+                    vl = float(vlbuf[e])
+                    self.lr_scales.append(lr_scale)
+                    self._log_epoch(lbuf[e], e)
+                    for h in hooks:
+                        h.on_train_epoch_end(self, model)
+                    for h in hooks:
+                        h.on_validation_epoch_start(self, model)
+                    self.callback_metrics['val_loss'] = vl
+                    self.logger.log_metrics({'val_loss': vl, 'epoch': e},
+                                            step=self.global_step - 1)
+                    if e == argmin_e:
+                        # the pinned best parameters, for the hooks that
+                        # keep or save the best model
+                        unpack_fused([dec.best_theta, None, None,
+                                      dec.best_sigma])
+                        for h in hooks:
+                            h.on_validation_end(self, model,
+                                                self.callback_metrics)
+                        unpack_fused(fused_buffers)
+                    else:
+                        # the modules hold the end of the fit here
+                        for h in hooks:
+                            if not isinstance(h, ModelSavingCallback):
+                                h.on_validation_end(self, model,
+                                                    self.callback_metrics)
+                    lr_scale = plateau.step(vl)
+                    self.logger.save()
+                # host seconds of the dispatch's parts (observable)
+                self.whole_fit_seconds = {
+                    'setup': t1 - t0, 'enqueue': t2 - t1, 'drain': t3 - t2,
+                    'replay': time.perf_counter() - t3}
+                # the card's stop epoch is authoritative
+                break
+
+            self.lr_scales.append(lr_scale)
             kernel_ok = (fused_plan is not None and nb_val_full > 0
                          and val_fusion_ok(epoch) and not batch_hooks
                          and not has_tail and full_batches > 0)
@@ -586,6 +815,9 @@ class Trainer:
                 break
 
         model.net.eval()
+        # the training kernel's (theta, m, v, sigma) at the end of the fit,
+        # or None when the fit ended on the per-step path (observable)
+        self.fused_buffers = fused_buffers
         for h in hooks:
             h.on_fit_end(self, model)
         self.fit_time = time.time() - fit_start

@@ -1464,3 +1464,28 @@ def test_nccl_world_of_every_card(card):
         launch(cases.nccl_sum, 2, backend='nccl',
                devices=['cuda:0', 'cuda:0'],
                timeout=240)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('bf16', [False, True], ids=['fp32', 'bf16'])
+def test_training_kernel_stop_and_device_lr_on_card(card, bf16):
+    """Kernels 3 and 3b with ``stop`` set: every launch of the epoch
+    returns at once, theta, m, v and sigma bit for bit as they were and no
+    loss written; with ``stop`` clear and the learning rate read from the
+    card, the epoch is the host learning rate's bit for bit."""
+    m = EnsembleModelBuilder(FLAGSHIP, {'num_models': 8}, seed=3,
+                             device=card).build()
+    plan = train_plan(m, bf16=bf16)
+    bufs, xs, ys = train_inputs(m, plan, np.random.default_rng(12), 16)
+    before = [b.clone() for b in bufs]
+    lr = torch.full((1,), 1e-3, dtype=torch.float32, device=card)
+    ft.fused_epoch(plan, *bufs, xs, ys, lr, 5,
+                   stop=torch.ones(1, dtype=torch.int32, device=card))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(bufs, before))
+    host = ft.fused_epoch(plan, *[b.clone() for b in before], xs, ys, 1e-3, 5)
+    card_lr = ft.fused_epoch(plan, *[b.clone() for b in before], xs, ys, lr,
+                             5, stop=torch.zeros(1, dtype=torch.int32,
+                                                 device=card))
+    for a, b in zip(host, card_lr):
+        assert torch.equal(a, b)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time kernels 1b (the bf16 ensemble), 10b (its packed probe), 4 (KDE), 2
-and 2b (MC dropout, fp32 and bf16) at the flagship shapes on one card,
-from the package of a given tree:
+and 2b (MC dropout, fp32 and bf16), 3 and 3b (a training epoch, fp32 and
+bf16-mixed) at the flagship shapes on one card, from the package of a
+given tree:
 
     python3 tools/time_kernels.py [--tree DIR] [--seed N]
 
@@ -14,7 +15,11 @@ call on one card. Shapes: the 8-member ensemble (5 inputs, 7 Linear layers
 probe on the same rows padded to 128 features, the KDE log density of
 262,144 queries under a 16,384 x 5 corpus, and MC dropout on the same
 262,144 rows with 128 samples (the flagship chain, rate 0.1, fp32 and
-bf16). Each kernel: CUDA events over
+bf16), and the training kernel on a flagship epoch of 1,000 steps of 128
+rows (the 8-member ensemble, clip 5, lr 5e-5, Adam moments drawn from
+``--seed``; kernel 3 also with its learning rate read from the card and
+with ``stop`` set, where the tree's ``fused_epoch`` takes them). Each
+kernel: CUDA events over
 10 passes after 5 warm-ups (``attrib.event_ms``). Prints one JSON line per
 kernel (median, extremes, spread, the tree, the card's name), then the
 card's ``nvidia-smi`` name and power limit. It needs a CUDA card.
@@ -68,7 +73,39 @@ def main(argv=None):
     h = bandwidth_value('silverman', cs.KDE_FIT_ROWS, cs.IN_DIM)
     mw = prepare_mc_weights(cs.build_mc(args.seed).net)
     mw16 = cs.in_bf16(cs.build_mc(args.seed), prepare_mc_weights)
-    for name, run, shape in (
+    from nnueehcs_tpu_torch.ops import fused_train as ft
+    train = {}
+    for bf16 in (False, True):
+        model = cs.build_model(args.seed)
+        plan = cs.train_plan(model, bf16=bf16)
+        train[bf16] = (plan, *cs.train_inputs(
+            model, plan, np.random.default_rng(args.seed), cs.EPOCH_STEPS))
+    lr = cs.TRAIN_MODEL_CONFIG['learning_rate']
+
+    def epoch(bf16, rate=lr, **kw):
+        plan, bufs, xs, ys = train[bf16]
+        return lambda: ft.fused_epoch(plan, *bufs, xs, ys, rate, 0, **kw)
+    device_args = 'stop' in ft.fused_epoch.__code__.co_varnames
+    steps = {'steps': cs.EPOCH_STEPS, 'batch': cs.TRAIN_BATCH,
+             'members': cs.MEMBERS}
+    cases = [('fused_train', epoch(False), steps),
+             ('fused_train_bf16', epoch(True), steps)]
+    if device_args:
+        lr_dev = torch.full((1,), lr, dtype=torch.float32, device='cuda')
+        cases += [
+            ('fused_train', epoch(False, rate=lr_dev,
+                                  stop=torch.zeros(1, dtype=torch.int32,
+                                                   device='cuda')),
+             dict(steps, form='lr and stop on the card, stop 0')),
+            ('fused_train', epoch(False, rate=lr_dev,
+                                  stop=torch.ones(1, dtype=torch.int32,
+                                                  device='cuda')),
+             dict(steps, form='stopped')),
+            ('fused_train_bf16', epoch(True, rate=lr_dev,
+                                       stop=torch.ones(1, dtype=torch.int32,
+                                                       device='cuda')),
+             dict(steps, form='stopped'))]
+    for name, run, shape in cases + [
             ('fused_ensemble_bf16', lambda: fused_forward_prefolded(fw16, x),
              {'rows': cs.ROWS, 'members': fw16.num_members}),
             ('packed_forward_bf16', lambda: af.packed_forward(fw16, x_pad),
@@ -81,7 +118,7 @@ def main(argv=None):
              {'rows': cs.ROWS, 'samples': cs.MC_SAMPLES}),
             ('fused_mc_dropout_bf16',
              lambda: fused_mc_forward(mw16, x, cs.MC_SAMPLES, 7),
-             {'rows': cs.ROWS, 'samples': cs.MC_SAMPLES})):
+             {'rows': cs.ROWS, 'samples': cs.MC_SAMPLES})]:
         print(json.dumps({'kernel': name, 'tree': tree, **shape,
                           **event_ms(run), 'device': kind}), flush=True)
     if args.ensemble_forms:
