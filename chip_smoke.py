@@ -136,8 +136,15 @@ dropout for 3 epochs: theta, m, v, sigma, every step's loss, the stop
 epoch, the pinned best and the validation losses bit for bit, kernel 3
 launched once an epoch that trained; it prints seconds
 an epoch both ways beside kernel 3's and 3b's epochs, and what a stop
-costs (a stopped kernel epoch's time and a validation pass's). It prints
-one JSON line per
+costs (a stopped kernel epoch's time and a validation pass's). The
+``validation`` phase runs the trainer's validation pass at the flagship
+trial's shape (100 batches of 128 rows) through kernels 1, 1b, 2, 2b, 5
+and 5b: one launch over every batch (MC dropout's seed table, one seed a
+batch) must give the outputs of one launch a batch bit for bit, and the
+losses within 1e-6 relative, 2 and 2b also at 100 rows a batch; it times
+each kernel on one batch and on the pass, beside their bounds and the
+PyTorch yardstick, and the ``kernels`` line carries them under
+``validation``. It prints one JSON line per
 phase, then the card's ``nvidia-smi`` name and power limit, then a
 ``{"kernels": [...]}`` line (fifteen kernels: the ten fp32 ones, then the
 five bf16 forms), and last ``{"ok": true, "device": {...}}``. Any failure
@@ -233,7 +240,6 @@ from nnueehcs_tpu_torch.training import (ArrayDataset, DataLoader,
                                          EarlyStopping, ModelSavingCallback,
                                          Trainer, load_model)
 from nnueehcs_tpu_torch.training.whole_fit import weighted_mean
-from nnueehcs_tpu_torch.training.trainer import VALIDATION_STREAMS
 from nnueehcs_tpu_torch.utility import ResultsTable
 from nnueehcs_tpu_torch.utils.profiling import (TRACE_FILE, annotate,
                                                 device_memory_stats,
@@ -512,6 +518,14 @@ WHOLE_FIT_PLATEAU_EPOCHS, WHOLE_FIT_PLATEAU_LR = 14, 1e-9
 WHOLE_FIT_FAMILY_EPOCHS = 3
 WHOLE_FIT_ANCHORED_STEPS = 100      # Δ-UQ's epoch 0 runs step by step
 WHOLE_FIT_DIR = os.path.join('build', 'chip_smoke_whole_fit')
+# the validation phase: the flagship trial's validation pass (TRAIN_CONFIG's
+# 100 batches of 128 rows) through kernels 1, 1b, 2, 2b, 5 and 5b in one
+# launch against one launch a batch, and kernels 2 and 2b again at 100 rows
+# a batch (tiles that span two batches' seeds); batched and per-batch
+# losses within TOL_VAL_LOSS_REL (a batched mean sums in another order)
+VAL_RAGGED_BATCH = 100
+TOL_VAL_LOSS_REL = 1e-6
+VAL_SEED = 303                     # the phase's own generator
 
 STARTED = time.perf_counter()      # the imports done
 
@@ -1072,6 +1086,16 @@ def passes(n):
     return -(-n // model_base._MAX_BUCKET)
 
 
+def val_launches(n_val, batch, limit):
+    """Kernel launches of one validation pass over the first ``limit``
+    batches of ``batch`` rows of ``n_val`` rows: the full batches in one
+    evaluation (one launch a chunk of up to 2^19 rows), a partial tail in
+    one more."""
+    nb = min(limit, -(-n_val // batch))
+    full = min(nb, n_val // batch)
+    return passes(full * batch) + (nb - full)
+
+
 def bo_trial_launches(cfg, n_id, n_ood):
     """Kernel 1's launches in one trial of ``cfg`` on ``n_id`` ID and
     ``n_ood`` OOD rows: (the fit's validation passes, the evaluation's UE
@@ -1079,9 +1103,9 @@ def bo_trial_launches(cfg, n_id, n_ood):
     batch = next(p['value'] for p in cfg['training']['parameter_space']
                  if p['name'] == 'batch_size')
     trainer = cfg['trainer']
-    # a validation batch a pass, the fit validating on the ID rows
-    val = trainer['max_epochs'] * min(trainer['limit_val_batches'],
-                                      -(-n_id // batch)) * passes(batch)
+    # a validation pass an epoch, the fit validating on the ID rows
+    val = trainer['max_epochs'] * val_launches(
+        n_id, batch, trainer['limit_val_batches'])
     n_all = n_id + n_ood
     # driver.evaluate: WARMUP passes on ID, one warm and TRIALS timed
     # passes each on combined, ID and OOD, then one on ID and one on OOD
@@ -1117,8 +1141,8 @@ def bo_run(label, cfg, out, restart, new_trials, n_id, n_ood, bf16=False):
     launch count and the native parser's read count set to 0 just before
     and read just after. Checks that the trials ``new_trials`` (and no
     other) ran: their files, the parser's three reads a trial (training,
-    ID and OOD sets), kernel 3 once an epoch, kernel 1 for each validation
-    batch and as often as the evaluation protocol implies (its bf16 form
+    ID and OOD sets), kernel 3 once an epoch, kernel 1 once a validation
+    pass (``val_launches``) and as often as the evaluation protocol implies (its bf16 form
     for the UE passes with ``bf16``, the fp32 form then only for
     validation), no other kernel, no failed row; emits each trial's times.
     Returns the rows of ``trial_results.csv`` by trial and the run's
@@ -1357,8 +1381,9 @@ def whole_fit_case(name, make, x, y, epochs, seed, kernel, val_kernel,
     equal: both paths take the mean through one reduction
     (``weighted_mean``).
     The whole fit launches ``kernel`` once for each epoch that
-    trained and ``val_kernel`` once a validation batch of each epoch it
-    enqueued. Returns both fits' readings."""
+    trained and ``val_kernel`` once a validation pass (its 100 full
+    batches in one launch) of each epoch it enqueued. Returns both fits'
+    readings."""
     fits = {}
     for whole in (False, True):
         fits[whole] = whole_fit_run(name, make(), x, y, epochs, seed, whole,
@@ -1391,12 +1416,14 @@ def whole_fit_case(name, make, x, y, epochs, seed, kernel, val_kernel,
           f'{name}: the pinned best differs')
     trained = tw.fused_epochs_used
     lost = tw.whole_fit_epochs_lost
-    val_batches = TRAIN_CONFIG['limit_val_batches']
+    # one launch a validation pass (TRAIN_CONFIG's 100 full batches)
+    val_pass = val_launches(len(x) - TRAIN_SPLIT, TRAIN_BATCH,
+                            TRAIN_CONFIG['limit_val_batches'])
     check(lw[kernel] == le[kernel] == trained,
           f'{name}: {kernel} launched {lw[kernel]} times whole, '
           f'{le[kernel]} per epoch, {trained} epochs trained')
-    check(lw[val_kernel] == (trained + lost) * val_batches
-          + (le[val_kernel] - trained * val_batches),
+    check(lw[val_kernel] == (trained + lost) * val_pass
+          + (le[val_kernel] - trained * val_pass),
           f'{name}: {val_kernel} launched {lw[val_kernel]} times whole, '
           f'{le[val_kernel]} per epoch ({lost} epochs enqueued past the '
           'stop)')
@@ -1411,31 +1438,247 @@ def whole_fit_case(name, make, x, y, epochs, seed, kernel, val_kernel,
 
 
 def validation_ms(model, x, y):
-    """CUDA-event times of one validation pass of ``model`` as the
+    """CUDA-event and host times of one validation pass of ``model`` as the
     trainer runs it (TRAIN_CONFIG's 100 batches of 128 rows after
-    TRAIN_SPLIT, the float64 mean on the card): one batch after another,
-    as the per-epoch path runs them, and as the whole fit runs them (over
-    VALIDATION_STREAMS streams for the model's compute dtype), which must
-    give the same mean bit for bit."""
-    rows = TRAIN_CONFIG['limit_val_batches'] * TRAIN_BATCH
+    TRAIN_SPLIT, the float64 mean on the card): every batch in one
+    evaluation (``Trainer._val_losses``, one kernel launch), and one
+    ``validation_loss`` call a batch as the trainer ran them before, whose
+    mean it must match within TOL_VAL_LOSS_REL."""
+    nb = TRAIN_CONFIG['limit_val_batches']
+    rows = nb * TRAIN_BATCH
     x_val = torch.as_tensor(x[TRAIN_SPLIT:TRAIN_SPLIT + rows], device=DEVICE)
     y_val = torch.as_tensor(y[TRAIN_SPLIT:TRAIN_SPLIT + rows], device=DEVICE)
     probe = Trainer('probe', {}, log_dir=WHOLE_FIT_DIR, device=DEVICE)
-    streams = [torch.cuda.Stream() for _ in range(
-        VALIDATION_STREAMS[model.net.compute_dtype])]
-    weights = probe._val_weights(x_val, TRAIN_BATCH,
-                                 TRAIN_CONFIG['limit_val_batches'])
+    weights = probe._val_weights(x_val, TRAIN_BATCH, nb)
 
-    def mean(spread):
+    def batched():
         return weighted_mean(probe._val_losses(
-            model, x_val, y_val, TRAIN_BATCH,
-            TRAIN_CONFIG['limit_val_batches'], 0,
-            streams if spread else ()), weights)
-    check(torch.equal(mean(False), mean(True)),
-          'validation as the whole fit runs it gave another mean')
-    return {'serial': event_ms(lambda: mean(False), warmup=2, trials=5),
-            'whole_fit': event_ms(lambda: mean(True), warmup=2, trials=5),
-            'streams': len(streams)}
+            model, x_val, y_val, TRAIN_BATCH, nb, 0), weights)
+
+    def per_batch():
+        return weighted_mean(torch.stack([
+            model.validation_loss((x_val[lo:hi], y_val[lo:hi]),
+                                  seed=probe._val_seed(0, b))
+            for b, (lo, hi) in enumerate(probe._val_bounds(
+                rows, TRAIN_BATCH, nb))]), weights)
+    got, want = float(batched()), float(per_batch())
+    check(abs(got - want) <= TOL_VAL_LOSS_REL * abs(want),
+          f'validation: the batched pass gave {got}, the per-batch one '
+          f'{want}')
+    return {name: dict(event_ms(fn, warmup=2, trials=5),
+                       host_ms=host_ms(fn))
+            for name, fn in (('batched', batched), ('per_batch', per_batch))}
+
+
+def host_ms(fn, trials=5):
+    """Median host milliseconds to enqueue ``fn`` from an idle card."""
+    times = []
+    for _ in range(trials):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - start) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def validation_kernel(model):
+    """``(kernel name, call)``: the kernel a model's validation runs and
+    its wrapper's call ``call(x, seed=0, seeds=None, batch=1)`` on rows
+    ``x``, drawn with ``seed`` or the seed table ``seeds`` (one seed a
+    ``batch`` rows; the MC kernels' only)."""
+    bf16 = model.net.compute_dtype == torch.bfloat16
+    if model.uq_method == 'mc_dropout':
+        mw = model.mc_weights()
+        return BF16_OF['fused_mc_dropout'] if bf16 else 'fused_mc_dropout', \
+            lambda x, seed=0, seeds=None, batch=1: fused_mc_forward(
+                mw, x, model.num_samples, seed, 0, seeds, batch)
+    if model.uq_method == 'delta_uq':
+        aw = model.anchored_weights()
+        return BF16_OF['fused_anchored'] if bf16 else 'fused_anchored', \
+            lambda x, seed=0, seeds=None, batch=1: fused_anchored_stats(
+                aw, x, model.anchors, model._val_anchors())
+    fw = model.fused_weights()
+    return BF16_OF['fused_ensemble'] if bf16 else 'fused_ensemble', \
+        lambda x, seed=0, seeds=None, batch=1: fused_forward_prefolded(fw, x)
+
+
+def validation_work(model, rows, card):
+    """``bound(...)``'s arguments for one call of a model's validation
+    kernel on ``rows`` rows: the products (and 2b's mask hashes) over
+    their peak, each input read and each output written once."""
+    bf16 = model.net.compute_dtype == torch.bfloat16
+    peak = card['peak_bf16'] if bf16 else card['peak_flops']
+    if model.uq_method == 'mc_dropout':
+        w = model.mc_weights()
+        flops = 2.0 * rows * (model.num_samples + 1) * w.macs_per_row
+        extra = 0
+    elif model.uq_method == 'delta_uq':
+        w = model.anchored_weights()
+        anchors = model._val_anchors()
+        flops = 2.0 * rows * (w.macs_once + anchors * w.macs_per_anchor)
+        extra = anchors * WIDTH
+    else:
+        w = model.fused_weights()
+        flops = 2.0 * rows * w.num_members * w.macs_per_row
+        extra = 0
+    moved = 4.0 * (rows * IN_DIM + w.b_all.numel() + 2 * rows * w.out_dim
+                   + extra) + w.w_all.element_size() * w.w_all.numel()
+    exps, rate = 0, 1.0
+    if bf16 and model.uq_method == 'mc_dropout':
+        masked = sum(IN_DIM if layer == 0 else WIDTH
+                     for layer, t in enumerate(w.thresholds) if t >= 0)
+        exps, rate = rows * model.num_samples * masked, card['hash_rate']
+    return flops, moved, peak, card['peak_bytes'], exps, rate
+
+
+def validation_library(model, x):
+    """The one PyTorch call chain that computes a validation kernel's
+    function on ``x`` (yardstick only): kernel 1's ``baddbmm`` chain,
+    kernel 5's ``addmm`` chain over the anchored rows; None for kernel 2
+    (no PyTorch call draws the hash masks)."""
+    if model.uq_method == 'mc_dropout':
+        return None
+    if model.uq_method == 'delta_uq':
+        aw = model.anchored_weights()
+        anchors = model.anchors[:model._val_anchors()]
+        return lambda: anchored_library(aw, x, anchors)
+    fw = model.fused_weights()
+    return lambda: library_chain(fw, x)
+
+
+def validation_case(case, model, xs, ys, seeds):
+    """One validation pass of ``model`` over the batches ``xs`` (``(nb, bs,
+    in)``, targets ``ys``): its outputs from one launch of the model's
+    kernel (``validation_output`` over every row, the seed table for MC
+    dropout) must equal, bit for bit, the outputs of one launch a batch as
+    the trainer ran them before (``mc_stats`` with the batch's seed, row 0
+    on; the evaluation path); the batched losses must match the per-batch
+    ``validation_loss`` within TOL_VAL_LOSS_REL. Launch counts are set to 0
+    before each side and read after: one launch against ``nb``."""
+    nb, bs = xs.shape[:2]
+    x = xs.reshape(nb * bs, -1)
+    kernel, _ = validation_kernel(model)
+    mc = model.uq_method == 'mc_dropout'
+    with torch.no_grad():
+        reset_launches()
+        batched = model.validation_output(x, 0, seeds, bs)
+        torch.cuda.synchronize()
+        one = read_launches()
+        reset_launches()
+        per = torch.cat([model.mc_stats(xs[b], seeds[b])[0] if mc
+                         else model.validation_output(xs[b])
+                         for b in range(nb)])
+        torch.cuda.synchronize()
+        many = read_launches()
+    check_launches(f'validation {case} batched', one, **{kernel: 1})
+    check_launches(f'validation {case} per batch', many, **{kernel: nb})
+    check(torch.equal(batched, per),
+          f'validation {case}: the batched launch differs from the per-batch '
+          f'launches by up to {float((batched - per).abs().max())}')
+    losses = model.validation_losses(xs, ys, seeds)
+    want = torch.stack([model.validation_loss((xs[b], ys[b]), seed=seeds[b])
+                        for b in range(nb)])
+    rel = float(((losses - want).abs() / want.abs()).max())
+    check(rel <= TOL_VAL_LOSS_REL,
+          f'validation {case}: batched losses {rel} relative from the '
+          'per-batch losses')
+    return {'batches': nb, 'batch_rows': bs, 'kernel': kernel,
+            'launches_batched': one[kernel], 'launches_per_batch': many[kernel],
+            'outputs_bit_for_bit': True, 'loss_max_rel_err': rel}
+
+
+def validation_phase(seed, card):
+    """The trainer's validation pass at the flagship trial's shape through
+    each of kernels 1, 1b, 2, 2b, 5 and 5b: the batched pass against the
+    per-batch launches (:func:`validation_case`), kernels 2 and 2b also at
+    VAL_RAGGED_BATCH rows a batch and held to their plain versions with
+    the seed table; then, at the validation shape, each kernel's time on
+    one 128-row batch, on the batched pass and on the pass one batch after
+    another, its bound on a batch and on the pass, and the PyTorch
+    yardstick at both. Returns the readings by kernel name."""
+    phase_start = time.perf_counter()
+    gen = np.random.default_rng(seed + VAL_SEED)
+    nb = TRAIN_CONFIG['limit_val_batches']
+    probe = Trainer('probe', {}, log_dir=WHOLE_FIT_DIR, device=DEVICE)
+    seeds = [probe._val_seed(0, b) for b in range(nb)]
+
+    def batches(bs):
+        x = gen.normal(size=(nb * bs, IN_DIM)).astype(np.float32)
+        xs = torch.as_tensor(x, device=DEVICE).reshape(nb, bs, IN_DIM)
+        return xs, torch.as_tensor(smooth_target(x),
+                                   device=DEVICE).reshape(nb, bs, 1)
+
+    def models(precision):
+        out = [build_model(seed), build_mc(seed),
+               build_anchored(DeltaUQMLPModelBuilder, seed)]
+        for m in out:
+            m.set_precision(precision)
+        return out
+
+    xs, ys = batches(TRAIN_BATCH)
+    xr, yr = batches(VAL_RAGGED_BATCH)
+    x_pass = xs.reshape(-1, IN_DIM)
+    x_batch = x_pass[:TRAIN_BATCH].contiguous()
+    out = {}
+    for precision in ('32-true', 'bf16-mixed'):
+        fp32 = models('32-true') if precision != '32-true' else None
+        for i, model in enumerate(models(precision)):
+            kernel, call = validation_kernel(model)
+            reading = validation_case(kernel, model, xs, ys, seeds)
+            if model.uq_method == 'mc_dropout':
+                reading['ragged'] = validation_case(
+                    f'{kernel} batch {VAL_RAGGED_BATCH}', model, xr, yr,
+                    seeds)
+                # the seed table against the plain version with it
+                mw = model.mc_weights()
+                for x_t, bs in ((x_pass, TRAIN_BATCH),
+                                (xr.reshape(-1, IN_DIM), VAL_RAGGED_BATCH)):
+                    got = call(x_t, 0, seeds, bs)
+                    want = fused_mc_forward_plain(mw, x_t, model.num_samples,
+                                                  0, 0, seeds, bs)
+                    name = f'{kernel} seed table batch {bs}'
+                    if fp32 is None:
+                        errs = {part: compare(f'{name} {part}', g, w, tol)
+                                for part, g, w, tol in zip(
+                                    ('mean', 'std'), got, want,
+                                    (TOL_MEAN, TOL_STD))}
+                    else:
+                        ref = fused_mc_forward_plain(
+                            fp32[i].mc_weights(), x_t, model.num_samples, 0,
+                            0, seeds, bs)
+                        errs = {part: bf16_close(f'{name} {part}', g, w, r)
+                                for part, g, w, r in zip(('mean', 'std'),
+                                                         got, want, ref)}
+                    emit('kernel_vs_plain', kernel=kernel,
+                         case=f'seed_table_batch_{bs}', rows=x_t.shape[0],
+                         max_abs_err=errs)
+            pass_t = event_ms(lambda: call(x_pass, 0, seeds, TRAIN_BATCH))
+            batch_t = event_ms(lambda: call(x_batch, seeds[0]))
+            serial_t = event_ms(lambda: [call(xs[b], seeds[b])
+                                         for b in range(nb)],
+                                warmup=1, trials=3)
+            reading.update(
+                batch_ms=batch_t, pass_ms=pass_t, per_batch_pass_ms=serial_t,
+                launches_per_epoch_before=reading['launches_per_batch'],
+                launches_per_epoch_after=reading['launches_batched'])
+            for shape, rows, x_t in (('batch', TRAIN_BATCH, x_batch),
+                                     ('pass', nb * TRAIN_BATCH, x_pass)):
+                bound_ms, bound_by = bound(*validation_work(model, rows, card))
+                lib = validation_library(model, x_t)
+                reading[f'bound_ms_{shape}'] = bound_ms
+                reading[f'bound_by_{shape}'] = bound_by
+                reading[f'library_ms_{shape}'] = None if lib is None \
+                    else event_ms(lib)['median_ms']
+            reading['pass_share_of_bound'] = (reading['bound_ms_pass']
+                                              / pass_t['median_ms'])
+            emit('validation', precision=precision, rows=nb * TRAIN_BATCH,
+                 **reading)
+            out[kernel] = reading
+    emit('validation_summary', kernels=sorted(out),
+         nvidia_smi=nvidia_smi('name,power.limit'),
+         seconds=time.perf_counter() - phase_start)
+    return out
 
 
 def whole_fit_phase(seed, x, y, kernel_ms):
@@ -1541,7 +1784,7 @@ def whole_fit_phase(seed, x, y, kernel_ms):
                                                 0, stop=stopped))
     check(all(torch.equal(a, b) for a, b in zip(bufs, before)),
           'a stopped kernel epoch changed its buffers')
-    val_t = timing['32-true']['validation_pass_ms']['whole_fit']
+    val_t = timing['32-true']['validation_pass_ms']['batched']
     lost = stop_fits[True][0].whole_fit_epochs_lost
     stop_ms = lost * (stopped_t['median_ms'] + val_t['median_ms'])
     # 'auto' engages whenever a fit is eligible: a dispatch's host set-up
@@ -2527,7 +2770,8 @@ def parallel_phase(seed):
         for ans in answers:
             check_launches(f'parallel fit {axes}', ans['fits'][axes][
                 'launches'], fused_ensemble=PARALLEL_FIT_EPOCHS
-                * PARALLEL_FIT_VAL_BATCHES)
+                * val_launches(PARALLEL_FIT_VAL_BATCHES * TRAIN_BATCH,
+                               TRAIN_BATCH, PARALLEL_FIT_VAL_BATCHES))
             check(ans['fits'][axes]['fused_epochs_used'] == 0,
                   f'parallel fit {axes}: kernel epochs in a sharded fit')
             check(ans['fits'][axes]['val_loss'] == record['val_loss'],
@@ -3122,8 +3366,10 @@ def main():
     epochs = TRAIN_CONFIG['max_epochs']
     check(trainer.fused_epochs_used == epochs,
           f'fused_epochs_used {trainer.fused_epochs_used}, expected {epochs}')
+    val_pass = val_launches(TRAIN_ROWS - TRAIN_SPLIT, TRAIN_BATCH,
+                            TRAIN_CONFIG['limit_val_batches'])
     check_launches('flagship fit', train_launches, fused_train=epochs,
-                   fused_ensemble=epochs * TRAIN_CONFIG['limit_val_batches'])
+                   fused_ensemble=epochs * val_pass)
     with open(os.path.join(trainer.logger.log_dir, 'metrics.csv')) as f:
         rows = list(csv.DictReader(f))
     per_epoch = [[float(r['train_loss']) for r in rows
@@ -3178,7 +3424,7 @@ def main():
         check(tr.fused_epochs_used == int(fused),
               f'{path}: fused_epochs_used {tr.fused_epochs_used}')
         check_launches(f'{path} fit', launches, fused_train=int(fused),
-                       fused_ensemble=TRAIN_CONFIG['limit_val_batches'])
+                       fused_ensemble=val_pass)
         with open(os.path.join(tr.logger.log_dir, 'metrics.csv')) as f:
             logged = list(csv.DictReader(f))
         cross[path] = (torch.tensor([float(r['train_loss']) for r in logged
@@ -3210,7 +3456,7 @@ def main():
         check(tr.fused_epochs_used == 1, f'{name}: fused_epochs_used '
                                          f'{tr.fused_epochs_used}, expected 1')
         check_launches(f'{name} fit', launches, fused_train=1, **(
-            {kernel: TRAIN_CONFIG['limit_val_batches']} if kernel else {}))
+            {kernel: val_pass} if kernel else {}))
         losses = [float(r['train_loss']) for r in csv.DictReader(open(
             os.path.join(tr.logger.log_dir, 'metrics.csv'))) if r['train_loss']]
         check(np.isfinite(losses).all(), f'{name}: non-finite training losses')
@@ -3236,7 +3482,7 @@ def main():
           f'bf16 fit: fused_epochs_used {trainer16.fused_epochs_used}')
     check_launches('flagship bf16 fit', train16_launches,
                    fused_train_bf16=epochs, fused_ensemble_bf16=epochs
-                   * TRAIN_CONFIG['limit_val_batches'])
+                   * val_pass)
     with open(os.path.join(trainer16.logger.log_dir, 'metrics.csv')) as f:
         rows16 = list(csv.DictReader(f))
     means16 = [float(np.mean([float(r['train_loss']) for r in rows16
@@ -3302,8 +3548,7 @@ def main():
             suffix = '_bf16' if bf16 else ''
             check_launches(f'{name} {precision} fit', launches, **{
                 'fused_train' + suffix: ANCHORED_FIT_EPOCHS - 1,
-                'fused_anchored' + suffix: ANCHORED_FIT_EPOCHS
-                * TRAIN_CONFIG['limit_val_batches']})
+                'fused_anchored' + suffix: ANCHORED_FIT_EPOCHS * val_pass})
             check(tuple(one.anchors.shape) == (ANCHORS, IN_DIM)
                   and (name == 'delta_uq'
                        or tuple(one.anchors_Y.shape) == (ANCHORS, 1)),
@@ -3549,6 +3794,12 @@ def main():
          predictor_e2e_samples_per_s={k: ROWS / v for k, v in e2e16.items()},
          clocks_power=nvidia_smi('clocks.sm,power.draw,temperature.gpu'))
 
+    # 6b. the trainer's validation pass in one launch of each eval kernel,
+    # against one launch a batch, and timed at the validation shape
+    validation = validation_phase(args.seed, {
+        'peak_flops': peak_flops, 'peak_bytes': peak_bytes,
+        'peak_bf16': peak_bf16, 'hash_rate': hash_rate})
+
     # the training kernel: one flagship epoch of 1,000 steps
     plan = train_plan(flagship)
     bufs, xs, ys = train_inputs(flagship, plan, rng, EPOCH_STEPS)
@@ -3737,6 +3988,19 @@ def main():
     kernels += kernels_bf16
     check([k['name'] for k in kernels] == [k['name'] for k in KERNELS],
           'the kernels line is out of order')
+    for k in kernels:
+        if k['name'] in validation:
+            v = validation[k['name']]
+            k['validation'] = {
+                'rows': TRAIN_CONFIG['limit_val_batches'] * TRAIN_BATCH,
+                'batch_ms': v['batch_ms']['median_ms'],
+                'pass_ms': v['pass_ms']['median_ms'],
+                'per_batch_pass_ms': v['per_batch_pass_ms']['median_ms'],
+                'launches_per_epoch_before': v['launches_per_epoch_before'],
+                'launches_per_epoch_after': v['launches_per_epoch_after'],
+                **{key: v[key] for key in (
+                    'bound_ms_batch', 'bound_ms_pass', 'library_ms_batch',
+                    'library_ms_pass')}}
 
     # 8. the BO trial: data -> train -> evaluate -> metrics -> BO ->
     # results tree, through the port's driver

@@ -3,8 +3,12 @@
 Counterpart of ``nnueehcs_tpu/models/base.py``. Training side: the
 trainer differentiates :meth:`WrappedModelBase.training_loss` (the network
 in training mode, the loss named by ``train_config['loss']``) and scores
-:meth:`WrappedModelBase.validation_loss` through the evaluation path, the
-serving kernels on the card. A network is built in evaluation mode; the
+a validation pass through the evaluation path, the serving kernels on the
+card: :meth:`WrappedModelBase.validation_losses` scores every full batch
+from one evaluation of all their rows (the JAX trainer's scanned
+validation; rows are independent in evaluation mode, so a batch's loss is
+the one :meth:`WrappedModelBase.validation_loss` gives it alone), and
+``validation_loss`` scores a partial tail batch. A network is built in evaluation mode; the
 trainer switches modes explicitly. Evaluation side: a call
 casts float64 input to float32, pads the batch up to a power-of-two bucket
 (256 .. 2^19 rows) by repeating its first row, chunks anything larger than
@@ -243,7 +247,42 @@ class WrappedModelBase:
         seed of a stochastic evaluation (MC dropout), unused here."""
         x, y = batch
         with torch.no_grad():
-            return self.loss(self.eval_output(x), y)
+            return self.validation_score(self.validation_output(x), y)
+
+    def validation_output(self, x, row0: int = 0, seeds=None,
+                          rows_per_seed: int = 1):
+        """The prediction a validation loss scores for rows ``x``: the
+        evaluation-mode output. ``row0``, ``seeds`` and ``rows_per_seed``
+        place ``x`` in a batched pass for a stochastic evaluation (MC
+        dropout's seed table); unused here."""
+        return self.eval_output(x)
+
+    def validation_score(self, pred, y, batched: bool = False):
+        """The validation loss of ``pred`` against ``y``; with ``batched``,
+        one loss for each batch of the leading axis."""
+        return self.loss(pred, y, batched=batched)
+
+    def validation_rows(self, x) -> int:
+        """Most rows of ``x`` one evaluation of a batched validation pass
+        takes: the model call's chunk."""
+        return self.max_rows(x)
+
+    def validation_losses(self, xs, ys, seeds=None):
+        """``(nb,)``: the validation losses of the ``nb`` batches of ``xs``
+        ``(nb, bs, ...)`` against ``ys`` ``(nb, bs, ...)``, each equal in
+        value to :meth:`validation_loss` of its batch, from one evaluation
+        of all ``nb * bs`` rows (one more only past
+        :meth:`validation_rows`). ``seeds``: each batch's sampling seed
+        (MC dropout's), unused here."""
+        nb, bs = xs.shape[:2]
+        x = xs.reshape((nb * bs,) + xs.shape[2:])
+        limit = self.validation_rows(x)
+        with torch.no_grad():
+            pred = torch.cat([
+                self.validation_output(x[lo:lo + limit], lo, seeds, bs)
+                for lo in range(0, x.shape[0], limit)])
+            return self.validation_score(
+                pred.reshape((nb, bs) + pred.shape[1:]), ys, batched=True)
 
     # ------------------------------------------------------------- pure eval
     def eval_rows(self, x, lo: int, hi: int, return_ue: bool = False):

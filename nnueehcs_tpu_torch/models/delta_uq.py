@@ -14,7 +14,8 @@ doubled stochastic-centering batch, ``[[a1, x - a1]; [a2, x - a2]]`` with
 the targets ``[y; y]``. The anchors are the first ``num_anchors`` training
 inputs, captured during epoch 0 by the hook of :meth:`get_callbacks` and
 installed before the first validation, which scores the anchored mean over
-at most ``val_num_anchors`` of them.
+at most ``val_num_anchors`` of them (a batched pass: one anchored
+evaluation of all its rows).
 
 On the card the pass is the fused kernel
 (:func:`~nnueehcs_tpu_torch.ops.fused_anchored.fused_anchored_stats`)
@@ -119,17 +120,27 @@ class DeltaUQMLP(WrappedModelBase):
         return self.loss(self.train_output(x, generator, perm, rows),
                          self.train_targets(y))
 
-    def validation_loss(self, batch, seed: int = 0):
-        """The loss of the anchored mean over the first
-        ``min(num_anchors, val_num_anchors)`` anchors (all of them when
-        ``val_num_anchors`` is None); the UE path always takes
-        ``num_anchors``."""
-        x, y = batch
-        n = self.num_anchors if self.val_num_anchors is None \
+    def _val_anchors(self) -> int:
+        return self.num_anchors if self.val_num_anchors is None \
             else min(self.num_anchors, self.val_num_anchors)
-        with torch.no_grad():
-            mean, _ = self._anchored_stats(x, self._require_anchors(), n)
-        return self.loss(mean, y)
+
+    def validation_output(self, x, row0: int = 0, seeds=None,
+                          rows_per_seed: int = 1):
+        """The anchored mean over the first ``min(num_anchors,
+        val_num_anchors)`` anchors (all of them when ``val_num_anchors``
+        is None); the UE path always takes ``num_anchors``."""
+        return self._anchored_stats(x, self._require_anchors(),
+                                    self._val_anchors())[0]
+
+    def validation_rows(self, x) -> int:
+        """The model call's chunk on the kernel's path; on the module path
+        also at most the rows budget, so one anchor's rows stay within
+        it."""
+        limit = super().validation_rows(x)
+        if self._takes_kernel(x, self._require_anchors(),
+                              self._val_anchors()):
+            return limit
+        return min(limit, self._rows_budget(x))
 
     # ----------------------------------------------------------------- eval
     def _rows_budget(self, x=None):
@@ -195,10 +206,15 @@ class DeltaUQMLP(WrappedModelBase):
         var = m2 / (n - 1)      # one anchor: 0/0, NaN as in the JAX package
         return mean, var if self.estimator == 'var' else torch.sqrt(var)
 
+    def _takes_kernel(self, x, anchors, n_anchors) -> bool:
+        """Whether an anchored pass over ``x`` and the first ``n_anchors``
+        of ``anchors`` runs the fused kernel."""
+        return self.anchored_weights() is not None and x.dim() == 2 \
+            and min(n_anchors, anchors.shape[0]) >= 2
+
     def _anchored_stats(self, x, anchors, n_anchors):
-        aw = self.anchored_weights()
-        if aw is not None and x.dim() == 2 \
-                and min(n_anchors, anchors.shape[0]) >= 2:
+        if self._takes_kernel(x, anchors, n_anchors):
+            aw = self.anchored_weights()
             mean, std = fused_anchored_stats(aw, x, anchors, n_anchors)
             return mean, std * std if self.estimator == 'var' else std
         return self.anchored_stats_modules(x, anchors, n_anchors)

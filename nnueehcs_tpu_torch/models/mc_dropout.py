@@ -2,7 +2,8 @@
 
 Counterpart of ``nnueehcs_tpu/models/mc_dropout.py``. Training runs one
 stochastic pass (the Dropout layers in training mode); validation scores
-the MC mean drawn with the trainer's per-batch seed. A UE pass keeps
+the MC mean drawn with the trainer's per-batch seed; a batched pass
+draws every batch with its seed in one call (the kernels' seed table). A UE pass keeps
 BatchNorm in eval mode, runs one dropout-free forward as the shift and
 ``num_samples`` forwards with dropout masks, and reports the mean and the
 unbiased std over the samples. On the card the whole pass is the fused
@@ -63,13 +64,18 @@ class MCDropoutModel(WrappedModelBase):
         the kernel does not take the network), rebuilt when they change."""
         return self._folded_weights(prepare_mc_weights)
 
-    def mc_stats(self, x, seed: int, row0: int = 0):
+    def mc_stats(self, x, seed: int, row0: int = 0, seeds=None,
+                 rows_per_seed: int = 1):
         """Mean and std of ``num_samples`` masked passes drawn with
-        ``seed``, ``x``'s first row row ``row0`` of the masks."""
+        ``seed`` (or the seed table ``seeds``, one seed for each
+        ``rows_per_seed`` rows), ``x``'s first row row ``row0`` of the
+        masks."""
         mw = self.mc_weights()
         if mw is not None:
-            return fused_mc_forward(mw, x, self.num_samples, seed, row0)
-        return mc_forward_modules(self.net, x, self.num_samples, seed, row0)
+            return fused_mc_forward(mw, x, self.num_samples, seed, row0,
+                                    seeds, rows_per_seed)
+        return mc_forward_modules(self.net, x, self.num_samples, seed, row0,
+                                  seeds, rows_per_seed)
 
     def eval_rows(self, x, lo: int, hi: int, return_ue: bool = False):
         return self.eval_output(x[lo:hi], return_ue=return_ue, row0=lo)
@@ -88,6 +94,14 @@ class MCDropoutModel(WrappedModelBase):
         x, y = batch
         with torch.no_grad():
             return self.loss(self.mc_stats(x, seed)[0], y)
+
+    def validation_output(self, x, row0: int = 0, seeds=None,
+                          rows_per_seed: int = 1):
+        """The MC mean of rows ``x`` of a batched validation pass, row
+        ``row0`` on, each batch of ``rows_per_seed`` rows drawn with its
+        seed in ``seeds``, as :meth:`validation_loss` draws that batch
+        alone: one call with the seed table."""
+        return self.mc_stats(x, 0, row0, seeds, rows_per_seed)[0]
 
     def config_dict(self):
         d = super().config_dict()

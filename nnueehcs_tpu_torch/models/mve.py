@@ -13,18 +13,21 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..ops.losses import batch_mean
 from .base import WrappedModelBase
 
 _VAR_EPS = 1e-6
 
 
-def gaussian_nll(out, y):
+def gaussian_nll(out, y, *, batched=False):
     """Mean Gaussian negative log-likelihood (without the constant) of
     ``y`` under ``out[..., 0:1]`` = mu and ``out[..., 1:2]`` = the raw
-    variance parameter."""
+    variance parameter; with ``batched``, one mean a batch of the leading
+    axis."""
     mu = out[..., 0:1]
     var = F.softplus(out[..., 1:2]) + _VAR_EPS
-    return torch.mean(0.5 * torch.log(var) + 0.5 * torch.square(y - mu) / var)
+    return batch_mean(0.5 * torch.log(var) + 0.5 * torch.square(y - mu) / var,
+                      batched)
 
 
 class MVEMLPModel(WrappedModelBase):
@@ -38,10 +41,12 @@ class MVEMLPModel(WrappedModelBase):
         x, y = batch
         return gaussian_nll(self.net(x, generator), y)
 
-    def validation_loss(self, batch, seed: int = 0):
-        x, y = batch
-        with torch.no_grad():
-            return gaussian_nll(self.net(x), y)
+    def validation_output(self, x, row0: int = 0, seeds=None,
+                          rows_per_seed: int = 1):
+        return self.net(x)
+
+    def validation_score(self, pred, y, batched: bool = False):
+        return gaussian_nll(pred, y, batched=batched)
 
     def eval_output(self, x, return_ue: bool = False):
         out = self.net(x)

@@ -42,8 +42,8 @@ SIGNATURES = {
     'nnueehcs_fused_mc_dropout_f32': (
         ctypes.c_int,
         [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P,
-         _P, _P, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
-         ctypes.c_int, _P, _P, _P]),
+         _P, _P, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, _P,
+         ctypes.c_uint32, ctypes.c_int, _P, _P, _P]),
     'nnueehcs_fused_anchored_f32': (
         ctypes.c_int,
         [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P,
@@ -58,8 +58,9 @@ SIGNATURES = {
     'nnueehcs_fused_mc_dropout_bf16': (
         ctypes.c_int,
         [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P,
-         _P, _P, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
-         ctypes.c_int, _P, _P, ctypes.POINTER(ctypes.c_int), _P]),
+         _P, _P, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, _P,
+         ctypes.c_uint32, ctypes.c_int, _P, _P, ctypes.POINTER(ctypes.c_int),
+         _P]),
     'nnueehcs_fused_anchored_bf16': (
         ctypes.c_int,
         [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P,

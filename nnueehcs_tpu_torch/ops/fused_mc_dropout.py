@@ -17,7 +17,12 @@ numbers, so the kernel, :func:`fused_mc_forward_plain` and
 a row's answer does not depend on the rows padded around it. A row's index
 is ``row0`` plus its index in ``x``: a rank that evaluates rows ``lo ..``
 of a dp-sharded request passes ``row0=lo`` and draws, bit for bit, the
-masks of the unsharded call. A value is
+masks of the unsharded call. A seed table (``seeds``, ``rows_per_seed``)
+gives each run of ``rows_per_seed`` rows its own seed: row ``R`` (counted
+from ``row0`` as above) draws with ``seeds[R // rows_per_seed]`` at row
+``R % rows_per_seed``, so one call over a batched validation pass draws,
+bit for bit, the masks of one call a batch with that batch's seed. A
+value is
 kept when the top 24 bits of its draw fall below ``keep * 2^24``, and kept
 values are scaled by ``1/keep``; rate 1 drops everything (zeros, not NaN).
 
@@ -85,12 +90,22 @@ def keep_threshold(p: float) -> tuple[int, float]:
 
 
 def dropout_scale(seed: int, sample: int, key: int, threshold: int,
-                  scale: float, rows: int, cols: int, device, row0: int = 0):
+                  scale: float, rows: int, cols: int, device, row0: int = 0,
+                  seeds=None, rows_per_seed: int = 1):
     """``(rows, cols)`` float32 multipliers (``scale`` or 0) of one mask,
-    for the rows ``row0 .. row0 + rows - 1``."""
-    stream = mask_stream(seed, sample, key)
-    r = _mul32(torch.arange(row0, row0 + rows, dtype=torch.int64,
-                            device=device) & _M32, 0xC2B2AE35)
+    for the rows ``row0 .. row0 + rows - 1``: drawn with ``seed``, or
+    with a seed table ``seeds`` (a sequence of uint32 values, one for each
+    ``rows_per_seed`` rows; ``seed`` unused), row ``R`` with
+    ``seeds[R // rows_per_seed]`` at row ``R % rows_per_seed``."""
+    r = torch.arange(row0, row0 + rows, dtype=torch.int64, device=device)
+    if seeds is None:
+        stream = mask_stream(seed, sample, key)
+    else:
+        group = r // rows_per_seed
+        table = torch.as_tensor(seeds, dtype=torch.int64, device=device)
+        stream = mask_stream(table[group] & _M32, sample, key)[:, None]
+        r = r - group * rows_per_seed
+    r = _mul32(r & _M32, 0xC2B2AE35)
     c = _mul32(torch.arange(cols, dtype=torch.int64, device=device), 0x27D4EB2F)
     bits = lowbias32((stream + r[:, None] + c[None, :]) & _M32)
     keep = (bits >> 8) < threshold
@@ -144,6 +159,13 @@ def prepare_mc_weights(net):
     return McWeights(folded, drops, keys, compute_dtype_of(net))
 
 
+def _seed_tensor(seeds, device):
+    """A seed table as an int64 tensor on ``device`` (copied without a
+    wait), once for every mask of a call; None stays None."""
+    return None if seeds is None else device_values(list(seeds),
+                                                    torch.int64, device)
+
+
 def _sample_stats(forward, num_samples):
     """Mean and unbiased std over ``forward(s)`` for samples ``s`` in
     ``0 .. num_samples-1``, from sums shifted by ``forward(None)``, the
@@ -159,13 +181,15 @@ def _sample_stats(forward, num_samples):
 
 
 def fused_mc_forward_plain(mw: McWeights, x, num_samples: int, seed: int,
-                           row0: int = 0):
+                           row0: int = 0, seeds=None, rows_per_seed: int = 1):
     """The kernel's function in plain tensor ops: the dropout-free forward
     as the shift, then ``num_samples`` masked forwards, then the shifted
     statistics over the samples. ``x`` is ``(B, in_dim)``, its first row
-    row ``row0`` of the masks."""
+    row ``row0`` of the masks; ``seeds``: a seed table, as
+    :func:`dropout_scale` reads it."""
     rows = x.shape[0]
     last = mw.num_layers - 1
+    seeds = _seed_tensor(seeds, x.device)
 
     def forward(sample):
         h = x
@@ -173,7 +197,8 @@ def fused_mc_forward_plain(mw: McWeights, x, num_samples: int, seed: int,
             if sample is not None and mw.thresholds[l] >= 0:
                 h = h * dropout_scale(seed, sample, mw.keys[l],
                                       mw.thresholds[l], mw.scales[l], rows,
-                                      h.shape[1], x.device, row0)
+                                      h.shape[1], x.device, row0, seeds,
+                                      rows_per_seed)
             w, b = mw.ws[l][0], mw.b_all[l, 0]
             if l == last:
                 w, b = w[:, :mw.out_dim], b[:mw.out_dim]
@@ -185,15 +210,18 @@ def fused_mc_forward_plain(mw: McWeights, x, num_samples: int, seed: int,
     return _sample_stats(forward, num_samples)
 
 
-def mc_forward_modules(net, x, num_samples: int, seed: int, row0: int = 0):
+def mc_forward_modules(net, x, num_samples: int, seed: int, row0: int = 0,
+                       seeds=None, rows_per_seed: int = 1):
     """The same statistics through the network's modules, for a network
     the fold does not take (a CNN among them): each Dropout multiplies by
     the hash mask keyed by its module index (an NCHW activation's columns
     are its flattened C x H x W elements), every other layer runs as it
-    is; ``x``'s first row is row ``row0`` of the masks. Under a compute
+    is; ``x``'s first row is row ``row0`` of the masks, drawn with
+    ``seed`` or the seed table ``seeds`` (:func:`dropout_scale`). Under a compute
     dtype the walk runs in it, as ``Network`` does (x cast on entry, a
     masked activation returned in its dtype, the output back in fp32)."""
     cd = getattr(net, 'compute_dtype', None)
+    seeds = _seed_tensor(seeds, x.device)
 
     def forward(sample):
         h = x if cd is None else x.to(cd)
@@ -203,13 +231,29 @@ def mc_forward_modules(net, x, num_samples: int, seed: int, row0: int = 0):
                 if sample is not None and threshold >= 0:
                     mask = dropout_scale(seed, sample, i, threshold, scale,
                                          h.shape[0], h[0].numel(), x.device,
-                                         row0)
+                                         row0, seeds, rows_per_seed)
                     h = (h * mask.reshape(h.shape)).to(h.dtype)
             else:
                 h = layer(h)
         return h.to(x.dtype)
 
     return _sample_stats(forward, num_samples)
+
+
+def check_seed_table(seeds, rows_per_seed: int, row0: int, rows: int):
+    """Raise ``ValueError`` unless ``seeds`` (None, or a sequence of uint32
+    values one for each ``rows_per_seed`` rows) covers rows ``row0 ..
+    row0 + rows - 1``."""
+    if seeds is None:
+        return
+    if rows_per_seed < 1:
+        raise ValueError(f'rows_per_seed must be at least 1, got '
+                         f'{rows_per_seed}')
+    if rows and (row0 + rows - 1) // rows_per_seed >= len(seeds):
+        raise ValueError(f'{len(seeds)} seeds of {rows_per_seed} rows do not '
+                         f'cover rows {row0} .. {row0 + rows - 1}')
+    if any(not 0 <= s < 1 << 32 for s in seeds):
+        raise ValueError('seeds must be uint32 values')
 
 
 def _check_inputs(mw: McWeights, x, num_samples):
@@ -224,10 +268,12 @@ def _check_inputs(mw: McWeights, x, num_samples):
 
 
 def fused_mc_forward(mw: McWeights, x, num_samples: int, seed: int,
-                     row0: int = 0):
+                     row0: int = 0, seeds=None, rows_per_seed: int = 1):
     """``(mean, std)``, each ``(B, out_dim)``, over ``num_samples`` dropout
-    samples drawn with call seed ``seed``, ``x``'s first row row ``row0``
-    of the masks: the CUDA kernel of the weights'
+    samples drawn with call seed ``seed``, or with the seed table
+    ``seeds`` (a sequence of uint32 values, one for each ``rows_per_seed``
+    rows, :func:`dropout_scale`), ``x``'s first row row ``row0`` of the
+    masks: the CUDA kernel of the weights'
     compute dtype for a CUDA tensor, :func:`fused_mc_forward_plain` for a
     CPU tensor. ``fused_mc_forward.launches`` counts the fp32 kernel's
     launches, ``.launches_bf16`` the bf16 form's."""
@@ -235,8 +281,10 @@ def fused_mc_forward(mw: McWeights, x, num_samples: int, seed: int,
     seed &= _M32
     if not 0 <= row0 < 1 << 32:
         raise ValueError(f'row0 must be a uint32, got {row0}')
+    check_seed_table(seeds, rows_per_seed, row0, x.shape[0])
     if x.device.type == 'cpu':
-        return fused_mc_forward_plain(mw, x, num_samples, seed, row0)
+        return fused_mc_forward_plain(mw, x, num_samples, seed, row0, seeds,
+                                      rows_per_seed)
     if x.device.type != 'cuda':
         raise ValueError(f'no fused MC-dropout kernel for device {x.device}')
     rows = x.shape[0]
@@ -248,13 +296,18 @@ def fused_mc_forward(mw: McWeights, x, num_samples: int, seed: int,
     from ._build import library
     lib = library()
     bf16 = mw.compute_dtype == torch.bfloat16
+    # the table's uint32 bits as int32, copied without a wait
+    table = None if seeds is None else device_values(
+        [s - (1 << 32) if s >= 1 << 31 else s for s in seeds], torch.int32,
+        x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         args = [x.data_ptr(), rows, mw.in_dim, mw.w_all.data_ptr(),
                 mw.b_all.data_ptr(), mw.num_layers, mw.relu_flags.data_ptr(),
                 mw.drop_thresh.data_ptr(), mw.drop_scale.data_ptr(),
-                mw.drop_key.data_ptr(), num_samples, seed, row0, mw.out_dim,
-                mean.data_ptr(), std.data_ptr()]
+                mw.drop_key.data_ptr(), num_samples, seed, row0,
+                None if table is None else table.data_ptr(), rows_per_seed,
+                mw.out_dim, mean.data_ptr(), std.data_ptr()]
         if bf16:
             # the bf16 form takes the chain as its image and the launch
             # layout of .fused_eval_chain

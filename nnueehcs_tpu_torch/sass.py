@@ -24,7 +24,12 @@ HASH_MARKER = '0x7feb352d'
 # loop than the mask loop
 MASK_LOOP_WINDOW = (8.0, 16.0)
 EVAL_KERNELS = ('fused_mc_dropout_bf16_kernel', 'fused_anchored_bf16_kernel',
-                'fused_ensemble_bf16_kernel')
+                'fused_ensemble_bf16_kernel',
+                'fused_mc_dropout_bf16_table_kernel')
+# the rows' keys of the MC kernels' mask loops: the serving kernel's and
+# the seed-table kernel's (a batched validation pass)
+MASK_LOOPS = {'fused_mc_dropout_bf16_kernel': 'mask_loop',
+              'fused_mc_dropout_bf16_table_kernel': 'mask_loop_table'}
 # the template argument kRing of each form in the mangled name
 EVAL_FORMS = (('resident', 'ILb0E'), ('ring', 'ILb1E'))
 
@@ -110,11 +115,12 @@ def loop_mix(instrs, marker):
 
 
 def eval_chain_rows(funcs, ptxas):
-    """The bf16 eval kernels 1b, 2b and 5b in both forms (resident, ring), from
+    """The bf16 eval kernels 1b, 2b (and 2b's seed-table kernel) and 5b in
+    both forms (resident, ring), from
     the SASS ``funcs`` (:func:`parse_instructions`) and the ptxas report
     ``ptxas`` ({kernel: {'registers', 'spill_store_bytes', ...}}): their
     registers and spills, which must be 0, and their HGMMA (wgmma)
-    instructions, which must be there; and the MC kernel's mask loop, whose
+    instructions, which must be there; and the MC kernels' mask loops, whose
     instructions per hash (per lowbias32 multiply by HASH_MARKER) must lie
     in MASK_LOOP_WINDOW. Raises RuntimeError where one does not hold."""
     out = {}
@@ -133,7 +139,7 @@ def eval_chain_rows(funcs, ptxas):
             if row['hgmma'] == 0:
                 raise RuntimeError(f'{kernel}<{form}>: no HGMMA in its SASS')
             out[f'{kernel}<{form}>'] = row
-            if kernel.startswith('fused_mc') and form == 'resident':
+            if kernel in MASK_LOOPS and form == 'resident':
                 mask = loop_mix(funcs[names[0]], HASH_MARKER)
                 if mask is None:
                     raise RuntimeError('no mask loop in the MC kernel SASS')
@@ -143,7 +149,7 @@ def eval_chain_rows(funcs, ptxas):
                         f'the MC kernel mask loop found spends '
                         f'{mask["per_marker"]} instructions a hash, outside '
                         f'{MASK_LOOP_WINDOW}: {mask}')
-                out['mask_loop'] = mask
+                out[MASK_LOOPS[kernel]] = mask
     return out
 
 

@@ -30,7 +30,10 @@ rejects, ``fused_epochs: False``, a trainer precision of ``'bf16'``,
 model's ``training_loss`` through its modules, in the model's compute
 dtype, and the optimizer above, written out. The two hand over to each
 other with the Adam step count carried across. Validation goes through the
-model's evaluation path. A trainer precision is recorded in the model's
+model's evaluation path, every full batch in one call
+(``validation_losses``, the JAX trainer's ``get_val_scan``: one launch of
+the model's kernel for the pass on the card) and a partial tail batch in
+one more. A trainer precision is recorded in the model's
 ``train_config`` and set on it; a model already in bf16 under a trainer
 precision of None trains the kernel in fp32 and its per-step and
 validation passes in bf16, as in JAX. Δ-UQ and PAGER train on the doubled
@@ -43,7 +46,8 @@ may run the kernel and every hook's validation behaviour can be replayed
 ModelSavingCallback on ``val_loss``, no other ``on_validation_end``, no
 batch hooks), the trainer enqueues every remaining epoch without waiting
 for the card: the shuffle window, the (anchored) gather, the kernel, the
-validation batches and their size-weighted mean in float64, then
+validation pass (every full batch in one evaluation, the JAX trainer's
+scan) and its size-weighted mean in float64, then
 ReduceLROnPlateau, EarlyStopping and the best-parameter pin as tensors on
 the card (:mod:`~nnueehcs_tpu_torch.training.whole_fit`). The kernel
 reads its learning rate and a stop flag from device memory; epochs the
@@ -113,12 +117,6 @@ _SINGLE_NET = ('MCDropoutModel', 'DeltaUQMLP', 'PAGERMLP', 'MLPModel',
 _ANCHORED = ('DeltaUQMLP', 'PAGERMLP')
 # trainer precisions under which an epoch may run the training kernel
 _KERNEL_PRECISIONS = (None, '32-true', 'bf16-mixed')
-# CUDA streams a whole fit's validation batches spread over, by the dtype
-# its passes compute in (the model's ``compute_dtype``, None: fp32). On the
-# flagship an fp32 pass of 100 batches of 128 rows is bound by the card
-# (37 ms one batch after another, 24 on 8 streams); a bf16 pass is bound by
-# the host, which streams only add to (tools/validation_streams.py)
-VALIDATION_STREAMS = {None: 8, torch.bfloat16: 0}
 
 
 def _inst_init_if_not_none(inst, attr, val, default):
@@ -336,45 +334,33 @@ class Trainer:
         return device_values([hi - lo for lo, hi in self._val_bounds(
             x_val.shape[0], val_bs, nb_val)], torch.float64, x_val.device)
 
-    def _val_losses(self, model, x_val, y_val, val_bs, nb_val, epoch,
-                    streams=()) -> torch.Tensor:
+    def _val_losses(self, model, x_val, y_val, val_bs, nb_val,
+                    epoch) -> torch.Tensor:
         """The losses of the first ``nb_val`` validation batches, in batch
         order as one tensor on the device, through the model's evaluation
-        path. With ``streams`` (CUDA streams), batch 0 runs on the current
-        stream (where the model folds its weights for the epoch) and the
-        others in as many runs of consecutive batches, one a stream, which
-        wait for it; each run stacks its losses on its stream, and the
-        current stream waits for the runs at the end. A batch's loss is the
-        same either way: a validation batch takes one SM or a few, so the
-        runs overlap instead of queueing."""
+        path, as the JAX trainer scans them: every full batch from one
+        ``validation_losses`` call (one evaluation of all their rows, each
+        batch drawn with its seed), then a partial tail batch, if any, from
+        one ``validation_loss`` call. A model without ``validation_losses``
+        (one that keeps to the JAX package's ``validation_loss``) is scored
+        a batch at a time."""
         model.net.eval()
         bounds = self._val_bounds(x_val.shape[0], val_bs, nb_val)
-
-        def losses(first, end):
-            return torch.stack([
-                model.validation_loss((x_val[lo:hi], y_val[lo:hi]),
-                                      seed=self._val_seed(epoch, b))
-                for b, (lo, hi) in enumerate(bounds[first:end], first)])
-        if not streams or len(bounds) < 2:
-            return losses(0, len(bounds))
-        main = torch.cuda.current_stream(x_val.device)
-        runs = [losses(0, 1)]
-        rest = len(bounds) - 1
-        for k, stream in enumerate(streams):
-            first = 1 + k * rest // len(streams)
-            end = 1 + (k + 1) * rest // len(streams)
-            if first == end:
-                continue
-            stream.wait_stream(main)
-            with torch.cuda.stream(stream):
-                runs.append(losses(first, end))
-            # the caller reads it on the current stream
-            runs[-1].record_stream(main)
-        # only once every run is enqueued: a stream that waited for the
-        # current one after it waited for a run would queue behind it
-        for stream in streams:
-            main.wait_stream(stream)
-        return torch.cat(runs)
+        nb_full = min(nb_val, x_val.shape[0] // val_bs)
+        if not hasattr(model, 'validation_losses'):
+            nb_full = 0
+        parts = []
+        if nb_full:
+            rows = nb_full * val_bs
+            parts.append(model.validation_losses(
+                x_val[:rows].reshape((nb_full, val_bs) + x_val.shape[1:]),
+                y_val[:rows].reshape((nb_full, val_bs) + y_val.shape[1:]),
+                [self._val_seed(epoch, b) for b in range(nb_full)]))
+        parts.extend(
+            model.validation_loss((x_val[lo:hi], y_val[lo:hi]),
+                                  seed=self._val_seed(epoch, b))[None]
+            for b, (lo, hi) in enumerate(bounds[nb_full:], nb_full))
+        return torch.cat(parts)
 
     def _weighted_val(self, model, x_val, y_val, val_bs, nb_val, epoch):
         """Size-weighted mean validation loss over the first ``nb_val``
@@ -625,9 +611,6 @@ class Trainer:
                                       epoch, self.max_epochs, full_batches,
                                       fused_buffers[0], fused_buffers[3])
                 poll = StopPoll(device)
-                streams = [torch.cuda.Stream(device) for _ in range(
-                    VALIDATION_STREAMS[model.net.compute_dtype])] \
-                    if device.type == 'cuda' else ()
                 val_w = self._val_weights(x_val, val_bs, nb_val)
                 e0, step0 = epoch, fused_step0
 
@@ -652,8 +635,7 @@ class Trainer:
                         seed=self._epoch_seed(e), drops=drops, stop=dec.stop)
                     unpack_fused(fused_buffers)
                     vl = weighted_mean(self._val_losses(
-                        model, x_val, y_val, val_bs, nb_val, e, streams),
-                        val_w)
+                        model, x_val, y_val, val_bs, nb_val, e), val_w)
                     dec.end_epoch(e, run, losses, vl, fused_buffers[0],
                                   fused_buffers[3])
                     poll.record(dec.stop)

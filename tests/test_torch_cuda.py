@@ -33,7 +33,11 @@ where a value beyond tolerance must lie in the reach of a ReLU decision
 the two took differently (``chip_smoke.stepwise_vs_plain``). The training
 kernel (one thread-block cluster per member, activations exchanged through
 distributed shared memory) also runs twice from identical buffers and must
-agree bit for bit: a race on the exchange would show there."""
+agree bit for bit: a race on the exchange would show there. The
+trainer's batched validation pass (one launch of kernels 1, 1b, 2, 2b, 5
+or 5b over every full batch) gives, bit for bit, the outputs of one
+launch a batch, and kernels 2 and 2b with a seed table match their plain
+versions with it."""
 import copy
 import csv
 import dataclasses
@@ -47,7 +51,8 @@ import torch
 from chip_smoke import (CNN_128, CNN_IMAGE, FLAGSHIP, TOL_TRAIN, cnn_model,
                         cnn_reference, image_target, member_nets,
                         read_launches, reset_launches, separate_relu,
-                        stepwise_vs_plain, train_inputs, train_plan)
+                        stepwise_vs_plain, train_inputs, train_plan,
+                        validation_case)
 from nnueehcs_tpu_torch.attrib import (BINDING_CLIP, TOL_NORM, bf16_close,
                                        probe_prod, stepwise_vs_plain_bf16)
 from nnueehcs_tpu_torch.convert import tensor_trees
@@ -1489,3 +1494,96 @@ def test_training_kernel_stop_and_device_lr_on_card(card, bf16):
                                                  device=card))
     for a, b in zip(host, card_lr):
         assert torch.equal(a, b)
+
+
+# the trainer's validation pass in one launch (models/base.py
+# validation_losses): (builder, width, hidden, rows a batch, batches)
+VALIDATION_CASES = {
+    'ensemble_bs128': ('ensemble', 32, 2, 128, 12),
+    'ensemble_bs100': ('ensemble', 32, 2, 100, 12),
+    'mc_bs128': ('mc', 32, 2, 128, 12),
+    'mc_bs100': ('mc', 32, 2, 100, 12),
+    'mc_bs7': ('mc', 32, 2, 7, 40),
+    'delta_uq_bs128': ('delta_uq', 32, 2, 128, 12),
+}
+
+
+def _validation_model(card, kind, width, hidden):
+    if kind == 'ensemble':
+        return _model(card, 3, 5, width, hidden, 1)
+    if kind == 'mc':
+        return _mc_model(card, 5, width, hidden, 1, 0.2, 16)
+    return _anchored_model(card, DeltaUQMLPModelBuilder, 5, width, hidden, 1,
+                           9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('precision', ['32-true', 'bf16-mixed'])
+@pytest.mark.parametrize('case', sorted(VALIDATION_CASES))
+def test_batched_validation_is_the_per_batch_launches_on_card(card, case,
+                                                              precision):
+    """Kernels 1, 1b, 2, 2b, 5 and 5b: one launch over every batch gives,
+    bit for bit, the outputs of one launch a batch (each row's arithmetic
+    stays in its tile; MC dropout draws each batch with its seed through
+    the seed table, also where a tile spans batches), and the batched
+    losses the per-batch ones within 1e-6 relative
+    (``chip_smoke.validation_case``)."""
+    kind, width, hidden, bs, nb = VALIDATION_CASES[case]
+    m = _validation_model(card, kind, width, hidden)
+    m.set_precision(precision)
+    rng = np.random.default_rng(14)
+    x = rng.normal(size=(nb * bs, 5)).astype(np.float32)
+    xs = torch.as_tensor(x, device=card).reshape(nb, bs, 5)
+    ys = torch.as_tensor(np.sin(x).sum(1, keepdims=True),
+                         device=card).reshape(nb, bs, 1)
+    seeds = [(977 * b + 5) * 2654435761 % 2**32 for b in range(nb)]
+    got = validation_case(case, m, xs, ys, seeds)
+    assert got['launches_batched'] == 1 and got['launches_per_batch'] == nb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('bf16', [False, True], ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('bs', [128, 100, 3])
+def test_mc_seed_table_kernel_matches_plain_on_card(card, bf16, bs):
+    """Kernels 2 and 2b with a seed table (and a row offset) against their
+    plain versions with the same table."""
+    m = _mc_model(card, 5, 128, 3, 1, 0.2, 32)
+    mw32 = m.mc_weights()
+    if bf16:
+        m.set_precision('bf16-mixed')
+    mw = m.mc_weights()
+    rows, row0 = 1000, 37
+    x = torch.as_tensor(np.random.default_rng(15).normal(size=(rows, 5)),
+                        dtype=torch.float32, device=card)
+    seeds = [(b * 7919 + 13) % 2**32 for b in range((rows + row0) // bs + 1)]
+    got = fused_mc_forward(mw, x, 32, 0, row0, seeds, bs)
+    want = fused_mc_forward_plain(mw, x, 32, 0, row0, seeds, bs)
+    if not bf16:
+        torch.testing.assert_close(got[0], want[0], **TOL_MEAN)
+        torch.testing.assert_close(got[1], want[1], **TOL_STD)
+        return
+    ref = fused_mc_forward_plain(mw32, x, 32, 0, row0, seeds, bs)
+    for part, g, w, r in zip(('mean', 'std'), got, want, ref):
+        bf16_close(f'2b seed table {part}', g, w, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('tail', [0, 37])
+def test_trainer_validation_pass_launches_once_on_card(card, tail, tmp_path):
+    """``Trainer._val_losses``: one kernel launch for the full batches, one
+    more for a partial tail, and the losses of one launch a batch."""
+    m = _model(card, 3, 5, 32, 2, 1)
+    bs, nb = 128, 10
+    rng = np.random.default_rng(16)
+    n = nb * bs + tail
+    x = torch.as_tensor(rng.normal(size=(n, 5)), dtype=torch.float32,
+                        device=card)
+    y = torch.sin(x).sum(1, keepdim=True)
+    tr = Trainer('t', {}, callbacks=[], log_dir=str(tmp_path), device=card)
+    before = fused_forward_prefolded.launches
+    got = tr._val_losses(m, x, y, bs, nb + (tail > 0), 0)
+    torch.cuda.synchronize()
+    assert fused_forward_prefolded.launches == before + 1 + (tail > 0)
+    want = torch.stack([m.validation_loss((x[lo:lo + bs], y[lo:lo + bs]))
+                        for lo in range(0, n, bs)])
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
