@@ -44,7 +44,11 @@ same rows, bit for bit; the build phase checks that both forms of each
 compile without spills and with HGMMA instructions, and that the MC
 kernel's mask loop spends a plausible number of SASS instructions a hash;
 row 2b's bound counts the hash's operations from its function, by integer
-pipe; the KDE kernel is also held at every d from 1 to 8 and for one
+pipe; the fp32 kernels 2 and 5, 3xTF32 wgmma products with a tile's
+passes split over a cluster of 8 blocks, are checked for spills and HGMMA
+instructions the same way, and their bounds counted by pipe: three TF32
+products for each fp32 one at the TF32 peak, kernel 2's hash on the
+integer pipes; the KDE kernel is also held at every d from 1 to 8 and for one
 query, and row 4's bound is counted by pipe), the seven models are served again after
 ``set_precision('bf16-mixed')`` (the JAX package's ``eval_precision``, a
 bf16 evaluation of an fp32-trained model), each answer held to the plain
@@ -1505,13 +1509,19 @@ def validation_kernel(model):
 
 def validation_work(model, rows, card):
     """``bound(...)``'s arguments for one call of a model's validation
-    kernel on ``rows`` rows: the products (and 2b's mask hashes) over
-    their peak, each input read and each output written once."""
+    kernel on ``rows`` rows, counted by pipe: the products over their peak
+    (bf16; the fp32 kernels 2 and 5 three TF32 products for each, at the
+    TF32 peak, half the bf16 one), the MC kernels' mask hashes on the
+    integer pipes, each input read and each output written once."""
     bf16 = model.net.compute_dtype == torch.bfloat16
-    peak = card['peak_bf16'] if bf16 else card['peak_flops']
+    tf32 = not bf16 and model.uq_method in ('mc_dropout', 'delta_uq')
+    peak = card['peak_bf16'] / 2 if tf32 else \
+        card['peak_bf16'] if bf16 else card['peak_flops']
     if model.uq_method == 'mc_dropout':
         w = model.mc_weights()
-        flops = 2.0 * rows * (model.num_samples + 1) * w.macs_per_row
+        # the bf16 form runs a dropout-free shift pass, the fp32 one none
+        passes = model.num_samples + (1 if bf16 else 0)
+        flops = 2.0 * rows * passes * w.macs_per_row
         extra = 0
     elif model.uq_method == 'delta_uq':
         w = model.anchored_weights()
@@ -1522,10 +1532,12 @@ def validation_work(model, rows, card):
         w = model.fused_weights()
         flops = 2.0 * rows * w.num_members * w.macs_per_row
         extra = 0
+    if tf32:
+        flops *= 3
     moved = 4.0 * (rows * IN_DIM + w.b_all.numel() + 2 * rows * w.out_dim
                    + extra) + w.w_all.element_size() * w.w_all.numel()
     exps, rate = 0, 1.0
-    if bf16 and model.uq_method == 'mc_dropout':
+    if model.uq_method == 'mc_dropout':
         masked = sum(IN_DIM if layer == 0 else WIDTH
                      for layer, t in enumerate(w.thresholds) if t >= 0)
         exps, rate = rows * model.num_samples * masked, card['hash_rate']
@@ -3618,21 +3630,46 @@ def main():
            library_baddbmm=library_t, predictor_e2e_median_s=e2e_s,
            predictor_e2e_samples_per_s=ROWS / e2e_s)
 
+    # the MC kernels' mask hash: one for every masked element (the inputs
+    # of the Linears a Dropout precedes, over every row and sample), each
+    # the function's operations (MASK_HASH_OPS) on the integer pipes
+    masked = sum(IN_DIM if layer == 0 else WIDTH
+                 for layer, t in enumerate(mw.thresholds) if t >= 0)
+    hashes = ROWS * MC_SAMPLES * masked
+    clocks = hash_clocks(MASK_HASH_OPS)
+    hash_rate = sms * int(clock_mhz.group(1)) * 1e6 / clocks
+    peak_tf32 = peak_bf16 / 2
+
+    def tf32_terms(flops, hashes=0):
+        """The fp32 kernels 2 and 5 counted by pipe: 3 TF32 products for
+        each fp32 one at the TF32 peak, the mask hash on the integer
+        pipes; beside them, the fp32 FFMA floor they left."""
+        return {'tf32_products': 1e3 * 3 * flops / peak_tf32,
+                'mask_hash_int_ops': 1e3 * hashes / hash_rate,
+                'ffma_floor': 1e3 * flops / peak_flops}
+
     x_plain = x[:MC_PLAIN_TIMING_ROWS].contiguous()
     kernel_t = event_ms(lambda: fused_mc_forward(mw, x, MC_SAMPLES, 7))
     plain_t = event_ms(lambda: fused_mc_forward_plain(mw, x_plain, MC_SAMPLES, 7))
     gemm_t = event_ms(lambda: mc_gemm_only(mw, x, MC_SAMPLES))
     e2e_s = e2e_median_s(mc_predictor, ROWS)
-    record(1, mc_launches, kernel_t, plain_t,
-           2.0 * ROWS * (MC_SAMPLES + 1) * mw.macs_per_row,
+    flops = 2.0 * ROWS * MC_SAMPLES * mw.macs_per_row
+    record(1, mc_launches, kernel_t, plain_t, 3 * flops,
            4.0 * (x.numel() + mw.w_all.numel() + mw.b_all.numel()
                   + 2 * ROWS * mw.out_dim),
-           None, rows=ROWS, samples=MC_SAMPLES, p=MC_P,
+           None, peak=peak_tf32, exps=hashes, exp_rate=hash_rate,
+           rows=ROWS, samples=MC_SAMPLES, p=MC_P,
            plain_rows=MC_PLAIN_TIMING_ROWS, gemm_only_reference=gemm_t,
+           bound_terms_ms=tf32_terms(flops, hashes),
+           mask_loop=eval_chain['mask_loop_tf32'],
            predictor_e2e_median_s=e2e_s,
            predictor_e2e_samples_per_s=ROWS / e2e_s)
-    kernels[-1]['plain_rows'] = MC_PLAIN_TIMING_ROWS
-    kernels[-1]['gemm_only_reference_ms'] = gemm_t['median_ms']
+    kernels[-1].update(
+        plain_rows=MC_PLAIN_TIMING_ROWS,
+        gemm_only_reference_ms=gemm_t['median_ms'],
+        bound_terms_ms=tf32_terms(flops, hashes),
+        share_of_bound=kernels[-1]['bound_ms'] / kernels[-1]['ms'],
+        ptxas=eval_chain['fused_mc_dropout_kernel'])
 
     xa = x[:ANCHORED_ROWS].contiguous()
     lib_mean, lib_std = anchored_library(aw, xa, anchors)
@@ -3644,13 +3681,19 @@ def main():
                                                     anchor_rows(aw, anchors)))
     library_t = event_ms(lambda: anchored_library(aw, xa, anchors))
     e2e_s = e2e_median_s(dq_predictor, ANCHORED_ROWS)
-    record(2, dq_launches + pager_launches, kernel_t, plain_t,
-           2.0 * ANCHORED_ROWS * (aw.macs_once + ANCHORS * aw.macs_per_anchor),
+    flops = 2.0 * ANCHORED_ROWS * (aw.macs_once
+                                   + ANCHORS * aw.macs_per_anchor)
+    record(2, dq_launches + pager_launches, kernel_t, plain_t, 3 * flops,
            4.0 * (xa.numel() + aw.w_all.numel() + aw.b_all.numel()
                   + ANCHORS * WIDTH + 2 * ANCHORED_ROWS * aw.out_dim),
-           library_t['median_ms'], rows=ANCHORED_ROWS, anchors=ANCHORS,
+           library_t['median_ms'], peak=peak_tf32, rows=ANCHORED_ROWS,
+           anchors=ANCHORS, bound_terms_ms=tf32_terms(flops),
            library_gemm_chain=library_t, predictor_e2e_median_s=e2e_s,
            predictor_e2e_samples_per_s=ANCHORED_ROWS / e2e_s)
+    kernels[-1].update(
+        bound_terms_ms=tf32_terms(flops),
+        share_of_bound=kernels[-1]['bound_ms'] / kernels[-1]['ms'],
+        ptxas=eval_chain['fused_anchored_kernel'])
 
     data = kde_model.kde.data
     h = kde_model.kde.bandwidth_
@@ -3732,15 +3775,8 @@ def main():
                                                       MC_SAMPLES, 7))
     gemm_t = event_ms(lambda: mc_gemm_only(mw16, x, MC_SAMPLES))
     e2e_s = e2e_median_s(bf16_predictors['mc_dropout'], ROWS)
-    # beside the bf16 products, the mask hash: one for every masked element
-    # (the inputs of the Linears a Dropout precedes, over every row and
-    # sample), each the function's operations (MASK_HASH_OPS) on the
-    # integer pipes; the mask loop's SASS instructions a hash beside it
-    masked = sum(IN_DIM if layer == 0 else WIDTH
-                 for layer, t in enumerate(mw16.thresholds) if t >= 0)
-    hashes = ROWS * MC_SAMPLES * masked
-    clocks = hash_clocks(MASK_HASH_OPS)
-    hash_rate = sms * int(clock_mhz.group(1)) * 1e6 / clocks
+    # beside the bf16 products, the mask hash (as kernel 2's); the mask
+    # loop's SASS instructions a hash beside it
     flops16 = 2.0 * ROWS * (MC_SAMPLES + 1) * mw16.macs_per_row
     record(11, bf16_launches['mc_dropout'], kernel_t, plain_t, flops16,
            moved16(mw16, x.numel(), ROWS), None, into=kernels_bf16,

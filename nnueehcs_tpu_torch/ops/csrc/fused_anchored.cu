@@ -2,27 +2,39 @@
 //
 // Replaces: nnueehcs_tpu/ops/fused_anchored.py::_anchored_kernel (the Pallas
 // TPU kernel). Same function: the anchored input concat([a, x - a]) meets
-// the first Linear as x @ W_bot + a @ (W_top - W_bot), so per tile of rows
-// u = x @ W_bot + b0 is computed once; for anchor j, h = relu0(u + v_j) with
+// the first Linear as x @ W_bot + a @ (W_top - W_bot), so u = x @ W_bot +
+// b0 serves every anchor; for anchor j, h = relu0(u + v_j) with
 // v_j = a_j @ (W_top - W_bot) (computed by the caller, one (k, 128) array),
-// then the rest of the BatchNorm-folded Linear(+ReLU) chain. Anchor 0's
-// output is the shift c; s1 = sum (h - c) and s2 = sum (h - c)^2 over the k
-// anchors give mean = c + s1/k and std = sqrt(max(s2 - k*m1^2, 0)/(k-1)).
-// Only the (B, out_dim) mean and std are written to device memory; no
-// (k, B, 2d) anchored input exists anywhere.
+// then the rest of the BatchNorm-folded Linear(+ReLU) chain; mean and
+// unbiased std over the k anchors. Only the (B, out_dim) mean and std are
+// written to device memory; no (k, B, 2d) anchored input exists anywhere.
 //
 // What bounds it on an H100: operations. The flagship Delta-UQ net (5
-// inputs doubled to 10, 7 Linear layers 128 wide, 229 anchors) does 1,280
+// inputs doubled to 10, 7 Linear layers 128 wide, 229 anchors) does 640
 // multiply-adds per row once plus 82,048 per row per anchor, against 28
-// bytes moved per row; the fp32 FFMA peak (67 TFLOP/s at 700 W) is the floor.
+// bytes moved per row. Its products run as 3xTF32 on the tensor cores
+// (fused_chain_wgmma.cuh, its fp32 section): three TF32 products per fp32
+// one at the dense TF32 peak (495 TFLOP/s on an H100 SXM), 14.9 ms at the
+// flagship on 65,536 rows; the fp32 FFMA floor was 36.8 ms.
 //
-// What the design does about it: the tile machinery of the ensemble kernel
-// (fused_chain.cuh) with the anchor loop in place of the member loop. u
-// stays in shared memory for the whole anchor loop; adding v_j and the ReLU
-// is one pass over the tile; the hidden layers then run in place in a
-// single activation buffer (a layer reads all of its input before its
-// epilogue writes), so u costs no more shared memory than the ensemble
-// kernel's second buffer and two blocks still fit on an SM.
+// What the design does about it (fused_anchored_kernel): kernel 2's (in
+// fused_mc_dropout.cu) without masks: the chain's 3xTF32 image streams from
+// L2 through a ring of shared-memory slots, filled by the first thread of
+// each warpgroup, into two consumer warpgroups, each on its own tile, with
+// wgmma m64n128k8 products and the activations' hi and lo parts in
+// registers. Each anchor's layer 0 is relu(u + v_j) in fp32, u = x @ W_bot
+// + b0 computed again for each anchor (one k step at the flagship's 5
+// inputs; no shared memory beside the ring for it), split into A, with v_j
+// read through L1. A 64-row tile's k anchors are split into kGroups = 8
+// groups (the first k % 8 one anchor more), one for each block of a
+// thread-block cluster of 8, so a small request and a validation pass
+// still fill the card: a 128-row batch runs on 8 SMs (16 warpgroups), not
+// 2. The groups are a constant of the kernel, so a row's arithmetic does
+// not depend on B. Each group's shifted sums take its first anchor as the
+// shift; the leader block (rank 0) merges the groups' means and M2 in
+// group order by Chan's formula (the peers' through their exchange rings
+// in its shared memory) and writes mean and std = sqrt(max(M2, 0) /
+// max(k - 1, 1)).
 //
 // The bf16 form (fused_anchored_bf16_kernel) replaces the same TPU kernel
 // run with compute_dtype=bfloat16: u = bf16(x) @ bf16(W_bot) + b0 is kept
@@ -35,66 +47,91 @@
 // activations in registers; u stays in the warpgroup's registers for the
 // whole anchor loop, and each anchor's layer 0 is relu(u + v_j) in fp32,
 // rounded into the A operand, with v_j read through L1.
-#include "fused_chain.cuh"
 #include "fused_chain_wgmma.cuh"
-
-using namespace fused_chain;
 
 namespace {
 
-// w_all: W_bot as (d, 128), then layers 1..L-1 as (128, 128); b_all: (L, 128)
-// with b0 first. relu[l] != 0: ReLU after layer l (after adding v_j for
-// layer 0). v: (k, 128), zero past layer 0's width.
-__global__ void __launch_bounds__(kThreads, 2)
+namespace fw = fused_chain_wgmma;
+
+// The fp32 kernel (3xTF32). image: the chain's 3xTF32 image (chain_image of
+// the fp32 weights, W_bot as layer 0); b_all (L, 128) with b0 first; relu[l]
+// != 0: ReLU after layer l (after adding v_j for layer 0); v (k, 128), zero
+// past layer 0's width; lay: the launch layout (eval_layout(...,
+// fp32=True)): clusters of kGroups blocks, block `rank` of a cluster running
+// group `rank` of the anchors of each of its warpgroups' tiles.
+__global__ void __launch_bounds__(2 * fw::kWgThreads, 1)
     fused_anchored_kernel(const float* __restrict__ x, long long B, int d,
-                          const float* __restrict__ w_all,
+                          const unsigned char* __restrict__ image,
                           const float* __restrict__ b_all, int L,
                           const int* __restrict__ relu,
                           const float* __restrict__ v, int k, int out_dim,
-                          float* __restrict__ mean, float* __restrict__ std) {
-  extern __shared__ __align__(16) float smem[];
-  float* ubuf = smem;
-  float* act = ubuf + kWidth * kStride;
-  float* sw = act + kWidth * kStride;
-  float* sc = sw + 2 * kChunk * kWidth;
-  float* s1 = sc + kTileRows * out_dim;
-  float* s2 = s1 + kTileRows * out_dim;
-
-  const long long row0 = static_cast<long long>(blockIdx.x) * kTileRows;
-  const int valid = static_cast<int>(min(static_cast<long long>(kTileRows), B - row0));
-  const float* x_tile = x + row0 * d;
-  const float* w_hidden = w_all + static_cast<size_t>(d) * kWidth;
-  const bool relu0 = __ldg(relu) != 0;
-  const Identity none;
-
-  // u = x @ W_bot + b0, without the ReLU; x is staged in act
-  dense_layer<true>(act, ubuf, sw, w_all, b_all, d, false, x_tile, valid,
-                    none, none);
-  for (int j = 0; j < k; ++j) {
-    __syncthreads();  // u's stores, or the last anchor's reads of act
-    const float* vj = v + static_cast<size_t>(j) * kWidth;
-    for (int e = threadIdx.x; e < kWidth * kTileRows; e += kThreads) {
-      const int n = e / kTileRows, r = e % kTileRows;
-      const float h = ubuf[n * kStride + r] + __ldg(vj + n);
-      act[n * kStride + r] = relu0 ? fmaxf(h, 0.f) : h;
-    }
-    for (int l = 1; l + 1 < L; ++l) {
-      dense_layer<false>(act, act, sw,
-                         w_hidden + static_cast<size_t>(l - 1) * kWidth * kWidth,
-                         b_all + static_cast<size_t>(l) * kWidth, kWidth,
-                         __ldg(relu + l) != 0, nullptr, valid, none, none);
-    }
-    __syncthreads();  // the last epilogue's stores must land before the reads
-    const int l = L - 1;
-    last_layer_stats(act, kStride, 1, valid,
-                     w_hidden + static_cast<size_t>(l - 1) * kWidth * kWidth,
-                     b_all + static_cast<size_t>(l) * kWidth, kWidth,
-                     __ldg(relu + l) != 0, out_dim, j == 0, sc, s1, s2, none);
+                          float* __restrict__ mean, float* __restrict__ std,
+                          fw::EnsembleLayout lay) {
+  extern __shared__ __align__(128) unsigned char smem_tf[];
+  const fw::Chain32 chain(d, L, lay.base.out_groups);
+  fw::Ring ring(smem_tf, lay.base);
+  const int rank = static_cast<int>(fw::cluster_rank());
+  const int wg = threadIdx.x / fw::kWgThreads;
+  const fw::Tiles tiles(B, lay.base, wg,
+                        static_cast<int>(gridDim.x) / fw::kGroups,
+                        static_cast<int>(blockIdx.x) / fw::kGroups);
+  const int anchors = fw::group_size(k, rank);
+  const int first = fw::group_first(k, rank);
+  if (threadIdx.x == 0) {
+    fw::Exchange::init(smem_tf, lay);
+    ring.init(lay.base.warpgroups, image, chain,
+              static_cast<uint32_t>(tiles.rounds) * anchors);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  write_stats(sc, s1, s2, k, valid, row0, out_dim, mean, std);
+  fw::cluster_sync();   // every block's barriers are set before a peer's use
+  if (anchors > 0) {
+    STAMP_BEGIN(true, 0);
+    const fw::Thread t(threadIdx.x);
+    fw::Exchange ex(smem_tf, lay, wg, out_dim);
+    const int groups = lay.base.out_groups;
+    float4* st = reinterpret_cast<float4*>(smem_tf + lay.base.smem_stats) +
+                 (wg * groups * 3) * fw::kWgThreads + t.lt;
+    const int last = L - 1;
+    const float* b_last = b_all + static_cast<size_t>(last) * fw::kWidth;
+    const float floor0 = fw::relu_floor(__ldg(relu) != 0);
+    const bool relu_last = __ldg(relu + last) != 0;
+    const uint32_t all[2] = {~0u, ~0u};
+    float acc[64], acc_last[4];   // written by each layer's first product
+    uint32_t hi[16][4], lo[16][4];
+    for (int r = 0; r < tiles.rounds; ++r) {
+      // every warpgroup takes every round's blocks, past the last tile as
+      // a tile of no rows
+      const int tile = tiles.tile<true>(r);
+      const long long row0 = static_cast<long long>(tile) * fw::kRows;
+      const int valid = tiles.valid(tile, B);
+      const float* x_tile = x + (valid > 0 ? row0 * d : 0);
+      for (int j = first; j < first + anchors; ++j) {
+        // layer 0 of anchor j: relu(x @ W_bot + b0 + v_j), split into A
+        // (x @ W_bot again for each anchor: one k step at d <= 8, and no
+        // shared memory for u beside the ring)
+        fw::x_layer_tf32(acc, ring, chain, x_tile, d, valid, t, fw::NoMask(),
+                         [] {});
+        fw::anchor_epilogue_tf32(acc, b_all,
+                                 v + static_cast<size_t>(j) * fw::kWidth,
+                                 floor0, t, hi, lo);
+        for (int l = 1; l < last; ++l) {
+          fw::hidden_tf32(acc, hi, lo, ring, t, [] {});
+          fw::epilogue_tf32(acc, b_all + static_cast<size_t>(l) * fw::kWidth,
+                            fw::relu_floor(__ldg(relu + l) != 0), all, 1.f,
+                            t, hi, lo);
+        }
+        for (int g = 0; g < groups; ++g) {
+          fw::last_group_tf32(acc_last, hi, lo, ring, t);
+          fw::stats_update(acc_last, b_last, relu_last, g, t, j == first, st);
+        }
+      }
+      fw::merge_groups(ex, st, groups, k, rank, static_cast<uint32_t>(r), t,
+                       valid, row0, out_dim, mean, std);
+    }
+    STAMP_END();
+  }
+  fw::cluster_sync();   // no block leaves while a peer may still reach into it
 }
-
-namespace fw = fused_chain_wgmma;
 
 // The bf16 form. image: the chain packed by ops/fused_eval_chain.py
 // (chain_image, W_bot as layer 0); b_all (L, 128), v (k, 128) fp32; lay:
@@ -205,24 +242,28 @@ extern "C" {
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success). The caller
 // checks d >= 1, L >= 2, 1 <= out_dim <= 128, every other width <= 128
-// (zero-padded to 128 in w_all/b_all/v), k >= 1, B >= 1, fp32 contiguous
-// device buffers, relu as L int32 flags on the device, and allocates
-// mean/std as (B, out_dim).
+// (zero-padded to 128 in b_all/v), k >= 1, B >= 1, fp32 contiguous device
+// buffers, relu as L int32 flags on the device, and allocates mean/std as
+// (B, out_dim). image: the chain's 3xTF32 image (ops/fused_eval_chain.py
+// chain_image of the fp32 weights); layout: the launch layout
+// (eval_layout(..., fp32=True), ENSEMBLE_FIELDS) as host ints.
 int nnueehcs_fused_anchored_f32(const float* x, long long B, int d,
-                                const float* w_all, const float* b_all, int L,
-                                const int* relu, const float* v, int k,
-                                int out_dim, float* mean, float* std,
+                                const unsigned char* image,
+                                const float* b_all, int L, const int* relu,
+                                const float* v, int k, int out_dim,
+                                float* mean, float* std, const int* layout,
                                 void* stream) {
-  const size_t smem = smem_bytes(out_dim);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_anchored_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (B + kTileRows - 1) / kTileRows;
-  fused_anchored_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      x, B, d, w_all, b_all, L, relu, v, k, out_dim, mean, std);
-  return static_cast<int>(cudaGetLastError());
+  const fw::EnsembleLayout lay = fw::EnsembleLayout::from(layout);
+  return static_cast<int>(fw::launch_cluster(
+      fused_anchored_kernel, lay, static_cast<cudaStream_t>(stream), x, B, d,
+      image, b_all, L, relu, v, k, out_dim, mean, std, lay));
+}
+
+// The clusters of the fp32 kernel at the layout `layout` that the card runs
+// at once, or minus a cudaError_t.
+int nnueehcs_fused_anchored_f32_clusters(const int* layout) {
+  return fw::max_clusters(fused_anchored_kernel,
+                          fw::EnsembleLayout::from(layout));
 }
 
 // The bf16 form: as nnueehcs_fused_anchored_f32 with the chain as its

@@ -1,10 +1,10 @@
-// Device pieces shared by the fused eval kernels (fused_ensemble.cu,
-// fused_mc_dropout.cu, fused_anchored.cu) and the attribution probes of
-// kernel 1 (ablate_chain.cu, instances of ensemble_pass below, kernel 1's
-// own body): a block of 256 threads owns a
-// 64-row tile and runs a BatchNorm-folded Linear(+ReLU) chain over it, many
-// times (members, dropout samples, anchors), with the activations in shared
-// memory and the weights streamed through it.
+// Device pieces of the fp32 ensemble kernel (fused_ensemble.cu) and the
+// attribution probes of kernel 1 (ablate_chain.cu, instances of
+// ensemble_pass below, kernel 1's own body): a block of 256 threads owns a
+// 64-row tile and runs a BatchNorm-folded Linear(+ReLU) chain over it once
+// for each member, with the activations in shared memory and the weights
+// streamed through it. (The fp32 MC-dropout and anchored kernels run on
+// fused_chain_wgmma.cuh's 3xTF32 section.)
 //
 // - Activations are feature-major in shared memory: element (feature k,
 //   row r) of a tile is at k * kStride + r.
@@ -88,17 +88,9 @@ __device__ __forceinline__ void stream_weights(float* sw, const float* w,
   }
 }
 
-// A value transform v -> f(row in tile, column, v): an input element of x
-// as it is staged, or an output element after bias and ReLU. Identity here.
-struct Identity {
-  __device__ __forceinline__ float operator()(int, int, float v) const {
-    return v;
-  }
-};
-
 // Where element (row r of the tile, feature k0 + k: a chunk's first feature,
 // then the feature within it) of x lies, from the tile's first element.
-// XRowMajor: x is (rows, K) row-major, as kernels 1, 2 and 5 read it;
+// XRowMajor: x is (rows, K) row-major, as kernel 1 reads it;
 // XStrided: at x[r * rs + (k0 + k) * ks] (a wider row-major x, or a
 // feature-major one).
 struct XRowMajor {
@@ -118,21 +110,19 @@ struct XStrided {
   }
 };
 
-// out[n][r] = epi(r, n, act(sum_k in[k][r] * w[k][n] + b[n])) for the tile's
+// out[n][r] = act(sum_k in[k][r] * w[k][n] + b[n]) for the tile's
 // 64 rows and all 128 (padded) columns n. in/out are feature-major (row
 // stride kStride) and may be the same buffer; w is a (K, 128) folded weight
 // in device memory. With kFromX (layer 0), the input is the tile's rows of
 // x, element (r, k0 + k) at at(x, r, k0, k, K) in device memory ((valid, K)
-// row-major by default): each chunk of K is staged, through xform, into one
+// row-major by default): each chunk of K is staged into one
 // of two kChunk-row slots of `in` (rows past `valid` as zeros) beside its
 // weights. Without kAffine the bias and the ReLU are left out.
-template <bool kFromX, class XForm, class Epi, class XAt = XRowMajor,
-          bool kAffine = true>
+template <bool kFromX, class XAt = XRowMajor, bool kAffine = true>
 __device__ __forceinline__ void dense_layer(float* in, float* out, float* sw,
                                             const float* w, const float* b,
                                             int K, bool relu, const float* x,
-                                            int valid, const XForm& xform,
-                                            const Epi& epi,
+                                            int valid,
                                             const XAt& at = XAt()) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ty = (warp >> 1) * 4 + (lane >> 3);  // rows ty*4 .. ty*4+3
@@ -149,7 +139,7 @@ __device__ __forceinline__ void dense_layer(float* in, float* out, float* sw,
     for (int i = threadIdx.x; i < kTileRows * rows; i += kThreads) {
       const int r = i / rows, k = i - r * rows;
       dst[k * kStride + r] =
-          r < valid ? xform(r, k0 + k, __ldg(at(x, r, k0, k, K))) : 0.f;
+          r < valid ? __ldg(at(x, r, k0, k, K)) : 0.f;
     }
   };
   stream_weights(sw, w, K, stage, [&](const float* wc, int c, int k0,
@@ -185,7 +175,6 @@ __device__ __forceinline__ void dense_layer(float* in, float* out, float* sw,
         v[i] += bj;
         if (relu) v[i] = fmaxf(v[i], 0.f);
       }
-      v[i] = epi(ty * 4 + i, col, v[i]);
     }
     *reinterpret_cast<float4*>(out + col * kStride + ty * 4) =
         make_float4(v[0], v[1], v[2], v[3]);
@@ -196,16 +185,16 @@ __device__ __forceinline__ void dense_layer(float* in, float* out, float* sw,
 // shifted sums: the first pass sets the shift c, every later one adds
 // (h - c) to s1 and (h - c)^2 to s2. Slot e = col * kTileRows + row belongs
 // to the same thread for every pass. Input element (k, r) is
-// xform(r, k, in[k * k_step + r * r_step]): the feature-major activations,
+// in[k * k_step + r * r_step]: the feature-major activations,
 // or x itself when the network is one Linear. Rows past `valid` are never
 // written out, so they are skipped. With kRaw the pass's output h is kept
 // instead (c = the first pass's, s1 = the latest pass's); without kAffine
 // the bias and the ReLU are left out.
-template <class XForm, bool kRaw = false, bool kAffine = true>
+template <bool kRaw = false, bool kAffine = true>
 __device__ __forceinline__ void last_layer_stats(
     const float* in, int k_step, int r_step, int valid, const float* w,
     const float* b, int K, bool relu, int out_dim, bool first, float* sc,
-    float* s1, float* s2, const XForm& xform) {
+    float* s1, float* s2) {
   const int n = kTileRows * out_dim;
   for (int e = threadIdx.x; e < n; e += kThreads) {
     const int col = e / kTileRows, r = e % kTileRows;
@@ -213,7 +202,7 @@ __device__ __forceinline__ void last_layer_stats(
     const float* a = in + static_cast<size_t>(r) * r_step;
     float acc = 0.f;
     for (int k = 0; k < K; ++k)
-      acc = fmaf(xform(r, k, a[static_cast<size_t>(k) * k_step]),
+      acc = fmaf(a[static_cast<size_t>(k) * k_step],
                  __ldg(w + k * kWidth + col), acc);
     float v = acc;
     if (kAffine) {
@@ -400,7 +389,6 @@ __device__ __forceinline__ void ensemble_pass(
   constexpr bool kAffine = kMode != kGemmOnly;
   constexpr bool kRaw = kMode == kNoEpi;
   const float* w_hidden = w_all + static_cast<size_t>(M_all) * d * kWidth;
-  const Identity none;
 
   for (int m = 0; m < M; ++m) {
     __syncthreads();  // the previous member's last layer may still read act0
@@ -410,14 +398,14 @@ __device__ __forceinline__ void ensemble_pass(
       const float* b = b_all + (static_cast<size_t>(l) * M_all + m) * kWidth;
       const bool act = __ldg(relu + l) != 0;
       if (l == 0) {
-        dense_layer<true, Identity, Identity, XAt, kAffine>(
+        dense_layer<true, XAt, kAffine>(
             in, out, sw, w_all + static_cast<size_t>(m) * d * kWidth, b, d,
-            act, x_tile, valid, none, none, at);
+            act, x_tile, valid, at);
       } else {
-        dense_layer<false, Identity, Identity, XAt, kAffine>(
+        dense_layer<false, XAt, kAffine>(
             in, out, sw,
             w_hidden + (static_cast<size_t>(l - 1) * M_all + m) * kWidth * kWidth,
-            b, kWidth, act, nullptr, valid, none, none);
+            b, kWidth, act, nullptr, valid);
       }
       float* t = in;
       in = out;
@@ -428,15 +416,15 @@ __device__ __forceinline__ void ensemble_pass(
     const float* b = b_all + (static_cast<size_t>(l) * M_all + m) * kWidth;
     const bool act = __ldg(relu + l) != 0;
     if (l == 0) {  // one Linear: read x straight from device memory
-      last_layer_stats<Identity, kRaw, kAffine>(
+      last_layer_stats<kRaw, kAffine>(
           x_tile, kXCols ? ldx : 1, kXCols ? 1 : ldx, valid,
           w_all + static_cast<size_t>(m) * d * kWidth, b, d, act, out_dim,
-          m == 0, sc, s1, s2, none);
+          m == 0, sc, s1, s2);
     } else {
-      last_layer_stats<Identity, kRaw, kAffine>(
+      last_layer_stats<kRaw, kAffine>(
           in, kStride, 1, valid,
           w_hidden + (static_cast<size_t>(l - 1) * M_all + m) * kWidth * kWidth,
-          b, kWidth, act, out_dim, m == 0, sc, s1, s2, none);
+          b, kWidth, act, out_dim, m == 0, sc, s1, s2);
     }
   }
   if constexpr (kOut == kOutDense) {

@@ -1066,6 +1066,677 @@ __device__ __forceinline__ void ensemble_pass(
   cluster_sync();   // no block leaves while a peer may still reach into it
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 kernels 2 (MC dropout) and 5 (anchored) on the tensor cores: each
+// product in 3xTF32, a_lo b_hi + a_hi b_lo + a_hi b_hi (the small terms
+// first), every term a wgmma.mma_async m64nNk8 TF32 product with A from
+// registers, summed in the fp32 accumulator. An operand's hi part is
+// tf32(v) and its lo part tf32(v - hi) (cvt.rna: round to nearest, ties
+// away); the weights' parts are packed by the host (ops/fused_eval_chain.py
+// chain_image), an activation's in the epilogue that makes it, after bias,
+// ReLU and any dropout mask. The image streams through a ring of 32 KB
+// slots (Ring) in blocks of at most 32 input rows, hi then lo (Chain32).
+// A block runs one or two consumer warpgroups (two where their statistics
+// fit), each on its own 64-row tile and all on the same passes, so every
+// block that comes through the ring serves each of them; the first thread
+// of each warpgroup is also the ring's producer (a producer warp would cost
+// the consumers' registers: A's hi and lo parts, 64 each, and the
+// accumulator, 64, take 192 of the 255 a thread of two warpgroups may
+// hold). A tile's
+// passes are split into kGroups groups, one for each block of a cluster of
+// kGroups blocks; the leader (rank 0) merges the groups' moments in group
+// order (Chan's formula).
+
+constexpr int kGroups = 8;       // groups of a tile's passes (GROUPS)
+constexpr int kTfRows = 32;      // input rows of an fp32 image block
+constexpr int kTfStreamBytes = 64;   // the producer's state (Stream)
+
+// Whether the phase of `bar` with this parity has completed, without
+// waiting.
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v = hi + lo (to 2^-22 relative), both TF32
+__device__ __forceinline__ void tf32_split(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// acc (m64n128, fp32) = (scale_d ? acc : 0) + a (64 x 8 TF32, registers:
+// rows r0, r0 + 8, inputs q, q + 4) x B (8 x 128 TF32, K-major at desc_b)
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// acc = a x B, the accumulator written only (its old values are dead)
+__device__ __forceinline__ void wgmma_tf32_n128_first(float (&d)[64],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 z;\nmov.b32 z, 0;\nsetp.ne.b32 p, z, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
+        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
+        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]),
+        "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+// d (64 x 8 fp32) = (scale_d ? d : 0) + a (64 x 8 TF32) x B (8 x 8 TF32)
+__device__ __forceinline__ void wgmma_tf32_n8(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// Wait until at most one committed group of this warpgroup's products is
+// in flight.
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// One k step (8 inputs) of 3xTF32 into the n128 accumulator; B's hi and lo
+// parts at shared addresses bh and bl of blocks of R rows (stride byte
+// offset 32 R, leading byte offset 128: the next 4 inputs).
+__device__ __forceinline__ void step_n128(float (&acc)[64],
+                                          const uint32_t (&hi)[4],
+                                          const uint32_t (&lo)[4],
+                                          uint32_t bh, uint32_t bl,
+                                          uint32_t sbo, bool first) {
+  if (first)
+    wgmma_tf32_n128_first(acc, lo, desc(bh, 128, sbo));
+  else
+    wgmma_tf32_n128(acc, lo, desc(bh, 128, sbo), 1);
+  wgmma_tf32_n128(acc, hi, desc(bl, 128, sbo), 1);
+  wgmma_tf32_n128(acc, hi, desc(bh, 128, sbo), 1);
+}
+
+// The same with the first product's scale-d a value (0: overwrite the
+// accumulator), not a branch between two forms: products chosen by a branch
+// on a loop counter made ptxas serialise every wgmma of the kernel (C7520).
+__device__ __forceinline__ void step_n128_at(float (&acc)[64],
+                                             const uint32_t (&hi)[4],
+                                             const uint32_t (&lo)[4],
+                                             uint32_t bh, uint32_t bl,
+                                             uint32_t sbo, int scale_d) {
+  wgmma_tf32_n128(acc, lo, desc(bh, 128, sbo), scale_d);
+  wgmma_tf32_n128(acc, hi, desc(bl, 128, sbo), 1);
+  wgmma_tf32_n128(acc, hi, desc(bh, 128, sbo), 1);
+}
+
+// The same into an n8 accumulator.
+__device__ __forceinline__ void step_n8(float (&acc)[4],
+                                        const uint32_t (&hi)[4],
+                                        const uint32_t (&lo)[4], uint32_t bh,
+                                        uint32_t bl, uint32_t sbo,
+                                        bool first) {
+  wgmma_tf32_n8(acc, lo, desc(bh, 128, sbo), first ? 0 : 1);
+  wgmma_tf32_n8(acc, hi, desc(bl, 128, sbo), 1);
+  wgmma_tf32_n8(acc, hi, desc(bh, 128, sbo), 1);
+}
+
+// An fp32 chain's image (chain_image of fp32 weights, tf32_blocks): layer
+// 0's d8 = ceil8(d) rows in blocks of 32 (the last one shorter), 128
+// columns; 4 blocks of each hidden layer; the last layer's 4 blocks of 8
+// columns for each column group. A one-Linear chain: layer 0's blocks of 8
+// columns for each column group. Block b's hi image, then its lo image.
+struct Chain32 {
+  int d8, L, groups, nb0;
+
+  __device__ __forceinline__ Chain32(int d, int layers, int out_groups)
+      : d8((d + 7) & ~7),
+        L(layers),
+        groups(out_groups),
+        nb0((((d + 7) & ~7) + kTfRows - 1) / kTfRows) {}
+
+  __device__ __forceinline__ int blocks() const {
+    return L == 1 ? groups * nb0 : nb0 + 4 * (L - 2) + 4 * groups;
+  }
+  __device__ __forceinline__ int rows(int b) const {
+    const int k = L == 1 ? b % nb0 : b;
+    return k < nb0 ? min(kTfRows, d8 - kTfRows * k) : kTfRows;
+  }
+  __device__ __forceinline__ int cols(int b) const {
+    return L == 1 || b >= nb0 + 4 * (L - 2) ? 8 : kWidth;
+  }
+  __device__ __forceinline__ uint32_t offset(int b) const {
+    if (L == 1) return (b / nb0) * d8 * 64u + (b % nb0) * 2048u;
+    if (b < nb0) return b * 32768u;
+    const uint32_t at = d8 * 1024u;
+    b -= nb0;
+    if (b < 4 * (L - 2)) return at + b * 32768u;
+    return at + (L - 2) * 131072u + (b - 4 * (L - 2)) * 2048u;
+  }
+  __device__ __forceinline__ uint32_t bytes(int b) const {
+    return 8u * rows(b) * cols(b);
+  }
+};
+
+// The blocks every consumer warpgroup of a block takes, in order (the
+// stream: the chain's blocks once for each pass of each round), and the
+// producer's place in it: the next block, its slot and its use of that
+// slot. In shared memory; the thread that holds `lock` reads and writes it.
+struct Stream {
+  const unsigned char* image;
+  Chain32 chain;
+  uint32_t issued, total;
+  int block, slot, use, lock;
+};
+
+// The ring of an fp32 kernel: `slots` 32 KB slots at the start of shared
+// memory, a full and an empty mbarrier each (every consumer warp arrives on
+// `empty`). The first thread of each consumer warpgroup is also a
+// producer: whenever it acquires a block it first issues every block of the
+// stream whose slot all consumers have given back (one producer at a time,
+// under the stream's lock; the other returns at once), and it goes on
+// issuing while it waits, so no consumer waits on a block that only its
+// own warpgroup's release would let it issue. (slot, phase) of the next
+// block a thread takes and gives back step without a division; a consumer
+// holds two blocks at most.
+struct Ring {
+  unsigned char* base;
+  uint64_t* full;
+  volatile Stream* stream;
+  int slots;
+  int take, take_phase, give;
+
+  __device__ __forceinline__ Ring(unsigned char* smem, const Layout& lay)
+      : base(smem),
+        full(reinterpret_cast<uint64_t*>(smem + lay.smem_bars)),
+        stream(reinterpret_cast<Stream*>(smem + lay.smem_bytes -
+                                         kTfStreamBytes)),
+        slots(lay.ring),
+        take(0),
+        take_phase(0),
+        give(0) {}
+
+  __device__ __forceinline__ uint64_t* empty() const { return full + slots; }
+
+  // thread 0, before the fence of the barriers' initialisation: the
+  // barriers, and the stream of `count` passes through the chain
+  __device__ __forceinline__ void init(int warpgroups,
+                                       const unsigned char* image,
+                                       const Chain32& c, uint32_t count) {
+    for (int s = 0; s < slots; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty() + s, 4 * warpgroups);
+    }
+    Stream* st = const_cast<Stream*>(stream);
+    st->image = image;
+    st->chain = c;
+    st->issued = 0;
+    st->total = count * c.blocks();
+    st->block = 0;
+    st->slot = 0;
+    st->use = 0;
+    st->lock = 0;
+  }
+  // a producer: issue every block of the stream whose slot is free
+  __device__ __forceinline__ void pump() {
+    volatile Stream& st = *stream;
+    if (atomicCAS(const_cast<int*>(&st.lock), 0, 1) != 0) return;
+    const Stream* plain = const_cast<const Stream*>(stream);
+    const Chain32 c = plain->chain;
+    const unsigned char* image = plain->image;
+    const uint32_t total = st.total;
+    uint32_t n = st.issued;
+    int b = st.block, s = st.slot, use = st.use;
+    while (n < total) {
+      if (use > 0 && !mbar_test(empty() + s, (use - 1) & 1)) break;
+      const uint32_t bytes = c.bytes(b);
+      mbar_expect_tx(full + s, bytes);
+      bulk_load(base + s * kSlotBytes, image + c.offset(b), bytes, full + s);
+      ++n;
+      if (++b == c.blocks()) b = 0;
+      if (++s == slots) {
+        s = 0;
+        ++use;
+      }
+    }
+    st.issued = n;
+    st.block = b;
+    st.slot = s;
+    st.use = use;
+    __threadfence_block();
+    atomicExch(const_cast<int*>(&st.lock), 0);
+  }
+  // the shared-memory address of the next block, once it is there
+  __device__ __forceinline__ uint32_t acquire() {
+    STAMP(1);
+    const int s = take;
+    const uint32_t parity = static_cast<uint32_t>(take_phase);
+    if (threadIdx.x % kWgThreads == 0) {
+      pump();
+      while (!mbar_test(full + s, parity)) pump();
+    } else {
+      mbar_wait(full + s, parity);
+    }
+    if (++take == slots) {
+      take = 0;
+      take_phase ^= 1;
+    }
+    return smem_u32(base) + s * kSlotBytes;
+  }
+  // the oldest block held, after the warp's products on it have completed
+  __device__ __forceinline__ void release(bool lane0) {
+    STAMP(10);
+    __syncwarp();
+    if (lane0) mbar_arrive(empty() + give);
+    if (++give == slots) give = 0;
+  }
+};
+
+// A thread's activation slot (i, h, e) (row r0 + 8 h, column 8 i + 2 q + e
+// of the accumulator) is input q + 4 e of k step i in the A fragment:
+// register h + 2 e of step i (rows r0, r0 + 8; inputs q, q + 4).
+__device__ __forceinline__ constexpr int a_reg(int h, int e) {
+  return h + 2 * e;
+}
+
+// The A fragment of k step s of x's tile rows (features 8 s + 2 q, + 1,
+// through f as x_fragment's), split into hi and lo; zeros past `valid` rows
+// and d features.
+template <class F>
+__device__ __forceinline__ void x_step(const float* x_tile, int d, int valid,
+                                       int s, const Thread& t, const F& f,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = t.r0 + 8 * h, c = 8 * s + 2 * t.q;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = 0.f;
+      if (r < valid && c + e < d)
+        v = f(h, c + e, __ldg(x_tile + static_cast<long long>(r) * d + c + e));
+      tf32_split(v, hi[a_reg(h, e)], lo[a_reg(h, e)]);
+    }
+  }
+}
+
+// acc (m64n128) = x's tile (through f) x layer 0, its blocks [0, nb0) taken
+// from the ring in turn, one k step a product group; `last` runs while the
+// last step's products fly.
+template <class F, class G>
+__device__ __forceinline__ void x_layer_tf32(float (&acc)[64], Ring& ring,
+                                             const Chain32& c,
+                                             const float* x_tile, int d,
+                                             int valid, const Thread& t,
+                                             const F& f, const G& last) {
+  for (int b = 0; b < c.nb0; ++b) {
+    const uint32_t addr = ring.acquire();
+    const int rows = c.rows(b), steps = rows / 8;
+    for (int s = 0; s < steps; ++s) {
+      STAMP(2);
+      uint32_t hi[4], lo[4];
+      x_step(x_tile, d, valid, kTfRows / 8 * b + s, t, f, hi, lo);
+      STAMP(3);
+      pin(hi);
+      pin(lo);
+      __syncwarp();
+      wgmma_fence();
+      step_n128_at(acc, hi, lo, addr + 256 * s,
+                   addr + 4 * rows * kWidth + 256 * s, 32 * rows,
+                   (b | s) == 0 ? 0 : 1);
+      wgmma_commit();
+      if (b + 1 == c.nb0 && s + 1 == steps) last();
+      STAMP(5);
+      wgmma_wait_all();
+      pin(acc);
+      pin(hi);
+      pin(lo);
+    }
+    ring.release(t.lane0);
+  }
+}
+
+// Column group g of a one-Linear chain's only layer from x (through f):
+// acc = x's tile x its blocks of that group, taken from the ring in turn.
+template <class F>
+__device__ __forceinline__ void x_group_tf32(float (&acc)[4], Ring& ring,
+                                             const Chain32& c,
+                                             const float* x_tile, int d,
+                                             int valid, const Thread& t,
+                                             const F& f) {
+  for (int b = 0; b < c.nb0; ++b) {
+    const uint32_t addr = ring.acquire();
+    const int rows = c.rows(b), steps = rows / 8;
+    for (int s = 0; s < steps; ++s) {
+      STAMP(2);
+      uint32_t hi[4], lo[4];
+      x_step(x_tile, d, valid, kTfRows / 8 * b + s, t, f, hi, lo);
+      STAMP(8);
+      pin(hi);
+      pin(lo);
+      __syncwarp();
+      wgmma_fence();
+      step_n8(acc, hi, lo, addr + 256 * s, addr + 32 * rows + 256 * s,
+              32 * rows, (b | s) == 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(acc);
+      pin(hi);
+      pin(lo);
+    }
+    ring.release(t.lane0);
+  }
+}
+
+// A hidden layer: acc (m64n128) = (hi, lo) x its 4 blocks of 32 rows from
+// the ring, a block's 12 products one group, each block given back once
+// the next one's products are in flight; `during` runs while the last
+// block's fly.
+template <class G>
+__device__ __forceinline__ void hidden_tf32(float (&acc)[64],
+                                            uint32_t (&hi)[16][4],
+                                            uint32_t (&lo)[16][4], Ring& ring,
+                                            const Thread& t,
+                                            const G& during) {
+  STAMP(3);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    pin(hi[i]);
+    pin(lo[i]);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t addr = ring.acquire();
+    STAMP(3);
+    __syncwarp();
+    wgmma_fence();   // after the wait, where the warpgroup runs together
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      step_n128(acc, hi[4 * j + s], lo[4 * j + s], addr + 256 * s,
+                addr + 16384 + 256 * s, 1024, j == 0 && s == 0);
+    wgmma_commit();
+    if (j > 0) {
+      STAMP(5);
+      wgmma_wait_one();
+      ring.release(t.lane0);
+    }
+  }
+  during();
+  STAMP(5);
+  wgmma_wait_all();
+  pin(acc);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    pin(hi[i]);
+    pin(lo[i]);
+  }
+  ring.release(t.lane0);
+}
+
+// The last layer, column group g: acc = (hi, lo) x its 4 blocks of 32 rows
+// and 8 columns from the ring; waits.
+__device__ __forceinline__ void last_group_tf32(float (&acc)[4],
+                                                uint32_t (&hi)[16][4],
+                                                uint32_t (&lo)[16][4],
+                                                Ring& ring, const Thread& t) {
+  STAMP(8);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    pin(hi[i]);
+    pin(lo[i]);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t addr = ring.acquire();
+    STAMP(8);
+    __syncwarp();
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      step_n8(acc, hi[4 * j + s], lo[4 * j + s], addr + 256 * s,
+              addr + 1024 + 256 * s, 1024, j == 0 && s == 0);
+    wgmma_commit();
+    if (j > 0) {
+      wgmma_wait_one();
+      ring.release(t.lane0);
+    }
+  }
+  wgmma_wait_all();
+  pin(acc);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    pin(hi[i]);
+    pin(lo[i]);
+  }
+  ring.release(t.lane0);
+}
+
+// The floor of a ReLU in fmaxf: 0 where one follows, -inf (the identity)
+// where none does: one epilogue for every layer, a select and no branch
+// (two instances of the epilogue, masked and not, took kernel 2 past its
+// registers).
+__device__ __forceinline__ float relu_floor(bool relu) {
+  return relu ? 0.f : -__int_as_float(0x7f800000);
+}
+
+// The next layer's A from the accumulator: bias (fp32, 128), ReLU (`floor`,
+// relu_floor), the keep bits (keep_bit) times `scale` (all ones and 1 for
+// no mask: the same values), split into hi and lo where the TF32 A fragment
+// wants each value (a_reg).
+__device__ __forceinline__ void epilogue_tf32(const float (&acc)[64],
+                                              const float* bias, float floor,
+                                              const uint32_t (&keep)[2],
+                                              float scale, const Thread& t,
+                                              uint32_t (&hi)[16][4],
+                                              uint32_t (&lo)[16][4]) {
+  STAMP(6);
+  const float* bq = bias + 2 * t.q;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bq + 8 * i));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = fmaxf(acc[4 * i + 2 * h + e] + (e ? b.y : b.x), floor);
+        v *= (keep[i >> 3] >> keep_bit(i, h, e)) & 1u ? scale : 0.f;
+        tf32_split(v, hi[i][a_reg(h, e)], lo[i][a_reg(h, e)]);
+      }
+    }
+  }
+}
+
+// The anchored kernel's layer 0 of one anchor into A: (u + v) through the
+// ReLU (`floor`), u = acc + b0 rounded first, as the plain version adds
+// them (u = x W_bot + b0, then u + v_j).
+__device__ __forceinline__ void anchor_epilogue_tf32(const float (&acc)[64],
+                                                     const float* b0,
+                                                     const float* v,
+                                                     float floor,
+                                                     const Thread& t,
+                                                     uint32_t (&hi)[16][4],
+                                                     uint32_t (&lo)[16][4]) {
+  STAMP(7);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float2 b = __ldg(reinterpret_cast<const float2*>(b0 + 8 * i + 2 * t.q));
+    const float2 w = __ldg(reinterpret_cast<const float2*>(v + 8 * i + 2 * t.q));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float u = acc[4 * i + 2 * h + e] + (e ? b.y : b.x);
+        tf32_split(fmaxf(u + (e ? w.y : w.x), floor), hi[i][a_reg(h, e)],
+                   lo[i][a_reg(h, e)]);
+      }
+    }
+  }
+}
+
+// The moments of a group of n passes in the thread's slots of column group
+// g from its shifted sums (st, stats_fold's): mean c + s1/n and M2 = s2 -
+// n m1^2, m1 = s1/n, with n m1^2 rounded before the subtraction.
+__device__ __forceinline__ void group_moments(const float4* st, int g,
+                                              int n, float (&m)[4],
+                                              float (&m2)[4]) {
+  const float4* p = st + 3 * g * kWgThreads;
+  const float4 c4 = p[0], a4 = p[kWgThreads], b4 = p[2 * kWgThreads];
+  const float c[4] = {c4.x, c4.y, c4.z, c4.w};
+  const float s1[4] = {a4.x, a4.y, a4.z, a4.w};
+  const float s2[4] = {b4.x, b4.y, b4.z, b4.w};
+  const float fn = static_cast<float>(n);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float m1 = s1[e] / fn;
+    m[e] = c[e] + m1;
+    m2[e] = __fsub_rn(s2[e], __fmul_rn(__fmul_rn(fn, m1), m1));
+  }
+}
+
+// Passes of group g when a tile's `count` passes are split into kGroups
+// groups (the first count % kGroups groups one more), and its first.
+__device__ __forceinline__ int group_size(int count, int g) {
+  return count / kGroups + (g < count % kGroups ? 1 : 0);
+}
+__device__ __forceinline__ int group_first(int count, int g) {
+  return g * (count / kGroups) + min(g, count % kGroups);
+}
+
+// The groups of one tile meet in the leader: a peer (rank p >= 1) with
+// passes sends each column group's moments (mean, then M2) into its
+// exchange ring in the leader; the leader merges its own and the peers' in
+// group order by Chan's formula (n = na + nb, delta = mb - ma, mean = ma +
+// delta nb / n, M2 = M2a + M2b + delta^2 na nb / n) and writes mean and
+// std = sqrt(max(M2, 0) / max(count - 1, 1)). `round`: the tile's place in
+// the block's tiles (the same in every block of the cluster).
+__device__ __forceinline__ void merge_groups(Exchange& ex, const float4* st,
+                                             int groups, int count, int rank,
+                                             uint32_t round, const Thread& t,
+                                             int valid, long long row0,
+                                             int out_dim, float* mean,
+                                             float* std) {
+  STAMP(9);
+  const auto seq = [&](int g, int part) {
+    return (round * groups + g) * 2u + part;
+  };
+  const int own = group_size(count, rank);
+  if (rank != 0) {
+    if (own == 0) return;
+    for (int g = 0; g < groups; ++g) {
+      float m[4], m2[4];
+      group_moments(st, g, own, m, m2);
+      ex.send(rank, seq(g, 0), m, t);
+      ex.send(rank, seq(g, 1), m2, t);
+    }
+    return;
+  }
+  for (int g = 0; g < groups; ++g) {
+    float m[4], m2[4];
+    group_moments(st, g, own, m, m2);
+    float na = static_cast<float>(own);
+    for (int p = 1; p < kGroups; ++p) {
+      const int np = group_size(count, p);
+      if (np == 0) break;
+      // each part's slot back once read: a ring of one slot holds one
+      float mb[4], m2b[4];
+      ex.read(p, seq(g, 0), t, mb);
+      __syncwarp();
+      if (t.lane0) ex.free_slot(p, seq(g, 0));
+      ex.read(p, seq(g, 1), t, m2b);
+      __syncwarp();
+      if (t.lane0) ex.free_slot(p, seq(g, 1));
+      STAMP(13);
+      const float nb = static_cast<float>(np), n = na + nb;
+      const float wb = nb / n, wab = na * nb / n;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float delta = mb[e] - m[e];
+        m[e] += delta * wb;
+        m2[e] += m2b[e] + delta * delta * wab;
+      }
+      na = n;
+    }
+    const float dof = static_cast<float>(count > 1 ? count - 1 : 1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = t.r0 + 8 * (e >> 1), col = 8 * g + 2 * t.q + (e & 1);
+      if (r < valid && col < out_dim) {
+        const long long o = (row0 + r) * out_dim + col;
+        mean[o] = m[e];
+        std[o] = sqrtf(fmaxf(m2[e], 0.f) / dof);
+      }
+    }
+  }
+}
+
 // Host: launch `kernel` (an ensemble_pass instance taking `args`) as
 // lay.base.grid / lay.cluster clusters of lay.cluster blocks.
 template <class... P>

@@ -2,12 +2,10 @@
 //
 // Replaces: nnueehcs_tpu/ops/fused_ensemble.py::_fused_mc_kernel (the Pallas
 // TPU kernel). Same function: for each tile of rows, one BatchNorm-folded
-// Linear(+ReLU) chain run 1 + S times. Pass 0 runs without dropout and its
-// output is the shift c; pass p >= 1 is dropout sample p - 1, where the
-// input of every Linear that had a Dropout before it is multiplied by a keep
-// mask scaled by 1/keep. s1 = sum (h - c) and s2 = sum (h - c)^2 over the S
-// samples give mean = c + s1/S and std = sqrt(max(s2 - S*m1^2, 0)/(S-1)).
-// Only the (B, out_dim) mean and std are written to device memory.
+// Linear(+ReLU) chain run S times, sample s with a keep mask scaled by
+// 1/keep on the input of every Linear that had a Dropout before it; mean
+// and unbiased std over the S samples. Only the (B, out_dim) mean and std
+// are written to device memory.
 //
 // The masks: the TPU kernel draws from the chip's hardware PRNG; this kernel
 // hashes (call seed, sample, Dropout module index, global row, column)
@@ -22,22 +20,39 @@
 // A seed table (seeds, rows_per_seed; a batched validation pass, one seed
 // a batch) makes global row R draw with seeds[R / rows_per_seed] at hash
 // row R % rows_per_seed: exactly what a launch of that batch alone draws
-// with its seed and row_base 0. The stream word is per tile when the
-// tile's rows share one seed (every batch size that is a multiple of the
-// 64-row tile), and per row in a tile that spans two groups or more.
+// with its seed and row_base 0 (drop_for: the tile's group's seed when the
+// tile lies in one group, each row's own otherwise).
 //
 // What bounds it on an H100: operations. The flagship (5 inputs, 7 Linear
-// layers 128 wide, S = 128) does 82,688 multiply-adds per row per pass, 129
-// passes, against 28 bytes moved per row; the fp32 FFMA peak (67 TFLOP/s at
-// 700 W) is the floor.
+// layers 128 wide, S = 128) does 82,688 multiply-adds per row per sample
+// against 28 bytes moved per row. Its products run as 3xTF32 on the tensor
+// cores (fused_chain_wgmma.cuh, its fp32 section): three TF32 products per
+// fp32 one at the dense TF32 peak (495 TFLOP/s on an H100 SXM), 33.6 ms at
+// the flagship on 262,144 rows, with the mask hash (9.0 ms on the ALU pipe,
+// as the bf16 form's) under it; the fp32 FFMA floor was 83.5 ms.
 //
-// What the design does about it: the tile machinery of the ensemble kernel
-// (fused_chain.cuh), with the pass loop in place of the member loop and one
-// set of weights streamed from L2 for every pass. Masks are generated in
-// registers where they are applied, in the epilogue of the layer before
-// (or as x is staged, for a Dropout before layer 0), so no mask bytes touch
-// memory; the hash costs about a dozen integer operations per element
-// against the 128 FMAs that produced it.
+// What the design does about it (fused_mc_dropout_kernel): the chain's
+// 3xTF32 image (W_hi, W_lo; 656 KB at the flagship) streams from L2
+// through a ring of shared-memory slots, filled by the first thread of each
+// warpgroup, into two consumer warpgroups (one where 128 outputs'
+// statistics leave no room), each on its own tile, both through the same
+// blocks, with wgmma m64n128k8 products and the activations' hi and lo
+// parts in registers; each layer's keep bits for the next Linear are
+// hashed while the layer's last products fly, as the bf16 form does. No
+// branch on a value ptxas cannot tell the warpgroup shares comes before
+// the registers a product reads (selects instead), or ptxas serialises
+// every product of the kernel (C7520). A 64-row tile's S samples are split
+// into kGroups = 8 groups (the first S % 8 one sample more), one for each
+// block of a thread-block cluster of 8, so a small request and a
+// validation pass still fill the card: a 128-row request runs on 8 SMs (16
+// warpgroups), not 2. The groups are a constant of the kernel, so a row's
+// arithmetic does not depend on B, row_base or the seed table. There is no
+// dropout-free pass: each group takes its own first sample as the shift of
+// its sums s1 = sum (h - c), s2 = sum (h - c)^2; the leader block (rank 0)
+// merges the groups' means and M2 in group order by Chan's formula, the
+// peers' through their exchange rings in its shared memory (distributed
+// shared memory), and writes mean and std = sqrt(max(M2, 0) / max(S - 1,
+// 1)).
 //
 // The bf16 form (fused_mc_dropout_bf16_kernel) replaces the same TPU kernel
 // run with compute_dtype=bfloat16: the masks and their 1/keep scale are
@@ -58,10 +73,7 @@
 // fused_mc_dropout_bf16_table_kernel, which looks its tiles' seeds up and
 // forms each layer's mask words before the layer's products are issued;
 // the serving kernel keeps its code and schedule.
-#include "fused_chain.cuh"
 #include "fused_chain_wgmma.cuh"
-
-using namespace fused_chain;
 
 namespace {
 
@@ -82,191 +94,12 @@ __device__ __forceinline__ uint32_t mask_stream(uint32_t seed, int p,
                    static_cast<uint32_t>(key) * 0x85EBCA6Bu);
 }
 
-// The seeds of a tile's rows. A launch without a table draws every row
-// with `seed` at its global row; with one, a tile inside one seed group
-// draws with that group's seed at the rows' places in their group
-// (per_row false), and a tile that spans groups looks each row's seed up
-// (per_row true). rows past `valid` take the last valid row's seed.
-struct TileSeeds {
-  const uint32_t* seeds;   // the table, or null
-  uint32_t rows_per_seed;
-  uint32_t first;          // global row of the tile's first row
-  int valid;
-  bool per_row;
-  uint32_t seed;           // the tile's seed when !per_row
-  uint32_t hash_row0;      // hash row of the tile's first row when !per_row
-
-  TileSeeds() = default;
-  __device__ __forceinline__ TileSeeds(const uint32_t* table, uint32_t rps,
-                                       uint32_t call_seed, uint32_t row,
-                                       int rows)
-      : seeds(table), rows_per_seed(rps), first(row), valid(rows),
-        per_row(false), seed(call_seed), hash_row0(row) {
-    if (table == nullptr || rows <= 0) return;
-    const uint32_t g = row / rps;
-    per_row = g != (row + static_cast<uint32_t>(rows - 1)) / rps;
-    seed = __ldg(table + g);
-    hash_row0 = row - g * rps;
-  }
-  // (stream word, hash row) of tile row r for one Dropout in one sample
-  __device__ __forceinline__ uint2 row_stream(int r, int p, int key) const {
-    const uint32_t row = first + static_cast<uint32_t>(min(r, valid - 1));
-    const uint32_t g = row / rows_per_seed;
-    return make_uint2(mask_stream(__ldg(seeds + g), p, key),
-                      row - g * rows_per_seed);
-  }
-};
-
-// Multiplies a value by its keep mask (scale or 0) for one Dropout in one
-// sample; the identity when inactive (pass 0, or no Dropout).
-struct DropMask {
-  bool active;
-  uint32_t stream;  // lowbias32(lowbias32(seed + sample*A) + key*B)
-  uint32_t row0;    // hash row of the tile's first row (row_base added)
-  uint32_t threshold;
-  float scale;
-
-  __device__ __forceinline__ float operator()(int r, int col, float v) const {
-    if (!active) return v;
-    const uint32_t bits =
-        lowbias32(stream + (row0 + static_cast<uint32_t>(r)) * 0xC2B2AE35u +
-                  static_cast<uint32_t>(col) * 0x27D4EB2Fu);
-    return v * ((bits >> 8) < threshold ? scale : 0.f);
-  }
-};
-
-// DropMask for a tile whose rows draw with several seeds of a table: each
-// value hashes its own row's stream word.
-struct RowDropMask {
-  bool active;
-  int p, key;
-  TileSeeds rows;
-  uint32_t threshold;
-  float scale;
-
-  __device__ __forceinline__ float operator()(int r, int col, float v) const {
-    if (!active) return v;
-    const uint2 sr = rows.row_stream(r, p, key);
-    const uint32_t bits = lowbias32(sr.x + sr.y * 0xC2B2AE35u +
-                                    static_cast<uint32_t>(col) * 0x27D4EB2Fu);
-    return v * ((bits >> 8) < threshold ? scale : 0.f);
-  }
-};
-
-// The 1 + S passes over one tile and its statistics; mask_for(p, l) gives
-// the mask before Linear l in pass p.
-template <class MaskFor>
-__device__ __forceinline__ void mc_tile(float* smem, const float* x_tile,
-                                        int d, int valid, long long row0,
-                                        const float* w_all,
-                                        const float* b_all, int L,
-                                        const int* relu, int S, int out_dim,
-                                        float* mean, float* std,
-                                        const MaskFor& mask_for_pass) {
-  float* act0 = smem;
-  float* act1 = act0 + kWidth * kStride;
-  float* sw = act1 + kWidth * kStride;
-  float* sc = sw + 2 * kChunk * kWidth;
-  float* s1 = sc + kTileRows * out_dim;
-  float* s2 = s1 + kTileRows * out_dim;
-  const float* w_hidden = w_all + static_cast<size_t>(d) * kWidth;
-  const Identity none;
-
-  for (int p = 0; p <= S; ++p) {
-    const auto mask_for = [&](int l) { return mask_for_pass(p, l); };
-    __syncthreads();  // the previous pass's last layer may still read act0
-    float* in = act0;
-    float* out = act1;
-    for (int l = 0; l + 1 < L; ++l) {
-      const float* b = b_all + static_cast<size_t>(l) * kWidth;
-      const bool act = __ldg(relu + l) != 0;
-      const auto next = mask_for(l + 1);
-      if (l == 0) {
-        dense_layer<true>(in, out, sw, w_all, b, d, act, x_tile, valid,
-                          mask_for(0), next);
-      } else {
-        dense_layer<false>(in, out, sw,
-                           w_hidden + static_cast<size_t>(l - 1) * kWidth * kWidth,
-                           b, kWidth, act, nullptr, valid, none, next);
-      }
-      float* t = in;
-      in = out;
-      out = t;
-    }
-    __syncthreads();  // the last epilogue's stores must land before the reads
-    const int l = L - 1;
-    const float* b = b_all + static_cast<size_t>(l) * kWidth;
-    const bool act = __ldg(relu + l) != 0;
-    if (l == 0) {  // one Linear: read x straight from device memory
-      last_layer_stats(x_tile, 1, d, valid, w_all, b, d, act, out_dim, p == 0,
-                       sc, s1, s2, mask_for(0));
-    } else {
-      last_layer_stats(in, kStride, 1, valid,
-                       w_hidden + static_cast<size_t>(l - 1) * kWidth * kWidth,
-                       b, kWidth, act, out_dim, p == 0, sc, s1, s2, none);
-    }
-  }
-  write_stats(sc, s1, s2, S, valid, row0, out_dim, mean, std);
-}
-
-// w_all: layer 0 as (d, 128), then layers 1..L-1 as (128, 128); b_all:
-// (L, 128). relu[l] != 0: ReLU after layer l. thresh[l] >= 0: a Dropout
-// with that keep threshold, scale[l] = 1/keep and module index key[l]
-// comes before Linear l. seeds: the seed table (rows_per_seed rows a
-// seed), or null for `seed` on every row.
-__global__ void __launch_bounds__(kThreads, 2)
-    fused_mc_dropout_kernel(const float* __restrict__ x, long long B, int d,
-                            const float* __restrict__ w_all,
-                            const float* __restrict__ b_all, int L,
-                            const int* __restrict__ relu,
-                            const int* __restrict__ thresh,
-                            const float* __restrict__ scale,
-                            const int* __restrict__ key, int S, uint32_t seed,
-                            uint32_t row_base,
-                            const uint32_t* __restrict__ seeds,
-                            uint32_t rows_per_seed, int out_dim,
-                            float* __restrict__ mean,
-                            float* __restrict__ std) {
-  extern __shared__ __align__(16) float smem[];
-  const long long row0 = static_cast<long long>(blockIdx.x) * kTileRows;
-  const int valid = static_cast<int>(min(static_cast<long long>(kTileRows), B - row0));
-  const float* x_tile = x + row0 * d;
-  const TileSeeds rows(seeds, rows_per_seed, seed,
-                       static_cast<uint32_t>(row0) + row_base, valid);
-  if (rows.per_row) {
-    mc_tile(smem, x_tile, d, valid, row0, w_all, b_all, L, relu, S, out_dim,
-            mean, std, [&](int p, int l) {
-              RowDropMask m;
-              const int t = __ldg(thresh + l);
-              m.active = p > 0 && t >= 0;
-              m.p = p;
-              m.key = __ldg(key + l);
-              m.rows = rows;
-              m.threshold = static_cast<uint32_t>(t);
-              m.scale = __ldg(scale + l);
-              return m;
-            });
-    return;
-  }
-  mc_tile(smem, x_tile, d, valid, row0, w_all, b_all, L, relu, S, out_dim,
-          mean, std, [&](int p, int l) {
-            DropMask m;
-            const int t = __ldg(thresh + l);
-            m.active = p > 0 && t >= 0;
-            m.threshold = static_cast<uint32_t>(t);
-            m.scale = __ldg(scale + l);
-            m.row0 = rows.hash_row0;
-            m.stream = mask_stream(rows.seed, p, __ldg(key + l));
-            return m;
-          });
-}
-
 namespace fw = fused_chain_wgmma;
 
 // One Dropout's mask in one sample, for a thread's two rows (r0, r0 + 8 of
 // the tile): bq[h] = stream + row term + column 2 q's term, so that value
 // (h, column 2 q + o) keeps when the top 24 bits of lowbias32(bq[h] +
-// o * 0x27D4EB2F) fall below the threshold, as DropMask's.
+// o * 0x27D4EB2F) fall below the threshold, as the plain version's.
 struct Drop {
   bool active;
   uint32_t threshold;
@@ -381,6 +214,20 @@ __device__ __forceinline__ void mask_epilogue(const float (&acc)[64],
     fw::epilogue<false, true>(acc, bias, relu, keep, m.scale, t, a);
 }
 
+// The fp32 kernel's epilogue: an inactive mask as keep bits of all ones
+// and a scale of 1 (the same values; fw::epilogue_tf32).
+__device__ __forceinline__ void mask_epilogue_tf32(const float (&acc)[64],
+                                                   const float* bias,
+                                                   bool relu, const Drop& m,
+                                                   const uint32_t (&keep)[2],
+                                                   const fw::Thread& t,
+                                                   uint32_t (&hi)[16][4],
+                                                   uint32_t (&lo)[16][4]) {
+  const uint32_t k[2] = {m.active ? keep[0] : ~0u, m.active ? keep[1] : ~0u};
+  fw::epilogue_tf32(acc, bias, fw::relu_floor(relu), k,
+                    m.active ? m.scale : 1.f, t, hi, lo);
+}
+
 // The bf16 form's body. image: the chain packed by ops/fused_eval_chain.py
 // (chain_image); b_all (L, 128) fp32; relu, thresh, scale, key as for the
 // fp32 kernel; lay: the launch layout (eval_layout). kTable: the masks
@@ -485,6 +332,104 @@ __device__ __forceinline__ void mc_bf16_body(
   STAMP_END();
 }
 
+// The fp32 kernel (3xTF32; fused_chain_wgmma.cuh's fp32 section). image:
+// the chain's 3xTF32 image (chain_image of fp32 weights); b_all (L, 128);
+// relu, thresh, scale, key as for the bf16 form; lay: the launch layout
+// (eval_layout(..., fp32=True)): clusters of kGroups blocks, block `rank`
+// of a cluster running group `rank` of the samples of each of its
+// warpgroups' tiles.
+__global__ void __launch_bounds__(2 * fw::kWgThreads, 1)
+    fused_mc_dropout_kernel(
+        const float* __restrict__ x, long long B, int d,
+        const unsigned char* __restrict__ image,
+        const float* __restrict__ b_all, int L, const int* __restrict__ relu,
+        const int* __restrict__ thresh, const float* __restrict__ scale,
+        const int* __restrict__ key, int S, uint32_t seed, uint32_t row_base,
+        const uint32_t* __restrict__ seeds, uint32_t rows_per_seed,
+        int out_dim, float* __restrict__ mean, float* __restrict__ std,
+        fw::EnsembleLayout lay) {
+  extern __shared__ __align__(128) unsigned char smem_tf[];
+  const fw::Chain32 chain(d, L, lay.base.out_groups);
+  fw::Ring ring(smem_tf, lay.base);
+  const int rank = static_cast<int>(fw::cluster_rank());
+  const int wg = threadIdx.x / fw::kWgThreads;
+  const fw::Tiles tiles(B, lay.base, wg,
+                        static_cast<int>(gridDim.x) / fw::kGroups,
+                        static_cast<int>(blockIdx.x) / fw::kGroups);
+  const int passes = fw::group_size(S, rank);
+  const int first = fw::group_first(S, rank);
+  if (threadIdx.x == 0) {
+    fw::Exchange::init(smem_tf, lay);
+    ring.init(lay.base.warpgroups, image, chain,
+              static_cast<uint32_t>(tiles.rounds) * passes);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  fw::cluster_sync();   // every block's barriers are set before a peer's use
+  if (passes > 0) {
+    STAMP_BEGIN(true, 0);
+    const fw::Thread t(threadIdx.x);
+    fw::Exchange ex(smem_tf, lay, wg, out_dim);
+    const int groups = lay.base.out_groups;
+    float4* st = reinterpret_cast<float4*>(smem_tf + lay.base.smem_stats) +
+                 (wg * groups * 3) * fw::kWgThreads + t.lt;
+    const int last = L - 1;
+    const float* b_last = b_all + static_cast<size_t>(last) * fw::kWidth;
+    const bool relu_last = __ldg(relu + last) != 0;
+    float acc[64], acc_last[4];   // written by each layer's first product
+    uint32_t hi[16][4], lo[16][4];
+    for (int r = 0; r < tiles.rounds; ++r) {
+      // every warpgroup takes every round's blocks, past the last tile as
+      // a tile of no rows
+      const int tile = tiles.tile<true>(r);
+      const long long row0 = static_cast<long long>(tile) * fw::kRows;
+      const int valid = tiles.valid(tile, B);
+      const float* x_tile = x + (valid > 0 ? row0 * d : 0);
+      const uint32_t first_row = static_cast<uint32_t>(row0) + row_base;
+      const auto drop = [&](int p, int l) {
+        return drop_for<true>(p, l, seed, seeds, rows_per_seed, first_row,
+                              valid, thresh, scale, key, t);
+      };
+      for (int i = 0; i < passes; ++i) {
+        const int p = first + i + 1;   // pass p draws sample p - 1
+        const Drop m0 = drop(p, 0);
+        if (L == 1) {   // one Linear: the last layer straight from x
+          for (int g = 0; g < groups; ++g) {
+            fw::x_group_tf32(acc_last, ring, chain, x_tile, d, valid, t, m0);
+            fw::stats_update(acc_last, b_last, relu_last, g, t, i == 0, st);
+          }
+          continue;
+        }
+        // each layer's mask for the next Linear is drawn while the layer's
+        // last products fly, not held through the ring's waits (the
+        // registers run at the cap)
+        Drop m;
+        uint32_t keep[2] = {0u, 0u};
+        fw::x_layer_tf32(acc, ring, chain, x_tile, d, valid, t, m0, [&] {
+          m = drop(p, 1);
+          if (m.active) keep_words(m, keep);
+        });
+        mask_epilogue_tf32(acc, b_all, __ldg(relu) != 0, m, keep, t, hi, lo);
+        for (int l = 1; l < last; ++l) {
+          fw::hidden_tf32(acc, hi, lo, ring, t, [&] {
+            m = drop(p, l + 1);
+            if (m.active) keep_words(m, keep);
+          });
+          mask_epilogue_tf32(acc, b_all + static_cast<size_t>(l) * fw::kWidth,
+                             __ldg(relu + l) != 0, m, keep, t, hi, lo);
+        }
+        for (int g = 0; g < groups; ++g) {
+          fw::last_group_tf32(acc_last, hi, lo, ring, t);
+          fw::stats_update(acc_last, b_last, relu_last, g, t, i == 0, st);
+        }
+      }
+      fw::merge_groups(ex, st, groups, S, rank, static_cast<uint32_t>(r), t,
+                       valid, row0, out_dim, mean, std);
+    }
+    STAMP_END();
+  }
+  fw::cluster_sync();   // no block leaves while a peer may still reach into it
+}
+
 #define MC_BF16_PARAMS                                                       \
   const float* __restrict__ x, long long B, int d,                           \
       const unsigned char* __restrict__ image,                               \
@@ -518,31 +463,35 @@ extern "C" {
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success). The caller
 // checks d >= 1, 1 <= out_dim <= 128, every hidden width <= 128 (zero-padded
-// to 128 in w_all/b_all), L >= 1, S >= 1, B >= 1, fp32 contiguous device
-// buffers, relu/thresh/key as L int32 and scale as L float32 values on the
-// device, and allocates mean/std as (B, out_dim). row_base is the global
-// index of x's first row in the masks' hash. seeds: null, or a device table
-// of uint32 seeds, one for each rows_per_seed (>= 1) global rows, that
-// covers every row of the launch.
+// to 128), L >= 1, S >= 1, B >= 1, fp32 contiguous device buffers,
+// relu/thresh/key as L int32 and scale as L float32 values on the device,
+// and allocates mean/std as (B, out_dim). image: the chain's 3xTF32 image
+// (ops/fused_eval_chain.py chain_image of the fp32 weights); b_all (L, 128);
+// layout: the launch layout (eval_layout(..., fp32=True), ENSEMBLE_FIELDS)
+// as host ints. row_base is the global index of x's first row in the
+// masks' hash. seeds: null, or a device table of uint32 seeds, one for each
+// rows_per_seed (>= 1) global rows, that covers every row of the launch.
 int nnueehcs_fused_mc_dropout_f32(const float* x, long long B, int d,
-                                  const float* w_all, const float* b_all,
-                                  int L, const int* relu, const int* thresh,
-                                  const float* scale, const int* key, int S,
-                                  uint32_t seed, uint32_t row_base,
-                                  const uint32_t* seeds,
+                                  const unsigned char* image,
+                                  const float* b_all, int L, const int* relu,
+                                  const int* thresh, const float* scale,
+                                  const int* key, int S, uint32_t seed,
+                                  uint32_t row_base, const uint32_t* seeds,
                                   uint32_t rows_per_seed, int out_dim,
-                                  float* mean, float* std, void* stream) {
-  const size_t smem = smem_bytes(out_dim);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mc_dropout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (B + kTileRows - 1) / kTileRows;
-  fused_mc_dropout_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      x, B, d, w_all, b_all, L, relu, thresh, scale, key, S, seed, row_base,
-      seeds, rows_per_seed, out_dim, mean, std);
-  return static_cast<int>(cudaGetLastError());
+                                  float* mean, float* std, const int* layout,
+                                  void* stream) {
+  const fw::EnsembleLayout lay = fw::EnsembleLayout::from(layout);
+  return static_cast<int>(fw::launch_cluster(
+      fused_mc_dropout_kernel, lay, static_cast<cudaStream_t>(stream), x, B,
+      d, image, b_all, L, relu, thresh, scale, key, S, seed, row_base, seeds,
+      rows_per_seed, out_dim, mean, std, lay));
+}
+
+// The clusters of the fp32 kernel at the layout `layout` that the card runs
+// at once, or minus a cudaError_t.
+int nnueehcs_fused_mc_dropout_f32_clusters(const int* layout) {
+  return fw::max_clusters(fused_mc_dropout_kernel,
+                          fw::EnsembleLayout::from(layout));
 }
 
 // The bf16 form: as nnueehcs_fused_mc_dropout_f32 with the chain as its

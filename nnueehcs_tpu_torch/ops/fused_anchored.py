@@ -22,6 +22,11 @@ anchors, the fp32 ``W_top - W_bot``), and ``h = u + v_j`` is rounded only
 at the next dot, as every later activation is.
 ``fused_anchored_stats.launches`` counts the fp32 kernel's launches,
 ``.launches_bf16`` the bf16 form's.
+
+The fp32 kernel runs its products as 3xTF32 on the tensor cores and splits
+a tile's anchors into ``fused_eval_chain.GROUPS`` groups, each shifted by
+its own first anchor and merged by Chan's formula in group order; its
+answers differ from the plain version's by round-off only.
 """
 from __future__ import annotations
 
@@ -149,18 +154,16 @@ def fused_anchored_stats(aw: AnchoredWeights, x, anchors, n_anchors=None):
     bf16 = aw.compute_dtype == torch.bfloat16
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        args = [x.data_ptr(), rows, aw.in_dim, aw.w_all.data_ptr(),
-                aw.b_all.data_ptr(), aw.num_layers, aw.relu_flags.data_ptr(),
-                v.data_ptr(), v.shape[0], aw.out_dim, mean.data_ptr(),
-                std.data_ptr()]
-        if bf16:
-            # the bf16 form takes the chain as its image and the launch
-            # layout of .fused_eval_chain
-            image, layout = launch_args('anchored', aw, rows, x.device)
-            args[3] = image.data_ptr()
-            err = lib.nnueehcs_fused_anchored_bf16(*args, layout, stream)
-        else:
-            err = lib.nnueehcs_fused_anchored_f32(*args, stream)
+        # both forms take the chain as its image (bf16, or fp32's 3xTF32
+        # hi and lo parts) and the launch layout of .fused_eval_chain
+        image, layout = launch_args('anchored', aw, rows, x.device)
+        entry = lib.nnueehcs_fused_anchored_bf16 if bf16 else \
+            lib.nnueehcs_fused_anchored_f32
+        err = entry(x.data_ptr(), rows, aw.in_dim, image.data_ptr(),
+                    aw.b_all.data_ptr(), aw.num_layers,
+                    aw.relu_flags.data_ptr(), v.data_ptr(), v.shape[0],
+                    aw.out_dim, mean.data_ptr(), std.data_ptr(), layout,
+                    stream)
     if err != 0:
         raise RuntimeError(f'fused anchored kernel launch failed: CUDA error '
                            f'{err}')

@@ -1,6 +1,7 @@
-"""The launch layout and the weight image of the bf16 eval kernels 1b, 2b
-and 5b (``csrc/fused_chain_wgmma.cuh``): the one place that decides, from
-the weights' shapes, how a chain runs on the card.
+"""The launch layout and the weight image of the eval kernels on Hopper's
+warpgroup products (``csrc/fused_chain_wgmma.cuh``): the bf16 kernels 1b,
+2b and 5b and the fp32 kernels 2 and 5 (3xTF32). The one place that
+decides, from the weights' shapes, how a chain runs on the card.
 
 The kernels keep a network's bf16 chain in shared memory as an *image*:
 layer 0's ``d`` input rows rounded up to a multiple of 16 and cut into
@@ -34,6 +35,30 @@ of a tile, one group of 8 columns (2 KB) at a time, into its ring of
 order. The grid is as many clusters as the card runs at once
 (``cudaOccupancyMaxActiveClusters``, asked through the library at launch),
 no more than the tiles fill.
+
+The fp32 kernels 2 and 5 run their products as 3xTF32 (``a_hi b_hi +
+a_hi b_lo + a_lo b_hi``, each term a TF32 ``wgmma``, summed in fp32). Their
+image (:func:`chain_image` of fp32 weights) holds each weight twice, ``W_hi
+= tf32(W)`` and ``W_lo = tf32(W - W_hi)`` (round to nearest, ties away, as
+``cvt.rna.tf32.f32``), cut into blocks of at most ``TF32_ROWS`` input rows
+(:func:`tf32_blocks`): layer 0's ``d`` rows rounded up to 8, 4 blocks of
+each hidden layer, and the last layer per group of 8 output columns (a
+one-Linear chain: layer 0 per column group). A block of ``R`` rows and ``N``
+columns is its hi image then its lo image, each storing logical row ``k``,
+column ``n`` at float ``((n // 8) * (R // 4) + k // 4) * 32 + (n % 8) * 4 + k
+% 4`` (8 x 4 core matrices, leading byte offset 128, stride byte offset
+``32 R``). Logical row ``k`` of each 8 is weight row ``TF32_PERM[k % 8]``:
+the TF32 A fragment holds inputs ``q`` and ``q + 4`` of each 8 where the
+fp32 accumulator of the layer before holds columns ``2 q`` and ``2 q + 1``,
+so permuting the weight rows lets a pass keep its activations in registers.
+Every image streams through a ring of ``ring`` 32 KB slots (the flagship's
+hi and lo images are 656 KB) into a block's one or two consumer
+warpgroups, each on its own tile, all through the same blocks; the first
+thread of each warpgroup is also a producer. A tile's passes (samples,
+anchors) are split into ``GROUPS`` groups, one for each block of a
+thread-block cluster of ``GROUPS`` blocks;
+each group's shifted sums reach the leader block through its exchange
+rings, which merges them in group order by Chan's formula.
 """
 from __future__ import annotations
 
@@ -73,6 +98,17 @@ def exchange_slot_bytes(out_dim: int) -> int:
     real columns 2 q, 2 q + 1 of a group of 8."""
     lanes = 4 if out_dim >= 8 else (out_dim + 1) // 2
     return 32 * lanes * 16
+# the fp32 kernels (3xTF32): input rows of an image block; groups of a
+# tile's passes, one a block of a cluster (a constant of the kernels,
+# kGroups); ring slots tried, most first; the weight row at each logical
+# row of 8 (the TF32 A fragment's inputs q, q + 4 are columns 2 q, 2 q + 1
+# of the accumulator before)
+TF32_ROWS = 32
+GROUPS = 8
+TF32_RING = (6, 5, 4, 3, 2)
+TF32_MIN_RING_2 = 3          # the fewest slots two warpgroups share
+TF32_STREAM_BYTES = 64       # the producers' state (Stream), at the end
+TF32_PERM = (0, 2, 4, 6, 1, 3, 5, 7)
 # the Layout struct of csrc/fused_chain_wgmma.cuh, in its order, then the
 # ensemble's (EnsembleLayout)
 LAYOUT_FIELDS = ('warpgroups', 'ring', 'out_groups', 'image_bytes',
@@ -104,6 +140,61 @@ def image_bytes(in_dim: int, num_layers: int, out_dim: int) -> int:
     return sum(2 * rows * cols
                for _, _, rows, cols in chain_blocks(in_dim, num_layers,
                                                     out_dim))
+
+
+def tf32_blocks(in_dim: int, num_layers: int, out_dim: int):
+    """``(layer, first input row, rows, first column, columns)`` of each
+    block of an fp32 image, in image order (``Chain32`` of
+    csrc/fused_chain_wgmma.cuh)."""
+    d8 = _up(in_dim, 8)
+    groups = -(-out_dim // 8)
+    blocks = []
+
+    def rows_of(layer, k, c0, cols):
+        for k0 in range(0, k, TF32_ROWS):
+            blocks.append((layer, k0, min(TF32_ROWS, k - k0), c0, cols))
+    if num_layers == 1:
+        for g in range(groups):
+            rows_of(0, d8, 8 * g, 8)
+        return blocks
+    rows_of(0, d8, 0, WIDTH)
+    for layer in range(1, num_layers - 1):
+        rows_of(layer, WIDTH, 0, WIDTH)
+    for g in range(groups):
+        rows_of(num_layers - 1, WIDTH, 8 * g, 8)
+    return blocks
+
+
+def tf32_image_bytes(in_dim: int, num_layers: int, out_dim: int) -> int:
+    return sum(8 * rows * cols for _, _, rows, _, cols in
+               tf32_blocks(in_dim, num_layers, out_dim))
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32``: the low 13 bits zero."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    return torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(
+        torch.int32).view(torch.float32)
+
+
+def tf32_split(w: torch.Tensor):
+    """``(hi, lo)``: ``hi = tf32(w)``, ``lo = tf32(w - hi)``."""
+    hi = tf32_round(w)
+    return hi, tf32_round(w - hi)
+
+
+def _tf32_part(blk: torch.Tensor) -> torch.Tensor:
+    """A ``(rows, cols)`` block (rows a multiple of 8) in descriptor order,
+    its rows permuted by TF32_PERM in each 8: logical row ``8 a + 4 c + b``
+    is weight row ``8 a + 2 b + c``. Views only (no index tensor to copy to
+    the card, which would synchronise a fit that enqueues ahead of it)."""
+    rows, cols = blk.shape
+    logical = blk.reshape(rows // 8, 4, 2, cols).permute(0, 2, 1, 3)
+    # (rows, cols) -> [n // 8][k // 4][n % 8][k % 4]
+    return logical.reshape(rows // 4, 4, cols // 8, 8).permute(
+        2, 0, 3, 1).reshape(-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,9 +247,50 @@ def _carve(weights: int, warpgroups: int, out_groups: int, ring: int,
     return stats, exchange, bars, bars + 8 * count
 
 
+def _tf32_layout(kernel: str, in_dim: int, num_layers: int, out_dim: int,
+                 rows: int, sms: int, clusters: Optional[int]) -> EvalLayout:
+    """The fp32 kernels' layout (the same for 'mc' and 'anchored'): two
+    consumer warpgroups a block with a ring of at least TF32_MIN_RING_2
+    slots where that fits, else one; the ring with the most slots that fit
+    (TF32_RING), then the statistics, the exchange rings of the GROUPS - 1
+    peers with the most slots that fit up to one tile's sums, the barriers
+    and the producer's state (TF32_STREAM_BYTES); clusters of GROUPS
+    blocks, at most ``clusters`` (``sms // GROUPS`` when not given) and no
+    more than the tiles' warpgroups fill."""
+    out_groups = -(-out_dim // 8)
+    slot_bytes = exchange_slot_bytes(out_dim)
+    form = None
+    for wgs in (2, 1):
+        for ring in TF32_RING:
+            if wgs == 2 and ring < TF32_MIN_RING_2:
+                break
+            for slots in range(2 * out_groups, 0, -1):
+                carve = _carve(ring * SLOT_BYTES, wgs, out_groups, ring,
+                               GROUPS - 1, slots, slot_bytes)
+                if carve[-1] + TF32_STREAM_BYTES <= SMEM_LIMIT:
+                    form = (wgs, ring, slots, carve)
+                    break
+            if form:
+                break
+        if form:
+            break
+    wgs, ring, slots, (stats, exchange, bars, total) = form
+    tiles = -(-max(rows, 1) // 64)
+    units = sms // GROUPS if clusters is None else clusters
+    return EvalLayout(
+        warpgroups=wgs, ring=ring, out_groups=out_groups,
+        image_bytes=tf32_image_bytes(in_dim, num_layers, out_dim),
+        smem_stats=stats, smem_bars=bars,
+        smem_bytes=total + TF32_STREAM_BYTES,
+        grid=GROUPS * max(1, min(units, -(-tiles // wgs))),
+        threads=WG_THREADS * wgs, cluster=GROUPS, members=1, slots=slots,
+        smem_exchange=exchange)
+
+
 def eval_layout(kernel: str, in_dim: int, num_layers: int, out_dim: int,
                 rows: int, sms: int, members: int = 1,
-                clusters: Optional[int] = None) -> EvalLayout:
+                clusters: Optional[int] = None,
+                fp32: bool = False) -> EvalLayout:
     """The layout of ``kernel`` ('mc', 'anchored' or 'ensemble') for a
     chain of ``num_layers`` Linears from ``in_dim`` features to ``out_dim``
     outputs (hidden widths padded to 128) over ``rows`` rows on a card of
@@ -168,12 +300,17 @@ def eval_layout(kernel: str, in_dim: int, num_layers: int, out_dim: int,
     min(members, 8)`` blocks, each ring of the exchange with the most slots
     that fit up to two members' outputs (after the most warpgroups), and a
     grid of at most ``clusters`` clusters (the card's count at this layout;
-    ``sms // c`` when not given) and no more than the tiles fill."""
+    ``sms // c`` when not given) and no more than the tiles fill.
+    ``fp32``: the fp32 form of 'mc' or 'anchored' (:func:`_tf32_layout`,
+    ``clusters`` as for the ensemble)."""
     if not (1 <= out_dim <= WIDTH and in_dim >= 1 and num_layers >= 1
-            and members >= 1):
+            and members >= 1) or (fp32 and kernel not in ('mc', 'anchored')):
         raise ValueError(f'no eval layout for in_dim {in_dim}, '
                          f'{num_layers} layers, out_dim {out_dim}, '
-                         f'{members} members')
+                         f'{members} members, fp32 {fp32} {kernel}')
+    if fp32:
+        return _tf32_layout(kernel, in_dim, num_layers, out_dim, rows, sms,
+                            clusters)
     out_groups = -(-out_dim // 8)
     image = image_bytes(in_dim, num_layers, out_dim)
     cluster = min(members, MAX_CLUSTER) if kernel == 'ensemble' else 1
@@ -213,11 +350,22 @@ def eval_layout(kernel: str, in_dim: int, num_layers: int, out_dim: int,
 
 def chain_image(ws, out_dim: int, member: int = 0) -> torch.Tensor:
     """The image of member ``member`` of a folded chain: ``ws[l]`` is layer
-    l's bf16 weight, ``(M, K, 128)`` (``FusedWeights.ws``); returns the
-    packed bf16 bytes as a flat tensor on the weights' device."""
+    l's weight, ``(M, K, 128)`` (``FusedWeights.ws``), bf16 or fp32; returns
+    the packed bf16 values, or for fp32 weights the TF32 hi and lo images
+    of every block (:func:`tf32_blocks`), as a flat tensor on the weights'
+    device."""
     num_layers = len(ws)
     in_dim = ws[0].shape[-2]
     parts = []
+    if ws[0].dtype == torch.float32:
+        for layer, k0, rows, c0, cols in tf32_blocks(in_dim, num_layers,
+                                                     out_dim):
+            w = ws[layer][member]
+            blk = w.new_zeros((rows, cols))
+            src = w[k0:k0 + rows, c0:c0 + cols]
+            blk[:src.shape[0], :src.shape[1]] = src
+            parts += [_tf32_part(half) for half in tf32_split(blk)]
+        return torch.cat(parts).contiguous()
     for layer, k0, rows, cols in chain_blocks(in_dim, num_layers, out_dim):
         w = ws[layer][member]
         blk = w.new_zeros((rows, cols))
@@ -230,7 +378,7 @@ def chain_image(ws, out_dim: int, member: int = 0) -> torch.Tensor:
 
 
 def cached_image(fw) -> torch.Tensor:
-    """Every member's :func:`chain_image` of folded weights ``fw`` (bf16),
+    """Every member's :func:`chain_image` of folded weights ``fw``,
     member after member, computed once and kept on the weights object."""
     image = getattr(fw, '_wgmma_image', None)
     if image is None:
@@ -263,21 +411,30 @@ def _clusters(entry: str, form: tuple, index: int) -> int:
     return n
 
 
+# the library entries that count the clusters a kernel fits at a layout
+CLUSTER_ENTRIES = {
+    ('ensemble', False): 'nnueehcs_fused_ensemble_bf16_clusters',
+    ('probe', False): 'nnueehcs_packed_forward_bf16_clusters',
+    ('mc', True): 'nnueehcs_fused_mc_dropout_f32_clusters',
+    ('anchored', True): 'nnueehcs_fused_anchored_f32_clusters'}
+
+
 def launch_args(kernel: str, fw, rows: int, device, probe: bool = False):
     """``(image, layout ints)`` for launching ``kernel`` ('mc',
     'anchored' or 'ensemble'; ``probe``: the ensemble's packed probe) on
-    bf16 folded weights ``fw`` over ``rows`` rows on a CUDA ``device``: the
-    cached image and the :func:`eval_layout` of this call as a ctypes int
-    array, the ensemble's grid from the clusters its kernel fits."""
+    folded weights ``fw`` (bf16; fp32 for 'mc' and 'anchored', their 3xTF32
+    form) over ``rows`` rows on a CUDA ``device``: the cached image and the
+    :func:`eval_layout` of this call as a ctypes int array, a cluster
+    kernel's grid from the clusters it fits."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     members = fw.num_members if kernel == 'ensemble' else 1
+    fp32 = kernel != 'ensemble' and fw.compute_dtype == torch.float32
     layout = eval_layout(kernel, fw.in_dim, fw.num_layers, fw.out_dim, rows,
-                         _sms(index), members)
-    if kernel == 'ensemble':
-        entry = 'nnueehcs_packed_forward_bf16_clusters' if probe else \
-            'nnueehcs_fused_ensemble_bf16_clusters'
+                         _sms(index), members, fp32=fp32)
+    entry = CLUSTER_ENTRIES.get(('probe' if probe else kernel, fp32))
+    if entry is not None:
         clusters = _clusters(entry, tuple(layout.ints()), index)
         layout = eval_layout(kernel, fw.in_dim, fw.num_layers, fw.out_dim,
-                             rows, _sms(index), members, clusters)
+                             rows, _sms(index), members, clusters, fp32)
     return cached_image(fw), _ints(layout)

@@ -31,6 +31,12 @@ In bf16 (the weights' ``compute_dtype``, the JAX kernel's
 fp32 and the activation is rounded to bf16 only at the next dot; the
 dropout-free shift pass runs in bf16 too. ``fused_mc_forward.launches``
 counts the fp32 kernel's launches, ``.launches_bf16`` the bf16 form's.
+
+The fp32 kernel runs its products as 3xTF32 on the tensor cores and splits
+a tile's samples into ``fused_eval_chain.GROUPS`` groups, each shifted by
+its own first sample and merged by Chan's formula in group order; it has
+no dropout-free pass. Its answers differ from the plain version's by
+round-off only, within the tests' tolerances.
 """
 from __future__ import annotations
 
@@ -302,20 +308,18 @@ def fused_mc_forward(mw: McWeights, x, num_samples: int, seed: int,
         x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        args = [x.data_ptr(), rows, mw.in_dim, mw.w_all.data_ptr(),
-                mw.b_all.data_ptr(), mw.num_layers, mw.relu_flags.data_ptr(),
+        args = [x.data_ptr(), rows, mw.in_dim, None, mw.b_all.data_ptr(), mw.num_layers, mw.relu_flags.data_ptr(),
                 mw.drop_thresh.data_ptr(), mw.drop_scale.data_ptr(),
                 mw.drop_key.data_ptr(), num_samples, seed, row0,
                 None if table is None else table.data_ptr(), rows_per_seed,
                 mw.out_dim, mean.data_ptr(), std.data_ptr()]
-        if bf16:
-            # the bf16 form takes the chain as its image and the launch
-            # layout of .fused_eval_chain
-            image, layout = launch_args('mc', mw, rows, x.device)
-            args[3] = image.data_ptr()
-            err = lib.nnueehcs_fused_mc_dropout_bf16(*args, layout, stream)
-        else:
-            err = lib.nnueehcs_fused_mc_dropout_f32(*args, stream)
+        # both forms take the chain as its image (bf16, or fp32's 3xTF32
+        # hi and lo parts) and the launch layout of .fused_eval_chain
+        image, layout = launch_args('mc', mw, rows, x.device)
+        args[3] = image.data_ptr()
+        entry = lib.nnueehcs_fused_mc_dropout_bf16 if bf16 else \
+            lib.nnueehcs_fused_mc_dropout_f32
+        err = entry(*args, layout, stream)
     if err != 0:
         raise RuntimeError(f'fused MC-dropout kernel launch failed: CUDA '
                            f'error {err}')

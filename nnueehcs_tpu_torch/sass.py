@@ -1,9 +1,9 @@
 """Read the SASS of the port's kernel library (``cuobjdump -sass``, on a
 machine with the CUDA toolkit): the per-kernel listings that
 ``tools/compare_sass.py`` compares between two builds, and the checks
-``chip_smoke.py`` and ``tools/eval_chain_phases.py`` make of the bf16 eval
-kernels 1b, 2b and 5b (no spills, HGMMA instructions, the MC kernel's mask
-loop).
+``chip_smoke.py`` and ``tools/eval_chain_phases.py`` make of the eval
+kernels on wgmma, the bf16 1b, 2b and 5b and the fp32 (3xTF32) 2 and 5
+(no spills, HGMMA instructions, the MC kernels' mask loops).
 """
 from __future__ import annotations
 
@@ -32,6 +32,29 @@ MASK_LOOPS = {'fused_mc_dropout_bf16_kernel': 'mask_loop',
               'fused_mc_dropout_bf16_table_kernel': 'mask_loop_table'}
 # the template argument kRing of each form in the mangled name
 EVAL_FORMS = (('resident', 'ILb0E'), ('ring', 'ILb1E'))
+# the fp32 kernels 2 and 5 (3xTF32 on wgmma, one form each: the ring); the
+# MC kernel's mask loop is reported under its key, not held to the window
+TF32_KERNELS = ('fused_mc_dropout_kernel', 'fused_anchored_kernel')
+TF32_MASK_LOOP = 'mask_loop_tf32'
+
+
+def _gate(name, funcs, ptxas, kernel, tag=''):
+    """Registers, spills (which must be 0) and HGMMA instructions (which
+    must be there) of the one SASS function and ptxas entry whose names
+    hold ``kernel`` and ``tag``; raise where one does not hold."""
+    names = [n for n in funcs if kernel in n and tag in n]
+    regs = [v for k, v in ptxas.items() if kernel in k and tag in k]
+    if len(names) != 1 or len(regs) != 1:
+        raise RuntimeError(f'{name}: {len(names)} SASS functions, '
+                           f'{len(regs)} ptxas entries')
+    row = {k: regs[0].get(k) for k in ('registers', 'spill_store_bytes',
+                                      'spill_load_bytes')}
+    row['hgmma'] = sum('HGMMA' in t for _, t in funcs[names[0]])
+    if row['spill_store_bytes'] != 0 or row['spill_load_bytes'] != 0:
+        raise RuntimeError(f'{name} spills: {row}')
+    if row['hgmma'] == 0:
+        raise RuntimeError(f'{name}: no HGMMA in its SASS')
+    return row, names[0]
 
 
 def cuobjdump() -> str:
@@ -116,31 +139,25 @@ def loop_mix(instrs, marker):
 
 def eval_chain_rows(funcs, ptxas):
     """The bf16 eval kernels 1b, 2b (and 2b's seed-table kernel) and 5b in
-    both forms (resident, ring), from
+    both forms (resident, ring), and the fp32 kernels 2 and 5 (3xTF32), from
     the SASS ``funcs`` (:func:`parse_instructions`) and the ptxas report
     ``ptxas`` ({kernel: {'registers', 'spill_store_bytes', ...}}): their
     registers and spills, which must be 0, and their HGMMA (wgmma)
-    instructions, which must be there; and the MC kernels' mask loops, whose
-    instructions per hash (per lowbias32 multiply by HASH_MARKER) must lie
-    in MASK_LOOP_WINDOW. Raises RuntimeError where one does not hold."""
+    instructions, which must be there; and the bf16 MC kernels' mask loops,
+    whose instructions per hash (per lowbias32 multiply by HASH_MARKER) must
+    lie in MASK_LOOP_WINDOW (the fp32 MC kernel's is reported). Raises
+    RuntimeError where one does not hold."""
     out = {}
+    for kernel in TF32_KERNELS:
+        out[kernel], name = _gate(kernel, funcs, ptxas, kernel)
+        if kernel == 'fused_mc_dropout_kernel':
+            out[TF32_MASK_LOOP] = loop_mix(funcs[name], HASH_MARKER)
     for kernel in EVAL_KERNELS:
         for form, tag in EVAL_FORMS:
-            names = [n for n in funcs if kernel in n and tag in n]
-            regs = [v for k, v in ptxas.items() if kernel in k and tag in k]
-            if len(names) != 1 or len(regs) != 1:
-                raise RuntimeError(f'{kernel}<{form}>: {len(names)} SASS '
-                                   f'functions, {len(regs)} ptxas entries')
-            row = {k: regs[0].get(k) for k in ('registers', 'spill_store_bytes',
-                                              'spill_load_bytes')}
-            row['hgmma'] = sum('HGMMA' in t for _, t in funcs[names[0]])
-            if row['spill_store_bytes'] != 0 or row['spill_load_bytes'] != 0:
-                raise RuntimeError(f'{kernel}<{form}> spills: {row}')
-            if row['hgmma'] == 0:
-                raise RuntimeError(f'{kernel}<{form}>: no HGMMA in its SASS')
+            row, name = _gate(f'{kernel}<{form}>', funcs, ptxas, kernel, tag)
             out[f'{kernel}<{form}>'] = row
             if kernel in MASK_LOOPS and form == 'resident':
-                mask = loop_mix(funcs[names[0]], HASH_MARKER)
+                mask = loop_mix(funcs[name], HASH_MARKER)
                 if mask is None:
                     raise RuntimeError('no mask loop in the MC kernel SASS')
                 lo, hi = MASK_LOOP_WINDOW

@@ -12,9 +12,14 @@ since tests/conftest.py imports JAX):
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerances: mean 1e-5 absolute and relative; std 1e-3 relative, 1e-5
-absolute (fp32 sums taken in another order than cuBLAS takes them). The
+absolute (fp32 sums taken in another order than cuBLAS takes them; the
+fp32 MC-dropout and anchored kernels' 3xTF32 products and their groups'
+sums merged by Chan's formula). The
 MC-dropout kernel and its plain version draw the same hash masks for the
-same seed, so they are compared with the same tolerances. The bf16 forms
+same seed, so they are compared with the same tolerances. The fp32
+MC-dropout and anchored kernels also run at the edges of their tiles,
+groups (fewer samples or anchors than groups), inputs, outputs and depths,
+twice on the same rows bit for bit, and compile without spills. The bf16 forms
 (kernels 1, 2 and 5 and the packed probe) are held to their plain versions
 against the bf16-vs-fp32 gap on the same rows (``attrib.bf16_close``: the
 error's root mean square within 0.2 of the gap's, its max within the gap's
@@ -563,6 +568,125 @@ def test_bf16_eval_wgmma_kernels_give_the_same_bits_twice_on_card(card):
         torch.cuda.synchronize()
         for a, b in zip(first, again):
             assert torch.equal(a, b)
+
+
+# The fp32 MC-dropout and anchored kernels (2, 5: 3xTF32 wgmma products on
+# a chain streamed through a ring, a tile's passes split over the
+# ec.GROUPS blocks of a cluster and merged in its leader) at the edges of
+# their tiles, groups, inputs, outputs and depths, held to their plain
+# versions with the fp32 tolerances.
+TF32_MC_CASES = {
+    # name: (in_dim, width, hidden, out_dim, p, samples, rows, far)
+    'b1': (5, 128, 6, 1, 0.1, 128, 1, False),
+    'b63_out3': (5, 96, 1, 3, 0.3, 16, 63, False),
+    'b64_d37_out128': (37, 128, 6, 128, 0.1, 9, 64, False),
+    'b65_one_sample': (5, 40, 3, 1, 0.5, 1, 65, False),
+    'b128_two_samples': (5, 128, 6, 1, 0.1, 2, 128, False),
+    'b128_groups_less_one': (5, 128, 6, 9, 0.1, ec.GROUPS - 1, 128, False),
+    'b128_groups': (5, 128, 6, 1, 0.1, ec.GROUPS, 128, False),
+    'b12800_flagship': (5, 128, 6, 1, 0.1, 128, 12_800, False),
+    'b1000_129_samples': (5, 128, 6, 2, 0.1, 129, 1000, False),
+    'one_linear_d37_out128': (37, 37, 0, 128, 0.1, 3, 300, False),
+    'wide_input_200': (200, 128, 2, 1, 0.2, 9, 300, False),
+    'deep_12_linears': (5, 128, 11, 1, 0.1, 8, 1000, False),
+    'far_ood': (5, 128, 6, 1, 0.1, 32, 4096, True),
+}
+TF32_ANCHORED_CASES = {
+    # name: (in_dim, width, hidden, out_dim, anchors, rows, far)
+    'k1_b65': (5, 128, 6, 1, 1, 65, False),
+    'k2_b1': (5, 128, 6, 1, 2, 1, False),
+    'k7_b63_out3': (5, 64, 1, 3, ec.GROUPS - 1, 63, False),
+    'k8_b64': (5, 128, 6, 1, ec.GROUPS, 64, False),
+    'k9_b128_out9': (5, 128, 6, 9, ec.GROUPS + 1, 128, False),
+    'k229_b128': (5, 128, 6, 1, 229, 128, False),
+    'k229_b12800': (5, 128, 6, 1, 229, 12_800, False),
+    'k17_d37_out128': (37, 64, 1, 128, 17, 300, False),
+    'wide_input_100': (100, 128, 2, 1, 17, 129, False),
+    'deep_12_linears': (5, 128, 11, 1, 17, 1000, False),
+    'far_ood': (5, 128, 6, 1, 229, 4096, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(TF32_MC_CASES))
+def test_tf32_mc_kernel_matches_plain_on_card(card, case):
+    in_dim, width, hidden, out_dim, p, samples, rows, far = \
+        TF32_MC_CASES[case]
+    if hidden == 0:
+        _, mw = _one_linear_mc(card, in_dim, out_dim, p)
+    else:
+        mw = _mc_model(card, in_dim, width, hidden, out_dim, p,
+                       samples).mc_weights()
+    assert mw.compute_dtype == torch.float32
+    assert mw.num_layers == hidden + 1
+    x = _inputs(card, rows, in_dim, far)
+    before = (fused_mc_forward.launches, fused_mc_forward.launches_bf16)
+    mean, std = fused_mc_forward(mw, x, samples, 1234567)
+    torch.cuda.synchronize()
+    assert (fused_mc_forward.launches,
+            fused_mc_forward.launches_bf16) == (before[0] + 1, before[1])
+    ref_mean, ref_std = fused_mc_forward_plain(mw, x, samples, 1234567)
+    torch.testing.assert_close(mean, ref_mean, **TOL_MEAN)
+    torch.testing.assert_close(std, ref_std, **TOL_STD)
+    if samples == 1:
+        assert float(std.abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(TF32_ANCHORED_CASES))
+def test_tf32_anchored_kernel_matches_plain_on_card(card, case):
+    in_dim, width, hidden, out_dim, anchors, rows, far = \
+        TF32_ANCHORED_CASES[case]
+    m = _anchored_model(card, DeltaUQMLPModelBuilder, in_dim, width, hidden,
+                        out_dim, anchors)
+    aw = m.anchored_weights()
+    assert aw.compute_dtype == torch.float32
+    x = _inputs(card, rows, in_dim, far)
+    before = (fused_anchored_stats.launches,
+              fused_anchored_stats.launches_bf16)
+    mean, std = fused_anchored_stats(aw, x, m.anchors)
+    torch.cuda.synchronize()
+    assert (fused_anchored_stats.launches,
+            fused_anchored_stats.launches_bf16) == (before[0] + 1, before[1])
+    ref_mean, ref_std = fused_anchored_plain(aw, x, anchor_rows(aw, m.anchors))
+    torch.testing.assert_close(mean, ref_mean, **TOL_MEAN)
+    torch.testing.assert_close(std, ref_std, **TOL_STD)
+    if anchors == 1:
+        assert float(std.abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_tf32_kernels_give_the_same_bits_twice_on_card(card):
+    """Kernels 2 and 5 twice on the same rows, bit for bit: a race in the
+    ring or in the leader's merge would show here."""
+    mw = _mc_model(card, 5, 128, 6, 3, 0.1, 37).mc_weights()
+    m = _anchored_model(card, DeltaUQMLPModelBuilder, 5, 128, 6, 1, 229)
+    aw = m.anchored_weights()
+    x = _inputs(card, 20_000, 5, False)
+    for run in (lambda: fused_mc_forward(mw, x, 37, 99),
+                lambda: fused_anchored_stats(aw, x, m.anchors)):
+        first = [t.clone() for t in run()]
+        again = run()
+        torch.cuda.synchronize()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_tf32_kernels_compile_without_spills_and_with_hgmma(card):
+    """ptxas's report of the fp32 kernels 2 and 5: no spill, and HGMMA
+    (wgmma) instructions in their SASS (nnueehcs_tpu_torch.sass)."""
+    from chip_smoke import ptxas_report
+    from nnueehcs_tpu_torch.ops import _build
+    from nnueehcs_tpu_torch.sass import (TF32_KERNELS, dump,
+                                         eval_chain_rows, parse_instructions)
+    info = _build.build_info()
+    rows = eval_chain_rows(parse_instructions(dump(info.path)),
+                           ptxas_report(info.log))
+    for kernel in TF32_KERNELS:
+        assert rows[kernel]['spill_store_bytes'] == 0
+        assert rows[kernel]['spill_load_bytes'] == 0
+        assert rows[kernel]['hgmma'] > 0
 
 
 @pytest.mark.cuda

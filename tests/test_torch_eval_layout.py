@@ -1,4 +1,7 @@
 """The launch layout and weight image of the bf16 eval kernels 1b, 2b and 5b
+and of the fp32 kernels 2 and 5 (their 3xTF32 image: hi and lo parts, the
+K permutation, the blocks' offsets; their cluster layouts for every d and
+out_dim up to 128 and 2 to 8 Linears)
 (``ops/fused_eval_chain.py``), the one place that decides how a chain runs
 on the card: resident in shared memory or streamed through a ring, how many
 consumer warpgroups a block runs, where each weight block lies, and for the
@@ -12,6 +15,8 @@ import pytest
 import torch
 
 from nnueehcs_tpu_torch.ops import fused_eval_chain as ec
+from torch_tf32 import (TF32_RECONSTRUCTION, image_layers, read_tf32_block,
+                        rel_err, tf32_exact)
 
 SMS = 132
 IN_DIMS = (1, 5, 16, 17, 37, 128, 129, 200, 1000, 5000)
@@ -289,3 +294,186 @@ def test_ensemble_layout_ints_follow_the_kernel_struct():
     # the MC-dropout and anchored kernels read the Layout struct, its start
     mc = ec.eval_layout('mc', 5, 7, 1, 4096, SMS)
     assert (mc.cluster, mc.members, mc.slots) == (1, 1, 0)
+
+
+# the fp32 kernels 2 and 5 (3xTF32): the image holds W_hi = tf32(W) and
+# W_lo = tf32(W - W_hi) of every block; a tile's passes run over a cluster
+# of GROUPS blocks
+TF32_SHAPES = [(5, 7, 1), (37, 3, 3), (1, 1, 128), (200, 2, 9),
+               (300, 1, 5), (16, 12, 64), (128, 8, 128), (8, 2, 8)]
+
+
+def _fp32_ws(d, L, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn((1, d, 128), generator=gen)] + \
+        [torch.randn((1, 128, 128), generator=gen) for _ in range(L - 1)]
+
+
+def _padded(ws, layer, d, L, out):
+    """Layer ``layer`` of ``ws`` as the image's blocks hold it (K rounded
+    up to 8, the last layer's columns to a multiple of 8)."""
+    k = -(-d // 8) * 8 if layer == 0 else 128
+    n = -(-out // 8) * 8 if layer == L - 1 else 128
+    w = ws[layer][0]
+    full = w.new_zeros((k, n))
+    full[:w.shape[0], :min(n, w.shape[1])] = w[:, :n]
+    return full
+
+
+def _chain32_block(b, d, L, out):
+    """Chain32's rows, cols and offset of block b (csrc/fused_chain_wgmma.cuh),
+    transcribed."""
+    d8 = -(-d // 8) * 8
+    nb0 = -(-d8 // ec.TF32_ROWS)
+    k = b % nb0 if L == 1 else b
+    rows = min(32, d8 - 32 * k) if k < nb0 else 32
+    cols = 8 if L == 1 or b >= nb0 + 4 * (L - 2) else 128
+    if L == 1:
+        offset = (b // nb0) * d8 * 64 + (b % nb0) * 2048
+    elif b < nb0:
+        offset = b * 32768
+    elif b - nb0 < 4 * (L - 2):
+        offset = d8 * 1024 + (b - nb0) * 32768
+    else:
+        offset = d8 * 1024 + (L - 2) * 131072 + (b - nb0 - 4 * (L - 2)) * 2048
+    return rows, cols, offset
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    one = 1.0
+    half_ulp = 2.0 ** -11       # halfway between 1 and 1 + 2^-10
+    x = torch.tensor([one + half_ulp, -(one + half_ulp),
+                      one + half_ulp * 0.99, one + 3 * half_ulp, 0.0, -0.0,
+                      1e-30, 3.0e38])
+    got = ec.tf32_round(x)
+    want = torch.tensor([one + 2 * half_ulp, -(one + 2 * half_ulp), one,
+                         one + 4 * half_ulp, 0.0, -0.0,
+                         float(ec.tf32_round(torch.tensor([1e-30]))[0]),
+                         float(ec.tf32_round(torch.tensor([3.0e38]))[0])])
+    assert torch.equal(got, want)
+    assert torch.isfinite(got).all()
+    assert tf32_exact(got)
+
+
+@pytest.mark.parametrize('d,L,out', TF32_SHAPES)
+def test_tf32_image_parts_have_their_low_13_mantissa_bits_zero(d, L, out):
+    ws = _fp32_ws(d, L, d * 10 + L)
+    image = ec.chain_image(ws, out)
+    assert image.dtype == torch.float32
+    assert 4 * image.numel() == ec.tf32_image_bytes(d, L, out)
+    assert tf32_exact(image)
+    for layer, (hi, lo) in enumerate(image_layers(image, d, L, out)):
+        assert tf32_exact(hi) and tf32_exact(lo)
+        assert torch.equal(hi, ec.tf32_round(_padded(ws, layer, d, L, out)))
+
+
+@pytest.mark.parametrize('d,L,out', TF32_SHAPES)
+def test_tf32_hi_plus_lo_gives_the_weights_back(d, L, out):
+    ws = _fp32_ws(d, L, d * 10 + L + 1)
+    image = ec.chain_image(ws, out)
+    for layer, (hi, lo) in enumerate(image_layers(image, d, L, out)):
+        w = _padded(ws, layer, d, L, out)
+        assert rel_err(hi + lo, w) <= TF32_RECONSTRUCTION
+        assert torch.equal((w == 0), (hi + lo == 0))
+        # the split is exactly the host's: lo = tf32(w - hi)
+        assert torch.equal(lo, ec.tf32_round(w - hi))
+
+
+@pytest.mark.parametrize('d,L,out', TF32_SHAPES)
+def test_tf32_k_permutation_round_trips(d, L, out):
+    """Each block read back the way the descriptors address it, its
+    logical rows put back through TF32_PERM, is the block of the weights;
+    and TF32_PERM puts the A fragment's inputs q, q + 4 of each 8 on the
+    accumulator's columns 2 q, 2 q + 1."""
+    assert sorted(ec.TF32_PERM) == list(range(8))
+    for q in range(4):
+        assert ec.TF32_PERM[q] == 2 * q and ec.TF32_PERM[q + 4] == 2 * q + 1
+    ws = _fp32_ws(d, L, d * 10 + L + 2)
+    image = ec.chain_image(ws, out)
+    offset = 0
+    for b, (layer, k0, rows, c0, cols) in enumerate(ec.tf32_blocks(d, L,
+                                                                   out)):
+        assert (rows, cols, 4 * offset) == _chain32_block(b, d, L, out)
+        assert rows % 8 == 0 and rows <= ec.TF32_ROWS and cols in (8, 128)
+        assert 8 * rows * cols <= ec.SLOT_BYTES
+        w = _padded(ws, layer, d, L, out)[k0:k0 + rows, c0:c0 + cols]
+        hi = read_tf32_block(image, offset, rows, cols)
+        lo = read_tf32_block(image, offset + rows * cols, rows, cols)
+        assert torch.equal(hi, ec.tf32_round(w))
+        assert torch.equal(lo, ec.tf32_round(w - hi))
+        offset += 2 * rows * cols
+    assert 4 * offset == ec.tf32_image_bytes(d, L, out)
+
+
+@pytest.mark.parametrize('kernel', ['mc', 'anchored'])
+@pytest.mark.parametrize('L', range(2, 9))
+def test_every_tf32_layout_fits(kernel, L):
+    """d from 1 to 128, out_dim from 1 to 128: the fp32 form's layout fits
+    a block's shared memory and the portable cluster."""
+    for d in range(1, 129):
+        for out in range(1, 129):
+            lay = ec.eval_layout(kernel, d, L, out, 12_800, SMS, fp32=True)
+            wgs = lay.warpgroups
+            assert lay.smem_bytes <= ec.SMEM_LIMIT == 232_448
+            assert lay.cluster == ec.GROUPS <= ec.MAX_CLUSTER
+            assert wgs in (1, 2) and lay.members == 1
+            assert lay.threads == 128 * wgs and lay.slots >= 1
+            assert lay.ring >= (ec.TF32_MIN_RING_2 if wgs == 2 else 2)
+            assert lay.out_groups == -(-out // 8)
+            assert lay.smem_stats == lay.ring * ec.SLOT_BYTES
+            assert lay.smem_exchange == lay.smem_stats + \
+                wgs * lay.out_groups * ec.STAT_BYTES
+            assert lay.smem_bars >= lay.smem_exchange + wgs * (
+                ec.GROUPS - 1) * lay.slots * ec.exchange_slot_bytes(out)
+            assert lay.smem_bars % 8 == 0
+            assert lay.smem_bytes == lay.smem_bars + 8 * (
+                2 * lay.ring + wgs * ec.GROUPS * lay.slots) + \
+                ec.TF32_STREAM_BYTES
+            assert lay.image_bytes == ec.tf32_image_bytes(d, L, out)
+
+
+def test_one_linear_mc_has_a_tf32_layout():
+    for d in (1, 37, 128, 300):
+        for out in (1, 9, 128):
+            lay = ec.eval_layout('mc', d, 1, out, 64, SMS, fp32=True)
+            assert lay.smem_bytes <= ec.SMEM_LIMIT
+            assert lay.image_bytes == 8 * (-(-d // 8) * 8) * 8 * lay.out_groups
+
+
+@pytest.mark.parametrize('kernel', ['mc', 'anchored'])
+@pytest.mark.parametrize('rows', [1, 64, 65, 128, 4096, 12_800, 262_144])
+@pytest.mark.parametrize('clusters', [None, 1, 15])
+def test_tf32_grid_is_whole_clusters_no_more_than_the_tiles(kernel, rows,
+                                                            clusters):
+    lay = ec.eval_layout(kernel, 5, 7, 1, rows, SMS, clusters=clusters,
+                         fp32=True)
+    units = lay.grid // ec.GROUPS
+    assert lay.grid % ec.GROUPS == 0
+    assert 1 <= units <= min(-(-rows // (64 * lay.warpgroups)),
+                             SMS // ec.GROUPS if clusters is None
+                             else clusters)
+
+
+def test_flagship_tf32_layouts():
+    mc = ec.eval_layout('mc', 5, 7, 1, 262_144, SMS, fp32=True)
+    anchored = ec.eval_layout('anchored', 5, 7, 1, 65_536, SMS, fp32=True)
+    # layer 0 (8 rows), 5 hidden layers, the last layer's column group,
+    # each in hi and lo
+    assert mc.image_bytes == 8 * (8 * 128 + 5 * 128 * 128 + 128 * 8) \
+        == 671_744
+    # two warpgroups a block, each on its own tile, through one ring
+    assert (mc.warpgroups, mc.ring, mc.slots) == (2, 6, 2)
+    assert anchored == ec.eval_layout('mc', 5, 7, 1, 65_536, SMS, fp32=True)
+    assert mc.threads == anchored.threads == 256
+    assert mc.grid == anchored.grid == ec.GROUPS * (SMS // ec.GROUPS)
+    # 128 outputs' statistics leave room for one
+    wide = ec.eval_layout('mc', 5, 7, 128, 262_144, SMS, fp32=True)
+    assert (wide.warpgroups, wide.threads) == (1, 128)
+
+
+def test_bf16_layouts_are_unchanged_by_the_fp32_form():
+    for kernel in ('mc', 'anchored'):
+        assert ec.eval_layout(kernel, 5, 7, 1, 4096, SMS) == \
+            ec.eval_layout(kernel, 5, 7, 1, 4096, SMS, fp32=False)
+    with pytest.raises(ValueError):
+        ec.eval_layout('ensemble', 5, 7, 1, 4096, SMS, members=8, fp32=True)

@@ -66,7 +66,8 @@ def mask_loop(per_hash_extra=0, hashes=2):
 
 def eval_kernels(mc_body):
     """SASS ({name: [(address, text)]}) and a ptxas report of both forms of
-    kernels 2b and 5b, the MC kernel's resident form ``mc_body``."""
+    the bf16 eval kernels (the MC kernels' resident form ``mc_body``) and of
+    the fp32 kernels 2 and 5 (3xTF32, one form each)."""
     bodies = {}
     ptxas = {}
     for kernel in sass.EVAL_KERNELS:
@@ -78,6 +79,12 @@ def eval_kernels(mc_body):
                                   'EXIT'])
             ptxas[name] = {'registers': 168, 'spill_store_bytes': 0,
                            'spill_load_bytes': 0}
+    for kernel in sass.TF32_KERNELS:
+        name = f'_ZN12_GLOBAL__N_1{len(kernel)}{kernel}Ev'
+        bodies[name] = ['HGMMA.64x128x8.F32.TF32 R24, R104, gdesc[UR16], R24',
+                        'EXIT']
+        ptxas[name] = {'registers': 250, 'spill_store_bytes': 0,
+                       'spill_load_bytes': 0}
     return sass.parse_instructions(listing(bodies)), ptxas
 
 
@@ -127,16 +134,25 @@ def test_eval_chain_rows_reads_registers_hgmma_and_the_mask_loop():
         for form, _ in sass.EVAL_FORMS:
             assert rows[f'{kernel}<{form}>']['hgmma'] >= 1
             assert rows[f'{kernel}<{form}>']['spill_store_bytes'] == 0
+    for kernel in sass.TF32_KERNELS:
+        assert rows[kernel] == {'registers': 250, 'spill_store_bytes': 0,
+                                'spill_load_bytes': 0, 'hgmma': 1}
+    assert rows[sass.TF32_MASK_LOOP] is None     # no loop in this listing
 
 
 @pytest.mark.parametrize('fault', ['spill', 'no_hgmma', 'no_loop',
-                                   'loop_too_long', 'missing_form'])
+                                   'loop_too_long', 'missing_form',
+                                   'tf32_spill', 'tf32_no_hgmma',
+                                   'tf32_missing'])
 def test_eval_chain_rows_refuses(fault):
     body = mask_loop(per_hash_extra=37 if fault == 'loop_too_long' else 0)
     if fault == 'no_loop':
         body = [t for t in body if 'BRA' not in t]
     funcs, ptxas = eval_kernels(body)
     name = next(n for n in funcs if 'ILb1E' in n)
+    if fault.startswith('tf32_'):
+        name = next(n for n in funcs if sass.TF32_KERNELS[0] in n)
+        fault = fault[len('tf32_'):].replace('missing', 'missing_form')
     if fault == 'spill':
         ptxas[name]['spill_store_bytes'] = 8
     elif fault == 'no_hgmma':

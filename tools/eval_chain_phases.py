@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Split the bf16 eval kernels (1b, 2b and 5b) and the KDE kernel (4) into
-their phases on one card:
+"""Split the eval kernels on wgmma (the bf16 1b, 2b and 5b, the fp32 2 and
+5 on 3xTF32) and the KDE kernel (4) into their phases on one card:
 
     python3 tools/eval_chain_phases.py [--seed N]
 
@@ -12,7 +12,9 @@ warm up and once stamped at the flagship shape (5 inputs, 7 Linear layers
 128 wide, weights from ``--seed``; MC dropout: 262,144 rows x 128 samples,
 p = 0.1; Δ-UQ: 65,536 rows x 229 anchors; the 8-member ensemble: 262,144
 rows, stamped in block 0, its cluster's leader, and in block 1, a peer
-that sends its member to the leader; KDE: 262,144 queries x 16,384
+that sends its member to the leader; the fp32 kernels 2 and 5 at the same
+shapes, stamped in block 0, the leader that merges its cluster's groups,
+and in block 1, a peer that sends its group; KDE: 262,144 queries x 16,384
 references) and prints one JSON line per kernel: microseconds per phase of
 the stamped thread (clock sums scaled by the span's wall time), each
 phase's share, the span's wall time, and the wrapper's time by CUDA events
@@ -107,8 +109,10 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     x = torch.as_tensor(rng.normal(size=(ROWS, IN_DIM)), dtype=torch.float32,
                         device='cuda')
+    mw32 = mc.prepare_mc_weights(build_mc(args.seed).net)
     mw = in_bf16(build_mc(args.seed), mc.prepare_mc_weights)
     dq = build_anchored(DeltaUQMLPModelBuilder, args.seed)
+    aw32 = fa.prepare_fused_anchored(dq.net)
     aw = in_bf16(dq, fa.prepare_fused_anchored)
     xa = x[:ANCHORED_ROWS].contiguous()
     anchors = torch.as_tensor(dq.anchors, dtype=torch.float32, device='cuda')
@@ -124,6 +128,12 @@ def main(argv=None):
     def dq_launch():
         fa.fused_anchored_stats(aw, xa, anchors)
 
+    def mc32_launch():
+        mc.fused_mc_forward(mw32, x, MC_SAMPLES, 7)
+
+    def dq32_launch():
+        fa.fused_anchored_stats(aw32, xa, anchors)
+
     def ens_launch():
         fused_forward_prefolded(fw16, x)
 
@@ -131,7 +141,17 @@ def main(argv=None):
         kde_logpdf(x, corpus, h)
 
     ens_shape = {'rows': ROWS, 'members': fw16.num_members}
+    mc_shape = {'rows': ROWS, 'samples': MC_SAMPLES}
+    dq_shape = {'rows': ANCHORED_ROWS, 'anchors': anchors.shape[0]}
     for name, unit, launch, shape, block, names in (
+            ('fused_mc_dropout leader', 'fused_mc_dropout', mc32_launch,
+             mc_shape, 0, NAMES),
+            ('fused_mc_dropout peer', 'fused_mc_dropout', mc32_launch,
+             mc_shape, 1, NAMES),
+            ('fused_anchored leader', 'fused_anchored', dq32_launch,
+             dq_shape, 0, NAMES),
+            ('fused_anchored peer', 'fused_anchored', dq32_launch,
+             dq_shape, 1, NAMES),
             ('fused_mc_dropout_bf16', 'fused_mc_dropout', mc_launch,
              {'rows': ROWS, 'samples': MC_SAMPLES}, 0, NAMES),
             ('fused_anchored_bf16', 'fused_anchored', dq_launch,

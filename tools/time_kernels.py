@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time kernels 1b (the bf16 ensemble), 10b (its packed probe), 4 (KDE), 2
-and 2b (MC dropout, fp32 and bf16), 3 and 3b (a training epoch, fp32 and
-bf16-mixed) at the flagship shapes on one card, from the package of a
-given tree:
+and 2b (MC dropout, fp32 and bf16), 5 and 5b (anchored, fp32 and bf16), 3
+and 3b (a training epoch, fp32 and bf16-mixed) at the flagship shapes on
+one card, from the package of a given tree:
 
     python3 tools/time_kernels.py [--tree DIR] [--seed N]
 
@@ -15,7 +15,13 @@ call on one card. Shapes: the 8-member ensemble (5 inputs, 7 Linear layers
 probe on the same rows padded to 128 features, the KDE log density of
 262,144 queries under a 16,384 x 5 corpus, and MC dropout on the same
 262,144 rows with 128 samples (the flagship chain, rate 0.1, fp32 and
-bf16), and the training kernel on a flagship epoch of 1,000 steps of 128
+bf16), Δ-UQ's anchored pass on 65,536 rows with 229 anchors (the flagship
+chain, fp32 and bf16), kernels 2 and 5 also on 1, 128, 4,096 and 12,800
+rows (the validation pass's rows; kernel 2 there with its seed table, one
+seed a 128-row batch) beside their PyTorch yardsticks (kernel 2's GEMM-only
+reference, ``chip_smoke.mc_gemm_only``; kernel 5's ``addmm`` chain over the
+anchored rows, ``chip_smoke.anchored_library``), and the training kernel
+on a flagship epoch of 1,000 steps of 128
 rows (the 8-member ensemble, clip 5, lr 5e-5, Adam moments drawn from
 ``--seed``; kernel 3 also with its learning rate read from the card and
 with ``stop`` set, where the tree's ``fused_epoch`` takes them). Each
@@ -33,6 +39,9 @@ import argparse
 import json
 import os
 import sys
+
+VALIDATION_ROWS = 12_800        # the flagship trial's validation pass
+SMALL_ROWS = (1, 128, 4096, VALIDATION_ROWS)
 
 
 def main(argv=None):
@@ -73,6 +82,15 @@ def main(argv=None):
     h = bandwidth_value('silverman', cs.KDE_FIT_ROWS, cs.IN_DIM)
     mw = prepare_mc_weights(cs.build_mc(args.seed).net)
     mw16 = cs.in_bf16(cs.build_mc(args.seed), prepare_mc_weights)
+    from nnueehcs_tpu_torch.model_builder import DeltaUQMLPModelBuilder
+    from nnueehcs_tpu_torch.ops.fused_anchored import (
+        fused_anchored_stats, prepare_fused_anchored)
+    dq = cs.build_anchored(DeltaUQMLPModelBuilder, args.seed)
+    aw = prepare_fused_anchored(dq.net)
+    aw16 = cs.in_bf16(cs.build_anchored(DeltaUQMLPModelBuilder, args.seed),
+                      prepare_fused_anchored)
+    anchors = dq.anchors
+    xa = x[:cs.ANCHORED_ROWS].contiguous()
     from nnueehcs_tpu_torch.ops import fused_train as ft
     train = {}
     for bf16 in (False, True):
@@ -118,9 +136,37 @@ def main(argv=None):
              {'rows': cs.ROWS, 'samples': cs.MC_SAMPLES}),
             ('fused_mc_dropout_bf16',
              lambda: fused_mc_forward(mw16, x, cs.MC_SAMPLES, 7),
-             {'rows': cs.ROWS, 'samples': cs.MC_SAMPLES})]:
+             {'rows': cs.ROWS, 'samples': cs.MC_SAMPLES}),
+            ('fused_anchored',
+             lambda: fused_anchored_stats(aw, xa, anchors),
+             {'rows': cs.ANCHORED_ROWS, 'anchors': cs.ANCHORS}),
+            ('fused_anchored_bf16',
+             lambda: fused_anchored_stats(aw16, xa, anchors),
+             {'rows': cs.ANCHORED_ROWS, 'anchors': cs.ANCHORS})]:
         print(json.dumps({'kernel': name, 'tree': tree, **shape,
                           **event_ms(run), 'device': kind}), flush=True)
+    # kernels 2 and 5 at small requests and the validation pass, each
+    # beside its PyTorch yardstick on the same rows
+    batch = cs.TRAIN_BATCH
+    seeds = [(977 * b + 5) * 2654435761 % 2**32
+             for b in range(-(-max(SMALL_ROWS) // batch))]
+    for rows in SMALL_ROWS:
+        xs = x[:rows].contiguous()
+        table = {'seeds': seeds, 'rows_per_seed': batch} \
+            if rows == VALIDATION_ROWS else {}
+        for name, run, yardstick, shape in (
+                ('fused_mc_dropout',
+                 lambda: fused_mc_forward(mw, xs, cs.MC_SAMPLES, 7, **table),
+                 lambda: cs.mc_gemm_only(mw, xs, cs.MC_SAMPLES),
+                 {'samples': cs.MC_SAMPLES, 'seed_table': bool(table)}),
+                ('fused_anchored',
+                 lambda: fused_anchored_stats(aw, xs, anchors),
+                 lambda: cs.anchored_library(aw, xs, anchors),
+                 {'anchors': cs.ANCHORS})):
+            print(json.dumps({'kernel': name, 'tree': tree, 'rows': rows,
+                              **shape, **event_ms(run),
+                              'library_ms': event_ms(yardstick)['median_ms'],
+                              'device': kind}), flush=True)
     if args.ensemble_forms:
         from nnueehcs_tpu_torch.ops import fused_eval_chain as ec
         most = ec.MAX_WARPGROUPS['ensemble']
