@@ -29,8 +29,9 @@ bound, the attribution probe's one-block form of the same step and a
 single net's epoch. Last it runs the attribution entry point
 (``nnueehcs_tpu_torch.attrib``): both batteries of the CUDA probes of
 kernels 1 and 3 at the flagship shape (262,144 rows; 500 steps of batch
-128), every probe held to its plain version and every form of kernel 1's
-math to kernel 1 bit for bit before it is timed, kernel 3 held step by
+128), every probe held to its plain version and every form of the
+probes' FFMA math to the prod probe bit for bit (kernel 1 to its plain
+version) before it is timed, kernel 3 held step by
 step to its plain version at every batch of the batch scaling and timed
 beside its probe, and the training battery again for kernel 3's bf16
 form, with the serving and training phases checked to have launched no
@@ -345,6 +346,10 @@ BF16_CURVE_STEPS = 64
 ANCHORED_FIT_EPOCHS, ANCHORED_FIT_STEPS = 2, 250
 # the plain bf16 epoch (about 53 ms a step, host-bound) is timed on 20 steps
 PLAIN_BF16_STEPS = 20
+# kernel 1 (fp32) also at a request's and the validation pass's rows, and
+# at the member counts of the BO trials (bo_trial's 28, 3 and 15)
+ENSEMBLE_ROWS = (1, 128, 4096, 12_800)
+ENSEMBLE_MEMBERS = (3, 15, 28)
 KERNELS = [{
     'name': 'fused_ensemble',
     'route': 'cuda',
@@ -1510,11 +1515,11 @@ def validation_kernel(model):
 def validation_work(model, rows, card):
     """``bound(...)``'s arguments for one call of a model's validation
     kernel on ``rows`` rows, counted by pipe: the products over their peak
-    (bf16; the fp32 kernels 2 and 5 three TF32 products for each, at the
-    TF32 peak, half the bf16 one), the MC kernels' mask hashes on the
+    (bf16; the fp32 kernels 1, 2 and 5 three TF32 products for each, at
+    the TF32 peak, half the bf16 one), the MC kernels' mask hashes on the
     integer pipes, each input read and each output written once."""
     bf16 = model.net.compute_dtype == torch.bfloat16
-    tf32 = not bf16 and model.uq_method in ('mc_dropout', 'delta_uq')
+    tf32 = not bf16
     peak = card['peak_bf16'] / 2 if tf32 else \
         card['peak_bf16'] if bf16 else card['peak_flops']
     if model.uq_method == 'mc_dropout':
@@ -2856,7 +2861,7 @@ def main():
     check(all(cluster_kernels(ptxas, src) for src in ('fused_train',
                                                       'fused_train_bf16')),
           'ptxas reported no cluster kernel of the training sources')
-    eval_chain = eval_chain_sass(info.path, ptxas)
+    eval_chain = eval_chain_sass(info.path, ptxas, info.log)
     emit('build_eval_chain', **eval_chain)
     emit('build_kde', ptxas={k: v for k, v in ptxas.items() if 'kde' in k})
 
@@ -2872,10 +2877,12 @@ def main():
     check(fw_wide is not None, f'{WIDE_IN}-input ensemble did not fold')
     errors = {}
 
-    def kernel_vs_plain(kernel, case, rows, in_dim, run, plain, square=False):
-        """Hold one kernel call against its plain version on the same x;
-        ``square`` compares std^2 (the 'var' estimator)."""
-        x = torch.as_tensor(rng.normal(size=(rows, in_dim)),
+    def kernel_vs_plain(kernel, case, rows, in_dim, run, plain, square=False,
+                        source=None):
+        """Hold one kernel call against its plain version on the same x
+        (drawn from ``source``, else the script's generator); ``square``
+        compares std^2 (the 'var' estimator)."""
+        x = torch.as_tensor((source or rng).normal(size=(rows, in_dim)),
                             dtype=torch.float32, device=DEVICE)
         mean, std = run(x)
         ref_mean, ref_std = plain(x)
@@ -2896,6 +2903,19 @@ def main():
         kernel_vs_plain('fused_ensemble', case, rows, weights.in_dim,
                         lambda x, w=weights: fused_forward_prefolded(w, x),
                         lambda x, w=weights: fused_forward_plain(w, x))
+    # kernel 1 (3xTF32, a cluster of min(M, 8) member blocks) at a request's
+    # and a validation pass's rows, and at the BO trials' member counts, on
+    # a generator of their own so that the other cases keep their inputs
+    ens_rng = np.random.default_rng(args.seed + 21)
+    fw_members = [prepare_fused_weights(build_model(args.seed, members=m).net)
+                  for m in ENSEMBLE_MEMBERS]
+    ens_cases = [(f'rows_{r}', fw, r) for r in ENSEMBLE_ROWS] + [
+        (f'members_{w.num_members}', w, ROWS) for w in fw_members]
+    for case, weights, rows in ens_cases:
+        kernel_vs_plain('fused_ensemble', case, rows, weights.in_dim,
+                        lambda x, w=weights: fused_forward_prefolded(w, x),
+                        lambda x, w=weights: fused_forward_plain(w, x),
+                        source=ens_rng)
 
     mc_model = build_mc(args.seed)
     mw = mc_model.mc_weights()
@@ -3611,25 +3631,6 @@ def main():
         return float(np.median(timed_passes(lambda: pred.predict(x_host),
                                             WARMUP, TRIALS)))
 
-    x = torch.as_tensor(rng.normal(size=(ROWS, IN_DIM)), dtype=torch.float32,
-                        device=DEVICE)
-    lib_mean, lib_std = library_chain(fw, x)
-    ref_mean, ref_std = fused_forward_plain(fw, x)
-    compare('library mean', lib_mean, ref_mean, TOL_MEAN)
-    compare('library std', lib_std, ref_std, TOL_STD)
-    kernel_t = event_ms(lambda: fused_forward_prefolded(fw, x))
-    plain_t = event_ms(lambda: fused_forward_plain(fw, x))
-    library_t = event_ms(lambda: library_chain(fw, x))
-    kernel_t2 = event_ms(lambda: fused_forward_prefolded(fw, x))
-    e2e_s = e2e_median_s(predictor, ROWS)
-    record(0, ens_launches, kernel_t, plain_t,
-           2.0 * ROWS * fw.num_members * fw.macs_per_row,
-           4.0 * (x.numel() + fw.w_all.numel() + fw.b_all.numel()
-                  + 2 * ROWS * fw.out_dim),
-           library_t['median_ms'], rows=ROWS, kernel_again=kernel_t2,
-           library_baddbmm=library_t, predictor_e2e_median_s=e2e_s,
-           predictor_e2e_samples_per_s=ROWS / e2e_s)
-
     # the MC kernels' mask hash: one for every masked element (the inputs
     # of the Linears a Dropout precedes, over every row and sample), each
     # the function's operations (MASK_HASH_OPS) on the integer pipes
@@ -3641,12 +3642,54 @@ def main():
     peak_tf32 = peak_bf16 / 2
 
     def tf32_terms(flops, hashes=0):
-        """The fp32 kernels 2 and 5 counted by pipe: 3 TF32 products for
-        each fp32 one at the TF32 peak, the mask hash on the integer
+        """The fp32 kernels 1, 2 and 5 counted by pipe: 3 TF32 products
+        for each fp32 one at the TF32 peak, the mask hash on the integer
         pipes; beside them, the fp32 FFMA floor they left."""
         return {'tf32_products': 1e3 * 3 * flops / peak_tf32,
                 'mask_hash_int_ops': 1e3 * hashes / hash_rate,
                 'ffma_floor': 1e3 * flops / peak_flops}
+
+    def ensemble_work(w, rows):
+        """Kernel 1's operations (fp32, before the 3xTF32 split) and
+        bytes on ``rows`` rows."""
+        return (2.0 * rows * w.num_members * w.macs_per_row,
+                4.0 * (rows * w.in_dim + w.w_all.numel() + w.b_all.numel()
+                       + 2 * rows * w.out_dim))
+
+    x = torch.as_tensor(rng.normal(size=(ROWS, IN_DIM)), dtype=torch.float32,
+                        device=DEVICE)
+    lib_mean, lib_std = library_chain(fw, x)
+    ref_mean, ref_std = fused_forward_plain(fw, x)
+    compare('library mean', lib_mean, ref_mean, TOL_MEAN)
+    compare('library std', lib_std, ref_std, TOL_STD)
+    kernel_t = event_ms(lambda: fused_forward_prefolded(fw, x))
+    plain_t = event_ms(lambda: fused_forward_plain(fw, x))
+    library_t = event_ms(lambda: library_chain(fw, x))
+    kernel_t2 = event_ms(lambda: fused_forward_prefolded(fw, x))
+    e2e_s = e2e_median_s(predictor, ROWS)
+    flops, moved = ensemble_work(fw, ROWS)
+    # kernel 1 at a request's rows and at the BO trials' member counts,
+    # each beside its bound and its baddbmm chain
+    shapes = []
+    for w, rows in [(fw, r) for r in ENSEMBLE_ROWS] + [
+            (w, ROWS) for w in fw_members]:
+        xs = x[:rows].contiguous()
+        f, b = ensemble_work(w, rows)
+        shape_t = event_ms(lambda: fused_forward_prefolded(w, xs))
+        shapes.append(dict(
+            rows=rows, members=w.num_members, ms=shape_t['median_ms'],
+            bound_ms=bound(3 * f, b, peak_tf32, peak_bytes)[0],
+            library_ms=event_ms(lambda: library_chain(w, xs))['median_ms']))
+    record(0, ens_launches, kernel_t, plain_t, 3 * flops, moved,
+           library_t['median_ms'], peak=peak_tf32, rows=ROWS,
+           kernel_again=kernel_t2, library_baddbmm=library_t,
+           bound_terms_ms=tf32_terms(flops), shapes=shapes,
+           predictor_e2e_median_s=e2e_s,
+           predictor_e2e_samples_per_s=ROWS / e2e_s)
+    kernels[-1].update(
+        bound_terms_ms=tf32_terms(flops),
+        share_of_bound=kernels[-1]['bound_ms'] / kernels[-1]['ms'],
+        shapes=shapes, ptxas=eval_chain['fused_ensemble_kernel'])
 
     x_plain = x[:MC_PLAIN_TIMING_ROWS].contiguous()
     kernel_t = event_ms(lambda: fused_mc_forward(mw, x, MC_SAMPLES, 7))

@@ -13,7 +13,9 @@ BatchNorm1d -> ReLU], Linear 128 -> 1, weights from ``--seed``)::
         [--device cuda] [--rows N] [--steps N] [--reps N] [--bf16]
 
 Each variant is first held to its plain PyTorch version on the same inputs
-(and each form of kernel 1's math to kernel 1, bit for bit; kernel 3's
+(and each form of kernel 1's former FFMA math to the ``prod`` probe, which
+runs that body, bit for bit; kernel 1 itself, on the tensor cores, to its
+plain version; kernel 3's
 probe keeps the one-block form of its step, which the production kernel
 left for one thread-block cluster per member, so the training battery
 holds the production kernel to its plain version step by step and times
@@ -21,8 +23,8 @@ the two forms side by side), then timed: CUDA-event medians over
 ``--reps`` passes (or epochs) after warm-ups, with the spread of the
 middle 60% and the variant's bound (fp32 operations over the card's peak,
 or bytes over its memory rate). It prints one JSON line per gate and per
-variant, then the decomposition lines: kernel 1 against its ``prod``
-control, and the one-block form's per-step budget and the batch scaling
+variant, then the decomposition lines: kernel 1 against the ``prod``
+control (its former body), and the one-block form's per-step budget and the batch scaling
 of both forms; with ``--bf16`` the training battery runs kernel 3's bf16
 form (gates, epoch, batch scaling). The TPU-only items of the probes are
 left out: the tile sweeps (the CUDA block is 64 rows, fixed by the
@@ -52,7 +54,8 @@ from .nn.layers import Linear
 from .ops import ablate_epoch as ae
 from .ops import ablate_forward as af
 from .ops import fused_train as ft
-from .ops.fused_ensemble import fused_forward_prefolded, prepare_fused_weights
+from .ops.fused_ensemble import (fused_forward_plain, fused_forward_prefolded,
+                                 prepare_fused_weights)
 
 IN_DIM, WIDTH, MEMBERS = 5, 128, 8
 ROWS = 262_144                 # the bench's evaluation batch
@@ -432,8 +435,10 @@ def forward_battery(device='cuda', seed=0, rows=None, reps=10, warmup=3):
                    work(n_out=1), fw.out_dim),
     }
     # gates: each probe against its plain version; the forms of the
-    # production math against kernel 1 itself, bit for bit
-    base = fused_forward_prefolded(fw, x)
+    # production math against the prod probe (kernel 1's former FFMA body,
+    # which the probes share), bit for bit; kernel 1 (3xTF32 products on
+    # the tensor cores) against its own plain version within the bars
+    base = [t[:, :fw.out_dim] for t in probes['prod'][0]()]
     gates = {}
     for name, (run, _, prod_width) in probes.items():
         got, want = run(), run(plain=True)
@@ -448,10 +453,16 @@ def forward_battery(device='cuda', seed=0, rows=None, reps=10, warmup=3):
                     g[:, :fw.out_dim]
                 _equal(f'{name} out{i}', g, b)
         gates[name] = {'max_abs_err': errs,
-                       'equals_kernel_1': prod_width is not None}
+                       'equals_prod_probe': prod_width is not None}
         emit(battery='forward', gate=name, device=card.kind,
              max_abs_err_vs_plain=errs,
-             bit_for_bit_with_kernel_1=prod_width is not None)
+             bit_for_bit_with_prod_probe=prod_width is not None)
+    errs = [_close(f'kernel 1 out{i}', g, w, TOL_MEAN if i == 0 else TOL_STD)
+            for i, (g, w) in enumerate(zip(fused_forward_prefolded(fw, x),
+                                           fused_forward_plain(fw, x)))]
+    gates['kernel 1'] = {'max_abs_err': errs, 'equals_prod_probe': False}
+    emit(battery='forward', gate='kernel 1', device=card.kind,
+         max_abs_err_vs_plain=errs, bit_for_bit_with_prod_probe=False)
     # the packed probe's bf16 form: against its plain version within the
     # bf16 bars, and bit for bit against kernel 1's bf16 form
     model.set_precision('bf16-mixed')

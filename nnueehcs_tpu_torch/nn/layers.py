@@ -311,6 +311,13 @@ class _Pool2d(nn.Module):
     def _pool(self, x):
         raise NotImplementedError
 
+    def _padded(self, x, value):
+        """``x`` padded on both sides of H and W with ``value``: pooled
+        then with no padding of torch's, which refuses any wider than half
+        the window, where JAX pads as far as asked."""
+        p = self.padding
+        return F.pad(x, (p, p, p, p), value=value) if p else x
+
     def forward(self, x):
         lead = x.shape[:-3]
         y = self._pool(x.reshape((-1,) + x.shape[-3:]))
@@ -320,21 +327,23 @@ class _Pool2d(nn.Module):
 class MaxPool2d(_Pool2d):
     """Max over ``k x k`` windows (stride ``kernel_size`` unless given),
     the padding -inf, over the last two axes of NCHW activations (with or
-    without a member axis in front)."""
+    without a member axis in front). A window wholly in the padding gives
+    -inf, as the JAX package's ``reduce_window`` does."""
 
     def _pool(self, x):
-        return F.max_pool2d(x, self.kernel_size, self.stride, self.padding)
+        return F.max_pool2d(self._padded(x, float('-inf')),
+                            self.kernel_size, self.stride)
 
 
 class AvgPool2d(_Pool2d):
     """The mean of ``k x k`` windows, padded zeros counted: the window's
-    sum over ``k^2``, as the JAX package divides (``count_include_pad``).
-    A bf16 activation's window is summed in fp32 and rounded once, where
-    the JAX package's ``reduce_window`` rounds each partial sum."""
+    sum over ``k^2``, as the JAX package divides. A bf16 activation's
+    window is summed in fp32 and rounded once, where the JAX package's
+    ``reduce_window`` rounds each partial sum."""
 
     def _pool(self, x):
-        return F.avg_pool2d(x, self.kernel_size, self.stride, self.padding,
-                            count_include_pad=True)
+        return F.avg_pool2d(self._padded(x, 0.0), self.kernel_size,
+                            self.stride)
 
 
 class ReLU(nn.Module):

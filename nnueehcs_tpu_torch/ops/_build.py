@@ -38,7 +38,10 @@ SIGNATURES = {
     'nnueehcs_fused_ensemble_f32': (
         ctypes.c_int,
         [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, ctypes.c_int,
-         ctypes.c_int, _P, ctypes.c_int, _P, _P, _P]),
+         ctypes.c_int, _P, ctypes.c_int, _P, _P,
+         ctypes.POINTER(ctypes.c_int), _P]),
+    'nnueehcs_fused_ensemble_f32_clusters': (
+        ctypes.c_int, [ctypes.POINTER(ctypes.c_int)]),
     'nnueehcs_fused_mc_dropout_f32': (
         ctypes.c_int,
         [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P,

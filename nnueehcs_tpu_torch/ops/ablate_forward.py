@@ -11,8 +11,9 @@ probes' padded ``ws``/``bs``/``relus``, and returns what the JAX probe
 returns: outputs padded to the probe's widths (128, or 8 for the narrow
 ones), zeros past the chain's real width.
 
-On a CUDA tensor each launches one instance of kernel 1's own body
-(``csrc/ablate_chain.cu`` on ``fused_chain.cuh``'s ``ensemble_pass``), on a
+On a CUDA tensor each launches one instance of kernel 1's FFMA body (its
+body before kernel 1 moved to 3xTF32 ``wgmma``; ``csrc/ablate_chain.cu`` on
+``fused_chain.cuh``'s ``ensemble_pass``), on a
 CPU tensor it runs its plain version (``*_plain``). It never falls back from
 one to the other. ``<function>.launches`` counts kernel launches.
 

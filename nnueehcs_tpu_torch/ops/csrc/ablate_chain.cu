@@ -1,6 +1,7 @@
 // Attribution probes of the fused ensemble pass (kernel 1) for Hopper
-// (sm_90a), fp32: kernel 1 with parts carved off or with other layouts of
-// its input and outputs, to split its time on the card.
+// (sm_90a), fp32: kernel 1's FFMA body (its body until it moved to 3xTF32
+// products on the tensor cores) with parts carved off or with other
+// layouts of its input and outputs, to split its time on the card.
 //
 // Replaces four Pallas TPU probes, each a variant of _fused_kernel:
 // - experiments/grid_r5/attrib_eval.py::ablate_forward (body ablate_kernel):
@@ -19,13 +20,13 @@
 // The outputs keep the TPU probes' padded widths, zeros past the chain's
 // real width.
 //
-// What bounds them on an H100: operations, as kernel 1 (fused_ensemble.cu),
-// except io_floor, which does none: bytes.
+// What bounds them on an H100: operations (fp32 FFMA), except io_floor,
+// which does none: bytes.
 //
-// The design: each probe is an instance of kernel 1's own body,
-// fused_chain.cuh's ensemble_pass, with compile-time flags for the mode,
-// the number of outputs, the x layout and the output layout, so the probes'
-// prod control is kernel 1's code and cannot drift from it. The CUDA block
+// The design: each probe is an instance of one body, fused_chain.cuh's
+// ensemble_pass, with compile-time flags for the mode, the number of
+// outputs, the x layout and the output layout, so every probe's math is
+// the prod control's and cannot drift from it. The CUDA block
 // tile is fixed at 64 rows by the register tiling; `tile` only sets which
 // row io_floor reads, as the TPU grid's block did.
 #include "fused_chain.cuh"
@@ -102,8 +103,8 @@ extern "C" {
 // for a feature-major x; out_layout: 1 (B, ow) rows, 2 feature-major
 // (ow, B), 3 packed (B, 128). The caller checks the shapes: x holds d real
 // features (zeros past them), (B, ldx) row-major or (ldx, B) feature-major,
-// ldx >= d; w_all/b_all/relu as nnueehcs_fused_ensemble_f32 for M_all
-// members; 1 <= M <= M_all and 1 <= L <= the chain's layers; out_dim the
+// ldx >= d; w_all: layer 0 as (M_all, d, 128), then layers 1.. as
+// (M_all, 128, 128); b_all (L, M_all, 128); relu L int32 flags; 1 <= M <= M_all and 1 <= L <= the chain's layers; out_dim the
 // real width of layer L-1 (<= 128; <= 64 packed); 1 <= ow <= 128 (128
 // packed); tile >= 1; fp32 contiguous device buffers; out1 null when
 // n_out is 1.

@@ -69,7 +69,7 @@ __global__ void __launch_bounds__(2 * fw::kWgThreads, 1)
                           fw::EnsembleLayout lay) {
   extern __shared__ __align__(128) unsigned char smem_tf[];
   const fw::Chain32 chain(d, L, lay.base.out_groups);
-  fw::Ring ring(smem_tf, lay.base);
+  fw::Ring<> ring(smem_tf, lay.base);
   const int rank = static_cast<int>(fw::cluster_rank());
   const int wg = threadIdx.x / fw::kWgThreads;
   const fw::Tiles tiles(B, lay.base, wg,

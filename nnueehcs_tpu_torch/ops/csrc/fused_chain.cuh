@@ -1,10 +1,9 @@
-// Device pieces of the fp32 ensemble kernel (fused_ensemble.cu) and the
-// attribution probes of kernel 1 (ablate_chain.cu, instances of
-// ensemble_pass below, kernel 1's own body): a block of 256 threads owns a
-// 64-row tile and runs a BatchNorm-folded Linear(+ReLU) chain over it once
-// for each member, with the activations in shared memory and the weights
-// streamed through it. (The fp32 MC-dropout and anchored kernels run on
-// fused_chain_wgmma.cuh's 3xTF32 section.)
+// Device pieces of the attribution probes of kernel 1 (ablate_chain.cu,
+// instances of ensemble_pass below: kernel 1's body until it moved to
+// fused_chain_wgmma.cuh's 3xTF32 section, with the fp32 MC-dropout and
+// anchored kernels): a block of 256 threads owns a 64-row tile and runs a
+// BatchNorm-folded Linear(+ReLU) chain over it once for each member, with
+// the activations in shared memory and the weights streamed through it.
 //
 // - Activations are feature-major in shared memory: element (feature k,
 //   row r) of a tile is at k * kStride + r.
@@ -251,9 +250,9 @@ __device__ __forceinline__ void write_stats(const float* sc, const float* s1,
 // write_stats' mean and std of slot e, for the probes' other layouts. A
 // copy on purpose: write_stats routed through it compiles to other SASS in
 // kernels 1, 2 and 5 (the epilogue's registers and schedule, in every form
-// tried), and the production kernels keep theirs. The two must stay
-// bit-equal: the forward battery holds every layout that goes through
-// shifted_stat to kernel 1 bit for bit (nnueehcs_tpu_torch/attrib.py).
+// tried), and the prod probe keeps its own. The two must stay bit-equal:
+// the forward battery holds every layout that goes through shifted_stat to
+// the prod probe bit for bit (nnueehcs_tpu_torch/attrib.py).
 __device__ __forceinline__ void shifted_stat(const float* sc, const float* s1,
                                              const float* s2, int e, float n,
                                              float dof, float& mean,
@@ -273,12 +272,12 @@ inline size_t smem_bytes(int out_dim) {
 }
 
 // ---------------------------------------------------------------------------
-// The ensemble pass: kernel 1 (fused_ensemble.cu) is ensemble_pass<> with
-// every flag off; the attribution probe (ablate_chain.cu) instantiates it
-// with flags that carve parts of the pass off or change its layouts.
+// The ensemble pass: the prod probe (ablate_chain.cu) is ensemble_pass<>
+// with every flag off; the other probes instantiate it with flags that
+// carve parts of the pass off or change its layouts.
 
 enum PassMode { kProd, kIoFloor, kGemmOnly, kNoEpi };
-// kOutDense: (B, out_dim) mean and std, kernel 1's; kOutRows: (B, ow),
+// kOutDense: (B, out_dim) mean and std; kOutRows: (B, ow),
 // zeros past out_dim; kOutCols: feature-major (ow, B); kOutPacked: one
 // (B, 128) buffer, mean in columns [0, out_dim), std in [out_dim, 2 out_dim).
 enum OutLayout { kOutDense, kOutRows, kOutCols, kOutPacked };
@@ -350,7 +349,7 @@ __device__ __forceinline__ void store_tile(const V& val, int valid,
 // without bias and ReLU; kNoEpi, out0 = the last member's h and out1 =
 // member 0's; kIoFloor, no chain: x's real elements are loaded and every
 // output is 1 + x[(row / tile) * tile, 0]. ow: the output width (rows for
-// kOutCols); kernel 1 passes ldx = d and ow = out_dim.
+// kOutCols).
 template <int kMode = kProd, int kNOut = 2, bool kXCols = false,
           int kOut = kOutDense>
 __device__ __forceinline__ void ensemble_pass(

@@ -2,7 +2,8 @@
 // anchored kernels (2b and 5b: one network's bf16 chain applied many times,
 // 129 passes of MC dropout, 229 anchors, to each 64-row tile) and the
 // ensemble (1b, and its packed probe 10b: M members' chains on each tile,
-// one thread-block cluster of member blocks; its section at the end). The
+// one thread-block cluster of member blocks; its section below), then the
+// fp32 kernels 1, 2 and 5 on 3xTF32 products (their section at the end). The
 // function is the JAX package's compute_dtype=bfloat16: weights folded in
 // fp32 and rounded to bf16, every input of a dot rounded to bf16 (x as it is
 // read, each hidden activation after bias, ReLU and any dropout mask),
@@ -888,6 +889,47 @@ struct Exchange {
   }
 };
 
+// The leader (kernels 1 and 1b): round i's member j c + p of each peer p in
+// 1..peers (the j-th of each peer's own members), in member order, folded
+// into the shifted sums of every column group (stats_fold's arithmetic,
+// the sums in registers); a warp gives the slots of a column group back
+// together once it has read them. Peer p sent its n-th group as its
+// member after member of each round, ceil((M - p) / c) a round.
+__device__ __forceinline__ void fold_peers(Exchange& ex, float4* st,
+                                           int groups, int peers, int M,
+                                           int c, int i, int j,
+                                           const Thread& t) {
+  const auto seq = [&](int p, int g) {
+    return (static_cast<uint32_t>(i) * ((M - p + c - 1) / c) + j) * groups +
+           g;
+  };
+  for (int g = 0; g < groups; ++g) {
+    float4* q = st + 3 * g * kWgThreads;
+    const float4 c4 = q[0];
+    float4 s1 = q[kWgThreads], s2 = q[2 * kWgThreads];
+    for (int p = 1; p <= peers; ++p) {
+      float v[4];
+      ex.read(p, seq(p, g), t, v);
+      STAMP(13);
+      const float d0 = v[0] - c4.x, d1 = v[1] - c4.y, d2 = v[2] - c4.z,
+                  d3 = v[3] - c4.w;
+      s1.x += d0;
+      s1.y += d1;
+      s1.z += d2;
+      s1.w += d3;
+      s2.x += d0 * d0;
+      s2.y += d1 * d1;
+      s2.z += d2 * d2;
+      s2.w += d3 * d3;
+    }
+    q[kWgThreads] = s1;
+    q[2 * kWgThreads] = s2;
+    __syncwarp();
+    if (t.lane0)
+      for (int p = 1; p <= peers; ++p) ex.free_slot(p, seq(p, g));
+  }
+}
+
 // Kernel 1b's body (and, with kPacked, probe 10b's): the M members of the
 // folded chain on x's d real features (element (row, feature) at
 // x[row * ldx + feature]); images: member m's chain image (chain_image) at
@@ -1002,39 +1044,7 @@ __device__ __forceinline__ void ensemble_pass(
           wts.release(t.lane0);
         }
         if (rank == 0) {
-          // the peers' members of the round, in member order, into the
-          // sums in registers (stats_fold's arithmetic); a warp gives the
-          // slots of a column group back together once it has read them
-          const int peers = min(c, M - j * c) - 1;
-          const auto seq = [&](int p, int g) {
-            return (static_cast<uint32_t>(i) * ((M - p + c - 1) / c) + j) *
-                       groups + g;
-          };
-          for (int g = 0; g < groups; ++g) {
-            float4* q = st + 3 * g * kWgThreads;
-            const float4 c4 = q[0];
-            float4 s1 = q[kWgThreads], s2 = q[2 * kWgThreads];
-            for (int p = 1; p <= peers; ++p) {
-              float v[4];
-              ex.read(p, seq(p, g), t, v);
-              STAMP(13);
-              const float d0 = v[0] - c4.x, d1 = v[1] - c4.y,
-                          d2 = v[2] - c4.z, d3 = v[3] - c4.w;
-              s1.x += d0;
-              s1.y += d1;
-              s1.z += d2;
-              s1.w += d3;
-              s2.x += d0 * d0;
-              s2.y += d1 * d1;
-              s2.z += d2 * d2;
-              s2.w += d3 * d3;
-            }
-            q[kWgThreads] = s1;
-            q[2 * kWgThreads] = s2;
-            __syncwarp();
-            if (t.lane0)
-              for (int p = 1; p <= peers; ++p) ex.free_slot(p, seq(p, g));
-          }
+          fold_peers(ex, st, groups, min(c, M - j * c) - 1, M, c, i, j, t);
           if (j + 1 == own) {
             if (kPacked)
               stats_write(st, groups, M, t, valid, row0, out_dim, kWidth,
@@ -1067,7 +1077,8 @@ __device__ __forceinline__ void ensemble_pass(
 }
 
 // ---------------------------------------------------------------------------
-// The fp32 kernels 2 (MC dropout) and 5 (anchored) on the tensor cores: each
+// The fp32 kernels 1 (the ensemble, ensemble_tf32 at the end), 2 (MC
+// dropout) and 5 (anchored) on the tensor cores: each
 // product in 3xTF32, a_lo b_hi + a_hi b_lo + a_hi b_hi (the small terms
 // first), every term a wgmma.mma_async m64nNk8 TF32 product with A from
 // registers, summed in the fp32 accumulator. An operand's hi part is
@@ -1082,10 +1093,10 @@ __device__ __forceinline__ void ensemble_pass(
 // of each warpgroup is also the ring's producer (a producer warp would cost
 // the consumers' registers: A's hi and lo parts, 64 each, and the
 // accumulator, 64, take 192 of the 255 a thread of two warpgroups may
-// hold). A tile's
-// passes are split into kGroups groups, one for each block of a cluster of
-// kGroups blocks; the leader (rank 0) merges the groups' moments in group
-// order (Chan's formula).
+// hold). Kernels 2 and 5 split a tile's passes into kGroups groups, one
+// for each block of a cluster of kGroups blocks; the leader (rank 0) merges
+// the groups' moments in group order (Chan's formula). Kernel 1 splits its
+// members over 1b's cluster and folds them in member order.
 
 constexpr int kGroups = 8;       // groups of a tile's passes (GROUPS)
 constexpr int kTfRows = 32;      // input rows of an fp32 image block
@@ -1291,12 +1302,16 @@ struct Chain32 {
 // stream: the chain's blocks once for each pass of each round), and the
 // producer's place in it: the next block, its slot and its use of that
 // slot. In shared memory; the thread that holds `lock` reads and writes it.
+// The ensemble's stream walks `members` images `stride` bytes apart, one
+// pass through each in turn (`image` the current one, `member` its place).
 struct Stream {
   const unsigned char* image;
   Chain32 chain;
   uint32_t issued, total;
   int block, slot, use, lock;
+  int stride, member, members;
 };
+static_assert(sizeof(Stream) <= kTfStreamBytes, "Stream outgrew its bytes");
 
 // The ring of an fp32 kernel: `slots` 32 KB slots at the start of shared
 // memory, a full and an empty mbarrier each (every consumer warp arrives on
@@ -1308,6 +1323,8 @@ struct Stream {
 // own warpgroup's release would let it issue. (slot, phase) of the next
 // block a thread takes and gives back step without a division; a consumer
 // holds two blocks at most.
+// kMembers: the stream walks several images in turn (the ensemble's).
+template <bool kMembers = false>
 struct Ring {
   unsigned char* base;
   uint64_t* full;
@@ -1328,10 +1345,12 @@ struct Ring {
   __device__ __forceinline__ uint64_t* empty() const { return full + slots; }
 
   // thread 0, before the fence of the barriers' initialisation: the
-  // barriers, and the stream of `count` passes through the chain
+  // barriers, and the stream of `count` passes through the chain (with
+  // kMembers, through `members` images `stride` bytes apart in turn)
   __device__ __forceinline__ void init(int warpgroups,
                                        const unsigned char* image,
-                                       const Chain32& c, uint32_t count) {
+                                       const Chain32& c, uint32_t count,
+                                       int stride = 0, int members = 1) {
     for (int s = 0; s < slots; ++s) {
       mbar_init(full + s, 1);
       mbar_init(empty() + s, 4 * warpgroups);
@@ -1345,6 +1364,9 @@ struct Ring {
     st->slot = 0;
     st->use = 0;
     st->lock = 0;
+    st->stride = stride;
+    st->member = 0;
+    st->members = members;
   }
   // a producer: issue every block of the stream whose slot is free
   __device__ __forceinline__ void pump() {
@@ -1352,17 +1374,29 @@ struct Ring {
     if (atomicCAS(const_cast<int*>(&st.lock), 0, 1) != 0) return;
     const Stream* plain = const_cast<const Stream*>(stream);
     const Chain32 c = plain->chain;
-    const unsigned char* image = plain->image;
+    const unsigned char* image = kMembers ? st.image : plain->image;
     const uint32_t total = st.total;
     uint32_t n = st.issued;
     int b = st.block, s = st.slot, use = st.use;
+    int member = kMembers ? st.member : 0;
     while (n < total) {
       if (use > 0 && !mbar_test(empty() + s, (use - 1) & 1)) break;
       const uint32_t bytes = c.bytes(b);
       mbar_expect_tx(full + s, bytes);
       bulk_load(base + s * kSlotBytes, image + c.offset(b), bytes, full + s);
       ++n;
-      if (++b == c.blocks()) b = 0;
+      if (++b == c.blocks()) {
+        b = 0;
+        if (kMembers) {   // the next image, the first after the last
+          const int members = st.members, stride = st.stride;
+          if (++member == members) {
+            member = 0;
+            image -= static_cast<long long>(members - 1) * stride;
+          } else {
+            image += stride;
+          }
+        }
+      }
       if (++s == slots) {
         s = 0;
         ++use;
@@ -1372,6 +1406,10 @@ struct Ring {
     st.block = b;
     st.slot = s;
     st.use = use;
+    if (kMembers) {
+      st.member = member;
+      st.image = image;
+    }
     __threadfence_block();
     atomicExch(const_cast<int*>(&st.lock), 0);
   }
@@ -1431,8 +1469,8 @@ __device__ __forceinline__ void x_step(const float* x_tile, int d, int valid,
 // acc (m64n128) = x's tile (through f) x layer 0, its blocks [0, nb0) taken
 // from the ring in turn, one k step a product group; `last` runs while the
 // last step's products fly.
-template <class F, class G>
-__device__ __forceinline__ void x_layer_tf32(float (&acc)[64], Ring& ring,
+template <class R, class F, class G>
+__device__ __forceinline__ void x_layer_tf32(float (&acc)[64], R& ring,
                                              const Chain32& c,
                                              const float* x_tile, int d,
                                              int valid, const Thread& t,
@@ -1466,8 +1504,8 @@ __device__ __forceinline__ void x_layer_tf32(float (&acc)[64], Ring& ring,
 
 // Column group g of a one-Linear chain's only layer from x (through f):
 // acc = x's tile x its blocks of that group, taken from the ring in turn.
-template <class F>
-__device__ __forceinline__ void x_group_tf32(float (&acc)[4], Ring& ring,
+template <class R, class F>
+__device__ __forceinline__ void x_group_tf32(float (&acc)[4], R& ring,
                                              const Chain32& c,
                                              const float* x_tile, int d,
                                              int valid, const Thread& t,
@@ -1500,10 +1538,10 @@ __device__ __forceinline__ void x_group_tf32(float (&acc)[4], Ring& ring,
 // the ring, a block's 12 products one group, each block given back once
 // the next one's products are in flight; `during` runs while the last
 // block's fly.
-template <class G>
+template <class R, class G>
 __device__ __forceinline__ void hidden_tf32(float (&acc)[64],
                                             uint32_t (&hi)[16][4],
-                                            uint32_t (&lo)[16][4], Ring& ring,
+                                            uint32_t (&lo)[16][4], R& ring,
                                             const Thread& t,
                                             const G& during) {
   STAMP(3);
@@ -1543,10 +1581,11 @@ __device__ __forceinline__ void hidden_tf32(float (&acc)[64],
 
 // The last layer, column group g: acc = (hi, lo) x its 4 blocks of 32 rows
 // and 8 columns from the ring; waits.
+template <class R>
 __device__ __forceinline__ void last_group_tf32(float (&acc)[4],
                                                 uint32_t (&hi)[16][4],
                                                 uint32_t (&lo)[16][4],
-                                                Ring& ring, const Thread& t) {
+                                                R& ring, const Thread& t) {
   STAMP(8);
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
@@ -1735,6 +1774,104 @@ __device__ __forceinline__ void merge_groups(Exchange& ex, const float4* st,
       }
     }
   }
+}
+
+// Kernel 1's body (fp32, 3xTF32): the M members of the folded chain on x
+// ((B, d) row-major); images: member m's fp32 chain image (chain_image,
+// tf32_blocks) at images + m * image_bytes; b_all (L, M, 128). A cluster
+// of c = min(M, 8) blocks runs the tiles of its unit, block r members r,
+// r + c, ... of every tile of its warpgroups, their images streamed in
+// turn through its ring (Ring<true>: each block reads its own members'
+// images only); every warpgroup takes every round's blocks, past the last
+// tile as a tile of no rows. A peer sends each member's last-layer outputs
+// (the real columns' lanes) to the leader through the exchange (1b's); the
+// leader folds its own member j c, then the peers' j c + 1, ..., in member
+// order (member 0 the shift: fused_chain::write_stats' arithmetic, not
+// Chan's merge), and writes mean and std.
+__device__ __forceinline__ void ensemble_tf32(
+    unsigned char* smem, const float* __restrict__ x, long long B, int d,
+    const unsigned char* __restrict__ images, const float* __restrict__ b_all,
+    int M, int L, const int* __restrict__ relu, int out_dim,
+    float* __restrict__ mean, float* __restrict__ std,
+    const EnsembleLayout& lay) {
+  const int c = lay.cluster;
+  const int rank = static_cast<int>(cluster_rank());
+  const int own = (M - rank + c - 1) / c;   // members rank, rank + c, ...
+  const Chain32 chain(d, L, lay.base.out_groups);
+  Ring<true> ring(smem, lay.base);
+  const int wg = threadIdx.x / kWgThreads;
+  const Tiles tiles(B, lay.base, wg, static_cast<int>(gridDim.x) / c,
+                    static_cast<int>(blockIdx.x) / c);
+  if (threadIdx.x == 0) {
+    Exchange::init(smem, lay);
+    ring.init(lay.base.warpgroups,
+              images + static_cast<long long>(rank) * lay.base.image_bytes,
+              chain, static_cast<uint32_t>(tiles.rounds) * own,
+              c * lay.base.image_bytes, own);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();   // every block's barriers are set before a peer's use
+  STAMP_BEGIN(true, 0);
+  const Thread t(threadIdx.x);
+  Exchange ex(smem, lay, wg, out_dim);
+  const int groups = lay.base.out_groups;
+  float4* st = reinterpret_cast<float4*>(smem + lay.base.smem_stats) +
+               (wg * groups * 3) * kWgThreads + t.lt;
+  const int last = L - 1;
+  const size_t layer_stride = static_cast<size_t>(M) * kWidth;
+  const bool relu_last = __ldg(relu + last) != 0;
+  const uint32_t all[2] = {~0u, ~0u};
+  float acc[64], acc_last[4];   // written by each layer's first product
+  uint32_t hi[16][4], lo[16][4];
+  for (int i = 0; i < tiles.rounds; ++i) {
+    const int tile = tiles.tile<true>(i);
+    const long long row0 = static_cast<long long>(tile) * kRows;
+    const int valid = tiles.valid(tile, B);
+    const float* x_tile = x + (valid > 0 ? row0 * d : 0);
+    for (int j = 0; j < own; ++j) {
+      const int m = rank + j * c;
+      const float* bm = b_all + static_cast<size_t>(m) * kWidth;
+      const float* b_last = bm + last * layer_stride;
+      // member m's outputs of column group g: folded by the leader, sent
+      // by a peer
+      const auto deliver = [&](int g) {
+        float v[4];
+        last_values(acc_last, b_last, relu_last, g, t, v);
+        if (rank == 0)
+          stats_fold(v, g, m == 0, st);
+        else
+          ex.send(rank, (static_cast<uint32_t>(i) * own + j) * groups + g, v,
+                  t);
+      };
+      if (L == 1) {   // one Linear: the last layer straight from x
+        for (int g = 0; g < groups; ++g) {
+          x_group_tf32(acc_last, ring, chain, x_tile, d, valid, t, NoMask());
+          deliver(g);
+        }
+      } else {
+        x_layer_tf32(acc, ring, chain, x_tile, d, valid, t, NoMask(), [] {});
+        epilogue_tf32(acc, bm, relu_floor(__ldg(relu) != 0), all, 1.f, t, hi,
+                      lo);
+        for (int l = 1; l < last; ++l) {
+          hidden_tf32(acc, hi, lo, ring, t, [] {});
+          epilogue_tf32(acc, bm + l * layer_stride,
+                        relu_floor(__ldg(relu + l) != 0), all, 1.f, t, hi, lo);
+        }
+        for (int g = 0; g < groups; ++g) {
+          last_group_tf32(acc_last, hi, lo, ring, t);
+          deliver(g);
+        }
+      }
+      if (rank == 0) {
+        fold_peers(ex, st, groups, min(c, M - j * c) - 1, M, c, i, j, t);
+        if (j + 1 == own)
+          stats_write(st, groups, M, t, valid, row0, out_dim, out_dim, mean,
+                      std);
+      }
+    }
+  }
+  STAMP_END();
+  cluster_sync();   // no block leaves while a peer may still reach into it
 }
 
 // Host: launch `kernel` (an ensemble_pass instance taking `args`) as

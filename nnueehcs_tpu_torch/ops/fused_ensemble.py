@@ -10,9 +10,9 @@ mean and unbiased std over members come from sums shifted by member 0's
 output, so the one-pass variance does not cancel when ``|mean| >> std``.
 
 :func:`fused_forward_prefolded` is the entry point: on a CUDA tensor it
-launches the hand-written kernel (``csrc/fused_ensemble.cu``; the bf16 form
-runs one thread-block cluster of member-resident chains, laid out by
-:func:`.fused_eval_chain.eval_layout`), on a CPU
+launches the hand-written kernel (``csrc/fused_ensemble.cu``: one
+thread-block cluster of member blocks on ``wgmma`` products, 3xTF32 in fp32,
+laid out by :func:`.fused_eval_chain.eval_layout`), on a CPU
 tensor it runs :func:`fused_forward_plain`, which computes the same
 function with plain tensor ops. It never falls back from one to the other.
 
@@ -263,21 +263,15 @@ def fused_forward_prefolded(fw: FusedWeights, x):
     from ._build import library
     lib = library()
     bf16 = fw.compute_dtype == torch.bfloat16
+    entry = lib.nnueehcs_fused_ensemble_bf16 if bf16 else \
+        lib.nnueehcs_fused_ensemble_f32
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if bf16:
-            image, layout = launch_args('ensemble', fw, rows, x.device)
-            err = lib.nnueehcs_fused_ensemble_bf16(
-                x.data_ptr(), rows, fw.in_dim, image.data_ptr(),
-                fw.b_all.data_ptr(), fw.num_members, fw.num_layers,
-                fw.relu_flags.data_ptr(), fw.out_dim, mean.data_ptr(),
-                std.data_ptr(), layout, stream)
-        else:
-            err = lib.nnueehcs_fused_ensemble_f32(
-                x.data_ptr(), rows, fw.in_dim, fw.w_all.data_ptr(),
-                fw.b_all.data_ptr(), fw.num_members, fw.num_layers,
-                fw.relu_flags.data_ptr(), fw.out_dim, mean.data_ptr(),
-                std.data_ptr(), stream)
+        image, layout = launch_args('ensemble', fw, rows, x.device)
+        err = entry(x.data_ptr(), rows, fw.in_dim, image.data_ptr(),
+                    fw.b_all.data_ptr(), fw.num_members, fw.num_layers,
+                    fw.relu_flags.data_ptr(), fw.out_dim, mean.data_ptr(),
+                    std.data_ptr(), layout, stream)
     if err != 0:
         raise RuntimeError(f'fused ensemble kernel launch failed: CUDA error '
                            f'{err}')

@@ -1,6 +1,6 @@
 """The launch layout and the weight image of the eval kernels on Hopper's
 warpgroup products (``csrc/fused_chain_wgmma.cuh``): the bf16 kernels 1b,
-2b and 5b and the fp32 kernels 2 and 5 (3xTF32). The one place that
+2b and 5b and the fp32 kernels 1, 2 and 5 (3xTF32). The one place that
 decides, from the weights' shapes, how a chain runs on the card.
 
 The kernels keep a network's bf16 chain in shared memory as an *image*:
@@ -36,7 +36,7 @@ order. The grid is as many clusters as the card runs at once
 (``cudaOccupancyMaxActiveClusters``, asked through the library at launch),
 no more than the tiles fill.
 
-The fp32 kernels 2 and 5 run their products as 3xTF32 (``a_hi b_hi +
+The fp32 kernels 1, 2 and 5 run their products as 3xTF32 (``a_hi b_hi +
 a_hi b_lo + a_lo b_hi``, each term a TF32 ``wgmma``, summed in fp32). Their
 image (:func:`chain_image` of fp32 weights) holds each weight twice, ``W_hi
 = tf32(W)`` and ``W_lo = tf32(W - W_hi)`` (round to nearest, ties away, as
@@ -58,7 +58,13 @@ thread of each warpgroup is also a producer. A tile's passes (samples,
 anchors) are split into ``GROUPS`` groups, one for each block of a
 thread-block cluster of ``GROUPS`` blocks;
 each group's shifted sums reach the leader block through its exchange
-rings, which merges them in group order by Chan's formula.
+rings, which merges them in group order by Chan's formula. The fp32
+ensemble (kernel 1) keeps 1b's cluster of ``min(M, 8)`` member blocks, each
+streaming its own members' images (:func:`cached_image`) through its ring,
+and the leader folds the members' outputs in member order as 1b does; it
+runs one warpgroup a block while the tiles do not fill the card's
+clusters, so a small request spreads over as many clusters as it has
+tiles.
 """
 from __future__ import annotations
 
@@ -186,15 +192,16 @@ def tf32_split(w: torch.Tensor):
 
 
 def _tf32_part(blk: torch.Tensor) -> torch.Tensor:
-    """A ``(rows, cols)`` block (rows a multiple of 8) in descriptor order,
-    its rows permuted by TF32_PERM in each 8: logical row ``8 a + 4 c + b``
-    is weight row ``8 a + 2 b + c``. Views only (no index tensor to copy to
+    """Each member's ``(rows, cols)`` block of ``blk`` ``(M, rows, cols)``
+    (rows a multiple of 8) in descriptor order, ``(M, rows * cols)``, its
+    rows permuted by TF32_PERM in each 8: logical row ``8 a + 4 c + b`` is
+    weight row ``8 a + 2 b + c``. Views only (no index tensor to copy to
     the card, which would synchronise a fit that enqueues ahead of it)."""
-    rows, cols = blk.shape
-    logical = blk.reshape(rows // 8, 4, 2, cols).permute(0, 2, 1, 3)
+    members, rows, cols = blk.shape
+    logical = blk.reshape(members, rows // 8, 4, 2, cols).transpose(2, 3)
     # (rows, cols) -> [n // 8][k // 4][n % 8][k % 4]
-    return logical.reshape(rows // 4, 4, cols // 8, 8).permute(
-        2, 0, 3, 1).reshape(-1)
+    return logical.reshape(members, rows // 4, 4, cols // 8, 8).permute(
+        0, 3, 1, 4, 2).reshape(members, -1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,25 +255,35 @@ def _carve(weights: int, warpgroups: int, out_groups: int, ring: int,
 
 
 def _tf32_layout(kernel: str, in_dim: int, num_layers: int, out_dim: int,
-                 rows: int, sms: int, clusters: Optional[int]) -> EvalLayout:
-    """The fp32 kernels' layout (the same for 'mc' and 'anchored'): two
-    consumer warpgroups a block with a ring of at least TF32_MIN_RING_2
-    slots where that fits, else one; the ring with the most slots that fit
-    (TF32_RING), then the statistics, the exchange rings of the GROUPS - 1
-    peers with the most slots that fit up to one tile's sums, the barriers
-    and the producer's state (TF32_STREAM_BYTES); clusters of GROUPS
-    blocks, at most ``clusters`` (``sms // GROUPS`` when not given) and no
-    more than the tiles' warpgroups fill."""
+                 rows: int, sms: int, clusters: Optional[int],
+                 members: int = 1) -> EvalLayout:
+    """The fp32 kernels' layout: two consumer warpgroups a block with a
+    ring of at least TF32_MIN_RING_2 slots where that fits, else one; the
+    ring with the most slots that fit (TF32_RING), then the statistics, the
+    exchange rings of the cluster's peers with the most slots that fit up
+    to one tile's sums (two members' outputs for the ensemble), the
+    barriers and the producer's state (TF32_STREAM_BYTES); clusters of
+    GROUPS blocks ('mc', 'anchored') or of ``c = min(members, 8)``
+    ('ensemble'), at most ``clusters`` (``sms // c`` when not given) and no
+    more than the tiles' warpgroups fill. The ensemble runs one warpgroup a
+    block while its tiles are no more than the clusters, so that each tile
+    has a cluster of its own."""
     out_groups = -(-out_dim // 8)
     slot_bytes = exchange_slot_bytes(out_dim)
+    ensemble = kernel == 'ensemble'
+    cluster = min(members, MAX_CLUSTER) if ensemble else GROUPS
+    tiles = -(-max(rows, 1) // 64)
+    units = sms // cluster if clusters is None else clusters
+    most = 2 * out_groups if not ensemble else EXCHANGE_MEMBERS * out_groups
+    slot_choices = range(most, 0, -1) if cluster > 1 else (0,)
     form = None
-    for wgs in (2, 1):
+    for wgs in ((1,) if ensemble and tiles <= units else (2, 1)):
         for ring in TF32_RING:
             if wgs == 2 and ring < TF32_MIN_RING_2:
                 break
-            for slots in range(2 * out_groups, 0, -1):
+            for slots in slot_choices:
                 carve = _carve(ring * SLOT_BYTES, wgs, out_groups, ring,
-                               GROUPS - 1, slots, slot_bytes)
+                               cluster - 1, slots, slot_bytes)
                 if carve[-1] + TF32_STREAM_BYTES <= SMEM_LIMIT:
                     form = (wgs, ring, slots, carve)
                     break
@@ -275,16 +292,14 @@ def _tf32_layout(kernel: str, in_dim: int, num_layers: int, out_dim: int,
         if form:
             break
     wgs, ring, slots, (stats, exchange, bars, total) = form
-    tiles = -(-max(rows, 1) // 64)
-    units = sms // GROUPS if clusters is None else clusters
     return EvalLayout(
         warpgroups=wgs, ring=ring, out_groups=out_groups,
         image_bytes=tf32_image_bytes(in_dim, num_layers, out_dim),
         smem_stats=stats, smem_bars=bars,
         smem_bytes=total + TF32_STREAM_BYTES,
-        grid=GROUPS * max(1, min(units, -(-tiles // wgs))),
-        threads=WG_THREADS * wgs, cluster=GROUPS, members=1, slots=slots,
-        smem_exchange=exchange)
+        grid=cluster * max(1, min(units, -(-tiles // wgs))),
+        threads=WG_THREADS * wgs, cluster=cluster,
+        members=-(-members // cluster), slots=slots, smem_exchange=exchange)
 
 
 def eval_layout(kernel: str, in_dim: int, num_layers: int, out_dim: int,
@@ -301,16 +316,16 @@ def eval_layout(kernel: str, in_dim: int, num_layers: int, out_dim: int,
     that fit up to two members' outputs (after the most warpgroups), and a
     grid of at most ``clusters`` clusters (the card's count at this layout;
     ``sms // c`` when not given) and no more than the tiles fill.
-    ``fp32``: the fp32 form of 'mc' or 'anchored' (:func:`_tf32_layout`,
+    ``fp32``: the fp32 (3xTF32) form of any of them (:func:`_tf32_layout`,
     ``clusters`` as for the ensemble)."""
     if not (1 <= out_dim <= WIDTH and in_dim >= 1 and num_layers >= 1
-            and members >= 1) or (fp32 and kernel not in ('mc', 'anchored')):
+            and members >= 1) or kernel not in MAX_WARPGROUPS:
         raise ValueError(f'no eval layout for in_dim {in_dim}, '
                          f'{num_layers} layers, out_dim {out_dim}, '
                          f'{members} members, fp32 {fp32} {kernel}')
     if fp32:
         return _tf32_layout(kernel, in_dim, num_layers, out_dim, rows, sms,
-                            clusters)
+                            clusters, members if kernel == 'ensemble' else 1)
     out_groups = -(-out_dim // 8)
     image = image_bytes(in_dim, num_layers, out_dim)
     cluster = min(members, MAX_CLUSTER) if kernel == 'ensemble' else 1
@@ -348,42 +363,50 @@ def eval_layout(kernel: str, in_dim: int, num_layers: int, out_dim: int,
         members=held, slots=slots, smem_exchange=exchange)
 
 
-def chain_image(ws, out_dim: int, member: int = 0) -> torch.Tensor:
-    """The image of member ``member`` of a folded chain: ``ws[l]`` is layer
-    l's weight, ``(M, K, 128)`` (``FusedWeights.ws``), bf16 or fp32; returns
-    the packed bf16 values, or for fp32 weights the TF32 hi and lo images
-    of every block (:func:`tf32_blocks`), as a flat tensor on the weights'
-    device."""
+def member_images(ws, out_dim: int, members=slice(None)) -> torch.Tensor:
+    """The images of members ``members`` (a slice) of a folded chain,
+    ``(M', image floats)`` (or bf16 values): ``ws[l]`` is layer l's weight,
+    ``(M, K, 128)`` (``FusedWeights.ws``), bf16 or fp32; the packed bf16
+    values, or for fp32 weights the TF32 hi and lo images of every block
+    (:func:`tf32_blocks`), on the weights' device. Every member's block in
+    one tensor operation, so the ops a fold costs do not grow with M."""
     num_layers = len(ws)
     in_dim = ws[0].shape[-2]
     parts = []
     if ws[0].dtype == torch.float32:
         for layer, k0, rows, c0, cols in tf32_blocks(in_dim, num_layers,
                                                      out_dim):
-            w = ws[layer][member]
-            blk = w.new_zeros((rows, cols))
-            src = w[k0:k0 + rows, c0:c0 + cols]
-            blk[:src.shape[0], :src.shape[1]] = src
+            w = ws[layer][members]
+            blk = w.new_zeros((w.shape[0], rows, cols))
+            src = w[:, k0:k0 + rows, c0:c0 + cols]
+            blk[:, :src.shape[1], :src.shape[2]] = src
             parts += [_tf32_part(half) for half in tf32_split(blk)]
-        return torch.cat(parts).contiguous()
+        return torch.cat(parts, dim=1)
     for layer, k0, rows, cols in chain_blocks(in_dim, num_layers, out_dim):
-        w = ws[layer][member]
-        blk = w.new_zeros((rows, cols))
-        src = w[k0:k0 + rows, :cols]
-        blk[:src.shape[0]] = src
+        w = ws[layer][members]
+        blk = w.new_zeros((w.shape[0], rows, cols))
+        src = w[:, k0:k0 + rows, :cols]
+        blk[:, :src.shape[1]] = src
         # (rows, cols) -> [n // 8][k // 8][n % 8][k % 8]
-        parts.append(blk.reshape(rows // 8, 8, cols // 8, 8)
-                     .permute(2, 0, 3, 1).reshape(-1))
-    return torch.cat(parts).contiguous()
+        parts.append(blk.reshape(-1, rows // 8, 8, cols // 8, 8)
+                     .permute(0, 3, 1, 4, 2).reshape(w.shape[0], -1))
+    return torch.cat(parts, dim=1)
+
+
+def chain_image(ws, out_dim: int, member: int = 0) -> torch.Tensor:
+    """The image of member ``member`` of a folded chain
+    (:func:`member_images`) as a flat tensor."""
+    return member_images(ws, out_dim, slice(member, member + 1))[0] \
+        .contiguous()
 
 
 def cached_image(fw) -> torch.Tensor:
-    """Every member's :func:`chain_image` of folded weights ``fw``,
-    member after member, computed once and kept on the weights object."""
+    """Every member's image of folded weights ``fw``, member after member
+    (:func:`member_images`), computed once and kept on the weights
+    object."""
     image = getattr(fw, '_wgmma_image', None)
     if image is None:
-        image = torch.cat([chain_image(fw.ws, fw.out_dim, m)
-                           for m in range(fw.ws[0].shape[0])])
+        image = member_images(fw.ws, fw.out_dim).reshape(-1).contiguous()
         fw._wgmma_image = image
     return image
 
@@ -415,26 +438,38 @@ def _clusters(entry: str, form: tuple, index: int) -> int:
 CLUSTER_ENTRIES = {
     ('ensemble', False): 'nnueehcs_fused_ensemble_bf16_clusters',
     ('probe', False): 'nnueehcs_packed_forward_bf16_clusters',
+    ('ensemble', True): 'nnueehcs_fused_ensemble_f32_clusters',
     ('mc', True): 'nnueehcs_fused_mc_dropout_f32_clusters',
     ('anchored', True): 'nnueehcs_fused_anchored_f32_clusters'}
 
 
 def launch_args(kernel: str, fw, rows: int, device, probe: bool = False):
     """``(image, layout ints)`` for launching ``kernel`` ('mc',
-    'anchored' or 'ensemble'; ``probe``: the ensemble's packed probe) on
-    folded weights ``fw`` (bf16; fp32 for 'mc' and 'anchored', their 3xTF32
+    'anchored' or 'ensemble'; ``probe``: the ensemble's packed probe, bf16
+    only) on folded weights ``fw`` (bf16, or fp32 for the kernels' 3xTF32
     form) over ``rows`` rows on a CUDA ``device``: the cached image and the
     :func:`eval_layout` of this call as a ctypes int array, a cluster
     kernel's grid from the clusters it fits."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     members = fw.num_members if kernel == 'ensemble' else 1
-    fp32 = kernel != 'ensemble' and fw.compute_dtype == torch.float32
-    layout = eval_layout(kernel, fw.in_dim, fw.num_layers, fw.out_dim, rows,
+    fp32 = not probe and fw.compute_dtype == torch.float32
+    return cached_image(fw), _launch_layout(
+        kernel, fw.in_dim, fw.num_layers, fw.out_dim, rows, index, members,
+        fp32, probe)
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch_layout(kernel, in_dim, num_layers, out_dim, rows, index,
+                   members, fp32, probe):
+    """The layout ints of one launch shape on card ``index``, computed
+    once: two :func:`eval_layout` calls cost a small request more host
+    time than its kernel takes on the card."""
+    layout = eval_layout(kernel, in_dim, num_layers, out_dim, rows,
                          _sms(index), members, fp32=fp32)
     entry = CLUSTER_ENTRIES.get(('probe' if probe else kernel, fp32))
     if entry is not None:
         clusters = _clusters(entry, tuple(layout.ints()), index)
-        layout = eval_layout(kernel, fw.in_dim, fw.num_layers, fw.out_dim,
-                             rows, _sms(index), members, clusters, fp32)
-    return cached_image(fw), _ints(layout)
+        layout = eval_layout(kernel, in_dim, num_layers, out_dim, rows,
+                             _sms(index), members, clusters, fp32)
+    return _ints(layout)

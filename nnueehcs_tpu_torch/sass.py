@@ -2,8 +2,10 @@
 machine with the CUDA toolkit): the per-kernel listings that
 ``tools/compare_sass.py`` compares between two builds, and the checks
 ``chip_smoke.py`` and ``tools/eval_chain_phases.py`` make of the eval
-kernels on wgmma, the bf16 1b, 2b and 5b and the fp32 (3xTF32) 2 and 5
-(no spills, HGMMA instructions, the MC kernels' mask loops).
+kernels on wgmma, the bf16 1b, 2b and 5b and the fp32 (3xTF32) 1, 2 and 5
+(no spills, HGMMA instructions, the MC kernels' mask loops, and whether
+ptxas serialised the ``wgmma``: a ``WARPGROUP.DEPBAR`` wait after each
+``HGMMA``, and its C75xx warnings in the ``-Xptxas -v`` log).
 """
 from __future__ import annotations
 
@@ -25,23 +27,58 @@ HASH_MARKER = '0x7feb352d'
 MASK_LOOP_WINDOW = (8.0, 16.0)
 EVAL_KERNELS = ('fused_mc_dropout_bf16_kernel', 'fused_anchored_bf16_kernel',
                 'fused_ensemble_bf16_kernel',
-                'fused_mc_dropout_bf16_table_kernel')
+                'fused_mc_dropout_bf16_table_kernel', 'packed_bf16_kernel')
 # the rows' keys of the MC kernels' mask loops: the serving kernel's and
 # the seed-table kernel's (a batched validation pass)
 MASK_LOOPS = {'fused_mc_dropout_bf16_kernel': 'mask_loop',
               'fused_mc_dropout_bf16_table_kernel': 'mask_loop_table'}
 # the template argument kRing of each form in the mangled name
 EVAL_FORMS = (('resident', 'ILb0E'), ('ring', 'ILb1E'))
-# the fp32 kernels 2 and 5 (3xTF32 on wgmma, one form each: the ring); the
-# MC kernel's mask loop is reported under its key, not held to the window
-TF32_KERNELS = ('fused_mc_dropout_kernel', 'fused_anchored_kernel')
+# the fp32 kernels 1, 2 and 5 (3xTF32 on wgmma, one form each: the ring);
+# the MC kernel's mask loop is reported under its key, not held to the
+# window
+TF32_KERNELS = ('fused_mc_dropout_kernel', 'fused_anchored_kernel',
+                'fused_ensemble_kernel')
 TF32_MASK_LOOP = 'mask_loop_tf32'
+# ptxas's warning that it serialised a function's wgmma (C7510-C7520 name
+# the causes: a branch between wgmma forms, an accumulator touched inside
+# the pipeline, ...), with the function's mangled name last on the line
+_SERIALISED = re.compile(r"\((C75\d\d)\)[^\n]*wgmma[^\n]*serializ[^\n]*"
+                         r"'([^'\s]+)'")
 
 
-def _gate(name, funcs, ptxas, kernel, tag=''):
+def serialised_warnings(log: str) -> dict[str, list[str]]:
+    """{mangled name: [C75xx codes]} of the functions whose wgmma ptxas
+    reported serialised in an ``-Xptxas -v`` log."""
+    out = {}
+    for code, name in _SERIALISED.findall(log):
+        out.setdefault(name, []).append(code)
+    return out
+
+
+def waited_hgmma(instrs) -> int:
+    """The HGMMA instructions of a SASS function (``[(address, text)]``)
+    that a ``WARPGROUP.DEPBAR`` waits on before the next HGMMA is issued:
+    every one where ptxas serialised the wgmma, one a committed group
+    where it pipelined them (a 3xTF32 k step issues three at least)."""
+    waited, pending = 0, False
+    for _, text in instrs:
+        op = opcode(text)
+        if op.startswith('HGMMA'):
+            pending = True
+        elif op.startswith('WARPGROUP.DEPBAR') and pending:
+            waited += 1
+            pending = False
+    return waited
+
+
+def _gate(name, funcs, ptxas, kernel, tag='', log='', pipelined=False):
     """Registers, spills (which must be 0) and HGMMA instructions (which
     must be there) of the one SASS function and ptxas entry whose names
-    hold ``kernel`` and ``tag``; raise where one does not hold."""
+    hold ``kernel`` and ``tag``, with the HGMMA a wait follows and ptxas's
+    serialisation warnings (``log``); raise where one does not hold, and
+    with ``pipelined`` where the wgmma are serialised (more than half the
+    HGMMA waited on, or a warning)."""
     names = [n for n in funcs if kernel in n and tag in n]
     regs = [v for k, v in ptxas.items() if kernel in k and tag in k]
     if len(names) != 1 or len(regs) != 1:
@@ -50,10 +87,17 @@ def _gate(name, funcs, ptxas, kernel, tag=''):
     row = {k: regs[0].get(k) for k in ('registers', 'spill_store_bytes',
                                       'spill_load_bytes')}
     row['hgmma'] = sum('HGMMA' in t for _, t in funcs[names[0]])
+    row['hgmma_waited'] = waited_hgmma(funcs[names[0]])
+    row['ptxas_serialised'] = [
+        code for fn, codes in serialised_warnings(log).items()
+        if kernel in fn and tag in fn for code in codes]
     if row['spill_store_bytes'] != 0 or row['spill_load_bytes'] != 0:
         raise RuntimeError(f'{name} spills: {row}')
     if row['hgmma'] == 0:
         raise RuntimeError(f'{name}: no HGMMA in its SASS')
+    if pipelined and (2 * row['hgmma_waited'] > row['hgmma']
+                      or row['ptxas_serialised']):
+        raise RuntimeError(f'{name}: ptxas serialised its wgmma: {row}')
     return row, names[0]
 
 
@@ -137,24 +181,30 @@ def loop_mix(instrs, marker):
     return best
 
 
-def eval_chain_rows(funcs, ptxas):
-    """The bf16 eval kernels 1b, 2b (and 2b's seed-table kernel) and 5b in
-    both forms (resident, ring), and the fp32 kernels 2 and 5 (3xTF32), from
-    the SASS ``funcs`` (:func:`parse_instructions`) and the ptxas report
-    ``ptxas`` ({kernel: {'registers', 'spill_store_bytes', ...}}): their
-    registers and spills, which must be 0, and their HGMMA (wgmma)
-    instructions, which must be there; and the bf16 MC kernels' mask loops,
-    whose instructions per hash (per lowbias32 multiply by HASH_MARKER) must
-    lie in MASK_LOOP_WINDOW (the fp32 MC kernel's is reported). Raises
+def eval_chain_rows(funcs, ptxas, log=''):
+    """The bf16 eval kernels 1b, 2b (and 2b's seed-table kernel), 5b and
+    the packed probe 10b in both forms (resident, ring), and the fp32
+    kernels 1, 2 and 5 (3xTF32),
+    from the SASS ``funcs`` (:func:`parse_instructions`), the ptxas report
+    ``ptxas`` ({kernel: {'registers', 'spill_store_bytes', ...}}) and the
+    ``-Xptxas -v`` log ``log``: their registers and spills, which must be 0,
+    their HGMMA (wgmma) instructions, which must be there, and those a wait
+    follows with ptxas's serialisation warnings, which the fp32 kernels must
+    not have (the bf16 ones are reported: their layer 0 still chooses its
+    first product by a branch); and the bf16 MC kernels' mask loops, whose
+    instructions per hash (per lowbias32 multiply by HASH_MARKER) must lie
+    in MASK_LOOP_WINDOW (the fp32 MC kernel's is reported). Raises
     RuntimeError where one does not hold."""
     out = {}
     for kernel in TF32_KERNELS:
-        out[kernel], name = _gate(kernel, funcs, ptxas, kernel)
+        out[kernel], name = _gate(kernel, funcs, ptxas, kernel, log=log,
+                                  pipelined=True)
         if kernel == 'fused_mc_dropout_kernel':
             out[TF32_MASK_LOOP] = loop_mix(funcs[name], HASH_MARKER)
     for kernel in EVAL_KERNELS:
         for form, tag in EVAL_FORMS:
-            row, name = _gate(f'{kernel}<{form}>', funcs, ptxas, kernel, tag)
+            row, name = _gate(f'{kernel}<{form}>', funcs, ptxas, kernel, tag,
+                              log)
             out[f'{kernel}<{form}>'] = row
             if kernel in MASK_LOOPS and form == 'resident':
                 mask = loop_mix(funcs[name], HASH_MARKER)
@@ -170,6 +220,6 @@ def eval_chain_rows(funcs, ptxas):
     return out
 
 
-def eval_chain_sass(lib_path, ptxas):
+def eval_chain_sass(lib_path, ptxas, log=''):
     """:func:`eval_chain_rows` of the library at ``lib_path``."""
-    return eval_chain_rows(parse_instructions(dump(lib_path)), ptxas)
+    return eval_chain_rows(parse_instructions(dump(lib_path)), ptxas, log)

@@ -1,7 +1,8 @@
 """The kernel-attribution entry point (``nnueehcs_tpu_torch.attrib``) on
 the CPU, where it runs the probes' plain versions and their gates only:
-every variant of both batteries is gated, each form of the production
-math equals kernels 1 and 3's plain versions bit for bit, and the
+every variant of both batteries is gated, each form of the probes' math
+equals the prod probe's (kernel 1's former FFMA body) and kernel 3's plain
+version bit for bit, kernel 1 is held to its plain version, and the
 command line prints one JSON line per gate. Its timing runs only on a
 card (chip_smoke.py's attribution phase)."""
 import json
@@ -25,11 +26,12 @@ def test_forward_battery_gates_every_variant_on_the_cpu(capsys):
     gates = out['gates']
     assert {'prod', 'io_floor', 'one_out', 'gemm_only', 'no_epi',
             'members=1', 'layers=5', 'xT input', 'xT+outT', 'narrow-in',
-            'narrow-out', 'narrow-both', 'packed'} <= set(gates)
+            'narrow-out', 'narrow-both', 'packed', 'kernel 1'} <= set(gates)
     for name in ('prod', 'one_out', 'xT input', 'xT+outT', 'narrow-both',
                  'packed'):
-        assert gates[name]['equals_kernel_1'], name
-    assert not gates['gemm_only']['equals_kernel_1']
+        assert gates[name]['equals_prod_probe'], name
+    for name in ('gemm_only', 'kernel 1'):
+        assert not gates[name]['equals_prod_probe'], name
     lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
     assert len(lines) == len(gates) + 1
     assert all(l['battery'] == 'forward' for l in lines)

@@ -13,8 +13,10 @@ since tests/conftest.py imports JAX):
 
 Tolerances: mean 1e-5 absolute and relative; std 1e-3 relative, 1e-5
 absolute (fp32 sums taken in another order than cuBLAS takes them; the
-fp32 MC-dropout and anchored kernels' 3xTF32 products and their groups'
-sums merged by Chan's formula). The
+fp32 kernels' 3xTF32 products, and the MC-dropout and anchored kernels'
+groups' sums merged by Chan's formula). The fp32 ensemble kernel runs 1
+to 28 members (a cluster of min(M, 8) member blocks), a 12,800-row pass
+against one launch a batch and twice, bit for bit. The
 MC-dropout kernel and its plain version draw the same hash masks for the
 same seed, so they are compared with the same tolerances. The fp32
 MC-dropout and anchored kernels also run at the edges of their tiles,
@@ -672,21 +674,90 @@ def test_tf32_kernels_give_the_same_bits_twice_on_card(card):
             assert torch.equal(a, b)
 
 
+TF32_ENSEMBLE_CASES = {
+    # name: (members, in_dim, width, hidden, out_dim, rows, far)
+    'm1_b1': (1, 5, 128, 6, 1, 1, False),
+    'm1_b4096': (1, 5, 128, 6, 1, 4096, False),
+    'm2_b63_d13': (2, 13, 64, 1, 1, 63, False),
+    'm3_b65_out9': (3, 5, 128, 6, 9, 65, False),
+    'm3_one_linear_out9': (3, 13, 13, 0, 9, 300, False),
+    'm8_b128': (8, 5, 128, 6, 1, 128, False),
+    'm8_b4096': (8, 5, 128, 6, 1, 4096, False),
+    'm8_b12800': (8, 5, 128, 6, 1, 12_800, False),
+    'm8_d37_out128': (8, 37, 64, 1, 128, 300, False),
+    'm8_deep_12_linears': (8, 5, 128, 11, 1, 1000, False),
+    'm8_far_ood': (8, 5, 128, 6, 1, 4096, True),
+    'm9_b1000_out9': (9, 13, 128, 1, 9, 1000, False),
+    'm15_b4096': (15, 5, 128, 6, 1, 4096, False),
+    'm28_b4096': (28, 5, 128, 6, 1, 4096, False),
+    'm3_wide_input_200': (3, 200, 128, 2, 1, 1000, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(TF32_ENSEMBLE_CASES))
+def test_tf32_ensemble_kernel_matches_plain_on_card(card, case):
+    """Kernel 1 (3xTF32, a cluster of min(M, 8) member blocks) against its
+    plain version at the edges of its tiles, clusters (one member; more
+    members than blocks), inputs, outputs and depths."""
+    members, in_dim, width, hidden, out_dim, rows, far = \
+        TF32_ENSEMBLE_CASES[case]
+    fw = prepare_fused_weights(_model(card, members, in_dim, width, hidden,
+                                      out_dim).net)
+    assert fw.compute_dtype == torch.float32
+    assert fw.num_layers == hidden + 1
+    x = _inputs(card, rows, in_dim, far)
+    before = (fused_forward_prefolded.launches,
+              fused_forward_prefolded.launches_bf16)
+    mean, std = fused_forward_prefolded(fw, x)
+    torch.cuda.synchronize()
+    assert (fused_forward_prefolded.launches,
+            fused_forward_prefolded.launches_bf16) == (before[0] + 1,
+                                                       before[1])
+    ref_mean, ref_std = fused_forward_plain(fw, x)
+    torch.testing.assert_close(mean, ref_mean, **TOL_MEAN)
+    torch.testing.assert_close(std, ref_std, **TOL_STD)
+    if members == 1:
+        assert float(std.abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('members', [3, 8, 9, 28])
+def test_tf32_ensemble_kernel_gives_the_same_bits_twice_on_card(card,
+                                                                members):
+    """Kernel 1 twice on the same rows, and once over 12,800 rows against
+    one launch a 128-row batch, bit for bit: a race in the ring or the
+    exchange, or a row's arithmetic that depends on B, would show here."""
+    fw = prepare_fused_weights(_model(card, members, 5, 128, 6, 1).net)
+    x = _inputs(card, 12_800, 5, False)
+    first = [t.clone() for t in fused_forward_prefolded(fw, x)]
+    again = fused_forward_prefolded(fw, x)
+    batches = [fused_forward_prefolded(fw, x[r:r + 128].contiguous())
+               for r in range(0, x.shape[0], 128)]
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(first, again)):
+        assert torch.equal(a, b)
+        assert torch.equal(a, torch.cat([t[i] for t in batches]))
+
+
 @pytest.mark.cuda
 def test_tf32_kernels_compile_without_spills_and_with_hgmma(card):
-    """ptxas's report of the fp32 kernels 2 and 5: no spill, and HGMMA
-    (wgmma) instructions in their SASS (nnueehcs_tpu_torch.sass)."""
+    """ptxas's report of the fp32 kernels 1, 2 and 5: no spill, HGMMA
+    (wgmma) instructions in their SASS, and none serialised (no wait after
+    most HGMMA, no ptxas C75xx warning; nnueehcs_tpu_torch.sass)."""
     from chip_smoke import ptxas_report
     from nnueehcs_tpu_torch.ops import _build
     from nnueehcs_tpu_torch.sass import (TF32_KERNELS, dump,
                                          eval_chain_rows, parse_instructions)
     info = _build.build_info()
     rows = eval_chain_rows(parse_instructions(dump(info.path)),
-                           ptxas_report(info.log))
+                           ptxas_report(info.log), info.log)
     for kernel in TF32_KERNELS:
         assert rows[kernel]['spill_store_bytes'] == 0
         assert rows[kernel]['spill_load_bytes'] == 0
         assert rows[kernel]['hgmma'] > 0
+        assert 2 * rows[kernel]['hgmma_waited'] <= rows[kernel]['hgmma']
+        assert rows[kernel]['ptxas_serialised'] == []
 
 
 @pytest.mark.cuda
@@ -1049,7 +1120,14 @@ def test_layout_probes_match_plain_and_production_on_card(card, case):
                                       out_dim).net)
     x = torch.as_tensor(np.random.default_rng(7).normal(size=(rows, in_dim)),
                         dtype=torch.float32, device=card)
-    mean, std = fused_forward_prefolded(fw, x)
+    # the probes' math is kernel 1's former FFMA body, which the prod probe
+    # runs; kernel 1 itself (3xTF32) is held to its plain version
+    mean, std = (t[:, :out_dim] for t in af.ablate_forward(
+        fw, _padded(x, 128)))
+    got = fused_forward_prefolded(fw, x)
+    want = fused_forward_plain(fw, x)
+    torch.testing.assert_close(got[0], want[0], **TOL_MEAN)
+    torch.testing.assert_close(got[1], want[1], **TOL_STD)
     feat = max(8, in_dim)
     calls = [(af.ablate_forward, af.ablate_forward_plain, (_padded(x, 128),)),
              (af.xt_forward, af.xt_forward_plain,
@@ -1073,7 +1151,7 @@ def test_layout_probes_match_plain_and_production_on_card(card, case):
         want = plain(fw, *args)
         torch.testing.assert_close(got[0], want[0], **TOL_MEAN)
         torch.testing.assert_close(got[1], want[1], **TOL_STD)
-        if got[0].shape[0] == rows:          # kernel 1's math, bit for bit
+        if got[0].shape[0] == rows:          # the prod probe's, bit for bit
             n = min(out_dim, got[0].shape[1])
             assert torch.equal(got[0][:, :n], mean[:, :n])
             assert torch.equal(got[1][:, :n], std[:, :n])

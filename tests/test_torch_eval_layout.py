@@ -1,7 +1,9 @@
 """The launch layout and weight image of the bf16 eval kernels 1b, 2b and 5b
-and of the fp32 kernels 2 and 5 (their 3xTF32 image: hi and lo parts, the
-K permutation, the blocks' offsets; their cluster layouts for every d and
-out_dim up to 128 and 2 to 8 Linears)
+and of the fp32 kernels 1, 2 and 5 (their 3xTF32 image: hi and lo parts, the
+K permutation, the blocks' offsets, kernel 1's members one after another;
+their cluster layouts for every d and out_dim up to 128 and 2 to 8
+Linears, kernel 1's for 1 to 32 members and its grid, which spreads a
+small request over as many clusters as it has tiles)
 (``ops/fused_eval_chain.py``), the one place that decides how a chain runs
 on the card: resident in shared memory or streamed through a ring, how many
 consumer warpgroups a block runs, where each weight block lies, and for the
@@ -472,8 +474,119 @@ def test_flagship_tf32_layouts():
 
 
 def test_bf16_layouts_are_unchanged_by_the_fp32_form():
-    for kernel in ('mc', 'anchored'):
-        assert ec.eval_layout(kernel, 5, 7, 1, 4096, SMS) == \
-            ec.eval_layout(kernel, 5, 7, 1, 4096, SMS, fp32=False)
+    for kernel in ('mc', 'anchored', 'ensemble'):
+        assert ec.eval_layout(kernel, 5, 7, 1, 4096, SMS, members=8) == \
+            ec.eval_layout(kernel, 5, 7, 1, 4096, SMS, members=8,
+                           fp32=False)
+    # the fp32 ensemble has a layout of its own; no kernel but the three
+    # has one
+    assert ec.eval_layout('ensemble', 5, 7, 1, 4096, SMS, members=8,
+                          fp32=True).ring > 0
     with pytest.raises(ValueError):
-        ec.eval_layout('ensemble', 5, 7, 1, 4096, SMS, members=8, fp32=True)
+        ec.eval_layout('kde', 5, 7, 1, 4096, SMS, fp32=True)
+
+
+ENSEMBLE_MEMBERS = (1, 2, 3, 7, 8, 9, 15, 16, 28, 32)
+
+
+@pytest.mark.parametrize('members', ENSEMBLE_MEMBERS)
+@pytest.mark.parametrize('L', (1, 2, 7, 12))
+def test_every_tf32_ensemble_layout_fits(members, L):
+    """Kernel 1's fp32 layout, d from 1 to 200 and out_dim from 1 to 128:
+    the carve fits a block's shared memory, a cluster of c = min(M, 8)
+    blocks each holding ceil(M / c) members' images in turn, an exchange
+    ring for each of the c - 1 peers of each warpgroup (none for one
+    member) holding up to two members' outputs."""
+    c = min(members, ec.MAX_CLUSTER)
+    for d in (1, 5, 13, 37, 128, 200):
+        for out in (1, 8, 9, 64, 127, 128):
+            for rows in (1, 12_800):
+                lay = ec.eval_layout('ensemble', d, L, out, rows, SMS,
+                                     members, fp32=True)
+                wgs = lay.warpgroups
+                assert lay.smem_bytes <= ec.SMEM_LIMIT == 232_448
+                assert lay.cluster == c and lay.members == -(-members // c)
+                assert lay.grid % c == 0
+                assert wgs in (1, 2) and lay.threads == 128 * wgs
+                assert lay.ring >= (ec.TF32_MIN_RING_2 if wgs == 2 else 2)
+                assert lay.smem_stats == lay.ring * ec.SLOT_BYTES
+                assert lay.smem_exchange == lay.smem_stats + \
+                    wgs * lay.out_groups * ec.STAT_BYTES
+                if c == 1:
+                    assert lay.slots == 0
+                    assert lay.smem_bytes == lay.smem_bars + \
+                        8 * 2 * lay.ring + ec.TF32_STREAM_BYTES
+                else:
+                    assert 1 <= lay.slots <= \
+                        ec.EXCHANGE_MEMBERS * lay.out_groups
+                    assert lay.smem_bars >= lay.smem_exchange + wgs * (
+                        c - 1) * lay.slots * ec.exchange_slot_bytes(out)
+                    assert lay.smem_bytes == lay.smem_bars + 8 * (
+                        2 * lay.ring + wgs * c * lay.slots) + \
+                        ec.TF32_STREAM_BYTES
+                assert lay.image_bytes == ec.tf32_image_bytes(d, L, out)
+
+
+@pytest.mark.parametrize('members', ENSEMBLE_MEMBERS)
+@pytest.mark.parametrize('rows,clusters,units,warpgroups', [
+    (1, None, 1, 1), (128, None, 2, 1), (128, 15, 2, 1), (960, 15, 15, 1),
+    (961, 15, 8, 2), (12_800, 15, 15, 2), (12_800, None, None, 2),
+    (262_144, 15, 15, 2), (262_144, None, None, 2), (262_144, 1, 1, 2)])
+def test_tf32_ensemble_grid_spreads_small_requests(members, rows, clusters,
+                                                   units, warpgroups):
+    """One warpgroup a block while the tiles are no more than the clusters
+    (each tile a cluster of its own: a 128-row request on two clusters),
+    else two; the grid the clusters the tiles fill, at most ``clusters``
+    (``SMS // c`` when not given) and no more than the tiles fill."""
+    c = min(members, ec.MAX_CLUSTER)
+    lay = ec.eval_layout('ensemble', 5, 7, 1, rows, SMS, members,
+                         clusters=clusters, fp32=True)
+    if units is None:
+        units = min(SMS // c, -(-rows // (64 * warpgroups)))
+    assert lay.warpgroups == warpgroups
+    assert lay.grid == c * units
+
+
+def test_flagship_tf32_ensemble_layout():
+    """8 members, 7 Linears, one output: a cluster of 8 blocks of one
+    member each, two warpgroups on a ring of 6 slots at the flagship's
+    rows, the same carve as kernels 2 and 5 but for the exchange's slots."""
+    lay = ec.eval_layout('ensemble', 5, 7, 1, 262_144, SMS, 8, 15, True)
+    mc = ec.eval_layout('mc', 5, 7, 1, 262_144, SMS, clusters=15, fp32=True)
+    assert (lay.cluster, lay.members, lay.warpgroups, lay.ring) == \
+        (8, 1, 2, 6)
+    assert lay.image_bytes == mc.image_bytes == 671_744
+    assert lay.slots == ec.EXCHANGE_MEMBERS * lay.out_groups == 2
+    assert (lay.smem_stats, lay.smem_exchange) == (mc.smem_stats,
+                                                  mc.smem_exchange)
+    assert lay.grid == mc.grid == 8 * 15
+    small = ec.eval_layout('ensemble', 5, 7, 1, 128, SMS, 8, 15, True)
+    assert (small.warpgroups, small.grid, small.threads) == (1, 16, 128)
+
+
+@pytest.mark.parametrize('members,d,L,out', [(1, 5, 7, 1), (3, 13, 2, 9),
+                                             (9, 5, 1, 9), (2, 13, 7, 1)])
+def test_cached_tf32_image_is_every_member_in_turn(members, d, L, out):
+    """The fp32 ensemble's image (cached_image of fp32 FusedWeights):
+    member m's 3xTF32 chain image at m * image_bytes, read back to its
+    weights through the descriptor layout."""
+    from nnueehcs_tpu_torch.ops.fused_ensemble import FusedWeights
+    gen = torch.Generator().manual_seed(members * 100 + L)
+    dims = [d] + [128] * (L - 1) + [out]
+    folded = [(torch.randn((members, k, n), generator=gen),
+               torch.randn((members, n), generator=gen), l < L - 1)
+              for l, (k, n) in enumerate(zip(dims[:-1], dims[1:]))]
+    fw = FusedWeights(folded)
+    image = ec.cached_image(fw)
+    n = ec.tf32_image_bytes(d, L, out) // 4
+    assert image.dtype == torch.float32 and image.numel() == members * n
+    for m in range(members):
+        layers = image_layers(image[m * n:(m + 1) * n], d, L, out)
+        for l, (hi, lo) in enumerate(layers):
+            w = fw.ws[l][m]
+            k, cols = hi.shape
+            want = torch.zeros((k, cols))
+            want[:w.shape[0], :min(cols, w.shape[1])] = \
+                w[:, :min(cols, w.shape[1])]
+            assert torch.equal(hi, ec.tf32_round(want))
+            assert torch.equal(lo, ec.tf32_round(want - hi))

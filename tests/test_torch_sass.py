@@ -136,31 +136,105 @@ def test_eval_chain_rows_reads_registers_hgmma_and_the_mask_loop():
             assert rows[f'{kernel}<{form}>']['spill_store_bytes'] == 0
     for kernel in sass.TF32_KERNELS:
         assert rows[kernel] == {'registers': 250, 'spill_store_bytes': 0,
-                                'spill_load_bytes': 0, 'hgmma': 1}
+                                'spill_load_bytes': 0, 'hgmma': 1,
+                                'hgmma_waited': 0, 'ptxas_serialised': []}
     assert rows[sass.TF32_MASK_LOOP] is None     # no loop in this listing
 
 
 @pytest.mark.parametrize('fault', ['spill', 'no_hgmma', 'no_loop',
                                    'loop_too_long', 'missing_form',
                                    'tf32_spill', 'tf32_no_hgmma',
-                                   'tf32_missing'])
+                                   'tf32_missing', 'tf32_serialised',
+                                   'tf32_c7520', 'ensemble_serialised'])
 def test_eval_chain_rows_refuses(fault):
     body = mask_loop(per_hash_extra=37 if fault == 'loop_too_long' else 0)
     if fault == 'no_loop':
         body = [t for t in body if 'BRA' not in t]
     funcs, ptxas = eval_kernels(body)
     name = next(n for n in funcs if 'ILb1E' in n)
+    log = ''
     if fault.startswith('tf32_'):
         name = next(n for n in funcs if sass.TF32_KERNELS[0] in n)
         fault = fault[len('tf32_'):].replace('missing', 'missing_form')
+    if fault == 'ensemble_serialised':
+        name = next(n for n in funcs if 'fused_ensemble_kernel' in n)
+        fault = 'serialised'
     if fault == 'spill':
         ptxas[name]['spill_store_bytes'] = 8
     elif fault == 'no_hgmma':
         funcs[name] = [(0, 'EXIT')]
     elif fault == 'missing_form':
         del funcs[name]
-    with pytest.raises(RuntimeError):
-        sass.eval_chain_rows(funcs, ptxas)
+    elif fault == 'serialised':
+        funcs[name] = sass.parse_instructions(listing(
+            {name: hgmma_listing(serialised=True)}))[name]
+    elif fault == 'c7520':
+        log = ptxas_warning(name)
+    with pytest.raises(RuntimeError, match='' if fault != 'serialised'
+                       and fault != 'c7520' else 'serialised'):
+        sass.eval_chain_rows(funcs, ptxas, log)
+
+
+def hgmma_listing(serialised, steps=4):
+    """A 3xTF32 body of ``steps`` k steps: pipelined, each layer's products
+    issued together and waited on once (a WARPGROUP.DEPBAR), or as ptxas
+    serialises them, an arrive before and a wait after every HGMMA."""
+    body = ['MOV R1, c[0x0][0x28]']
+    hgmma = 'HGMMA.64x128x8.F32.TF32 R24, R104, gdesc[UR16], R24'
+    for _ in range(2):                   # two layers
+        body.append('WARPGROUP.ARRIVE')
+        for i in range(3 * steps):
+            if serialised:
+                body += [f'{hgmma}, gsb0', 'WARPGROUP.DEPBAR.LE gsb0, 0x0',
+                         'WARPGROUP.ARRIVE']
+            else:
+                body.append(hgmma + (', gsb0' if i == 3 * steps - 1
+                                     else ''))
+        if not serialised:
+            body.append('WARPGROUP.DEPBAR.LE gsb0, 0x0')
+        body += ['FADD R24, R24, R3'] * 4
+    return body + ['EXIT']
+
+
+def ptxas_warning(name):
+    """ptxas's line for a function whose wgmma it serialised."""
+    return ("ptxas info    : (C7520) Potential Performance Loss: "
+            "wgmma.mma_async instructions are serialized due to non "
+            "wgmma instructions defining accumulator registers of a wgmma "
+            f"between start and end of the pipeline stage in the function "
+            f"'{name}'\nptxas info    : Used 168 registers")
+
+
+@pytest.mark.parametrize('serialised', [False, True])
+def test_waited_hgmma_tells_serialised_from_pipelined(serialised):
+    instrs = sass.parse_instructions(listing(
+        {'k': hgmma_listing(serialised)}))['k']
+    assert sass.waited_hgmma(instrs) == (24 if serialised else 2)
+
+
+def test_serialised_warnings_name_the_functions():
+    log = '\n'.join([ptxas_warning('_Z1akernel'), 'ptxas info    : x',
+                     ptxas_warning('_Z1bkernel').replace('C7520', 'C7510'),
+                     "ptxas info    : Compiling entry function '_Z1ckernel'"])
+    assert sass.serialised_warnings(log) == {'_Z1akernel': ['C7520'],
+                                             '_Z1bkernel': ['C7510']}
+    assert sass.serialised_warnings('ptxas info    : Used 9 registers') == {}
+
+
+def test_eval_chain_rows_reports_the_bf16_kernels_serialised():
+    """The bf16 kernels (1b, 2b, 5b) are known serialised: their rows carry
+    the waits and ptxas's codes, and the gate passes."""
+    funcs, ptxas = eval_kernels(mask_loop())
+    name = next(n for n in funcs if 'fused_ensemble_bf16_kernel' in n
+                and 'ILb1E' in n)
+    funcs[name] = sass.parse_instructions(listing(
+        {name: hgmma_listing(serialised=True)}))[name]
+    rows = sass.eval_chain_rows(funcs, ptxas, ptxas_warning(name))
+    row = rows['fused_ensemble_bf16_kernel<ring>']
+    assert row['hgmma'] == row['hgmma_waited'] == 24
+    assert row['ptxas_serialised'] == ['C7520']
+    for kernel in sass.TF32_KERNELS:
+        assert rows[kernel]['ptxas_serialised'] == []
 
 
 def _binops(fn, op):

@@ -1,16 +1,20 @@
-"""The arithmetic of the fp32 kernels 2 (MC dropout) and 5 (anchored) on
-the card, emulated in plain torch (tests/torch_tf32.py: the weights read
-back from the kernels' 3xTF32 image as the descriptors address it, each
-product ``a_lo w_hi + a_hi w_lo + a_hi w_hi`` on TF32 parts rounded by bit
-mask, a tile's passes in ``GROUPS`` groups each shifted by its own first
-pass, the groups merged by Chan's formula in group order), held to the
-references the kernels answer to before any card runs them: kernel 5's to
-the JAX package's ``_anchored_kernel`` (Pallas interpret mode, as
-tests/test_fused_anchored.py runs it) and to the port's plain version;
-kernel 2's to the port's plain version on the same hash masks (the JAX
-kernel draws its masks from the TPU's PRNG, which no CPU run reproduces),
-also with a seed table and a row offset. Counts of samples or anchors:
-1, 2, GROUPS - 1, GROUPS, 129 and 229.
+"""The arithmetic of the fp32 kernels 1 (the ensemble), 2 (MC dropout) and
+5 (anchored) on the card, emulated in plain torch (tests/torch_tf32.py: the
+weights read back from the kernels' 3xTF32 image as the descriptors address
+it, each product ``a_lo w_hi + a_hi w_lo + a_hi w_hi`` on TF32 parts
+rounded by bit mask; kernels 2 and 5: a tile's passes in ``GROUPS`` groups
+each shifted by its own first pass, the groups merged by Chan's formula in
+group order; kernel 1: the members folded in member order, shifted by
+member 0), held to the references the kernels answer to before any card
+runs them: kernel 1's to the JAX package's ``_fused_kernel`` and kernel
+5's to its ``_anchored_kernel`` (Pallas interpret mode, as
+tests/test_fused_ensemble.py and tests/test_fused_anchored.py run them),
+both also to the port's plain versions; kernel 2's to the port's plain
+version on the same hash masks (the JAX kernel draws its masks from the
+TPU's PRNG, which no CPU run reproduces), also with a seed table and a row
+offset. Counts of samples or anchors: 1, 2, GROUPS - 1, GROUPS, 129 and
+229; kernel 1: 1, 2, 3, 8, 9 and 28 members, 5 or 13 inputs, 1, 2 or 7
+Linears, 1 or 9 outputs.
 
 Tolerances: mean 1e-5 absolute and relative; std 1e-3 relative, 1e-5
 absolute (tests/torch_parity.py's: the groups' one-pass sums and Chan's
@@ -23,13 +27,18 @@ import pytest
 import torch
 
 from nnueehcs_tpu.ops import fused_anchored as jax_fa
+from nnueehcs_tpu.ops.fused_ensemble import fused_ensemble_eval
 from nnueehcs_tpu_torch.model_builder import MCDropoutModelBuilder
 from nnueehcs_tpu_torch.ops import fused_anchored as fa
 from nnueehcs_tpu_torch.ops import fused_eval_chain as ec
 from nnueehcs_tpu_torch.ops import fused_mc_dropout as mc
+from nnueehcs_tpu_torch.ops.fused_ensemble import (fused_forward_plain,
+                                                   prepare_fused_weights)
 
-from torch_parity import assert_ue_close, descr, jax_anchored, port_of
-from torch_tf32 import groups, merged_stats, mm3, tf32_anchored, tf32_mc
+from torch_parity import (assert_ue_close, descr, jax_anchored, jax_ensemble,
+                          member_outputs, port_of)
+from torch_tf32 import (groups, merged_stats, mm3, tf32_anchored,
+                        tf32_ensemble, tf32_mc)
 
 COUNTS = (1, 2, ec.GROUPS - 1, ec.GROUPS, 129, 229)
 
@@ -166,3 +175,57 @@ def test_tf32_anchored_far_from_the_data():
     v = fa.anchor_rows(aw, torch.as_tensor(port_of(jm).anchors))
     assert_ue_close(tf32_anchored(aw, x, v),
                     fa.fused_anchored_plain(aw, x, v))
+
+
+ENSEMBLE_MEMBERS = (1, 2, 3, 8, 9, 28)
+# (in_dim, Linears, out_dim): every depth with both input widths and both
+# output widths
+ENSEMBLE_CHAINS = [(5, 1, 1), (13, 1, 9), (5, 2, 9), (13, 2, 1), (5, 7, 1),
+                   (13, 7, 9)]
+
+
+@pytest.mark.parametrize('members', ENSEMBLE_MEMBERS)
+@pytest.mark.parametrize('in_dim,layers,out_dim', ENSEMBLE_CHAINS)
+def test_tf32_ensemble_matches_the_jax_kernel(interpret_pallas, members,
+                                              in_dim, layers, out_dim):
+    """Kernel 1's 3xTF32 arithmetic against JAX's ``_fused_kernel`` in
+    interpret mode (its members one by one where the chain is past the
+    kernel's VMEM budget) and the port's plain version on the same seeded
+    rows and the JAX model's weights."""
+    jm = jax_ensemble(descr(in_dim=in_dim, width=32, hidden=layers - 1,
+                            out_dim=out_dim), members=members)
+    x = _x(70, in_dim=in_dim, seed=members + 10 * layers)
+    fw = prepare_fused_weights(port_of(jm).net)
+    assert (fw.num_members, fw.num_layers) == (members, layers)
+    got = tf32_ensemble(fw, torch.from_numpy(x))
+    ref = fused_ensemble_eval(jm.net, jm.params, jm.state, x, layout='xt',
+                              interpret=True)
+    if ref is None:
+        # past the TPU kernel's VMEM budget (28 members of 7 Linears): the
+        # JAX model runs its members one by one, which is then the reference
+        assert members * layers > 100
+        outs = member_outputs(jm, x).astype(np.float64)
+        ref = outs.mean(0), outs.std(0, ddof=1)
+    if members == 1:
+        assert float(got[1].abs().max()) == 0.0
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]),
+                                   rtol=1e-5, atol=1e-5)
+    else:
+        assert_ue_close(got, ref)
+    assert_ue_close(got, fused_forward_plain(fw, torch.from_numpy(x)))
+
+
+def test_tf32_ensemble_far_from_the_data():
+    """Inputs 40 past the data and a +1e3 bias on the last layer: outputs
+    of large magnitude with a small spread, where a misplaced TF32 part or
+    a fold that lost its shift would show far beyond the bars."""
+    jm = jax_ensemble(descr(in_dim=5, width=32, hidden=2), members=8, seed=3)
+    params = list(jm.params)
+    params[-1] = dict(params[-1], b=params[-1]['b'] + 1e3)
+    jm.params = tuple(params)
+    jm.invalidate_cache()
+    fw = prepare_fused_weights(port_of(jm).net)
+    x = torch.from_numpy(_x(66, seed=9) + 40.0)
+    mean, std = tf32_ensemble(fw, x)
+    assert float(mean.abs().min()) > 900
+    assert_ue_close((mean, std), fused_forward_plain(fw, x))

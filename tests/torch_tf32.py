@@ -1,14 +1,18 @@
-"""A plain-torch emulation of the fp32 kernels 2 (MC dropout) and 5
-(anchored) as they compute on the card (``csrc/fused_chain_wgmma.cuh``, its
-3xTF32 section): the weights read back from the kernels' image
-(``ops/fused_eval_chain.py`` ``chain_image``) the way the ``wgmma``
-descriptors address it, each activation split into TF32 hi and lo parts
-(round to nearest, ties away, by bit mask: ``fused_eval_chain.tf32_round``),
-each product as ``a_lo w_hi + a_hi w_lo + a_hi w_hi`` summed in fp32, a
-tile's passes split into ``GROUPS`` groups (the first ``count % GROUPS``
-one pass more), each group's sums shifted by its own first pass, the
-groups' moments merged by Chan's formula in group order. Used by
-tests/test_torch_tf32_chain.py and tests/test_torch_eval_layout.py."""
+"""A plain-torch emulation of the fp32 kernels 1 (the ensemble), 2 (MC
+dropout) and 5 (anchored) as they compute on the card
+(``csrc/fused_chain_wgmma.cuh``, its 3xTF32 section): the weights read back
+from the kernels' image (``ops/fused_eval_chain.py`` ``chain_image``; the
+ensemble's members one after another, ``cached_image``) the way the
+``wgmma`` descriptors address it, each activation split into TF32 hi and lo
+parts (round to nearest, ties away, by bit mask:
+``fused_eval_chain.tf32_round``), each product as ``a_lo w_hi + a_hi w_lo +
+a_hi w_hi`` summed in fp32. Kernels 2 and 5: a tile's passes split into
+``GROUPS`` groups (the first ``count % GROUPS`` one pass more), each
+group's sums shifted by its own first pass, the groups' moments merged by
+Chan's formula in group order. Kernel 1: the members' outputs folded in
+member order into sums shifted by member 0's output, as the leader block
+folds them. Used by tests/test_torch_tf32_chain.py and
+tests/test_torch_eval_layout.py."""
 import math
 
 import torch
@@ -159,6 +163,38 @@ def tf32_anchored(aw, x, v):
             h = _layer(h, layers, aw, l)
         outs.append(h[:, :aw.out_dim])
     return merged_stats(outs, v.shape[0])
+
+
+def tf32_ensemble(fw, x):
+    """Kernel 1's arithmetic on ``x`` (fp32 ``FusedWeights``): member
+    ``m``'s chain read back from its image at ``m`` images into
+    :func:`~nnueehcs_tpu_torch.ops.fused_eval_chain.cached_image`, its
+    products in 3xTF32, bias and ReLU in fp32; the members' outputs folded
+    in member order into sums shifted by member 0's (``stats_fold``, the
+    leader's ``fold_peers``), then ``stats_write``'s mean ``c + s1 / M``
+    and std ``sqrt(max(s2 - (M m1) m1, 0) / max(M - 1, 1))``."""
+    image = ec.cached_image(fw)
+    size = ec.tf32_image_bytes(fw.in_dim, fw.num_layers, fw.out_dim) // 4
+    c = s1 = s2 = None
+    for m in range(fw.num_members):
+        layers = image_layers(image[m * size:(m + 1) * size], fw.in_dim,
+                              fw.num_layers, fw.out_dim)
+        h = x
+        for l, (hi, lo) in enumerate(layers):
+            h = mm3(h, hi, lo) + fw.b_all[l, m, :hi.shape[1]]
+            if fw.relus[l]:
+                h = torch.relu(h)
+        h = h[:, :fw.out_dim]
+        if m == 0:
+            c, s1, s2 = h, torch.zeros_like(h), torch.zeros_like(h)
+        else:
+            d = h - c
+            s1 = s1 + d
+            s2 = s2 + d * d
+    n = fw.num_members
+    m1 = s1 / n
+    var = torch.clamp(s2 - (n * m1) * m1, min=0.0) / max(n - 1, 1)
+    return c + m1, torch.sqrt(var)
 
 
 def tf32_exact(x):

@@ -169,7 +169,8 @@ def main(argv=None):
                           'device': kind}), flush=True)
     info = _build.build_info()
     print(json.dumps({'sass': eval_chain_sass(info.path,
-                                              ptxas_report(info.log))}),
+                                              ptxas_report(info.log),
+                                              info.log)}),
           flush=True)
     print(nvidia_smi('name,power.limit'), flush=True)
     return 0

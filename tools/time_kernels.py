@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time kernels 1b (the bf16 ensemble), 10b (its packed probe), 4 (KDE), 2
-and 2b (MC dropout, fp32 and bf16), 5 and 5b (anchored, fp32 and bf16), 3
-and 3b (a training epoch, fp32 and bf16-mixed) at the flagship shapes on
-one card, from the package of a given tree:
+"""Time kernels 1 and 1b (the ensemble, fp32 and bf16), 10b (its packed
+probe), 4 (KDE), 2 and 2b (MC dropout, fp32 and bf16), 5 and 5b (anchored,
+fp32 and bf16), 3 and 3b (a training epoch, fp32 and bf16-mixed) at the
+flagship shapes on one card, from the package of a given tree:
 
     python3 tools/time_kernels.py [--tree DIR] [--seed N]
 
@@ -24,7 +24,15 @@ anchored rows, ``chip_smoke.anchored_library``), and the training kernel
 on a flagship epoch of 1,000 steps of 128
 rows (the 8-member ensemble, clip 5, lr 5e-5, Adam moments drawn from
 ``--seed``; kernel 3 also with its learning rate read from the card and
-with ``stop`` set, where the tree's ``fused_epoch`` takes them). Each
+with ``stop`` set, where the tree's ``fused_epoch`` takes them), and
+kernel 1 in fp32 on 1, 128, 4,096, 12,800 and 262,144 rows of the
+8-member ensemble and on 262,144 rows of 3, 15 and 28 members, each beside
+its ``baddbmm`` chain (``chip_smoke.library_chain``) and with its
+launch replayed from a CUDA graph (``graph_ms``: the card's time without
+the wrapper's host work), the 12,800-row
+validation pass through the model's ``validation_losses``, and the
+``Predictor``'s 262,144-row ensemble request end to end (wall-clock
+median, ``chip_smoke.timed_passes``) with the kernel's share of it. Each
 kernel: CUDA events over
 10 passes after 5 warm-ups (``attrib.event_ms``). Prints one JSON line per
 kernel (median, extremes, spread, the tree, the card's name), then the
@@ -167,17 +175,74 @@ def main(argv=None):
                               **shape, **event_ms(run),
                               'library_ms': event_ms(yardstick)['median_ms'],
                               'device': kind}), flush=True)
+    # kernel 1 (fp32) at a request's rows, the validation pass (one launch
+    # through the model's validation_losses, 100 batches of 128) and the
+    # flagship's rows, and at the BO trials' member counts, beside its
+    # baddbmm chain; then the Predictor's ensemble request on the
+    # flagship's rows and the kernel's share of it
+    def graph_ms(fn):
+        """fn's device time alone: its launch captured in a CUDA graph
+        and the replays timed (no host work between them)."""
+        fn()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return event_ms(graph.replay)['median_ms']
+
+    model = cs.build_model(args.seed)
+    fw = prepare_fused_weights(model.net)
+    cases = [(fw, rows) for rows in (1, 128, 4096, VALIDATION_ROWS, cs.ROWS)]
+    cases += [(prepare_fused_weights(cs.build_model(args.seed,
+                                                    members=m).net), cs.ROWS)
+              for m in (3, 15, 28)]
+    for w, rows in cases:
+        xs = x[:rows].contiguous()
+        print(json.dumps({'kernel': 'fused_ensemble', 'tree': tree,
+                          'rows': rows, 'members': w.num_members,
+                          **event_ms(lambda: fused_forward_prefolded(w, xs)),
+                          'graph_ms': graph_ms(
+                              lambda: fused_forward_prefolded(w, xs)),
+                          'library_ms': event_ms(
+                              lambda: cs.library_chain(w, xs))['median_ms'],
+                          'device': kind}), flush=True)
+    batches = VALIDATION_ROWS // batch
+    xv = x[:VALIDATION_ROWS].reshape(batches, batch, cs.IN_DIM)
+    yv = torch.zeros((batches, batch, 1), device='cuda')
+    print(json.dumps({'kernel': 'fused_ensemble', 'tree': tree,
+                      'form': 'validation_losses', 'rows': VALIDATION_ROWS,
+                      'members': fw.num_members,
+                      **event_ms(lambda: model.validation_losses(xv, yv)),
+                      'device': kind}), flush=True)
+    from nnueehcs_tpu_torch.serving import Predictor
+    predictor = Predictor(model, buckets=cs.DEFAULT_BUCKETS, device='cuda')
+    x_host = x.cpu().numpy()
+    e2e_ms = 1e3 * float(np.median(cs.timed_passes(
+        lambda: predictor.predict(x_host), cs.WARMUP, cs.TRIALS)))
+    kernel_ms = event_ms(lambda: fused_forward_prefolded(fw, x))['median_ms']
+    print(json.dumps({'kernel': 'fused_ensemble', 'tree': tree,
+                      'form': 'Predictor request', 'rows': cs.ROWS,
+                      'members': fw.num_members, 'e2e_median_ms': e2e_ms,
+                      'kernel_ms': kernel_ms,
+                      'share_outside_kernel': 1 - kernel_ms / e2e_ms,
+                      'device': kind}), flush=True)
     if args.ensemble_forms:
         from nnueehcs_tpu_torch.ops import fused_eval_chain as ec
         most = ec.MAX_WARPGROUPS['ensemble']
         for wgs in range(most - 1, 0, -1):
             ec.MAX_WARPGROUPS['ensemble'] = wgs
+            ec._launch_layout.cache_clear()   # the layouts of the cap
             print(json.dumps({
                 'kernel': 'fused_ensemble_bf16', 'warpgroups': wgs,
                 'rows': cs.ROWS, 'members': fw16.num_members,
                 **event_ms(lambda: fused_forward_prefolded(fw16, x)),
                 'device': kind}), flush=True)
         ec.MAX_WARPGROUPS['ensemble'] = most
+        ec._launch_layout.cache_clear()
         one = cs.in_bf16(cs.build_model(args.seed, members=1),
                          prepare_fused_weights)
         x8 = x.repeat(fw16.num_members, 1)
