@@ -25,17 +25,18 @@ must reload, serve and reproduce its logged validation loss, one epoch each
 of MVE and MC dropout, and the kernel's epoch time (one thread-block
 cluster of ``fused_train.CLUSTER`` blocks per member; its registers and
 spills from ptxas) beside its plain version, a PyTorch yardstick, its
-bound, the attribution probe's one-block form of the same step and a
-single net's epoch. Last it runs the attribution entry point
-(``nnueehcs_tpu_torch.attrib``): both batteries of the CUDA probes of
-kernels 1 and 3 at the flagship shape (262,144 rows; 500 steps of batch
-128), every probe held to its plain version and every form of the
-probes' FFMA math to the prod probe bit for bit (kernel 1 to its plain
-version) before it is timed, kernel 3 held step by
-step to its plain version at every batch of the batch scaling and timed
-beside its probe, and the training battery again for kernel 3's bf16
-form, with the serving and training phases checked to have launched no
-probe. The bf16 forms of kernels 1, 2 and 5 and of the packed probe are
+bound, the attribution probe's prod on the same step (kernel 3's own
+launches) and a single net's epoch. Last it runs the attribution entry
+point (``nnueehcs_tpu_torch.attrib``): both batteries of the CUDA probes
+of kernels 1 and 3 at the flagship shape (262,144 rows; 500 steps of
+batch 128), on the kernels' own device code, every probe held to its
+plain version and every form of the production math to its control bit
+for bit (the prod probes to kernels 1 and 3, the FFMA probes to the FFMA
+body's prod; kernel 1 to its plain version) before it is timed, kernel 3
+held step by step to its plain version at every batch of the batch
+scaling and timed beside its probe, and the training battery again for
+kernel 3's bf16 form, with the serving and training phases checked to
+have launched no probe. The bf16 forms of kernels 1, 2 and 5 and of the packed probe are
 held to their plain
 versions at the same shapes (1, 2 and 5 also on a chain twelve Linears
 deep, which their wgmma forms stream through a ring of shared-memory
@@ -3895,9 +3896,9 @@ def main():
     plain_scaled = {k: v * scale for k, v in plain_t.items()}
     library_t = event_ms(library_epoch(flagship, xs, ys, lr), warmup=1,
                          trials=3)
-    # the probe's one-block form of the same step (the design the cluster
-    # form replaced; fp32, no dropout) on the same epoch, between the
-    # kernel's two timings
+    # the probe's prod on the same epoch (kernel 3's own launches through
+    # the probe's entry; fp32, no dropout), between the kernel's two
+    # timings
     probe_t = event_ms(lambda: ae.ablate_epoch(plan, *bufs, xs, ys, lr,
                                                TRAIN_STEP0),
                        warmup=1, trials=3)
@@ -3922,7 +3923,7 @@ def main():
            members=MEMBERS, batch=TRAIN_BATCH, steps=EPOCH_STEPS,
            kernel_again=kernel_t2, plain_steps=PLAIN_TRAIN_STEPS,
            single_net_mc_dropout_epoch=single_t,
-           probe_one_block_prod_epoch=probe_t, **cluster_row,
+           probe_prod_epoch=probe_t, **cluster_row,
            plain_measured=plain_t, library_torch_ops=library_t,
            trainer_seconds_per_epoch=fit_s / epochs,
            trainer_e2e_rows_per_s=train_rows / fit_s)
@@ -3930,7 +3931,7 @@ def main():
         plain_steps=PLAIN_TRAIN_STEPS, **cluster_row,
         share_of_bound=kernels[-1]['bound_ms'] / kernels[-1]['ms'],
         ptxas=cluster_kernels(ptxas, 'fused_train'),
-        probe_one_block_ms=probe_t['median_ms'],
+        probe_prod_ms=probe_t['median_ms'],
         single_net_ms=single_t['median_ms'])
 
     # kernel 3's bf16 form on the same epoch (its fp32 buffers): bound by
@@ -3970,14 +3971,14 @@ def main():
            library_steps=PLAIN_TRAIN_STEPS,
            trainer_seconds_per_epoch=fit16_s / epochs,
            trainer_e2e_rows_per_s=train_rows / fit16_s)
-    # the one-block bf16 form is gone: its row keeps the probe's fp32
-    # one-block epoch of the same plan, timed above, for the old design
+    # the probe is fp32 only: its row keeps the probe's fp32 prod epoch
+    # of the same plan, timed above
     kernels_bf16[-1].update(
         plain_steps=PLAIN_BF16_STEPS, library_steps=PLAIN_TRAIN_STEPS,
         **cluster_row,
         share_of_bound=kernels_bf16[-1]['bound_ms'] / kernels_bf16[-1]['ms'],
         ptxas=cluster_kernels(ptxas, 'fused_train_bf16'),
-        probe_one_block_fp32_ms=probe_t['median_ms'],
+        probe_prod_fp32_ms=probe_t['median_ms'],
         single_net_ms=single16_t['median_ms'])
 
     # 7. attribution: the probes' entry point (nnueehcs_tpu_torch.attrib),
@@ -4042,9 +4043,6 @@ def main():
          train_budget=trn['budget'],
          train_batch_scaling_us_per_step={
              b: r['us_per_step'] for b, r in trn['batch_scaling'].items()},
-         train_batch_scaling_probe_us_per_step={
-             b: r['us_per_step']
-             for b, r in trn['batch_scaling_probe'].items()},
          train_bf16_us_per_step={
              'library fused_epoch':
                  trn16['variants']['library fused_epoch']['us_per_step'],

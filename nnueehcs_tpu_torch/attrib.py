@@ -12,23 +12,25 @@ BatchNorm1d -> ReLU], Linear 128 -> 1, weights from ``--seed``)::
     python -m nnueehcs_tpu_torch.attrib {forward,train} [--seed N]
         [--device cuda] [--rows N] [--steps N] [--reps N] [--bf16]
 
-Each variant is first held to its plain PyTorch version on the same inputs
-(and each form of kernel 1's former FFMA math to the ``prod`` probe, which
-runs that body, bit for bit; kernel 1 itself, on the tensor cores, to its
-plain version; kernel 3's
-probe keeps the one-block form of its step, which the production kernel
-left for one thread-block cluster per member, so the training battery
-holds the production kernel to its plain version step by step and times
-the two forms side by side), then timed: CUDA-event medians over
-``--reps`` passes (or epochs) after warm-ups, with the spread of the
-middle 60% and the variant's bound (fp32 operations over the card's peak,
-or bytes over its memory rate). It prints one JSON line per gate and per
-variant, then the decomposition lines: kernel 1 against the ``prod``
-control (its former body), and the one-block form's per-step budget and the batch scaling
-of both forms; with ``--bf16`` the training battery runs kernel 3's bf16
-form (gates, epoch, batch scaling). The TPU-only items of the probes are
-left out: the tile sweeps (the CUDA block is 64 rows, fixed by the
-register tiling) and the MXU identity transpose (the kernel writes
+Each variant is first held to its plain PyTorch version on the same inputs,
+and each form of the production math to its control bit for bit: the
+probes of both kernels run the kernels' own device code, so the ``prod``
+of ``ablate_forward`` is kernel 1 (3xTF32 ``wgmma``, the members over a
+cluster) and the ``prod`` of ``ablate_epoch`` is kernel 3 (one
+thread-block cluster per member); the probes that still run kernel 1's
+former FFMA body (``xt_forward``, ``narrow_forward``, the fp32
+``packed_forward``) are held to that body's prod instance
+(``ablate_forward.ffma_prod``). Kernel 3 is also held to its plain version
+step by step at every batch of the batch scaling. Then each is timed:
+CUDA-event medians over ``--reps`` passes (or epochs) after warm-ups, with
+the spread of the middle 60% and the variant's bound (fp32 operations over
+the card's peak, or bytes over its memory rate). It prints one JSON line
+per gate and per variant, then the decomposition lines: kernel 1's parts
+against the ``prod`` control and the member and depth sweeps, and kernel
+3's per-step budget and batch scaling; with ``--bf16`` the training
+battery runs kernel 3's bf16 form (gates, epoch, batch scaling). The
+TPU-only items of the probes are left out: the tile sweeps (a CUDA tile is
+64 rows, a warpgroup's) and the MXU identity transpose (the kernel writes
 feature-major outputs directly).
 
 It runs on the card unless ``--device cpu`` is given; there the kernels'
@@ -59,6 +61,15 @@ from .ops.fused_ensemble import (fused_forward_plain, fused_forward_prefolded,
 
 IN_DIM, WIDTH, MEMBERS = 5, 128, 8
 ROWS = 262_144                 # the bench's evaluation batch
+# the forward probes whose production math is kernel 1 itself (the others'
+# is kernel 1's former FFMA body)
+KERNEL_1_FORMS = ('prod', 'one_out')
+# the timed forward variants that run kernel 1's body (3xTF32 products on
+# the tensor cores; with the member and layer cuts), bounded at the TF32
+# peak; the FFMA probes at the fp32 one
+TF32_VARIANTS = KERNEL_1_FORMS + ('io_floor', 'gemm_only', 'no_epi',
+                                  'split (kernel 1)', 'e2e prod',
+                                  'model path')
 STEPS, BATCH = 500, 128        # attrib_train.py's epoch
 BATCHES = (128, 256, 512, 1024)
 CPU_ROWS, CPU_STEPS = 1024, 8  # the CPU's sizes (gates only)
@@ -134,6 +145,9 @@ LOSS_FLIP_SHARE = 1e-3
 # and its bars are on the gap)
 LOSS_FLIP_STEPS = 8
 CLIP = 5.0                     # the flagship's gradient_clip_val
+# the largest |x-hat * scale| of a network separated for a batch
+# (separate_relu): every pre-ReLU value then at least 3 - 2.5 from 0
+SEPARATION_TOP = 2.5
 BINDING_CLIP = 1e-2            # below every step's gradient norm
 # (name substring, fp32 non-tensor FLOP/s, memory bytes/s), NVIDIA data
 # sheets at full power; the first match wins
@@ -160,21 +174,29 @@ def flagship(seed, device, members=MEMBERS):
                                 device=device).build()
 
 
-def separate_relu(model, generator):
-    """BatchNorm shifts of +3 or -3 per column (scales in [0.5, 1.5]): every
-    pre-ReLU value then sits several units from 0, so a kernel and its
-    plain version take the same ReLU branch everywhere and a whole epoch
-    can be held to float32 round-off. A value within rounding of 0 may go
-    either way in two implementations that sum in different orders. Half
-    the columns are masked off, so the backward's ReLU masks stay
-    exercised."""
+def separate_relu(model, generator, batch=None):
+    """BatchNorm shifts of +3 or -3 per column (scales in [0.5, 1.5]): most
+    pre-ReLU values then sit units from 0, so a kernel and its plain version
+    take the same ReLU branch almost everywhere. A value within rounding of
+    0 may go either way in two implementations that sum in different
+    orders, and |x-hat * scale| can pass 3. With ``batch``, the scales are
+    drawn in (SEPARATION_TOP / 2, SEPARATION_TOP] / sqrt(batch - 1): a
+    BatchNorm output of a ``batch``-row step (biased variance) is at most
+    sqrt(batch - 1) in size, so every pre-ReLU value then sits at least
+    3 - SEPARATION_TOP from 0 whatever the data, and a whole epoch can be
+    held to float32 round-off. Half the columns are masked off, so the
+    backward's ReLU masks stay exercised."""
     with torch.no_grad():
         for layer in model.net.layers:
             if hasattr(layer, 'running_var'):
                 shape = layer.bias.shape
                 sign = torch.randint(0, 2, shape, generator=generator) * 2 - 1
                 layer.bias.copy_(3.0 * sign)
-                layer.weight.copy_(torch.rand(shape, generator=generator) + 0.5)
+                scale = torch.rand(shape, generator=generator) + 0.5
+                if batch is not None:
+                    scale = scale * (SEPARATION_TOP / 1.5
+                                     / float(np.sqrt(batch - 1)))
+                layer.weight.copy_(scale)
     return model
 
 
@@ -285,6 +307,7 @@ class _Card:
             else 'cpu'
         self.flops, self.bytes, self.peak_source = peaks(self.kind)
         self.bf16_flops = bf16_peak(self.kind)
+        self.tf32_flops = self.bf16_flops / 2     # dense TF32, half of bf16
         self.smi = nvidia_smi('name,power.limit') if self.on_card else 'cpu'
 
 
@@ -408,7 +431,9 @@ def forward_battery(device='cuda', seed=0, rows=None, reps=10, warmup=3):
         return (2.0 * rows * members * sum(macs[:layers]) if chain else 0.0,
                 4.0 * (xin + out_rows + (weights if chain else 0)))
 
-    # name: (run(plain=False), (flops, bytes), production-math output width)
+    # name: (run(plain=False), (flops, bytes), production-math output
+    # width); the production math of 'prod' and 'one_out' is kernel 1's,
+    # of the others kernel 1's former FFMA body's
     probes = {
         'prod': (abl(), work(), WIDTH),
         'io_floor': (abl('io_floor'), work(chain=False), None),
@@ -435,10 +460,14 @@ def forward_battery(device='cuda', seed=0, rows=None, reps=10, warmup=3):
                    work(n_out=1), fw.out_dim),
     }
     # gates: each probe against its plain version; the forms of the
-    # production math against the prod probe (kernel 1's former FFMA body,
-    # which the probes share), bit for bit; kernel 1 (3xTF32 products on
-    # the tensor cores) against its own plain version within the bars
-    base = [t[:, :fw.out_dim] for t in probes['prod'][0]()]
+    # production math bit for bit against their control: kernel 1 (3xTF32
+    # products on the tensor cores), or the FFMA body's prod instance (on
+    # the CPU, where neither body runs, the plain prod); kernel 1 against
+    # its own plain version within the bars
+    kernel_1 = fused_forward_prefolded(fw, x)
+    controls = {'kernel 1': kernel_1, 'ffma prod': [
+        t[:, :fw.out_dim] for t in (af.ffma_prod(fw, x_pad) if card.on_card
+                                    else af.ablate_forward_plain(fw, x_pad))]}
     gates = {}
     for name, (run, _, prod_width) in probes.items():
         got, want = run(), run(plain=True)
@@ -447,22 +476,22 @@ def forward_battery(device='cuda', seed=0, rows=None, reps=10, warmup=3):
                 _close(f'{name} out{i}', g, w,
                        TOL_MEAN if i == 0 or name == 'no_epi' else TOL_STD)
                 for i, (g, w) in enumerate(zip(got, want))]
-        if prod_width is not None:
-            for i, (g, b) in enumerate(zip(got, base)):
+        control = None if prod_width is None else \
+            'kernel 1' if name in KERNEL_1_FORMS else 'ffma prod'
+        if control is not None:
+            for i, (g, b) in enumerate(zip(got, controls[control])):
                 g = g[:fw.out_dim].T if prod_width == 'cols' else \
                     g[:, :fw.out_dim]
-                _equal(f'{name} out{i}', g, b)
-        gates[name] = {'max_abs_err': errs,
-                       'equals_prod_probe': prod_width is not None}
+                _equal(f'{name} out{i} against {control}', g, b)
+        gates[name] = {'max_abs_err': errs, 'equals': control}
         emit(battery='forward', gate=name, device=card.kind,
-             max_abs_err_vs_plain=errs,
-             bit_for_bit_with_prod_probe=prod_width is not None)
+             max_abs_err_vs_plain=errs, bit_for_bit_with=control)
     errs = [_close(f'kernel 1 out{i}', g, w, TOL_MEAN if i == 0 else TOL_STD)
-            for i, (g, w) in enumerate(zip(fused_forward_prefolded(fw, x),
+            for i, (g, w) in enumerate(zip(kernel_1,
                                            fused_forward_plain(fw, x)))]
-    gates['kernel 1'] = {'max_abs_err': errs, 'equals_prod_probe': False}
+    gates['kernel 1'] = {'max_abs_err': errs, 'equals': None}
     emit(battery='forward', gate='kernel 1', device=card.kind,
-         max_abs_err_vs_plain=errs, bit_for_bit_with_prod_probe=False)
+         max_abs_err_vs_plain=errs, bit_for_bit_with=None)
     # the packed probe's bf16 form: against its plain version within the
     # bf16 bars, and bit for bit against kernel 1's bf16 form
     model.set_precision('bf16-mixed')
@@ -494,6 +523,7 @@ def forward_battery(device='cuda', seed=0, rows=None, reps=10, warmup=3):
     timed.update({
         'split (kernel 1)': (lambda: fused_forward_prefolded(fw, x),
                              work(ow=fw.out_dim, xin=rows * IN_DIM)),
+        'ffma prod': (lambda: af.ffma_prod(fw, x_pad), work()),
         'e2e prod': (lambda: [t[:, :1] for t in af.ablate_forward(
             fw, e2e_pad(WIDTH))], work()),
         'e2e narrow': (lambda: [t[:, :1] for t in af.narrow_forward(
@@ -508,9 +538,16 @@ def forward_battery(device='cuda', seed=0, rows=None, reps=10, warmup=3):
                             (flops16, moved16 - 2.0 * fw.w_all.numel()))
     for name, (run, (flops, moved)) in timed.items():
         t = event_ms(run, warmup, reps)
-        bound_ms, bound_by = bound(
-            flops, moved, card.bf16_flops if name == 'packed bf16'
-            else card.flops, card.bytes)
+        if name == 'packed bf16':
+            bound_ms, bound_by = bound(flops, moved, card.bf16_flops,
+                                       card.bytes)
+        elif name in TF32_VARIANTS or name.startswith(('members=',
+                                                       'layers=')):
+            # kernel 1's body: three TF32 products for each fp32 one
+            bound_ms, bound_by = bound(3 * flops, moved, card.tf32_flops,
+                                       card.bytes)
+        else:                  # kernel 1's former FFMA body
+            bound_ms, bound_by = bound(flops, moved, card.flops, card.bytes)
         out['variants'][name] = dict(t, flops=flops, bytes=moved,
                                      bound_ms=bound_ms, bound_by=bound_by)
         emit(battery='forward', variant=name, rows=rows,
@@ -519,20 +556,25 @@ def forward_battery(device='cuda', seed=0, rows=None, reps=10, warmup=3):
              share_of_bound=bound_ms / t['median_ms'],
              samples_per_s=rows / t['median_ms'] * 1e3, device=card.kind)
     v = {k: r['median_ms'] for k, r in out['variants'].items()}
-    p = v['prod']
+    p, f = v['prod'], v['ffma prod']
     deltas = {k: {'ms': v[k], 'delta_pct': 100.0 * (v[k] - p) / p}
               for k in ('io_floor', 'one_out', 'gemm_only', 'no_epi',
-                        'xT input', 'xT+outT', 'narrow-both', 'packed',
                         'packed bf16', 'split (kernel 1)', 'e2e prod',
-                        'model path')}
+                        'ffma prod', 'model path')}
+    # the layout probes against their own control, the FFMA prod
+    ffma_deltas = {k: {'ms': v[k], 'delta_pct': 100.0 * (v[k] - f) / f}
+                   for k in ('xT input', 'xT+outT', 'narrow-both', 'packed',
+                             'e2e narrow', 'e2e xT')}
     members = {1: v['members=1'], 2: v['members=2'], 4: v['members=4'],
                M: p}
     member_fit = np.polyfit(list(members), list(members.values()), 1)
-    # a chain cut short ends on a 128-wide layer through the last-layer
-    # path, tuned for few columns: the depth sweep is not a line, so it is
-    # reported as measured
+    # a chain cut short ends on a 128-wide layer (m64n128 products, 16
+    # column groups folded) where the whole chain ends on out_dim columns
+    # (m64n8 groups): the depth sweep is not a line, so it is reported as
+    # measured
     out['decomposition'] = {
-        'prod_ms': p, 'vs_prod': deltas, 'members_ms': members,
+        'prod_ms': p, 'vs_prod': deltas, 'ffma_prod_ms': f,
+        'vs_ffma_prod': ffma_deltas, 'members_ms': members,
         'ms_per_member': float(member_fit[0]),
         'ms_at_zero_members': float(member_fit[1]),
         'layers_ms': {1: v['layers=1'], 3: v['layers=3'],
@@ -645,7 +687,7 @@ def stepwise_vs_plain(plan, bufs, xs, ys, lr, step0, seed, drops,
 
 def probe_prod(plan, theta, m, v, sigma, xs, ys, lr, step0, seed=0,
                drops=None, signs=None):
-    """The probe's prod (``ablate_epoch``, kernel 3's one-block form) with
+    """The probe's prod (``ablate_epoch``: kernel 3's own launches) with
     :func:`~.ops.fused_train.fused_epoch`'s arguments, for
     :func:`stepwise_vs_plain`: the probe runs no dropout and always the
     joint mean, so ``plan`` must too, and ``seed`` and ``drops`` are
@@ -923,18 +965,21 @@ def stepwise_vs_plain_bf16(plan, bufs, xs, ys, lr, step0, seed, drops,
 
 
 def train_problem(seed, device, batch=BATCH, steps=STEPS, separate=False,
-                  clip=CLIP, bf16=False):
+                  clip=CLIP, bf16=False, bounded=False):
     """The flagship's plan (its bf16-mixed form with ``bf16``) and buffers
     for ``steps`` batches of ``batch`` rows, clipped at ``clip``:
     parameters from the builder (BatchNorm shifted off 0 with
-    ``separate``), Adam moments drawn small and non-zero, and rows of 5
-    normal features with a smooth target, padded as the trainer pads them.
+    ``separate``, every pre-ReLU value bounded away from it with
+    ``bounded``: ``separate_relu``'s ``batch``), Adam moments drawn small
+    and non-zero, and rows of 5 normal features with a smooth target,
+    padded as the trainer pads them.
     (From zero moments, Adam moves a BatchNorm-cancelled Linear bias by
     about lr a step on the sign of a rounding-level gradient, so two
     correct implementations part there at once.)"""
     model = flagship(seed, device)
     if separate:
-        separate_relu(model, torch.Generator().manual_seed(seed + 1))
+        separate_relu(model, torch.Generator().manual_seed(seed + 1),
+                      batch if bounded else None)
     plan = ft.plan_fused_train(model.net, MEMBERS, batch, loss='l1_loss',
                                clip=clip, bf16=bf16)
     params, state = tensor_trees(model.net)
@@ -994,24 +1039,44 @@ def _train_work(plan, steps, mode):
 
 def _train_gate(card, name, plan, bufs, xs, ys, kw):
     """``ablate_epoch`` with the keywords ``kw`` against its plain version
-    from the same buffers (TOL_PROBE for gn_fused and opt_chunk, else
-    TOL_TRAIN); in the modes with a gradient, each step's global gradient
-    norm too, to TOL_NORM, with the steps on which the clip bound. Prints
-    and returns the gate's record."""
+    (TOL_PROBE for gn_fused and opt_chunk, else TOL_TRAIN) one step at a
+    time, each from the plain version's state, as :func:`stepwise_vs_plain`
+    holds kernel 3, whose step the probe runs. (Over a whole epoch the two
+    part further than the bars: the cluster step sums in another order
+    than the plain version, and each step's round-off grows through the
+    next steps' Adam updates and BatchNorm statistics.) With ``unroll``,
+    which launches its steps together, the whole run is first held bit for
+    bit to the run without it (the same launches, replayed from a CUDA
+    graph), and that run's steps to the plain version. In the modes with a
+    gradient, each step's global gradient norm too, to TOL_NORM, with the
+    steps on which the clip bound. Prints and returns the gate's record."""
     S = xs.shape[0]
     graded = kw.get('mode', 'prod') in ('prod', 'no_opt')
-    norms = [torch.empty(S, device=card.device) if graded else None
-             for _ in range(2)]
-    got, want = (fn(plan, *[b.clone() for b in bufs], xs, ys, LR, 0,
-                    norms=n, **kw)
-                 for fn, n in zip((ae.ablate_epoch, ae.ablate_epoch_reference),
-                                  norms))
     tol = TOL_PROBE if kw.get('gn_fused') or kw.get('opt_chunk') \
         else TOL_TRAIN
-    rec = {'max_abs_err': {
-        k: _close(f'ablate_epoch {name} {k}', g, w,
-                  {'rtol': 0.0, 'atol': tol[k]})
-        for k, g, w in zip(TOL_TRAIN, got, want)}}
+    step_kw = {k: v for k, v in kw.items() if k != 'unroll'}
+    rec = {}
+    if step_kw != kw:
+        runs = [ae.ablate_epoch(plan, *[b.clone() for b in bufs], xs, ys, LR,
+                                0, **k) for k in (kw, step_kw)]
+        _equal_runs(f'ablate_epoch {name} against unroll 1', *runs)
+        rec['bit_for_bit_with_unroll_1'] = True
+    norms = [torch.empty(S, device=card.device) if graded else None
+             for _ in range(2)]
+    errs = dict.fromkeys(TOL_TRAIN, 0.0)
+    state = list(bufs)
+    for i in range(S):
+        got, want = (fn(plan, *[b.clone() for b in state], xs[i:i + 1],
+                        ys[i:i + 1], LR, i,
+                        norms=None if n is None else n[i:i + 1], **step_kw)
+                     for fn, n in zip((ae.ablate_epoch,
+                                       ae.ablate_epoch_reference), norms))
+        for k, g, w in zip(TOL_TRAIN, got, want):
+            errs[k] = max(errs[k], _close(
+                f'ablate_epoch {name} {k} step {i}', g, w,
+                {'rtol': 0.0, 'atol': tol[k]}))
+        state = list(want[:4])
+    rec['max_abs_err'] = errs
     if graded:
         _close(f'ablate_epoch {name} grad norm', norms[0], norms[1], TOL_NORM)
         rec.update(
@@ -1035,45 +1100,46 @@ def _equal_runs(name, first, again):
 def train_battery(device='cuda', seed=0, steps=None, reps=5, bf16=False):
     """Gate and time kernel 3 and its probe on the flagship, ``steps``
     steps of batch 128 an epoch (default 500 on the card). The probe's
-    variants (``ablate_epoch``: the one-block form of the step, carved)
-    are held to their plain versions and timed beside the production
-    kernel (the cluster form, ``library fused_epoch``), which is held step
-    by step to its plain version at every batch of the batch scaling and
-    timed there too. With ``bf16`` the battery runs kernel 3's bf16 form
-    (the probe is fp32 only): its step-by-step gates at every batch, its
-    timed epoch (``library fused_epoch``) and its batch scaling. Returns
-    ``{'gates': {...}, 'variants': {name: {...}}, 'budget': {...},
-    'batch_scaling': {...}, 'batch_scaling_probe': {...}}``; prints each
-    as a JSON line."""
+    variants (``ablate_epoch``: kernel 3's step, carved) are held to their
+    plain versions and timed beside the production kernel (``library
+    fused_epoch``, in turns with the probe's prod, which runs the same
+    launches), which is held step by step to its plain version at every
+    batch of the batch scaling, where the probe's prod is held to it bit
+    for bit, and timed there. With ``bf16`` the battery runs kernel 3's
+    bf16 form (the probe is fp32 only): its step-by-step gates at every
+    batch, its timed epoch (``library fused_epoch``) and its batch scaling.
+    Returns ``{'gates': {...}, 'variants': {name: {...}}, 'budget': {...},
+    'batch_scaling': {...}}``; prints each as a JSON line."""
     card = _Card(resolve_device(device))
     dev = card.device
     steps = steps or (STEPS if card.on_card else CPU_STEPS)
     gates = {}
     if not bf16:
-        # gates: every variant against the plain version on a network whose
-        # pre-ReLU values sit away from 0, over GATE_STEPS steps; gn_fused
-        # again with a clip that binds on every step, so that the clip scale
-        # carries its sum of squares
+        # gates: every variant against the plain version, launch by launch
+        # over GATE_STEPS steps, on a network whose pre-ReLU values are all
+        # bounded away from 0 (separate_relu's batch: no ReLU decision can go
+        # the other way in two correct versions); gn_fused again with a clip
+        # that binds on every step, so that the clip scale carries its sum
+        # of squares
         _, gplan, gbufs, gxs, gys = train_problem(seed, dev,
                                                   steps=GATE_STEPS,
-                                                  separate=True)
+                                                  separate=True, bounded=True)
         gates = {name: _train_gate(card, name, gplan, gbufs, gxs, gys, kw)
                  for name, kw in TRAIN_VARIANTS.items()}
         name = f'gn_fused clip={BINDING_CLIP:g}'
         gates[name] = _train_gate(card, name, *train_problem(
-            seed, dev, steps=GATE_STEPS, separate=True, clip=BINDING_CLIP)[1:],
-            {'gn_fused': True})
+            seed, dev, steps=GATE_STEPS, separate=True, clip=BINDING_CLIP,
+            bounded=True)[1:], {'gn_fused': True})
         check(gates[name]['clip_binds_steps'] == GATE_STEPS,
               f'{name}: the clip bound on only '
               f'{gates[name]["clip_binds_steps"]} of {GATE_STEPS} steps')
-    # at each batch of the batch scaling: kernel 3 (its bf16 form with
-    # bf16) and the probe's prod (the one-block form; the two no longer
-    # share code) each held to the plain epoch one step at a time, where a
-    # value past TOL_TRAIN must lie in the reach of a ReLU or loss
-    # decision the two took differently (at these batches a separate_relu
-    # network too can put a pre-ReLU value within rounding of 0), and the
-    # probe's prod bit for bit with the same bodies replayed as a CUDA
-    # graph
+    # at each batch of the batch scaling (both residency forms of the
+    # cluster step): kernel 3 (its bf16 form with bf16) held to the plain
+    # epoch one step at a time, where a value past TOL_TRAIN must lie in
+    # the reach of a ReLU or loss decision the two took differently (at
+    # these batches a separate_relu network too can put a pre-ReLU value
+    # within rounding of 0), and the probe's prod, and its prod replayed
+    # as a CUDA graph, bit for bit with kernel 3 on the probe's plan
     # (the bf16 form step by step on the flagship as built, as the card
     # tests hold it: its bars attribute the flipped decisions)
     form = 'kernel 3b' if bf16 else 'kernel 3'
@@ -1085,12 +1151,16 @@ def train_battery(device='cuda', seed=0, steps=None, reps=5, bf16=False):
         rec = {'stepwise': stepwise_vs_plain(bplan, bbufs, bxs, bys, LR, 0,
                                              0, None)}
         if not bf16:
-            rec['probe_prod_stepwise'] = stepwise_vs_plain(
-                bplan, bbufs, bxs, bys, LR, 0, 0, None, epoch=probe_prod)
-            _equal_runs(f'ablate_epoch prod B={b}', *(
-                ae.ablate_epoch(bplan, *[t.clone() for t in bbufs], bxs, bys,
-                                LR, 0, unroll=u) for u in (1, 2)))
-            rec['probe_prod_bit_for_bit_with_its_graph'] = True
+            kernel = ft.fused_epoch(ae.probe_plan(bplan),
+                                    *[t.clone() for t in bbufs], bxs, bys,
+                                    LR, 0)
+            for u in (1, 2):
+                _equal_runs(f'ablate_epoch prod unroll={u} B={b}',
+                            ae.ablate_epoch(bplan, *[t.clone() for t in bbufs],
+                                            bxs, bys, LR, 0, unroll=u),
+                            kernel)
+            rec['probe_prod_bit_for_bit_with_kernel_3'] = True
+            rec['resident'] = ft.train_layout(bplan).resident
         gates[name] = rec
         emit(battery='train', gate=name, steps=GATE_STEPS, batch=b,
              device=card.kind, **{k: v for k, v in rec.items()})
@@ -1128,8 +1198,7 @@ def train_battery(device='cuda', seed=0, steps=None, reps=5, bf16=False):
                                              'bit_for_bit': True}
             emit(battery='train', gate=f'{name}_vs_{against}', steps=steps,
                  bit_for_bit=True, device=card.kind)
-    out = {'gates': gates, 'variants': {}, 'budget': {}, 'batch_scaling': {},
-           'batch_scaling_probe': {}}
+    out = {'gates': gates, 'variants': {}, 'budget': {}, 'batch_scaling': {}}
     if not card.on_card:
         emit(battery='train', device='cpu', steps=steps, bf16=bf16,
              note='plain versions only: no device time on the CPU')
@@ -1154,7 +1223,8 @@ def train_battery(device='cuda', seed=0, steps=None, reps=5, bf16=False):
         return dict(t, flops=work[0], bytes=work[1], bound_ms=bound_ms,
                     bound_by=bound_by, us_per_step=1e3 * ms / steps)
 
-    # kernel 3 (the cluster form) and the probe's one-block prod in turns
+    # kernel 3 and the probe's prod (the same launches) in turns: the two
+    # should agree within noise
     kernel = lambda: ft.fused_epoch(plan, *bufs, xs, ys, LR, 0)  # noqa: E731
     out['variants']['library fused_epoch'] = record(
         'library fused_epoch', kernel, _train_work(plan, steps, 'prod'))
@@ -1187,16 +1257,10 @@ def train_battery(device='cuda', seed=0, steps=None, reps=5, bf16=False):
     for b in BATCHES:
         _, bplan, bbufs, bxs, bys = train_problem(seed, dev, batch=b,
                                                   steps=steps, bf16=bf16)
-        work = _train_work(bplan, steps, 'prod')
         out['batch_scaling'][b] = record(
             f'{form} B={b}',
-            lambda: ft.fused_epoch(bplan, *bbufs, bxs, bys, LR, 0), work,
-            plan_=bplan)
-        if not bf16:
-            out['batch_scaling_probe'][b] = record(
-                f'prod B={b}',
-                lambda: ae.ablate_epoch(bplan, *bbufs, bxs, bys, LR, 0),
-                work, plan_=bplan)
+            lambda: ft.fused_epoch(bplan, *bbufs, bxs, bys, LR, 0),
+            _train_work(bplan, steps, 'prod'), plan_=bplan)
     return out
 
 

@@ -10,10 +10,13 @@ and flat buffers, as :func:`~.fused_train.fused_epoch` does, and updates
 them in place as that does.
 
 On CUDA tensors :func:`ablate_epoch` launches ``csrc/ablate_train.cu``,
-which runs kernel 3's own device code (``fused_train.cuh``); on CPU
-tensors it runs :func:`ablate_epoch_reference`. It never falls back from
-one to the other. ``ablate_epoch.launches`` counts the calls that launched
-the kernel.
+which runs kernel 3's own device code (the cluster form of
+``fused_train_cluster.cuh``, with kernel 3's launch layout,
+:func:`~.fused_train.train_layout`, and its scratch): ``prod`` is kernel 3's
+own launches, and each carve-out a compile-time form of its step kernel. On
+CPU tensors it runs :func:`ablate_epoch_reference`. It never falls back
+from one to the other. ``ablate_epoch.launches`` counts the calls that
+launched the kernel.
 """
 from __future__ import annotations
 
@@ -32,6 +35,15 @@ def probe_plan(plan: ft.FusedTrainPlan) -> ft.FusedTrainPlan:
         plan, lins=tuple(dataclasses.replace(L, mask_idx=-1)
                          for L in plan.lins),
         n_drop=0, per_member=False)
+
+
+def launch_buffers(plan: ft.FusedTrainPlan, theta):
+    """``(layout, buffers)`` of a launch of the probe on ``plan`` beside
+    ``theta``: kernel 3's launch layout of the plan as the probe runs it
+    (:func:`probe_plan`; :func:`~.fused_train.train_layout`) and kernel 3's
+    buffers for it (:func:`~.fused_train.epoch_buffers`)."""
+    layout = ft.train_layout(probe_plan(plan))
+    return layout, ft.epoch_buffers(probe_plan(plan), layout, theta)
 
 
 def _check(plan, theta, xs, mode, unroll, opt_chunk, norms, signs):
@@ -126,7 +138,8 @@ def ablate_epoch(plan: ft.FusedTrainPlan, theta, m, v, sigma, xs, ys, lr,
     kernel 3's grid). With ``norms``, a float32 ``(S,)`` tensor, each
     step's global gradient norm (the clip's input) is written there, in
     modes ``'prod'`` and ``'no_opt'``: on the card as the optimizer forms
-    it from the members' partial sums, by one more small launch a step.
+    it from the members' partial sums, by the last of the step's clusters
+    to hand its member's sum on.
     ``signs``, as :func:`~.fused_train.fused_epoch`'s, receives each ReLU
     decision of the backward (modes ``'prod'`` and ``'no_opt'``).
     Updates the buffers in place; returns them and the per-step losses."""
@@ -145,23 +158,23 @@ def ablate_epoch(plan: ft.FusedTrainPlan, theta, m, v, sigma, xs, ys, lr,
     if S == 0:
         return theta, m, v, sigma, losses
     from ._build import library
-    lib = library()
     plan = probe_plan(plan)
+    layout, bufs = launch_buffers(plan, theta)
     iconf, fconf = ft.kernel_config(plan, S, lr, step0, 0, False)
-    bufs = ft.kernel_buffers(lib, plan, theta)
     drops = ft._drop_tensor(plan, None, device)
-    step_base = torch.zeros(1, dtype=torch.int32, device=device)
+    # the unrolled graph's step index base, and the count of clusters that
+    # have handed on a step's sums (the norms)
+    counters = torch.zeros(2, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
-        err = lib.nnueehcs_ablate_train_f32(
-            iconf, fconf, theta.data_ptr(), m.data_ptr(), v.data_ptr(),
-            sigma.data_ptr(), bufs['g'].data_ptr(), xs.data_ptr(),
-            ys.data_ptr(), losses.data_ptr(), bufs['lins'].data_ptr(),
-            drops.data_ptr(), bufs['scratch'].data_ptr(),
-            bufs['preds'].data_ptr(), bufs['small'].data_ptr(),
-            MODES.index(mode), int(bool(gn_fused)),
+        err = library().nnueehcs_ablate_train_f32(
+            iconf, fconf, ft.layout_ints(layout), theta.data_ptr(),
+            m.data_ptr(), v.data_ptr(), sigma.data_ptr(),
+            bufs['g'].data_ptr(), xs.data_ptr(), ys.data_ptr(),
+            losses.data_ptr(), bufs['lins'].data_ptr(), drops.data_ptr(),
+            bufs['scratch'].data_ptr(), bufs['preds'].data_ptr(),
+            bufs['small'].data_ptr(), MODES.index(mode), int(bool(gn_fused)),
             0 if opt_chunk is None else opt_chunk * ft.LANES, unroll,
-            step_base.data_ptr(),
-            None if norms is None else norms.data_ptr(),
+            counters.data_ptr(), None if norms is None else norms.data_ptr(),
             None if signs is None else signs.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     if err != 0:

@@ -11,11 +11,17 @@ probes' padded ``ws``/``bs``/``relus``, and returns what the JAX probe
 returns: outputs padded to the probe's widths (128, or 8 for the narrow
 ones), zeros past the chain's real width.
 
-On a CUDA tensor each launches one instance of kernel 1's FFMA body (its
-body before kernel 1 moved to 3xTF32 ``wgmma``; ``csrc/ablate_chain.cu`` on
-``fused_chain.cuh``'s ``ensemble_pass``), on a
+On a CUDA tensor each launches its kernel (``csrc/ablate_chain.cu``), on a
 CPU tensor it runs its plain version (``*_plain``). It never falls back from
 one to the other. ``<function>.launches`` counts kernel launches.
+``ablate_forward`` runs kernel 1's own body (``fused_chain_wgmma.cuh``'s
+``ensemble_tf32_as``: 3xTF32 ``wgmma`` products, the members over a cluster
+of ``min(M, 8)`` blocks), one instance for each mode and for a chain cut
+short, with kernel 1's launch layout (:func:`probe_layout`) and images: its
+``'prod'`` is kernel 1's math, padded to 128 columns. ``xt_forward``,
+``narrow_forward`` and the fp32 ``packed_forward`` run instances of kernel
+1's former FFMA body (``fused_chain.cuh``'s ``ensemble_pass``), whose prod
+instance (:func:`ffma_prod`) is the control they are held to bit for bit.
 
 ``packed_forward`` also takes bf16 folded weights (``compute_dtype``, the
 JAX probe's ``compute_dtype='bfloat16'``): it then launches an instance of
@@ -29,11 +35,18 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .fused_eval_chain import launch_args
+import collections
+import ctypes
+import functools
+
+from .fused_eval_chain import (ENSEMBLE_FIELDS, _sms, cached_image,
+                               eval_layout, launch_args, member_images)
 from .fused_ensemble import (WIDTH, FusedWeights, check_weights_dtype,
                              shifted_stats)
 
-TILE_ROWS = 64     # rows of one CUDA block (fused_chain.cuh's kTileRows)
+# rows of a tile: a warpgroup's in ablate_forward, a block's in the FFMA
+# probes; the probes' `tile` only sets which row io_floor reads
+TILE_ROWS = 64
 MODES = ('prod', 'io_floor', 'gemm_only', 'no_epi')
 NARROW = 8         # the narrow probes' width
 # output layouts of csrc/ablate_chain.cu
@@ -121,8 +134,8 @@ def _check(fw: FusedWeights, x, rows_first: bool, name: str):
         raise ValueError(f'{name}: no kernel for device {x.device}')
 
 
-def _launch(fw, x, *, mode, n_out, x_cols, layout, members, layers, out_dim,
-            ow, tile, outs):
+def _launch(fw, x, *, n_out, x_cols, layout, out_dim, ow, outs):
+    """Launch an FFMA probe instance (mode prod, every member and layer)."""
     from ._build import library
     B = x.shape[1] if x_cols else x.shape[0]
     # the stride between rows of a (B, dx) x, or between features of a
@@ -130,14 +143,93 @@ def _launch(fw, x, *, mode, n_out, x_cols, layout, members, layers, out_dim,
     ldx = x.shape[1]
     with torch.cuda.device(x.device):
         err = library().nnueehcs_ablate_chain_f32(
-            MODES.index(mode), n_out, int(x_cols), layout, x.data_ptr(), B,
+            MODES.index('prod'), n_out, int(x_cols), layout, x.data_ptr(), B,
             fw.in_dim, ldx, fw.w_all.data_ptr(), fw.b_all.data_ptr(),
-            fw.num_members, members, layers, fw.relu_flags.data_ptr(),
-            out_dim, ow, tile, outs[0].data_ptr(),
-            outs[1].data_ptr() if n_out > 1 else None,
+            fw.num_members, fw.num_members, fw.num_layers,
+            fw.relu_flags.data_ptr(), out_dim, ow, TILE_ROWS,
+            outs[0].data_ptr(), outs[1].data_ptr() if n_out > 1 else None,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'ablation kernel launch failed: CUDA error {err}')
+
+
+def probe_layout(fw, rows: int, members: int, layers: int, sms: int = 132,
+                 clusters=None):
+    """The launch layout of :func:`ablate_forward` on the first ``members``
+    members and ``layers`` layers of ``fw`` (folded weights, or their
+    ``in_dim``, ``num_layers`` and ``out_dim``) over ``rows`` rows on a card of
+    ``sms`` SMs: kernel 1's (``eval_layout('ensemble', ..., fp32=True)``)
+    for that chain, whose last layer is 128 wide when it is cut short, with
+    ``clusters`` clusters at most (the count the probe's instance fits)."""
+    return eval_layout('ensemble', fw.in_dim, layers, _out_dim(fw, layers),
+                       rows, sms, members, clusters, fp32=True)
+
+
+def probe_image(fw: FusedWeights, layers: int) -> torch.Tensor:
+    """Every member's fp32 image of the chain's first ``layers`` layers,
+    member after member, as :func:`ablate_forward` streams it: kernel 1's
+    (``cached_image``) for the whole chain; for a chain cut short, every
+    layer packed as a hidden one (``member_images`` with ``open_end``),
+    made once per folded weights and cut."""
+    if layers == fw.num_layers:
+        return cached_image(fw)
+    images = fw.__dict__.setdefault('_probe_images', {})
+    if layers not in images:
+        images[layers] = member_images(fw.ws[:layers], WIDTH,
+                                       open_end=True).reshape(-1).contiguous()
+    return images[layers]
+
+
+@functools.lru_cache(maxsize=1024)
+def _probe_launch_layout(shape, rows, index, members, layers, mode, cut):
+    """The layout ints of one probe launch on card ``index`` for a chain of
+    ``shape`` (:class:`_Shape`), the grid from the clusters its instance
+    fits (:func:`probe_layout`)."""
+    from ._build import library
+    layout = probe_layout(shape, rows, members, layers, _sms(index))
+    form = (ctypes.c_int * len(ENSEMBLE_FIELDS))(*layout.ints())
+    with torch.cuda.device(index):
+        n = library().nnueehcs_ablate_forward_f32_clusters(mode, cut, form)
+    if n <= 0:
+        raise RuntimeError(f'ablate_forward: no cluster of {layout} fits the '
+                           f'card (CUDA error {-n})')
+    layout = probe_layout(shape, rows, members, layers, _sms(index), n)
+    return (ctypes.c_int * len(ENSEMBLE_FIELDS))(*layout.ints())
+
+
+# the shapes of folded weights that fix a probe's layout (a cache key)
+_Shape = collections.namedtuple('_Shape', 'in_dim num_layers out_dim')
+
+
+def _launch_tf32(fw, x, mode, members, layers, tile, outs):
+    """Launch ablate_forward's instance of ``mode`` on kernel 1's body."""
+    from ._build import library
+    device = x.device
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    out_dim = _out_dim(fw, layers)
+    cut = int(layers < fw.num_layers and mode != 'io_floor')
+    b_all, relu = fw.b_all, fw.relu_flags
+    if mode == 'gemm_only' and cut:
+        # no gemm_only instance of a chain cut short (at the register cap it
+        # spilled): prod's, on zero biases and no ReLU, computes the same
+        # function, with its bias adds and ReLUs still run
+        mode = 'prod'
+        zeros = fw.__dict__.setdefault(
+            '_zero_affine', (torch.zeros_like(b_all), torch.zeros_like(relu)))
+        b_all, relu = zeros
+    with torch.cuda.device(device):
+        layout = _probe_launch_layout(
+            _Shape(fw.in_dim, fw.num_layers, fw.out_dim), x.shape[0], index,
+            members, layers, MODES.index(mode), cut)
+        err = library().nnueehcs_ablate_forward_f32(
+            MODES.index(mode), cut, x.data_ptr(), x.shape[0], fw.in_dim,
+            x.shape[1], probe_image(fw, layers).data_ptr(), b_all.data_ptr(),
+            members, fw.num_members, layers, relu.data_ptr(), out_dim, tile,
+            outs[0].data_ptr(), outs[1].data_ptr() if len(outs) > 1 else None,
+            layout, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'ablate_forward launch failed: CUDA error {err}')
 
 
 def _real(x, d):
@@ -184,10 +276,26 @@ def ablate_forward(fw: FusedWeights, x_pad, num_members=None,
     outs = [torch.empty((x_pad.shape[0], WIDTH), dtype=torch.float32,
                         device=x_pad.device) for _ in range(n_out)]
     if x_pad.shape[0]:
-        _launch(fw, x_pad, mode=mode, n_out=n_out, x_cols=False,
-                layout=_OUT_ROWS, members=members, layers=layers,
-                out_dim=_out_dim(fw, layers), ow=WIDTH, tile=tile, outs=outs)
+        _launch_tf32(fw, x_pad, mode, members, layers, tile, outs)
         ablate_forward.launches += 1
+    return tuple(outs)
+
+
+def ffma_prod(fw: FusedWeights, x_pad):
+    """The prod instance of kernel 1's former FFMA body (``(B, 128)`` mean
+    and std of every member and layer, zeros past the real width) on a CUDA
+    ``x_pad``: the control that the FFMA probes (``xt_forward``,
+    ``narrow_forward``, the fp32 ``packed_forward``) are held to bit for
+    bit. A gate's reference, not a probe: no launch count."""
+    _check(fw, x_pad, True, 'ffma_prod')
+    if x_pad.device.type != 'cuda':
+        raise ValueError(f'ffma_prod: the FFMA body runs on a card, got '
+                         f'{x_pad.device}')
+    outs = [torch.empty((x_pad.shape[0], WIDTH), dtype=torch.float32,
+                        device=x_pad.device) for _ in range(2)]
+    if x_pad.shape[0]:
+        _launch(fw, x_pad, n_out=2, x_cols=False, layout=_OUT_ROWS,
+                out_dim=fw.out_dim, ow=WIDTH, outs=outs)
     return tuple(outs)
 
 
@@ -215,11 +323,9 @@ def xt_forward(fw: FusedWeights, x_t, out_t=False, out_rows=NARROW):
     outs = [torch.empty(shape, dtype=torch.float32, device=x_t.device)
             for _ in range(2)]
     if B:
-        _launch(fw, x_t, mode='prod', n_out=2, x_cols=True,
-                layout=_OUT_COLS if out_t else _OUT_ROWS,
-                members=fw.num_members, layers=fw.num_layers,
-                out_dim=fw.out_dim, ow=shape[0] if out_t else WIDTH,
-                tile=TILE_ROWS, outs=outs)
+        _launch(fw, x_t, n_out=2, x_cols=True,
+                layout=_OUT_COLS if out_t else _OUT_ROWS, out_dim=fw.out_dim,
+                ow=shape[0] if out_t else WIDTH, outs=outs)
         xt_forward.launches += 1
     return tuple(outs)
 
@@ -253,10 +359,8 @@ def narrow_forward(fw: FusedWeights, x_in, narrow_in=True, narrow_out=True):
     outs = [torch.empty((x_in.shape[0], ow), dtype=torch.float32,
                         device=x_in.device) for _ in range(2)]
     if x_in.shape[0]:
-        _launch(fw, x_in, mode='prod', n_out=2, x_cols=False,
-                layout=_OUT_ROWS, members=fw.num_members,
-                layers=fw.num_layers, out_dim=fw.out_dim, ow=ow,
-                tile=TILE_ROWS, outs=outs)
+        _launch(fw, x_in, n_out=2, x_cols=False, layout=_OUT_ROWS,
+                out_dim=fw.out_dim, ow=ow, outs=outs)
         narrow_forward.launches += 1
     return tuple(outs)
 
@@ -308,10 +412,8 @@ def packed_forward(fw: FusedWeights, x_pad):
                                f'error {err}')
         packed_forward.launches_bf16 += 1
     elif x_pad.shape[0]:
-        _launch(fw, x_pad, mode='prod', n_out=1, x_cols=False,
-                layout=_OUT_PACKED, members=fw.num_members,
-                layers=fw.num_layers, out_dim=fw.out_dim, ow=WIDTH,
-                tile=TILE_ROWS, outs=[out])
+        _launch(fw, x_pad, n_out=1, x_cols=False, layout=_OUT_PACKED,
+                out_dim=fw.out_dim, ow=WIDTH, outs=[out])
         packed_forward.launches += 1
     od = fw.out_dim
     return out[:, :od], out[:, od:2 * od]

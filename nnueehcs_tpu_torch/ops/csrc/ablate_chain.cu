@@ -1,7 +1,6 @@
 // Attribution probes of the fused ensemble pass (kernel 1) for Hopper
-// (sm_90a), fp32: kernel 1's FFMA body (its body until it moved to 3xTF32
-// products on the tensor cores) with parts carved off or with other
-// layouts of its input and outputs, to split its time on the card.
+// (sm_90a), fp32: kernel 1 with parts carved off or with other layouts of its
+// input and outputs, to split its time on the card.
 //
 // Replaces four Pallas TPU probes, each a variant of _fused_kernel:
 // - experiments/grid_r5/attrib_eval.py::ablate_forward (body ablate_kernel):
@@ -20,15 +19,25 @@
 // The outputs keep the TPU probes' padded widths, zeros past the chain's
 // real width.
 //
-// What bounds them on an H100: operations (fp32 FFMA), except io_floor,
+// What bounds them on an H100: operations (3xTF32 products on the tensor
+// cores for ablate_forward, fp32 FFMA for the others), except io_floor,
 // which does none: bytes.
 //
-// The design: each probe is an instance of one body, fused_chain.cuh's
-// ensemble_pass, with compile-time flags for the mode, the number of
-// outputs, the x layout and the output layout, so every probe's math is
-// the prod control's and cannot drift from it. The CUDA block
-// tile is fixed at 64 rows by the register tiling; `tile` only sets which
-// row io_floor reads, as the TPU grid's block did.
+// The design. ablate_forward runs kernel 1's own body, fused_chain_wgmma.cuh's
+// ensemble_tf32_as (3xTF32 wgmma products, the members over a cluster of
+// min(M, 8) blocks folded in member order by the leader), one instance for
+// each mode and for a chain cut short (ablate_tf32_kernel; gemm_only cut
+// short runs prod's on zero biases and no ReLU), with kernel 1's
+// launch layout (eval_layout('ensemble', ..., fp32=True)) and images
+// (chain_image of the fp32 weights; of the cut chain, every layer a hidden
+// one): its prod is kernel 1's math, padded to 128 columns. xt_forward,
+// narrow_forward and the fp32 packed_forward still run kernel 1's former
+// FFMA body, fused_chain.cuh's ensemble_pass, with compile-time flags for
+// the x layout and the output layout; their gates hold them to that body's
+// prod instance (the rows instance that narrow_forward also launches), so
+// their math cannot drift from it. The FFMA block tile is 64 rows, fixed by
+// the register tiling; on either body `tile` only sets which row io_floor
+// reads, as the TPU grid's block did.
 #include "fused_chain.cuh"
 #include "fused_chain_wgmma.cuh"
 
@@ -54,22 +63,12 @@ using Kernel = void (*)(const float*, long long, int, long long, const float*,
                         const float*, int, int, int, const int*, int, int, int,
                         float*, float*);
 
-// The instances the Python wrappers use; null for any other combination.
+// The FFMA instances the Python wrappers use (mode prod only); null for any
+// other combination.
 Kernel pick(int mode, int n_out, int x_cols, int out) {
-  if (!x_cols && out == kOutRows) {
-    switch (mode * 2 + n_out - 1) {
-      case kProd * 2: return ablate_chain_kernel<kProd, 1, false, kOutRows>;
-      case kProd * 2 + 1: return ablate_chain_kernel<kProd, 2, false, kOutRows>;
-      case kIoFloor * 2: return ablate_chain_kernel<kIoFloor, 1, false, kOutRows>;
-      case kIoFloor * 2 + 1: return ablate_chain_kernel<kIoFloor, 2, false, kOutRows>;
-      case kGemmOnly * 2: return ablate_chain_kernel<kGemmOnly, 1, false, kOutRows>;
-      case kGemmOnly * 2 + 1: return ablate_chain_kernel<kGemmOnly, 2, false, kOutRows>;
-      case kNoEpi * 2: return ablate_chain_kernel<kNoEpi, 1, false, kOutRows>;
-      case kNoEpi * 2 + 1: return ablate_chain_kernel<kNoEpi, 2, false, kOutRows>;
-      default: return nullptr;
-    }
-  }
   if (mode != kProd) return nullptr;
+  if (!x_cols && n_out == 2 && out == kOutRows)
+    return ablate_chain_kernel<kProd, 2, false, kOutRows>;
   if (x_cols && n_out == 2 && out == kOutRows)
     return ablate_chain_kernel<kProd, 2, true, kOutRows>;
   if (x_cols && n_out == 2 && out == kOutCols)
@@ -94,20 +93,95 @@ __global__ void __launch_bounds__(kRing ? fw::kWgThreads + 32 : 3 * fw::kWgThrea
                                  relu, out_dim, out, nullptr, lay);
 }
 
+// ablate_forward: kernel 1's body in the form kMode (fw::EnsembleForm), on
+// the whole chain or (kCut) on one cut short; outputs (B, 128).
+template <int kMode, bool kCut>
+__global__ void __launch_bounds__(2 * fw::kWgThreads, 1)
+    ablate_tf32_kernel(const float* __restrict__ x, long long B, int d,
+                       long long ldx, const unsigned char* __restrict__ images,
+                       const float* __restrict__ b_all, int M, int m_all,
+                       int L, const int* __restrict__ relu, int out_dim,
+                       int tile, float* __restrict__ out0,
+                       float* __restrict__ out1, fw::EnsembleLayout lay) {
+  extern __shared__ __align__(128) unsigned char smem_tf[];
+  fw::ensemble_tf32_as<kMode, kCut, true>(smem_tf, x, B, d, ldx, images, b_all,
+                                          M, m_all, L, relu, out_dim,
+                                          fw::kWidth, tile, out0, out1, lay);
+}
+
+using Tf32Kernel = void (*)(const float*, long long, int, long long,
+                            const unsigned char*, const float*, int, int, int,
+                            const int*, int, int, float*, float*,
+                            fw::EnsembleLayout);
+
+// The instance of ablate_forward's mode (prod, io_floor, gemm_only, no_epi =
+// 0..3) on a whole chain or one cut short (prod and no_epi); null for any
+// other. (gemm_only on a chain cut short spilled at the register cap: the
+// wrapper runs prod's cut instance on zero biases and no ReLU instead.)
+Tf32Kernel pick_tf32(int mode, int cut) {
+  switch (mode * 2 + (cut ? 1 : 0)) {
+    case fw::kEnsProd * 2: return ablate_tf32_kernel<fw::kEnsProd, false>;
+    case fw::kEnsProd * 2 + 1: return ablate_tf32_kernel<fw::kEnsProd, true>;
+    case fw::kEnsIoFloor * 2:
+      return ablate_tf32_kernel<fw::kEnsIoFloor, false>;
+    case fw::kEnsGemmOnly * 2:
+      return ablate_tf32_kernel<fw::kEnsGemmOnly, false>;
+    case fw::kEnsNoEpi * 2: return ablate_tf32_kernel<fw::kEnsNoEpi, false>;
+    case fw::kEnsNoEpi * 2 + 1: return ablate_tf32_kernel<fw::kEnsNoEpi, true>;
+    default: return nullptr;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launch one probe on `stream`; returns a cudaError_t (0 on success).
-// mode: prod, io_floor, gemm_only, no_epi (0..3); n_out: 1 or 2; x_cols: 1
-// for a feature-major x; out_layout: 1 (B, ow) rows, 2 feature-major
-// (ow, B), 3 packed (B, 128). The caller checks the shapes: x holds d real
-// features (zeros past them), (B, ldx) row-major or (ldx, B) feature-major,
-// ldx >= d; w_all: layer 0 as (M_all, d, 128), then layers 1.. as
-// (M_all, 128, 128); b_all (L, M_all, 128); relu L int32 flags; 1 <= M <= M_all and 1 <= L <= the chain's layers; out_dim the
-// real width of layer L-1 (<= 128; <= 64 packed); 1 <= ow <= 128 (128
-// packed); tile >= 1; fp32 contiguous device buffers; out1 null when
-// n_out is 1.
+// Launch ablate_forward on `stream`; returns a cudaError_t (0 on success).
+// mode: prod, io_floor, gemm_only, no_epi (0..3); cut: 1 when L is fewer
+// than the chain's layers (prod and no_epi only). The caller checks: x (B, ldx)
+// row-major with d real features, ldx >= d; images: the first M members'
+// fp32 images of the chain's first L layers (chain_image; with cut, of every
+// layer as a hidden one, open_end); b_all (L_all, m_all, 128) with
+// 1 <= M <= m_all; relu the chain's int32 flags; out_dim the real width of
+// layer L - 1 (128 when cut); tile >= 1; out0 and out1 (null for one
+// output) (B, 128) fp32 contiguous device buffers; layout:
+// eval_layout('ensemble', d, L, out_dim, B, sms, M, clusters, fp32=True)
+// with the clusters nnueehcs_ablate_forward_f32_clusters reports.
+int nnueehcs_ablate_forward_f32(int mode, int cut, const float* x,
+                                long long B, int d, long long ldx,
+                                const unsigned char* images,
+                                const float* b_all, int M, int m_all, int L,
+                                const int* relu, int out_dim, int tile,
+                                float* out0, float* out1, const int* layout,
+                                void* stream) {
+  const Tf32Kernel kernel = pick_tf32(mode, cut);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const fw::EnsembleLayout lay = fw::EnsembleLayout::from(layout);
+  return static_cast<int>(fw::launch_cluster(
+      kernel, lay, static_cast<cudaStream_t>(stream), x, B, d, ldx, images,
+      b_all, M, m_all, L, relu, out_dim, tile, out0, out1, lay));
+}
+
+// The clusters of ablate_forward's instance (mode, cut) at the layout
+// `layout` that the card runs at once, or minus a cudaError_t.
+int nnueehcs_ablate_forward_f32_clusters(int mode, int cut,
+                                         const int* layout) {
+  const Tf32Kernel kernel = pick_tf32(mode, cut);
+  if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  return fw::max_clusters(kernel, fw::EnsembleLayout::from(layout));
+}
+
+// Launch one FFMA probe (xt_forward, narrow_forward, the fp32
+// packed_forward, and the prod instance that gates them) on `stream`;
+// returns a cudaError_t (0 on success). mode: prod (0; no other); n_out: 1
+// or 2; x_cols: 1 for a feature-major x; out_layout: 1 (B, ow) rows, 2
+// feature-major (ow, B), 3 packed (B, 128). The caller checks the shapes:
+// x holds d real features (zeros past them), (B, ldx) row-major or (ldx, B)
+// feature-major, ldx >= d; w_all: layer 0 as (M_all, d, 128), then layers
+// 1.. as (M_all, 128, 128); b_all (L, M_all, 128); relu L int32 flags;
+// 1 <= M <= M_all and 1 <= L <= the chain's layers; out_dim the real width
+// of layer L-1 (<= 128; <= 64 packed); 1 <= ow <= 128 (128 packed);
+// tile >= 1; fp32 contiguous device buffers; out1 null when n_out is 1.
 int nnueehcs_ablate_chain_f32(int mode, int n_out, int x_cols, int out_layout,
                               const float* x, long long B, int d,
                               long long ldx, const float* w_all,

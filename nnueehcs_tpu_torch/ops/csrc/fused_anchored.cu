@@ -109,8 +109,8 @@ __global__ void __launch_bounds__(2 * fw::kWgThreads, 1)
         // layer 0 of anchor j: relu(x @ W_bot + b0 + v_j), split into A
         // (x @ W_bot again for each anchor: one k step at d <= 8, and no
         // shared memory for u beside the ring)
-        fw::x_layer_tf32(acc, ring, chain, x_tile, d, valid, t, fw::NoMask(),
-                         [] {});
+        fw::x_layer_tf32(acc, ring, chain, x_tile, d, d, valid, t,
+                         fw::NoMask(), [] {});
         fw::anchor_epilogue_tf32(acc, b_all,
                                  v + static_cast<size_t>(j) * fw::kWidth,
                                  floor0, t, hi, lo);

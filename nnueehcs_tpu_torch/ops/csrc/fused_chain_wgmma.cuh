@@ -658,7 +658,9 @@ __device__ __forceinline__ void stats_update(const float (&acc)[4],
 // mean = c + s1/n and std = sqrt(max(s2 - n m1^2, 0) / max(n - 1, 1)),
 // m1 = s1/n, of the thread's slots in the tile's valid rows, with n m1^2
 // rounded before the subtraction (fused_chain::write_stats' arithmetic);
-// element (row, column) of each output at row * ldo + column.
+// element (row, column) of each output at row * ldo + column. kNoStd: std
+// may be null (the probe's mean-only form), and then is not written.
+template <bool kNoStd = false>
 __device__ __forceinline__ void stats_write(const float4* st, int groups,
                                             int count, const Thread& t,
                                             int valid, long long row0,
@@ -684,7 +686,7 @@ __device__ __forceinline__ void stats_write(const float4* st, int groups,
               dof;
           const long long o = (row0 + r) * ldo + col;
           mean[o] = c[e] + m1;
-          std[o] = sqrtf(var);
+          if (!kNoStd || std != nullptr) std[o] = sqrtf(var);
         }
       }
     }
@@ -1447,11 +1449,12 @@ __device__ __forceinline__ constexpr int a_reg(int h, int e) {
 }
 
 // The A fragment of k step s of x's tile rows (features 8 s + 2 q, + 1,
-// through f as x_fragment's), split into hi and lo; zeros past `valid` rows
-// and d features.
+// through f as x_fragment's; row stride ldx), split into hi and lo; zeros
+// past `valid` rows and d features.
 template <class F>
-__device__ __forceinline__ void x_step(const float* x_tile, int d, int valid,
-                                       int s, const Thread& t, const F& f,
+__device__ __forceinline__ void x_step(const float* x_tile, int d,
+                                       long long ldx, int valid, int s,
+                                       const Thread& t, const F& f,
                                        uint32_t (&hi)[4], uint32_t (&lo)[4]) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -1460,7 +1463,7 @@ __device__ __forceinline__ void x_step(const float* x_tile, int d, int valid,
     for (int e = 0; e < 2; ++e) {
       float v = 0.f;
       if (r < valid && c + e < d)
-        v = f(h, c + e, __ldg(x_tile + static_cast<long long>(r) * d + c + e));
+        v = f(h, c + e, __ldg(x_tile + r * ldx + c + e));
       tf32_split(v, hi[a_reg(h, e)], lo[a_reg(h, e)]);
     }
   }
@@ -1473,15 +1476,16 @@ template <class R, class F, class G>
 __device__ __forceinline__ void x_layer_tf32(float (&acc)[64], R& ring,
                                              const Chain32& c,
                                              const float* x_tile, int d,
-                                             int valid, const Thread& t,
-                                             const F& f, const G& last) {
+                                             long long ldx, int valid,
+                                             const Thread& t, const F& f,
+                                             const G& last) {
   for (int b = 0; b < c.nb0; ++b) {
     const uint32_t addr = ring.acquire();
     const int rows = c.rows(b), steps = rows / 8;
     for (int s = 0; s < steps; ++s) {
       STAMP(2);
       uint32_t hi[4], lo[4];
-      x_step(x_tile, d, valid, kTfRows / 8 * b + s, t, f, hi, lo);
+      x_step(x_tile, d, ldx, valid, kTfRows / 8 * b + s, t, f, hi, lo);
       STAMP(3);
       pin(hi);
       pin(lo);
@@ -1508,15 +1512,15 @@ template <class R, class F>
 __device__ __forceinline__ void x_group_tf32(float (&acc)[4], R& ring,
                                              const Chain32& c,
                                              const float* x_tile, int d,
-                                             int valid, const Thread& t,
-                                             const F& f) {
+                                             long long ldx, int valid,
+                                             const Thread& t, const F& f) {
   for (int b = 0; b < c.nb0; ++b) {
     const uint32_t addr = ring.acquire();
     const int rows = c.rows(b), steps = rows / 8;
     for (int s = 0; s < steps; ++s) {
       STAMP(2);
       uint32_t hi[4], lo[4];
-      x_step(x_tile, d, valid, kTfRows / 8 * b + s, t, f, hi, lo);
+      x_step(x_tile, d, ldx, valid, kTfRows / 8 * b + s, t, f, hi, lo);
       STAMP(8);
       pin(hi);
       pin(lo);
@@ -1629,7 +1633,9 @@ __device__ __forceinline__ float relu_floor(bool relu) {
 // The next layer's A from the accumulator: bias (fp32, 128), ReLU (`floor`,
 // relu_floor), the keep bits (keep_bit) times `scale` (all ones and 1 for
 // no mask: the same values), split into hi and lo where the TF32 A fragment
-// wants each value (a_reg).
+// wants each value (a_reg). kAffine false: no bias and no ReLU (the probe's
+// gemm_only form).
+template <bool kAffine = true>
 __device__ __forceinline__ void epilogue_tf32(const float (&acc)[64],
                                               const float* bias, float floor,
                                               const uint32_t (&keep)[2],
@@ -1640,12 +1646,16 @@ __device__ __forceinline__ void epilogue_tf32(const float (&acc)[64],
   const float* bq = bias + 2 * t.q;
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const float2 b = __ldg(reinterpret_cast<const float2*>(bq + 8 * i));
+    const float2 b = kAffine
+        ? __ldg(reinterpret_cast<const float2*>(bq + 8 * i))
+        : make_float2(0.f, 0.f);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        float v = fmaxf(acc[4 * i + 2 * h + e] + (e ? b.y : b.x), floor);
+        float v = kAffine
+            ? fmaxf(acc[4 * i + 2 * h + e] + (e ? b.y : b.x), floor)
+            : acc[4 * i + 2 * h + e];
         v *= (keep[i >> 3] >> keep_bit(i, h, e)) & 1u ? scale : 0.f;
         tf32_split(v, hi[i][a_reg(h, e)], lo[i][a_reg(h, e)]);
       }
@@ -1776,9 +1786,58 @@ __device__ __forceinline__ void merge_groups(Exchange& ex, const float4* st,
   }
 }
 
-// Kernel 1's body (fp32, 3xTF32): the M members of the folded chain on x
-// ((B, d) row-major); images: member m's fp32 chain image (chain_image,
-// tf32_blocks) at images + m * image_bytes; b_all (L, M, 128). A cluster
+// The forms of kernel 1's body (ensemble_tf32_as). Kernel 1 runs kEnsProd on
+// its whole chain; the attribution probe of kernel 1 (ablate_chain.cu) runs
+// every form, on the whole chain or on one cut short, each an instance of
+// the same body:
+//   kEnsProd      the shifted mean and std (kernel 1's function);
+//   kEnsIoFloor   no chain: each block reads its rows of x's tiles and
+//                 writes 1 + x[the row's first row of a `tile`-row tile, 0]
+//                 in every column of both outputs;
+//   kEnsGemmOnly  kEnsProd without the biases and the ReLUs;
+//   kEnsNoEpi     no fold (no exchange, no fold_peers): out0 is the last
+//                 member's output, written by the block that runs member M - 1
+//                 (rank (M - 1) % c), and out1 member 0's, written by the
+//                 leader (rank 0).
+enum EnsembleForm { kEnsProd, kEnsIoFloor, kEnsGemmOnly, kEnsNoEpi };
+
+// The thread's slots v of column group g (rows r0, r0 + 8; columns
+// 8 g + 2 q, + 1) into out (row stride ldo), in the tile's valid rows and
+// real columns.
+__device__ __forceinline__ void write_slots(const float (&v)[4], int g,
+                                            const Thread& t, int valid,
+                                            long long row0, int out_dim,
+                                            long long ldo, float* out) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = t.r0 + 8 * (e >> 1), col = 8 * g + 2 * t.q + (e & 1);
+    if (r < valid && col < out_dim) out[(row0 + r) * ldo + col] = v[e];
+  }
+}
+
+// Zeros in columns [from, ldo) of the tile's valid rows r = rank, rank + c,
+// ... of out, by the warpgroup's threads, 16 bytes a store where the span
+// allows (ldo a multiple of 4).
+__device__ __forceinline__ void zero_tail(float* out, long long row0,
+                                          int valid, int from, long long ldo,
+                                          int rank, int c, const Thread& t) {
+  const int quads = static_cast<int>(ldo / 4);
+  const int mine = (kRows - rank + c - 1) / c;
+  for (int e = t.lt; e < mine * quads; e += kWgThreads) {
+    const int r = rank + (e / quads) * c, c4 = 4 * (e % quads);
+    if (r >= valid || c4 + 4 <= from) continue;
+    float* q = out + (row0 + r) * ldo + c4;
+    if (c4 >= from)
+      *reinterpret_cast<float4*>(q) = make_float4(0.f, 0.f, 0.f, 0.f);
+    else
+      for (int k = from - c4; k < 4; ++k) q[k] = 0.f;
+  }
+}
+
+// Kernel 1's body (fp32, 3xTF32), in the form kMode (EnsembleForm): the M
+// members of the folded chain on x ((B, d) features of a row-major x of row
+// stride ldx); images: member m's fp32 chain image (chain_image, tf32_blocks)
+// at images + m * image_bytes; b_all (L, m_all, 128), m_all >= M. A cluster
 // of c = min(M, 8) blocks runs the tiles of its unit, block r members r,
 // r + c, ... of every tile of its warpgroups, their images streamed in
 // turn through its ring (Ring<true>: each block reads its own members'
@@ -1787,21 +1846,59 @@ __device__ __forceinline__ void merge_groups(Exchange& ex, const float4* st,
 // (the real columns' lanes) to the leader through the exchange (1b's); the
 // leader folds its own member j c, then the peers' j c + 1, ..., in member
 // order (member 0 the shift: fused_chain::write_stats' arithmetic, not
-// Chan's merge), and writes mean and std.
-__device__ __forceinline__ void ensemble_tf32(
+// Chan's merge), and writes mean and std, element (row, column) at
+// row * ldo + column. kCut: a chain cut short, whose last layer is a
+// 128-wide hidden layer: its image holds every layer as a hidden one
+// (chain_image with open_end), and that layer runs m64n128 products like
+// the others, its 16 column groups taken from the accumulator. kProbe (the
+// probe's instances): std may be null (mean only), and columns
+// [out_dim, ldo) of the outputs are written as zeros.
+template <int kMode, bool kCut, bool kProbe>
+__device__ __forceinline__ void ensemble_tf32_as(
     unsigned char* smem, const float* __restrict__ x, long long B, int d,
-    const unsigned char* __restrict__ images, const float* __restrict__ b_all,
-    int M, int L, const int* __restrict__ relu, int out_dim,
+    long long ldx, const unsigned char* __restrict__ images,
+    const float* __restrict__ b_all, int M, int m_all, int L,
+    const int* __restrict__ relu, int out_dim, long long ldo, int tile_rows,
     float* __restrict__ mean, float* __restrict__ std,
     const EnsembleLayout& lay) {
+  constexpr bool kAffine = kMode != kEnsGemmOnly;
   const int c = lay.cluster;
   const int rank = static_cast<int>(cluster_rank());
-  const int own = (M - rank + c - 1) / c;   // members rank, rank + c, ...
-  const Chain32 chain(d, L, lay.base.out_groups);
-  Ring<true> ring(smem, lay.base);
   const int wg = threadIdx.x / kWgThreads;
   const Tiles tiles(B, lay.base, wg, static_cast<int>(gridDim.x) / c,
                     static_cast<int>(blockIdx.x) / c);
+  const Thread t(threadIdx.x);
+  if constexpr (kMode == kEnsIoFloor) {
+    for (int i = 0; i < tiles.rounds; ++i) {
+      const int tile = tiles.tile<false>(i);
+      if (tile < 0) break;
+      const long long row0 = static_cast<long long>(tile) * kRows;
+      const int valid = tiles.valid(tile, B);
+      const int mine = (kRows - rank + c - 1) / c;
+      for (int e = t.lt; e < mine * d; e += kWgThreads) {
+        const int r = rank + (e / d) * c;
+        if (r < valid)
+          asm volatile("{\n\t.reg .f32 v;\n\tld.global.nc.f32 v, [%0];\n\t}"
+                       ::"l"(x + (row0 + r) * ldx + e % d));
+      }
+      const int quads = static_cast<int>(ldo / 4);
+      for (int e = t.lt; e < mine * quads; e += kWgThreads) {
+        const int r = rank + (e / quads) * c;
+        if (r >= valid) continue;
+        const long long first = (row0 + r) / tile_rows * tile_rows;
+        const float v = 1.f + __ldg(x + first * ldx);
+        const long long o = (row0 + r) * ldo + 4 * (e % quads);
+        *reinterpret_cast<float4*>(mean + o) = make_float4(v, v, v, v);
+        if (std != nullptr)
+          *reinterpret_cast<float4*>(std + o) = make_float4(v, v, v, v);
+      }
+    }
+    return;
+  }
+  const int own = (M - rank + c - 1) / c;   // members rank, rank + c, ...
+  const Chain32 chain = kCut ? Chain32(d, L + 1, 0)
+                             : Chain32(d, L, lay.base.out_groups);
+  Ring<true> ring(smem, lay.base);
   if (threadIdx.x == 0) {
     Exchange::init(smem, lay);
     ring.init(lay.base.warpgroups,
@@ -1812,13 +1909,12 @@ __device__ __forceinline__ void ensemble_tf32(
   }
   cluster_sync();   // every block's barriers are set before a peer's use
   STAMP_BEGIN(true, 0);
-  const Thread t(threadIdx.x);
   Exchange ex(smem, lay, wg, out_dim);
   const int groups = lay.base.out_groups;
   float4* st = reinterpret_cast<float4*>(smem + lay.base.smem_stats) +
                (wg * groups * 3) * kWgThreads + t.lt;
   const int last = L - 1;
-  const size_t layer_stride = static_cast<size_t>(M) * kWidth;
+  const size_t layer_stride = static_cast<size_t>(m_all) * kWidth;
   const bool relu_last = __ldg(relu + last) != 0;
   const uint32_t all[2] = {~0u, ~0u};
   float acc[64], acc_last[4];   // written by each layer's first product
@@ -1827,51 +1923,108 @@ __device__ __forceinline__ void ensemble_tf32(
     const int tile = tiles.tile<true>(i);
     const long long row0 = static_cast<long long>(tile) * kRows;
     const int valid = tiles.valid(tile, B);
-    const float* x_tile = x + (valid > 0 ? row0 * d : 0);
+    const float* x_tile = x + (valid > 0 ? row0 * ldx : 0);
     for (int j = 0; j < own; ++j) {
       const int m = rank + j * c;
       const float* bm = b_all + static_cast<size_t>(m) * kWidth;
       const float* b_last = bm + last * layer_stride;
-      // member m's outputs of column group g: folded by the leader, sent
-      // by a peer
-      const auto deliver = [&](int g) {
+      // member m's outputs a4 of column group g: folded by the leader, sent
+      // by a peer (kEnsNoEpi: written as they are, members M - 1 and 0)
+      const auto deliver = [&](int g, const float (&a4)[4]) {
         float v[4];
-        last_values(acc_last, b_last, relu_last, g, t, v);
-        if (rank == 0)
+        if constexpr (kAffine) {
+          last_values(a4, b_last, relu_last, g, t, v);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] = a4[e];
+        }
+        if constexpr (kMode == kEnsNoEpi) {
+          if (m == M - 1)
+            write_slots(v, g, t, valid, row0, out_dim, ldo, mean);
+          if (m == 0 && std != nullptr)
+            write_slots(v, g, t, valid, row0, out_dim, ldo, std);
+        } else if (rank == 0) {
           stats_fold(v, g, m == 0, st);
-        else
+        } else {
           ex.send(rank, (static_cast<uint32_t>(i) * own + j) * groups + g, v,
                   t);
+        }
       };
-      if (L == 1) {   // one Linear: the last layer straight from x
+      if constexpr (kCut) {   // every layer m64n128, the last one's groups
+                              // from its accumulator
+        x_layer_tf32(acc, ring, chain, x_tile, d, ldx, valid, t, NoMask(),
+                     [] {});
+        if (L > 1) {
+          epilogue_tf32<kAffine>(acc, bm, relu_floor(__ldg(relu) != 0), all,
+                                 1.f, t, hi, lo);
+#pragma unroll 1
+          for (int l = 1; l < last; ++l) {
+            hidden_tf32(acc, hi, lo, ring, t, [] {});
+            epilogue_tf32<kAffine>(acc, bm + l * layer_stride,
+                                   relu_floor(__ldg(relu + l) != 0), all, 1.f,
+                                   t, hi, lo);
+          }
+          hidden_tf32(acc, hi, lo, ring, t, [] {});
+        }
+        // group g is acc[0..3]: the accumulator shifts down a group after
+        // each (indices fixed at compile time, the loop not unrolled: 16
+        // exchanges' waits unrolled beside the accumulator spilled)
+#pragma unroll 1
+        for (int g = 0; g < kWidth / 8; ++g) {
+          const float a4[4] = {acc[0], acc[1], acc[2], acc[3]};
+          deliver(g, a4);
+#pragma unroll
+          for (int e = 0; e < 60; ++e) acc[e] = acc[e + 4];
+        }
+      } else if (L == 1) {   // one Linear: the last layer straight from x
         for (int g = 0; g < groups; ++g) {
-          x_group_tf32(acc_last, ring, chain, x_tile, d, valid, t, NoMask());
-          deliver(g);
+          x_group_tf32(acc_last, ring, chain, x_tile, d, ldx, valid, t,
+                       NoMask());
+          deliver(g, acc_last);
         }
       } else {
-        x_layer_tf32(acc, ring, chain, x_tile, d, valid, t, NoMask(), [] {});
-        epilogue_tf32(acc, bm, relu_floor(__ldg(relu) != 0), all, 1.f, t, hi,
-                      lo);
+        x_layer_tf32(acc, ring, chain, x_tile, d, ldx, valid, t, NoMask(),
+                     [] {});
+        epilogue_tf32<kAffine>(acc, bm, relu_floor(__ldg(relu) != 0), all,
+                               1.f, t, hi, lo);
         for (int l = 1; l < last; ++l) {
           hidden_tf32(acc, hi, lo, ring, t, [] {});
-          epilogue_tf32(acc, bm + l * layer_stride,
-                        relu_floor(__ldg(relu + l) != 0), all, 1.f, t, hi, lo);
+          epilogue_tf32<kAffine>(acc, bm + l * layer_stride,
+                                 relu_floor(__ldg(relu + l) != 0), all, 1.f,
+                                 t, hi, lo);
         }
         for (int g = 0; g < groups; ++g) {
           last_group_tf32(acc_last, hi, lo, ring, t);
-          deliver(g);
+          deliver(g, acc_last);
         }
       }
-      if (rank == 0) {
+      if (kMode != kEnsNoEpi && rank == 0) {
         fold_peers(ex, st, groups, min(c, M - j * c) - 1, M, c, i, j, t);
         if (j + 1 == own)
-          stats_write(st, groups, M, t, valid, row0, out_dim, out_dim, mean,
-                      std);
+          stats_write<kProbe>(st, groups, M, t, valid, row0, out_dim, ldo,
+                              mean, std);
       }
+    }
+    if (kProbe && ldo > out_dim) {   // zeros past the chain's real columns
+      zero_tail(mean, row0, valid, out_dim, ldo, rank, c, t);
+      if (std != nullptr) zero_tail(std, row0, valid, out_dim, ldo, rank, c, t);
     }
   }
   STAMP_END();
   cluster_sync();   // no block leaves while a peer may still reach into it
+}
+
+// Kernel 1's body: ensemble_tf32_as's kEnsProd form on the whole chain,
+// x (B, d) row-major, mean and std (B, out_dim).
+__device__ __forceinline__ void ensemble_tf32(
+    unsigned char* smem, const float* __restrict__ x, long long B, int d,
+    const unsigned char* __restrict__ images, const float* __restrict__ b_all,
+    int M, int L, const int* __restrict__ relu, int out_dim,
+    float* __restrict__ mean, float* __restrict__ std,
+    const EnsembleLayout& lay) {
+  ensemble_tf32_as<kEnsProd, false, false>(smem, x, B, d, d, images, b_all, M,
+                                           M, L, relu, out_dim, out_dim, 1,
+                                           mean, std, lay);
 }
 
 // Host: launch `kernel` (an ensemble_pass instance taking `args`) as

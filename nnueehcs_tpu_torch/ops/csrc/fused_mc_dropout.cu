@@ -394,7 +394,8 @@ __global__ void __launch_bounds__(2 * fw::kWgThreads, 1)
         const Drop m0 = drop(p, 0);
         if (L == 1) {   // one Linear: the last layer straight from x
           for (int g = 0; g < groups; ++g) {
-            fw::x_group_tf32(acc_last, ring, chain, x_tile, d, valid, t, m0);
+            fw::x_group_tf32(acc_last, ring, chain, x_tile, d, d, valid, t,
+                             m0);
             fw::stats_update(acc_last, b_last, relu_last, g, t, i == 0, st);
           }
           continue;
@@ -404,7 +405,7 @@ __global__ void __launch_bounds__(2 * fw::kWgThreads, 1)
         // registers run at the cap)
         Drop m;
         uint32_t keep[2] = {0u, 0u};
-        fw::x_layer_tf32(acc, ring, chain, x_tile, d, valid, t, m0, [&] {
+        fw::x_layer_tf32(acc, ring, chain, x_tile, d, d, valid, t, m0, [&] {
           m = drop(p, 1);
           if (m.active) keep_words(m, keep);
         });

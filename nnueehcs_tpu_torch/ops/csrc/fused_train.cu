@@ -22,21 +22,11 @@
 // member, each block owning a slice of every layer's lanes, activations
 // exchanged through distributed shared memory, weight slices prefetched
 // with cp.async; one step is two or three launches on the caller's stream
-// (the joint-mean loss sweep, the member step, adam_kernel). The first form
-// ran each member on one block of 512 threads; its bodies stay in
-// fused_train.cuh as the attribution probe's device code (ablate_train.cu),
-// and this file compiles none of its step kernels.
-#define NNUEEHCS_NO_FP32_STEP
+// (the joint-mean loss sweep, the member step, adam_kernel). The attribution
+// probe of this kernel (ablate_train.cu) runs the same device code.
 #include "fused_train_cluster.cuh"
 
 extern "C" {
-
-// Floats of one member's scratch of the one-block form (the attribution
-// probe's) for batch B, n_bn BatchNorm slots and n_drop dropout slots; the
-// caller allocates M of them.
-long long nnueehcs_fused_train_scratch_floats(int B, int n_bn, int n_drop) {
-  return scratch_floats(B, n_bn, n_drop);
-}
 
 // Run S training steps on `stream`; returns a cudaError_t (0 on success).
 // iconf/fconf are host arrays in the order of the int and float enums of

@@ -21,9 +21,7 @@
 // memory) with each block's three products on the tensor cores
 // (mma.sync.m16n8k16 bf16 over the block's 128 x 128/c slice, operands
 // rounded to bf16 as they are read from the fp32 buffers, fp32
-// accumulation). This file compiles none of the one-block form's step
-// kernels.
-#define NNUEEHCS_NO_FP32_STEP
+// accumulation).
 #include "fused_train_cluster.cuh"
 
 extern "C" {

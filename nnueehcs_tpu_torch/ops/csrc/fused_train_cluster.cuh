@@ -1,16 +1,16 @@
 // Kernel 3 (the fused whole-epoch training step) redesigned for Hopper: one
 // thread-block cluster per member. fused_train.cu (fp32) and
-// fused_train_bf16.cu (bf16-mixed) drive it; the one-block form in
-// fused_train.cuh stays as the attribution probe's device code, and this
-// file takes from it only the configuration, the dropout hash and the
-// optimizer (adam_kernel).
+// fused_train_bf16.cu (bf16-mixed) drive it, and so does the attribution
+// probe of kernel 3 (ablate_train.cu), through the compile-time forms of
+// the step kernel that StepPart names; fused_train.cuh holds the
+// configuration, the dropout hash and the optimizer (adam_kernel).
 //
 // What it computes: fused_train.cu's function, step for step (the plain
 // version is ops/fused_train.py fused_epoch_reference).
 //
 // What bounds it: operations (a flagship step's products are 5.1e8 FLOP,
-// 7.6 us at the fp32 peak), and on one SM per member, as the one-block form
-// ran, a step took 645 us. Here a member is spread over a cluster of kC
+// 7.6 us at the fp32 peak), and on one SM per member, as the kernel's first
+// form ran, a step took 645 us. Here a member is spread over a cluster of kC
 // blocks on kC SMs:
 // - block r of member m's cluster owns lanes [r * kL, (r + 1) * kL) of every
 //   block's output: its columns of z = h W + b, their BatchNorm statistics,
@@ -344,6 +344,11 @@ __device__ __forceinline__ void fetch_bwd(const Args& A, const Blk& k, int li,
   cp_commit();
 }
 
+// sq + v^2, rounded as the sum of g^2 rounds each term
+__device__ __forceinline__ float add_sq(float sq, float v) {
+  return __fadd_rn(sq, __fmul_rn(v, v));
+}
+
 // ---------------------------------------------------------------------------
 // the three products, fp32 (true FFMA, ascending sums)
 // ---------------------------------------------------------------------------
@@ -405,9 +410,9 @@ __device__ void xw_f32(int B, int K, const float* X, const float* Wf,
 // g (rows x N, row stride 128) = A^T (rows x B) Xd (B x N): the weight
 // gradient's rows of the block's input lanes (A, B x kL, the block input a
 // on those lanes; rows <= kL of them valid) against every lane of d
-template <bool kRes>
+template <bool kRes, bool kSq = false>
 __device__ void atd_f32(int B, int rows, int N, const float* A, const float* Xd,
-                        float* g) {
+                        float* g, float& sq) {
   if (threadIdx.x >= kTiles) return;
   const int k0 = 4 * (threadIdx.x / 32), n0 = 4 * (threadIdx.x % 32);
   if (n0 >= N) return;
@@ -429,9 +434,14 @@ __device__ void atd_f32(int B, int rows, int N, const float* A, const float* Xd,
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    if (k0 + i < rows)
+    if (k0 + i < rows) {
       *reinterpret_cast<float4*>(g + (k0 + i) * kLanes + n0) =
           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      if constexpr (kSq) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sq = add_sq(sq, acc[i][j]);
+      }
+    }
 }
 
 // out (B x kL) = (Xd (B x N) Wr^T) * mask, Wr (kL x N, stride kWRS) the
@@ -655,11 +665,12 @@ __device__ __forceinline__ void xw(int B, int K, const float* X,
   else xw_f32<kRes>(B, K, X, Wf, bias, out);
 }
 
-template <bool kBf16, bool kRes>
+template <bool kBf16, bool kRes, bool kSq>
 __device__ __forceinline__ void atd(int B, int rows, int N, const float* A,
-                                    const float* Xd, float* gout) {
+                                    const float* Xd, float* gout, float& sq) {
+  static_assert(!(kBf16 && kSq), "the sum of g^2 as g is written: fp32 only");
   if constexpr (kBf16) atd_bf16<kRes>(B, rows, N, A, Xd, gout);
-  else atd_f32<kRes>(B, rows, N, A, Xd, gout);
+  else atd_f32<kRes, kSq>(B, rows, N, A, Xd, gout, sq);
 }
 
 template <bool kBf16, bool kRes>
@@ -888,9 +899,11 @@ __device__ __forceinline__ void fetch_zh(const Blk& k, int B, int zi,
 // the block input a and the whole of d, which the blocks exchange; d W^T
 // on the block's input lanes from the same d. Backward weight slices come
 // through the ring from index *s on (the last block's already requested).
-template <bool kBf16, bool kRes>
+// With kSq, each thread adds the squares of the gradient values it writes
+// to sq.
+template <bool kBf16, bool kRes, bool kSq = false>
 __device__ void cluster_backward(const Args& A, const Blk& k, int step, int& s,
-                                 cg::cluster_group& cl) {
+                                 float& sq, cg::cluster_group& cl) {
   const int B = static_cast<int>(A.i[kB]);
   const float fB = static_cast<float>(B);
   const int n = static_cast<int>(A.i[kNLins]);
@@ -962,6 +975,8 @@ __device__ void cluster_backward(const Args& A, const Blk& k, int step, int& s,
         const int lane = k.off + threadIdx.x;
         A.g[(k.base + L[kGOff]) * kLanes + lane] = k.col[threadIdx.x];
         A.g[(k.base + L[kBeOff]) * kLanes + lane] = k.col[kL + threadIdx.x];
+        if constexpr (kSq)
+          sq = add_sq(add_sq(sq, k.col[threadIdx.x]), k.col[kL + threadIdx.x]);
       }
       // the Linear bias gradient, the column sums of the new d, taken as
       // they are written: each thread's rows are lane_sums' partition
@@ -982,6 +997,7 @@ __device__ void cluster_backward(const Args& A, const Blk& k, int step, int& s,
         for (int p = 0; p < kParts; ++p)
           t = __fadd_rn(t, k.red[p * kL + threadIdx.x]);
         A.g[(k.base + L[kBOff]) * kLanes + k.off + threadIdx.x] = t;
+        if constexpr (kSq) sq = add_sq(sq, t);
       }
     }
     STAMP(500 + 10 * li + 1);
@@ -1035,14 +1051,16 @@ __device__ void cluster_backward(const Args& A, const Blk& k, int step, int& s,
     // block's: those of the owners), into rows w_off + off.. of g
     const int nred = last ? k.out_blocks * kL : kLanes;
     if (rows > 0)
-      atd<kBf16, kRes>(B, rows, nred, k.a, Xd,
-                       A.g + (k.base + L[kWOff] + k.off) * kLanes);
+      atd<kBf16, kRes, kSq>(B, rows, nred, k.a, Xd,
+                            A.g + (k.base + L[kWOff] + k.off) * kLanes, sq);
     if (owner && L[kGOff] < 0) {   // the bias of a block without BatchNorm
       lane_sums<1>(B, [&](int r, int c, float* val) { val[0] = D[r * kL + c]; },
                    k);
-      if (threadIdx.x < kL)
+      if (threadIdx.x < kL) {
         A.g[(k.base + L[kBOff]) * kLanes + k.off + threadIdx.x] =
             k.col[threadIdx.x];
+        if constexpr (kSq) sq = add_sq(sq, k.col[threadIdx.x]);
+      }
     }
     STAMP(500 + 10 * li + 4);
     if (li == 0) break;
@@ -1056,24 +1074,62 @@ __device__ void cluster_backward(const Args& A, const Blk& k, int step, int& s,
   }
 }
 
+// What a launch of the step kernel runs. The production kernels (kernel 3,
+// fp32 and bf16) run kStepAll. The attribution probe of kernel 3
+// (ablate_train.cu) runs the same code in the other forms, each a
+// compile-time flag of it; in these, a launch's step index is read from
+// A.step_base when that is set (step_index), member 0's rank 0 writes the
+// step's loss, and, with A.norms, the last cluster to hand on its member's
+// sum of g^2 writes the step's global gradient norm (hand_on_norm):
+//   kStepProbe    the whole step;
+//   kStepSqFused  the whole step, each block's sum of g^2 taken as its
+//                 backward writes its gradient values, not by
+//                 cluster_reduce's re-read of the slab (another order);
+//   kStepLoss     the forward (single sweep) or the joint mean, and the
+//                 loss: no backward and no sums of g^2.
+enum StepPart { kStepAll, kStepProbe, kStepSqFused, kStepLoss };
+
+// The probe's gradient norms: the step's last cluster to write its member's
+// partial sum adds every member's in member order, as adam_step forms the
+// clip's input, and writes the global norm (thread 0 of a rank 0).
+__device__ void hand_on_norm(const Args& A, int step) {
+  __threadfence();
+  const unsigned done = atomicAdd(A.norm_count, 1u) + 1u;
+  if (done != static_cast<unsigned>(A.i[kM])) return;
+  __threadfence();
+  float gn2 = 0.f;
+  for (int j = 0; j < static_cast<int>(A.i[kM]); ++j)
+    gn2 = __fadd_rn(gn2, __ldcg(A.partials + j));
+  A.norms[step] = __fsqrt_rn(gn2);
+  *A.norm_count = 0u;   // the next step's launch counts from 0
+}
+
 // Each block's loss terms and sum of g^2 (of its columns of the member's
-// slab, which every block's weight-gradient rows cross) into rank 0, which
-// adds them in rank order: partials[m], and terms[m] (single sweep) or
-// terms[0] (joint mean, member 0).
+// slab, which every block's weight-gradient rows cross; with kStepSqFused
+// the sum sq its backward took as it wrote them) into rank 0, which adds
+// them in rank order: partials[m], and terms[m] (single sweep) or terms[0]
+// (joint mean, member 0). kStepLoss hands on the loss terms only.
+template <int kPart>
 __device__ void cluster_reduce(const Args& A, const Blk& k, float term,
-                               cg::cluster_group& cl) {
-  // the weight gradients' rows come from every block of the cluster: fence
-  // them, wait for every block, and read them past L1
-  exchange_sync<false>(cl);
-  const long long rows = A.i[kSlabRows];
-  const float* gs = A.g + k.base * kLanes + k.off;
-  float acc = 0.f;
+                               float sq, int step, cg::cluster_group& cl) {
+  constexpr bool kReread = kPart == kStepAll || kPart == kStepProbe;
+  float total = 0.f;
+  if constexpr (kReread) {
+    // the weight gradients' rows come from every block of the cluster:
+    // fence them, wait for every block, and read them past L1
+    exchange_sync<false>(cl);
+    const long long rows = A.i[kSlabRows];
+    const float* gs = A.g + k.base * kLanes + k.off;
+    float acc = 0.f;
 #pragma unroll 4
-  for (long long e = threadIdx.x; e < rows * kL; e += kT) {
-    const float v = __ldcg(gs + (e / kL) * kLanes + e % kL);
-    acc = __fadd_rn(acc, __fmul_rn(v, v));
+    for (long long e = threadIdx.x; e < rows * kL; e += kT) {
+      const float v = __ldcg(gs + (e / kL) * kLanes + e % kL);
+      acc = __fadd_rn(acc, __fmul_rn(v, v));
+    }
+    total = blk_sum(acc, k);
+  } else if constexpr (kPart == kStepSqFused) {
+    total = blk_sum(sq, k);
   }
-  const float total = blk_sum(acc, k);
   if (threadIdx.x == 0) {
     k.out[0] = term;
     k.out[1] = total;
@@ -1086,21 +1142,26 @@ __device__ void cluster_reduce(const Args& A, const Blk& k, float term,
       t = __fadd_rn(t, o[0]);
       p = __fadd_rn(p, o[1]);
     }
-    A.partials[k.m] = p;
+    if constexpr (kPart != kStepLoss) A.partials[k.m] = p;
     if (A.i[kSingleSweep])
       A.terms[k.m] = t;
     else if (k.m == 0)
       A.terms[0] = t;
+    if constexpr (kPart != kStepAll) {
+      if (k.m == 0) A.losses[step] = __fdiv_rn(t, A.f[kLossDiv]);
+      if (kPart != kStepLoss && A.norms != nullptr) hand_on_norm(A, step);
+    }
   }
   cl.sync();   // rank 0 has read every peer's values
 }
 
 // Joint mean only: every member's forward with the EMA; the owners of
 // lanes below out_pad write the prediction's lanes to preds[m].
-template <bool kBf16, bool kRes>
+template <bool kBf16, bool kRes, int kPart = kStepAll>
 __global__ void __launch_bounds__(kT, 1)
-    cluster_sweep_kernel(Args A, Layout lay, int step) {
+    cluster_sweep_kernel(Args A, Layout lay, int u) {
   if (stopped(A)) return;
+  const int step = step_index<kPart != kStepAll>(A, u);
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cl = cg::this_cluster();
   const Blk k = make_blk<kRes>(A, lay, smem, cl);
@@ -1122,11 +1183,13 @@ __global__ void __launch_bounds__(kT, 1)
 
 // The member's step: its forward (single sweep) or the joint mean of the
 // sweep's predictions, the loss, the backward into g, and the block sums
-// for the optimizer.
-template <bool kBf16, bool kRes>
+// for the optimizer (kPart: what the launch runs, StepPart).
+template <bool kBf16, bool kRes, int kPart = kStepAll>
 __global__ void __launch_bounds__(kT, 1)
-    cluster_step_kernel(Args A, Layout lay, int step) {
+    cluster_step_kernel(Args A, Layout lay, int u) {
+  constexpr bool kBwd = kPart != kStepLoss;
   if (stopped(A)) return;
+  const int step = step_index<kPart != kStepAll>(A, u);
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cl = cg::this_cluster();
   const Blk k = make_blk<kRes>(A, lay, smem, cl);
@@ -1140,11 +1203,11 @@ __global__ void __launch_bounds__(kT, 1)
     fetch_fwd(A, k, 0, k.ring);
     load_x<kBf16, kRes>(A, k, step, k.x0);
     exchange_sync<kRes>(cl);
-    cluster_forward<kBf16, kRes>(A, k, step, s, true, cl);
+    cluster_forward<kBf16, kRes>(A, k, step, s, kBwd, cl);
     STAMP(901);
     if (owner) term = cluster_loss(A, k, step);
   } else {
-    if (n >= 2) fetch_bwd(A, k, n - 1, k.ring);
+    if (kBwd && n >= 2) fetch_bwd(A, k, n - 1, k.ring);
     if (owner) {
       // the joint mean of every member's prediction on the block's lanes,
       // summed in member order; resident, the members' lanes are first
@@ -1179,20 +1242,27 @@ __global__ void __launch_bounds__(kT, 1)
     }
   }
   STAMP(903);
-  // every peer is done reading the forward's buffers (and has started)
-  cl.sync();
-  STAMP(904);
-  cluster_backward<kBf16, kRes>(A, k, step, s, cl);
+  float sq = 0.f;
+  if constexpr (kBwd) {
+    // every peer is done reading the forward's buffers (and has started)
+    cl.sync();
+    STAMP(904);
+    cluster_backward<kBf16, kRes, kPart == kStepSqFused>(A, k, step, s, sq,
+                                                         cl);
+  }
   STAMP(905);
-  cluster_reduce(A, k, term, cl);
+  cluster_reduce<kPart>(A, k, term, sq, step, cl);
   STAMP_END();
 }
 
+// Launch `kernel` (a cluster kernel) over `clusters` thread-block clusters
+// of kC blocks, one a member (-1: A's M).
 inline cudaError_t launch_cluster(void (*kernel)(Args, Layout, int),
                                   const Args& A, const Layout& lay, int step,
-                                  cudaStream_t st) {
+                                  cudaStream_t st, long long clusters = -1) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(A.i[kM] * kC));
+  cfg.gridDim =
+      dim3(static_cast<unsigned>((clusters < 0 ? A.i[kM] : clusters) * kC));
   cfg.blockDim = dim3(kT);
   cfg.dynamicSmemBytes = static_cast<size_t>(lay.v[kLaySmemBytes]);
   cfg.stream = st;
@@ -1234,19 +1304,25 @@ int run_cluster_epoch_as(const Args& A, const Layout& lay, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Run the S steps of the form on `st` with the layout `lay` (checked
-// against the constants this file was compiled with); returns a
+// The host array `layout` (fused_train.py's LAYOUT_FIELDS) as a Layout in
+// `lay`; false when it does not match the constants this file was compiled
+// with.
+inline bool read_layout(const Args& A, const long long* layout, Layout& lay) {
+  for (int f = 0; f < kLayFields; ++f) lay.v[f] = layout[f];
+  return lay.v[kLayCluster] == kC && lay.v[kLayLanes] == kL &&
+         lay.v[kLayThreads] == kT && lay.v[kLayXStride] == kXS &&
+         lay.v[kLayWSlot] == kWSlot && lay.v[kLayOutBlocks] >= 1 &&
+         lay.v[kLayOutBlocks] <= kC &&
+         (A.i[kLoss] != kNll || lay.v[kLayOutBlocks] == 1);
+}
+
+// Run the S steps of the form on `st` with the layout `layout`; returns a
 // cudaError_t (0 on success).
 template <bool kBf16>
 int run_cluster_epoch(const Args& A, const long long* layout,
                       cudaStream_t st) {
   Layout lay;
-  for (int f = 0; f < kLayFields; ++f) lay.v[f] = layout[f];
-  if (lay.v[kLayCluster] != kC || lay.v[kLayLanes] != kL ||
-      lay.v[kLayThreads] != kT || lay.v[kLayXStride] != kXS ||
-      lay.v[kLayWSlot] != kWSlot || lay.v[kLayOutBlocks] < 1 ||
-      lay.v[kLayOutBlocks] > kC ||
-      (A.i[kLoss] == kNll && lay.v[kLayOutBlocks] != 1))
+  if (!read_layout(A, layout, lay))
     return static_cast<int>(cudaErrorInvalidValue);
   return lay.v[kLayResident] ? run_cluster_epoch_as<kBf16, true>(A, lay, st)
                              : run_cluster_epoch_as<kBf16, false>(A, lay, st);

@@ -148,10 +148,14 @@ def image_bytes(in_dim: int, num_layers: int, out_dim: int) -> int:
                                                     out_dim))
 
 
-def tf32_blocks(in_dim: int, num_layers: int, out_dim: int):
+def tf32_blocks(in_dim: int, num_layers: int, out_dim: int,
+                open_end: bool = False):
     """``(layer, first input row, rows, first column, columns)`` of each
     block of an fp32 image, in image order (``Chain32`` of
-    csrc/fused_chain_wgmma.cuh)."""
+    csrc/fused_chain_wgmma.cuh). ``open_end``: the chain of a probe cut
+    short, whose last layer is a 128-wide hidden layer, every layer in
+    the hidden layers' blocks (the first ``num_layers`` layers' blocks of
+    a chain one layer deeper)."""
     d8 = _up(in_dim, 8)
     groups = -(-out_dim // 8)
     blocks = []
@@ -159,6 +163,11 @@ def tf32_blocks(in_dim: int, num_layers: int, out_dim: int):
     def rows_of(layer, k, c0, cols):
         for k0 in range(0, k, TF32_ROWS):
             blocks.append((layer, k0, min(TF32_ROWS, k - k0), c0, cols))
+    if open_end:
+        rows_of(0, d8, 0, WIDTH)
+        for layer in range(1, num_layers):
+            rows_of(layer, WIDTH, 0, WIDTH)
+        return blocks
     if num_layers == 1:
         for g in range(groups):
             rows_of(0, d8, 8 * g, 8)
@@ -363,19 +372,21 @@ def eval_layout(kernel: str, in_dim: int, num_layers: int, out_dim: int,
         members=held, slots=slots, smem_exchange=exchange)
 
 
-def member_images(ws, out_dim: int, members=slice(None)) -> torch.Tensor:
+def member_images(ws, out_dim: int, members=slice(None),
+                  open_end: bool = False) -> torch.Tensor:
     """The images of members ``members`` (a slice) of a folded chain,
     ``(M', image floats)`` (or bf16 values): ``ws[l]`` is layer l's weight,
     ``(M, K, 128)`` (``FusedWeights.ws``), bf16 or fp32; the packed bf16
     values, or for fp32 weights the TF32 hi and lo images of every block
-    (:func:`tf32_blocks`), on the weights' device. Every member's block in
-    one tensor operation, so the ops a fold costs do not grow with M."""
+    (:func:`tf32_blocks`, ``open_end`` as there), on the weights' device.
+    Every member's block in one tensor operation, so the ops a fold costs
+    do not grow with M."""
     num_layers = len(ws)
     in_dim = ws[0].shape[-2]
     parts = []
     if ws[0].dtype == torch.float32:
         for layer, k0, rows, c0, cols in tf32_blocks(in_dim, num_layers,
-                                                     out_dim):
+                                                     out_dim, open_end):
             w = ws[layer][members]
             blk = w.new_zeros((w.shape[0], rows, cols))
             src = w[:, k0:k0 + rows, c0:c0 + cols]

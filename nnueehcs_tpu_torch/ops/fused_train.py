@@ -660,22 +660,6 @@ def kernel_config(plan: FusedTrainPlan, S: int, lr, step0, seed,
     return iconf, fconf
 
 
-def kernel_buffers(lib, plan: FusedTrainPlan, theta) -> dict:
-    """The device buffers of the one-block form of the step, which the
-    attribution probe (``csrc/ablate_train.cu``) runs, besides the
-    caller's: the block table, the per-member scratch, the zeroed gradient,
-    the loss sweep's predictions and the terms/partials pair."""
-    M, B, device = plan.num_members, plan.batch, theta.device
-    return {
-        'lins': lin_table(plan, device),
-        'scratch': torch.empty(M * lib.nnueehcs_fused_train_scratch_floats(
-            B, plan.n_bn, plan.n_drop), dtype=torch.float32, device=device),
-        'g': torch.zeros_like(theta),
-        'preds': torch.empty((M, B, LANES), dtype=torch.float32,
-                             device=device),
-        'small': torch.zeros(2 * M, dtype=torch.float32, device=device)}
-
-
 # ---------------------------------------------------------------------------
 # the kernel's launch layout (csrc/fused_train_cluster.cuh)
 # ---------------------------------------------------------------------------
@@ -784,6 +768,27 @@ def train_layout(plan: FusedTrainPlan) -> TrainLayout:
         scratch_zh=d, scratch_inv=d + zh)
 
 
+def layout_ints(layout: TrainLayout):
+    """The layout as the C entries take it: a host array of LAYOUT_FIELDS."""
+    return (ctypes.c_longlong * len(LAYOUT_FIELDS))(*layout.ints())
+
+
+def epoch_buffers(plan: FusedTrainPlan, layout: TrainLayout, theta) -> dict:
+    """The device buffers an epoch of the kernel takes besides the
+    caller's, beside ``theta``: the block table, the members' scratch
+    (``layout.member_floats`` each), the zeroed gradient, the loss sweep's
+    predictions and the loss terms and partial sums of g^2 (``M`` each)."""
+    M, device = plan.num_members, theta.device
+    return {
+        'lins': lin_table(plan, device),
+        'scratch': torch.empty(M * layout.member_floats, dtype=torch.float32,
+                               device=device),
+        'g': torch.zeros_like(theta),
+        'preds': torch.empty((M, plan.batch, LANES), dtype=torch.float32,
+                             device=device),
+        'small': torch.zeros(2 * M, dtype=torch.float32, device=device)}
+
+
 def _check_buffers(plan: FusedTrainPlan, theta, m, v, sigma, xs, ys):
     R, G, S = plan.total_rows, plan.total_sig_rows, xs.shape[0]
     want = {'theta': (R, LANES), 'm': (R, LANES), 'v': (R, LANES),
@@ -830,23 +835,18 @@ def launch_epoch(lib, plan: FusedTrainPlan, theta, m, v, sigma, xs, ys, lr,
     lr_dev = lr if isinstance(lr, torch.Tensor) else None
     iconf, fconf = kernel_config(plan, S, 0.0 if lr_dev is not None else lr,
                                  step0, seed, plan.single_sweep)
-    lay = (ctypes.c_longlong * len(LAYOUT_FIELDS))(*layout.ints())
-    M, B = plan.num_members, plan.batch
-    g = torch.zeros_like(theta)
-    scratch = torch.empty(M * layout.member_floats, dtype=torch.float32,
-                          device=device)
-    preds = torch.empty((M, B, LANES), dtype=torch.float32, device=device)
-    small = torch.zeros(2 * M, dtype=torch.float32, device=device)
-    lins = lin_table(plan, device)
+    bufs = epoch_buffers(plan, layout, theta)
     drops = _drop_tensor(plan, drops, device)
     entry = lib.nnueehcs_fused_train_bf16 if plan.bf16 \
         else lib.nnueehcs_fused_train_f32
     with torch.cuda.device(device):
         err = entry(
-            iconf, fconf, lay, theta.data_ptr(), m.data_ptr(), v.data_ptr(),
-            sigma.data_ptr(), g.data_ptr(), xs.data_ptr(), ys.data_ptr(),
-            losses.data_ptr(), lins.data_ptr(), drops.data_ptr(),
-            scratch.data_ptr(), preds.data_ptr(), small.data_ptr(),
+            iconf, fconf, layout_ints(layout), theta.data_ptr(), m.data_ptr(),
+            v.data_ptr(), sigma.data_ptr(), bufs['g'].data_ptr(),
+            xs.data_ptr(), ys.data_ptr(), losses.data_ptr(),
+            bufs['lins'].data_ptr(), drops.data_ptr(),
+            bufs['scratch'].data_ptr(), bufs['preds'].data_ptr(),
+            bufs['small'].data_ptr(),
             None if signs is None else signs.data_ptr(),
             None if lr_dev is None else lr_dev.data_ptr(),
             None if stop is None else stop.data_ptr(),

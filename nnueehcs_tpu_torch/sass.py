@@ -2,10 +2,11 @@
 machine with the CUDA toolkit): the per-kernel listings that
 ``tools/compare_sass.py`` compares between two builds, and the checks
 ``chip_smoke.py`` and ``tools/eval_chain_phases.py`` make of the eval
-kernels on wgmma, the bf16 1b, 2b and 5b and the fp32 (3xTF32) 1, 2 and 5
-(no spills, HGMMA instructions, the MC kernels' mask loops, and whether
-ptxas serialised the ``wgmma``: a ``WARPGROUP.DEPBAR`` wait after each
-``HGMMA``, and its C75xx warnings in the ``-Xptxas -v`` log).
+kernels on wgmma, the bf16 1b, 2b and 5b, the fp32 (3xTF32) 1, 2 and 5 and
+the fp32 probe of kernel 1 on kernel 1's body (no spills, HGMMA
+instructions, the MC kernels' mask loops, and whether ptxas serialised the
+``wgmma``: a ``WARPGROUP.DEPBAR`` wait after each ``HGMMA``, and its C75xx
+warnings in the ``-Xptxas -v`` log).
 """
 from __future__ import annotations
 
@@ -40,6 +41,15 @@ EVAL_FORMS = (('resident', 'ILb0E'), ('ring', 'ILb1E'))
 TF32_KERNELS = ('fused_mc_dropout_kernel', 'fused_anchored_kernel',
                 'fused_ensemble_kernel')
 TF32_MASK_LOOP = 'mask_loop_tf32'
+# the fp32 probe of kernel 1 (ablate_forward, csrc/ablate_chain.cu
+# ablate_tf32_kernel<mode, cut>): kernel 1's body in each form, held to the
+# fp32 kernels' gate; io_floor runs no chain (no HGMMA): its registers and
+# spills only
+TF32_PROBE = 'ablate_tf32_kernel'
+TF32_PROBE_FORMS = (('prod', 'ILi0ELb0EE'), ('prod cut', 'ILi0ELb1EE'),
+                    ('gemm_only', 'ILi2ELb0EE'), ('no_epi', 'ILi3ELb0EE'),
+                    ('no_epi cut', 'ILi3ELb1EE'))
+TF32_PROBE_IO_FLOOR = ('io_floor', 'ILi1ELb0EE')
 # ptxas's warning that it serialised a function's wgmma (C7510-C7520 name
 # the causes: a branch between wgmma forms, an accumulator touched inside
 # the pipeline, ...), with the function's mangled name last on the line
@@ -72,13 +82,14 @@ def waited_hgmma(instrs) -> int:
     return waited
 
 
-def _gate(name, funcs, ptxas, kernel, tag='', log='', pipelined=False):
+def _gate(name, funcs, ptxas, kernel, tag='', log='', pipelined=False,
+          wgmma=True):
     """Registers, spills (which must be 0) and HGMMA instructions (which
-    must be there) of the one SASS function and ptxas entry whose names
-    hold ``kernel`` and ``tag``, with the HGMMA a wait follows and ptxas's
-    serialisation warnings (``log``); raise where one does not hold, and
-    with ``pipelined`` where the wgmma are serialised (more than half the
-    HGMMA waited on, or a warning)."""
+    must be there, unless not ``wgmma``) of the one SASS function and
+    ptxas entry whose names hold ``kernel`` and ``tag``, with the HGMMA a
+    wait follows and ptxas's serialisation warnings (``log``); raise where
+    one does not hold, and with ``pipelined`` where the wgmma are
+    serialised (more than half the HGMMA waited on, or a warning)."""
     names = [n for n in funcs if kernel in n and tag in n]
     regs = [v for k, v in ptxas.items() if kernel in k and tag in k]
     if len(names) != 1 or len(regs) != 1:
@@ -93,7 +104,7 @@ def _gate(name, funcs, ptxas, kernel, tag='', log='', pipelined=False):
         if kernel in fn and tag in fn for code in codes]
     if row['spill_store_bytes'] != 0 or row['spill_load_bytes'] != 0:
         raise RuntimeError(f'{name} spills: {row}')
-    if row['hgmma'] == 0:
+    if wgmma and row['hgmma'] == 0:
         raise RuntimeError(f'{name}: no HGMMA in its SASS')
     if pipelined and (2 * row['hgmma_waited'] > row['hgmma']
                       or row['ptxas_serialised']):
@@ -183,8 +194,9 @@ def loop_mix(instrs, marker):
 
 def eval_chain_rows(funcs, ptxas, log=''):
     """The bf16 eval kernels 1b, 2b (and 2b's seed-table kernel), 5b and
-    the packed probe 10b in both forms (resident, ring), and the fp32
-    kernels 1, 2 and 5 (3xTF32),
+    the packed probe 10b in both forms (resident, ring), the fp32 kernels
+    1, 2 and 5 (3xTF32) and the fp32 probe of kernel 1 in each form
+    (TF32_PROBE_FORMS, and its io_floor without HGMMA),
     from the SASS ``funcs`` (:func:`parse_instructions`), the ptxas report
     ``ptxas`` ({kernel: {'registers', 'spill_store_bytes', ...}}) and the
     ``-Xptxas -v`` log ``log``: their registers and spills, which must be 0,
@@ -201,6 +213,13 @@ def eval_chain_rows(funcs, ptxas, log=''):
                                   pipelined=True)
         if kernel == 'fused_mc_dropout_kernel':
             out[TF32_MASK_LOOP] = loop_mix(funcs[name], HASH_MARKER)
+    for form, tag in TF32_PROBE_FORMS:
+        key = f'{TF32_PROBE}<{form}>'
+        out[key], _ = _gate(key, funcs, ptxas, TF32_PROBE, tag, log,
+                            pipelined=True)
+    form, tag = TF32_PROBE_IO_FLOOR
+    key = f'{TF32_PROBE}<{form}>'
+    out[key], _ = _gate(key, funcs, ptxas, TF32_PROBE, tag, log, wgmma=False)
     for kernel in EVAL_KERNELS:
         for form, tag in EVAL_FORMS:
             row, name = _gate(f'{kernel}<{form}>', funcs, ptxas, kernel, tag,

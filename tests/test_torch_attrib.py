@@ -1,10 +1,10 @@
 """The kernel-attribution entry point (``nnueehcs_tpu_torch.attrib``) on
 the CPU, where it runs the probes' plain versions and their gates only:
 every variant of both batteries is gated, each form of the probes' math
-equals the prod probe's (kernel 1's former FFMA body) and kernel 3's plain
-version bit for bit, kernel 1 is held to its plain version, and the
-command line prints one JSON line per gate. Its timing runs only on a
-card (chip_smoke.py's attribution phase)."""
+equals its control bit for bit (kernel 1, or the FFMA body's prod; kernel
+3 for the training probe's prod), kernel 1 is held to its plain version,
+and the command line prints one JSON line per gate. Its timing runs only
+on a card (chip_smoke.py's attribution phase)."""
 import json
 import os
 import subprocess
@@ -27,22 +27,22 @@ def test_forward_battery_gates_every_variant_on_the_cpu(capsys):
     assert {'prod', 'io_floor', 'one_out', 'gemm_only', 'no_epi',
             'members=1', 'layers=5', 'xT input', 'xT+outT', 'narrow-in',
             'narrow-out', 'narrow-both', 'packed', 'kernel 1'} <= set(gates)
-    for name in ('prod', 'one_out', 'xT input', 'xT+outT', 'narrow-both',
-                 'packed'):
-        assert gates[name]['equals_prod_probe'], name
+    for name in ('prod', 'one_out'):
+        assert gates[name]['equals'] == 'kernel 1', name
+    for name in ('xT input', 'xT+outT', 'narrow-both', 'packed'):
+        assert gates[name]['equals'] == 'ffma prod', name
     for name in ('gemm_only', 'kernel 1'):
-        assert not gates[name]['equals_prod_probe'], name
+        assert gates[name]['equals'] is None, name
     lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
     assert len(lines) == len(gates) + 1
     assert all(l['battery'] == 'forward' for l in lines)
 
 
 def test_train_battery_gates_every_variant_on_the_cpu():
-    """Every probe variant against its plain version; kernel 3 (the
-    cluster form) and the probe's prod (the one-block form, which kernel 3
-    no longer shares) each step by step against the plain version at every
-    batch of the batch scaling, and twice bit for bit; the probe's prod
-    bit for bit with its own graph replay at every batch."""
+    """Every probe variant against its plain version; kernel 3 step by
+    step against the plain version at every batch of the batch scaling, and
+    twice bit for bit; the probe's prod, and its graph replay, bit for bit
+    with kernel 3 at every batch."""
     out = attrib.train_battery('cpu', seed=2, steps=8)
     gates = out['gates']
     binding = f'gn_fused clip={attrib.BINDING_CLIP:g}'
@@ -55,17 +55,20 @@ def test_train_battery_gates_every_variant_on_the_cpu():
     for name in repeats | timed:
         assert gates[name]['bit_for_bit'] and gates[name]['steps'] == 8
     for name in batches:
-        assert gates[name]['probe_prod_bit_for_bit_with_its_graph']
+        assert gates[name]['probe_prod_bit_for_bit_with_kernel_3']
         assert gates[name]['stepwise']['steps'] == attrib.GATE_STEPS
         assert gates[name]['stepwise']['over_tol_outside_reach'] == 0
         assert gates[name]['stepwise']['loss_flips'] == 0
-        probe = gates[name]['probe_prod_stepwise']
-        assert probe['steps'] == attrib.GATE_STEPS
-        assert probe['over_tol_outside_reach'] == probe['loss_flips'] == 0
+    assert [gates[f'kernel 3 B={b}']['resident']
+            for b in attrib.BATCHES] == [True, False, False, False]
     for name in set(attrib.TRAIN_VARIANTS) | {binding}:
         errs = gates[name]['max_abs_err']
         assert set(errs) == set(attrib.TOL_TRAIN), name
         mode = attrib.TRAIN_VARIANTS.get(name, {}).get('mode', 'prod')
+        # an unrolled run bit for bit the run without unroll, whose steps
+        # are held to the plain version
+        assert gates[name].get('bit_for_bit_with_unroll_1', False) == (
+            'unroll' in attrib.TRAIN_VARIANTS.get(name, {})), name
         assert ('grad_norm' in gates[name]) == (mode in ('prod', 'no_opt'))
     # the ordinary gates' clip (5) does not bind; the binding gate's does,
     # on every step

@@ -77,7 +77,8 @@ from nnueehcs_tpu_torch.ops import fused_mc_dropout as mc
 from nnueehcs_tpu_torch.ops.fused_anchored import (anchor_rows,
                                                    fused_anchored_plain,
                                                    fused_anchored_stats)
-from nnueehcs_tpu_torch.ops.fused_ensemble import (fused_forward_plain,
+from nnueehcs_tpu_torch.ops.fused_ensemble import (FusedWeights,
+                                                   fused_forward_plain,
                                                    fused_forward_prefolded,
                                                    prepare_fused_weights)
 from nnueehcs_tpu_torch.ops.fused_mc_dropout import (fused_mc_forward,
@@ -742,17 +743,20 @@ def test_tf32_ensemble_kernel_gives_the_same_bits_twice_on_card(card,
 
 @pytest.mark.cuda
 def test_tf32_kernels_compile_without_spills_and_with_hgmma(card):
-    """ptxas's report of the fp32 kernels 1, 2 and 5: no spill, HGMMA
-    (wgmma) instructions in their SASS, and none serialised (no wait after
-    most HGMMA, no ptxas C75xx warning; nnueehcs_tpu_torch.sass)."""
+    """ptxas's report of the fp32 kernels 1, 2 and 5 and of the fp32 probe
+    of kernel 1 in each form: no spill, HGMMA (wgmma) instructions in their
+    SASS, and none serialised (no wait after most HGMMA, no ptxas C75xx
+    warning; nnueehcs_tpu_torch.sass)."""
     from chip_smoke import ptxas_report
     from nnueehcs_tpu_torch.ops import _build
-    from nnueehcs_tpu_torch.sass import (TF32_KERNELS, dump,
+    from nnueehcs_tpu_torch.sass import (TF32_KERNELS, TF32_PROBE,
+                                         TF32_PROBE_FORMS, dump,
                                          eval_chain_rows, parse_instructions)
     info = _build.build_info()
     rows = eval_chain_rows(parse_instructions(dump(info.path)),
                            ptxas_report(info.log), info.log)
-    for kernel in TF32_KERNELS:
+    probes = [f'{TF32_PROBE}<{form}>' for form, _ in TF32_PROBE_FORMS]
+    for kernel in (*TF32_KERNELS, *probes):
         assert rows[kernel]['spill_store_bytes'] == 0
         assert rows[kernel]['spill_load_bytes'] == 0
         assert rows[kernel]['hgmma'] > 0
@@ -1120,14 +1124,15 @@ def test_layout_probes_match_plain_and_production_on_card(card, case):
                                       out_dim).net)
     x = torch.as_tensor(np.random.default_rng(7).normal(size=(rows, in_dim)),
                         dtype=torch.float32, device=card)
-    # the probes' math is kernel 1's former FFMA body, which the prod probe
-    # runs; kernel 1 itself (3xTF32) is held to its plain version
-    mean, std = (t[:, :out_dim] for t in af.ablate_forward(
-        fw, _padded(x, 128)))
+    # ablate_forward runs kernel 1's body (3xTF32): its prod is kernel 1's
+    # output, bit for bit; the other probes run kernel 1's former FFMA body,
+    # whose prod instance (ffma_prod) they are held to bit for bit
     got = fused_forward_prefolded(fw, x)
     want = fused_forward_plain(fw, x)
     torch.testing.assert_close(got[0], want[0], **TOL_MEAN)
     torch.testing.assert_close(got[1], want[1], **TOL_STD)
+    kernel_1 = got
+    mean, std = (t[:, :out_dim] for t in af.ffma_prod(fw, _padded(x, 128)))
     feat = max(8, in_dim)
     calls = [(af.ablate_forward, af.ablate_forward_plain, (_padded(x, 128),)),
              (af.xt_forward, af.xt_forward_plain,
@@ -1151,13 +1156,52 @@ def test_layout_probes_match_plain_and_production_on_card(card, case):
         want = plain(fw, *args)
         torch.testing.assert_close(got[0], want[0], **TOL_MEAN)
         torch.testing.assert_close(got[1], want[1], **TOL_STD)
-        if got[0].shape[0] == rows:          # the prod probe's, bit for bit
+        control = kernel_1 if fn is af.ablate_forward else (mean, std)
+        if got[0].shape[0] == rows:          # the control's, bit for bit
             n = min(out_dim, got[0].shape[1])
-            assert torch.equal(got[0][:, :n], mean[:, :n])
-            assert torch.equal(got[1][:, :n], std[:, :n])
+            assert torch.equal(got[0][:, :n], control[0][:, :n])
+            assert torch.equal(got[1][:, :n], control[1][:, :n])
         else:                                # feature-major
-            assert torch.equal(got[0][:out_dim].T, mean)
-            assert torch.equal(got[1][:out_dim].T, std)
+            assert torch.equal(got[0][:out_dim].T, control[0])
+            assert torch.equal(got[1][:out_dim].T, control[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(ABLATE_CASES))
+@pytest.mark.parametrize('n_out', [1, 2])
+def test_ablate_forward_prod_is_kernel_1_bit_for_bit_on_card(card, case,
+                                                            n_out):
+    """ablate_forward's prod on the first m members (every m of the chain's)
+    equals kernel 1 on those members' folded weights bit for bit in the real
+    columns, zeros past them; its layer cuts (the last layer 128 wide on the
+    m64n128 path) hold to their plain versions; each launch is counted."""
+    members, in_dim, width, hidden, out_dim, rows = ABLATE_CASES[case]
+    fw = prepare_fused_weights(_model(card, members, in_dim, width, hidden,
+                                      out_dim).net)
+    x = torch.as_tensor(np.random.default_rng(9).normal(size=(rows, in_dim)),
+                        dtype=torch.float32, device=card)
+    x_pad = _padded(x, 128)
+    L = fw.num_layers
+    for m in sorted({1, 2, 4, members} & set(range(1, members + 1))):
+        sub = FusedWeights([
+            (fw.ws[l][:m, :, :fw.out_dim if l == L - 1 else 128],
+             fw.b_all[l, :m, :fw.out_dim if l == L - 1 else 128],
+             fw.relus[l]) for l in range(L)])
+        want = fused_forward_prefolded(sub, x)
+        before = af.ablate_forward.launches
+        got = af.ablate_forward(fw, x_pad, m, None, 64, 'prod', n_out)
+        torch.cuda.synchronize()
+        assert af.ablate_forward.launches == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g[:, :fw.out_dim], w), m
+            assert not bool(g[:, fw.out_dim:].any()), m
+    for layers in range(1, L):
+        got = af.ablate_forward(fw, x_pad, None, layers, 64, 'prod', n_out)
+        want = af.ablate_forward_plain(fw, x_pad, None, layers, 64, 'prod',
+                                       n_out)
+        torch.testing.assert_close(got[0], want[0], **TOL_MEAN)
+        if n_out == 2:
+            torch.testing.assert_close(got[1], want[1], **TOL_STD)
 
 
 ABLATE_TRAIN_VARIANTS = [
@@ -1220,27 +1264,54 @@ def test_ablate_epoch_grad_norms_with_a_binding_clip_on_card(card, variant):
 
 @pytest.mark.cuda
 def test_ablate_epoch_prod_is_kernel_3_bit_for_bit_on_card(card):
-    """The probe's prod runs the one-block form of kernel 3 (the form the
-    production kernel had before its cluster form; the two no longer share
-    code, so they are not compared bit for bit). On the flagship as built,
-    the probe's prod is held bit for bit to a second run and to the same
-    one-block bodies replayed as a CUDA graph, and, like the production
-    kernel, step by step to the plain version."""
+    """The probe's prod runs kernel 3's own launches (its cluster form): on
+    the flagship as built it equals ``fused_epoch`` of the probe's plan bit
+    for bit, and so do its unrolled forms (the same step replayed as a
+    CUDA graph, reading the step index from device memory) and its prod
+    with the norms; step by step it holds to the plain version."""
     m = EnsembleModelBuilder(FLAGSHIP, {'num_models': 8}, seed=3,
                              device=card).build()
     plan = train_plan(m)
     bufs, xs, ys = train_inputs(m, plan, np.random.default_rng(15), 40)
-    got = ae.ablate_epoch(plan, *[b.clone() for b in bufs], xs, ys, 1e-3, 5)
-    for again in (ae.ablate_epoch(plan, *[b.clone() for b in bufs], xs, ys,
-                                  1e-3, 5),
-                  ae.ablate_epoch(plan, *[b.clone() for b in bufs], xs, ys,
-                                  1e-3, 5, unroll=4)):
-        for a, b in zip(got, again):
-            assert torch.equal(a, b)
+    want = ft.fused_epoch(ae.probe_plan(plan), *[b.clone() for b in bufs], xs,
+                          ys, 1e-3, 5)
+    norms = torch.empty(40, device=card)
+    for kw in (dict(), dict(unroll=2), dict(unroll=4), dict(norms=norms)):
+        got = ae.ablate_epoch(plan, *[b.clone() for b in bufs], xs, ys, 1e-3,
+                              5, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), kw
+    assert bool(torch.isfinite(norms).all()) and bool((norms > 0).all())
     for epoch in (probe_prod, None):
         out = stepwise_vs_plain(plan, bufs, xs[:8], ys[:8], 1e-3, 5, 0, None,
                                 epoch=epoch)
         assert out['over_tol_outside_reach'] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('batch', [128, 256])
+@pytest.mark.parametrize('variant', ABLATE_TRAIN_VARIANTS, ids=str)
+def test_ablate_epoch_both_residency_forms_on_card(card, batch, variant):
+    """Every mode and fix of the probe at a batch whose activations stay in
+    shared memory (128) and one whose exchange goes through device memory
+    (256), against the plain version; prod also against kernel 3 of the
+    same layout, bit for bit."""
+    m = separate_relu(_train_model(card, 'ensemble', 128, 6, 8, 0.0),
+                      torch.Generator().manual_seed(13))
+    plan = train_plan(m, batch=batch)
+    assert ft.train_layout(plan).resident == (batch == 128)
+    bufs, xs, ys = train_inputs(m, plan, np.random.default_rng(16), 4)
+    got = ae.ablate_epoch(plan, *[b.clone() for b in bufs], xs, ys, 1e-3, 5,
+                          **variant)
+    want = ae.ablate_epoch_reference(plan, *[b.clone() for b in bufs], xs, ys,
+                                     1e-3, 5, **variant)
+    for (name, tol), a, b in zip(TOL_TRAIN.items(), got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=tol, msg=name)
+    if variant == dict(mode='prod'):
+        kernel = ft.fused_epoch(plan, *[b.clone() for b in bufs], xs, ys,
+                                1e-3, 5)
+        for a, b in zip(got, kernel):
+            assert torch.equal(a, b)
 
 
 # shapes only the cluster kernel's layout separates: a last layer wider than

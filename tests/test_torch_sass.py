@@ -85,7 +85,21 @@ def eval_kernels(mc_body):
                         'EXIT']
         ptxas[name] = {'registers': 250, 'spill_store_bytes': 0,
                        'spill_load_bytes': 0}
+    for form, tag in sass.TF32_PROBE_FORMS + (sass.TF32_PROBE_IO_FLOOR,):
+        name = probe_name(tag)
+        bodies[name] = ['EXIT'] if form == 'io_floor' else [
+            'HGMMA.64x128x8.F32.TF32 R24, R104, gdesc[UR16], R24', 'EXIT']
+        ptxas[name] = {'registers': 38 if form == 'io_floor' else 252,
+                       'spill_store_bytes': 0, 'spill_load_bytes': 0}
     return sass.parse_instructions(listing(bodies)), ptxas
+
+
+def probe_name(tag):
+    """The mangled name of the fp32 probe's instance with template args
+    ``tag``, as ablate_chain.cu's unnamed namespace gives it."""
+    return (f'_ZN48_GLOBAL__N__657e7dab_15_ablate_chain_cu_04499f26'
+            f'{len(sass.TF32_PROBE)}{sass.TF32_PROBE}{tag}vPKfxixPKhS2_'
+            f'iiiPKiiiPfS7_N17fused_chain_wgmma14EnsembleLayoutE')
 
 
 def test_parse_functions_drops_addresses_padding_and_the_file_hash():
@@ -138,6 +152,9 @@ def test_eval_chain_rows_reads_registers_hgmma_and_the_mask_loop():
         assert rows[kernel] == {'registers': 250, 'spill_store_bytes': 0,
                                 'spill_load_bytes': 0, 'hgmma': 1,
                                 'hgmma_waited': 0, 'ptxas_serialised': []}
+    for form, _ in sass.TF32_PROBE_FORMS:
+        assert rows[f'{sass.TF32_PROBE}<{form}>']['hgmma'] == 1
+    assert rows[f'{sass.TF32_PROBE}<io_floor>']['hgmma'] == 0
     assert rows[sass.TF32_MASK_LOOP] is None     # no loop in this listing
 
 
@@ -145,7 +162,10 @@ def test_eval_chain_rows_reads_registers_hgmma_and_the_mask_loop():
                                    'loop_too_long', 'missing_form',
                                    'tf32_spill', 'tf32_no_hgmma',
                                    'tf32_missing', 'tf32_serialised',
-                                   'tf32_c7520', 'ensemble_serialised'])
+                                   'tf32_c7520', 'ensemble_serialised',
+                                   'probe_spill', 'probe_no_hgmma',
+                                   'probe_missing', 'probe_serialised',
+                                   'probe_c7520', 'probe_io_floor_spill'])
 def test_eval_chain_rows_refuses(fault):
     body = mask_loop(per_hash_extra=37 if fault == 'loop_too_long' else 0)
     if fault == 'no_loop':
@@ -159,6 +179,12 @@ def test_eval_chain_rows_refuses(fault):
     if fault == 'ensemble_serialised':
         name = next(n for n in funcs if 'fused_ensemble_kernel' in n)
         fault = 'serialised'
+    if fault.startswith('probe_'):
+        tag = sass.TF32_PROBE_IO_FLOOR[1] if 'io_floor' in fault \
+            else sass.TF32_PROBE_FORMS[1][1]      # a chain cut short
+        name = probe_name(tag)
+        fault = fault[len('probe_'):].replace('io_floor_', '').replace(
+            'missing', 'missing_form')
     if fault == 'spill':
         ptxas[name]['spill_store_bytes'] = 8
     elif fault == 'no_hgmma':
@@ -235,6 +261,46 @@ def test_eval_chain_rows_reports_the_bf16_kernels_serialised():
     assert row['ptxas_serialised'] == ['C7520']
     for kernel in sass.TF32_KERNELS:
         assert rows[kernel]['ptxas_serialised'] == []
+
+
+def ptxas_log(entries):
+    """A ``-Xptxas -v`` log of {mangled name: (registers, spill bytes)}, as
+    nvcc prints it for each entry function."""
+    lines = []
+    for name, (registers, spill) in entries.items():
+        lines += [f"ptxas info    : Compiling entry function '{name}' for "
+                  f"'sm_90a'",
+                  f'ptxas info    : Function properties for {name}',
+                  f'    {2 * spill} bytes stack frame, {spill} bytes spill '
+                  f'stores, {spill} bytes spill loads',
+                  f'ptxas info    : Used {registers} registers, used 1 '
+                  f'barriers',
+                  'ptxas info    : Compile time = 1251.838 ms']
+    return '\n'.join(lines)
+
+
+@pytest.mark.parametrize('spilled', [None, 'prod cut', 'no_epi'])
+def test_probe_instances_from_a_ptxas_log(spilled):
+    """The fp32 probe of kernel 1, one instance a form, read from a canned
+    ``-Xptxas -v`` log through chip_smoke's reader: every form's registers,
+    spills and HGMMA are reported, and a spill in any form fails the
+    gate."""
+    funcs, _ = eval_kernels(mask_loop())
+    entries = {name: (250, 0) for name in funcs}
+    for form, tag in sass.TF32_PROBE_FORMS + (sass.TF32_PROBE_IO_FLOOR,):
+        entries[probe_name(tag)] = (38 if form == 'io_floor' else 254,
+                                    28 if form == spilled else 0)
+    ptxas = chip_smoke.ptxas_report(ptxas_log(entries))
+    if spilled:
+        with pytest.raises(RuntimeError, match=f'<{spilled}> spills'):
+            sass.eval_chain_rows(funcs, ptxas)
+        return
+    rows = sass.eval_chain_rows(funcs, ptxas)
+    for form, _ in sass.TF32_PROBE_FORMS:
+        assert rows[f'{sass.TF32_PROBE}<{form}>'] == {
+            'registers': 254, 'spill_store_bytes': 0, 'spill_load_bytes': 0,
+            'hgmma': 1, 'hgmma_waited': 0, 'ptxas_serialised': []}
+    assert rows[f'{sass.TF32_PROBE}<io_floor>']['registers'] == 38
 
 
 def _binops(fn, op):

@@ -40,13 +40,12 @@ their allowance, and per buffer and share the largest share and the steps
 past the per-step bar (0.2 of the gap's rms, 1x its max) of the kernel,
 of the witness and of the host.
 
-The one-block form of the step (``ops/csrc/fused_train.cuh``) lives on
-only in the attribution probe (``ablate_train.cu``), which is fp32 and
-runs no dropout (its bf16 form left the repository when kernel 3 became
-one thread-block cluster per member). For each seed the ``separate``
-network is also held through it, in fp32 with its Dropout slots removed
-(``ablate_epoch.probe_plan``), by ``attrib.stepwise_vs_plain``, beside
-kernel 3 on the same plan.
+For each seed the ``separate`` network is also held in fp32, with its
+Dropout slots removed (``ablate_epoch.probe_plan``), by
+``attrib.stepwise_vs_plain``: kernel 3's cluster fp32 form, launched
+through the attribution probe's prod (``ablate_train.cu``, which runs
+kernel 3's own launches; fp32, no dropout) and through ``fused_epoch``
+on the same plan.
 
 ``--inspect`` takes single steps apart instead (``inspect``): repeated
 launches bit for bit, the ReLU and l1 decisions (the smallest margins,
@@ -356,9 +355,10 @@ def main(argv=None):
                     **summarize(records, bars)}), flush=True)
                 if case != 'separate' or args.plant:
                     continue
-                # the one-block form, through the probe: fp32, no dropout
+                # the cluster fp32 form, through the probe and kernel 3's
+                # own entry: fp32, no dropout
                 plan32 = ae.probe_plan(cs.train_plan(model))
-                for form, epoch in (('one-block fp32 (probe prod)',
+                for form, epoch in (('cluster fp32 (probe prod)',
                                      attrib.probe_prod),
                                     ('cluster fp32 (kernel 3)',
                                      ft.fused_epoch)):

@@ -38,6 +38,14 @@ kernel: CUDA events over
 kernel (median, extremes, spread, the tree, the card's name), then the
 card's ``nvidia-smi`` name and power limit. It needs a CUDA card.
 
+``--probes`` times the attribution probes of kernels 1 and 3 instead, at
+the attribution batteries' shapes (``nnueehcs_tpu_torch.attrib``: the
+flagship on 262,144 rows, and 500 steps of batch 128): ``ablate_forward``
+in each mode, member cut (1, 2, 4) and layer cut (1, 3, 5), beside kernel
+1 on the same rows, and ``ablate_epoch`` in each mode and with
+``gn_fused`` and ``unroll`` 4, beside kernel 3 on the probe's plan; an
+epoch over 3 runs after 1 warm-up.
+
 ``--ensemble-forms`` (this tree only) also times kernel 1b with fewer
 consumer warpgroups than its layout takes (``MAX_WARPGROUPS['ensemble']``
 lowered), and the same chains without the exchange: one member on eight
@@ -58,6 +66,7 @@ def main(argv=None):
         os.path.abspath(__file__))))
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--ensemble-forms', action='store_true')
+    parser.add_argument('--probes', action='store_true')
     args = parser.parse_args(argv)
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -80,6 +89,10 @@ def main(argv=None):
         raise RuntimeError(f'imported {package}, not the tree {tree}')
 
     kind = torch.cuda.get_device_name(0)
+    if args.probes:
+        probes(args.seed, tree, kind)
+        print(nvidia_smi('name,power.limit'), flush=True)
+        return 0
     rng = np.random.default_rng(args.seed)
     x = torch.as_tensor(rng.normal(size=(cs.ROWS, cs.IN_DIM)),
                         dtype=torch.float32, device='cuda')
@@ -253,6 +266,44 @@ def main(argv=None):
             'device': kind}), flush=True)
     print(nvidia_smi('name,power.limit'), flush=True)
     return 0
+
+
+def probes(seed, tree, kind):
+    """The attribution probes at the batteries' shapes, each beside the
+    kernel whose parts it times (see the module's ``--probes``)."""
+    import torch
+    from nnueehcs_tpu_torch import attrib
+    from nnueehcs_tpu_torch.attrib import event_ms
+    from nnueehcs_tpu_torch.ops import ablate_epoch as ae
+    from nnueehcs_tpu_torch.ops import ablate_forward as af
+    from nnueehcs_tpu_torch.ops import fused_train as ft
+    from nnueehcs_tpu_torch.ops.fused_ensemble import fused_forward_prefolded
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, fw, x, x_pad, _, _ = attrib.forward_inputs(seed, 'cuda', attrib.ROWS)
+    forward = [('fused_ensemble', {}, lambda: fused_forward_prefolded(fw, x))]
+    for kw in ({}, {'mode': 'io_floor'}, {'mode': 'gemm_only'},
+               {'mode': 'no_epi'}, {'n_out': 1},
+               *({'num_members': m} for m in (1, 2, 4)),
+               *({'num_layers': l} for l in (1, 3, 5))):
+        forward.append(('ablate_forward', kw,
+                        lambda kw=kw: af.ablate_forward(fw, x_pad, **kw)))
+    for name, kw, run in forward:
+        print(json.dumps({'kernel': name, 'tree': tree, 'rows': attrib.ROWS,
+                          'members': fw.num_members, **kw, **event_ms(run),
+                          'device': kind}), flush=True)
+    _, plan, bufs, xs, ys = attrib.train_problem(seed, 'cuda',
+                                                 steps=attrib.STEPS)
+    train = [('fused_train', {}, lambda: ft.fused_epoch(
+        ae.probe_plan(plan), *bufs, xs, ys, attrib.LR, 0))]
+    for kw in ({}, *({'mode': m} for m in ae.MODES[1:]), {'gn_fused': True},
+               {'unroll': 4}):
+        train.append(('ablate_epoch', kw, lambda kw=kw: ae.ablate_epoch(
+            plan, *bufs, xs, ys, attrib.LR, 0, **kw)))
+    for name, kw, run in train:
+        print(json.dumps({'kernel': name, 'tree': tree, 'steps': attrib.STEPS,
+                          'batch': plan.batch, 'members': plan.num_members,
+                          **kw, **event_ms(run, warmup=1, trials=3),
+                          'device': kind}), flush=True)
 
 
 if __name__ == '__main__':
