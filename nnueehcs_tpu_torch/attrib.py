@@ -21,7 +21,8 @@ thread-block cluster per member); the probes that still run kernel 1's
 former FFMA body (``xt_forward``, ``narrow_forward``, the fp32
 ``packed_forward``) are held to that body's prod instance
 (``ablate_forward.ffma_prod``). Kernel 3 is also held to its plain version
-step by step at every batch of the batch scaling. Then each is timed:
+step by step at every batch of the batch scaling, on the flagship as
+built. Then each is timed:
 CUDA-event medians over ``--reps`` passes (or epochs) after warm-ups, with
 the spread of the middle 60% and the variant's bound (fp32 operations over
 the card's peak, or bytes over its memory rate). It prints one JSON line
@@ -41,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -686,16 +688,17 @@ def stepwise_vs_plain(plan, bufs, xs, ys, lr, step0, seed, drops,
 
 
 def probe_prod(plan, theta, m, v, sigma, xs, ys, lr, step0, seed=0,
-               drops=None, signs=None):
-    """The probe's prod (``ablate_epoch``: kernel 3's own launches) with
-    :func:`~.ops.fused_train.fused_epoch`'s arguments, for
+               drops=None, signs=None, **fixes):
+    """The probe's prod (``ablate_epoch``: kernel 3's own launches), with
+    the fix candidates ``fixes`` (``gn_fused``, ``opt_chunk``: the same
+    function), with :func:`~.ops.fused_train.fused_epoch`'s arguments, for
     :func:`stepwise_vs_plain`: the probe runs no dropout and always the
     joint mean, so ``plan`` must too, and ``seed`` and ``drops`` are
     unused."""
     check(plan.n_drop == 0 and not plan.per_member,
           'probe_prod: a plan with dropout or a per-member loss')
     return ae.ablate_epoch(plan, theta, m, v, sigma, xs, ys, lr, step0,
-                           signs=signs)
+                           signs=signs, **fixes)
 
 
 def adam_v_error(plan, m0, v0, m1, v1):
@@ -965,21 +968,19 @@ def stepwise_vs_plain_bf16(plan, bufs, xs, ys, lr, step0, seed, drops,
 
 
 def train_problem(seed, device, batch=BATCH, steps=STEPS, separate=False,
-                  clip=CLIP, bf16=False, bounded=False):
+                  clip=CLIP, bf16=False):
     """The flagship's plan (its bf16-mixed form with ``bf16``) and buffers
     for ``steps`` batches of ``batch`` rows, clipped at ``clip``:
-    parameters from the builder (BatchNorm shifted off 0 with
-    ``separate``, every pre-ReLU value bounded away from it with
-    ``bounded``: ``separate_relu``'s ``batch``), Adam moments drawn small
-    and non-zero, and rows of 5 normal features with a smooth target,
-    padded as the trainer pads them.
+    parameters from the builder (with ``separate``, every pre-ReLU value
+    bounded away from 0 for the batch: ``separate_relu``'s ``batch``), Adam
+    moments drawn small and non-zero, and rows of 5 normal features with a
+    smooth target, padded as the trainer pads them.
     (From zero moments, Adam moves a BatchNorm-cancelled Linear bias by
     about lr a step on the sign of a rounding-level gradient, so two
     correct implementations part there at once.)"""
     model = flagship(seed, device)
     if separate:
-        separate_relu(model, torch.Generator().manual_seed(seed + 1),
-                      batch if bounded else None)
+        separate_relu(model, torch.Generator().manual_seed(seed + 1), batch)
     plan = ft.plan_fused_train(model.net, MEMBERS, batch, loss='l1_loss',
                                clip=clip, bf16=bf16)
     params, state = tensor_trees(model.net)
@@ -1038,16 +1039,19 @@ def _train_work(plan, steps, mode):
 
 
 def _train_gate(card, name, plan, bufs, xs, ys, kw):
-    """``ablate_epoch`` with the keywords ``kw`` against its plain version
+    """``ablate_epoch`` with the keywords ``kw``, held two ways. Its whole
+    S-step launch bit for bit against S one-step launches chained from its
+    own state (each from the state the launch before it left, with its own
+    step index): the same sums, so no tolerance, and each step's rows of xs
+    and ys, its loss and its norm, and its step index are checked; with
+    ``unroll``, which launches its steps together, the whole run also bit
+    for bit against the run without it. Then against its plain version
     (TOL_PROBE for gn_fused and opt_chunk, else TOL_TRAIN) one step at a
     time, each from the plain version's state, as :func:`stepwise_vs_plain`
     holds kernel 3, whose step the probe runs. (Over a whole epoch the two
     part further than the bars: the cluster step sums in another order
     than the plain version, and each step's round-off grows through the
-    next steps' Adam updates and BatchNorm statistics.) With ``unroll``,
-    which launches its steps together, the whole run is first held bit for
-    bit to the run without it (the same launches, replayed from a CUDA
-    graph), and that run's steps to the plain version. In the modes with a
+    next steps' Adam updates and BatchNorm statistics.) In the modes with a
     gradient, each step's global gradient norm too, to TOL_NORM, with the
     steps on which the clip bound. Prints and returns the gate's record."""
     S = xs.shape[0]
@@ -1055,20 +1059,33 @@ def _train_gate(card, name, plan, bufs, xs, ys, kw):
     tol = TOL_PROBE if kw.get('gn_fused') or kw.get('opt_chunk') \
         else TOL_TRAIN
     step_kw = {k: v for k, v in kw.items() if k != 'unroll'}
-    rec = {}
-    if step_kw != kw:
-        runs = [ae.ablate_epoch(plan, *[b.clone() for b in bufs], xs, ys, LR,
-                                0, **k) for k in (kw, step_kw)]
-        _equal_runs(f'ablate_epoch {name} against unroll 1', *runs)
-        rec['bit_for_bit_with_unroll_1'] = True
+
+    def launch(fn, state, i, n, norms, **k):
+        return fn(plan, *[b.clone() for b in state], xs[i:i + n],
+                  ys[i:i + n], LR, i,
+                  norms=None if norms is None else norms[i:i + n], **k)
+
     norms = [torch.empty(S, device=card.device) if graded else None
              for _ in range(2)]
+    whole = launch(ae.ablate_epoch, bufs, 0, S, norms[0], **kw)
+    state, losses = list(bufs), []
+    for i in range(S):
+        got = launch(ae.ablate_epoch, state, i, 1, norms[1], **step_kw)
+        state, losses = list(got[:4]), losses + [got[4]]
+    _equal_runs(f'ablate_epoch {name} against one-step launches', whole,
+                (*state, torch.cat(losses)))
+    if graded:
+        _equal(f'ablate_epoch {name} grad norm against one-step launches',
+               *norms)
+    rec = {'bit_for_bit_with_one_step_launches': True}
+    if step_kw != kw:
+        _equal_runs(f'ablate_epoch {name} against unroll 1', whole,
+                    launch(ae.ablate_epoch, bufs, 0, S, None, **step_kw))
+        rec['bit_for_bit_with_unroll_1'] = True
     errs = dict.fromkeys(TOL_TRAIN, 0.0)
     state = list(bufs)
     for i in range(S):
-        got, want = (fn(plan, *[b.clone() for b in state], xs[i:i + 1],
-                        ys[i:i + 1], LR, i,
-                        norms=None if n is None else n[i:i + 1], **step_kw)
+        got, want = (launch(fn, state, i, 1, n, **step_kw)
                      for fn, n in zip((ae.ablate_epoch,
                                        ae.ablate_epoch_reference), norms))
         for k, g, w in zip(TOL_TRAIN, got, want):
@@ -1115,39 +1132,45 @@ def train_battery(device='cuda', seed=0, steps=None, reps=5, bf16=False):
     steps = steps or (STEPS if card.on_card else CPU_STEPS)
     gates = {}
     if not bf16:
-        # gates: every variant against the plain version, launch by launch
-        # over GATE_STEPS steps, on a network whose pre-ReLU values are all
-        # bounded away from 0 (separate_relu's batch: no ReLU decision can go
-        # the other way in two correct versions); gn_fused again with a clip
-        # that binds on every step, so that the clip scale carries its sum
-        # of squares
+        # gates: every variant's GATE_STEPS-step launch against its
+        # one-step launches, and each step against the plain version, on a
+        # network whose pre-ReLU values are all bounded away from 0
+        # (separate_relu's batch: no ReLU decision can go the other way in
+        # two correct versions); gn_fused again with a clip that binds on
+        # every step, so that the clip scale carries its sum of squares
         _, gplan, gbufs, gxs, gys = train_problem(seed, dev,
                                                   steps=GATE_STEPS,
-                                                  separate=True, bounded=True)
+                                                  separate=True)
         gates = {name: _train_gate(card, name, gplan, gbufs, gxs, gys, kw)
                  for name, kw in TRAIN_VARIANTS.items()}
         name = f'gn_fused clip={BINDING_CLIP:g}'
         gates[name] = _train_gate(card, name, *train_problem(
-            seed, dev, steps=GATE_STEPS, separate=True, clip=BINDING_CLIP,
-            bounded=True)[1:], {'gn_fused': True})
+            seed, dev, steps=GATE_STEPS, separate=True,
+            clip=BINDING_CLIP)[1:], {'gn_fused': True})
         check(gates[name]['clip_binds_steps'] == GATE_STEPS,
               f'{name}: the clip bound on only '
               f'{gates[name]["clip_binds_steps"]} of {GATE_STEPS} steps')
+        # gn_fused on the flagship as built, whose ReLU decisions vary row
+        # by row: step by step against the plain version, where a value
+        # past TOL_TRAIN must lie in the reach of a decision the two took
+        # differently (stepwise_vs_plain), with that binding clip
+        name = f'gn_fused as built clip={BINDING_CLIP:g}'
+        gates[name] = {'stepwise': stepwise_vs_plain(*train_problem(
+            seed, dev, steps=GATE_STEPS, clip=BINDING_CLIP)[1:], LR, 0, 0,
+            None, epoch=functools.partial(probe_prod, gn_fused=True))}
+        emit(battery='train', gate=name, steps=GATE_STEPS, batch=BATCH,
+             device=card.kind, **gates[name])
     # at each batch of the batch scaling (both residency forms of the
-    # cluster step): kernel 3 (its bf16 form with bf16) held to the plain
-    # epoch one step at a time, where a value past TOL_TRAIN must lie in
-    # the reach of a ReLU or loss decision the two took differently (at
-    # these batches a separate_relu network too can put a pre-ReLU value
-    # within rounding of 0), and the probe's prod, and its prod replayed
-    # as a CUDA graph, bit for bit with kernel 3 on the probe's plan
-    # (the bf16 form step by step on the flagship as built, as the card
-    # tests hold it: its bars attribute the flipped decisions)
+    # cluster step), on the flagship as built: kernel 3 (its bf16 form with
+    # bf16) held to the plain epoch one step at a time, where a value past
+    # its bars must lie in the reach of a ReLU or loss decision the two
+    # took differently, and the probe's prod, and its prod replayed as a
+    # CUDA graph, bit for bit with kernel 3 on the probe's plan
     form = 'kernel 3b' if bf16 else 'kernel 3'
     for b in BATCHES:
         name = f'{form} B={b}'
         _, bplan, bbufs, bxs, bys = train_problem(
-            seed, dev, batch=b, steps=GATE_STEPS, separate=not bf16,
-            bf16=bf16)
+            seed, dev, batch=b, steps=GATE_STEPS, bf16=bf16)
         rec = {'stepwise': stepwise_vs_plain(bplan, bbufs, bxs, bys, LR, 0,
                                              0, None)}
         if not bf16:

@@ -96,10 +96,10 @@ SIGNATURES = {
          ctypes.POINTER(ctypes.c_longlong)] + [_P] * 17),
     'nnueehcs_ablate_chain_f32': (
         ctypes.c_int,
-        [ctypes.c_int] * 4
+        [ctypes.c_int] * 3
         + [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, _P, _P,
            ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
-           ctypes.c_int, ctypes.c_int, _P, _P, _P]),
+           ctypes.c_int, _P, _P, _P]),
     'nnueehcs_ablate_forward_f32': (
         ctypes.c_int,
         [ctypes.c_int, ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_int,

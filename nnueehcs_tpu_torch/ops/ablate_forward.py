@@ -135,7 +135,7 @@ def _check(fw: FusedWeights, x, rows_first: bool, name: str):
 
 
 def _launch(fw, x, *, n_out, x_cols, layout, out_dim, ow, outs):
-    """Launch an FFMA probe instance (mode prod, every member and layer)."""
+    """Launch an FFMA probe instance (every member and layer)."""
     from ._build import library
     B = x.shape[1] if x_cols else x.shape[0]
     # the stride between rows of a (B, dx) x, or between features of a
@@ -143,11 +143,10 @@ def _launch(fw, x, *, n_out, x_cols, layout, out_dim, ow, outs):
     ldx = x.shape[1]
     with torch.cuda.device(x.device):
         err = library().nnueehcs_ablate_chain_f32(
-            MODES.index('prod'), n_out, int(x_cols), layout, x.data_ptr(), B,
-            fw.in_dim, ldx, fw.w_all.data_ptr(), fw.b_all.data_ptr(),
-            fw.num_members, fw.num_members, fw.num_layers,
-            fw.relu_flags.data_ptr(), out_dim, ow, TILE_ROWS,
-            outs[0].data_ptr(), outs[1].data_ptr() if n_out > 1 else None,
+            n_out, int(x_cols), layout, x.data_ptr(), B, fw.in_dim, ldx,
+            fw.w_all.data_ptr(), fw.b_all.data_ptr(), fw.num_members,
+            fw.num_members, fw.num_layers, fw.relu_flags.data_ptr(), out_dim,
+            ow, outs[0].data_ptr(), outs[1].data_ptr() if n_out > 1 else None,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'ablation kernel launch failed: CUDA error {err}')
@@ -209,23 +208,15 @@ def _launch_tf32(fw, x, mode, members, layers, tile, outs):
         else torch.cuda.current_device()
     out_dim = _out_dim(fw, layers)
     cut = int(layers < fw.num_layers and mode != 'io_floor')
-    b_all, relu = fw.b_all, fw.relu_flags
-    if mode == 'gemm_only' and cut:
-        # no gemm_only instance of a chain cut short (at the register cap it
-        # spilled): prod's, on zero biases and no ReLU, computes the same
-        # function, with its bias adds and ReLUs still run
-        mode = 'prod'
-        zeros = fw.__dict__.setdefault(
-            '_zero_affine', (torch.zeros_like(b_all), torch.zeros_like(relu)))
-        b_all, relu = zeros
     with torch.cuda.device(device):
         layout = _probe_launch_layout(
             _Shape(fw.in_dim, fw.num_layers, fw.out_dim), x.shape[0], index,
             members, layers, MODES.index(mode), cut)
         err = library().nnueehcs_ablate_forward_f32(
             MODES.index(mode), cut, x.data_ptr(), x.shape[0], fw.in_dim,
-            x.shape[1], probe_image(fw, layers).data_ptr(), b_all.data_ptr(),
-            members, fw.num_members, layers, relu.data_ptr(), out_dim, tile,
+            x.shape[1], probe_image(fw, layers).data_ptr(),
+            fw.b_all.data_ptr(), members, fw.num_members, layers,
+            fw.relu_flags.data_ptr(), out_dim, tile,
             outs[0].data_ptr(), outs[1].data_ptr() if len(outs) > 1 else None,
             layout, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
@@ -264,7 +255,10 @@ def ablate_forward(fw: FusedWeights, x_pad, num_members=None,
     and std), ``'io_floor'`` (no chain: every output is ``1 + x[first row
     of the tile, 0]`` for ``tile``-row tiles), ``'gemm_only'`` (no bias, no
     ReLU), ``'no_epi'`` (out0 = the last member's output, out1 = member
-    0's). Returns ``n_out`` (1 or 2) ``(B, 128)`` tensors."""
+    0's). Returns ``n_out`` (1 or 2) ``(B, 128)`` tensors. On the card,
+    ``'gemm_only'`` takes the whole chain only: its instance for a chain
+    cut short spills at the register cap, so there is none, and the
+    wrapper raises (the plain version computes it)."""
     _check(fw, x_pad, True, 'ablate_forward')
     members, layers = _cut(fw, num_members, num_layers)
     if mode not in MODES or n_out not in (1, 2) or tile < 1:
@@ -273,6 +267,9 @@ def ablate_forward(fw: FusedWeights, x_pad, num_members=None,
     if x_pad.device.type == 'cpu':
         return ablate_forward_plain(fw, x_pad, members, layers, tile, mode,
                                     n_out)
+    if mode == 'gemm_only' and layers < fw.num_layers:
+        raise ValueError(f'ablate_forward: no gemm_only kernel for a chain '
+                         f'cut to {layers} of {fw.num_layers} layers')
     outs = [torch.empty((x_pad.shape[0], WIDTH), dtype=torch.float32,
                         device=x_pad.device) for _ in range(n_out)]
     if x_pad.shape[0]:

@@ -26,18 +26,17 @@
 // The design. ablate_forward runs kernel 1's own body, fused_chain_wgmma.cuh's
 // ensemble_tf32_as (3xTF32 wgmma products, the members over a cluster of
 // min(M, 8) blocks folded in member order by the leader), one instance for
-// each mode and for a chain cut short (ablate_tf32_kernel; gemm_only cut
-// short runs prod's on zero biases and no ReLU), with kernel 1's
+// each mode and for a chain cut short (ablate_tf32_kernel; prod and no_epi
+// only: gemm_only's spilled at the register cap), with kernel 1's
 // launch layout (eval_layout('ensemble', ..., fp32=True)) and images
 // (chain_image of the fp32 weights; of the cut chain, every layer a hidden
 // one): its prod is kernel 1's math, padded to 128 columns. xt_forward,
 // narrow_forward and the fp32 packed_forward still run kernel 1's former
 // FFMA body, fused_chain.cuh's ensemble_pass, with compile-time flags for
 // the x layout and the output layout; their gates hold them to that body's
-// prod instance (the rows instance that narrow_forward also launches), so
-// their math cannot drift from it. The FFMA block tile is 64 rows, fixed by
-// the register tiling; on either body `tile` only sets which row io_floor
-// reads, as the TPU grid's block did.
+// rows instance (ffma_prod, which narrow_forward also launches), so their
+// math cannot drift from it. `tile` only sets which row io_floor reads, as
+// the TPU grid's block did.
 #include "fused_chain.cuh"
 #include "fused_chain_wgmma.cuh"
 
@@ -45,36 +44,34 @@ using namespace fused_chain;
 
 namespace {
 
-template <int kMode, int kNOut, bool kXCols, int kOut>
+template <int kNOut, bool kXCols, int kOut>
 __global__ void __launch_bounds__(kThreads, 2)
     ablate_chain_kernel(const float* __restrict__ x, long long B, int d,
                         long long ldx, const float* __restrict__ w_all,
                         const float* __restrict__ b_all, int M_all, int M,
                         int L, const int* __restrict__ relu, int out_dim,
-                        int ow, int tile, float* __restrict__ out0,
+                        int ow, float* __restrict__ out0,
                         float* __restrict__ out1) {
   extern __shared__ __align__(16) float smem[];
-  ensemble_pass<kMode, kNOut, kXCols, kOut>(smem, x, B, d, ldx, w_all, b_all,
-                                            M_all, M, L, relu, out_dim, ow,
-                                            tile, out0, out1);
+  ensemble_pass<kNOut, kXCols, kOut>(smem, x, B, d, ldx, w_all, b_all, M_all,
+                                     M, L, relu, out_dim, ow, out0, out1);
 }
 
 using Kernel = void (*)(const float*, long long, int, long long, const float*,
-                        const float*, int, int, int, const int*, int, int, int,
+                        const float*, int, int, int, const int*, int, int,
                         float*, float*);
 
-// The FFMA instances the Python wrappers use (mode prod only); null for any
-// other combination.
-Kernel pick(int mode, int n_out, int x_cols, int out) {
-  if (mode != kProd) return nullptr;
+// The FFMA instances the Python wrappers use; null for any other
+// combination.
+Kernel pick(int n_out, int x_cols, int out) {
   if (!x_cols && n_out == 2 && out == kOutRows)
-    return ablate_chain_kernel<kProd, 2, false, kOutRows>;
+    return ablate_chain_kernel<2, false, kOutRows>;
   if (x_cols && n_out == 2 && out == kOutRows)
-    return ablate_chain_kernel<kProd, 2, true, kOutRows>;
+    return ablate_chain_kernel<2, true, kOutRows>;
   if (x_cols && n_out == 2 && out == kOutCols)
-    return ablate_chain_kernel<kProd, 2, true, kOutCols>;
+    return ablate_chain_kernel<2, true, kOutCols>;
   if (!x_cols && n_out == 1 && out == kOutPacked)
-    return ablate_chain_kernel<kProd, 1, false, kOutPacked>;
+    return ablate_chain_kernel<1, false, kOutPacked>;
   return nullptr;
 }
 
@@ -117,7 +114,7 @@ using Tf32Kernel = void (*)(const float*, long long, int, long long,
 // The instance of ablate_forward's mode (prod, io_floor, gemm_only, no_epi =
 // 0..3) on a whole chain or one cut short (prod and no_epi); null for any
 // other. (gemm_only on a chain cut short spilled at the register cap: the
-// wrapper runs prod's cut instance on zero biases and no ReLU instead.)
+// wrapper refuses it.)
 Tf32Kernel pick_tf32(int mode, int cut) {
   switch (mode * 2 + (cut ? 1 : 0)) {
     case fw::kEnsProd * 2: return ablate_tf32_kernel<fw::kEnsProd, false>;
@@ -172,8 +169,8 @@ int nnueehcs_ablate_forward_f32_clusters(int mode, int cut,
 }
 
 // Launch one FFMA probe (xt_forward, narrow_forward, the fp32
-// packed_forward, and the prod instance that gates them) on `stream`;
-// returns a cudaError_t (0 on success). mode: prod (0; no other); n_out: 1
+// packed_forward, and the rows instance that gates them) on `stream`;
+// returns a cudaError_t (0 on success). n_out: 1
 // or 2; x_cols: 1 for a feature-major x; out_layout: 1 (B, ow) rows, 2
 // feature-major (ow, B), 3 packed (B, 128). The caller checks the shapes:
 // x holds d real features (zeros past them), (B, ldx) row-major or (ldx, B)
@@ -181,14 +178,14 @@ int nnueehcs_ablate_forward_f32_clusters(int mode, int cut,
 // 1.. as (M_all, 128, 128); b_all (L, M_all, 128); relu L int32 flags;
 // 1 <= M <= M_all and 1 <= L <= the chain's layers; out_dim the real width
 // of layer L-1 (<= 128; <= 64 packed); 1 <= ow <= 128 (128 packed);
-// tile >= 1; fp32 contiguous device buffers; out1 null when n_out is 1.
-int nnueehcs_ablate_chain_f32(int mode, int n_out, int x_cols, int out_layout,
+// fp32 contiguous device buffers; out1 null when n_out is 1.
+int nnueehcs_ablate_chain_f32(int n_out, int x_cols, int out_layout,
                               const float* x, long long B, int d,
                               long long ldx, const float* w_all,
                               const float* b_all, int M_all, int M, int L,
-                              const int* relu, int out_dim, int ow, int tile,
+                              const int* relu, int out_dim, int ow,
                               float* out0, float* out1, void* stream) {
-  const Kernel kernel = pick(mode, n_out, x_cols, out_layout);
+  const Kernel kernel = pick(n_out, x_cols, out_layout);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(out_dim);
   cudaError_t err = cudaFuncSetAttribute(
@@ -198,8 +195,7 @@ int nnueehcs_ablate_chain_f32(int mode, int n_out, int x_cols, int out_layout,
   const long long blocks = (B + kTileRows - 1) / kTileRows;
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
-      x, B, d, ldx, w_all, b_all, M_all, M, L, relu, out_dim, ow, tile, out0,
-      out1);
+      x, B, d, ldx, w_all, b_all, M_all, M, L, relu, out_dim, ow, out0, out1);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,8 @@
-// Device pieces of the attribution probes of kernel 1 (ablate_chain.cu,
-// instances of ensemble_pass below: kernel 1's body until it moved to
-// fused_chain_wgmma.cuh's 3xTF32 section, with the fp32 MC-dropout and
-// anchored kernels): a block of 256 threads owns a 64-row tile and runs a
+// Device pieces of the FFMA attribution probes of kernel 1 (ablate_chain.cu:
+// xt_forward, narrow_forward, the fp32 packed_forward and their control,
+// instances of ensemble_pass below, kernel 1's body until it moved to
+// fused_chain_wgmma.cuh's 3xTF32 section): a block of 256 threads owns a
+// 64-row tile and runs a
 // BatchNorm-folded Linear(+ReLU) chain over it once for each member, with
 // the activations in shared memory and the weights streamed through it.
 //
@@ -23,8 +24,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace fused_chain {
 
@@ -88,18 +87,8 @@ __device__ __forceinline__ void stream_weights(float* sw, const float* w,
 }
 
 // Where element (row r of the tile, feature k0 + k: a chunk's first feature,
-// then the feature within it) of x lies, from the tile's first element.
-// XRowMajor: x is (rows, K) row-major, as kernel 1 reads it;
-// XStrided: at x[r * rs + (k0 + k) * ks] (a wider row-major x, or a
-// feature-major one).
-struct XRowMajor {
-  __device__ __forceinline__ const float* operator()(const float* x, int r,
-                                                     int k0, int k,
-                                                     int K) const {
-    return x + static_cast<size_t>(r) * K + k0 + k;
-  }
-};
-
+// then the feature within it) of x lies, from the tile's first element: at
+// x[r * rs + (k0 + k) * ks] (a row-major x, or a feature-major one).
 struct XStrided {
   long long rs, ks;
   __device__ __forceinline__ const float* operator()(const float* x, int r,
@@ -113,16 +102,15 @@ struct XStrided {
 // 64 rows and all 128 (padded) columns n. in/out are feature-major (row
 // stride kStride) and may be the same buffer; w is a (K, 128) folded weight
 // in device memory. With kFromX (layer 0), the input is the tile's rows of
-// x, element (r, k0 + k) at at(x, r, k0, k, K) in device memory ((valid, K)
-// row-major by default): each chunk of K is staged into one
-// of two kChunk-row slots of `in` (rows past `valid` as zeros) beside its
-// weights. Without kAffine the bias and the ReLU are left out.
-template <bool kFromX, class XAt = XRowMajor, bool kAffine = true>
+// x, element (r, k0 + k) at at(x, r, k0, k, K) in device memory: each chunk
+// of K is staged into one of two kChunk-row slots of `in` (rows past `valid`
+// as zeros) beside its weights.
+template <bool kFromX>
 __device__ __forceinline__ void dense_layer(float* in, float* out, float* sw,
                                             const float* w, const float* b,
                                             int K, bool relu, const float* x,
                                             int valid,
-                                            const XAt& at = XAt()) {
+                                            const XStrided& at = XStrided()) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ty = (warp >> 1) * 4 + (lane >> 3);  // rows ty*4 .. ty*4+3
   const int tx = (warp & 1) * 8 + (lane & 7);    // columns tx*4.. and 64+tx*4..
@@ -165,15 +153,12 @@ __device__ __forceinline__ void dense_layer(float* in, float* out, float* sw,
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int col = j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4);
-    const float bj = kAffine ? __ldg(b + col) : 0.f;
+    const float bj = __ldg(b + col);
     float v[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      v[i] = acc[i][j];
-      if (kAffine) {
-        v[i] += bj;
-        if (relu) v[i] = fmaxf(v[i], 0.f);
-      }
+      v[i] = acc[i][j] + bj;
+      if (relu) v[i] = fmaxf(v[i], 0.f);
     }
     *reinterpret_cast<float4*>(out + col * kStride + ty * 4) =
         make_float4(v[0], v[1], v[2], v[3]);
@@ -186,10 +171,7 @@ __device__ __forceinline__ void dense_layer(float* in, float* out, float* sw,
 // to the same thread for every pass. Input element (k, r) is
 // in[k * k_step + r * r_step]: the feature-major activations,
 // or x itself when the network is one Linear. Rows past `valid` are never
-// written out, so they are skipped. With kRaw the pass's output h is kept
-// instead (c = the first pass's, s1 = the latest pass's); without kAffine
-// the bias and the ReLU are left out.
-template <bool kRaw = false, bool kAffine = true>
+// written out, so they are skipped.
 __device__ __forceinline__ void last_layer_stats(
     const float* in, int k_step, int r_step, int valid, const float* w,
     const float* b, int K, bool relu, int out_dim, bool first, float* sc,
@@ -203,17 +185,12 @@ __device__ __forceinline__ void last_layer_stats(
     for (int k = 0; k < K; ++k)
       acc = fmaf(a[static_cast<size_t>(k) * k_step],
                  __ldg(w + k * kWidth + col), acc);
-    float v = acc;
-    if (kAffine) {
-      v += __ldg(b + col);
-      if (relu) v = fmaxf(v, 0.f);
-    }
+    float v = acc + __ldg(b + col);
+    if (relu) v = fmaxf(v, 0.f);
     if (first) {
       sc[e] = v;
-      s1[e] = kRaw ? v : 0.f;
+      s1[e] = 0.f;
       s2[e] = 0.f;
-    } else if (kRaw) {
-      s1[e] = v;
     } else {
       const float dlt = v - sc[e];
       s1[e] += dlt;
@@ -222,37 +199,11 @@ __device__ __forceinline__ void last_layer_stats(
   }
 }
 
-// mean = c + s1/n and std = sqrt(max(s2 - n*m1^2, 0)/max(n-1, 1)) with
-// m1 = s1/n, for the tile's valid rows; mean/std are (B, out_dim). n*m1^2
-// is rounded before the subtraction, as the plain version rounds it: a
-// fused multiply-add there would leave s2's own rounding error, so with
-// one sample (s2 = m1^2) std would come out sqrt(that error), not 0.
-__device__ __forceinline__ void write_stats(const float* sc, const float* s1,
-                                            const float* s2, int count,
-                                            int valid, long long row0,
-                                            int out_dim, float* mean,
-                                            float* std) {
-  const float n = static_cast<float>(count);
-  const float dof = static_cast<float>(count > 1 ? count - 1 : 1);
-  for (int e = threadIdx.x; e < kTileRows * out_dim; e += kThreads) {
-    const int col = e / kTileRows, r = e % kTileRows;
-    if (r < valid) {
-      const float m1 = s1[e] / n;
-      const float var =
-          fmaxf(__fsub_rn(s2[e], __fmul_rn(__fmul_rn(n, m1), m1)), 0.f) / dof;
-      const size_t o = static_cast<size_t>(row0 + r) * out_dim + col;
-      mean[o] = sc[e] + m1;
-      std[o] = sqrtf(var);
-    }
-  }
-}
-
-// write_stats' mean and std of slot e, for the probes' other layouts. A
-// copy on purpose: write_stats routed through it compiles to other SASS in
-// kernels 1, 2 and 5 (the epilogue's registers and schedule, in every form
-// tried), and the prod probe keeps its own. The two must stay bit-equal:
-// the forward battery holds every layout that goes through shifted_stat to
-// the prod probe bit for bit (nnueehcs_tpu_torch/attrib.py).
+// Slot e's mean = c + s1/n and std = sqrt(max(s2 - n*m1^2, 0)/max(n-1, 1))
+// with m1 = s1/n. n*m1^2 is rounded before the subtraction, as the plain
+// version rounds it: a fused multiply-add there would leave s2's own
+// rounding error, so with one sample (s2 = m1^2) std would come out
+// sqrt(that error), not 0.
 __device__ __forceinline__ void shifted_stat(const float* sc, const float* s1,
                                              const float* s2, int e, float n,
                                              float dof, float& mean,
@@ -272,28 +223,13 @@ inline size_t smem_bytes(int out_dim) {
 }
 
 // ---------------------------------------------------------------------------
-// The ensemble pass: the prod probe (ablate_chain.cu) is ensemble_pass<>
-// with every flag off; the other probes instantiate it with flags that
-// carve parts of the pass off or change its layouts.
+// The ensemble pass: the FFMA probes (ablate_chain.cu) instantiate it with
+// flags that set the layouts of x and of the outputs.
 
-enum PassMode { kProd, kIoFloor, kGemmOnly, kNoEpi };
-// kOutDense: (B, out_dim) mean and std; kOutRows: (B, ow),
-// zeros past out_dim; kOutCols: feature-major (ow, B); kOutPacked: one
-// (B, 128) buffer, mean in columns [0, out_dim), std in [out_dim, 2 out_dim).
-enum OutLayout { kOutDense, kOutRows, kOutCols, kOutPacked };
-
-// Load a value so that the load stays in the program though nothing reads it.
-__device__ __forceinline__ void touch(const float* p) {
-  asm volatile("{\n\t.reg .f32 t;\n\tld.global.nc.f32 t, [%0];\n\t}" ::"l"(p));
-}
-
-__device__ __forceinline__ XRowMajor x_at(XRowMajor, bool, long long) {
-  return {};
-}
-
-__device__ __forceinline__ XStrided x_at(XStrided, bool cols, long long ld) {
-  return cols ? XStrided{1, ld} : XStrided{ld, 1};
-}
+// kOutRows: (B, ow), zeros past out_dim; kOutCols: feature-major (ow, B);
+// kOutPacked: one (B, 128) buffer, mean in columns [0, out_dim), std in
+// [out_dim, 2 out_dim).
+enum OutLayout { kOutRows = 1, kOutCols = 2, kOutPacked = 3 };
 
 // Store the tile's outputs in one of the probe's layouts: val(col, r, a, b)
 // gives out0's and out1's element at (row r of the tile, column col). The
@@ -344,19 +280,15 @@ __device__ __forceinline__ void store_tile(const V& val, int valid,
 // One block's pass over a 64-row tile: members [0, M) of the (M_all-member)
 // folded chain, layers [0, L). x holds d real features, element (row,
 // feature) at x[row * ldx + feature] (row-major) or, with kXCols,
-// x[feature * ldx + row]; out_dim is layer L-1's width (128 when the chain
-// is cut short). kMode: kProd, the shifted mean and std; kGemmOnly, the same
-// without bias and ReLU; kNoEpi, out0 = the last member's h and out1 =
-// member 0's; kIoFloor, no chain: x's real elements are loaded and every
-// output is 1 + x[(row / tile) * tile, 0]. ow: the output width (rows for
-// kOutCols).
-template <int kMode = kProd, int kNOut = 2, bool kXCols = false,
-          int kOut = kOutDense>
+// x[feature * ldx + row]; out_dim is layer L-1's width (<= 128). out0 and
+// out1 receive the shifted mean and std (out1 unused when kNOut is 1) in
+// the layout kOut; ow: the output width (rows for kOutCols).
+template <int kNOut, bool kXCols, int kOut>
 __device__ __forceinline__ void ensemble_pass(
     float* smem, const float* __restrict__ x, long long B, int d,
     long long ldx, const float* __restrict__ w_all,
     const float* __restrict__ b_all, int M_all, int M, int L,
-    const int* __restrict__ relu, int out_dim, int ow, int tile,
+    const int* __restrict__ relu, int out_dim, int ow,
     float* __restrict__ out0, float* __restrict__ out1) {
   float* act0 = smem;
   float* act1 = act0 + kWidth * kStride;
@@ -367,26 +299,8 @@ __device__ __forceinline__ void ensemble_pass(
 
   const long long row0 = static_cast<long long>(blockIdx.x) * kTileRows;
   const int valid = static_cast<int>(min(static_cast<long long>(kTileRows), B - row0));
-  using XAt = std::conditional_t<kOut == kOutDense && !kXCols, XRowMajor,
-                                 XStrided>;
-  const XAt at = x_at(XAt(), kXCols, ldx);
+  const XStrided at = kXCols ? XStrided{1, ldx} : XStrided{ldx, 1};
   const float* x_tile = kXCols ? x + row0 : x + row0 * ldx;
-
-  if constexpr (kMode == kIoFloor) {
-    for (int e = threadIdx.x; e < valid * d; e += kThreads) {
-      const int r = kXCols ? e % valid : e / d, k = kXCols ? e / valid : e % d;
-      touch(at(x_tile, r, 0, k, d));
-    }
-    store_tile<kOut, kNOut>(
-        [&](int, int r, float& a, float& b) {
-          const long long first = (row0 + r) / tile * tile;
-          a = b = 1.f + __ldg(at(x, static_cast<int>(first), 0, 0, d));
-        },
-        valid, row0, B, ow, out_dim, out0, out1, act0, act1);
-    return;
-  }
-  constexpr bool kAffine = kMode != kGemmOnly;
-  constexpr bool kRaw = kMode == kNoEpi;
   const float* w_hidden = w_all + static_cast<size_t>(M_all) * d * kWidth;
 
   for (int m = 0; m < M; ++m) {
@@ -397,11 +311,11 @@ __device__ __forceinline__ void ensemble_pass(
       const float* b = b_all + (static_cast<size_t>(l) * M_all + m) * kWidth;
       const bool act = __ldg(relu + l) != 0;
       if (l == 0) {
-        dense_layer<true, XAt, kAffine>(
+        dense_layer<true>(
             in, out, sw, w_all + static_cast<size_t>(m) * d * kWidth, b, d,
             act, x_tile, valid, at);
       } else {
-        dense_layer<false, XAt, kAffine>(
+        dense_layer<false>(
             in, out, sw,
             w_hidden + (static_cast<size_t>(l - 1) * M_all + m) * kWidth * kWidth,
             b, kWidth, act, nullptr, valid);
@@ -415,36 +329,28 @@ __device__ __forceinline__ void ensemble_pass(
     const float* b = b_all + (static_cast<size_t>(l) * M_all + m) * kWidth;
     const bool act = __ldg(relu + l) != 0;
     if (l == 0) {  // one Linear: read x straight from device memory
-      last_layer_stats<kRaw, kAffine>(
+      last_layer_stats(
           x_tile, kXCols ? ldx : 1, kXCols ? 1 : ldx, valid,
           w_all + static_cast<size_t>(m) * d * kWidth, b, d, act, out_dim,
           m == 0, sc, s1, s2);
     } else {
-      last_layer_stats<kRaw, kAffine>(
+      last_layer_stats(
           in, kStride, 1, valid,
           w_hidden + (static_cast<size_t>(l - 1) * M_all + m) * kWidth * kWidth,
           b, kWidth, act, out_dim, m == 0, sc, s1, s2);
     }
   }
-  if constexpr (kOut == kOutDense) {
-    write_stats(sc, s1, s2, M, valid, row0, out_dim, out0, out1);
-  } else {
-    const float n = static_cast<float>(M);
-    const float dof = static_cast<float>(M > 1 ? M - 1 : 1);
-    store_tile<kOut, kNOut>(
-        [&](int col, int r, float& a, float& b) {
-          const int e = col * kTileRows + r;
-          if (col >= out_dim) {
-            a = b = 0.f;
-          } else if (kRaw) {
-            a = s1[e];
-            b = sc[e];
-          } else {
-            shifted_stat(sc, s1, s2, e, n, dof, a, b);
-          }
-        },
-        valid, row0, B, ow, out_dim, out0, out1, act0, act1);
-  }
+  const float n = static_cast<float>(M);
+  const float dof = static_cast<float>(M > 1 ? M - 1 : 1);
+  store_tile<kOut, kNOut>(
+      [&](int col, int r, float& a, float& b) {
+        const int e = col * kTileRows + r;
+        if (col >= out_dim)
+          a = b = 0.f;
+        else
+          shifted_stat(sc, s1, s2, e, n, dof, a, b);
+      },
+      valid, row0, B, ow, out_dim, out0, out1, act0, act1);
 }
 
 }  // namespace fused_chain

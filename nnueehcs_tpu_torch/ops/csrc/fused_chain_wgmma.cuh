@@ -657,7 +657,7 @@ __device__ __forceinline__ void stats_update(const float (&acc)[4],
 
 // mean = c + s1/n and std = sqrt(max(s2 - n m1^2, 0) / max(n - 1, 1)),
 // m1 = s1/n, of the thread's slots in the tile's valid rows, with n m1^2
-// rounded before the subtraction (fused_chain::write_stats' arithmetic);
+// rounded before the subtraction (fused_chain::shifted_stat's arithmetic);
 // element (row, column) of each output at row * ldo + column. kNoStd: std
 // may be null (the probe's mean-only form), and then is not written.
 template <bool kNoStd = false>
@@ -1845,7 +1845,7 @@ __device__ __forceinline__ void zero_tail(float* out, long long row0,
 // tile as a tile of no rows. A peer sends each member's last-layer outputs
 // (the real columns' lanes) to the leader through the exchange (1b's); the
 // leader folds its own member j c, then the peers' j c + 1, ..., in member
-// order (member 0 the shift: fused_chain::write_stats' arithmetic, not
+// order (member 0 the shift: fused_chain::shifted_stat's arithmetic, not
 // Chan's merge), and writes mean and std, element (row, column) at
 // row * ldo + column. kCut: a chain cut short, whose last layer is a
 // 128-wide hidden layer: its image holds every layer as a hidden one

@@ -39,10 +39,11 @@ def test_forward_battery_gates_every_variant_on_the_cpu(capsys):
 
 
 def test_train_battery_gates_every_variant_on_the_cpu():
-    """Every probe variant against its plain version; kernel 3 step by
-    step against the plain version at every batch of the batch scaling, and
-    twice bit for bit; the probe's prod, and its graph replay, bit for bit
-    with kernel 3 at every batch."""
+    """Every probe variant against its one-step launches bit for bit and
+    against its plain version; gn_fused step by step on the flagship as
+    built; kernel 3 step by step against the plain version at every batch
+    of the batch scaling, and twice bit for bit; the probe's prod, and its
+    graph replay, bit for bit with kernel 3 at every batch."""
     out = attrib.train_battery('cpu', seed=2, steps=8)
     gates = out['gates']
     binding = f'gn_fused clip={attrib.BINDING_CLIP:g}'
@@ -50,14 +51,16 @@ def test_train_battery_gates_every_variant_on_the_cpu():
     timed = {'unroll2_vs_prod', 'unroll4_vs_prod', 'ch4096_vs_prod',
              'ch8_vs_prod', 'unroll4+gn+ch4096_vs_gn_fused'}
     repeats = {'kernel 3 repeat', 'prod repeat'}
+    as_built = f'gn_fused as built clip={attrib.BINDING_CLIP:g}'
     assert set(gates) == set(attrib.TRAIN_VARIANTS) | {binding} | batches \
-        | timed | repeats
+        | timed | repeats | {as_built}
     for name in repeats | timed:
         assert gates[name]['bit_for_bit'] and gates[name]['steps'] == 8
-    for name in batches:
-        assert gates[name]['probe_prod_bit_for_bit_with_kernel_3']
+    for name in batches | {as_built}:
         assert gates[name]['stepwise']['steps'] == attrib.GATE_STEPS
         assert gates[name]['stepwise']['over_tol_outside_reach'] == 0
+    for name in batches:
+        assert gates[name]['probe_prod_bit_for_bit_with_kernel_3']
         assert gates[name]['stepwise']['loss_flips'] == 0
     assert [gates[f'kernel 3 B={b}']['resident']
             for b in attrib.BATCHES] == [True, False, False, False]
@@ -65,8 +68,10 @@ def test_train_battery_gates_every_variant_on_the_cpu():
         errs = gates[name]['max_abs_err']
         assert set(errs) == set(attrib.TOL_TRAIN), name
         mode = attrib.TRAIN_VARIANTS.get(name, {}).get('mode', 'prod')
-        # an unrolled run bit for bit the run without unroll, whose steps
-        # are held to the plain version
+        # the whole launch bit for bit its one-step launches; an unrolled
+        # run bit for bit the run without unroll; the steps are held to the
+        # plain version
+        assert gates[name]['bit_for_bit_with_one_step_launches'], name
         assert gates[name].get('bit_for_bit_with_unroll_1', False) == (
             'unroll' in attrib.TRAIN_VARIANTS.get(name, {})), name
         assert ('grad_norm' in gates[name]) == (mode in ('prod', 'no_opt'))

@@ -1075,6 +1075,13 @@ def test_ablate_forward_matches_plain_on_card(card, case, mode, n_out):
         if layers_cut is not None and layers_cut > fw.num_layers:
             continue
         before = af.ablate_forward.launches
+        if mode == 'gemm_only' and layers_cut not in (None, fw.num_layers):
+            # no kernel for gemm_only on a chain cut short: refused
+            with pytest.raises(ValueError, match='no gemm_only kernel'):
+                af.ablate_forward(fw, x_pad, members_cut, layers_cut, 64,
+                                  mode, n_out)
+            assert af.ablate_forward.launches == before
+            continue
         got = af.ablate_forward(fw, x_pad, members_cut, layers_cut, 64, mode,
                                 n_out)
         torch.cuda.synchronize()
