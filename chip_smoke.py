@@ -191,7 +191,7 @@ from nnueehcs_tpu_torch import config as config_reader
 from nnueehcs_tpu_torch import datagen
 from nnueehcs_tpu_torch.attrib import (BF16_WITNESS_SHARE, TOL_MEAN,
                                        TOL_STD, TOL_TRAIN,
-                                       bf16_close, bf16_peak, bf16_verdict,
+                                       bf16_close, bf16_peak,
                                        bound, check,
                                        event_ms, flip_reach, nvidia_smi,
                                        peaks, separate_relu,
@@ -1030,9 +1030,10 @@ def bf16_judge(name, reference16, reference32, pooled=None):
     the bf16 bars of its gap to ``reference32(x, call)`` (the same model's
     fp32 function); an output whose fp32 reference is None does not depend
     on the precision (KDE's and kNN-KDE's density scores) and is held to
-    TOL_SCORE. Given a dict ``pooled``, each answer is held to the max bar
-    alone and kept there per part, for ``bf16_pooled`` to hold the rms bar
-    over every request of the run at once."""
+    TOL_SCORE. Given a dict ``pooled``, each answer is only reported here
+    and kept there per part, for ``bf16_pooled`` to hold both bars over
+    every request of the run at once: a request of a few values has a gap
+    of a few values, which may all but vanish by chance."""
     def judge(x, call, mean, ue):
         out = {}
         for part, got, want, ref32 in zip(('mean', 'ue'), (mean, ue),
@@ -1046,11 +1047,8 @@ def bf16_judge(name, reference16, reference32, pooled=None):
             elif pooled is None:
                 out[part] = bf16_close(label, got, want.cpu(), ref32.cpu())
             else:
-                res = bf16_close(label, got, want.cpu(), ref32.cpu(),
-                                 gate=False)
-                check(res['max_abs_err'] <= res['bar_max'],
-                      bf16_verdict(label, res))
-                out[part] = res
+                out[part] = bf16_close(label, got, want.cpu(), ref32.cpu(),
+                                       gate=False)
                 pooled.setdefault(part, []).append(
                     (got, want.cpu(), ref32.cpu()))
         return out
@@ -2363,10 +2361,14 @@ def cnn_phase(seed):
                     best.reseed(seed)
                 bf16 = precision == 'bf16-mixed'
                 # the served and the plain convolutions sum in orders cuDNN
-                # picks per shape, so a bf16 rounding may go the other way:
-                # a 1-image request's one value a part read 0.209 of its
-                # gap once on an H100, so the rms bar holds the run's
-                # requests at once
+                # picks per shape, so a bf16 rounding may go the other way,
+                # and cuDNN's training is not bit-reproducible, so each run
+                # serves another network: a 1-image request's one value a
+                # part read 0.209 of its gap once on an H100, and once its
+                # gap was 2.5e-6 (3.7-6.7e-4 in eight other runs) against
+                # an error of 6.9e-6, so both bars hold the run's requests
+                # at once; a wrong answer is off by the output's own size,
+                # far past the run's largest gap
                 pooled = {}
                 judge = bf16_judge(
                     f'{name} bf16',
