@@ -31,8 +31,9 @@ point (``nnueehcs_tpu_torch.attrib``): both batteries of the CUDA probes
 of kernels 1 and 3 at the flagship shape (262,144 rows; 500 steps of
 batch 128), on the kernels' own device code, every probe held to its
 plain version and every form of the production math to its control bit
-for bit (the prod probes to kernels 1 and 3, the FFMA probes to the FFMA
-body's prod; kernel 1 to its plain version) before it is timed, kernel 3
+for bit (the prod probes and the layout probes of kernel 1 to kernel 1, the
+training probe's prod to kernel 3; kernel 1 to its plain version; gemm_only
+also on chains cut short) before it is timed, kernel 3
 held step by step to its plain version at every batch of the batch
 scaling and timed beside its probe, and the training battery again for
 kernel 3's bf16 form, with the serving and training phases checked to
@@ -454,7 +455,8 @@ PROBE_VARIANTS = {'ablate_forward': 'prod', 'xt_forward': 'xT input',
 PROBE_GATES = {
     'ablate_forward': ('prod', 'io_floor', 'one_out', 'gemm_only', 'no_epi',
                        'members=1', 'members=2', 'members=4', 'layers=1',
-                       'layers=3', 'layers=5'),
+                       'layers=3', 'layers=5', 'gemm_only layers=1',
+                       'gemm_only layers=3', 'gemm_only layers=5'),
     'xt_forward': ('xT input', 'xT+outT'),
     'narrow_forward': ('narrow-in', 'narrow-out', 'narrow-both'),
     'packed_forward': ('packed',)}
@@ -3998,6 +4000,11 @@ def main():
     probes = [k['name'] for k in KERNELS[5:10]] + ['packed_forward_bf16']
     check(all(attrib_launches[name] > 0 for name in probes),
           f'attribution: a probe never launched: {attrib_launches}')
+    # every forward probe of kernel 1's math was held to kernel 1 bit for
+    # bit
+    check(all(fwd['gates'][g]['equals'] == 'kernel 1'
+              for g in attrib.KERNEL_1_FORMS),
+          f'attribution: a probe not held to kernel 1: {fwd["gates"]}')
     model_a, fw_a, x_a, x_pad, x_n8, x_t = attrib.forward_inputs(
         args.seed, DEVICE, ROWS)
     plains = {'ablate_forward': lambda: af.ablate_forward_plain(fw_a, x_pad),

@@ -15,12 +15,11 @@ BatchNorm1d -> ReLU], Linear 128 -> 1, weights from ``--seed``)::
 Each variant is first held to its plain PyTorch version on the same inputs,
 and each form of the production math to its control bit for bit: the
 probes of both kernels run the kernels' own device code, so the ``prod``
-of ``ablate_forward`` is kernel 1 (3xTF32 ``wgmma``, the members over a
-cluster) and the ``prod`` of ``ablate_epoch`` is kernel 3 (one
-thread-block cluster per member); the probes that still run kernel 1's
-former FFMA body (``xt_forward``, ``narrow_forward``, the fp32
-``packed_forward``) are held to that body's prod instance
-(``ablate_forward.ffma_prod``). Kernel 3 is also held to its plain version
+of ``ablate_forward`` and every layout probe (``xt_forward``,
+``narrow_forward``, the fp32 ``packed_forward``) is kernel 1 (3xTF32
+``wgmma``, the members over a cluster), in its own layout, and the
+``prod`` of ``ablate_epoch`` is kernel 3 (one thread-block cluster per
+member). Kernel 3 is also held to its plain version
 step by step at every batch of the batch scaling, on the flagship as
 built. Then each is timed:
 CUDA-event medians over ``--reps`` passes (or epochs) after warm-ups, with
@@ -63,15 +62,18 @@ from .ops.fused_ensemble import (fused_forward_plain, fused_forward_prefolded,
 
 IN_DIM, WIDTH, MEMBERS = 5, 128, 8
 ROWS = 262_144                 # the bench's evaluation batch
-# the forward probes whose production math is kernel 1 itself (the others'
-# is kernel 1's former FFMA body)
-KERNEL_1_FORMS = ('prod', 'one_out')
+# the forward probes whose production math is kernel 1 itself, each in
+# its own layout, held to kernel 1 bit for bit
+KERNEL_1_FORMS = ('prod', 'one_out', 'xT input', 'xT+outT', 'narrow-in',
+                  'narrow-out', 'narrow-both', 'packed')
 # the timed forward variants that run kernel 1's body (3xTF32 products on
 # the tensor cores; with the member and layer cuts), bounded at the TF32
-# peak; the FFMA probes at the fp32 one
+# peak; the packed probe's bf16 form at the bf16 one
 TF32_VARIANTS = KERNEL_1_FORMS + ('io_floor', 'gemm_only', 'no_epi',
                                   'split (kernel 1)', 'e2e prod',
-                                  'model path')
+                                  'e2e narrow', 'e2e xT', 'model path')
+# the chains cut short of the depth sweeps (prod, and gemm_only)
+CUT_LAYERS = (1, 3, 5)
 STEPS, BATCH = 500, 128        # attrib_train.py's epoch
 BATCHES = (128, 256, 512, 1024)
 CPU_ROWS, CPU_STEPS = 1024, 8  # the CPU's sizes (gates only)
@@ -434,8 +436,7 @@ def forward_battery(device='cuda', seed=0, rows=None, reps=10, warmup=3):
                 4.0 * (xin + out_rows + (weights if chain else 0)))
 
     # name: (run(plain=False), (flops, bytes), production-math output
-    # width); the production math of 'prod' and 'one_out' is kernel 1's,
-    # of the others kernel 1's former FFMA body's
+    # width: kernel 1's, for KERNEL_1_FORMS)
     probes = {
         'prod': (abl(), work(), WIDTH),
         'io_floor': (abl('io_floor'), work(chain=False), None),
@@ -445,7 +446,10 @@ def forward_battery(device='cuda', seed=0, rows=None, reps=10, warmup=3):
         **{f'members={m}': (abl(members=m), work(members=m), None)
            for m in (1, 2, 4)},
         **{f'layers={l}': (abl(layers=l), work(layers=l), None)
-           for l in (1, 3, 5)},
+           for l in CUT_LAYERS},
+        **{f'gemm_only layers={l}': (abl('gemm_only', layers=l),
+                                     work(layers=l), None)
+           for l in CUT_LAYERS},
         'xT input': (call(af.xt_forward, af.xt_forward_plain, x_t), work(),
                      WIDTH),
         'xT+outT': (call(af.xt_forward, af.xt_forward_plain, x_t, True),
@@ -462,14 +466,10 @@ def forward_battery(device='cuda', seed=0, rows=None, reps=10, warmup=3):
                    work(n_out=1), fw.out_dim),
     }
     # gates: each probe against its plain version; the forms of the
-    # production math bit for bit against their control: kernel 1 (3xTF32
-    # products on the tensor cores), or the FFMA body's prod instance (on
-    # the CPU, where neither body runs, the plain prod); kernel 1 against
-    # its own plain version within the bars
+    # production math (KERNEL_1_FORMS, in their layouts) bit for bit against
+    # kernel 1 (3xTF32 products on the tensor cores; on the CPU its plain
+    # version); kernel 1 against its own plain version within the bars
     kernel_1 = fused_forward_prefolded(fw, x)
-    controls = {'kernel 1': kernel_1, 'ffma prod': [
-        t[:, :fw.out_dim] for t in (af.ffma_prod(fw, x_pad) if card.on_card
-                                    else af.ablate_forward_plain(fw, x_pad))]}
     gates = {}
     for name, (run, _, prod_width) in probes.items():
         got, want = run(), run(plain=True)
@@ -478,10 +478,9 @@ def forward_battery(device='cuda', seed=0, rows=None, reps=10, warmup=3):
                 _close(f'{name} out{i}', g, w,
                        TOL_MEAN if i == 0 or name == 'no_epi' else TOL_STD)
                 for i, (g, w) in enumerate(zip(got, want))]
-        control = None if prod_width is None else \
-            'kernel 1' if name in KERNEL_1_FORMS else 'ffma prod'
+        control = None if prod_width is None else 'kernel 1'
         if control is not None:
-            for i, (g, b) in enumerate(zip(got, controls[control])):
+            for i, (g, b) in enumerate(zip(got, kernel_1)):
                 g = g[:fw.out_dim].T if prod_width == 'cols' else \
                     g[:, :fw.out_dim]
                 _equal(f'{name} out{i} against {control}', g, b)
@@ -525,7 +524,6 @@ def forward_battery(device='cuda', seed=0, rows=None, reps=10, warmup=3):
     timed.update({
         'split (kernel 1)': (lambda: fused_forward_prefolded(fw, x),
                              work(ow=fw.out_dim, xin=rows * IN_DIM)),
-        'ffma prod': (lambda: af.ffma_prod(fw, x_pad), work()),
         'e2e prod': (lambda: [t[:, :1] for t in af.ablate_forward(
             fw, e2e_pad(WIDTH))], work()),
         'e2e narrow': (lambda: [t[:, :1] for t in af.narrow_forward(
@@ -543,13 +541,13 @@ def forward_battery(device='cuda', seed=0, rows=None, reps=10, warmup=3):
         if name == 'packed bf16':
             bound_ms, bound_by = bound(flops, moved, card.bf16_flops,
                                        card.bytes)
-        elif name in TF32_VARIANTS or name.startswith(('members=',
-                                                       'layers=')):
+        elif name in TF32_VARIANTS or name.startswith(
+                ('members=', 'layers=', 'gemm_only layers=')):
             # kernel 1's body: three TF32 products for each fp32 one
             bound_ms, bound_by = bound(3 * flops, moved, card.tf32_flops,
                                        card.bytes)
-        else:                  # kernel 1's former FFMA body
-            bound_ms, bound_by = bound(flops, moved, card.flops, card.bytes)
+        else:
+            raise ValueError(f'forward battery: no bound for {name!r}')
         out['variants'][name] = dict(t, flops=flops, bytes=moved,
                                      bound_ms=bound_ms, bound_by=bound_by)
         emit(battery='forward', variant=name, rows=rows,
@@ -558,15 +556,15 @@ def forward_battery(device='cuda', seed=0, rows=None, reps=10, warmup=3):
              share_of_bound=bound_ms / t['median_ms'],
              samples_per_s=rows / t['median_ms'] * 1e3, device=card.kind)
     v = {k: r['median_ms'] for k, r in out['variants'].items()}
-    p, f = v['prod'], v['ffma prod']
+    p = v['prod']
+    # every variant of the whole chain against prod, the layout probes
+    # included (each is kernel 1's math in its layout)
     deltas = {k: {'ms': v[k], 'delta_pct': 100.0 * (v[k] - p) / p}
               for k in ('io_floor', 'one_out', 'gemm_only', 'no_epi',
-                        'packed bf16', 'split (kernel 1)', 'e2e prod',
-                        'ffma prod', 'model path')}
-    # the layout probes against their own control, the FFMA prod
-    ffma_deltas = {k: {'ms': v[k], 'delta_pct': 100.0 * (v[k] - f) / f}
-                   for k in ('xT input', 'xT+outT', 'narrow-both', 'packed',
-                             'e2e narrow', 'e2e xT')}
+                        'xT input', 'xT+outT', 'narrow-in', 'narrow-out',
+                        'narrow-both', 'packed', 'packed bf16',
+                        'split (kernel 1)', 'e2e prod', 'e2e narrow',
+                        'e2e xT', 'model path')}
     members = {1: v['members=1'], 2: v['members=2'], 4: v['members=4'],
                M: p}
     member_fit = np.polyfit(list(members), list(members.values()), 1)
@@ -575,12 +573,13 @@ def forward_battery(device='cuda', seed=0, rows=None, reps=10, warmup=3):
     # (m64n8 groups): the depth sweep is not a line, so it is reported as
     # measured
     out['decomposition'] = {
-        'prod_ms': p, 'vs_prod': deltas, 'ffma_prod_ms': f,
-        'vs_ffma_prod': ffma_deltas, 'members_ms': members,
+        'prod_ms': p, 'vs_prod': deltas, 'members_ms': members,
         'ms_per_member': float(member_fit[0]),
         'ms_at_zero_members': float(member_fit[1]),
-        'layers_ms': {1: v['layers=1'], 3: v['layers=3'],
-                      5: v['layers=5'], L: p}}
+        'layers_ms': {**{l: v[f'layers={l}'] for l in CUT_LAYERS}, L: p},
+        'gemm_only_layers_ms': {
+            **{l: v[f'gemm_only layers={l}'] for l in CUT_LAYERS},
+            L: v['gemm_only']}}
     emit(battery='forward', decomposition=out['decomposition'], rows=rows,
          nvidia_smi=card.smi,
          clocks_power=nvidia_smi('clocks.sm,power.draw,temperature.gpu'))

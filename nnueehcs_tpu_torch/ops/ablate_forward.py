@@ -14,14 +14,13 @@ ones), zeros past the chain's real width.
 On a CUDA tensor each launches its kernel (``csrc/ablate_chain.cu``), on a
 CPU tensor it runs its plain version (``*_plain``). It never falls back from
 one to the other. ``<function>.launches`` counts kernel launches.
-``ablate_forward`` runs kernel 1's own body (``fused_chain_wgmma.cuh``'s
+Every fp32 probe runs kernel 1's own body (``fused_chain_wgmma.cuh``'s
 ``ensemble_tf32_as``: 3xTF32 ``wgmma`` products, the members over a cluster
-of ``min(M, 8)`` blocks), one instance for each mode and for a chain cut
-short, with kernel 1's launch layout (:func:`probe_layout`) and images: its
-``'prod'`` is kernel 1's math, padded to 128 columns. ``xt_forward``,
-``narrow_forward`` and the fp32 ``packed_forward`` run instances of kernel
-1's former FFMA body (``fused_chain.cuh``'s ``ensemble_pass``), whose prod
-instance (:func:`ffma_prod`) is the control they are held to bit for bit.
+of ``min(M, 8)`` blocks), one instance for each mode, for a chain cut short
+and for each layout of x and of the outputs, with kernel 1's launch layout
+(:func:`probe_layout`) and images, all through one launch path
+(:func:`launch_form` gives each probe's host arguments): ``'prod'`` and the
+layout probes compute kernel 1's math bit for bit, in their layouts.
 
 ``packed_forward`` also takes bf16 folded weights (``compute_dtype``, the
 JAX probe's ``compute_dtype='bfloat16'``): it then launches an instance of
@@ -44,13 +43,14 @@ from .fused_eval_chain import (ENSEMBLE_FIELDS, _sms, cached_image,
 from .fused_ensemble import (WIDTH, FusedWeights, check_weights_dtype,
                              shifted_stats)
 
-# rows of a tile: a warpgroup's in ablate_forward, a block's in the FFMA
-# probes; the probes' `tile` only sets which row io_floor reads
+# rows of a tile, a warpgroup's; the probes' `tile` only sets which row
+# io_floor reads
 TILE_ROWS = 64
 MODES = ('prod', 'io_floor', 'gemm_only', 'no_epi')
 NARROW = 8         # the narrow probes' width
-# output layouts of csrc/ablate_chain.cu
-_OUT_ROWS, _OUT_COLS, _OUT_PACKED = 1, 2, 3
+# the output layouts of csrc/ablate_chain.cu (fused_chain_wgmma.cuh's
+# OutLayout): (B, ldo) rows, feature-major (ldo, B), packed (B, 128)
+OUT_ROWS, OUT_COLS, OUT_PACKED = 1, 2, 3
 
 
 def _out_dim(fw: FusedWeights, layers: int) -> int:
@@ -134,24 +134,6 @@ def _check(fw: FusedWeights, x, rows_first: bool, name: str):
         raise ValueError(f'{name}: no kernel for device {x.device}')
 
 
-def _launch(fw, x, *, n_out, x_cols, layout, out_dim, ow, outs):
-    """Launch an FFMA probe instance (every member and layer)."""
-    from ._build import library
-    B = x.shape[1] if x_cols else x.shape[0]
-    # the stride between rows of a (B, dx) x, or between features of a
-    # feature-major (dx, B) one: its second dimension either way
-    ldx = x.shape[1]
-    with torch.cuda.device(x.device):
-        err = library().nnueehcs_ablate_chain_f32(
-            n_out, int(x_cols), layout, x.data_ptr(), B, fw.in_dim, ldx,
-            fw.w_all.data_ptr(), fw.b_all.data_ptr(), fw.num_members,
-            fw.num_members, fw.num_layers, fw.relu_flags.data_ptr(), out_dim,
-            ow, outs[0].data_ptr(), outs[1].data_ptr() if n_out > 1 else None,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'ablation kernel launch failed: CUDA error {err}')
-
-
 def probe_layout(fw, rows: int, members: int, layers: int, sms: int = 132,
                  clusters=None):
     """The launch layout of :func:`ablate_forward` on the first ``members``
@@ -179,16 +161,58 @@ def probe_image(fw: FusedWeights, layers: int) -> torch.Tensor:
     return images[layers]
 
 
+# one probe launch's host arguments: the instance (mode index, cut, x
+# feature-major, output layout), the rows, x's stride (between rows, or
+# between features of a feature-major x: its second dimension either way),
+# the outputs' width ldo, the chain's last real width, the outputs and
+# their shape
+LaunchForm = collections.namedtuple(
+    'LaunchForm', 'mode cut x_cols out rows ldx ldo out_dim n_out shape')
+
+
+def launch_form(probe: str, fw, x_shape, *, mode='prod', layers=None,
+                n_out=2, out_t=False, out_rows=NARROW, ow=WIDTH) -> LaunchForm:
+    """The host arguments of one launch of ``probe`` (``'ablate'``,
+    ``'xt'``, ``'narrow'`` or ``'packed'``) on folded weights ``fw`` (or
+    their ``num_layers`` and ``out_dim``) and an x of shape ``x_shape``:
+    ``ablate_forward``'s ``mode``, ``layers`` and ``n_out``;
+    ``xt_forward``'s ``out_t`` and ``out_rows``; ``narrow_forward``'s
+    output width ``ow``."""
+    layers = fw.num_layers if layers is None else layers
+    out_dim = _out_dim(fw, layers)
+    if probe == 'ablate':
+        rows = x_shape[0]
+        return LaunchForm(
+            MODES.index(mode),
+            int(layers < fw.num_layers and mode != 'io_floor'), 0, OUT_ROWS,
+            rows, x_shape[1], WIDTH, out_dim, n_out, (rows, WIDTH))
+    if probe == 'xt':
+        rows = x_shape[1]
+        return LaunchForm(
+            0, 0, 1, OUT_COLS if out_t else OUT_ROWS, rows, x_shape[1],
+            out_rows if out_t else WIDTH, out_dim, 2,
+            (out_rows, rows) if out_t else (rows, WIDTH))
+    if probe == 'narrow':
+        rows = x_shape[0]
+        return LaunchForm(0, 0, 0, OUT_ROWS, rows, x_shape[1], ow, out_dim,
+                          2, (rows, ow))
+    if probe == 'packed':
+        rows = x_shape[0]
+        return LaunchForm(0, 0, 0, OUT_PACKED, rows, x_shape[1], WIDTH,
+                          out_dim, 1, (rows, WIDTH))
+    raise ValueError(f'no probe {probe!r}')
+
+
 @functools.lru_cache(maxsize=1024)
-def _probe_launch_layout(shape, rows, index, members, layers, mode, cut):
+def _probe_launch_layout(shape, rows, index, members, layers, instance):
     """The layout ints of one probe launch on card ``index`` for a chain of
     ``shape`` (:class:`_Shape`), the grid from the clusters its instance
-    fits (:func:`probe_layout`)."""
+    (mode, cut, x_cols, out) fits (:func:`probe_layout`)."""
     from ._build import library
     layout = probe_layout(shape, rows, members, layers, _sms(index))
     form = (ctypes.c_int * len(ENSEMBLE_FIELDS))(*layout.ints())
     with torch.cuda.device(index):
-        n = library().nnueehcs_ablate_forward_f32_clusters(mode, cut, form)
+        n = library().nnueehcs_ablate_forward_f32_clusters(*instance, form)
     if n <= 0:
         raise RuntimeError(f'ablate_forward: no cluster of {layout} fits the '
                            f'card (CUDA error {-n})')
@@ -200,27 +224,35 @@ def _probe_launch_layout(shape, rows, index, members, layers, mode, cut):
 _Shape = collections.namedtuple('_Shape', 'in_dim num_layers out_dim')
 
 
-def _launch_tf32(fw, x, mode, members, layers, tile, outs):
-    """Launch ablate_forward's instance of ``mode`` on kernel 1's body."""
+def _launch(fw, x, form: LaunchForm, members=None, layers=None,
+            tile=TILE_ROWS):
+    """Launch the probe instance of ``form`` (:func:`launch_form`) on
+    kernel 1's body; returns its ``form.n_out`` outputs."""
     from ._build import library
+    members = fw.num_members if members is None else members
+    layers = fw.num_layers if layers is None else layers
     device = x.device
+    outs = [torch.empty(form.shape, dtype=torch.float32, device=device)
+            for _ in range(form.n_out)]
+    if not form.rows:
+        return outs
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    out_dim = _out_dim(fw, layers)
-    cut = int(layers < fw.num_layers and mode != 'io_floor')
+    instance = (form.mode, form.cut, form.x_cols, form.out)
     with torch.cuda.device(device):
         layout = _probe_launch_layout(
-            _Shape(fw.in_dim, fw.num_layers, fw.out_dim), x.shape[0], index,
-            members, layers, MODES.index(mode), cut)
+            _Shape(fw.in_dim, fw.num_layers, fw.out_dim), form.rows, index,
+            members, layers, instance)
         err = library().nnueehcs_ablate_forward_f32(
-            MODES.index(mode), cut, x.data_ptr(), x.shape[0], fw.in_dim,
-            x.shape[1], probe_image(fw, layers).data_ptr(),
-            fw.b_all.data_ptr(), members, fw.num_members, layers,
-            fw.relu_flags.data_ptr(), out_dim, tile,
-            outs[0].data_ptr(), outs[1].data_ptr() if len(outs) > 1 else None,
-            layout, torch.cuda.current_stream(device).cuda_stream)
+            *instance, x.data_ptr(), form.rows, fw.in_dim, form.ldx,
+            probe_image(fw, layers).data_ptr(), fw.b_all.data_ptr(), members,
+            fw.num_members, layers, fw.relu_flags.data_ptr(), form.out_dim,
+            form.ldo, tile, outs[0].data_ptr(),
+            outs[1].data_ptr() if form.n_out > 1 else None, layout,
+            torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f'ablate_forward launch failed: CUDA error {err}')
+        raise RuntimeError(f'ablation kernel launch failed: CUDA error {err}')
+    return outs
 
 
 def _real(x, d):
@@ -255,10 +287,7 @@ def ablate_forward(fw: FusedWeights, x_pad, num_members=None,
     and std), ``'io_floor'`` (no chain: every output is ``1 + x[first row
     of the tile, 0]`` for ``tile``-row tiles), ``'gemm_only'`` (no bias, no
     ReLU), ``'no_epi'`` (out0 = the last member's output, out1 = member
-    0's). Returns ``n_out`` (1 or 2) ``(B, 128)`` tensors. On the card,
-    ``'gemm_only'`` takes the whole chain only: its instance for a chain
-    cut short spills at the register cap, so there is none, and the
-    wrapper raises (the plain version computes it)."""
+    0's). Returns ``n_out`` (1 or 2) ``(B, 128)`` tensors."""
     _check(fw, x_pad, True, 'ablate_forward')
     members, layers = _cut(fw, num_members, num_layers)
     if mode not in MODES or n_out not in (1, 2) or tile < 1:
@@ -267,32 +296,11 @@ def ablate_forward(fw: FusedWeights, x_pad, num_members=None,
     if x_pad.device.type == 'cpu':
         return ablate_forward_plain(fw, x_pad, members, layers, tile, mode,
                                     n_out)
-    if mode == 'gemm_only' and layers < fw.num_layers:
-        raise ValueError(f'ablate_forward: no gemm_only kernel for a chain '
-                         f'cut to {layers} of {fw.num_layers} layers')
-    outs = [torch.empty((x_pad.shape[0], WIDTH), dtype=torch.float32,
-                        device=x_pad.device) for _ in range(n_out)]
-    if x_pad.shape[0]:
-        _launch_tf32(fw, x_pad, mode, members, layers, tile, outs)
+    form = launch_form('ablate', fw, x_pad.shape, mode=mode, layers=layers,
+                       n_out=n_out)
+    outs = _launch(fw, x_pad, form, members, layers, tile)
+    if form.rows:
         ablate_forward.launches += 1
-    return tuple(outs)
-
-
-def ffma_prod(fw: FusedWeights, x_pad):
-    """The prod instance of kernel 1's former FFMA body (``(B, 128)`` mean
-    and std of every member and layer, zeros past the real width) on a CUDA
-    ``x_pad``: the control that the FFMA probes (``xt_forward``,
-    ``narrow_forward``, the fp32 ``packed_forward``) are held to bit for
-    bit. A gate's reference, not a probe: no launch count."""
-    _check(fw, x_pad, True, 'ffma_prod')
-    if x_pad.device.type != 'cuda':
-        raise ValueError(f'ffma_prod: the FFMA body runs on a card, got '
-                         f'{x_pad.device}')
-    outs = [torch.empty((x_pad.shape[0], WIDTH), dtype=torch.float32,
-                        device=x_pad.device) for _ in range(2)]
-    if x_pad.shape[0]:
-        _launch(fw, x_pad, n_out=2, x_cols=False, layout=_OUT_ROWS,
-                out_dim=fw.out_dim, ow=WIDTH, outs=outs)
     return tuple(outs)
 
 
@@ -315,14 +323,9 @@ def xt_forward(fw: FusedWeights, x_t, out_t=False, out_rows=NARROW):
         raise ValueError(f'xt_forward: out_rows {out_rows}')
     if x_t.device.type == 'cpu':
         return xt_forward_plain(fw, x_t, out_t, out_rows)
-    B = x_t.shape[1]
-    shape = (out_rows, B) if out_t else (B, WIDTH)
-    outs = [torch.empty(shape, dtype=torch.float32, device=x_t.device)
-            for _ in range(2)]
-    if B:
-        _launch(fw, x_t, n_out=2, x_cols=True,
-                layout=_OUT_COLS if out_t else _OUT_ROWS, out_dim=fw.out_dim,
-                ow=shape[0] if out_t else WIDTH, outs=outs)
+    form = launch_form('xt', fw, x_t.shape, out_t=out_t, out_rows=out_rows)
+    outs = _launch(fw, x_t, form)
+    if form.rows:
         xt_forward.launches += 1
     return tuple(outs)
 
@@ -353,11 +356,9 @@ def narrow_forward(fw: FusedWeights, x_in, narrow_in=True, narrow_out=True):
     ow = _narrow_widths(fw, x_in, narrow_in, narrow_out)
     if x_in.device.type == 'cpu':
         return narrow_forward_plain(fw, x_in, narrow_in, narrow_out)
-    outs = [torch.empty((x_in.shape[0], ow), dtype=torch.float32,
-                        device=x_in.device) for _ in range(2)]
-    if x_in.shape[0]:
-        _launch(fw, x_in, n_out=2, x_cols=False, layout=_OUT_ROWS,
-                out_dim=fw.out_dim, ow=ow, outs=outs)
+    form = launch_form('narrow', fw, x_in.shape, ow=ow)
+    outs = _launch(fw, x_in, form)
+    if form.rows:
         narrow_forward.launches += 1
     return tuple(outs)
 
@@ -391,9 +392,16 @@ def packed_forward(fw: FusedWeights, x_pad):
     _check_packed(fw)
     if x_pad.device.type == 'cpu':
         return packed_forward_plain(fw, x_pad)
+    if fw.compute_dtype == torch.float32:
+        form = launch_form('packed', fw, x_pad.shape)
+        out, = _launch(fw, x_pad, form)
+        if form.rows:
+            packed_forward.launches += 1
+        od = fw.out_dim
+        return out[:, :od], out[:, od:2 * od]
     out = torch.empty((x_pad.shape[0], WIDTH), dtype=torch.float32,
                       device=x_pad.device)
-    if x_pad.shape[0] and fw.compute_dtype == torch.bfloat16:
+    if x_pad.shape[0]:
         from ._build import library
         with torch.cuda.device(x_pad.device):
             image, layout = launch_args('ensemble', fw, x_pad.shape[0],
@@ -408,10 +416,6 @@ def packed_forward(fw: FusedWeights, x_pad):
             raise RuntimeError(f'packed bf16 kernel launch failed: CUDA '
                                f'error {err}')
         packed_forward.launches_bf16 += 1
-    elif x_pad.shape[0]:
-        _launch(fw, x_pad, n_out=1, x_cols=False, layout=_OUT_PACKED,
-                out_dim=fw.out_dim, ow=WIDTH, outs=[out])
-        packed_forward.launches += 1
     od = fw.out_dim
     return out[:, :od], out[:, od:2 * od]
 

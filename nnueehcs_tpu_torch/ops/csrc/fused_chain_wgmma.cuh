@@ -655,16 +655,29 @@ __device__ __forceinline__ void stats_update(const float (&acc)[4],
   stats_fold(v, g, first, st);
 }
 
+// The layouts of the ensemble's outputs, mean and std (ensemble_tf32_as's
+// kOut; `ldo` is each one's width):
+//   kOutServe   kernel 1's: (B, ldo), columns [0, out_dim);
+//   kOutRows    the probes' (B, ldo): columns [0, min(out_dim, ldo)), zeros
+//               in [out_dim, ldo); std may be null (mean only);
+//   kOutCols    feature-major (ldo, B): element (row, column) at
+//               column * B + row, rows [0, min(out_dim, ldo)), zeros in
+//               rows [out_dim, ldo);
+//   kOutPacked  one (B, 128) buffer `mean`: mean in columns [0, out_dim),
+//               std in [out_dim, 2 out_dim), zeros past 2 out_dim.
+enum OutLayout { kOutServe, kOutRows, kOutCols, kOutPacked };
+
 // mean = c + s1/n and std = sqrt(max(s2 - n m1^2, 0) / max(n - 1, 1)),
-// m1 = s1/n, of the thread's slots in the tile's valid rows, with n m1^2
-// rounded before the subtraction (fused_chain::shifted_stat's arithmetic);
-// element (row, column) of each output at row * ldo + column. kNoStd: std
-// may be null (the probe's mean-only form), and then is not written.
-template <bool kNoStd = false>
+// m1 = s1/n, of the thread's slots in the tile's valid rows and columns
+// [0, cols), with n m1^2 rounded before the subtraction; element (row,
+// column) of each output at row * ldo + column, or with kOutCols at
+// column * ldo + row (ldo the outputs' B). kOutRows: std may be null, and
+// then is not written.
+template <int kOut = kOutServe>
 __device__ __forceinline__ void stats_write(const float4* st, int groups,
                                             int count, const Thread& t,
                                             int valid, long long row0,
-                                            int out_dim, long long ldo,
+                                            int cols, long long ldo,
                                             float* mean, float* std) {
   STAMP(9);
   const float n = static_cast<float>(count);
@@ -679,14 +692,15 @@ __device__ __forceinline__ void stats_write(const float4* st, int groups,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = t.r0 + 8 * (e >> 1), col = 8 * g + 2 * t.q + (e & 1);
-        if (r < valid && col < out_dim) {
+        if (r < valid && col < cols) {
           const float m1 = s1[e] / n;
           const float var =
               fmaxf(__fsub_rn(s2[e], __fmul_rn(__fmul_rn(n, m1), m1)), 0.f) /
               dof;
-          const long long o = (row0 + r) * ldo + col;
+          const long long o = kOut == kOutCols ? col * ldo + row0 + r
+                                               : (row0 + r) * ldo + col;
           mean[o] = c[e] + m1;
-          if (!kNoStd || std != nullptr) std[o] = sqrtf(var);
+          if (kOut != kOutRows || std != nullptr) std[o] = sqrtf(var);
         }
       }
     }
@@ -1449,9 +1463,10 @@ __device__ __forceinline__ constexpr int a_reg(int h, int e) {
 }
 
 // The A fragment of k step s of x's tile rows (features 8 s + 2 q, + 1,
-// through f as x_fragment's; row stride ldx), split into hi and lo; zeros
-// past `valid` rows and d features.
-template <class F>
+// through f as x_fragment's), split into hi and lo; zeros past `valid` rows
+// and d features. Element (row r, feature c) of the tile at x_tile[r * ldx +
+// c], or with kXCols (a feature-major x, (dx, B)) at x_tile[c * ldx + r].
+template <bool kXCols = false, class F>
 __device__ __forceinline__ void x_step(const float* x_tile, int d,
                                        long long ldx, int valid, int s,
                                        const Thread& t, const F& f,
@@ -1463,16 +1478,17 @@ __device__ __forceinline__ void x_step(const float* x_tile, int d,
     for (int e = 0; e < 2; ++e) {
       float v = 0.f;
       if (r < valid && c + e < d)
-        v = f(h, c + e, __ldg(x_tile + r * ldx + c + e));
+        v = f(h, c + e, __ldg(x_tile + (kXCols ? (c + e) * ldx + r
+                                               : r * ldx + c + e)));
       tf32_split(v, hi[a_reg(h, e)], lo[a_reg(h, e)]);
     }
   }
 }
 
-// acc (m64n128) = x's tile (through f) x layer 0, its blocks [0, nb0) taken
-// from the ring in turn, one k step a product group; `last` runs while the
-// last step's products fly.
-template <class R, class F, class G>
+// acc (m64n128) = x's tile (through f; kXCols as x_step's) x layer 0, its
+// blocks [0, nb0) taken from the ring in turn, one k step a product group;
+// `last` runs while the last step's products fly.
+template <bool kXCols = false, class R, class F, class G>
 __device__ __forceinline__ void x_layer_tf32(float (&acc)[64], R& ring,
                                              const Chain32& c,
                                              const float* x_tile, int d,
@@ -1485,7 +1501,8 @@ __device__ __forceinline__ void x_layer_tf32(float (&acc)[64], R& ring,
     for (int s = 0; s < steps; ++s) {
       STAMP(2);
       uint32_t hi[4], lo[4];
-      x_step(x_tile, d, ldx, valid, kTfRows / 8 * b + s, t, f, hi, lo);
+      x_step<kXCols>(x_tile, d, ldx, valid, kTfRows / 8 * b + s, t, f, hi,
+                     lo);
       STAMP(3);
       pin(hi);
       pin(lo);
@@ -1506,9 +1523,10 @@ __device__ __forceinline__ void x_layer_tf32(float (&acc)[64], R& ring,
   }
 }
 
-// Column group g of a one-Linear chain's only layer from x (through f):
-// acc = x's tile x its blocks of that group, taken from the ring in turn.
-template <class R, class F>
+// Column group g of a one-Linear chain's only layer from x (through f;
+// kXCols as x_step's): acc = x's tile x its blocks of that group, taken
+// from the ring in turn.
+template <bool kXCols = false, class R, class F>
 __device__ __forceinline__ void x_group_tf32(float (&acc)[4], R& ring,
                                              const Chain32& c,
                                              const float* x_tile, int d,
@@ -1520,7 +1538,8 @@ __device__ __forceinline__ void x_group_tf32(float (&acc)[4], R& ring,
     for (int s = 0; s < steps; ++s) {
       STAMP(2);
       uint32_t hi[4], lo[4];
-      x_step(x_tile, d, ldx, valid, kTfRows / 8 * b + s, t, f, hi, lo);
+      x_step<kXCols>(x_tile, d, ldx, valid, kTfRows / 8 * b + s, t, f, hi,
+                     lo);
       STAMP(8);
       pin(hi);
       pin(lo);
@@ -1787,9 +1806,10 @@ __device__ __forceinline__ void merge_groups(Exchange& ex, const float4* st,
 }
 
 // The forms of kernel 1's body (ensemble_tf32_as). Kernel 1 runs kEnsProd on
-// its whole chain; the attribution probe of kernel 1 (ablate_chain.cu) runs
-// every form, on the whole chain or on one cut short, each an instance of
-// the same body:
+// its whole chain; the attribution probes of kernel 1 (ablate_chain.cu) run
+// every form, on the whole chain or on one cut short, and kEnsProd also with
+// a feature-major x and the other output layouts (OutLayout), each an
+// instance of the same body:
 //   kEnsProd      the shifted mean and std (kernel 1's function);
 //   kEnsIoFloor   no chain: each block reads its rows of x's tiles and
 //                 writes 1 + x[the row's first row of a `tile`-row tile, 0]
@@ -1834,26 +1854,36 @@ __device__ __forceinline__ void zero_tail(float* out, long long row0,
   }
 }
 
+// Zeros in rows [from, rows) of a feature-major (rows, B) out, at the
+// tile's valid columns (its rows row0 + r): rows from + rank, from + rank +
+// c, ..., a row's 64 columns by the warpgroup's first 64 threads.
+__device__ __forceinline__ void zero_rows(float* out, long long B,
+                                          long long row0, int valid,
+                                          int from, int rows, int rank,
+                                          int c, const Thread& t) {
+  if (t.lt >= valid) return;
+  for (int f = from + rank; f < rows; f += c) out[f * B + row0 + t.lt] = 0.f;
+}
+
 // Kernel 1's body (fp32, 3xTF32), in the form kMode (EnsembleForm): the M
-// members of the folded chain on x ((B, d) features of a row-major x of row
-// stride ldx); images: member m's fp32 chain image (chain_image, tf32_blocks)
-// at images + m * image_bytes; b_all (L, m_all, 128), m_all >= M. A cluster
-// of c = min(M, 8) blocks runs the tiles of its unit, block r members r,
-// r + c, ... of every tile of its warpgroups, their images streamed in
-// turn through its ring (Ring<true>: each block reads its own members'
-// images only); every warpgroup takes every round's blocks, past the last
-// tile as a tile of no rows. A peer sends each member's last-layer outputs
-// (the real columns' lanes) to the leader through the exchange (1b's); the
-// leader folds its own member j c, then the peers' j c + 1, ..., in member
-// order (member 0 the shift: fused_chain::shifted_stat's arithmetic, not
-// Chan's merge), and writes mean and std, element (row, column) at
-// row * ldo + column. kCut: a chain cut short, whose last layer is a
-// 128-wide hidden layer: its image holds every layer as a hidden one
-// (chain_image with open_end), and that layer runs m64n128 products like
-// the others, its 16 column groups taken from the accumulator. kProbe (the
-// probe's instances): std may be null (mean only), and columns
-// [out_dim, ldo) of the outputs are written as zeros.
-template <int kMode, bool kCut, bool kProbe>
+// members of the folded chain on x's d features (row-major, (B, ldx); with
+// kXCols feature-major, (ldx, B): x_step's layouts); images: member m's
+// fp32 chain image (chain_image, tf32_blocks) at images + m * image_bytes;
+// b_all (L, m_all, 128), m_all >= M. A cluster of c = min(M, 8) blocks runs
+// the tiles of its unit, block r members r, r + c, ... of every tile of its
+// warpgroups, their images streamed in turn through its ring (Ring<true>:
+// each block reads its own members' images only); every warpgroup takes
+// every round's blocks, past the last tile as a tile of no rows. A peer
+// sends each member's last-layer outputs (the real columns' lanes) to the
+// leader through the exchange (1b's); the leader folds its own member j c,
+// then the peers' j c + 1, ..., in member order (member 0 the shift, the
+// first member's output subtracted from each later one's: not Chan's
+// merge), and writes mean and std in the layout kOut (OutLayout; ldo their
+// width). kCut: a chain cut short, whose last layer is a 128-wide hidden
+// layer: its image holds every layer as a hidden one (chain_image with
+// open_end), and that layer runs m64n128 products like the others, its 16
+// column groups taken from the accumulator.
+template <int kMode, bool kCut, bool kXCols = false, int kOut = kOutServe>
 __device__ __forceinline__ void ensemble_tf32_as(
     unsigned char* smem, const float* __restrict__ x, long long B, int d,
     long long ldx, const unsigned char* __restrict__ images,
@@ -1861,7 +1891,13 @@ __device__ __forceinline__ void ensemble_tf32_as(
     const int* __restrict__ relu, int out_dim, long long ldo, int tile_rows,
     float* __restrict__ mean, float* __restrict__ std,
     const EnsembleLayout& lay) {
+  static_assert(kMode == kEnsProd || (!kXCols && kOut == kOutRows),
+                "the other layouts are kEnsProd's");
   constexpr bool kAffine = kMode != kEnsGemmOnly;
+  if constexpr (kOut == kOutPacked) std = mean + out_dim;
+  // kEnsNoEpi writes ablate_forward's (B, 128) outputs, at a width fixed at
+  // compile time: a runtime one took its instance past the register cap
+  if constexpr (kMode == kEnsNoEpi) ldo = kWidth;
   const int c = lay.cluster;
   const int rank = static_cast<int>(cluster_rank());
   const int wg = threadIdx.x / kWgThreads;
@@ -1915,7 +1951,11 @@ __device__ __forceinline__ void ensemble_tf32_as(
                (wg * groups * 3) * kWgThreads + t.lt;
   const int last = L - 1;
   const size_t layer_stride = static_cast<size_t>(m_all) * kWidth;
-  const bool relu_last = __ldg(relu + last) != 0;
+  const bool relu_last = kAffine && __ldg(relu + last) != 0;
+  // the columns each output holds, and the stride of stats_write's layout
+  const int cols = kOut == kOutServe ? out_dim
+                                     : min(out_dim, static_cast<int>(ldo));
+  const long long stride = kOut == kOutCols ? B : ldo;
   const uint32_t all[2] = {~0u, ~0u};
   float acc[64], acc_last[4];   // written by each layer's first product
   uint32_t hi[16][4], lo[16][4];
@@ -1923,7 +1963,8 @@ __device__ __forceinline__ void ensemble_tf32_as(
     const int tile = tiles.tile<true>(i);
     const long long row0 = static_cast<long long>(tile) * kRows;
     const int valid = tiles.valid(tile, B);
-    const float* x_tile = x + (valid > 0 ? row0 * ldx : 0);
+    const float* x_tile =
+        x + (valid > 0 ? (kXCols ? row0 : row0 * ldx) : 0);
     for (int j = 0; j < own; ++j) {
       const int m = rank + j * c;
       const float* bm = b_all + static_cast<size_t>(m) * kWidth;
@@ -1952,8 +1993,8 @@ __device__ __forceinline__ void ensemble_tf32_as(
       };
       if constexpr (kCut) {   // every layer m64n128, the last one's groups
                               // from its accumulator
-        x_layer_tf32(acc, ring, chain, x_tile, d, ldx, valid, t, NoMask(),
-                     [] {});
+        x_layer_tf32<kXCols>(acc, ring, chain, x_tile, d, ldx, valid, t,
+                             NoMask(), [] {});
         if (L > 1) {
           epilogue_tf32<kAffine>(acc, bm, relu_floor(__ldg(relu) != 0), all,
                                  1.f, t, hi, lo);
@@ -1978,13 +2019,13 @@ __device__ __forceinline__ void ensemble_tf32_as(
         }
       } else if (L == 1) {   // one Linear: the last layer straight from x
         for (int g = 0; g < groups; ++g) {
-          x_group_tf32(acc_last, ring, chain, x_tile, d, ldx, valid, t,
-                       NoMask());
+          x_group_tf32<kXCols>(acc_last, ring, chain, x_tile, d, ldx, valid,
+                               t, NoMask());
           deliver(g, acc_last);
         }
       } else {
-        x_layer_tf32(acc, ring, chain, x_tile, d, ldx, valid, t, NoMask(),
-                     [] {});
+        x_layer_tf32<kXCols>(acc, ring, chain, x_tile, d, ldx, valid, t,
+                             NoMask(), [] {});
         epilogue_tf32<kAffine>(acc, bm, relu_floor(__ldg(relu) != 0), all,
                                1.f, t, hi, lo);
         for (int l = 1; l < last; ++l) {
@@ -2001,13 +2042,23 @@ __device__ __forceinline__ void ensemble_tf32_as(
       if (kMode != kEnsNoEpi && rank == 0) {
         fold_peers(ex, st, groups, min(c, M - j * c) - 1, M, c, i, j, t);
         if (j + 1 == own)
-          stats_write<kProbe>(st, groups, M, t, valid, row0, out_dim, ldo,
-                              mean, std);
+          stats_write<kOut>(st, groups, M, t, valid, row0, cols, stride,
+                            mean, std);
       }
     }
-    if (kProbe && ldo > out_dim) {   // zeros past the chain's real columns
-      zero_tail(mean, row0, valid, out_dim, ldo, rank, c, t);
-      if (std != nullptr) zero_tail(std, row0, valid, out_dim, ldo, rank, c, t);
+    if constexpr (kOut == kOutRows || kOut == kOutPacked) {
+      // zeros past the real columns
+      const int from = kOut == kOutPacked ? 2 * out_dim : out_dim;
+      if (ldo > from) {
+        zero_tail(mean, row0, valid, from, ldo, rank, c, t);
+        if (kOut == kOutRows && std != nullptr)
+          zero_tail(std, row0, valid, from, ldo, rank, c, t);
+      }
+    } else if constexpr (kOut == kOutCols) {   // zero rows past out_dim
+      zero_rows(mean, B, row0, valid, out_dim, static_cast<int>(ldo), rank,
+                c, t);
+      zero_rows(std, B, row0, valid, out_dim, static_cast<int>(ldo), rank,
+                c, t);
     }
   }
   STAMP_END();
@@ -2022,9 +2073,9 @@ __device__ __forceinline__ void ensemble_tf32(
     int M, int L, const int* __restrict__ relu, int out_dim,
     float* __restrict__ mean, float* __restrict__ std,
     const EnsembleLayout& lay) {
-  ensemble_tf32_as<kEnsProd, false, false>(smem, x, B, d, d, images, b_all, M,
-                                           M, L, relu, out_dim, out_dim, 1,
-                                           mean, std, lay);
+  ensemble_tf32_as<kEnsProd, false>(smem, x, B, d, d, images, b_all, M, M, L,
+                                    relu, out_dim, out_dim, 1, mean, std,
+                                    lay);
 }
 
 // Host: launch `kernel` (an ensemble_pass instance taking `args`) as

@@ -3,7 +3,7 @@ machine with the CUDA toolkit): the per-kernel listings that
 ``tools/compare_sass.py`` compares between two builds, and the checks
 ``chip_smoke.py`` and ``tools/eval_chain_phases.py`` make of the eval
 kernels on wgmma, the bf16 1b, 2b and 5b, the fp32 (3xTF32) 1, 2 and 5 and
-the fp32 probe of kernel 1 on kernel 1's body (no spills, HGMMA
+the fp32 probes of kernel 1 on kernel 1's body (no spills, HGMMA
 instructions, the MC kernels' mask loops, and whether ptxas serialised the
 ``wgmma``: a ``WARPGROUP.DEPBAR`` wait after each ``HGMMA``, and its C75xx
 warnings in the ``-Xptxas -v`` log).
@@ -41,15 +41,22 @@ EVAL_FORMS = (('resident', 'ILb0E'), ('ring', 'ILb1E'))
 TF32_KERNELS = ('fused_mc_dropout_kernel', 'fused_anchored_kernel',
                 'fused_ensemble_kernel')
 TF32_MASK_LOOP = 'mask_loop_tf32'
-# the fp32 probe of kernel 1 (ablate_forward, csrc/ablate_chain.cu
-# ablate_tf32_kernel<mode, cut>): kernel 1's body in each form, held to the
-# fp32 kernels' gate; io_floor runs no chain (no HGMMA): its registers and
-# spills only
+# the fp32 probes of kernel 1 (csrc/ablate_chain.cu ablate_tf32_kernel<mode,
+# cut, x_cols, out>: ablate_forward's forms, xt_forward's and the packed
+# probe's layouts; narrow_forward launches prod): kernel 1's body in each
+# instance that pick_tf32 returns, held to the fp32 kernels' gate; io_floor
+# runs no chain (no HGMMA): its registers and spills only
 TF32_PROBE = 'ablate_tf32_kernel'
-TF32_PROBE_FORMS = (('prod', 'ILi0ELb0EE'), ('prod cut', 'ILi0ELb1EE'),
-                    ('gemm_only', 'ILi2ELb0EE'), ('no_epi', 'ILi3ELb0EE'),
-                    ('no_epi cut', 'ILi3ELb1EE'))
-TF32_PROBE_IO_FLOOR = ('io_floor', 'ILi1ELb0EE')
+TF32_PROBE_FORMS = (('prod', 'ILi0ELb0ELb0ELi1EE'),
+                    ('prod cut', 'ILi0ELb1ELb0ELi1EE'),
+                    ('gemm_only', 'ILi2ELb0ELb0ELi1EE'),
+                    ('gemm_only cut', 'ILi2ELb1ELb0ELi1EE'),
+                    ('no_epi', 'ILi3ELb0ELb0ELi1EE'),
+                    ('no_epi cut', 'ILi3ELb1ELb0ELi1EE'),
+                    ('xT input', 'ILi0ELb0ELb1ELi1EE'),
+                    ('xT+outT', 'ILi0ELb0ELb1ELi2EE'),
+                    ('packed', 'ILi0ELb0ELb0ELi3EE'))
+TF32_PROBE_IO_FLOOR = ('io_floor', 'ILi1ELb0ELb0ELi1EE')
 # ptxas's warning that it serialised a function's wgmma (C7510-C7520 name
 # the causes: a branch between wgmma forms, an accumulator touched inside
 # the pipeline, ...), with the function's mangled name last on the line
@@ -195,8 +202,8 @@ def loop_mix(instrs, marker):
 def eval_chain_rows(funcs, ptxas, log=''):
     """The bf16 eval kernels 1b, 2b (and 2b's seed-table kernel), 5b and
     the packed probe 10b in both forms (resident, ring), the fp32 kernels
-    1, 2 and 5 (3xTF32) and the fp32 probe of kernel 1 in each form
-    (TF32_PROBE_FORMS, and its io_floor without HGMMA),
+    1, 2 and 5 (3xTF32) and the fp32 probes of kernel 1 in each instance
+    (TF32_PROBE_FORMS, and io_floor without HGMMA),
     from the SASS ``funcs`` (:func:`parse_instructions`), the ptxas report
     ``ptxas`` ({kernel: {'registers', 'spill_store_bytes', ...}}) and the
     ``-Xptxas -v`` log ``log``: their registers and spills, which must be 0,

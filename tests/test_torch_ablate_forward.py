@@ -42,9 +42,11 @@ import kernel_variants  # noqa: E402
 ROWS, TILE, D = 256, 64, 5
 
 
-@pytest.fixture(scope='module')
-def setup():
-    jm = jax_ensemble(descr(in_dim=D, width=32, hidden=2), members=3)
+@functools.lru_cache(maxsize=None)
+def _setup(hidden):
+    """Three members of a chain of ``hidden`` + 1 Linears, 32 wide, in
+    both packages, and seeded rows."""
+    jm = jax_ensemble(descr(in_dim=D, width=32, hidden=hidden), members=3)
     folded = fe.fold_ensemble_params(jm.net, jm.params, jm.state)
     ws, bs, relus = fe._pad_folded(folded, 3)
     fw = prepare_fused_weights(port_of(jm).net)
@@ -53,6 +55,11 @@ def setup():
     x_pad[:, :D] = x
     return {'ws': tuple(ws), 'bs': tuple(bs), 'relus': tuple(relus),
             'fw': fw, 'x': x, 'x_pad': x_pad}
+
+
+@pytest.fixture(scope='module')
+def setup():
+    return _setup(2)
 
 
 def _assert_stats(got, want, std=True):
@@ -66,12 +73,17 @@ def _assert_stats(got, want, std=True):
 CASES = [(mode, n_out, None, None) for mode in af.MODES for n_out in (1, 2)]
 CASES += [('prod', 2, 1, None), ('prod', 2, 2, None), ('prod', 2, None, 1),
           ('prod', 2, None, 2), ('no_epi', 2, 1, 2), ('gemm_only', 1, 2, 1)]
+# gemm_only on chains cut short as the forward battery cuts the flagship:
+# a chain of 7 Linears cut to 1, 3 and 5
+DEEP_CASES = [('gemm_only', 2, None, layers) for layers in (1, 3, 5)]
+CASES += DEEP_CASES
 
 
 @pytest.mark.parametrize('mode,n_out,members,layers', CASES)
 def test_ablate_forward_matches_the_jax_probe(setup, mode, n_out, members,
                                               layers):
-    s = setup
+    deep = (mode, n_out, members, layers) in DEEP_CASES
+    s = _setup(6) if deep else setup
     M = members or 3
     L = layers or 3
     want = attrib_eval.ablate_forward(
@@ -217,3 +229,83 @@ def test_wrappers_reject_what_the_kernel_does_not_take(setup):
                                 device='cpu').build()
     with pytest.raises(ValueError, match='do not fit'):
         af.packed_forward(prepare_fused_weights(wide.net), x_pad)
+
+
+def _kernel_writes(form, mean, std):
+    """What the card's stats write and zero tails leave in a probe's
+    outputs of launch form ``form``, from the (B, out_dim) mean and std:
+    fused_chain_wgmma.cuh's OutLayout, modelled on the form's arguments."""
+    od, ldo = form.out_dim, form.ldo
+    cols = min(od, ldo)
+    outs = [torch.full(form.shape, float('nan')) for _ in range(form.n_out)]
+    if form.out == af.OUT_PACKED:
+        buf = outs[0]
+        buf[:, :od], buf[:, od:2 * od], buf[:, 2 * od:ldo] = mean, std, 0.0
+        return buf[:, :od], buf[:, od:2 * od]
+    for out, stat in zip(outs, (mean, std)):
+        if form.out == af.OUT_COLS:     # (ldo, B), element (row, col) at
+            out[:cols] = stat[:, :cols].T   # col * B + row
+            out[od:] = 0.0
+        else:                           # (B, ldo)
+            out[:, :cols] = stat[:, :cols]
+            out[:, od:] = 0.0
+    return tuple(outs)
+
+
+@pytest.mark.parametrize('out_dim', [1, 3])
+def test_launch_form_of_each_probe(out_dim):
+    """Each probe's host arguments (launch_form): the instance, x's stride
+    (B for a feature-major x), the outputs' width ldo (8 or 128, the
+    feature-major rows, 128 packed) and shape; the layouts they give the
+    kernel's writes hold the plain versions' outputs."""
+    jm = jax_ensemble(descr(in_dim=D, width=32, hidden=2, out_dim=out_dim),
+                      members=2, seed=4)
+    fw = prepare_fused_weights(port_of(jm).net)
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(ROWS, D)).astype(np.float32))
+    x8, x128 = (torch.nn.functional.pad(x, (0, w - D)) for w in (8, 128))
+    mean, std = fused_forward_plain(fw, x)
+    form = af.launch_form
+    F = af.LaunchForm
+    cases = [
+        (form('ablate', fw, x128.shape),
+         F(0, 0, 0, af.OUT_ROWS, ROWS, 128, 128, out_dim, 2, (ROWS, 128)),
+         af.ablate_forward_plain(fw, x128)),
+        (form('ablate', fw, x128.shape, n_out=1),
+         F(0, 0, 0, af.OUT_ROWS, ROWS, 128, 128, out_dim, 1, (ROWS, 128)),
+         af.ablate_forward_plain(fw, x128, n_out=1)),
+        (form('xt', fw, x8.T.shape),
+         F(0, 0, 1, af.OUT_ROWS, ROWS, ROWS, 128, out_dim, 2, (ROWS, 128)),
+         af.xt_forward_plain(fw, x8.T.contiguous())),
+        (form('xt', fw, x8.T.shape, out_t=True),
+         F(0, 0, 1, af.OUT_COLS, ROWS, ROWS, 8, out_dim, 2, (8, ROWS)),
+         af.xt_forward_plain(fw, x8.T.contiguous(), True)),
+        (form('xt', fw, x8.T.shape, out_t=True, out_rows=2),
+         F(0, 0, 1, af.OUT_COLS, ROWS, ROWS, 2, out_dim, 2, (2, ROWS)),
+         af.xt_forward_plain(fw, x8.T.contiguous(), True, 2))]
+    for narrow_in in (True, False):
+        x_in = x8 if narrow_in else x128
+        for narrow_out in (True, False):
+            ow = 8 if narrow_out else 128
+            cases.append((
+                form('narrow', fw, x_in.shape, ow=ow),
+                F(0, 0, 0, af.OUT_ROWS, ROWS, x_in.shape[1], ow, out_dim, 2,
+                  (ROWS, ow)),
+                af.narrow_forward_plain(fw, x_in, narrow_in, narrow_out)))
+    cases.append((form('packed', fw, x128.shape),
+                  F(0, 0, 0, af.OUT_PACKED, ROWS, 128, 128, out_dim, 1,
+                    (ROWS, 128)),
+                  af.packed_forward_plain(fw, x128)))
+    for got, want, plain in cases:
+        assert got == want
+        for g, p in zip(_kernel_writes(got, mean, std), plain):
+            assert torch.equal(g, p)
+    # ablate_forward's forms and cuts: a chain cut short is 128 wide and
+    # runs its cut instance (io_floor has none)
+    for mode in af.MODES:
+        for layers, cut, od in ((1, 1, 128), (3, 0, out_dim)):
+            f = form('ablate', fw, x128.shape, mode=mode, layers=layers)
+            assert (f.mode, f.cut, f.out_dim) == (
+                af.MODES.index(mode), cut and mode != 'io_floor', od)
+    with pytest.raises(ValueError, match='no probe'):
+        form('wide', fw, x128.shape)

@@ -1,8 +1,9 @@
 """The kernel-attribution entry point (``nnueehcs_tpu_torch.attrib``) on
 the CPU, where it runs the probes' plain versions and their gates only:
 every variant of both batteries is gated, each form of the probes' math
-equals its control bit for bit (kernel 1, or the FFMA body's prod; kernel
-3 for the training probe's prod), kernel 1 is held to its plain version,
+equals its control bit for bit (kernel 1 for every forward probe of its
+math, in the probe's layout; kernel 3 for the training probe's prod), kernel
+1 is held to its plain version,
 and the command line prints one JSON line per gate. Its timing runs only
 on a card (chip_smoke.py's attribution phase)."""
 import json
@@ -25,13 +26,14 @@ def test_forward_battery_gates_every_variant_on_the_cpu(capsys):
     assert out['variants'] == {}          # no device time on the CPU
     gates = out['gates']
     assert {'prod', 'io_floor', 'one_out', 'gemm_only', 'no_epi',
-            'members=1', 'layers=5', 'xT input', 'xT+outT', 'narrow-in',
-            'narrow-out', 'narrow-both', 'packed', 'kernel 1'} <= set(gates)
-    for name in ('prod', 'one_out'):
+            'members=1', 'layers=5', 'gemm_only layers=1',
+            'gemm_only layers=3', 'gemm_only layers=5', 'xT input',
+            'xT+outT', 'narrow-in', 'narrow-out', 'narrow-both', 'packed',
+            'kernel 1'} <= set(gates)
+    for name in ('prod', 'one_out', 'xT input', 'xT+outT', 'narrow-in',
+                 'narrow-out', 'narrow-both', 'packed'):
         assert gates[name]['equals'] == 'kernel 1', name
-    for name in ('xT input', 'xT+outT', 'narrow-both', 'packed'):
-        assert gates[name]['equals'] == 'ffma prod', name
-    for name in ('gemm_only', 'kernel 1'):
+    for name in ('gemm_only', 'gemm_only layers=3', 'kernel 1'):
         assert gates[name]['equals'] is None, name
     lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
     assert len(lines) == len(gates) + 1

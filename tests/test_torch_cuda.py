@@ -1075,13 +1075,6 @@ def test_ablate_forward_matches_plain_on_card(card, case, mode, n_out):
         if layers_cut is not None and layers_cut > fw.num_layers:
             continue
         before = af.ablate_forward.launches
-        if mode == 'gemm_only' and layers_cut not in (None, fw.num_layers):
-            # no kernel for gemm_only on a chain cut short: refused
-            with pytest.raises(ValueError, match='no gemm_only kernel'):
-                af.ablate_forward(fw, x_pad, members_cut, layers_cut, 64,
-                                  mode, n_out)
-            assert af.ablate_forward.launches == before
-            continue
         got = af.ablate_forward(fw, x_pad, members_cut, layers_cut, 64, mode,
                                 n_out)
         torch.cuda.synchronize()
@@ -1126,26 +1119,27 @@ def test_packed_bf16_matches_plain_and_kernel_1_on_card(card, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize('case', sorted(ABLATE_CASES))
 def test_layout_probes_match_plain_and_production_on_card(card, case):
+    """Every forward probe of kernel 1's math (ablate_forward's prod, and
+    the layout probes: a feature-major x, 8-column or feature-major
+    outputs, the packed output) runs kernel 1's body (3xTF32): each equals
+    kernel 1's output bit for bit in its real columns, zeros past them, and
+    holds to its plain version; each launch is counted."""
     members, in_dim, width, hidden, out_dim, rows = ABLATE_CASES[case]
     fw = prepare_fused_weights(_model(card, members, in_dim, width, hidden,
                                       out_dim).net)
     x = torch.as_tensor(np.random.default_rng(7).normal(size=(rows, in_dim)),
                         dtype=torch.float32, device=card)
-    # ablate_forward runs kernel 1's body (3xTF32): its prod is kernel 1's
-    # output, bit for bit; the other probes run kernel 1's former FFMA body,
-    # whose prod instance (ffma_prod) they are held to bit for bit
     got = fused_forward_prefolded(fw, x)
     want = fused_forward_plain(fw, x)
     torch.testing.assert_close(got[0], want[0], **TOL_MEAN)
     torch.testing.assert_close(got[1], want[1], **TOL_STD)
     kernel_1 = got
-    mean, std = (t[:, :out_dim] for t in af.ffma_prod(fw, _padded(x, 128)))
     feat = max(8, in_dim)
+    x_t = _padded(x, feat).T.contiguous()
     calls = [(af.ablate_forward, af.ablate_forward_plain, (_padded(x, 128),)),
-             (af.xt_forward, af.xt_forward_plain,
-              (_padded(x, feat).T.contiguous(),)),
-             (af.xt_forward, af.xt_forward_plain,
-              (_padded(x, feat).T.contiguous(), True, 8))]
+             (af.xt_forward, af.xt_forward_plain, (x_t,)),
+             (af.xt_forward, af.xt_forward_plain, (x_t, True, 8)),
+             (af.xt_forward, af.xt_forward_plain, (x_t, True, 2))]
     if in_dim <= 8:
         calls += [(af.narrow_forward, af.narrow_forward_plain,
                    (_padded(x, 8), True, out_dim <= 8)),
@@ -1163,14 +1157,18 @@ def test_layout_probes_match_plain_and_production_on_card(card, case):
         want = plain(fw, *args)
         torch.testing.assert_close(got[0], want[0], **TOL_MEAN)
         torch.testing.assert_close(got[1], want[1], **TOL_STD)
-        control = kernel_1 if fn is af.ablate_forward else (mean, std)
-        if got[0].shape[0] == rows:          # the control's, bit for bit
-            n = min(out_dim, got[0].shape[1])
-            assert torch.equal(got[0][:, :n], control[0][:, :n])
-            assert torch.equal(got[1][:, :n], control[1][:, :n])
-        else:                                # feature-major
-            assert torch.equal(got[0][:out_dim].T, control[0])
-            assert torch.equal(got[1][:out_dim].T, control[1])
+        for g, k in zip(got, kernel_1):      # kernel 1's, bit for bit
+            if g.shape[0] == rows:
+                n = min(out_dim, g.shape[1])
+                assert torch.equal(g[:, :n], k[:, :n])
+                assert not bool(g[:, out_dim:].any())
+            else:                            # feature-major
+                n = min(out_dim, g.shape[0])
+                assert torch.equal(g[:n].T, k[:, :n])
+                assert not bool(g[out_dim:].any())
+        if fn is af.packed_forward:          # zeros past mean and std
+            buf = got[0].as_strided((rows, 128), (128, 1))
+            assert not bool(buf[:, 2 * out_dim:].any())
 
 
 @pytest.mark.cuda

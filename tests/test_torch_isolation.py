@@ -3,6 +3,7 @@ packages a CUDA-only machine lacks all blocked; its entry points refuse to
 run on the CPU unless asked; and its kernels build with plain nvcc, not
 PyTorch's extension builder."""
 import os
+import re
 import subprocess
 import sys
 
@@ -143,8 +144,7 @@ def test_kernels_build_with_plain_nvcc():
         'ablate_chain.cu', 'ablate_train.cu', 'fused_anchored.cu',
         'fused_ensemble.cu', 'fused_mc_dropout.cu', 'fused_train.cu',
         'fused_train_bf16.cu', 'kde.cu']
-    assert [h.name for h in headers] == ['fused_chain.cuh',
-                                         'fused_chain_wgmma.cuh',
+    assert [h.name for h in headers] == ['fused_chain_wgmma.cuh',
                                          'fused_train.cuh',
                                          'fused_train_cluster.cuh',
                                          'stamps.cuh']
@@ -158,6 +158,37 @@ def test_kernels_build_with_plain_nvcc():
     assert _build.BUILD_DIR == \
         __import__('pathlib').Path(REPO) / 'build' / 'nnueehcs_tpu_torch'
     assert os.path.dirname(nnueehcs_tpu_torch.__file__).startswith(REPO)
+
+
+def _enum(text, name):
+    """{enumerator: value} of the plain C++ enum ``name`` in ``text``."""
+    body = re.search(r'enum ' + name + r' \{([^}]*)\}', text).group(1)
+    return {e.strip(): i for i, e in enumerate(body.split(','))}
+
+
+def test_every_probe_instance_has_a_sass_gate():
+    """Every instance of the fp32 probes that pick_tf32 (csrc/ablate_chain.cu)
+    can return has its row in sass.TF32_PROBE_FORMS (or is io_floor), by
+    its template arguments as the mangled name spells them, and every row
+    is such an instance: the SASS check holds each to the fp32 gate."""
+    from nnueehcs_tpu_torch import sass
+    wgmma = (_build.CSRC / 'fused_chain_wgmma.cuh').read_text()
+    values = {**{f'fw::{k}': v for k, v in
+                 _enum(wgmma, 'EnsembleForm').items()},
+              **{f'fw::{k}': v for k, v in _enum(wgmma, 'OutLayout').items()},
+              'false': 0, 'true': 1}
+    text = (_build.CSRC / 'ablate_chain.cu').read_text()
+    pick = text[text.index('Tf32Kernel pick_tf32('):]
+    pick = pick[:pick.index('\n}\n')]
+    instances = re.findall(r'ablate_tf32_kernel<([^>]*)>', pick)
+    tags = set()
+    for args in instances:
+        mode, cut, x_cols, out = (values[a.strip()] for a in args.split(','))
+        tags.add(f'ILi{mode}ELb{cut}ELb{x_cols}ELi{out}EE')
+    forms = dict(sass.TF32_PROBE_FORMS + (sass.TF32_PROBE_IO_FLOOR,))
+    assert len(instances) == len(tags) == 10
+    assert tags == set(forms.values())
+    assert len(forms) == len(tags)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

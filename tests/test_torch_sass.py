@@ -99,7 +99,7 @@ def probe_name(tag):
     ``tag``, as ablate_chain.cu's unnamed namespace gives it."""
     return (f'_ZN48_GLOBAL__N__657e7dab_15_ablate_chain_cu_04499f26'
             f'{len(sass.TF32_PROBE)}{sass.TF32_PROBE}{tag}vPKfxixPKhS2_'
-            f'iiiPKiiiPfS7_N17fused_chain_wgmma14EnsembleLayoutE')
+            f'iiiPKiixiPfS7_N17fused_chain_wgmma14EnsembleLayoutE')
 
 
 def test_parse_functions_drops_addresses_padding_and_the_file_hash():

@@ -41,10 +41,13 @@ card's ``nvidia-smi`` name and power limit. It needs a CUDA card.
 ``--probes`` times the attribution probes of kernels 1 and 3 instead, at
 the attribution batteries' shapes (``nnueehcs_tpu_torch.attrib``: the
 flagship on 262,144 rows, and 500 steps of batch 128): ``ablate_forward``
-in each mode, member cut (1, 2, 4) and layer cut (1, 3, 5), beside kernel
-1 on the same rows, and ``ablate_epoch`` in each mode and with
-``gn_fused`` and ``unroll`` 4, beside kernel 3 on the probe's plan; an
-epoch over 3 runs after 1 warm-up.
+in each mode, member cut (1, 2, 4) and layer cut (1, 3, 5, prod and
+gemm_only), the layout probes (``xt_forward``, ``narrow_forward``, the fp32
+``packed_forward``: the battery's variants), beside kernel 1 on the same
+rows, and ``ablate_epoch`` in each mode and with ``gn_fused`` and
+``unroll`` 4, beside kernel 3 on the probe's plan; an epoch over 3 runs
+after 1 warm-up. A probe form that the tree's wrapper refuses on the card
+(``ValueError``) prints its refusal in place of a time.
 
 ``--ensemble-forms`` (this tree only) also times kernel 1b with fewer
 consumer warpgroups than its layout takes (``MAX_WARPGROUPS['ensemble']``
@@ -279,17 +282,35 @@ def probes(seed, tree, kind):
     from nnueehcs_tpu_torch.ops import fused_train as ft
     from nnueehcs_tpu_torch.ops.fused_ensemble import fused_forward_prefolded
     torch.backends.cuda.matmul.allow_tf32 = False
-    _, fw, x, x_pad, _, _ = attrib.forward_inputs(seed, 'cuda', attrib.ROWS)
+    _, fw, x, x_pad, x_n8, x_t = attrib.forward_inputs(seed, 'cuda',
+                                                       attrib.ROWS)
     forward = [('fused_ensemble', {}, lambda: fused_forward_prefolded(fw, x))]
     for kw in ({}, {'mode': 'io_floor'}, {'mode': 'gemm_only'},
                {'mode': 'no_epi'}, {'n_out': 1},
                *({'num_members': m} for m in (1, 2, 4)),
-               *({'num_layers': l} for l in (1, 3, 5))):
+               *({'num_layers': l} for l in (1, 3, 5)),
+               *({'mode': 'gemm_only', 'num_layers': l} for l in (1, 3, 5))):
         forward.append(('ablate_forward', kw,
                         lambda kw=kw: af.ablate_forward(fw, x_pad, **kw)))
+    forward += [
+        ('xt_forward', {'variant': 'xT input'}, lambda: af.xt_forward(fw, x_t)),
+        ('xt_forward', {'variant': 'xT+outT'},
+         lambda: af.xt_forward(fw, x_t, True)),
+        ('narrow_forward', {'variant': 'narrow-in'},
+         lambda: af.narrow_forward(fw, x_n8, True, False)),
+        ('narrow_forward', {'variant': 'narrow-out'},
+         lambda: af.narrow_forward(fw, x_pad, False, True)),
+        ('narrow_forward', {'variant': 'narrow-both'},
+         lambda: af.narrow_forward(fw, x_n8, True, True)),
+        ('packed_forward', {'variant': 'packed'},
+         lambda: af.packed_forward(fw, x_pad))]
     for name, kw, run in forward:
+        try:
+            t = event_ms(run)
+        except ValueError as err:       # a form the tree refuses
+            t = {'refused': str(err)}
         print(json.dumps({'kernel': name, 'tree': tree, 'rows': attrib.ROWS,
-                          'members': fw.num_members, **kw, **event_ms(run),
+                          'members': fw.num_members, **kw, **t,
                           'device': kind}), flush=True)
     _, plan, bufs, xs, ys = attrib.train_problem(seed, 'cuda',
                                                  steps=attrib.STEPS)
